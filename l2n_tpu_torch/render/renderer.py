@@ -1,0 +1,92 @@
+"""Renderer: owns frame state + programs, drives progressive steps
+(counterpart of l2n_tpu.render.renderer): current program, clear-on-switch,
+clear-on-move, step timing."""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from l2n_tpu_torch.camera.camera import Camera
+from l2n_tpu_torch.render.program import PathtracingProgram
+from l2n_tpu_torch.render.state import (
+    FrameState,
+    clear_accumulation,
+    display_image,
+    init_frame_state,
+)
+
+
+class Renderer:
+    def __init__(self, programs: dict[str, PathtracingProgram],
+                 current: str | None = None):
+        if not programs:
+            raise ValueError("need at least one program")
+        self.programs = programs
+        self.current = current or next(iter(programs))
+        self.state: FrameState = init_frame_state(self.program.cfg,
+                                                  self.program.device)
+        self._step_times: list[float] = []
+        self._warm: set[str] = set()
+
+    @property
+    def program(self) -> PathtracingProgram:
+        return self.programs[self.current]
+
+    @property
+    def cfg(self):
+        return self.program.cfg
+
+    def switch(self, name: str) -> None:
+        """Renderer switch => clear accumulation."""
+        if name not in self.programs:
+            raise KeyError(name)
+        if name != self.current:
+            self.current = name
+            self.state = clear_accumulation(self.state)
+
+    def on_camera_moved(self) -> None:
+        """Camera moved => clear accumulation."""
+        self.state = clear_accumulation(self.state)
+
+    def _sync(self) -> None:
+        if self.state.accum.is_cuda:
+            torch.cuda.synchronize(self.state.accum.device)
+
+    def step(self, camera: Camera, block: bool = False) -> FrameState:
+        """One progressive step. With block=True the device finishes the
+        step before this returns, so the recorded time is the step's."""
+        t0 = time.perf_counter()
+        self.state = self.program.step(self.state, camera.packed())
+        if block:
+            self._sync()
+        if self.current in self._warm:
+            self._step_times.append(time.perf_counter() - t0)
+        else:
+            # The first step of a program pays the kernel build/load.
+            self._warm.add(self.current)
+        if len(self._step_times) > 240:
+            del self._step_times[:120]
+        return self.state
+
+    def display(self) -> np.ndarray:
+        """(H, W, 3) float32 tonemapped image on the host, cropped."""
+        return display_image(self.cfg, self.state)
+
+    def metrics(self) -> dict[str, float]:
+        cfg = self.cfg
+        times = self._step_times[-120:] or [float("nan")]
+        ms = float(np.mean(times)) * 1e3
+        pixels_per_step = (cfg.effective_tiles_per_step
+                           * cfg.tile_height * cfg.tile_width)
+        samples_per_step = pixels_per_step * cfg.spp_per_step
+        return {
+            "ms_per_step": ms,
+            "fps": 1e3 / ms if ms > 0 else float("nan"),
+            "samples_per_sec": samples_per_step / (ms * 1e-3),
+            "spp_per_sec": samples_per_step / (ms * 1e-3)
+            / (cfg.width * cfg.height),
+            "iteration": int(self.state.iteration),
+        }

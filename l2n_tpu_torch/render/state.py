@@ -1,0 +1,68 @@
+"""Frame state (counterpart of l2n_tpu.render.state).
+
+  * `accum`  — (4, Hp, Wp) float32: rgb = sum of radiance samples, plane 3
+    = per-pixel sample count;
+  * `output` — (3, Hp, Wp) float32 tonemapped display planes, rewritten only
+    for the tiles rendered in a step;
+  * `tile_offset` — the wrap-around scheduler cursor (host int);
+  * `iteration` — the step counter (host int).
+
+Channel-major planes padded to the tile grid, the JAX package's layout, on
+one torch device. Pad pixels are rendered and cropped at display time.
+
+IN PLACE: a render step writes `accum` and `output` in place and returns a
+new FrameState that shares them with updated counters — the counterpart of
+the JAX step's donated input buffers. `clear_accumulation` zeroes `accum`
+in place. Callers that need an earlier state keep a copy (`to_numpy`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameState:
+    accum: torch.Tensor   # (4, Hp, Wp) f32, updated in place
+    output: torch.Tensor  # (3, Hp, Wp) f32, updated in place
+    tile_offset: int
+    iteration: int
+
+    @classmethod
+    def from_numpy(cls, accum, output, tile_offset=0, iteration=0,
+                   device="cpu") -> "FrameState":
+        """Copy host planes (e.g. a JAX FrameState as numpy) to `device`."""
+        return cls(
+            accum=torch.as_tensor(np.array(accum, np.float32)).to(device),
+            output=torch.as_tensor(np.array(output, np.float32)).to(device),
+            tile_offset=int(tile_offset), iteration=int(iteration))
+
+    def to_numpy(self):
+        """(accum, output, tile_offset, iteration) as host copies."""
+        return (self.accum.cpu().numpy().copy(),
+                self.output.cpu().numpy().copy(),
+                self.tile_offset, self.iteration)
+
+
+def init_frame_state(cfg, device="cpu") -> FrameState:
+    h, w = cfg.padded_height, cfg.padded_width
+    return FrameState(
+        accum=torch.zeros((4, h, w), dtype=torch.float32, device=device),
+        output=torch.zeros((3, h, w), dtype=torch.float32, device=device),
+        tile_offset=0, iteration=0)
+
+
+def clear_accumulation(state: FrameState) -> FrameState:
+    """clearFramebuffer: zero the accumulation only — not the output (stale
+    pixels keep displaying until re-rendered), not the tile offset."""
+    state.accum.zero_()
+    return state
+
+
+def display_image(cfg, state: FrameState) -> np.ndarray:
+    """(H, W, 3) float32 tonemapped image, cropped to the visible area."""
+    return np.moveaxis(
+        state.output[:, :cfg.height, :cfg.width].cpu().numpy(), 0, -1)

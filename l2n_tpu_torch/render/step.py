@@ -1,0 +1,76 @@
+"""The progressive render step (counterpart of l2n_tpu.render.step).
+
+One call = one frame dispatch: render `effective_tiles_per_step` tiles of
+the shuffled schedule, accumulate radiance, tonemap the touched pixels,
+advance the tile cursor.
+
+Backends:
+  * "cuda"  — the hand-written CUDA kernel (ops/kernels/sphere_pt.py) on a
+    CUDA device: the main path. Without a card it raises; there is no
+    automatic choice of the CPU.
+  * "torch" — the plain torch version of the same step on any device: the
+    counterpart of the JAX package's XLA oracle, and what the CPU tests run.
+
+The step updates the state's `accum` and `output` IN PLACE and returns a
+new FrameState sharing them with advanced counters (render/state.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from l2n_tpu_torch.ops.kernels.common import check_supported
+from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+from l2n_tpu_torch.render.state import FrameState
+from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
+from l2n_tpu_torch.scene.spheres import SphereScene
+
+BACKENDS = ("cuda", "torch")
+
+
+def resolve_device(backend: str, device=None) -> torch.device:
+    """The device a backend renders on; backend="cuda" without a card (or on
+    a non-CUDA device) raises."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend='cuda' needs a CUDA device and none "
+                               "is available; use backend='torch' for the "
+                               "plain version")
+        device = torch.device(device if device is not None else "cuda")
+        if device.type != "cuda":
+            raise ValueError(f"backend='cuda' cannot render on {device}")
+        return device
+    return torch.device(device if device is not None else "cpu")
+
+
+def build_render_step(cfg, scene: SphereScene, backend: str = "cuda",
+                      device=None):
+    """A step(state, packed_camera) -> FrameState for (config, scene).
+
+    `scene` is moved to the step's device once; the camera is the packed
+    (10, 4) host array (Camera.packed()).
+    """
+    check_supported(cfg)
+    device = resolve_device(backend, device)
+    if not isinstance(scene, SphereScene):
+        raise TypeError("sphere config needs a SphereScene")
+    spheres = scene.packed().to(device)
+    tiles = torch.as_tensor(tile_grid(cfg)).to(device)
+    k = cfg.effective_tiles_per_step
+    kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
+
+    def step(state: FrameState, camera) -> FrameState:
+        sched = scheduled_tiles(tiles, state.tile_offset, k)
+        kernel(cfg, sched, np.asarray(camera, np.float32), spheres,
+               state.accum, state.output)
+        return dataclasses.replace(
+            state, tile_offset=advance_offset(cfg, state.tile_offset),
+            iteration=state.iteration + 1)
+
+    return step
