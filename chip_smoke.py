@@ -1,8 +1,9 @@
 """On-card smoke test of the l2n_tpu_torch port: builds the CUDA kernels
 from this checkout, holds each against its plain torch version and the
-JAX package's recorded golden, drives the main path (Application ->
-Renderer -> SphereProgram -> render step -> sphere_pt kernel) at the
-default 1280x720 config, and times kernel and plain versions.
+JAX package's recorded goldens, drives both renderers' main paths
+(Application -> Renderer -> SphereProgram / TriangleProgram -> render step
+-> sphere_pt / triangle_pt kernel) at the default 1280x720 config, and
+times kernel and plain versions.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -26,6 +27,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "sphere_pt_256x128_4spp.npz"
+TRI_GOLDEN = ROOT / "tests" / "golden" / "triangle_pt_256x128_4spp.npz"
 
 
 def phase(n: int, text: str) -> None:
@@ -75,11 +77,11 @@ def timed_steps(step, state, cam, n: int):
     return start.elapsed_time(end) / n, host_ms, state
 
 
-def profile_steps(step, state, cam, n: int):
-    """(sphere_pt kernel device ms per launch, device busy share between
-    the first and the last device event, state) from torch.profiler over n
-    steps; (None, None, state) where the profiler recorded no device time.
-    A short profile first takes the profiler's own start-up cost."""
+def profile_steps(step, state, cam, n: int, kernel: str):
+    """(device ms per launch of the kernel named `kernel`, device busy share
+    between the first and the last device event, state) from torch.profiler
+    over n steps; (None, None, state) where the profiler recorded no device
+    time. A short profile first takes the profiler's own start-up cost."""
     from torch.profiler import ProfilerActivity, profile
     for steps in (2, n):
         torch.cuda.synchronize()
@@ -90,7 +92,7 @@ def profile_steps(step, state, cam, n: int):
             torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern = [e for e in dev if "sphere_pt_kernel" in e.name]
+    kern = [e for e in dev if kernel in e.name]
     if not kern:
         return None, None, state
     kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / len(kern) / 1e3
@@ -98,6 +100,79 @@ def profile_steps(step, state, cam, n: int):
             - min(e.time_range.start for e in dev))
     busy = sum(e.time_range.elapsed_us() for e in dev) / span
     return kernel_ms, busy, state
+
+
+def compare(kacc, kout, pacc, pout, cfg):
+    """Kernel vs plain gates of a frame: accum[3] equal, accum RMSE < 1e-3,
+    output flip fraction < 2e-3, lit coverage > 5%. Returns (rmse, max abs,
+    flips, lit)."""
+    require(np.array_equal(kacc[3], pacc[3]), "kernel/plain accum[3] equal")
+    rmse = float(np.sqrt(((kacc - pacc) ** 2).mean()))
+    max_err = float(np.abs(kacc - pacc).max())
+    flips = float((np.abs(kout - pout) > 1e-3).mean())
+    lit = float((pacc[:3, :cfg.height, :cfg.width].max(0) > 0).mean())
+    require(rmse < 1e-3, f"kernel/plain accum RMSE {rmse} < 1e-3")
+    require(flips < 2e-3, f"kernel/plain output flip fraction {flips} < 2e-3")
+    require(lit > 0.05, f"lit coverage {lit} > 0.05")
+    return rmse, max_err, flips, lit
+
+
+def golden_gates(got, want):
+    """tests/test_golden_render.py's cross-implementation gates; returns
+    (|d|>1e-3 fraction, mean-image RMSE)."""
+    require(np.array_equal(got[3], want[3]), "golden accum[3] equal")
+    flip = float((np.abs(got - want) > 1e-3).mean())
+    mean = np.abs(got[:3] / np.maximum(got[3], 1)
+                  - want[:3] / np.maximum(want[3], 1))
+    rmse = float(np.sqrt((mean ** 2).mean()))
+    require(flip < 0.03, f"golden |d|>1e-3 fraction {flip} < 0.03")
+    require(rmse < 0.03, f"golden mean-image RMSE {rmse} < 0.03")
+    return flip, rmse
+
+
+def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
+    """Render `steps` whole-frame steps with the kernel and with its plain
+    version from zeroed states; returns the gates of `compare`."""
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    dev = torch.device("cuda")
+    tiles = torch.as_tensor(tile_grid(cfg)).to(dev)
+    k = cfg.effective_tiles_per_step
+    ka = init_frame_state(cfg, dev)
+    pa = init_frame_state(cfg, dev)
+    for i in range(steps):
+        sched = scheduled_tiles(tiles, i * k % cfg.tile_count, k)
+        kernel(cfg, sched, cam, buffers, ka.accum, ka.output)
+        plain(cfg, sched, cam, buffers, pa.accum, pa.output)
+    torch.cuda.synchronize()
+    return compare(ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
+                   pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg)
+
+
+def run_main_path(app, frames: int, name: str):
+    """Drive `frames` steps of `app`'s current renderer with the launch
+    counts zeroed just before and read just after; checks 10 spp
+    everywhere, a finite lit image and a written PNG. Returns (launches,
+    lit, PNG bytes)."""
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.utils.image import write_png
+    cfg = app.renderer.cfg
+    reset_launches()
+    state = app.run(frames, save_camera=False)
+    torch.cuda.synchronize()
+    path_launches = dict(launches)
+    require(path_launches.get(name, 0) == frames,
+            f"{name} launched {path_launches.get(name, 0)} times in "
+            f"{frames} main-path steps")
+    spp = state.accum[3, :cfg.height, :cfg.width]
+    require(bool((spp == 10).all()), "every visible pixel holds 10 samples")
+    img = app.renderer.display()
+    require(bool(np.isfinite(img).all()), "output finite")
+    lit = float((img.max(-1) > 0).mean())
+    require(lit > 0.05, f"main-path lit coverage {lit} > 0.05")
+    png_size = write_png(app.workdir / f"frame_{name}.png", img).stat().st_size
+    require(png_size > 1000, "PNG written")
+    return path_launches, lit, png_size
 
 
 def main() -> int:
@@ -108,15 +183,26 @@ def main() -> int:
     from l2n_tpu.config import RenderConfig
     from l2n_tpu_torch.app.application import Application
     from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
     from l2n_tpu_torch.ops.kernels import build
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
     from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        TriangleBuffers,
+        triangle_pt,
+        triangle_pt_plain,
+    )
     from l2n_tpu_torch.ops.kernels.uv_demo import uv_demo, uv_demo_plain
+    from l2n_tpu_torch.render.program import TriangleProgram
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.step import build_render_step
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    from l2n_tpu_torch.scene import (
+        build_triangle_scene,
+        load_obj,
+        torus_field_obj,
+    )
     from l2n_tpu_torch.scene.spheres import compute_spheres
-    from l2n_tpu_torch.utils.image import write_png
 
     dev = torch.device("cuda")
     card = card_line()
@@ -129,14 +215,15 @@ def main() -> int:
              f"{torch.version.cuda}; kernels built in {build_s:.1f} s "
              f"({lib_path.name}); ptxas: {' | '.join(ptxas)}")
 
-    # --- 2: uv_demo kernel vs plain at 720x1280 -----------------------------
+    # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)
-    before = launches["uv_demo"]
+    reset_launches()
     got = uv_demo(t, 720, 1280)
-    want = uv_demo_plain(t, 720, 1280)
     torch.cuda.synchronize()
+    uv_launches = launches["uv_demo"]
+    require(uv_launches == 1, "uv_demo launch counted")
+    want = uv_demo_plain(t, 720, 1280)
     uv_err = float((got - want).abs().max())
-    require(launches["uv_demo"] == before + 1, "uv_demo launch counted")
     require(uv_err <= 1e-5, f"uv_demo max abs err {uv_err} <= 1e-5")
     uv_ms = timed_calls(lambda: uv_demo(t, 720, 1280), 5, 200)
     uv_plain_ms = timed_calls(lambda: uv_demo_plain(t, 720, 1280), 5, 200)
@@ -155,15 +242,7 @@ def main() -> int:
     for _ in range(4):
         st = step(st, gcam)
     torch.cuda.synchronize()
-    ggot = st.accum.cpu().numpy()
-    require(np.array_equal(ggot[3], gwant[3]), "golden accum[3] equal")
-    gd = np.abs(ggot - gwant)
-    gflip = float((gd > 1e-3).mean())
-    gmean = np.abs(ggot[:3] / np.maximum(ggot[3], 1)
-                   - gwant[:3] / np.maximum(gwant[3], 1))
-    grmse = float(np.sqrt((gmean ** 2).mean()))
-    require(gflip < 0.03, f"golden |d|>1e-3 fraction {gflip} < 0.03")
-    require(grmse < 0.03, f"golden mean-image RMSE {grmse} < 0.03")
+    gflip, grmse = golden_gates(st.accum.cpu().numpy(), gwant)
     phase(3, f"sphere golden 256x128 4 steps via backend=cuda: accum[3] "
              f"equal, |d|>1e-3 fraction {gflip:.3e} (gate 0.03), mean-image "
              f"RMSE {grmse:.3e} (gate 0.03)")
@@ -187,90 +266,180 @@ def main() -> int:
         sphere_pt(cfg, sched, cam, spheres, ka.accum, ka.output)
         sphere_pt_plain(cfg, sched, cam, spheres, pa.accum, pa.output)
     torch.cuda.synchronize()
-    kacc, kout = ka.accum.cpu().numpy(), ka.output.cpu().numpy()
-    pacc, pout = pa.accum.cpu().numpy(), pa.output.cpu().numpy()
-    require(np.array_equal(kacc[3], pacc[3]), "kernel/plain accum[3] equal")
-    require((kacc[3] == frames4 * cfg.spp_per_step).all(),
+    require((ka.accum[3].cpu().numpy() == frames4 * cfg.spp_per_step).all(),
             f"{frames4} full frames rendered")
-    rmse = float(np.sqrt(((kacc - pacc) ** 2).mean()))
-    max_err = float(np.abs(kacc - pacc).max())
-    flips = float((np.abs(kout - pout) > 1e-3).mean())
-    lit = float((pacc[:3, :cfg.height, :cfg.width].max(0) > 0).mean())
-    require(rmse < 1e-3, f"kernel/plain accum RMSE {rmse} < 1e-3")
-    require(flips < 2e-3, f"kernel/plain output flip fraction {flips} < 2e-3")
-    require(lit > 0.05, f"lit coverage {lit} > 0.05")
+    rmse, max_err, flips, lit = compare(
+        ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
+        pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg)
     phase(4, f"sphere_pt kernel vs plain, default {cfg.width}x{cfg.height}, "
              f"{steps} steps x {k} tiles: accum RMSE {rmse:.3e} (gate 1e-3), "
              f"max abs {max_err:.3e}, output flip fraction {flips:.3e} "
              f"(gate 2e-3), lit {lit:.4f}")
+    del ka, pa
 
-    # --- 5: the main path through Application -------------------------------
     with tempfile.TemporaryDirectory() as tmp:
+        # --- 5: the sphere main path through Application -----------------
         app = Application(RenderConfig(), backend="cuda", device="cuda",
-                          workdir=tmp)
+                          workdir=tmp, renderer_names=("spherePT",))
         frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
-        reset_launches()
-        state = app.run(frames)
+        sphere_launches, main_lit, png_size = run_main_path(app, frames,
+                                                            "sphere_pt")
+        phase(5, f"main path: Application(RenderConfig(), backend=cuda) ran "
+                 f"{frames} steps, launches {sphere_launches}, 10 spp "
+                 f"everywhere, finite, lit {main_lit:.4f}, PNG "
+                 f"{png_size} bytes")
+        del app
+
+        # --- 6: the triangle golden through backend="cuda" ---------------
+        with np.load(TRI_GOLDEN) as data:
+            tcfg = RenderConfig.from_json(bytes(data["config"]).decode())
+            twant, tvm = data["accum"], data["view_matrix"]
+        prog = TriangleProgram(tcfg, backend="cuda")
+        st = init_frame_state(tcfg, dev)
+        tcam = Camera.from_config(tcfg, view_matrix=tvm).packed()
+        for _ in range(4):
+            st = prog.step(st, tcam)
         torch.cuda.synchronize()
-        path_launches = dict(launches)
-        require(path_launches.get("sphere_pt", 0) == frames,
-                f"sphere_pt launched {path_launches.get('sphere_pt', 0)} "
-                f"times in {frames} main-path steps")
-        spp = state.accum[3, :cfg.height, :cfg.width]
-        require(bool((spp == 10).all()), "every visible pixel holds 10 "
-                                         "samples")
-        img = app.renderer.display()
-        require(bool(np.isfinite(img).all()), "output finite")
-        main_lit = float((img.max(-1) > 0).mean())
-        require(main_lit > 0.05, f"main-path lit coverage {main_lit} > 0.05")
-        png_size = write_png(Path(tmp) / "frame_main.png", img).stat().st_size
-        require(png_size > 1000, "PNG written")
-    phase(5, f"main path: Application(RenderConfig(), backend=cuda) ran "
-             f"{frames} steps, sphere_pt launches {path_launches}, 10 spp "
-             f"everywhere, finite, lit {main_lit:.4f}, PNG "
-             f"{png_size} bytes")
+        tflip, trmse = golden_gates(st.accum.cpu().numpy(), twant)
+        # The kernel's primary-only AOVs on the golden's scene and camera.
+        aov_err = {}
+        for aov in ("tex_coords", "param_uv"):
+            acfg = tcfg.replace(aov=aov)
+            abuf = TriangleBuffers.from_scene(prog.scene, dev)
+            ka, pa = init_frame_state(acfg, dev), init_frame_state(acfg, dev)
+            sched = scheduled_tiles(torch.as_tensor(tile_grid(acfg)).to(dev),
+                                    0, acfg.effective_tiles_per_step)
+            triangle_pt(acfg, sched, tcam, abuf, ka.accum, ka.output)
+            triangle_pt_plain(acfg, sched, tcam, abuf, pa.accum, pa.output)
+            torch.cuda.synchronize()
+            d = (ka.accum - pa.accum).abs()
+            aov_err[aov] = float(d.max())
+            require(float((d > 1e-4).float().mean()) < 1e-3,
+                    f"{aov} kernel/plain |d|>1e-4 fraction < 1e-3")
+        phase(6, f"triangle golden 256x128 (16 meshes, 1,024 triangles) 4 "
+                 f"steps via backend=cuda: accum[3] equal, |d|>1e-3 fraction "
+                 f"{tflip:.3e} (gate 0.03), mean-image RMSE {trmse:.3e} "
+                 f"(gate 0.03); AOV kernel vs plain, 1 step: max abs "
+                 f"{aov_err} (gate |d|>1e-4 fraction < 1e-3)")
+
+        # --- 7: triangle_pt kernel vs plain, default triangle config -----
+        # Four whole-frame steps: the same samples as 92 steps of 10 tiles
+        # (1 spp lights 2.8% of the default view, 4 spp 8.1%).
+        tri_cfg = RenderConfig(scene_kind="triangle").validate()
+        whole = tri_cfg.replace(tiles_per_step=tri_cfg.tile_count)
+        tri_scene = build_triangle_scene(compute_spheres(
+            tri_cfg.sphere_count, tri_cfg.world_size, tri_cfg.scene_seed),
+            tri_cfg.disc_lat, tri_cfg.disc_long)
+        tri_buf = TriangleBuffers.from_scene(tri_scene, dev)
+        rmse, tri_err, flips, lit = kernel_vs_plain(
+            triangle_pt, triangle_pt_plain, whole, tri_buf, cam, 4)
+        phase(7, f"triangle_pt kernel vs plain, default triangle config "
+                 f"{whole.width}x{whole.height}, {tri_scene.total_triangles} "
+                 f"triangles in {tri_scene.mesh_count} meshes, 4 whole-frame "
+                 f"steps: accum RMSE {rmse:.3e} (gate 1e-3), max abs "
+                 f"{tri_err:.3e}, output flip fraction {flips:.3e} (gate "
+                 f"2e-3), lit {lit:.4f}")
+
+        # --- 8: kernel vs plain on the multi-slab torus field -------------
+        tori = load_obj(torus_field_obj())
+        tori_buf = TriangleBuffers.from_scene(tori, dev)
+        slabs = tori_buf.slab_count.cpu().numpy()
+        require(bool((slabs > 1).all()), "every torus spans several slabs")
+        # Aimed: 4 bound radii from the torus nearest the emissive torus 0,
+        # on torus 0's side (0.1% of the default view is lit).
+        b = tori_buf.mesh_bounds.cpu().numpy().astype(np.float64)
+        j = 1 + int(np.argmin(np.linalg.norm(b[1:, :3] - b[0, :3], axis=1)))
+        to_e = (b[0, :3] - b[j, :3]) / np.linalg.norm(b[0, :3] - b[j, :3])
+        eye = b[j, :3] + to_e * 4.0 * np.sqrt(b[j, 3])
+        vm = look_at(eye.astype(np.float32), b[j, :3].astype(np.float32),
+                     np.array([0.0, 1.0, 0.0], np.float32))
+        tori_cam = Camera.from_config(whole, view_matrix=vm).packed()
+        rmse, tori_err, flips, lit = kernel_vs_plain(
+            triangle_pt, triangle_pt_plain, whole, tori_buf, tori_cam, 1)
+        phase(8, f"triangle_pt kernel vs plain, torus field "
+                 f"({tori.total_triangles} triangles, {tori.mesh_count} "
+                 f"meshes of {int(slabs.max())} slabs), aimed camera, 1 "
+                 f"whole-frame step: accum RMSE {rmse:.3e} (gate 1e-3), max "
+                 f"abs {tori_err:.3e}, output flip fraction {flips:.3e} "
+                 f"(gate 2e-3), lit {lit:.4f}")
+        del tori_buf
+
+        # --- 9: the triangle main path through Application ----------------
+        app = Application(RenderConfig(), backend="cuda", device="cuda",
+                          workdir=tmp, initial_renderer="trianglePT")
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        tri_launches, main_lit, png_size = run_main_path(app, frames,
+                                                         "triangle_pt")
+        require(tri_launches.get("sphere_pt", 0) == 0,
+                "the triangle path launched no sphere kernel")
+        phase(9, f"main path: Application(RenderConfig(), initial_renderer="
+                 f"trianglePT, backend=cuda) ran {frames} steps, launches "
+                 f"{tri_launches}, 10 spp everywhere, finite, lit "
+                 f"{main_lit:.4f}, PNG {png_size} bytes")
+        del app
 
     # --- timings: kernel and plain, reference and whole-frame schedules -----
     timings = {}
-    for label, tcfg in (("10-tile", cfg),
-                        ("whole-frame", cfg.replace(
-                            tiles_per_step=cfg.tile_count))):
-        samples = (tcfg.effective_tiles_per_step * tcfg.tile_height
-                   * tcfg.tile_width * tcfg.spp_per_step)
-        for backend, warm, n in (("cuda", 3, 50), ("torch", 1, 3)):
-            tstep = build_render_step(tcfg, scene, backend=backend,
-                                      device=dev)
-            tst = init_frame_state(tcfg, dev)
-            for _ in range(warm):
-                tst = tstep(tst, cam)
-            dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, n)
-            timings[(label, backend)] = dev_ms
-            if backend == "cuda":
-                k_ms, busy, tst = profile_steps(tstep, tst, cam, 20)
-                print(f"[profile] {label} backend=cuda: sphere_pt_kernel "
-                      + ("not measured (no device time in the profile)"
-                         if k_ms is None else
-                         f"{k_ms:.4f} ms/launch (torch.profiler), device "
-                         f"busy {busy:.3f} of the span from first to last device "
-                         f"event")
-                      + f"; card: {card}", flush=True)
-            print(f"[timing] {label} ({tcfg.effective_tiles_per_step} tiles,"
-                  f" {samples} samples/step) backend={backend}: "
-                  f"{dev_ms:.4f} ms/step (CUDA events), {host_ms:.4f} ms/step"
-                  f" (host clock to sync), {samples / dev_ms / 1e3:.2f} "
-                  f"Msamples/s; card: {card}", flush=True)
-            del tst, tstep
-            torch.cuda.empty_cache()
+    families = (
+        ("sphere_pt", cfg, scene, ((3, 50), (1, 3), (1, 3))),
+        ("triangle_pt", tri_cfg, tri_scene, ((3, 50), (1, 3), (1, 2))))
+    for name, fcfg, fscene, ((kw, kn), (pw, pn), (pw_whole, pn_whole)) in families:
+        for label, tcfg in (("10-tile", fcfg),
+                            ("whole-frame", fcfg.replace(
+                                tiles_per_step=fcfg.tile_count))):
+            samples = (tcfg.effective_tiles_per_step * tcfg.tile_height
+                       * tcfg.tile_width * tcfg.spp_per_step)
+            plain_runs = (pw, pn) if label == "10-tile" else (pw_whole,
+                                                              pn_whole)
+            for backend, (warm, n) in (("cuda", (kw, kn)),
+                                       ("torch", plain_runs)):
+                tstep = build_render_step(tcfg, fscene, backend=backend,
+                                          device=dev)
+                tst = init_frame_state(tcfg, dev)
+                for _ in range(warm):
+                    tst = tstep(tst, cam)
+                dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, n)
+                timings[(name, label, backend)] = dev_ms
+                if backend == "cuda":
+                    k_ms, busy, tst = profile_steps(tstep, tst, cam, 20,
+                                                    f"{name}_kernel")
+                    print(f"[profile] {name} {label} backend=cuda: "
+                          f"{name}_kernel "
+                          + ("not measured (no device time in the profile)"
+                             if k_ms is None else
+                             f"{k_ms:.4f} ms/launch (torch.profiler), device "
+                             f"busy {busy:.3f} of the span from first to "
+                             f"last device event")
+                          + f"; card: {card}", flush=True)
+                print(f"[timing] {name} {label} "
+                      f"({tcfg.effective_tiles_per_step} tiles, {samples} "
+                      f"samples/step) backend={backend}: {dev_ms:.4f} "
+                      f"ms/step (CUDA events), {host_ms:.4f} ms/step (host "
+                      f"clock to sync), {samples / dev_ms / 1e3:.2f} "
+                      f"Msamples/s; card: {card}", flush=True)
+                del tst, tstep
+                torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "sphere_pt", "route": "cuda",
-        "source": "l2n_tpu_torch/csrc/sphere_pt.cu",
-        "replaces": "l2n_tpu/ops/kernels/sphere_pt.py:214",
-        "launches": path_launches.get("sphere_pt", 0),
-        "max_abs_err": max_err,
-        "tolerance": "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3",
-        "ms": timings[("10-tile", "cuda")],
-        "plain_ms": timings[("10-tile", "torch")]}]}))
+    def row(name, route, source, replaces, n, err, tol, ms, plain_ms):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "tolerance": tol, "ms": ms, "plain_ms": plain_ms}
+
+    frame_tol = "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3"
+    print(json.dumps({"kernels": [
+        row("sphere_pt", "cuda", "l2n_tpu_torch/csrc/sphere_pt.cu",
+            "l2n_tpu/ops/kernels/sphere_pt.py:214",
+            sphere_launches.get("sphere_pt", 0), max_err, frame_tol,
+            timings[("sphere_pt", "10-tile", "cuda")],
+            timings[("sphere_pt", "10-tile", "torch")]),
+        row("uv_demo", "cuda", "l2n_tpu_torch/csrc/uv_demo.cu",
+            "l2n_tpu/ops/kernels/uv_demo.py:22", uv_launches, uv_err,
+            "max abs err <= 1e-5", uv_ms, uv_plain_ms),
+        row("triangle_pt", "cuda", "l2n_tpu_torch/csrc/triangle_pt.cu",
+            "l2n_tpu/ops/kernels/triangle_pt.py:811",
+            tri_launches.get("triangle_pt", 0), max(tri_err, tori_err),
+            frame_tol, timings[("triangle_pt", "10-tile", "cuda")],
+            timings[("triangle_pt", "10-tile", "torch")])]}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@
 // row of one tile (tile_width threads), so the grid is K x tile_height.
 //
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
-// math); the per-pixel body is in sphere_pt.cuh.
+// math); the per-pixel path body is in pathtrace.cuh, the sweeps in
+// sphere_pt.cuh.
 
 #include <cuda_runtime.h>
 
@@ -34,13 +35,13 @@
 
 namespace {
 
-__global__ void sphere_pt_kernel(l2n::SpherePtParams p,
+__global__ void sphere_pt_kernel(l2n::PtParams p,
                                  const int32_t* __restrict__ sched,
                                  const float* __restrict__ spheres,
                                  float* __restrict__ accum,
                                  float* __restrict__ output) {
   extern __shared__ float smem[];
-  const int words = 7 * p.n_spheres;
+  const int words = 7 * p.n_scene;
   for (int i = threadIdx.x; i < words; i += blockDim.x) smem[i] = spheres[i];
   __syncthreads();
 
@@ -50,7 +51,7 @@ __global__ void sphere_pt_kernel(l2n::SpherePtParams p,
   const int tile_y = sched[2 * tile + 1];
   const int row = tile_y * p.tile_height + local_row;
   const int col = tile_x * p.tile_width + static_cast<int>(threadIdx.x);
-  const l2n::SceneView scene = l2n::scene_view(smem, p.n_spheres);
+  const l2n::SceneView scene = l2n::scene_view(smem, p.n_scene);
   l2n::render_pixel(p, scene, row, col, accum, output);
 }
 
@@ -63,10 +64,10 @@ __global__ void sphere_pt_kernel(l2n::SpherePtParams p,
 extern "C" int l2n_sphere_pt(const int32_t* ip, const float* fp,
                              const int32_t* sched, const float* spheres,
                              float* accum, float* output, void* stream) {
-  const l2n::SpherePtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
   const dim3 block(static_cast<unsigned>(p.tile_width));
-  const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_spheres);
+  const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
   sphere_pt_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       p, sched, spheres, accum, output);
   return static_cast<int>(cudaGetLastError());

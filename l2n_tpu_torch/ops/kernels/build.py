@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels (counterpart of l2n_tpu.native's
 build-on-demand).
 
-All of `l2n_tpu_torch/csrc/*.cu` compile with nvcc, in one command, into one
-shared library with a plain C interface, loaded through ctypes. The library
-goes to `l2n_tpu_torch/build/` (git-ignored), named by a digest of the
-sources, headers and flags, so a checkout builds it at first use and an
-edit rebuilds it. Nothing is built when a module is imported.
+Each of `l2n_tpu_torch/csrc/*.cu` compiles with its own nvcc process, all
+started together, and one more nvcc links the objects into one shared
+library with a plain C interface, loaded through ctypes. The library goes
+to `l2n_tpu_torch/build/` (git-ignored), named by a digest of the sources,
+headers and flags, so a checkout builds it at first use and an edit
+rebuilds it. Nothing is built when a module is imported.
 
 Flags: sm_90a (Hopper), no fused multiply-add contraction (`-fmad=false`,
 like the native twin's `-ffp-contract=off`: contracting the sphere sweep
@@ -28,13 +29,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -61,18 +62,35 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *map(str, sorted(CSRC.glob("*.cu"))),
-           "-o", str(tmp)]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{out.stem}-{src.stem}.{tag}.o") for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    results = []
+    for cmd, proc in zip(cmds, procs):
+        so, se = proc.communicate()
+        results.append((cmd, proc.returncode, so, se))
+    tmp = out.with_suffix(f".{tag}")
+    if all(rc == 0 for _, rc, _, _ in results):
+        cmd = [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(tmp)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        results.append((cmd, link.returncode, link.stdout, link.stderr))
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log.write_text("".join(" ".join(cmd) + "\n" + so + se
+                           for cmd, _, so, se in results))
+    failed = [(rc, se) for _, rc, _, se in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); see {log}:\n"
-                           + proc.stderr[-4000:])
+        raise RuntimeError(f"nvcc failed ({failed[0][0]}); see {log}:\n"
+                           + failed[0][1][-4000:])
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out, seconds
 
@@ -83,6 +101,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.l2n_sphere_pt.restype = ctypes.c_int
     lib.l2n_uv_demo.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p]
     lib.l2n_uv_demo.restype = ctypes.c_int
+    lib.l2n_triangle_pt.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
+    lib.l2n_triangle_pt.restype = ctypes.c_int
     return lib
 
 

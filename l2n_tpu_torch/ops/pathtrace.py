@@ -1,6 +1,7 @@
-"""The path tracer in lane-lockstep torch: ray generation and the masked
-bounce loop (counterpart of l2n_tpu.ops.pathtrace for the slice's config:
-pathtracing AOV, procedural Lambert, no NEE/MIS/fog/lights).
+"""The path tracer in lane-lockstep torch: ray generation, the masked
+bounce loop and the triangle AOVs (counterpart of l2n_tpu.ops.pathtrace
+for the port's configs: pathtracing, tex_coords and param_uv AOVs,
+procedural Lambert, no NEE/MIS/fog/lights).
 
 This is the plain version the CPU tests and `backend="torch"` run. It is a
 mask translation of the JAX package's `trace_path` / `_scatter_and_roulette`
@@ -9,7 +10,7 @@ sin/cos: every lane runs every bounce's arithmetic and masks decide what is
 kept. The tri-state `dist` sentinel is preserved exactly (t >= 0 hit, -1
 miss -> environment, -2 terminated), because the environment test is
 literally `dist == -1`. The CUDA kernel computes the same per pixel with
-divergent control flow (csrc/sphere_pt.cuh).
+divergent control flow (csrc/pathtrace.cuh).
 """
 
 from __future__ import annotations
@@ -33,8 +34,11 @@ from l2n_tpu_torch.ops.envlight import env_radiance
 
 @dataclasses.dataclass
 class Hit:
-    """Resolved hit record (lane tensors). `index` is the sphere index (-1
-    on miss); `emis_r2` the squared radius in the emission formula."""
+    """Resolved hit record (lane tensors). `index` is the sphere or mesh
+    index (-1 on miss), which keys the albedo table and the emissive rule;
+    `emis_r2` the squared radius in the emission formula (1 for meshes).
+    `tc_u/tc_v` (texcoords) and `b_u/b_v` (barycentrics) are None for
+    scenes without them."""
 
     t: torch.Tensor
     nx: torch.Tensor
@@ -42,6 +46,10 @@ class Hit:
     nz: torch.Tensor
     index: torch.Tensor
     emis_r2: torch.Tensor
+    tc_u: torch.Tensor | None = None
+    tc_v: torch.Tensor | None = None
+    b_u: torch.Tensor | None = None
+    b_v: torch.Tensor | None = None
 
 
 IntersectFn = Callable[..., Hit]  # (ox, oy, oz, dx, dy, dz) -> Hit
@@ -205,11 +213,36 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
                         col)
 
 
+def _magenta_on_miss(h: Hit, r, g):
+    """(r, g, 0) where the primary ray hits, magenta (1, 0, 1) on a miss."""
+    m = h.t >= 0.0
+    zero = torch.zeros_like(h.t)
+    one = torch.ones_like(h.t)
+    return torch.where(m, r, one), torch.where(m, g, zero), torch.where(m, zero, one)
+
+
+def aov_tex_coords(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
+    """Interpolated texcoords of the primary hit; magenta on a miss."""
+    h = intersect(ox, oy, oz, dx, dy, dz)
+    return _magenta_on_miss(h, h.tc_u, h.tc_v)
+
+
+def aov_param_uv(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
+    """Barycentric (u, v) of the primary hit; magenta on a miss."""
+    h = intersect(ox, oy, oz, dx, dy, dz)
+    return _magenta_on_miss(h, h.b_u, h.b_v)
+
+
 def shade(cfg, intersect: IntersectFn, anyhit: AnyHitFn, albedo, sampler,
           ox, oy, oz, dx, dy, dz):
-    """Dispatch on cfg.aov; the slice renders the pathtracing AOV only."""
-    if cfg.aov != "pathtracing":
-        raise NotImplementedError(
-            f"aov={cfg.aov!r}: the debug AOVs are ROADMAP Queue 1 #8/#9")
-    return trace_path(cfg, intersect, anyhit, albedo, sampler,
-                      ox, oy, oz, dx, dy, dz)
+    """Dispatch on cfg.aov: the path tracer, or a primary-only AOV."""
+    if cfg.aov == "pathtracing":
+        return trace_path(cfg, intersect, anyhit, albedo, sampler,
+                          ox, oy, oz, dx, dy, dz)
+    if cfg.aov == "tex_coords":
+        return aov_tex_coords(intersect, ox, oy, oz, dx, dy, dz)
+    if cfg.aov == "param_uv":
+        return aov_param_uv(intersect, ox, oy, oz, dx, dy, dz)
+    raise NotImplementedError(
+        f"aov={cfg.aov!r}: the normal, hit and ambient_occlusion AOVs are "
+        "ROADMAP Queue 1 #9")

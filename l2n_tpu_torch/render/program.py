@@ -1,10 +1,12 @@
 """Program layer: scene construction + render step, bundled (counterpart of
-l2n_tpu.render.program for the sphere renderer)."""
+l2n_tpu.render.program): the sphere renderer and the triangle renderer."""
 
 from __future__ import annotations
 
 from l2n_tpu_torch.render.step import build_render_step, resolve_device
+from l2n_tpu_torch.scene.obj import load_obj
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
+from l2n_tpu_torch.scene.tessellate import TriangleScene, build_triangle_scene
 
 
 class PathtracingProgram:
@@ -41,4 +43,25 @@ class SphereProgram(PathtracingProgram):
         if scene is None:
             scene = compute_spheres(cfg.sphere_count, cfg.world_size,
                                     cfg.scene_seed, device=device)
+        super().__init__(cfg, scene, backend, device, **kw)
+
+
+class TriangleProgram(PathtracingProgram):
+    """The tessellated-mesh scene: the procedural spheres tessellated at
+    (disc_lat, disc_long), or the OBJ file `cfg.obj_path`."""
+
+    name = "trianglePT"
+
+    def __init__(self, cfg, scene: TriangleScene | None = None,
+                 backend: str = "cuda", device=None, **kw):
+        cfg = cfg.replace(scene_kind="triangle")
+        device = resolve_device(backend, device)
+        if scene is None:
+            if cfg.obj_path:
+                scene = load_obj(cfg.obj_path)
+            else:
+                spheres = compute_spheres(cfg.sphere_count, cfg.world_size,
+                                          cfg.scene_seed)
+                scene = build_triangle_scene(spheres, cfg.disc_lat,
+                                             cfg.disc_long)
         super().__init__(cfg, scene, backend, device, **kw)

@@ -5,9 +5,10 @@ the shuffled schedule, accumulate radiance, tonemap the touched pixels,
 advance the tile cursor.
 
 Backends:
-  * "cuda"  — the hand-written CUDA kernel (ops/kernels/sphere_pt.py) on a
-    CUDA device: the main path. Without a card it raises; there is no
-    automatic choice of the CPU.
+  * "cuda"  — the hand-written CUDA kernel of the scene's family
+    (ops/kernels/sphere_pt.py or ops/kernels/triangle_pt.py) on a CUDA
+    device: the main path. Without a card it raises; there is no automatic
+    choice of the CPU.
   * "torch" — the plain torch version of the same step on any device: the
     counterpart of the JAX package's XLA oracle, and what the CPU tests run.
 
@@ -24,9 +25,15 @@ import torch
 
 from l2n_tpu_torch.ops.kernels.common import check_supported
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+from l2n_tpu_torch.ops.kernels.triangle_pt import (
+    TriangleBuffers,
+    triangle_pt,
+    triangle_pt_plain,
+)
 from l2n_tpu_torch.render.state import FrameState
 from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
 from l2n_tpu_torch.scene.spheres import SphereScene
+from l2n_tpu_torch.scene.tessellate import TriangleScene
 
 BACKENDS = ("cuda", "torch")
 
@@ -49,25 +56,31 @@ def resolve_device(backend: str, device=None) -> torch.device:
     return torch.device(device if device is not None else "cpu")
 
 
-def build_render_step(cfg, scene: SphereScene, backend: str = "cuda",
-                      device=None):
+def build_render_step(cfg, scene, backend: str = "cuda", device=None):
     """A step(state, packed_camera) -> FrameState for (config, scene).
 
-    `scene` is moved to the step's device once; the camera is the packed
+    `scene` is a SphereScene or a TriangleScene, per cfg.scene_kind; its
+    buffers move to the step's device once. The camera is the packed
     (10, 4) host array (Camera.packed()).
     """
     check_supported(cfg)
     device = resolve_device(backend, device)
-    if not isinstance(scene, SphereScene):
-        raise TypeError("sphere config needs a SphereScene")
-    spheres = scene.packed().to(device)
+    if cfg.scene_kind == "sphere":
+        if not isinstance(scene, SphereScene):
+            raise TypeError("sphere config needs a SphereScene")
+        buffers = scene.packed().to(device)
+        kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
+    else:
+        if not isinstance(scene, TriangleScene):
+            raise TypeError("triangle config needs a TriangleScene")
+        buffers = TriangleBuffers.from_scene(scene, device)
+        kernel = triangle_pt if backend == "cuda" else triangle_pt_plain
     tiles = torch.as_tensor(tile_grid(cfg)).to(device)
     k = cfg.effective_tiles_per_step
-    kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
 
     def step(state: FrameState, camera) -> FrameState:
         sched = scheduled_tiles(tiles, state.tile_offset, k)
-        kernel(cfg, sched, np.asarray(camera, np.float32), spheres,
+        kernel(cfg, sched, np.asarray(camera, np.float32), buffers,
                state.accum, state.output)
         return dataclasses.replace(
             state, tile_offset=advance_offset(cfg, state.tile_offset),

@@ -178,12 +178,13 @@ def test_backend_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"scene_kind": "triangle"}, "#8"), ({"rng": "tinymt"}, "#10"),
+    ({"aov": "tex_coords"}, "#8"), ({"rng": "tinymt"}, "#10"),
     ({"nee": True}, "#9"), ({"material_mode": "microfacet"}, "#9"),
     ({"normal_map": 0.5}, "#9"), ({"fog_density": 0.01}, "#9"),
     ({"env_mode": "sun"}, "#9"), ({"ray_gen": "viewproj"}, "#9"),
     ({"fast_math": True}, "#9"), ({"wavefront": True}, "#13"),
-    ({"aov": "normal"}, "#8/#9")])
+    # the id predates the triangle family, when this AOV was "#8/#9"
+    pytest.param({"aov": "normal"}, "#9", id="kw10-#8/#9")])
 def test_unsupported_configs_raise(kw, item):
     cfg = RenderConfig(width=128, height=64, sphere_count=16, **kw)
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
@@ -195,8 +196,8 @@ def test_unsupported_program_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         SphereProgram(cfg, backend="torch", point_lights=[])
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        Application(cfg, workdir=tmp_path, backend="torch",
-                    renderer_names=("spherePT", "trianglePT"))
+        Application(cfg.replace(aov="tex_coords"), workdir=tmp_path,
+                    backend="torch", renderer_names=("spherePT", "trianglePT"))
 
 
 SLICE_MODULES = [
@@ -204,12 +205,16 @@ SLICE_MODULES = [
     "l2n_tpu_torch.maths.linalg", "l2n_tpu_torch.maths.fastmath",
     "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.camera.camera",
     "l2n_tpu_torch.camera.cache", "l2n_tpu_torch.camera.view_controller",
-    "l2n_tpu_torch.scene.spheres", "l2n_tpu_torch.render.tiles",
+    "l2n_tpu_torch.scene.spheres", "l2n_tpu_torch.scene.tessellate",
+    "l2n_tpu_torch.scene.obj", "l2n_tpu_torch.scene.procgen",
+    "l2n_tpu_torch.render.tiles",
     "l2n_tpu_torch.render.state", "l2n_tpu_torch.ops.intersect",
     "l2n_tpu_torch.ops.scenes", "l2n_tpu_torch.ops.envlight",
     "l2n_tpu_torch.ops.pathtrace", "l2n_tpu_torch.ops.kernels.build",
     "l2n_tpu_torch.ops.kernels.common", "l2n_tpu_torch.ops.kernels.sphere_pt",
-    "l2n_tpu_torch.ops.kernels.uv_demo", "l2n_tpu_torch.render.step",
+    "l2n_tpu_torch.ops.kernels.uv_demo",
+    "l2n_tpu_torch.ops.kernels.triangle_pack",
+    "l2n_tpu_torch.ops.kernels.triangle_pt", "l2n_tpu_torch.render.step",
     "l2n_tpu_torch.render.program", "l2n_tpu_torch.render.renderer",
     "l2n_tpu_torch.utils.image", "l2n_tpu_torch.app.display",
     "l2n_tpu_torch.app.application"]
