@@ -1,21 +1,24 @@
 """On-card smoke test of the l2n_tpu_torch port: builds the CUDA kernels
 from this checkout, holds each against its plain torch version and the
-JAX package's recorded goldens, drives both renderers' main paths
-(Application -> Renderer -> SphereProgram / TriangleProgram -> render step
--> sphere_pt / triangle_pt kernel) at the default 1280x720 config, and
-times kernel and plain versions.
+JAX package's recorded goldens, drives the main paths (Application ->
+Renderer -> SphereProgram / TriangleProgram -> render step -> sphere_pt,
+triangle_pt, or the wavefront step's three kernels) at the default
+1280x720 config, and times kernel and plain versions beside the least time
+the card could take for the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
-Imports neither jax nor any l2n_tpu module other than l2n_tpu.config.
-Every phase prints one line; a failed gate raises, so the script exits
-nonzero without its last line. The last line is
+Imports neither jax nor anything of the JAX package (l2n_tpu). Every phase
+prints one line; a failed gate raises, so the script exits nonzero without
+its last line. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,11 +80,12 @@ def timed_steps(step, state, cam, n: int):
     return start.elapsed_time(end) / n, host_ms, state
 
 
-def profile_steps(step, state, cam, n: int, kernel: str):
-    """(device ms per launch of the kernel named `kernel`, device busy share
-    between the first and the last device event, state) from torch.profiler
-    over n steps; (None, None, state) where the profiler recorded no device
-    time. A short profile first takes the profiler's own start-up cost."""
+def profile_steps(step, state, cam, n: int, kernels):
+    """({kernel: device ms per launch}, device busy share between the first
+    and the last device event, device ms per step of every other kernel,
+    state) from torch.profiler over n steps; a kernel the profiler recorded
+    no device time for maps to None. A short profile first takes the
+    profiler's own start-up cost."""
     from torch.profiler import ProfilerActivity, profile
     for steps in (2, n):
         torch.cuda.synchronize()
@@ -92,14 +96,19 @@ def profile_steps(step, state, cam, n: int, kernel: str):
             torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    kern = [e for e in dev if kernel in e.name]
-    if not kern:
-        return None, None, state
-    kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / len(kern) / 1e3
+    per = {}
+    for kernel in kernels:
+        kern = [e for e in dev if kernel in e.name]
+        per[kernel] = (sum(e.time_range.elapsed_us() for e in kern)
+                       / len(kern) / 1e3) if kern else None
+    if not dev:
+        return per, None, None, state
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     busy = sum(e.time_range.elapsed_us() for e in dev) / span
-    return kernel_ms, busy, state
+    other = sum(e.time_range.elapsed_us() for e in dev
+                if not any(k in e.name for k in kernels)) / n / 1e3
+    return per, busy, other, state
 
 
 def compare(kacc, kout, pacc, pout, cfg):
@@ -149,11 +158,11 @@ def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
                    pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg)
 
 
-def run_main_path(app, frames: int, name: str):
+def run_main_path(app, frames: int, names):
     """Drive `frames` steps of `app`'s current renderer with the launch
-    counts zeroed just before and read just after; checks 10 spp
-    everywhere, a finite lit image and a written PNG. Returns (launches,
-    lit, PNG bytes)."""
+    counts zeroed just before and read just after; each kernel in `names`
+    must have launched once per step. Checks 10 spp everywhere, a finite lit
+    image and a written PNG. Returns (launches, lit, PNG bytes)."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
     from l2n_tpu_torch.utils.image import write_png
     cfg = app.renderer.cfg
@@ -161,18 +170,185 @@ def run_main_path(app, frames: int, name: str):
     state = app.run(frames, save_camera=False)
     torch.cuda.synchronize()
     path_launches = dict(launches)
-    require(path_launches.get(name, 0) == frames,
-            f"{name} launched {path_launches.get(name, 0)} times in "
-            f"{frames} main-path steps")
+    for name in names:
+        require(path_launches.get(name, 0) == frames,
+                f"{name} launched {path_launches.get(name, 0)} times in "
+                f"{frames} main-path steps")
     spp = state.accum[3, :cfg.height, :cfg.width]
     require(bool((spp == 10).all()), "every visible pixel holds 10 samples")
     img = app.renderer.display()
     require(bool(np.isfinite(img).all()), "output finite")
     lit = float((img.max(-1) > 0).mean())
     require(lit > 0.05, f"main-path lit coverage {lit} > 0.05")
-    png_size = write_png(app.workdir / f"frame_{name}.png", img).stat().st_size
+    png_size = write_png(app.workdir / f"frame_{names[0]}.png",
+                         img).stat().st_size
     require(png_size > 1000, "PNG written")
     return path_launches, lit, png_size
+
+
+# ---------------------------------------------------------------------------
+# The least time the card could take: bound_ms = max(operations / fp32 peak,
+# bytes / memory rate), H100 SXM peaks (NVIDIA's data sheet). Bytes: each
+# input read once, each output written once. Operations: what the kernels'
+# per-thread code executes for this run's data, counted by running the
+# plain version with counting scene closures (the plain version is
+# bit-equal to the kernels, so its rays are theirs). Every instruction
+# counts as one fp32 operation, sqrt/sin/cos/exp/log included, and the
+# triangle walk counts only its mesh-bound tests: a lower bound.
+# Per-item operation counts, read off csrc/pathtrace.cuh, sphere_pt.cuh,
+# triangle_pt.cuh and wavefront.cuh:
+OPS = dict(
+    threefry=125,      # one threefry-2x32 pair: 20 rounds, 5 key injections
+    ray=30,            # primary_direction: NDC, camera transform, normalize
+    sphere=24,         # one candidate of SceneView::nearest
+    nearest_fixed=20,  # the winner's hit point and normal
+    anyhit=19,         # one candidate tested by SceneView::anyhit
+    mesh_bound=14,     # one mesh-bound test of the triangle walk
+    scatter=70,        # frame, cosine sample, albedo, roulette, cast origin
+    emit=10,           # emit_term and its accumulation
+    sky_box=8,         # the Mandelbrot direction-box test
+    sky_setup=60,      # inside the box: sqrt, two poly_atan2, the plane point
+    sky_iter=9,        # one escape iteration
+    accumulate=30,     # accumulate_pixel (sum, count, tonemap) per pixel
+    sample_sum=3,      # sum += c per sample
+)
+PEAK_FP32 = 67e12      # operations/s, H100 SXM, no tensor cores
+PEAK_BYTES = 3.35e12   # bytes/s, HBM3
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by)."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mandelbrot_iterations(dx, dy, dz):
+    """(in the direction box, escape iterations the kernel runs) per
+    direction: the loop of csrc/pathtrace.cuh::mandelbrot_le, counted."""
+    from l2n_tpu_torch.maths.fastmath import atan2
+    from l2n_tpu_torch.maths.sampling import PI, sqrt
+    in_box = (dx >= dy.abs()) & (dz * dz <= dx * dx + dy * dy)
+    theta = atan2(sqrt(dx * dx + dy * dy), dz)
+    px = 8.0 * (atan2(dy, dx) * (1.0 / PI))
+    py = 4.0 * (-1.0 + (2.0 / PI) * theta)
+    zx, zy, zx2, zy2 = (torch.zeros_like(px) for _ in range(4))
+    iters = torch.zeros_like(px)
+    running = torch.ones_like(px, dtype=torch.bool)
+    for _ in range(64):
+        iters = iters + running.to(px.dtype)
+        zy = 2.0 * zx * zy + py
+        zx = zx2 - zy2 + px
+        zx2, zy2 = zx * zx, zy * zy
+        running = running & (zx2 + zy2 <= 4.0)
+    return in_box, iters
+
+
+class WorkCount:
+    """Scene closures that count, per lane that the kernels would trace,
+    the casts, any-hit candidates, scatters, emissive hits and sky
+    evaluations of a plain render. Counters prefixed "a_" belong to the
+    primary cast (the wavefront's pass A), "b_" to the rest (pass B).
+    Lanes whose cast origin is parked at 3e30 are dead and not counted."""
+
+    def __init__(self, cfg, spheres=None):
+        self.cfg, self.spheres = cfg, spheres
+        self.c = collections.Counter()
+
+    def _sky(self, mask, dx, dy, dz, tag):
+        d = [torch.broadcast_to(a, mask.shape)[mask] for a in (dx, dy, dz)]
+        self.c[tag + "sky"] += int(mask.sum())
+        if self.cfg.env_mode == "mandelbrot" and d[0].numel():
+            in_box, iters = mandelbrot_iterations(*d)
+            self.c[tag + "sky_in"] += int(in_box.sum())
+            self.c[tag + "sky_iters"] += float(iters[in_box].sum())
+
+    def intersect(self, inner):
+        def counted(ox, oy, oz, dx, dy, dz):
+            h = inner(ox, oy, oz, dx, dy, dz)
+            tag = "a_" if ox.dim() == 0 else "b_"  # primaries share an origin
+            live = torch.broadcast_to(ox, dx.shape) < 1e30
+            self.c[tag + "casts"] += int(live.sum())
+            self._sky(live & (h.t == -1.0), dx, dy, dz, tag)
+            hit = live & (h.t >= 0.0)
+            emissive = hit & (h.index % self.cfg.emissive_every == 0)
+            self.c[tag + "emissive"] += int(emissive.sum())
+            self.c[tag + "scatters"] += int((hit & ~emissive).sum())
+            return h
+        return counted
+
+    def anyhit(self, inner):
+        def counted(ox, oy, oz, dx, dy, dz):
+            hit = inner(ox, oy, oz, dx, dy, dz)
+            live = torch.broadcast_to(ox, dx.shape) < 1e30
+            self.c["b_anyhit"] += int(live.sum())
+            if self.spheres is not None:  # candidates up to the first hit
+                o = [torch.broadcast_to(a, dx.shape)[live] for a in (ox, oy, oz)]
+                d = [a[live] for a in (dx, dy, dz)]
+                ro = [o[i][:, None] - self.spheres[i] for i in range(3)]
+                hb = ro[0] * d[0][:, None] + ro[1] * d[1][:, None] + ro[2] * d[2][:, None]
+                cc = ro[0] ** 2 + ro[1] ** 2 + ro[2] ** 2 - self.spheres[3]
+                any_mask = (cc < 0) | ((hb < 0) & (hb * hb >= cc))
+                first = torch.argmax(any_mask.to(torch.int8), dim=1) + 1
+                n = self.spheres.shape[1]
+                tested = torch.where(any_mask.any(1), first, n)
+                self.c["b_anyhit_tests"] += int(tested.sum())
+            self._sky(live & ~hit, dx, dy, dz, "b_")
+            return hit
+        return counted
+
+
+def count_work(cfg, sched, cam, accum, scene_closures, spheres=None):
+    """Counters of one plain render of the scheduled tiles (`accum` is
+    copied, not updated)."""
+    from l2n_tpu_torch.ops.kernels.common import render_tiles_plain
+    intersect, anyhit, albedo = scene_closures
+    w = WorkCount(cfg, spheres)
+    acc = accum.clone()
+    render_tiles_plain(cfg, sched, cam, w.intersect(intersect),
+                       w.anyhit(anyhit), albedo, acc, torch.empty_like(acc[:3]))
+    c = w.c
+    c["pixels"] = sched.shape[0] * cfg.tile_height * cfg.tile_width
+    c["samples"] = c["pixels"] * cfg.spp_per_step
+    return c
+
+
+def path_ops(c, cast_cost: float, tags=("a_", "b_")):
+    """Operations of the traced paths in the counters `c` (casts at
+    `cast_cost` each) for the given parts of the path."""
+    ops = 0.0
+    for t in tags:
+        ops += (c[t + "casts"] * cast_cost
+                + c[t + "scatters"] * (OPS["scatter"] + OPS["threefry"])
+                + c[t + "emissive"] * OPS["emit"]
+                + c[t + "sky"] * OPS["sky_box"]
+                + c[t + "sky_in"] * OPS["sky_setup"]
+                + c[t + "sky_iters"] * OPS["sky_iter"])
+    if "a_" in tags:  # jitter pair, primary ray, RR pair of the first vertex
+        ops += (c["samples"] * (OPS["threefry"] + OPS["ray"])
+                + c["a_scatters"] * OPS["threefry"])
+    return ops
+
+
+def sphere_bounds(c, n_spheres: int, k: int, alive: int):
+    """{kernel: (bound_ms, bound_by)} of sphere_pt and the three wavefront
+    passes for the counters `c` of one step of K tiles."""
+    cast = n_spheres * OPS["sphere"] + OPS["nearest_fixed"]
+    any_ops = c["b_anyhit_tests"] * OPS["anyhit"]
+    scene_bytes, sched_bytes = 7 * n_spheres * 4, 8 * k
+    tonemap = c["pixels"] * OPS["accumulate"] + c["samples"] * OPS["sample_sum"]
+    lanes = c["samples"]
+    return {
+        "sphere_pt": bound(path_ops(c, cast) + any_ops + tonemap,
+                           c["pixels"] * 44 + scene_bytes + sched_bytes),
+        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",)),
+                                  c["pixels"] * 4 + lanes * 56 + scene_bytes
+                                  + sched_bytes),
+        "wavefront_pass_b": bound(path_ops(c, cast, ("b_",)) + any_ops
+                                  + alive * OPS["threefry"],
+                                  alive * 56 + scene_bytes + 4),
+        "wavefront_pass_c": bound(tonemap + lanes * 6,
+                                  lanes * 24 + c["pixels"] * 44 + sched_bytes),
+    }
 
 
 def main() -> int:
@@ -180,9 +356,9 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
     sys.path.insert(0, str(ROOT))
-    from l2n_tpu.config import RenderConfig
     from l2n_tpu_torch.app.application import Application
     from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
     from l2n_tpu_torch.maths.linalg import look_at
     from l2n_tpu_torch.ops.kernels import build
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
@@ -193,6 +369,23 @@ def main() -> int:
         triangle_pt_plain,
     )
     from l2n_tpu_torch.ops.kernels.uv_demo import uv_demo, uv_demo_plain
+    from l2n_tpu_torch.ops.kernels.wavefront import (
+        compact_survivors,
+        scatter_back,
+        sphere_wavefront_step,
+        wavefront_pass_a,
+        wavefront_pass_a_plain,
+        wavefront_pass_b,
+        wavefront_pass_b_plain,
+        wavefront_pass_c,
+        wavefront_pass_c_plain,
+    )
+    from l2n_tpu_torch.ops.scenes import (
+        sphere_anyhit,
+        sphere_intersector,
+        triangle_anyhit,
+        triangle_intersector,
+    )
     from l2n_tpu_torch.render.program import TriangleProgram
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.step import build_render_step
@@ -209,8 +402,14 @@ def main() -> int:
     # --- 1: card, versions, build ------------------------------------------
     lib_path, build_s = build.build()
     build.load()
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas, kernel = [], "?"
+    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(sphere_pt|triangle_pt|uv_demo|wavefront_pass_[abc])"
+                      r"_kernel", ln)
+        if "Compiling entry function" in ln and m:
+            kernel = m.group(1)
+        elif "registers" in ln or "spill" in ln:
+            ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}; kernels built in {build_s:.1f} s "
              f"({lib_path.name}); ptxas: {' | '.join(ptxas)}")
@@ -283,7 +482,7 @@ def main() -> int:
                           workdir=tmp, renderer_names=("spherePT",))
         frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
         sphere_launches, main_lit, png_size = run_main_path(app, frames,
-                                                            "sphere_pt")
+                                                            ("sphere_pt",))
         phase(5, f"main path: Application(RenderConfig(), backend=cuda) ran "
                  f"{frames} steps, launches {sphere_launches}, 10 spp "
                  f"everywhere, finite, lit {main_lit:.4f}, PNG "
@@ -369,13 +568,96 @@ def main() -> int:
                           workdir=tmp, initial_renderer="trianglePT")
         frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
         tri_launches, main_lit, png_size = run_main_path(app, frames,
-                                                         "triangle_pt")
+                                                         ("triangle_pt",))
         require(tri_launches.get("sphere_pt", 0) == 0,
                 "the triangle path launched no sphere kernel")
         phase(9, f"main path: Application(RenderConfig(), initial_renderer="
                  f"trianglePT, backend=cuda) ran {frames} steps, launches "
                  f"{tri_launches}, 10 spp everywhere, finite, lit "
                  f"{main_lit:.4f}, PNG {png_size} bytes")
+        del app
+
+        # --- 10: the wavefront passes, kernel vs plain, one whole frame ---
+        # Each kernel and its plain version get the same inputs: pass B and
+        # pass C take what the plain passes before them made.
+        wcfg = RenderConfig(wavefront=True).validate()
+        wwhole = wcfg.replace(tiles_per_step=wcfg.tile_count)
+        wsched = scheduled_tiles(tiles, 0, wwhole.tile_count)
+        wst = init_frame_state(wwhole, dev)
+        ka_out = wavefront_pass_a(wwhole, wsched, cam, spheres, wst.accum)
+        pa_out = wavefront_pass_a_plain(wwhole, wsched, cam, spheres,
+                                        wst.accum)
+        torch.cuda.synchronize()
+        require(torch.equal(ka_out[2], pa_out[2]),
+                "pass A meta planes bit-equal")
+        wave_err = {}
+
+        def lane_gate(name, got, want):
+            d = (got - want).double()
+            rmse = float(d.pow(2).mean().sqrt())
+            require(rmse < 1e-3, f"{name} kernel/plain RMSE {rmse} < 1e-3")
+            return float(d.abs().max())
+
+        wave_err["wavefront_pass_a"] = max(
+            lane_gate("pass A rays", ka_out[0], pa_out[0]),
+            lane_gate("pass A colA", ka_out[1], pa_out[1]))
+        comp, comp_meta, perm, alive, n_alive = compact_survivors(
+            pa_out[0], pa_out[2])
+        kb = wavefront_pass_b(wwhole, cam, spheres, comp, comp_meta, n_alive)
+        pb = wavefront_pass_b_plain(wwhole, cam, spheres, comp, comp_meta,
+                                    n_alive)
+        torch.cuda.synchronize()
+        na = int(n_alive[0])
+        alive_whole = na / alive.numel()
+        wave_err["wavefront_pass_b"] = lane_gate("pass B contrib",
+                                                 kb[:, :na], pb[:, :na])
+        back = scatter_back(pb, perm, alive).view(pa_out[1].shape)
+        kc, pc = init_frame_state(wwhole, dev), init_frame_state(wwhole, dev)
+        wavefront_pass_c(wwhole, wsched, pa_out[1], back, kc.accum, kc.output)
+        wavefront_pass_c_plain(wwhole, wsched, pa_out[1], back, pc.accum,
+                               pc.output)
+        torch.cuda.synchronize()
+        require(torch.equal(kc.accum[3], pc.accum[3]), "pass C accum[3] equal")
+        flips_c = float(((kc.output - pc.output).abs() > 1e-3).float().mean())
+        require(flips_c < 2e-3, f"pass C output flips {flips_c} < 2e-3")
+        wave_err["wavefront_pass_c"] = max(
+            lane_gate("pass C accum", kc.accum, pc.accum),
+            float((kc.output - pc.output).abs().max()))
+        phase(10, f"wavefront passes kernel vs plain, default config, one "
+                  f"whole-frame step ({alive.numel()} lanes): pass A meta "
+                  f"bit-equal, max abs (rays, colA) "
+                  f"{wave_err['wavefront_pass_a']:.3e}; alive fraction "
+                  f"{na} / {alive.numel()} = {alive_whole:.4f}; pass B "
+                  f"max abs over the {na} live lanes "
+                  f"{wave_err['wavefront_pass_b']:.3e}; pass C max abs "
+                  f"(accum, output) {wave_err['wavefront_pass_c']:.3e}, "
+                  f"output flips {flips_c:.3e} (gates: RMSE < 1e-3, flips "
+                  f"< 2e-3)")
+        del ka_out, kb, pb, kc, pc, comp, comp_meta, back
+
+        # --- 11: the wavefront CUDA step vs the sphere_pt CUDA step --------
+        rmse, wf_vs_fused, flips, lit = kernel_vs_plain(
+            sphere_wavefront_step, sphere_pt, wwhole, spheres, cam, 4)
+        phase(11, f"wavefront CUDA step vs sphere_pt CUDA step, default "
+                  f"config, 4 whole-frame steps: accum RMSE {rmse:.3e} (gate "
+                  f"1e-3), max abs {wf_vs_fused:.3e} (0 expected), output "
+                  f"flip fraction {flips:.3e} (gate 2e-3), lit {lit:.4f}")
+
+        # --- 12: the wavefront main path through Application --------------
+        app = Application(RenderConfig(wavefront=True), backend="cuda",
+                          device="cuda", workdir=tmp,
+                          renderer_names=("spherePT",))
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        wave_names = ("wavefront_pass_a", "wavefront_pass_b",
+                      "wavefront_pass_c")
+        wave_launches, main_lit, png_size = run_main_path(app, frames,
+                                                          wave_names)
+        require(wave_launches.get("sphere_pt", 0) == 0,
+                "the wavefront path launched no sphere_pt kernel")
+        phase(12, f"main path: Application(RenderConfig(wavefront=True), "
+                  f"backend=cuda) ran {frames} steps, launches "
+                  f"{wave_launches}, 10 spp everywhere, finite, lit "
+                  f"{main_lit:.4f}, PNG {png_size} bytes")
         del app
 
     # --- timings: kernel and plain, reference and whole-frame schedules -----
@@ -401,8 +683,9 @@ def main() -> int:
                 dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, n)
                 timings[(name, label, backend)] = dev_ms
                 if backend == "cuda":
-                    k_ms, busy, tst = profile_steps(tstep, tst, cam, 20,
-                                                    f"{name}_kernel")
+                    per, busy, _, tst = profile_steps(
+                        tstep, tst, cam, 20, (f"{name}_kernel",))
+                    k_ms = per[f"{name}_kernel"]
                     print(f"[profile] {name} {label} backend=cuda: "
                           f"{name}_kernel "
                           + ("not measured (no device time in the profile)"
@@ -420,26 +703,173 @@ def main() -> int:
                 del tst, tstep
                 torch.cuda.empty_cache()
 
-    def row(name, route, source, replaces, n, err, tol, ms, plain_ms):
-        return {"name": name, "route": route, "source": source,
+    # --- the wavefront step: device and host time, each pass, the glue ----
+    wave = {}
+    kernel_names = {n: f"{n}_kernel" for n in wave_names}
+    for label, tcfg in (("10-tile", wcfg), ("whole-frame", wwhole)):
+        k = tcfg.effective_tiles_per_step
+        samples = k * tcfg.tile_height * tcfg.tile_width * tcfg.spp_per_step
+        for backend, (warm, n) in (("cuda", (3, 50)), ("torch", (1, 3))):
+            tstep = build_render_step(tcfg, scene, backend=backend,
+                                      device=dev)
+            tst = init_frame_state(tcfg, dev)
+            for _ in range(warm):
+                tst = tstep(tst, cam)
+            dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, n)
+            wave[(label, backend)] = dev_ms
+            if backend == "cuda":
+                per, busy, other, tst = profile_steps(
+                    tstep, tst, cam, 20, tuple(kernel_names.values()))
+                wave[(label, "passes")] = per
+                print(f"[profile] wavefront {label} backend=cuda: "
+                      + ", ".join(
+                          f"{n} " + ("not measured" if per[kn] is None else
+                                     f"{per[kn]:.4f} ms/launch")
+                          for n, kn in kernel_names.items())
+                      + ("" if other is None else
+                         f"; glue (every other kernel of the step) "
+                         f"{other:.4f} ms/step; device busy {busy:.3f} of "
+                         f"the span from first to last device event")
+                      + f" (torch.profiler); card: {card}", flush=True)
+            print(f"[timing] wavefront {label} ({k} tiles, {samples} "
+                  f"samples/step) backend={backend}: {dev_ms:.4f} ms/step "
+                  f"(CUDA events), {host_ms:.4f} ms/step (host clock to "
+                  f"sync), {samples / dev_ms / 1e3:.2f} Msamples/s; card: "
+                  f"{card}", flush=True)
+            del tst, tstep
+        # The glue alone (compaction + scatter-back) on this schedule's
+        # pass A output: 11 planes gathered, 3 scattered back.
+        s0 = scheduled_tiles(tiles, 0, k)
+        a0 = init_frame_state(tcfg, dev)
+        rays, colA, meta = wavefront_pass_a(tcfg, s0, cam, spheres, a0.accum)
+        contrib = torch.zeros((3, samples), device=dev)
+
+        def glue():
+            c = compact_survivors(rays, meta)
+            scatter_back(contrib, c[2], c[3])
+
+        glue_ms = timed_calls(glue, 3, 50)
+        glue_bytes = samples * 4 * (11 + 3)
+        print(f"[timing] wavefront {label} glue (compact_survivors + "
+              f"scatter_back): {glue_ms:.4f} ms/call (CUDA events), "
+              f"{glue_bytes} bytes of planes gathered and scattered "
+              f"({glue_bytes / glue_ms / 1e6:.1f} GB/s); card: {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    # --- each pass alone at the main path's 10-tile shape -----------------
+    k = wcfg.effective_tiles_per_step
+    s10 = scheduled_tiles(tiles, 0, k)
+    a10 = init_frame_state(wcfg, dev)
+    rays, colA, meta = wavefront_pass_a_plain(wcfg, s10, cam, spheres,
+                                              a10.accum)
+    comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
+    contrib = wavefront_pass_b_plain(wcfg, cam, spheres, comp, comp_meta,
+                                     n_alive)
+    back = scatter_back(contrib, perm, alive).view(colA.shape)
+    alive10 = int(n_alive[0])
+    scratch = init_frame_state(wcfg, dev)
+    pass_calls = {
+        "wavefront_pass_a": (
+            lambda: wavefront_pass_a(wcfg, s10, cam, spheres, a10.accum),
+            lambda: wavefront_pass_a_plain(wcfg, s10, cam, spheres,
+                                           a10.accum)),
+        "wavefront_pass_b": (
+            lambda: wavefront_pass_b(wcfg, cam, spheres, comp, comp_meta,
+                                     n_alive),
+            lambda: wavefront_pass_b_plain(wcfg, cam, spheres, comp,
+                                           comp_meta, n_alive)),
+        "wavefront_pass_c": (
+            lambda: wavefront_pass_c(wcfg, s10, colA, back, scratch.accum,
+                                     scratch.output),
+            lambda: wavefront_pass_c_plain(wcfg, s10, colA, back,
+                                           scratch.accum, scratch.output))}
+    pass_ms, pass_plain_ms = {}, {}
+    for name, (kernel_call, plain_call) in pass_calls.items():
+        pass_ms[name] = timed_calls(kernel_call, 3, 50)
+        pass_plain_ms[name] = timed_calls(plain_call, 1, 5)
+        profiled = wave[("10-tile", "passes")][kernel_names[name]]
+        print(f"[timing] {name} alone, 10-tile inputs ({alive10} of "
+              f"{alive.numel()} lanes alive, {alive10 / alive.numel():.4f}):"
+              f" kernel {pass_ms[name]:.4f} ms/call (CUDA events), "
+              + ("" if profiled is None else
+                 f"{profiled:.4f} ms/launch (torch.profiler, in the step), ")
+              + f"plain {pass_plain_ms[name]:.4f} ms/call; card: {card}",
+              flush=True)
+
+    # --- work counts and bounds ------------------------------------------
+    sphere_scene = (sphere_intersector(*spheres[:4]),
+                    sphere_anyhit(*spheres[:4]), spheres[4:7].T)
+    work10 = count_work(wcfg, s10, cam, a10.accum, sphere_scene, spheres)
+    bounds = sphere_bounds(work10, scene.count, k, alive10)
+    work_whole = count_work(wwhole, wsched, cam,
+                            init_frame_state(wwhole, dev).accum,
+                            sphere_scene, spheres)
+    bounds_whole = sphere_bounds(work_whole, scene.count,
+                                 wwhole.tile_count, na)
+    for label, w in (("10-tile", work10), ("whole-frame", work_whole)):
+        segs = (w["a_casts"] + w["b_casts"] + w["b_anyhit"]) / w["samples"]
+        iters = (w["a_sky_iters"] + w["b_sky_iters"]) / w["samples"]
+        print(f"[work] sphere default config, {label} step from zero state:"
+              f" {dict(w)}; mean path segments per sample {segs:.4f}, "
+              f"Mandelbrot iterations per sample {iters:.4f} (counted on "
+              f"the plain path)", flush=True)
+    tri10 = tri_cfg
+    ts10 = scheduled_tiles(tiles, 0, tri10.effective_tiles_per_step)
+    tri_intersect = triangle_intersector(tri_buf.soup)
+    work_tri = count_work(tri10, ts10, cam, init_frame_state(tri10, dev).accum,
+                          (tri_intersect, triangle_anyhit(tri_intersect),
+                           tri_buf.albedo.T))
+    m = tri_buf.mesh_bounds.shape[0]
+    tri_bytes = sum(getattr(tri_buf, f).numel() * 4 for f in (
+        "albedo", "mesh_bounds", "slab_count", "slab_bounds", "sub_bounds",
+        "tris", "attrs"))
+    bounds["triangle_pt"] = bound(
+        path_ops(work_tri, m * OPS["mesh_bound"] + OPS["nearest_fixed"])
+        + work_tri["b_anyhit"] * m * OPS["mesh_bound"]
+        + work_tri["pixels"] * OPS["accumulate"]
+        + work_tri["samples"] * OPS["sample_sum"],
+        work_tri["pixels"] * 44 + tri_bytes + 8 * ts10.shape[0])
+    bounds["uv_demo"] = bound(720 * 1280 * 12, 720 * 1280 * 12 + 4)
+    print(f"[bound] 10-tile step: { {n: (round(b, 6), by) for n, (b, by) in bounds.items()} }; "
+          f"whole-frame: { {n: (round(b, 6), by) for n, (b, by) in bounds_whole.items()} } "
+          f"(ms; fp32 {PEAK_FP32:.3g} op/s, {PEAK_BYTES:.3g} B/s); card: "
+          f"{card}", flush=True)
+
+    def row(name, source, replaces, n, err, tol, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "tolerance": tol, "ms": ms, "plain_ms": plain_ms}
+                "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None}
 
     frame_tol = "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3"
+    wave_src = "l2n_tpu_torch/csrc/wavefront.cu"
+    wave_rows = []
+    for name, line in zip(wave_names, (113, 194, 247)):
+        profiled = wave[("10-tile", "passes")][kernel_names[name]]
+        wave_rows.append(row(
+            name, wave_src, f"l2n_tpu/ops/kernels/wavefront.py:{line}",
+            wave_launches.get(name, 0), wave_err[name],
+            "meta bit-equal; RMSE < 1e-3" + (
+                ", output flips < 2e-3" if name.endswith("c") else ""),
+            pass_ms[name] if profiled is None else profiled,
+            pass_plain_ms[name]))
     print(json.dumps({"kernels": [
-        row("sphere_pt", "cuda", "l2n_tpu_torch/csrc/sphere_pt.cu",
+        row("sphere_pt", "l2n_tpu_torch/csrc/sphere_pt.cu",
             "l2n_tpu/ops/kernels/sphere_pt.py:214",
             sphere_launches.get("sphere_pt", 0), max_err, frame_tol,
             timings[("sphere_pt", "10-tile", "cuda")],
             timings[("sphere_pt", "10-tile", "torch")]),
-        row("uv_demo", "cuda", "l2n_tpu_torch/csrc/uv_demo.cu",
+        row("uv_demo", "l2n_tpu_torch/csrc/uv_demo.cu",
             "l2n_tpu/ops/kernels/uv_demo.py:22", uv_launches, uv_err,
             "max abs err <= 1e-5", uv_ms, uv_plain_ms),
-        row("triangle_pt", "cuda", "l2n_tpu_torch/csrc/triangle_pt.cu",
+        row("triangle_pt", "l2n_tpu_torch/csrc/triangle_pt.cu",
             "l2n_tpu/ops/kernels/triangle_pt.py:811",
             tri_launches.get("triangle_pt", 0), max(tri_err, tori_err),
             frame_tol, timings[("triangle_pt", "10-tile", "cuda")],
-            timings[("triangle_pt", "10-tile", "torch")])]}))
+            timings[("triangle_pt", "10-tile", "torch")]),
+        *wave_rows]}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

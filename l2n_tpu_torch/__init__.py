@@ -3,13 +3,16 @@
 The port of `l2n_tpu` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 The layout mirrors `l2n_tpu/`: the counterpart of `l2n_tpu/rng/threefry.py`
 is `l2n_tpu_torch/rng/threefry.py`, and so on. The JAX package is the
-reference each module is tested against; this package never imports jax.
-Its only import from `l2n_tpu` is `l2n_tpu.config.RenderConfig` (stdlib-only),
-so both packages read one config type and share goldens.
+reference each module is tested against; this package imports neither
+jax nor anything of `l2n_tpu`. Its `RenderConfig` (`config.py`) is its own
+copy of the JAX package's, with the same fields and JSON form, so the two
+packages read each other's configs and share goldens.
 
 Two render backends (`render.step.build_render_step`):
-  * "cuda"  — the hand-written CUDA kernel `csrc/sphere_pt.cu` over the
-    scheduled tiles, built with nvcc at first use (ops/kernels/build.py);
+  * "cuda"  — the hand-written CUDA kernels (`csrc/sphere_pt.cu`,
+    `csrc/triangle_pt.cu`, and `csrc/wavefront.cu` for
+    `RenderConfig(wavefront=True)`) over the scheduled tiles, built with
+    nvcc at first use (ops/kernels/build.py);
   * "torch" — the plain tensor version of the same step, the counterpart of
     the JAX package's XLA oracle; it runs on the CPU or on a CUDA device.
 
@@ -20,4 +23,4 @@ ROADMAP item that will port it (ops/kernels/common.check_supported).
 
 __version__ = "0.1.0"
 
-from l2n_tpu.config import RenderConfig  # noqa: F401
+from l2n_tpu_torch.config import RenderConfig  # noqa: F401

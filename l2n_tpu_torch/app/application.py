@@ -10,6 +10,10 @@ clear accumulation on camera move; save the pose on exit.
     python -m l2n_tpu_torch.app.application --renderer trianglePT ...
     python -m l2n_tpu_torch.app.application --obj scene.obj ...
     python -m l2n_tpu_torch.app.application --demo-scene torus-field ...
+    python -m l2n_tpu_torch.app.application --config cfg.json ...
+
+A `--config` JSON holds RenderConfig fields (l2n_tpu_torch/config.py);
+`{"wavefront": true}` renders spherePT through the wavefront step.
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ import time
 from pathlib import Path
 from typing import Callable, Iterable
 
-from l2n_tpu.config import RenderConfig
 from l2n_tpu_torch.camera import Camera, ControllerInput, ViewController
 from l2n_tpu_torch.camera.cache import load_view_matrix, save_view_matrix
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
 from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.scene.obj import load_obj

@@ -1,5 +1,5 @@
 // Per-pixel path body shared by the path-tracing kernels (csrc/sphere_pt.cu,
-// csrc/triangle_pt.cu).
+// csrc/triangle_pt.cu, csrc/wavefront.cu).
 //
 // Everything here is `__host__ __device__`: nvcc builds it into the CUDA
 // kernels, and the CPU tests build the same headers with g++
@@ -21,6 +21,11 @@
 // sequence along one path gives its addresses: pair 0 jitter, pair 1
 // hemisphere at bounce 0, pair 2 word 0 RR at bounce 0, pair 3 hemisphere
 // at bounce 1, pair 2 word 1 RR at bounce 1.
+//
+// One loop traces a path (trace_from); it can stop after the first vertex.
+// The fused kernels run it whole (trace_sample); the wavefront kernels
+// (csrc/wavefront.cu) run the first vertex in pass A (trace_primary) and
+// the rest in pass B (trace_continue), with the sampler resumed between.
 
 #pragma once
 
@@ -277,72 +282,105 @@ L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s,
   return true;
 }
 
-// Radiance of one sample along the primary ray (ox, oy, oz) + t (dx, dy, dz).
-// The tri-state `dist` of the lockstep tracer becomes control flow: an
-// emissive hit adds its emission and ends the path, a miss adds the sky,
-// Russian roulette ends it silently.
-template <class Scene>
-L2N_HD void trace_sample(const PtParams& p, const Scene& s, Sampler& rng,
-                         float ox, float oy, float oz, float dx, float dy,
-                         float dz, float col[3]) {
-  col[0] = col[1] = col[2] = 0.0f;
-  Hit h = s.nearest(ox, oy, oz, dx, dy, dz);
-  if (h.t == -1.0f) {  // primary miss: sky with throughput 1
-    const float le = env_le(p, dx, dy, dz);
-    col[0] = col[0] + 1.0f * le;
-    col[1] = col[1] + 1.0f * le;
-    col[2] = col[2] + 1.0f * le;
-    return;
-  }
-  if (h.index % p.emissive_every == 0) {
-    col[0] = col[1] = col[2] = emit_term(p, h.r2);
-    return;
-  }
-  float tp[3] = {1.0f, 1.0f, 1.0f};
-  // Vertex base: the JAX tracer places vertex 0 from the camera, vertex 1
-  // from the continuation origin, and later vertices from the previous
-  // vertex (its `box` carry); follow it exactly.
-  float bx = ox, by = oy, bz = oz;
-  for (int b = 0; b < p.max_bounces; ++b) {
-    const float hx = bx + h.t * dx, hy = by + h.t * dy, hz = bz + h.t * dz;
-    if (!scatter_and_roulette(p, s, rng, h, dx, dy, dz, tp)) return;
-    const float cx = hx + p.ray_epsilon * dx;
-    const float cy = hy + p.ray_epsilon * dy;
-    const float cz = hz + p.ray_epsilon * dz;
-    if (b + 1 == p.max_bounces) {  // last segment: any-hit, then sky
-      if (!s.anyhit(cx, cy, cz, dx, dy, dz)) {
-        const float le = env_le(p, dx, dy, dz);
-        col[0] = col[0] + tp[0] * le;
-        col[1] = col[1] + tp[1] * le;
-        col[2] = col[2] + tp[2] * le;
+// A path's pending cast: origin, direction and throughput (the wavefront
+// split's ray planes). A path with no cast left has its origin parked at
+// kFar, as the lockstep tracer does.
+constexpr float kFar = 3.0e30f;
+struct Continuation {
+  float ox, oy, oz;
+  float dx, dy, dz;
+  float tp[3];
+};
+
+// Trace a path from its pending cast c at iteration b (b = 0: the primary
+// ray, throughput 1), adding the radiance it finds to col. The tri-state
+// `dist` of the lockstep tracer (ops/pathtrace.py::trace_path) becomes
+// control flow: an emissive hit adds its emission and ends the path, a miss
+// adds the sky, Russian roulette ends it silently, and the cast of
+// iteration max_bounces - 1 takes an any-hit test, then the sky.
+// kFirstVertex stops after iteration b's scatter and returns whether the
+// path goes on, with its new cast in c; c keeps the scattered direction and
+// throughput of a path that roulette ended.
+template <bool kFirstVertex, class Scene>
+L2N_HD bool trace_from(const PtParams& p, const Scene& s, Sampler& rng, int b,
+                       Continuation& c, float col[3]) {
+  // Vertex base: the JAX tracer places vertices 0 and 1 from the cast
+  // origin (the camera, then the first cast) and later vertices from the
+  // previous vertex (its `box` carry); follow it.
+  float bx = c.ox, by = c.oy, bz = c.oz;
+  for (;; ++b) {
+    if (b == p.max_bounces) {  // last segment: any-hit, then sky
+      if (!s.anyhit(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz)) {
+        const float le = env_le(p, c.dx, c.dy, c.dz);
+        for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + c.tp[ch] * le;
       }
-      return;
+      return false;
     }
-    h = s.nearest(cx, cy, cz, dx, dy, dz);
+    const Hit h = s.nearest(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz);
     if (h.t == -1.0f) {
-      const float le = env_le(p, dx, dy, dz);
-      col[0] = col[0] + tp[0] * le;
-      col[1] = col[1] + tp[1] * le;
-      col[2] = col[2] + tp[2] * le;
-      return;
+      const float le = env_le(p, c.dx, c.dy, c.dz);
+      for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + c.tp[ch] * le;
+      return false;
     }
     if (h.index % p.emissive_every == 0) {
       const float e = emit_term(p, h.r2);
-      col[0] = col[0] + tp[0] * e;
-      col[1] = col[1] + tp[1] * e;
-      col[2] = col[2] + tp[2] * e;
-      return;
+      for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + c.tp[ch] * e;
+      return false;
     }
+    const float hx = bx + h.t * c.dx, hy = by + h.t * c.dy,
+                hz = bz + h.t * c.dz;
+    if (!scatter_and_roulette(p, s, rng, h, c.dx, c.dy, c.dz, c.tp))
+      return false;
+    c.ox = hx + p.ray_epsilon * c.dx;
+    c.oy = hy + p.ray_epsilon * c.dy;
+    c.oz = hz + p.ray_epsilon * c.dz;
     if (b == 0) {
-      bx = cx;
-      by = cy;
-      bz = cz;
+      bx = c.ox;
+      by = c.oy;
+      bz = c.oz;
     } else {
       bx = hx;
       by = hy;
       bz = hz;
     }
+    if (kFirstVertex) return true;
   }
+}
+
+// The first vertex of one sample along the primary ray (ox, oy, oz) + t (dx,
+// dy, dz) (ops/pathtrace.py::trace_wavefront_primary): col gets the primary
+// radiance (emission, or the sky of a miss; 0 at a diffuse hit), c the b=0
+// scatter's direction and throughput and, for a survivor of Russian
+// roulette, its cast origin; the others are parked at kFar. Returns true
+// when the path goes on.
+template <class Scene>
+L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Sampler& rng,
+                          float ox, float oy, float oz, float dx, float dy,
+                          float dz, float col[3], Continuation& c) {
+  col[0] = col[1] = col[2] = 0.0f;
+  c = Continuation{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
+  const bool alive = trace_from<true>(p, s, rng, 0, c, col);
+  if (!alive) c.ox = c.oy = c.oz = kFar;
+  return alive;
+}
+
+// The rest of a path from its first cast c: bounces 1 .. max_bounces-1 and
+// the last segment (ops/pathtrace.py::trace_wavefront_continue).
+template <class Scene>
+L2N_HD void trace_continue(const PtParams& p, const Scene& s, Sampler& rng,
+                           Continuation c, float col[3]) {
+  trace_from<false>(p, s, rng, 1, c, col);
+}
+
+// Radiance of one sample (ops/pathtrace.py::trace_path): the whole path in
+// one loop.
+template <class Scene>
+L2N_HD void trace_sample(const PtParams& p, const Scene& s, Sampler& rng,
+                         float ox, float oy, float oz, float dx, float dy,
+                         float dz, float col[3]) {
+  col[0] = col[1] = col[2] = 0.0f;
+  Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
+  trace_from<false>(p, s, rng, 0, c, col);
 }
 
 // The primary-only AOVs (ops/pathtrace.py::aov_tex_coords / aov_param_uv):
@@ -368,63 +406,77 @@ L2N_HD float safe_gamma(float x, float gamma) {
   return x <= 0.0f ? 0.0f : expf(gamma * logf(safe));
 }
 
-// Render `spp` samples of pixel (row, col) of the padded framebuffer and
-// update accum (4, Hp, Wp) and output (3, Hp, Wp) in place.
-template <class Scene>
-L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
-                         float* accum, float* output) {
-  const size_t plane =
-      static_cast<size_t>(p.padded_height) * static_cast<size_t>(p.padded_width);
-  const size_t pix =
-      static_cast<size_t>(row) * static_cast<size_t>(p.padded_width) + col;
-  const uint32_t pixel_index =
-      static_cast<uint32_t>(col + row * p.padded_width);
-  const float a3 = accum[3 * plane + pix];
-  const uint32_t sample_index =
-      static_cast<uint32_t>(static_cast<int32_t>(a3));
-  const float* cam = p.cam;
-  const float pos_x = cam[32], pos_y = cam[33], pos_z = cam[34];
-  const float ratio = cam[36], tan_half = cam[37];
+// The sampler of one sample of one pixel, at pair 0.
+L2N_HD Sampler make_sampler(const PtParams& p, uint32_t pixel_index,
+                            uint32_t sample_index) {
+  Sampler rng;
+  rng.k0 = p.seed;
+  rng.k1 = p.stream;
+  rng.pixel = pixel_index;
+  rng.base = sample_index * static_cast<uint32_t>(p.max_pairs);
+  rng.pair = 0;
+  rng.has_spare = false;
+  rng.spare = 0.0f;
+  return rng;
+}
 
-  float sum[3] = {0.0f, 0.0f, 0.0f};
-  for (int si = 0; si < p.spp; ++si) {
-    Sampler rng;
-    rng.k0 = p.seed;
-    rng.k1 = p.stream;
-    rng.pixel = pixel_index;
-    rng.base = (sample_index + static_cast<uint32_t>(si)) *
-               static_cast<uint32_t>(p.max_pairs);
-    rng.pair = 0;
-    rng.has_spare = false;
-    rng.spare = 0.0f;
-
-    float u1, u2;
-    rng.draw2(u1, u2);  // pixel jitter
-    // generate_rays, "fovy" form (ops/pathtrace.py).
-    const float sx = (static_cast<float>(col) + u1) * p.inv_width;
-    const float sy = (static_cast<float>(row) + u2) * p.inv_height;
-    const float ndx = -1.0f + 2.0f * sx;
-    const float ndy = -1.0f + 2.0f * sy;
-    const float vx = ndx * ratio * tan_half;
-    const float vy = ndy * tan_half;
-    const float vz = -1.0f;
-    float dx = cam[0] * vx + cam[1] * vy + cam[2] * vz + cam[3] - pos_x;
-    float dy = cam[4] * vx + cam[5] * vy + cam[6] * vz + cam[7] - pos_y;
-    float dz = cam[8] * vx + cam[9] * vy + cam[10] * vz + cam[11] - pos_z;
-    normalize3(dx, dy, dz);
-
-    float c[3];
-    if (p.aov == kAovPathtracing)
-      trace_sample(p, s, rng, pos_x, pos_y, pos_z, dx, dy, dz, c);
-    else
-      aov_sample(p, s, pos_x, pos_y, pos_z, dx, dy, dz, c);
-    sum[0] = sum[0] + c[0];
-    sum[1] = sum[1] + c[1];
-    sum[2] = sum[2] + c[2];
+// The same sampler in the middle of its sample (rng/sampler.py::
+// ThreefrySampler.resumed): the next fresh pair is next_pair and, with
+// has_spare, the second word of pair next_pair - 1 is pending, regenerated.
+L2N_HD Sampler resumed_sampler(const PtParams& p, uint32_t pixel_index,
+                               uint32_t sample_index, int next_pair,
+                               bool has_spare) {
+  Sampler rng = make_sampler(p, pixel_index, sample_index);
+  if (has_spare) {
+    rng.pair = static_cast<uint32_t>(next_pair - 1);
+    float unused;
+    rng.draw2(unused, rng.spare);
+    rng.has_spare = true;
+  } else {
+    rng.pair = static_cast<uint32_t>(next_pair);
   }
+  return rng;
+}
 
-  // accumulate + tonemap (ops/kernels/common.py::accumulate_and_tonemap).
-  const float n = a3 + static_cast<float>(p.spp);
+// Draw the pixel jitter and return the primary ray's direction
+// (ops/pathtrace.py::generate_rays, "fovy" form); the origin is the camera
+// position cam[32..34].
+L2N_HD void primary_direction(const PtParams& p, Sampler& rng, int row,
+                              int col, float& dx, float& dy, float& dz) {
+  const float* cam = p.cam;
+  float u1, u2;
+  rng.draw2(u1, u2);  // pixel jitter
+  const float sx = (static_cast<float>(col) + u1) * p.inv_width;
+  const float sy = (static_cast<float>(row) + u2) * p.inv_height;
+  const float ndx = -1.0f + 2.0f * sx;
+  const float ndy = -1.0f + 2.0f * sy;
+  const float vx = ndx * cam[36] * cam[37];
+  const float vy = ndy * cam[37];
+  const float vz = -1.0f;
+  dx = cam[0] * vx + cam[1] * vy + cam[2] * vz + cam[3] - cam[32];
+  dy = cam[4] * vx + cam[5] * vy + cam[6] * vz + cam[7] - cam[33];
+  dz = cam[8] * vx + cam[9] * vy + cam[10] * vz + cam[11] - cam[34];
+  normalize3(dx, dy, dz);
+}
+
+L2N_HD size_t pixel_offset(const PtParams& p, int row, int col) {
+  return static_cast<size_t>(row) * static_cast<size_t>(p.padded_width) + col;
+}
+
+L2N_HD size_t plane_size(const PtParams& p) {
+  return static_cast<size_t>(p.padded_height) *
+         static_cast<size_t>(p.padded_width);
+}
+
+// Add this step's `spp` samples `sum` to pixel (row, col) of accum (4, Hp,
+// Wp) and write its tonemapped output (3, Hp, Wp), in place
+// (ops/kernels/common.py::accumulate_and_tonemap).
+L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
+                             const float sum[3], float* accum,
+                             float* output) {
+  const size_t plane = plane_size(p);
+  const size_t pix = pixel_offset(p, row, col);
+  const float n = accum[3 * plane + pix] + static_cast<float>(p.spp);
   const float inv = 1.0f / n;
   for (int ch = 0; ch < 3; ++ch) {
     const float acc = accum[ch * plane + pix] + sum[ch];
@@ -432,6 +484,35 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
     output[ch * plane + pix] = safe_gamma(acc * inv, p.gamma);
   }
   accum[3 * plane + pix] = n;
+}
+
+// Render `spp` samples of pixel (row, col) of the padded framebuffer and
+// update accum and output in place.
+template <class Scene>
+L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
+                         float* accum, float* output) {
+  const uint32_t pixel_index =
+      static_cast<uint32_t>(col + row * p.padded_width);
+  const uint32_t sample_index = static_cast<uint32_t>(
+      static_cast<int32_t>(accum[3 * plane_size(p) + pixel_offset(p, row, col)]));
+  const float* cam = p.cam;
+
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+  for (int si = 0; si < p.spp; ++si) {
+    Sampler rng =
+        make_sampler(p, pixel_index, sample_index + static_cast<uint32_t>(si));
+    float dx, dy, dz;
+    primary_direction(p, rng, row, col, dx, dy, dz);
+    float c[3];
+    if (p.aov == kAovPathtracing)
+      trace_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
+    else
+      aov_sample(p, s, cam[32], cam[33], cam[34], dx, dy, dz, c);
+    sum[0] = sum[0] + c[0];
+    sum[1] = sum[1] + c[1];
+    sum[2] = sum[2] + c[2];
+  }
+  accumulate_pixel(p, row, col, sum, accum, output);
 }
 
 // Fill the parameter struct from the wrappers' arrays (layout documented in

@@ -103,6 +103,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.l2n_uv_demo.restype = ctypes.c_int
     lib.l2n_triangle_pt.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
     lib.l2n_triangle_pt.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.l2n_wavefront_pass_a.argtypes = [p] * 9
+    lib.l2n_wavefront_pass_b.argtypes = [p, p, i, i, p, p, p, p, p, p]
+    lib.l2n_wavefront_pass_c.argtypes = [p] * 8
+    for name in ("a", "b", "c"):
+        getattr(lib, f"l2n_wavefront_pass_{name}").restype = ctypes.c_int
     return lib
 
 

@@ -43,7 +43,6 @@ def check_supported(cfg) -> None:
         (cfg.ray_gen != "fovy",
          f"ray_gen={cfg.ray_gen!r} is ROADMAP Queue 1 #9"),
         (cfg.fast_math, "fast_math is ROADMAP Queue 1 #9"),
-        (cfg.wavefront, "wavefront is ROADMAP Queue 1 #13"),
         (cfg.aov in ("tex_coords", "param_uv") and not triangle,
          f"aov={cfg.aov!r} renders mesh texcoords/barycentrics; on the "
          "sphere scene it is ROADMAP Queue 1 #8"),
@@ -105,9 +104,10 @@ def check_camera(camera) -> np.ndarray:
     return camera
 
 
-def check_schedule(cfg, sched, accum, output) -> int:
-    """Validate the schedule and the frame planes a step kernel updates in
-    place; returns the number of scheduled tiles K."""
+def check_schedule(cfg, sched, accum, output=None) -> int:
+    """Validate the schedule and the frame planes a step kernel reads or
+    updates in place (`output` where it writes one); returns the number of
+    scheduled tiles K."""
     dev = accum.device if isinstance(accum, torch.Tensor) else None
     k = sched.shape[0] if isinstance(sched, torch.Tensor) else -1
     check_tensor("sched", sched, torch.int32, (k, 2), dev)
@@ -115,7 +115,8 @@ def check_schedule(cfg, sched, accum, output) -> int:
         raise ValueError(f"sched: {k} tiles, expected 1..{cfg.tile_count}")
     hp, wp = cfg.padded_height, cfg.padded_width
     check_tensor("accum", accum, torch.float32, (4, hp, wp), dev)
-    check_tensor("output", output, torch.float32, (3, hp, wp), dev)
+    if output is not None:
+        check_tensor("output", output, torch.float32, (3, hp, wp), dev)
     return k
 
 

@@ -16,6 +16,7 @@ divergent control flow (csrc/pathtrace.cuh).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -211,6 +212,81 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     return _finish_path(cfg, intersect, anyhit, albedo, sampler,
                         p_diffuse | p_miss, survive, dist, cast_o, bd, tp,
                         col)
+
+
+# The wavefront split (ops/kernels/wavefront.py): the same path integral as
+# trace_path, cut after the first vertex. Pass A runs trace_wavefront_primary
+# over every lane, pass B trace_wavefront_continue over the compacted
+# survivors. Both are built from the helpers trace_path uses, and pass B's
+# sampler resumes where pass A's stopped, so the image is trace_path's.
+
+# Lanes without a continuation ray have their cast origin parked at 3e30
+# (_scatter_and_roulette); a lane is alive iff cast_ox < this threshold.
+WAVEFRONT_FAR_THRESHOLD = 1.0e30
+
+
+def trace_wavefront_primary(cfg, intersect: IntersectFn, albedo, sampler,
+                            ox, oy, oz, dx, dy, dz):
+    """Pass A: primary cast, first-vertex resolve (emissive hit, primary
+    miss sky), b=0 scatter and Russian roulette.
+
+    Returns (col_r, col_g, col_b, cast_ox, cast_oy, cast_oz, bdx, bdy, bdz,
+    tp_r, tp_g, tp_b): the partial radiance and the continuation ray. The
+    JAX package's 13th output, the BSDF pdf, serves MIS only (not in the
+    port)."""
+    hit = intersect(ox, oy, oz, dx, dy, dz)
+    shape = dx.shape
+    o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
+    p_active = hit.t >= 0.0
+    p_emissive = p_active & (hit.index % cfg.emissive_every == 0)
+    p_diffuse = p_active & ~p_emissive
+    zero = torch.zeros(shape, dtype=dx.dtype, device=dx.device)
+    base = torch.where(p_emissive, _emit_term(cfg, hit.emis_r2), zero)
+    if cfg.env_mode != "none":
+        base = base + torch.where(hit.t == -1.0, _env_term(cfg, dx, dy, dz),
+                                  zero)
+    ones = torch.ones_like(zero)
+    _, bd, tp, _, cast_o = _scatter_and_roulette(
+        cfg, albedo, sampler, o, (dx, dy, dz), hit.t,
+        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones))
+    return (base, base, base, *cast_o, *bd, *tp)
+
+
+def trace_wavefront_continue(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
+                             albedo, sampler, cast_ox, cast_oy, cast_oz,
+                             bdx, bdy, bdz, tp_r, tp_g, tp_b):
+    """Pass B: finish the paths of compacted survivors from their pending
+    cast. Every lane is taken as alive (padding lanes compute values the
+    caller masks out). Returns only the bounce contribution (r, g, b); the
+    caller adds it to pass A's partial radiance."""
+    zeros = torch.zeros_like(bdx)
+    everyone = torch.ones(bdx.shape, dtype=torch.bool, device=bdx.device)
+    return _finish_path(cfg, intersect, anyhit, albedo, sampler, everyone,
+                        everyone, zeros, (cast_ox, cast_oy, cast_oz),
+                        (bdx, bdy, bdz), (tp_r, tp_g, tp_b),
+                        (zeros, zeros, zeros))
+
+
+@functools.cache
+def wavefront_draw_position(cfg) -> tuple[int, bool]:
+    """(next_pair, has_spare) of the threefry stream after pass A: the
+    resume point of pass B (ThreefrySampler.resumed). Read off a sampler
+    that ran pass A on a one-lane dummy after the pixel jitter; the lockstep
+    draw pattern does not depend on the scene or the data."""
+    from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
+
+    one = torch.ones((1,), dtype=torch.float32)
+    idx = torch.zeros((1,), dtype=torch.int64)
+
+    def miss(ox, oy, oz, dx, dy, dz) -> Hit:
+        return Hit(t=-one, nx=one, ny=one, nz=one, index=idx - 1, emis_r2=one)
+
+    sampler = ThreefrySampler(0, 0, idx, idx,
+                              max_pairs_per_sample(cfg.max_bounces))
+    sampler.draw2()  # the pixel jitter, drawn by the caller
+    trace_wavefront_primary(cfg, miss, torch.ones((1, 3)), sampler,
+                            one, one, one, one, one, one)
+    return sampler.draw_position
 
 
 def _magenta_on_miss(h: Hit, r, g):

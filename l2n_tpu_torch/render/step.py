@@ -12,6 +12,12 @@ Backends:
   * "torch" — the plain torch version of the same step on any device: the
     counterpart of the JAX package's XLA oracle, and what the CPU tests run.
 
+A sphere config with `wavefront=True` and the pathtracing AOV takes the
+wavefront step instead (ops/kernels/wavefront.py: three kernels, or their
+plain versions); a triangle config or another AOV ignores the flag and
+renders through its single-pass kernel, as the JAX package does
+(l2n_tpu/ops/kernels/__init__.py::build_pallas_step).
+
 The step updates the state's `accum` and `output` IN PLACE and returns a
 new FrameState sharing them with advanced counters (render/state.py).
 """
@@ -29,6 +35,10 @@ from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
     triangle_pt,
     triangle_pt_plain,
+)
+from l2n_tpu_torch.ops.kernels.wavefront import (
+    sphere_wavefront_step,
+    sphere_wavefront_step_plain,
 )
 from l2n_tpu_torch.render.state import FrameState
 from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
@@ -69,7 +79,11 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None):
         if not isinstance(scene, SphereScene):
             raise TypeError("sphere config needs a SphereScene")
         buffers = scene.packed().to(device)
-        kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
+        if cfg.wavefront and cfg.aov == "pathtracing":
+            kernel = (sphere_wavefront_step if backend == "cuda"
+                      else sphere_wavefront_step_plain)
+        else:
+            kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
     else:
         if not isinstance(scene, TriangleScene):
             raise TypeError("triangle config needs a TriangleScene")

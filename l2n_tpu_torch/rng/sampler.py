@@ -5,7 +5,8 @@ Draws are addressed, not consumed: pair k of sample s of pixel p is
 threefry(key=(seed, stream), counter=(p, s * max_pairs + k)). The lockstep
 plain path draws every pair for every lane; the CUDA kernel's per-thread
 sampler (csrc/sphere_pt.cuh) replays the same call sequence along its own
-path and so reads the same addresses.
+path and so reads the same addresses. `ThreefrySampler.resumed` picks a
+stream up in the middle of a sample (the wavefront step's pass B).
 """
 
 from __future__ import annotations
@@ -54,6 +55,29 @@ class ThreefrySampler:
             return u
         u, self._spare = self.draw2()
         return u
+
+    @classmethod
+    def resumed(cls, seed: int, stream: int, pixel_index: torch.Tensor,
+                sample_index: torch.Tensor, max_pairs: int, next_pair: int,
+                has_spare: bool) -> "ThreefrySampler":
+        """A sampler in the middle of a sample: the next fresh pair is
+        `next_pair`, and with `has_spare` the unused second word of pair
+        `next_pair - 1` is pending, regenerated (draws are addressed, so
+        evaluating a pair again is exact). The wavefront step's pass B
+        resumes each path's stream where pass A stopped."""
+        s = cls(seed, stream, pixel_index, sample_index, max_pairs)
+        if has_spare:
+            s._pair = next_pair - 1
+            _, s._spare = s.draw2()
+        else:
+            s._pair = next_pair
+        return s
+
+    @property
+    def draw_position(self) -> tuple[int, bool]:
+        """(next fresh pair, spare word pending): Python values, since the
+        lockstep tracer's draw pattern does not depend on the data."""
+        return self._pair, self._spare is not None
 
 
 def max_pairs_per_sample(max_bounces: int, nee: bool = False,

@@ -24,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from l2n_tpu.config import RenderConfig
 from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.envlight import mandelbrot_le
 from l2n_tpu_torch.ops.kernels.common import step_params
@@ -34,6 +34,14 @@ from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
     triangle_pt_plain,
 )
+from l2n_tpu_torch.ops.kernels.wavefront import (
+    compact_survivors,
+    scatter_back,
+    wavefront_pass_a_plain,
+    wavefront_pass_b_plain,
+    wavefront_pass_c_plain,
+)
+from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
 from l2n_tpu_torch.rng.threefry import threefry2x32
 from l2n_tpu_torch.scene import load_obj, torus_field_obj
@@ -65,6 +73,7 @@ CSRC = Path(__file__).resolve().parents[1] / "l2n_tpu_torch" / "csrc"
 SHIM = r"""
 #include "sphere_pt.cuh"
 #include "triangle_pt.cuh"
+#include "wavefront.cuh"
 
 template <class Scene>
 static void render_tiles(const l2n::PtParams& p, const Scene& s,
@@ -112,6 +121,43 @@ void l2n_mandelbrot_host(const float* d, float* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     out[i] = l2n::mandelbrot_le(d[i], d[n + i], d[2 * n + i]);
 }
+int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
+                              const int32_t* sched, const float* spheres,
+                              const float* accum, float* rays, float* col,
+                              int32_t* meta) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+  for (int k = 0; k < p.k; ++k)
+    for (int r = 0; r < p.tile_height; ++r)
+      for (int c = 0; c < p.tile_width; ++c)
+        l2n::wavefront_pass_a_pixel(p, s, k, r, c, sched, accum, rays, col,
+                                    meta);
+  return 0;
+}
+int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp,
+                              int next_pair, int has_spare,
+                              const int32_t* n_alive, const float* spheres,
+                              const float* rays, const int32_t* meta,
+                              float* contrib) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+  for (size_t lane = 0; lane < static_cast<size_t>(n_alive[0]); ++lane)
+    l2n::wavefront_pass_b_lane(p, s, next_pair, has_spare != 0, lane,
+                               l2n::lane_count(p), rays, meta, contrib);
+  return 0;
+}
+int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
+                              const int32_t* sched, const float* col,
+                              const float* back, float* accum,
+                              float* output) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  for (int k = 0; k < p.k; ++k)
+    for (int r = 0; r < p.tile_height; ++r)
+      for (int c = 0; c < p.tile_width; ++c)
+        l2n::wavefront_pass_c_pixel(p, k, r, c, sched, col, back, accum,
+                                    output);
+  return 0;
+}
 }
 """
 
@@ -136,6 +182,10 @@ def lib(tmp_path_factory):
     lib.l2n_threefry_host.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                       p, p, p, p, ctypes.c_int64]
     lib.l2n_mandelbrot_host.argtypes = [p, p, ctypes.c_int64]
+    i = ctypes.c_int
+    lib.l2n_wavefront_pass_a_host.argtypes = [p] * 8
+    lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, p, p, p, p, p]
+    lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
     return lib
 
 
@@ -226,6 +276,76 @@ def test_header_matches_plain_step(lib, case):
     rmse = np.sqrt(((ha - pa) ** 2).mean())
     assert rmse < 1e-3, f"host header / plain RMSE {rmse}"
     assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+@pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
+                                   {"max_bounces": 1}],
+                         ids=["reference", "spp2_bounces3", "bounces1"])
+def test_wavefront_header_matches_plain_passes(lib, extra):
+    """csrc/wavefront.cuh's per-lane pass A/B/C bodies against the plain
+    passes on the same inputs, pass by pass, over 2 steps of the aimed
+    config. Bit-equal: the meta planes, the partial radiance, the cast
+    origin and throughput planes, and pass C's accum. The rest differs only
+    through the C library's sinf/cosf/expf/logf against torch's vectorised
+    CPU ones (both within an ulp or two; on the card nvcc's and torch's are
+    the same functions, and chip_smoke.py expects max abs 0): the direction
+    planes to 1e-5 relative on under 1% of lanes, pass B's contributions
+    under the fused header test's gates, pass C's output to 1e-6."""
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, wavefront=True, **extra).validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    spheres = sc.packed()
+    tiles = torch.as_tensor(tile_grid(cfg))
+    k = cfg.effective_tiles_per_step
+    accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+    output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+    ip, fp = step_params(cfg, k, sc.count, cam)
+    next_pair, has_spare = wavefront_draw_position(cfg)
+    for i in range(2):
+        sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+        rays, col, meta = wavefront_pass_a_plain(cfg, sched, cam, spheres,
+                                                 accum)
+        h_rays, h_col, h_meta = (torch.empty_like(t) for t in (rays, col,
+                                                                meta))
+        assert lib.l2n_wavefront_pass_a_host(
+            _ptr(ip), _ptr(fp), *(_ptr(t.numpy()) for t in (
+                sched, spheres, accum, h_rays, h_col, h_meta))) == 0
+        np.testing.assert_array_equal(h_meta.numpy(), meta.numpy())
+        np.testing.assert_array_equal(h_col.numpy(), col.numpy())
+        for planes in (slice(0, 3), slice(6, 9)):  # origin, throughput
+            np.testing.assert_array_equal(h_rays[planes].numpy(),
+                                          rays[planes].numpy())
+        hd, d = h_rays[3:6].numpy(), rays[3:6].numpy()
+        np.testing.assert_allclose(hd, d, rtol=1e-5, atol=0)
+        assert (hd != d).any(0).mean() < 1e-2
+
+        comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
+        na = int(n_alive[0])
+        assert 0 < na < alive.numel()
+        contrib = wavefront_pass_b_plain(cfg, cam, spheres, comp, comp_meta,
+                                         n_alive)
+        h_contrib = torch.full_like(contrib, float("nan"))
+        assert lib.l2n_wavefront_pass_b_host(
+            _ptr(ip), _ptr(fp), next_pair, int(has_spare),
+            *(_ptr(t.numpy()) for t in (n_alive, spheres, comp, comp_meta,
+                                        h_contrib))) == 0
+        dc = (h_contrib[:, :na] - contrib[:, :na]).numpy()
+        assert np.sqrt((dc ** 2).mean()) < 1e-3
+        assert (np.abs(dc) > 1e-3).mean() < 2e-3
+        if cfg.max_bounces > 1:  # one bounce sees only the sky, occluded
+            assert contrib[:, :na].max() > 0  # survivors found light
+
+        back = scatter_back(contrib, perm, alive).view(col.shape)
+        h_accum, h_output = accum.clone(), output.clone()
+        assert lib.l2n_wavefront_pass_c_host(
+            _ptr(ip), _ptr(fp), *(_ptr(t.numpy()) for t in (
+                sched, col, back, h_accum, h_output))) == 0
+        wavefront_pass_c_plain(cfg, sched, col, back, accum, output)
+        np.testing.assert_array_equal(h_accum.numpy(), accum.numpy())
+        np.testing.assert_allclose(h_output.numpy(), output.numpy(), rtol=0,
+                                   atol=1e-6)
+    assert (accum[:3].amax(0) > 0).float().mean() > 0.3  # a lit frame
 
 
 TRI_CFG = RenderConfig(width=128, height=64, tile_width=128, tile_height=32,
@@ -319,8 +439,8 @@ def test_triangle_header_multi_slab_obj(lib):
 ASAN_RENDER = r"""
 import ctypes, sys
 import numpy as np, torch
-from l2n_tpu.config import RenderConfig
 from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.ops.kernels.common import step_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.render.tiles import tile_grid

@@ -11,16 +11,23 @@ from l2n_tpu.camera import Camera as JCamera
 from l2n_tpu.camera import ControllerInput as JInput
 from l2n_tpu.camera import ViewController as JController
 from l2n_tpu.camera.cache import save_view_matrix as jsave
-from l2n_tpu.config import RenderConfig
+from l2n_tpu.config import RenderConfig as JRenderConfig
 from l2n_tpu.maths import linalg as jlinalg
 from l2n_tpu.render import tiles as jtiles
 from l2n_tpu.scene.spheres import compute_spheres as jcompute
 from l2n_tpu.scene.spheres import spheres_disjoint as jdisjoint
 from l2n_tpu_torch.camera import Camera, ControllerInput, ViewController
 from l2n_tpu_torch.camera.cache import load_view_matrix
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths import linalg
 from l2n_tpu_torch.render import tiles
 from l2n_tpu_torch.scene.spheres import compute_spheres, spheres_disjoint
+
+
+def _jcfg(cfg):
+    """The JAX package's config for the same settings (the port's own
+    RenderConfig has the same JSON form)."""
+    return JRenderConfig.from_json(cfg.to_json())
 
 
 def _forget_port():
@@ -73,7 +80,7 @@ def test_packed_scene_layout():
                                  "tile_shuffle_seed": 3}])
 def test_tile_grid_byte_equal(kw):
     cfg = RenderConfig(**kw)
-    _bytes_equal(tiles.tile_grid(cfg), jtiles.tile_grid(cfg))
+    _bytes_equal(tiles.tile_grid(cfg), jtiles.tile_grid(_jcfg(cfg)))
 
 
 @pytest.mark.parametrize("tiles_per_step", [0, 7, 230])
@@ -89,7 +96,7 @@ def test_schedule_and_offset_equal(tiles_per_step):
         got = tiles.scheduled_tiles(tgrid, off_t, k).numpy()
         np.testing.assert_array_equal(got, want)
         off_t = tiles.advance_offset(cfg, off_t)
-        off_j = jtiles.advance_offset(cfg, off_j)
+        off_j = jtiles.advance_offset(_jcfg(cfg), off_j)
         assert off_t == int(off_j)
 
 
@@ -104,7 +111,7 @@ def test_camera_packed_byte_equal(pose):
     cfg = RenderConfig(width=320, height=200, fovy_deg=60.0)
     vm = None if pose == "default" else _look_at_view()
     _bytes_equal(Camera.from_config(cfg, vm).packed(),
-                 JCamera.from_config(cfg, vm).packed())
+                 JCamera.from_config(_jcfg(cfg), vm).packed())
 
 
 def test_linalg_byte_equal():

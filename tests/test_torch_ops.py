@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from l2n_tpu.camera import Camera as JCamera
-from l2n_tpu.config import RenderConfig
+from l2n_tpu.config import RenderConfig as JRenderConfig
 from l2n_tpu.maths import fastmath as jfastmath
 from l2n_tpu.maths import sampling as jsampling
 from l2n_tpu.ops import envlight as jenvlight
@@ -30,12 +30,19 @@ from l2n_tpu.ops import intersect as jintersect
 from l2n_tpu.ops import pathtrace as jpathtrace
 from l2n_tpu.ops.kernels.uv_demo import uv_demo as juv_demo
 from l2n_tpu.scene.spheres import compute_spheres as jcompute
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths import fastmath, sampling
 from l2n_tpu_torch.ops import envlight, intersect, pathtrace
 from l2n_tpu_torch.ops.kernels.common import launches
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.uv_demo import uv_demo, uv_demo_plain
 from l2n_tpu_torch.scene.spheres import compute_spheres
+
+
+def _jcfg(cfg):
+    """The JAX package's config for the same settings (the port's own
+    RenderConfig has the same JSON form)."""
+    return JRenderConfig.from_json(cfg.to_json())
 
 
 def _forget_port():
@@ -186,12 +193,12 @@ def test_frame_z_and_cosine_hemisphere():
 
 def test_generate_rays():
     cfg = RenderConfig(width=128, height=64)
-    cam = JCamera.from_config(cfg).packed()
+    cam = JCamera.from_config(_jcfg(cfg)).packed()
     gen = _gen(6)
     px = gen.integers(0, 128, N).astype(np.float32)
     py = gen.integers(0, 64, N).astype(np.float32)
     u1, u2 = gen.random((2, N), dtype=np.float32)
-    j = jpathtrace.generate_rays(cfg, jnp.asarray(cam), *(jnp.asarray(a) for a in
+    j = jpathtrace.generate_rays(_jcfg(cfg), jnp.asarray(cam), *(jnp.asarray(a) for a in
                                                           (px, py, u1, u2)))
     t = pathtrace.generate_rays(cfg, torch.from_numpy(cam),
                                 *(torch.from_numpy(a) for a in (px, py, u1, u2)))
@@ -234,7 +241,7 @@ def _step_inputs(cfg, device="cpu"):
                         device=device)
     output = torch.zeros((3, cfg.padded_height, cfg.padded_width),
                          device=device)
-    cam = JCamera.from_config(cfg).packed()
+    cam = JCamera.from_config(_jcfg(cfg)).packed()
     return sched, cam, sc.packed().to(device), accum, output
 
 

@@ -22,19 +22,26 @@ import jax
 import pytest
 import torch
 
-from l2n_tpu.config import RenderConfig
+from l2n_tpu.config import RenderConfig as JRenderConfig
 from l2n_tpu.render.state import init_frame_state as jinit
 from l2n_tpu.render.step import build_render_step as jbuild
 from l2n_tpu.scene.spheres import compute_spheres as jcompute
 from l2n_tpu_torch.app.application import Application
 from l2n_tpu_torch.app.display import PngSequenceDisplay
 from l2n_tpu_torch.camera import Camera, ControllerInput
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.render.program import SphereProgram
 from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.render.state import FrameState, init_frame_state
 from l2n_tpu_torch.render.step import build_render_step
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
+
+
+def _jcfg(cfg):
+    """The JAX package's config for the same settings (the port's own
+    RenderConfig has the same JSON form)."""
+    return JRenderConfig.from_json(cfg.to_json())
 
 
 def _forget_port():
@@ -86,8 +93,8 @@ def test_torch_step_matches_xla_oracle(extra):
                        emissive_every=2, **extra).validate()
     cam = _aimed_camera(cfg).packed()
     jscene = jcompute(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
-    jstep = jbuild(cfg, jscene, backend="xla")
-    jst = jinit(cfg)
+    jstep = jbuild(_jcfg(cfg), jscene, backend="xla")
+    jst = jinit(_jcfg(cfg))
     # Both packages step the same state: the JAX one, handed over as numpy.
     st = FrameState.from_numpy(np.asarray(jst.accum), np.asarray(jst.output),
                                int(jst.tile_offset), int(jst.iteration))
@@ -182,13 +189,43 @@ def test_backend_cuda_without_card_raises(monkeypatch):
     ({"nee": True}, "#9"), ({"material_mode": "microfacet"}, "#9"),
     ({"normal_map": 0.5}, "#9"), ({"fog_density": 0.01}, "#9"),
     ({"env_mode": "sun"}, "#9"), ({"ray_gen": "viewproj"}, "#9"),
-    ({"fast_math": True}, "#9"), ({"wavefront": True}, "#13"),
+    ({"fast_math": True}, "#9"),
+    # the id predates the wavefront port, when the flag was refused (#13);
+    # a sphere config now accepts it (item None: it builds and renders)
+    pytest.param({"wavefront": True}, None, id="kw9-#13"),
     # the id predates the triangle family, when this AOV was "#8/#9"
     pytest.param({"aov": "normal"}, "#9", id="kw10-#8/#9")])
 def test_unsupported_configs_raise(kw, item):
     cfg = RenderConfig(width=128, height=64, sphere_count=16, **kw)
+    if item is None:
+        step = build_render_step(cfg, compute_spheres(16), backend="torch")
+        st = step(init_frame_state(cfg), Camera.from_config(cfg).packed())
+        assert float(st.accum[3].sum()) == (cfg.effective_tiles_per_step
+                                            * cfg.tile_height * cfg.tile_width)
+        assert bool(torch.isfinite(st.accum).all())
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         build_render_step(cfg, compute_spheres(16), backend="torch")
+
+
+def test_sphere_wavefront_config_builds_and_renders():
+    """RenderConfig(wavefront=True) was refused (ROADMAP Queue 1 #13) until
+    the wavefront step was ported: a sphere config with it now builds and
+    renders the fused step's image, bit for bit (plain versions)."""
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2)
+    cam = _aimed_camera(cfg).packed()
+    scene = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    accums = []
+    for wavefront in (False, True):
+        step = build_render_step(cfg.replace(wavefront=wavefront), scene,
+                                 backend="torch")
+        st = init_frame_state(cfg)
+        for _ in range(2):
+            st = step(st, cam)
+        accums.append(st.accum.numpy())
+    np.testing.assert_array_equal(accums[1], accums[0])
+    assert (accums[1][:3].max(0) > 0).mean() > 0.3  # a lit frame
 
 
 def test_unsupported_program_options_raise(tmp_path):
@@ -201,7 +238,8 @@ def test_unsupported_program_options_raise(tmp_path):
 
 
 SLICE_MODULES = [
-    "l2n_tpu_torch", "l2n_tpu_torch.rng.threefry", "l2n_tpu_torch.rng.sampler",
+    "l2n_tpu_torch", "l2n_tpu_torch.config", "l2n_tpu_torch.rng.threefry",
+    "l2n_tpu_torch.rng.sampler",
     "l2n_tpu_torch.maths.linalg", "l2n_tpu_torch.maths.fastmath",
     "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.camera.camera",
     "l2n_tpu_torch.camera.cache", "l2n_tpu_torch.camera.view_controller",
@@ -214,7 +252,8 @@ SLICE_MODULES = [
     "l2n_tpu_torch.ops.kernels.common", "l2n_tpu_torch.ops.kernels.sphere_pt",
     "l2n_tpu_torch.ops.kernels.uv_demo",
     "l2n_tpu_torch.ops.kernels.triangle_pack",
-    "l2n_tpu_torch.ops.kernels.triangle_pt", "l2n_tpu_torch.render.step",
+    "l2n_tpu_torch.ops.kernels.triangle_pt",
+    "l2n_tpu_torch.ops.kernels.wavefront", "l2n_tpu_torch.render.step",
     "l2n_tpu_torch.render.program", "l2n_tpu_torch.render.renderer",
     "l2n_tpu_torch.utils.image", "l2n_tpu_torch.app.display",
     "l2n_tpu_torch.app.application"]
@@ -222,8 +261,8 @@ SLICE_MODULES = [
 
 def test_port_imports_without_jax():
     """The card's machine has no jax: every slice module imports with jax
-    made unimportable, and the only l2n_tpu modules loaded are the package
-    root and its config."""
+    made unimportable, and no module of the JAX package is loaded (the
+    port has its own config)."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -231,7 +270,7 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m)\n"
         "loaded = sorted(m for m in sys.modules if m == 'l2n_tpu' or "
         "m.startswith('l2n_tpu.'))\n"
-        "assert loaded == ['l2n_tpu', 'l2n_tpu.config'], loaded\n"
+        "assert loaded == [], loaded\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from l2n_tpu.config import RenderConfig
+from l2n_tpu.config import RenderConfig as JRenderConfig
 from l2n_tpu.ops.kernels.triangle_pt import pack_mesh_blocks as jpack_blocks
 from l2n_tpu.ops.kernels.triangle_pt import pack_slab_groups as jpack_groups
 from l2n_tpu.ops.intersect import intersect_triangle_scene as jintersect
@@ -30,6 +30,7 @@ from l2n_tpu.scene.procgen import torus_field_obj as jtorus_field
 from l2n_tpu.scene.procgen import trefoil_obj as jtrefoil
 from l2n_tpu_torch.app.application import Application, main
 from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.intersect import intersect_triangle_scene
 from l2n_tpu_torch.ops.kernels import build
@@ -58,6 +59,12 @@ from l2n_tpu_torch.scene import (
     torus_field_obj,
     trefoil_obj,
 )
+
+
+def _jcfg(cfg):
+    """The JAX package's config for the same settings (the port's own
+    RenderConfig has the same JSON form)."""
+    return JRenderConfig.from_json(cfg.to_json())
 
 
 def _forget_port():
@@ -289,8 +296,8 @@ def test_torch_triangle_step_matches_xla_oracle(aov):
     jscene = jbuild_triangles(jcompute(cfg.sphere_count, cfg.world_size,
                                        cfg.scene_seed),
                               cfg.disc_lat, cfg.disc_long)
-    jstep = jbuild(cfg, jscene, backend="xla")
-    jst = jinit(cfg)
+    jstep = jbuild(_jcfg(cfg), jscene, backend="xla")
+    jst = jinit(_jcfg(cfg))
     st = FrameState.from_numpy(np.asarray(jst.accum), np.asarray(jst.output),
                                int(jst.tile_offset), int(jst.iteration))
     step = build_render_step(
@@ -374,7 +381,10 @@ def test_switch_renderer_clears_accumulation(tmp_path):
 @pytest.mark.parametrize("kw,ok", [
     ({}, True), ({"aov": "tex_coords"}, True), ({"aov": "param_uv"}, True),
     ({"nee": True}, "#9"), ({"aov": "normal"}, "#9"),
-    ({"aov": "ambient_occlusion"}, "#9"), ({"wavefront": True}, "#13")])
+    ({"aov": "ambient_occlusion"}, "#9"),
+    # the id predates the wavefront port, when the flag was refused (#13);
+    # a triangle config now accepts it and renders single-pass
+    pytest.param({"wavefront": True}, True, id="kw6-#13")])
 def test_check_supported_triangle(kw, ok):
     cfg = _small_cfg(scene_kind="triangle", **kw)
     if ok is True:
@@ -385,6 +395,28 @@ def test_check_supported_triangle(kw, ok):
     if "aov" in kw and ok is True:  # the texcoord AOVs are mesh-only
         with pytest.raises(NotImplementedError, match="Queue 1 #8"):
             check_supported(cfg.replace(scene_kind="sphere"))
+
+
+def test_triangle_wavefront_flag_renders_single_pass():
+    """A triangle config ignores wavefront=True and renders through its
+    single-pass step, as the JAX package routes it: the same image, bit for
+    bit (aimed small config, 2 steps)."""
+    cfg = TRI_CFG
+    cam = _aimed_camera(cfg).packed()
+    scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
+                                                 cfg.world_size,
+                                                 cfg.scene_seed),
+                                 cfg.disc_lat, cfg.disc_long)
+    accums = []
+    for wavefront in (False, True):
+        step = build_render_step(cfg.replace(wavefront=wavefront), scene,
+                                 backend="torch")
+        st = init_frame_state(cfg)
+        for _ in range(2):
+            st = step(st, cam)
+        accums.append(st.accum.numpy())
+    np.testing.assert_array_equal(accums[1], accums[0])
+    assert (accums[1][:3].max(0) > 0).mean() > 0.05  # a lit frame
 
 
 def _step_inputs(cfg, device="cpu"):

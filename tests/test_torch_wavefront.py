@@ -1,0 +1,454 @@
+"""The wavefront sphere step of l2n_tpu_torch on the CPU (backend="torch"
+and the wrappers' plain versions), held against the JAX package and the
+port's own single-pass step.
+
+Inputs come from numpy with a seed. The JAX side runs op by op
+(`jax.disable_jit`, as tests/test_torch_render.py explains). The JAX
+package's own wavefront step, a Pallas kernel in interpret mode, is not
+run here: tests/test_kernels.py::TestWavefront holds it equal to the JAX
+single pass and the XLA oracle, which this file holds the port against.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from l2n_tpu.config import RenderConfig as JRenderConfig
+from l2n_tpu.ops import pathtrace as jpathtrace
+from l2n_tpu.ops.scenes import sphere_anyhit as jsphere_anyhit
+from l2n_tpu.ops.scenes import sphere_intersector as jsphere_intersector
+from l2n_tpu.render.state import init_frame_state as jinit
+from l2n_tpu.render.step import build_render_step as jbuild
+from l2n_tpu.rng import sampler as jsampler
+from l2n_tpu.scene.spheres import compute_spheres as jcompute
+from l2n_tpu_torch.app.application import main
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.maths.linalg import look_at
+from l2n_tpu_torch.ops import pathtrace
+from l2n_tpu_torch.ops.kernels import wavefront as wf
+from l2n_tpu_torch.ops.kernels.common import launches
+from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
+from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
+from l2n_tpu_torch.render.state import FrameState, init_frame_state
+from l2n_tpu_torch.render.step import build_render_step
+from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+from l2n_tpu_torch.rng import sampler as tsampler
+from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
+
+
+def _forget_port():
+    """Drop the port's modules from sys.modules; this file keeps its own
+    bindings. tests/test_aot_cache.py asserts that every loaded module
+    named "l2n_tpu*" lies in the JAX package's AOT digest scope, and every
+    xdist worker imports every test file, so the port (a separate package
+    whose name shares that prefix) must not stay loaded."""
+    for name in [m for m in sys.modules if m.startswith("l2n_tpu_torch")]:
+        del sys.modules[name]
+
+
+_forget_port()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_unloaded_after_module():
+    yield
+    _forget_port()
+
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN = REPO / "tests" / "golden" / "sphere_pt_256x128_4spp.npz"
+SMALL = dict(width=128, height=64, sphere_count=16, emissive_every=2)
+
+
+def _jcfg(cfg):
+    return JRenderConfig.from_json(cfg.to_json())
+
+
+def _gen(seed):
+    return np.random.Generator(np.random.PCG64(seed))
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _aimed_camera(cfg):
+    """Between a diffuse (odd) sphere and its nearest emissive (even) one,
+    looking at the diffuse one: a lit frame (tests/test_brdf.py's aim)."""
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    c = np.stack([sc.center_x.numpy(), sc.center_y.numpy(),
+                  sc.center_z.numpy()], 1)
+    r = np.sqrt(sc.sqr_radius.numpy())
+    odd, even = np.arange(1, cfg.sphere_count, 2), np.arange(0, cfg.sphere_count, 2)
+    dm = np.linalg.norm(c[odd][:, None] - c[even][None], axis=2)
+    oi, ei = np.unravel_index(np.argmin(dm), dm.shape)
+    j, e = odd[oi], even[ei]
+    to_e = (c[e] - c[j]) / np.linalg.norm(c[e] - c[j])
+    eye = c[j] + to_e * 5.0 * r[j]
+    vm = look_at(eye.astype(np.float32), c[j].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm)
+
+
+# ---------------------------------------------------------------------------
+# The sampler's resume point
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("next_pair,has_spare", [(3, True), (3, False),
+                                                 (1, True), (5, False)])
+def test_sampler_resumed_bit_exact(next_pair, has_spare):
+    """ThreefrySampler.resumed and draw_position against the JAX package's
+    on random keys, pixels and samples: every draw bit-equal."""
+    gen = _gen(31 + next_pair)
+    seed, stream = (int(v) for v in gen.integers(0, 2**32, 2))
+    pix = gen.integers(0, 2**32, 4096, dtype=np.uint32)
+    samp = gen.integers(0, 10_000, 4096).astype(np.uint32)
+    mp = jsampler.max_pairs_per_sample(3)
+    js = jsampler.ThreefrySampler.resumed(seed, stream, jnp.asarray(pix),
+                                          jnp.asarray(samp), mp, next_pair,
+                                          has_spare)
+    ts = tsampler.ThreefrySampler.resumed(seed, stream, _t(pix), _t(samp),
+                                          mp, next_pair, has_spare)
+    assert ts.draw_position == js.draw_position == (next_pair, has_spare)
+    for call in ("draw1", "draw2", "draw1", "draw1"):
+        j = getattr(js, call)()
+        t = getattr(ts, call)()
+        j = j if isinstance(j, tuple) else (j,)
+        t = t if isinstance(t, tuple) else (t,)
+        for a, b in zip(j, t):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        assert ts.draw_position == js.draw_position
+
+
+@pytest.mark.parametrize("max_bounces", [1, 2, 3])
+def test_wavefront_draw_position_matches_jax(max_bounces):
+    """Jitter pair 0, hemisphere pair 1, RR on pair 2 with its second word
+    pending: (3, True) whatever the depth, as the JAX package finds it."""
+    cfg = RenderConfig(max_bounces=max_bounces, **SMALL)
+    jscene = jcompute(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    want = jpathtrace.wavefront_draw_position(_jcfg(cfg),
+                                              jsphere_intersector(jscene))
+    assert pathtrace.wavefront_draw_position(cfg) == tuple(want) == (3, True)
+
+
+# ---------------------------------------------------------------------------
+# The split path functions, op by op against JAX's
+# ---------------------------------------------------------------------------
+
+N_LANES = 20_000
+
+
+def _primary_inputs(cfg, seed):
+    """Random pixels of the aimed view with random pixel and sample
+    indices: the same threefry-jittered primary rays on both sides."""
+    gen = _gen(seed)
+    px = gen.integers(0, cfg.width, N_LANES).astype(np.float32)
+    py = gen.integers(0, cfg.height, N_LANES).astype(np.float32)
+    pix = gen.integers(0, 2**32, N_LANES, dtype=np.uint32)
+    samp = gen.integers(0, 1000, N_LANES).astype(np.uint32)
+    return _aimed_camera(cfg).packed(), px, py, pix, samp
+
+
+def _run_jax_primary(cfg, cam, px, py, pix, samp):
+    jscene = jcompute(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    mp = jsampler.max_pairs_per_sample(cfg.max_bounces)
+    with jax.disable_jit():
+        s = jsampler.ThreefrySampler(cfg.seed, 0, jnp.asarray(pix),
+                                     jnp.asarray(samp), mp)
+        rays = jpathtrace.generate_rays(_jcfg(cfg), jnp.asarray(cam),
+                                        jnp.asarray(px), jnp.asarray(py),
+                                        *s.draw2())
+        out = jpathtrace.trace_wavefront_primary(
+            _jcfg(cfg), jsphere_intersector(jscene), s, *rays)
+    return [np.broadcast_to(np.asarray(a), (N_LANES,)) for a in out[:12]]
+
+
+def _port_scene(cfg):
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    cx, cy, cz, r2 = sc.center_x, sc.center_y, sc.center_z, sc.sqr_radius
+    return (sphere_intersector(cx, cy, cz, r2), sphere_anyhit(cx, cy, cz, r2),
+            sc.albedo)
+
+
+@pytest.mark.parametrize("extra", [{}, {"env_mode": "none"}],
+                         ids=["reference", "env_none"])
+def test_trace_wavefront_primary_matches_jax(extra):
+    """All 12 outputs bit-equal (radiance, cast origin, throughput) except
+    the scattered direction, where torch's and XLA's CPU sin/cos differ by
+    an ulp on a few lanes: at most 1.2e-7 on under 1% of lanes. The cast
+    origin absorbs that ulp (eps * d rounds away)."""
+    cfg = RenderConfig(max_bounces=3, **SMALL, **extra)
+    cam, px, py, pix, samp = _primary_inputs(cfg, 41)
+    want = _run_jax_primary(cfg, cam, px, py, pix, samp)
+    intersect, _, albedo = _port_scene(cfg)
+    s = tsampler.ThreefrySampler(cfg.seed, 0, _t(pix), _t(samp),
+                                 tsampler.max_pairs_per_sample(3))
+    rays = pathtrace.generate_rays(cfg, torch.from_numpy(cam),
+                                   torch.from_numpy(px), torch.from_numpy(py),
+                                   *s.draw2())
+    got = pathtrace.trace_wavefront_primary(cfg, intersect, albedo, s, *rays)
+    assert len(got) == 12
+    got = [np.broadcast_to(a.numpy(), (N_LANES,)) for a in got]
+    for i in (0, 1, 2, 3, 4, 5, 9, 10, 11):
+        np.testing.assert_array_equal(got[i], want[i], err_msg=str(i))
+    for i in (6, 7, 8):
+        d = np.abs(got[i] - want[i])
+        assert d.max() <= 1.2e-7 and (d > 0).mean() < 1e-2
+    alive = want[3] < pathtrace.WAVEFRONT_FAR_THRESHOLD
+    assert 0.02 < alive.mean() < 0.5  # survivors and dead lanes alike
+    # primary emission, and the sky unless it is off
+    assert (want[0] > 0).mean() > (1e-3 if extra else 0.05)
+
+
+@pytest.mark.parametrize("max_bounces", [1, 2, 3])
+def test_trace_wavefront_continue_matches_jax(max_bounces):
+    """Pass B's path function on the survivors of JAX's pass A, each side
+    with its own resumed sampler: the contributions bit-equal."""
+    cfg = RenderConfig(max_bounces=max_bounces, **SMALL)
+    cam, px, py, pix, samp = _primary_inputs(cfg, 43)
+    primary = _run_jax_primary(cfg, cam, px, py, pix, samp)
+    alive = primary[3] < pathtrace.WAVEFRONT_FAR_THRESHOLD
+    planes = [np.ascontiguousarray(a[alive]) for a in primary[3:12]]
+    mp = jsampler.max_pairs_per_sample(max_bounces)
+    jscene = jcompute(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    with jax.disable_jit():
+        js = jsampler.ThreefrySampler.resumed(
+            cfg.seed, 0, jnp.asarray(pix[alive]), jnp.asarray(samp[alive]),
+            mp, 3, True)
+        want = jpathtrace.trace_wavefront_continue(
+            _jcfg(cfg), jsphere_intersector(jscene), js,
+            *(jnp.asarray(a) for a in planes),
+            intersect_anyhit=jsphere_anyhit(jscene))
+    intersect, anyhit, albedo = _port_scene(cfg)
+    ts = tsampler.ThreefrySampler.resumed(cfg.seed, 0, _t(pix[alive]),
+                                          _t(samp[alive]), mp, 3, True)
+    got = pathtrace.trace_wavefront_continue(
+        cfg, intersect, anyhit, albedo, ts,
+        *(torch.from_numpy(a) for a in planes))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # survivors found light (with one bounce only the sky, mostly occluded)
+    assert (np.asarray(want[0]) > 0).mean() > (0.05 if max_bounces > 1
+                                               else 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The compaction
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("alive_fraction", [0.0, 0.2, 0.5, 1.0])
+def test_compact_survivors_matches_jax_formula(alive_fraction):
+    """perm equals the JAX package's formula (wavefront.py's
+    kernel_step) on a random alive mask; the dense prefix holds the alive
+    lanes in lane order, and scatter_back returns each lane's value or 0."""
+    gen = _gen(int(alive_fraction * 10) + 51)
+    n = 4 * 4096
+    alive = gen.random(n) < alive_fraction
+    rays = gen.normal(size=(9, n)).astype(np.float32)
+    rays[0] = np.where(alive, rays[0], np.float32(3.0e30))
+    meta = gen.integers(-2**31, 2**31, (2, n)).astype(np.int32)
+    comp, comp_meta, perm, t_alive, n_alive = wf.compact_survivors(
+        torch.from_numpy(rays).view(9, 4, 64, 64),
+        torch.from_numpy(meta).view(2, 4, 64, 64))
+
+    ja = jnp.asarray(alive)
+    csum = jnp.cumsum(ja.astype(jnp.int32))
+    jn = csum[-1:]
+    iota = jnp.arange(n, dtype=jnp.int32)
+    jperm = jnp.where(ja, csum - 1, jn[0] + iota - (csum - 1) - 1)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    np.testing.assert_array_equal(t_alive.numpy(), alive)
+    assert n_alive.dtype == torch.int32 and int(n_alive[0]) == alive.sum()
+    na = int(alive.sum())
+    np.testing.assert_array_equal(comp[:, :na].numpy(), rays[:, alive])
+    np.testing.assert_array_equal(comp_meta[:, :na].numpy(), meta[:, alive])
+    np.testing.assert_array_equal(comp.numpy()[:, perm.numpy()], rays)
+
+    contrib = torch.full((3, n), float("nan"))
+    contrib[:, :na] = torch.from_numpy(rays[3:6, alive])
+    back = wf.scatter_back(contrib, perm, t_alive).numpy()
+    np.testing.assert_array_equal(back, np.where(alive, rays[3:6], 0.0))
+
+
+def test_compaction_reads_nothing_back():
+    """The compaction and the scatter-back run on the meta device, which
+    holds shapes and no data: none of their operations reads a value back
+    to the host (no .item(), no nonzero, no int(n_alive))."""
+    rays = torch.empty((9, 2, 32, 128), device="meta")
+    meta = torch.empty((2, 2, 32, 128), dtype=torch.int32, device="meta")
+    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(rays, meta)
+    assert comp.shape == (9, 8192) and comp_meta.shape == (2, 8192)
+    assert perm.shape == alive.shape == (8192,) and n_alive.shape == (1,)
+    back = wf.scatter_back(torch.empty((3, 8192), device="meta"), perm, alive)
+    assert back.shape == (3, 8192) and back.device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
+                                   {"max_bounces": 1}],
+                         ids=["reference", "spp2_bounces3", "bounces1"])
+def test_wavefront_step_matches_single_pass_and_xla_oracle(extra):
+    """4 steps of the aimed small config through build_render_step(...,
+    backend="torch"): the wavefront step is bit-equal to the port's single
+    pass; against the JAX XLA step (op by op) accum[3] is equal, accum RMSE
+    < 1e-3 and output flips < 2e-3 (0 expected: the gates of
+    tests/test_torch_render.py)."""
+    cfg = RenderConfig(**SMALL, **extra).validate()
+    cam = _aimed_camera(cfg).packed()
+    jscene = jcompute(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    jstep = jbuild(_jcfg(cfg), jscene, backend="xla")
+    jst = jinit(_jcfg(cfg))
+    with jax.disable_jit():
+        for _ in range(4):
+            jst = jstep(jst, cam)
+    ja, jo = np.asarray(jst.accum), np.asarray(jst.output)
+    scene = SphereScene.from_numpy(jscene.center_x, jscene.center_y,
+                                   jscene.center_z, jscene.sqr_radius)
+    states = []
+    for wavefront in (True, False):
+        step = build_render_step(cfg.replace(wavefront=wavefront), scene,
+                                 backend="torch", device="cpu")
+        st = FrameState.from_numpy(np.zeros_like(ja), np.zeros_like(jo))
+        for _ in range(4):
+            st = step(st, cam)
+        states.append(st.to_numpy())
+    (wa, wo, offset, iteration), (sa, so, _, _) = states
+    np.testing.assert_array_equal(wa, sa)
+    np.testing.assert_array_equal(wo, so)
+    assert (offset, iteration) == (int(jst.tile_offset), int(jst.iteration))
+    assert (ja[:3].max(0) > 0).mean() > 0.3  # real lit coverage
+    np.testing.assert_array_equal(wa[3], ja[3])
+    assert np.sqrt(((wa - ja) ** 2).mean()) < 1e-3
+    assert (np.abs(wo - jo) > 1e-3).mean() < 2e-3
+
+
+def test_wavefront_step_matches_sphere_golden():
+    """The sphere golden (the jitted XLA oracle, 256x128, 4 whole-frame
+    steps, 128 spheres) through RenderConfig(wavefront=True), with
+    tests/test_golden_render.py's cross-implementation gates."""
+    with np.load(GOLDEN) as data:
+        cfg = RenderConfig.from_json(bytes(data["config"]).decode())
+        want = data["accum"]
+    cfg = cfg.replace(wavefront=True)
+    step = build_render_step(cfg, compute_spheres(
+        cfg.sphere_count, cfg.world_size, cfg.scene_seed), backend="torch")
+    st = init_frame_state(cfg)
+    cam = Camera.from_config(cfg).packed()
+    for _ in range(4):
+        st = step(st, cam)
+    got = st.accum.numpy()
+    np.testing.assert_array_equal(got[3], want[3])
+    assert (np.abs(got - want) > 1e-3).mean() < 0.03
+    mean_diff = np.abs(got[:3] / np.maximum(got[3], 1)
+                       - want[:3] / np.maximum(want[3], 1))
+    assert np.sqrt((mean_diff ** 2).mean()) < 0.03
+
+
+def _pass_inputs(cfg):
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    k = cfg.effective_tiles_per_step
+    sched = scheduled_tiles(torch.as_tensor(tile_grid(cfg)), 0, k)
+    st = init_frame_state(cfg)
+    st.accum[3] = 5.0
+    return sched, _aimed_camera(cfg).packed(), sc.packed(), st.accum, st.output
+
+
+def test_wavefront_wrappers_cpu_are_plain():
+    """On CPU tensors each pass's wrapper runs its plain version (no
+    launch counted), and the step chains them: the fused step's image."""
+    cfg = RenderConfig(spp_per_step=2, **SMALL).validate()
+    sched, cam, spheres, accum, output = _pass_inputs(cfg)
+    before = dict(launches)
+    a = wf.wavefront_pass_a(cfg, sched, cam, spheres, accum)
+    b = wf.wavefront_pass_a_plain(cfg, sched, cam, spheres, accum)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert a[0].shape == (9, 1, 64, 128) and a[2].dtype == torch.int32
+    # meta: pixel index = col + row * padded width, sample = count + s
+    np.testing.assert_array_equal(a[2][1, 0, :32].numpy(), 5)
+    np.testing.assert_array_equal(a[2][1, 0, 32:].numpy(), 6)
+    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(a[0], a[2])
+    c1 = wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta, n_alive)
+    c2 = wf.wavefront_pass_b_plain(cfg, cam, spheres, comp, comp_meta,
+                                   n_alive)
+    np.testing.assert_array_equal(c1.numpy(), c2.numpy())
+    back = wf.scatter_back(c1, perm, alive).view(a[1].shape)
+    acc1, out1 = accum.clone(), output.clone()
+    wf.wavefront_pass_c(cfg, sched, a[1], back, acc1, out1)
+    wf.wavefront_pass_c_plain(cfg, sched, a[1], back, accum, output)
+    np.testing.assert_array_equal(acc1.numpy(), accum.numpy())
+    np.testing.assert_array_equal(out1.numpy(), output.numpy())
+    # the whole step against the fused plain step from the same state
+    st2, st3 = _pass_inputs(cfg)[3:], _pass_inputs(cfg)[3:]
+    wf.sphere_wavefront_step(cfg, sched, cam, spheres, *st2)
+    sphere_pt_plain(cfg, sched, cam, spheres, *st3)
+    np.testing.assert_array_equal(st2[0].numpy(), st3[0].numpy())
+    assert (st2[0][3] == 7).sum() == 32 * 128
+    assert dict(launches) == before  # plain versions are no launches
+
+
+def test_wavefront_wrapper_checks():
+    cfg = RenderConfig(**SMALL).validate()
+    sched, cam, spheres, accum, output = _pass_inputs(cfg)
+    with pytest.raises(TypeError, match="sched"):
+        wf.wavefront_pass_a(cfg, sched.long(), cam, spheres, accum)
+    with pytest.raises(ValueError, match="camera"):
+        wf.wavefront_pass_a(cfg, sched, cam[:9], spheres, accum)
+    with pytest.raises(ValueError, match="no kernel"):
+        wf.wavefront_pass_a(cfg, sched.to("meta"), cam, spheres.to("meta"),
+                            accum.to("meta"))
+    rays, col, meta = wf.wavefront_pass_a(cfg, sched, cam, spheres, accum)
+    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(rays, meta)
+    with pytest.raises(TypeError, match="n_alive"):
+        wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta,
+                            n_alive.long())
+    with pytest.raises(ValueError, match="whole tiles"):
+        wf.wavefront_pass_b(cfg, cam, spheres, comp[:, :100].contiguous(),
+                            comp_meta[:, :100].contiguous(), n_alive)
+    with pytest.raises(TypeError, match="meta"):
+        wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta.float(),
+                            n_alive)
+    with pytest.raises(ValueError, match="back"):
+        wf.wavefront_pass_c(cfg, sched, col, col[:, :, :16], accum, output)
+    with pytest.raises(ValueError, match="output"):
+        wf.wavefront_pass_c(cfg, sched, col, col, accum, output[:, :32])
+    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+        wf.wavefront_pass_a(cfg.replace(nee=True), sched, cam, spheres,
+                            accum)
+    with pytest.raises(NotImplementedError, match="Philox"):
+        build_render_step(cfg.replace(wavefront=True, rng="tpu_hw"),
+                          compute_spheres(16), backend="torch")
+    with pytest.raises(ValueError, match="stateless"):
+        build_render_step(cfg.replace(wavefront=True, rng="tinymt"),
+                          compute_spheres(16), backend="torch")
+
+
+def test_wavefront_cli_config(tmp_path):
+    """The path a user reaches with `--config` holding "wavefront": true:
+    the CLI renders it (plain versions), and the frames equal the CLI's
+    single-pass frames."""
+    images = []
+    for wavefront in (True, False):
+        cfg = RenderConfig(wavefront=wavefront, **SMALL)
+        path = tmp_path / f"cfg_{wavefront}.json"
+        path.write_text(cfg.to_json())
+        assert json.loads(path.read_text())["wavefront"] is wavefront
+        out = tmp_path / f"frames_{wavefront}"
+        assert main(["--config", str(path), "--frames", "2", "--out",
+                     str(out), "--every", "1", "--backend", "torch",
+                     "--renderer", "spherePT"]) == 0
+        pngs = sorted(out.glob("*.png"))
+        assert [p.name for p in pngs] == ["frame_00000.png",
+                                          "frame_00001.png"]
+        images.append([p.read_bytes() for p in pngs])
+    assert images[0] == images[1]
