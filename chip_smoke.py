@@ -3,8 +3,11 @@ from this checkout, holds each against its plain torch version and the
 JAX package's recorded goldens, drives the main paths (Application ->
 Renderer -> SphereProgram / TriangleProgram -> render step -> sphere_pt,
 triangle_pt, or the wavefront step's three kernels) at the default
-1280x720 config, and times kernel and plain versions beside the least time
-the card could take for the same work.
+1280x720 config with every rng mode (threefry; tpu_hw, which is Philox on
+the card; the stateful tinymt and tauslcg), runs the tpu_hw statistical
+gates on the raw-bits kernel philox_bits and on renders, and times kernel
+and plain versions beside the least time the card could take for the same
+work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -111,6 +114,14 @@ def profile_steps(step, state, cam, n: int, kernels):
     return per, busy, other, state
 
 
+def profile_calls(fn, n: int, kernel: str):
+    """Device ms per launch of `kernel` over n calls of fn(), from
+    torch.profiler; None if it recorded no device time."""
+    per, _, _, _ = profile_steps(lambda state, cam: fn(), None, None, n,
+                                 (kernel,))
+    return per[kernel]
+
+
 def compare(kacc, kout, pacc, pout, cfg):
     """Kernel vs plain gates of a frame: accum[3] equal, accum RMSE < 1e-3,
     output flip fraction < 2e-3, lit coverage > 5%. Returns (rmse, max abs,
@@ -140,8 +151,9 @@ def golden_gates(got, want):
 
 
 def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
-    """Render `steps` whole-frame steps with the kernel and with its plain
-    version from zeroed states; returns the gates of `compare`."""
+    """Render `steps` steps with the kernel and with its plain version from
+    fresh states; returns the gates of `compare` and whether the rng state
+    planes ended bit-equal (None for the counter-based modes)."""
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
     dev = torch.device("cuda")
@@ -151,11 +163,14 @@ def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
     pa = init_frame_state(cfg, dev)
     for i in range(steps):
         sched = scheduled_tiles(tiles, i * k % cfg.tile_count, k)
-        kernel(cfg, sched, cam, buffers, ka.accum, ka.output)
-        plain(cfg, sched, cam, buffers, pa.accum, pa.output)
+        kernel(cfg, sched, cam, buffers, ka.accum, ka.output, ka.rng_state)
+        plain(cfg, sched, cam, buffers, pa.accum, pa.output, pa.rng_state)
     torch.cuda.synchronize()
-    return compare(ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
-                   pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg)
+    state_eq = (None if ka.rng_state is None
+                else torch.equal(ka.rng_state, pa.rng_state))
+    return (*compare(ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
+                     pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg),
+            state_eq)
 
 
 def run_main_path(app, frames: int, names):
@@ -186,6 +201,66 @@ def run_main_path(app, frames: int, names):
     return path_launches, lit, png_size
 
 
+POPCOUNT = np.array([bin(x).count("1") for x in range(256)], np.int64)
+
+
+def philox_bit_gates(draw):
+    """The five bit-level gates of tests/test_tpu_hw.py (6 sigma or looser)
+    on `draw(seed0, seed1)` -> (4, 256, 128) uint32 words; returns their
+    statistics."""
+    words = draw(0x1234, 0x5678)
+    n = words.size
+    ones = np.array([(words >> b & 1).sum() for b in range(32)], np.int64)
+    mono = float(np.abs(ones - n / 2).max() / (np.sqrt(n) / 2))
+    require(mono < 6, f"monobit per bit position {mono} sigma < 6")
+    by = draw(0xBEEF, 7).view(np.uint8)
+    hist = np.bincount(by.reshape(-1), minlength=256).astype(np.float64)
+    chi2 = float(((hist - by.size / 256) ** 2 / (by.size / 256)).sum())
+    require(chi2 < 255 + 8 * np.sqrt(2 * 255), f"byte chi-square {chi2}")
+    lanes = POPCOUNT[draw(42, 99).view(np.uint8).reshape(4, 256, 128, 4)]
+    nl = 4 * 256 * 32
+    lane = float(np.abs(lanes.sum(axis=(0, 1, 3)) - nl / 2).max()
+                 / (np.sqrt(nl) / 2))
+    require(lane < 6, f"per-lane balance {lane} sigma < 6")
+    a = draw(1, 2)
+    require(np.array_equal(a, draw(1, 2)), "same seeds, same bits")
+    nc = a[0].size * 32
+    corr = max(abs(POPCOUNT[(~(x ^ y)).view(np.uint8)].sum() - nc / 2)
+               / (np.sqrt(nc) / 2)
+               for x, y in [(a[0], a[1]), (a[1], a[2]), (a[0], a[3]),
+                            (a[0], draw(3, 2)[0]), (a[0], draw(1, 3)[0])])
+    require(corr < 6, f"cross-draw/cross-seed correlation {corr} sigma < 6")
+    from l2n_tpu_torch.rng.threefry import uniform_oo_from_bits
+    u = uniform_oo_from_bits(torch.from_numpy(
+        draw(0xABCD, 0x42).astype(np.int64))).numpy()
+    mean_sig = float(abs(u.mean() - 0.5) / np.sqrt(1 / 12 / u.size))
+    require(u.min() > 0.0 and u.max() < 1.0, "uniform_oo inside (0, 1)")
+    require(mean_sig < 6, f"uniform_oo mean {mean_sig} sigma < 6")
+    require(abs(u.var() - 1 / 12) < 0.001, "uniform_oo variance 1/12")
+    return {"monobit_sigma": round(mono, 3), "byte_chi2": round(chi2, 2),
+            "lane_sigma": round(lane, 3), "corr_sigma": round(float(corr), 3),
+            "uniform_mean_sigma": round(mean_sig, 3),
+            "uniform_var": float(u.var())}
+
+
+def step_contributions(cfg, scene, steps):
+    """Per-step sample-mean images (independent 1-step estimates) of the
+    default camera through backend="cuda"; (steps, 3, H, W)."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.render.state import init_frame_state, init_rng_state
+    from l2n_tpu_torch.render.step import build_render_step
+    step = build_render_step(cfg, scene, backend="cuda")
+    st = init_frame_state(cfg, torch.device("cuda"))
+    cam = Camera.from_config(cfg).packed()
+    prev = torch.zeros_like(st.accum[:3])
+    out = []
+    for _ in range(steps):
+        st = step(st, cam)
+        out.append((st.accum[:3] - prev) / cfg.spp_per_step)
+        prev = st.accum[:3].clone()
+    return torch.stack(out)[:, :, :cfg.height, :cfg.width].cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # The least time the card could take: bound_ms = max(operations / fp32 peak,
 # bytes / memory rate), H100 SXM peaks (NVIDIA's data sheet). Bytes: each
@@ -212,6 +287,23 @@ OPS = dict(
     accumulate=30,     # accumulate_pixel (sum, count, tonemap) per pixel
     sample_sum=3,      # sum += c per sample
 )
+# One draw pair of each sampler (pathtrace.cuh), as the function needs it:
+# a threefry block; half a Philox block (a block, 10 rounds of 2 multiplies
+# giving low and high words and 4 XORs with 9 key bumps, is 98 operations
+# and yields two pairs; the kernels evaluate a whole block per pair, which
+# the bound does not count) and 2 selects; two TinyMT steps with temper and
+# float (26 each); two TausLCG steps (three Tausworthe steps of 6, the LCG,
+# XORs, the float conversion and scale: 25 each).
+PHILOX_BLOCK_OPS = 98
+PAIR_OPS = {"threefry": 125, "tpu_hw": PHILOX_BLOCK_OPS / 2 + 2,
+            "tinymt": 52, "tauslcg": 50}
+# Bytes of state planes a pixel-step reads and writes: TinyMT reads 7
+# words and writes 4, TausLCG reads and writes 4.
+STATE_BYTES = {"threefry": 0, "tpu_hw": 0, "tinymt": 44, "tauslcg": 32}
+# The raw bits: a quarter of a Philox block per output word (a block gives
+# four words; csrc/philox_bits.cu evaluates a whole block per word, which
+# the bound does not count), plus the word's index arithmetic.
+PHILOX_BITS_OPS = PHILOX_BLOCK_OPS / 4 + 4
 PEAK_FP32 = 67e12      # operations/s, H100 SXM, no tensor cores
 PEAK_BYTES = 3.35e12   # bytes/s, HBM3
 
@@ -297,54 +389,59 @@ class WorkCount:
         return counted
 
 
-def count_work(cfg, sched, cam, accum, scene_closures, spheres=None):
-    """Counters of one plain render of the scheduled tiles (`accum` is
-    copied, not updated)."""
+def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
+               rng_state=None):
+    """Counters of one plain render of the scheduled tiles (`accum` and
+    `rng_state` are copied, not updated)."""
     from l2n_tpu_torch.ops.kernels.common import render_tiles_plain
     intersect, anyhit, albedo = scene_closures
     w = WorkCount(cfg, spheres)
     acc = accum.clone()
     render_tiles_plain(cfg, sched, cam, w.intersect(intersect),
-                       w.anyhit(anyhit), albedo, acc, torch.empty_like(acc[:3]))
+                       w.anyhit(anyhit), albedo, acc, torch.empty_like(acc[:3]),
+                       None if rng_state is None else rng_state.clone())
     c = w.c
     c["pixels"] = sched.shape[0] * cfg.tile_height * cfg.tile_width
     c["samples"] = c["pixels"] * cfg.spp_per_step
     return c
 
 
-def path_ops(c, cast_cost: float, tags=("a_", "b_")):
+def path_ops(c, cast_cost: float, tags=("a_", "b_"), pair=OPS["threefry"]):
     """Operations of the traced paths in the counters `c` (casts at
-    `cast_cost` each) for the given parts of the path."""
+    `cast_cost` each, draw pairs at `pair`) for the given parts of the
+    path."""
     ops = 0.0
     for t in tags:
         ops += (c[t + "casts"] * cast_cost
-                + c[t + "scatters"] * (OPS["scatter"] + OPS["threefry"])
+                + c[t + "scatters"] * (OPS["scatter"] + pair)
                 + c[t + "emissive"] * OPS["emit"]
                 + c[t + "sky"] * OPS["sky_box"]
                 + c[t + "sky_in"] * OPS["sky_setup"]
                 + c[t + "sky_iters"] * OPS["sky_iter"])
     if "a_" in tags:  # jitter pair, primary ray, RR pair of the first vertex
-        ops += (c["samples"] * (OPS["threefry"] + OPS["ray"])
-                + c["a_scatters"] * OPS["threefry"])
+        ops += (c["samples"] * (pair + OPS["ray"]) + c["a_scatters"] * pair)
     return ops
 
 
-def sphere_bounds(c, n_spheres: int, k: int, alive: int):
+def sphere_bounds(c, n_spheres: int, k: int, alive: int, rng="threefry"):
     """{kernel: (bound_ms, bound_by)} of sphere_pt and the three wavefront
-    passes for the counters `c` of one step of K tiles."""
+    passes for the counters `c` of one step of K tiles, with rng mode
+    `rng`'s draws and state planes."""
+    pair = PAIR_OPS[rng]
     cast = n_spheres * OPS["sphere"] + OPS["nearest_fixed"]
     any_ops = c["b_anyhit_tests"] * OPS["anyhit"]
     scene_bytes, sched_bytes = 7 * n_spheres * 4, 8 * k
     tonemap = c["pixels"] * OPS["accumulate"] + c["samples"] * OPS["sample_sum"]
     lanes = c["samples"]
     return {
-        "sphere_pt": bound(path_ops(c, cast) + any_ops + tonemap,
-                           c["pixels"] * 44 + scene_bytes + sched_bytes),
-        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",)),
+        "sphere_pt": bound(path_ops(c, cast, pair=pair) + any_ops + tonemap,
+                           c["pixels"] * (44 + STATE_BYTES[rng])
+                           + scene_bytes + sched_bytes),
+        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",), pair),
                                   c["pixels"] * 4 + lanes * 56 + scene_bytes
                                   + sched_bytes),
-        "wavefront_pass_b": bound(path_ops(c, cast, ("b_",)) + any_ops
-                                  + alive * OPS["threefry"],
+        "wavefront_pass_b": bound(path_ops(c, cast, ("b_",), pair) + any_ops
+                                  + alive * pair,
                                   alive * 56 + scene_bytes + 4),
         "wavefront_pass_c": bound(tonemap + lanes * 6,
                                   lanes * 24 + c["pixels"] * 44 + sched_bytes),
@@ -362,6 +459,10 @@ def main() -> int:
     from l2n_tpu_torch.maths.linalg import look_at
     from l2n_tpu_torch.ops.kernels import build
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.ops.kernels.philox_bits import (
+        philox_bits,
+        philox_bits_plain,
+    )
     from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
     from l2n_tpu_torch.ops.kernels.triangle_pt import (
         TriangleBuffers,
@@ -387,7 +488,7 @@ def main() -> int:
         triangle_intersector,
     )
     from l2n_tpu_torch.render.program import TriangleProgram
-    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.state import init_frame_state, init_rng_state
     from l2n_tpu_torch.render.step import build_render_step
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
     from l2n_tpu_torch.scene import (
@@ -404,10 +505,12 @@ def main() -> int:
     build.load()
     ptxas, kernel = [], "?"
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"(sphere_pt|triangle_pt|uv_demo|wavefront_pass_[abc])"
-                      r"_kernel", ln)
+        m = re.search(r"(sphere_pt|triangle_pt|uv_demo|philox_bits|"
+                      r"wavefront_pass_[abc])_kernel", ln)
         if "Compiling entry function" in ln and m:
-            kernel = m.group(1)
+            # one instantiation per sampler: name it
+            rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
+            kernel = m.group(1) + (f"<{rng.group(1)}>" if rng else "")
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
@@ -425,10 +528,14 @@ def main() -> int:
     uv_err = float((got - want).abs().max())
     require(uv_err <= 1e-5, f"uv_demo max abs err {uv_err} <= 1e-5")
     uv_ms = timed_calls(lambda: uv_demo(t, 720, 1280), 5, 200)
+    uv_kernel_ms = profile_calls(lambda: uv_demo(t, 720, 1280), 50,
+                                 "uv_demo_kernel")
     uv_plain_ms = timed_calls(lambda: uv_demo_plain(t, 720, 1280), 5, 200)
     phase(2, f"uv_demo kernel vs plain (3,720,1280): max abs err {uv_err:.3e}"
-             f" (gate 1e-5); kernel {uv_ms:.4f} ms/call, plain "
-             f"{uv_plain_ms:.4f} ms/call (CUDA events); card: {card}")
+             f" (gate 1e-5); wrapper {uv_ms:.4f} ms/call, plain "
+             f"{uv_plain_ms:.4f} ms/call (CUDA events over back-to-back "
+             f"calls); kernel {uv_kernel_ms} ms/launch (torch.profiler); "
+             f"card: {card}")
 
     # --- 3: the sphere golden through backend="cuda" ------------------------
     with np.load(GOLDEN) as data:
@@ -530,7 +637,7 @@ def main() -> int:
             tri_cfg.sphere_count, tri_cfg.world_size, tri_cfg.scene_seed),
             tri_cfg.disc_lat, tri_cfg.disc_long)
         tri_buf = TriangleBuffers.from_scene(tri_scene, dev)
-        rmse, tri_err, flips, lit = kernel_vs_plain(
+        rmse, tri_err, flips, lit, _ = kernel_vs_plain(
             triangle_pt, triangle_pt_plain, whole, tri_buf, cam, 4)
         phase(7, f"triangle_pt kernel vs plain, default triangle config "
                  f"{whole.width}x{whole.height}, {tri_scene.total_triangles} "
@@ -553,7 +660,7 @@ def main() -> int:
         vm = look_at(eye.astype(np.float32), b[j, :3].astype(np.float32),
                      np.array([0.0, 1.0, 0.0], np.float32))
         tori_cam = Camera.from_config(whole, view_matrix=vm).packed()
-        rmse, tori_err, flips, lit = kernel_vs_plain(
+        rmse, tori_err, flips, lit, _ = kernel_vs_plain(
             triangle_pt, triangle_pt_plain, whole, tori_buf, tori_cam, 1)
         phase(8, f"triangle_pt kernel vs plain, torus field "
                  f"({tori.total_triangles} triangles, {tori.mesh_count} "
@@ -636,7 +743,7 @@ def main() -> int:
         del ka_out, kb, pb, kc, pc, comp, comp_meta, back
 
         # --- 11: the wavefront CUDA step vs the sphere_pt CUDA step --------
-        rmse, wf_vs_fused, flips, lit = kernel_vs_plain(
+        rmse, wf_vs_fused, flips, lit, _ = kernel_vs_plain(
             sphere_wavefront_step, sphere_pt, wwhole, spheres, cam, 4)
         phase(11, f"wavefront CUDA step vs sphere_pt CUDA step, default "
                   f"config, 4 whole-frame steps: accum RMSE {rmse:.3e} (gate "
@@ -660,8 +767,155 @@ def main() -> int:
                   f"{main_lit:.4f}, PNG {png_size} bytes")
         del app
 
+        # --- 13: philox_bits, the tpu_hw raw bits, and their gates --------
+        # (4, 256, 128) is the gates' draw; 4 x 7,360 x 128 words are four
+        # draws for every pixel of the padded 1280x736 frame.
+        bits_seeds = torch.tensor([0x1234, 0x5678], dtype=torch.int32,
+                                  device=dev)
+        whole_h = cfg.padded_height * cfg.padded_width // 128
+        for shape in ((4, 256), (4, whole_h)):
+            got_bits = philox_bits(bits_seeds, *shape)
+            want_bits = philox_bits_plain(bits_seeds, *shape)
+            torch.cuda.synchronize()
+            require(torch.equal(got_bits, want_bits),
+                    f"philox_bits {shape} kernel/plain bit-equal")
+        del got_bits, want_bits
+
+        def card_bits(s0: int, s1: int) -> np.ndarray:
+            seeds = torch.tensor([s0, s1], dtype=torch.int32, device=dev)
+            return philox_bits(seeds, 4, 256).cpu().numpy().view(np.uint32)
+
+        reset_launches()
+        bit_stats = philox_bit_gates(card_bits)
+        bits_launches = launches["philox_bits"]
+        require(bits_launches > 0, "the bit gates drew through philox_bits")
+        # Per shape: the kernel's device time per launch (torch.profiler),
+        # the wrapper's time per call over back-to-back calls (CUDA events;
+        # host dispatch included), the plain version's, and the bound.
+        bits_t = {}
+        for h, (n_kernel, n_plain) in ((256, (200, 20)), (whole_h, (100, 5))):
+            call = (lambda h=h: philox_bits(bits_seeds, 4, h))
+            wrapper_ms = timed_calls(call, 5, n_kernel)
+            bits_t[h] = {
+                "kernel_ms": profile_calls(call, 50, "philox_bits_kernel"),
+                "wrapper_ms": wrapper_ms,
+                "plain_ms": timed_calls(
+                    lambda h=h: philox_bits_plain(bits_seeds, 4, h), 1,
+                    n_plain),
+                "bound": bound(4 * h * 128 * PHILOX_BITS_OPS,
+                               4 * h * 128 * 4 + 8)}
+        phase(13, f"philox_bits kernel vs plain bit-equal at (4, 256, 128) "
+                  f"and (4, {whole_h}, 128); the five bit gates of "
+                  f"tests/test_tpu_hw.py on the card's bits pass: "
+                  f"{bit_stats} ({bits_launches} launches); per h of "
+                  f"(4, h, 128): kernel ms/launch (torch.profiler), wrapper "
+                  f"ms/call (CUDA events over back-to-back calls), plain "
+                  f"ms/call, bound (ms, by): {bits_t}; card: {card}")
+
+        # --- 14: sphere_pt with the other rng modes, kernel vs plain ------
+        swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+        mode_err = {}
+        for rng in ("tpu_hw", "tinymt", "tauslcg"):
+            _, err, _, lit, state_eq = kernel_vs_plain(
+                sphere_pt, sphere_pt_plain, swhole.replace(rng=rng), spheres,
+                cam, 4)
+            require(err == 0.0, f"sphere_pt rng={rng} accum max abs {err}")
+            require(state_eq in (None, True),
+                    f"sphere_pt rng={rng} rng_state bit-equal")
+            mode_err[rng] = {"max_abs": err, "rng_state_equal": state_eq,
+                             "lit": round(lit, 4)}
+        phase(14, f"sphere_pt kernel vs plain, default config, 4 whole-frame "
+                  f"steps per rng mode: {mode_err}")
+
+        # --- 15: triangle_pt with tinymt and tpu_hw at the golden's size ---
+        tg_buf = TriangleBuffers.from_scene(prog.scene, dev)
+        tri_mode_err = {}
+        for rng in ("tinymt", "tpu_hw"):
+            _, err, _, lit, state_eq = kernel_vs_plain(
+                triangle_pt, triangle_pt_plain, tcfg.replace(rng=rng), tg_buf,
+                tcam, 4)
+            require(err == 0.0, f"triangle_pt rng={rng} accum max abs {err}")
+            require(state_eq in (None, True),
+                    f"triangle_pt rng={rng} rng_state bit-equal")
+            tri_mode_err[rng] = {"max_abs": err, "rng_state_equal": state_eq,
+                                 "lit": round(lit, 4)}
+        phase(15, f"triangle_pt kernel vs plain at the triangle golden's "
+                  f"config and view ({tcfg.width}x{tcfg.height}, "
+                  f"{prog.scene.mesh_count} meshes), 4 steps: "
+                  f"{tri_mode_err}")
+        del tg_buf
+
+        # --- 16: the wavefront CUDA step vs sphere_pt, both tpu_hw --------
+        _, wf_hw_err, _, wf_hw_lit, _ = kernel_vs_plain(
+            sphere_wavefront_step, sphere_pt, wwhole.replace(rng="tpu_hw"),
+            spheres, cam, 4)
+        require(wf_hw_err == 0.0, f"wavefront/fused tpu_hw max abs {wf_hw_err}")
+        phase(16, f"wavefront CUDA step vs sphere_pt CUDA step, rng=tpu_hw, "
+                  f"4 whole-frame steps: accum max abs {wf_hw_err} (bit-equal"
+                  f" required), lit {wf_hw_lit:.4f}")
+
+        # --- 17: the tpu_hw estimator gates against threefry --------------
+        # tests/test_tpu_hw.py's configuration and thresholds: 32 steps of 4
+        # spp for the mean gates; the variance gate reads the first 24.
+        est = RenderConfig(width=256, height=128, tile_height=32,
+                           tile_width=128, tiles_per_step=8,
+                           spp_per_step=4).validate()
+        est_scene = compute_spheres(est.sphere_count, est.world_size,
+                                    est.scene_seed, device=dev)
+        est_tf = step_contributions(est, est_scene, 32)
+        est_hw = step_contributions(est.replace(rng="tpu_hw"), est_scene, 32)
+        img_tf, img_hw = est_tf.mean(0), est_hw.mean(0)
+        mean_d = abs(float(img_hw.mean() - img_tf.mean()))
+        med_d = float(np.median(np.abs(img_hw - img_tf)))
+        var_tf, var_hw = est_tf[:24].var(0), est_hw[:24].var(0)
+        var_ratio = (float(np.median(var_hw[var_hw > 1e-6]))
+                     / float(np.median(var_tf[var_tf > 1e-6])))
+        require(mean_d < 0.02, f"tpu_hw/threefry mean image diff {mean_d}")
+        require(med_d < 0.05, f"tpu_hw/threefry median |diff| {med_d}")
+        require(0.8 < var_ratio < 1.25, f"tpu_hw/threefry variance ratio "
+                                        f"{var_ratio}")
+        require(not np.array_equal(img_hw, img_tf), "tpu_hw is not threefry")
+        phase(17, f"tpu_hw estimator gates vs threefry on the card "
+                  f"(256x128, 4 spp/step): mean-image diff {mean_d:.3e} (gate"
+                  f" 0.02, 32 steps), median |diff| {med_d:.3e} (gate 0.05), "
+                  f"variance ratio {var_ratio:.4f} (gate 0.8-1.25, 24 steps)")
+        del est_tf, est_hw
+
+        # --- 18: the main paths with every rng mode -----------------------
+        init_s = {}
+        for rng in ("tinymt", "tauslcg"):
+            t0 = time.perf_counter()
+            init_rng_state(RenderConfig(rng=rng), dev)
+            torch.cuda.synchronize()
+            init_s[rng] = round(time.perf_counter() - t0, 3)
+        mode_paths = {}
+        for rng in ("tinymt", "tauslcg", "tpu_hw"):
+            for renderer, name in (("spherePT", "sphere_pt"),
+                                   ("trianglePT", "triangle_pt")):
+                app = Application(RenderConfig(rng=rng), backend="cuda",
+                                  device="cuda", workdir=tmp,
+                                  renderer_names=(renderer,))
+                frames = (app.cfg.tile_count * 10
+                          // app.cfg.effective_tiles_per_step)
+                got, lit, _ = run_main_path(app, frames, (name,))
+                mode_paths[f"{renderer}/{rng}"] = (got, round(lit, 4))
+                del app
+        app = Application(RenderConfig(wavefront=True, rng="tpu_hw"),
+                          backend="cuda", device="cuda", workdir=tmp,
+                          renderer_names=("spherePT",))
+        got, lit, _ = run_main_path(app, frames, wave_names)
+        require(got.get("sphere_pt", 0) == 0,
+                "the wavefront tpu_hw path launched no sphere_pt kernel")
+        mode_paths["spherePT/wavefront/tpu_hw"] = (got, round(lit, 4))
+        del app
+        phase(18, f"main paths: Application(RenderConfig(rng=m), "
+                  f"backend=cuda) ran {frames} steps each, 10 spp "
+                  f"everywhere, finite: launches and lit {mode_paths}; host "
+                  f"state init at {cfg.padded_width}x{cfg.padded_height} "
+                  f"(seconds): {init_s}")
+
     # --- timings: kernel and plain, reference and whole-frame schedules -----
-    timings = {}
+    timings, kernel_ms = {}, {}
     families = (
         ("sphere_pt", cfg, scene, ((3, 50), (1, 3), (1, 3))),
         ("triangle_pt", tri_cfg, tri_scene, ((3, 50), (1, 3), (1, 2))))
@@ -685,7 +939,7 @@ def main() -> int:
                 if backend == "cuda":
                     per, busy, _, tst = profile_steps(
                         tstep, tst, cam, 20, (f"{name}_kernel",))
-                    k_ms = per[f"{name}_kernel"]
+                    k_ms = kernel_ms[(name, label)] = per[f"{name}_kernel"]
                     print(f"[profile] {name} {label} backend=cuda: "
                           f"{name}_kernel "
                           + ("not measured (no device time in the profile)"
@@ -702,6 +956,44 @@ def main() -> int:
                       f"Msamples/s; card: {card}", flush=True)
                 del tst, tstep
                 torch.cuda.empty_cache()
+
+    # --- every rng mode: step and kernel times beside threefry's ----------
+    rng_modes = ("threefry", "tpu_hw", "tinymt", "tauslcg")
+    mode_times = {}
+    for name, fcfg, fscene in (("sphere_pt", cfg, scene),
+                               ("triangle_pt", tri_cfg, tri_scene)):
+        for label, lcfg in (("10-tile", fcfg), ("whole-frame", fcfg.replace(
+                tiles_per_step=fcfg.tile_count))):
+            for rng in rng_modes:
+                mcfg = lcfg.replace(rng=rng)
+                tstep = build_render_step(mcfg, fscene, backend="cuda",
+                                          device=dev)
+                tst = init_frame_state(mcfg, dev)
+                for _ in range(3):
+                    tst = tstep(tst, cam)
+                dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, 50)
+                per, busy, _, tst = profile_steps(tstep, tst, cam, 20,
+                                                  (f"{name}_kernel",))
+                k_ms = per[f"{name}_kernel"]
+                mode_times[(name, label, rng)] = (dev_ms, k_ms)
+                print(f"[timing] {name} {label} rng={rng} backend=cuda: step "
+                      f"{dev_ms:.4f} ms (CUDA events), {host_ms:.4f} ms "
+                      f"(host clock to sync); {name}_kernel "
+                      + ("not measured" if k_ms is None else
+                         f"{k_ms:.4f} ms/launch (torch.profiler), device "
+                         f"busy {busy:.3f}")
+                      + f"; card: {card}", flush=True)
+                del tst, tstep
+    for rng in rng_modes[1:]:  # the plain sphere step, 10 tiles
+        mcfg = cfg.replace(rng=rng)
+        tstep = build_render_step(mcfg, scene, backend="torch", device=dev)
+        tst = tstep(init_frame_state(mcfg, dev), cam)
+        dev_ms, host_ms, tst = timed_steps(tstep, tst, cam, 3)
+        mode_times[("sphere_pt", "10-tile plain", rng)] = (dev_ms, None)
+        print(f"[timing] sphere_pt 10-tile rng={rng} backend=torch: "
+              f"{dev_ms:.4f} ms/step (CUDA events); card: {card}",
+              flush=True)
+        del tst, tstep
 
     # --- the wavefront step: device and host time, each pass, the glue ----
     wave = {}
@@ -831,15 +1123,38 @@ def main() -> int:
         + work_tri["samples"] * OPS["sample_sum"],
         work_tri["pixels"] * 44 + tri_bytes + 8 * ts10.shape[0])
     bounds["uv_demo"] = bound(720 * 1280 * 12, 720 * 1280 * 12 + 4)
+    bounds["philox_bits"] = bits_t[256]["bound"]
+    mode_bounds = {}
+    for rng in rng_modes:
+        for label, lcfg, lsched in (("10-tile", cfg, s10),
+                                    ("whole-frame", swhole, wsched)):
+            mcfg = lcfg.replace(rng=rng)
+            st0 = init_frame_state(mcfg, dev)
+            w = count_work(mcfg, lsched, cam, st0.accum, sphere_scene,
+                           spheres, st0.rng_state)
+            mode_bounds[f"{rng} {label}"] = sphere_bounds(
+                w, scene.count, lsched.shape[0], 0, rng)["sphere_pt"]
+    print(f"[bound] sphere_pt per rng mode (ms, by): "
+          f"{ {n: (round(b, 6), by) for n, (b, by) in mode_bounds.items()} }"
+          f"; card: {card}", flush=True)
     print(f"[bound] 10-tile step: { {n: (round(b, 6), by) for n, (b, by) in bounds.items()} }; "
           f"whole-frame: { {n: (round(b, 6), by) for n, (b, by) in bounds_whole.items()} } "
           f"(ms; fp32 {PEAK_FP32:.3g} op/s, {PEAK_BYTES:.3g} B/s); card: "
           f"{card}", flush=True)
 
-    def row(name, source, replaces, n, err, tol, ms, plain_ms):
+    def row(name, source, replaces, n, err, tol, profiled, event_ms,
+            plain_ms):
+        """`ms` is the kernel's device time per launch from torch.profiler
+        (`ms_from` says so), or, where the profiler recorded none, the CUDA
+        events' time per call or step (`event_ms`, host dispatch
+        included)."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                "tolerance": tol,
+                "ms": event_ms if profiled is None else profiled,
+                "ms_from": ("CUDA events" if profiled is None
+                            else "torch.profiler"),
+                "event_ms": event_ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": None}
 
@@ -847,29 +1162,34 @@ def main() -> int:
     wave_src = "l2n_tpu_torch/csrc/wavefront.cu"
     wave_rows = []
     for name, line in zip(wave_names, (113, 194, 247)):
-        profiled = wave[("10-tile", "passes")][kernel_names[name]]
         wave_rows.append(row(
             name, wave_src, f"l2n_tpu/ops/kernels/wavefront.py:{line}",
             wave_launches.get(name, 0), wave_err[name],
             "meta bit-equal; RMSE < 1e-3" + (
                 ", output flips < 2e-3" if name.endswith("c") else ""),
-            pass_ms[name] if profiled is None else profiled,
+            wave[("10-tile", "passes")][kernel_names[name]], pass_ms[name],
             pass_plain_ms[name]))
     print(json.dumps({"kernels": [
         row("sphere_pt", "l2n_tpu_torch/csrc/sphere_pt.cu",
             "l2n_tpu/ops/kernels/sphere_pt.py:214",
             sphere_launches.get("sphere_pt", 0), max_err, frame_tol,
+            kernel_ms[("sphere_pt", "10-tile")],
             timings[("sphere_pt", "10-tile", "cuda")],
             timings[("sphere_pt", "10-tile", "torch")]),
         row("uv_demo", "l2n_tpu_torch/csrc/uv_demo.cu",
             "l2n_tpu/ops/kernels/uv_demo.py:22", uv_launches, uv_err,
-            "max abs err <= 1e-5", uv_ms, uv_plain_ms),
+            "max abs err <= 1e-5", uv_kernel_ms, uv_ms, uv_plain_ms),
         row("triangle_pt", "l2n_tpu_torch/csrc/triangle_pt.cu",
             "l2n_tpu/ops/kernels/triangle_pt.py:811",
             tri_launches.get("triangle_pt", 0), max(tri_err, tori_err),
-            frame_tol, timings[("triangle_pt", "10-tile", "cuda")],
+            frame_tol, kernel_ms[("triangle_pt", "10-tile")],
+            timings[("triangle_pt", "10-tile", "cuda")],
             timings[("triangle_pt", "10-tile", "torch")]),
-        *wave_rows]}))
+        *wave_rows,
+        row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
+            "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",
+            bits_t[256]["kernel_ms"], bits_t[256]["wrapper_ms"],
+            bits_t[256]["plain_ms"])]}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

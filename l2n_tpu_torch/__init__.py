@@ -16,6 +16,11 @@ Two render backends (`render.step.build_render_step`):
   * "torch" — the plain tensor version of the same step, the counterpart of
     the JAX package's XLA oracle; it runs on the CPU or on a CUDA device.
 
+Every `RenderConfig.rng` mode renders: threefry, tpu_hw (on the card a
+Philox4x32-10 sampler, not a hardware stream: rng/philox.py) and the
+stateful tinymt and tauslcg parity modes, whose per-pixel state planes ride
+in the FrameState and through the kernels.
+
 There is no automatic fallback: backend="cuda" without a card raises.
 Anything this slice does not support raises NotImplementedError naming the
 ROADMAP item that will port it (ops/kernels/common.check_supported).

@@ -13,7 +13,9 @@ clear accumulation on camera move; save the pose on exit.
     python -m l2n_tpu_torch.app.application --config cfg.json ...
 
 A `--config` JSON holds RenderConfig fields (l2n_tpu_torch/config.py);
-`{"wavefront": true}` renders spherePT through the wavefront step.
+`{"wavefront": true}` renders spherePT through the wavefront step, and
+`{"rng": "tinymt"}` (or "tauslcg", or "tpu_hw": Philox on the card) picks
+the sampler.
 """
 
 from __future__ import annotations

@@ -90,7 +90,8 @@ class RenderConfig:
     ray_gen: str = "fovy"
 
     # RNG: "threefry" (counter-based, the default) | "tinymt" | "tauslcg"
-    # (stateful per-pixel streams) | "tpu_hw" (a hardware generator).
+    # (stateful per-pixel streams) | "tpu_hw" (the TPU core's hardware
+    # generator in the JAX package; Philox4x32-10 on the card, rng/philox.py).
     rng: str = "threefry"
     seed: int = 0
 

@@ -16,11 +16,24 @@
 // and the albedo rows `ar`, `ag`, `ab`, indexed by Hit::index (csrc/
 // sphere_pt.cuh: spheres; csrc/triangle_pt.cuh: meshes).
 //
-// Draw addresses: threefry counter = sample * max_pairs + pair, and draw1
-// caches the second word of a pair. Replaying the lockstep tracer's call
-// sequence along one path gives its addresses: pair 0 jitter, pair 1
-// hemisphere at bounce 0, pair 2 word 0 RR at bounce 0, pair 3 hemisphere
-// at bounce 1, pair 2 word 1 RR at bounce 1.
+// The path body is also a template on the sampler, one type per rng mode
+// (rng/sampler.py): ThreefrySampler, PhiloxSampler (rng="tpu_hw"),
+// TinyMTSampler and TausLCGSampler. A kernel is instantiated once per
+// sampler, and its host entry point picks the instantiation from the mode
+// code (dispatch_rng); nothing switches on the mode inside the path loop.
+// A sampler provides draw2/draw1 and the per-pixel protocol render_pixel
+// uses: load (sample 0 of the step), next_sample, store.
+//
+// Counter-based draw addresses: pair k of sample s of pixel p is threefry
+// at counter (p, s * max_pairs + k), or words 2 (k & 1), 2 (k & 1) + 1 of
+// the Philox block at counter (p, s, k >> 1, 0); draw1 caches the second
+// word of a pair. Replaying the lockstep tracer's call sequence along one
+// path gives its addresses: pair 0 jitter, pair 1 hemisphere at bounce 0,
+// pair 2 word 0 RR at bounce 0, pair 3 hemisphere at bounce 1, pair 2
+// word 1 RR at bounce 1. The stateful samplers step their pixel's state at
+// every draw, which is what the lockstep tracer's masks reproduce: the
+// jitter of every pixel, the hemisphere pair and the RR draw at diffuse
+// vertices only, nothing at an emissive hit, a miss or the last segment.
 //
 // One loop traces a path (trace_from); it can stop after the first vertex.
 // The fused kernels run it whole (trace_sample); the wavefront kernels
@@ -49,6 +62,12 @@ constexpr int kMandelbrotIters = 64;
 constexpr int kAovPathtracing = 0;
 constexpr int kAovTexCoords = 1;
 
+// Sampler codes (ops/kernels/common.py::RNG_CODES).
+constexpr int kRngThreefry = 0;
+constexpr int kRngPhilox = 1;  // rng="tpu_hw"
+constexpr int kRngTinyMT = 2;
+constexpr int kRngTausLCG = 3;
+
 // Integer and float parameters of one step, filled by the C entry points
 // from the arrays the Python wrappers pass (ops/kernels/common.py::
 // step_params keeps the two layouts in step). `cam` is the packed (10, 4)
@@ -65,11 +84,12 @@ struct PtParams {
   int32_t env_mandelbrot;  // 1 mandelbrot sky, 0 none
   uint32_t seed, stream;
   int32_t aov;  // kAov*
+  int32_t rng;  // kRng*
   float inv_width, inv_height;  // float32(1 / width), float32(1 / height)
   float rr_ceiling, ray_epsilon, emission_scale, env_scale, gamma;
   float cam[40];
 };
-constexpr int kIntParams = 14;
+constexpr int kIntParams = 15;
 constexpr int kFloatParams = 7 + 40;
 
 L2N_HD float bits_to_float(uint32_t u) {
@@ -117,21 +137,99 @@ L2N_HD void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
 
 #undef L2N_TF_ROUND
 
+// ---------------------------------------------------------------------------
+// Philox4x32-10 (rng/philox.py): the card's rng="tpu_hw" generator.
+// ---------------------------------------------------------------------------
+
+L2N_HD uint32_t mulhilo32(uint32_t a, uint32_t b, uint32_t& hi) {
+#if defined(__CUDA_ARCH__)
+  hi = __umulhi(a, b);
+  return a * b;
+#else
+  const uint64_t prod = static_cast<uint64_t>(a) * b;
+  hi = static_cast<uint32_t>(prod >> 32);
+  return static_cast<uint32_t>(prod);
+#endif
+}
+
+// Ten rounds over the counter c with the key bumped between rounds
+// (Random123; torch's ATen/core/PhiloxRNGEngine.h computes the same).
+L2N_HD void philox4x32_10(uint32_t k0, uint32_t k1, uint32_t c[4]) {
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    uint32_t hi0, hi1;
+    const uint32_t lo0 = mulhilo32(0xD2511F53u, c[0], hi0);
+    const uint32_t lo1 = mulhilo32(0xCD9E8D57u, c[2], hi1);
+    const uint32_t n0 = hi1 ^ c[1] ^ k0;
+    const uint32_t n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+// Draw `draw` of pixel `pixel` in the raw-bits layout (csrc/philox_bits.cu,
+// ops/kernels/philox_bits.py): sample 0, pair draw >> 1, word draw & 1 of
+// the pair, i.e. word draw & 3 of the block at counter (pixel, 0, draw >> 2,
+// 0).
+L2N_HD uint32_t philox_bits_word(uint32_t k0, uint32_t k1, uint32_t pixel,
+                                 uint32_t draw) {
+  uint32_t c[4] = {pixel, 0u, draw >> 2, 0u};
+  philox4x32_10(k0, k1, c);
+  const uint32_t lo = (draw & 2u) ? c[2] : c[0];
+  const uint32_t hi = (draw & 2u) ? c[3] : c[1];
+  return (draw & 1u) ? hi : lo;
+}
+
 // Top 23 bits as mantissa, lowest mantissa bit forced: a float in (1, 2).
 L2N_HD float uniform_oo(uint32_t bits) {
   return bits_to_float((bits >> 9) | 0x3F800001u) - 1.0f;
 }
 
-struct Sampler {
-  uint32_t k0, k1, pixel, base;
+// ---------------------------------------------------------------------------
+// Samplers (rng/sampler.py).
+// ---------------------------------------------------------------------------
+
+// Pair `pair` of a sample as two words, per counter-based generator.
+struct ThreefryPairs {
+  L2N_HD static void words(uint32_t k0, uint32_t k1, uint32_t pixel,
+                           uint32_t sample, uint32_t max_pairs, uint32_t pair,
+                           uint32_t& a, uint32_t& b) {
+    a = pixel;
+    b = sample * max_pairs + pair;
+    threefry2x32(k0, k1, a, b);
+  }
+};
+
+struct PhiloxPairs {
+  L2N_HD static void words(uint32_t k0, uint32_t k1, uint32_t pixel,
+                           uint32_t sample, uint32_t, uint32_t pair,
+                           uint32_t& a, uint32_t& b) {
+    uint32_t c[4] = {pixel, sample, pair >> 1, 0u};
+    philox4x32_10(k0, k1, c);
+    a = (pair & 1u) ? c[2] : c[0];
+    b = (pair & 1u) ? c[3] : c[1];
+  }
+};
+
+// A counter-based sampler of one sample of one pixel: draws are addressed,
+// so it keeps only its position (the next pair, and the pending second word
+// of a draw1).
+template <class Pairs>
+struct CounterSampler {
+  uint32_t k0, k1, pixel, sample, max_pairs;
   uint32_t pair;
   bool has_spare;
   float spare;
 
   L2N_HD void draw2(float& u1, float& u2) {
-    uint32_t a = pixel, b = base + pair;
+    uint32_t a, b;
+    Pairs::words(k0, k1, pixel, sample, max_pairs, pair, a, b);
     ++pair;
-    threefry2x32(k0, k1, a, b);
     u1 = uniform_oo(a);
     u2 = uniform_oo(b);
   }
@@ -145,7 +243,167 @@ struct Sampler {
     has_spare = true;
     return a;
   }
+
+  // Sample `sample` of pixel `pixel`, at pair 0.
+  L2N_HD static CounterSampler at(const PtParams& p, uint32_t pixel,
+                                  uint32_t sample) {
+    CounterSampler rng;
+    rng.k0 = p.seed;
+    rng.k1 = p.stream;
+    rng.pixel = pixel;
+    rng.sample = sample;
+    rng.max_pairs = static_cast<uint32_t>(p.max_pairs);
+    rng.pair = 0;
+    rng.has_spare = false;
+    rng.spare = 0.0f;
+    return rng;
+  }
+
+  // The same sampler in the middle of its sample (rng/sampler.py::
+  // _CounterSampler.resumed): the next fresh pair is next_pair and, with
+  // has_spare, the second word of pair next_pair - 1 is pending,
+  // regenerated.
+  L2N_HD static CounterSampler resumed(const PtParams& p, uint32_t pixel,
+                                       uint32_t sample, int next_pair,
+                                       bool has_spare) {
+    CounterSampler rng = at(p, pixel, sample);
+    if (has_spare) {
+      rng.pair = static_cast<uint32_t>(next_pair - 1);
+      float unused;
+      rng.draw2(unused, rng.spare);
+      rng.has_spare = true;
+    } else {
+      rng.pair = static_cast<uint32_t>(next_pair);
+    }
+    return rng;
+  }
+
+  // render_pixel's protocol: no state planes, a fresh position per sample.
+  L2N_HD static CounterSampler load(const PtParams& p, const uint32_t*,
+                                    size_t, size_t, uint32_t pixel,
+                                    uint32_t sample) {
+    return at(p, pixel, sample);
+  }
+  L2N_HD void next_sample() {
+    ++sample;
+    pair = 0;
+    has_spare = false;
+  }
+  L2N_HD void store(uint32_t*, size_t, size_t) const {}
 };
+
+using ThreefrySampler = CounterSampler<ThreefryPairs>;
+using PhiloxSampler = CounterSampler<PhiloxPairs>;
+
+// TinyMT32 over the pixel's state planes {s0..s3, mat1, mat2, tmat, pad}
+// (rng/tinymt.py): one state step and one temper per draw1, draw2 = two
+// draw1s. The state chains from sample to sample and is stored once.
+struct TinyMTSampler {
+  uint32_t s0, s1, s2, s3, mat1, mat2, tmat;
+
+  L2N_HD float draw1() {
+    uint32_t y = s3;
+    uint32_t x = (s0 & 0x7FFFFFFFu) ^ s1 ^ s2;
+    x ^= x << 1;
+    y ^= (y >> 1) ^ x;
+    const uint32_t m = 0u - (y & 1u);
+    s0 = s1;
+    s1 = s2 ^ (m & mat1);
+    s2 = x ^ (y << 10) ^ (m & mat2);
+    s3 = y;
+    const uint32_t t1 = s0 + (s2 >> 8);
+    const uint32_t t0 = s3 ^ t1;
+    return uniform_oo(t0 ^ ((0u - (t1 & 1u)) & tmat));
+  }
+  L2N_HD void draw2(float& u1, float& u2) {
+    u1 = draw1();
+    u2 = draw1();
+  }
+
+  L2N_HD static TinyMTSampler load(const PtParams&, const uint32_t* st,
+                                   size_t plane, size_t pix, uint32_t,
+                                   uint32_t) {
+    return TinyMTSampler{st[pix],             st[plane + pix],
+                         st[2 * plane + pix], st[3 * plane + pix],
+                         st[4 * plane + pix], st[5 * plane + pix],
+                         st[6 * plane + pix]};
+  }
+  L2N_HD void next_sample() {}
+  L2N_HD void store(uint32_t* st, size_t plane, size_t pix) const {
+    st[pix] = s0;
+    st[plane + pix] = s1;
+    st[2 * plane + pix] = s2;
+    st[3 * plane + pix] = s3;
+  }
+};
+
+// Three Tausworthe steps and one LCG step over the pixel's four state
+// planes (rng/tauslcg.py); the XOR of the words, rounded to the nearest
+// float32, times 2^-32: a value in [0, 1].
+L2N_HD uint32_t taus_step(uint32_t z, int s1, int s2, int s3, uint32_t m) {
+  const uint32_t b = ((z << s1) ^ z) >> s2;
+  return ((z & m) << s3) ^ b;
+}
+
+struct TausLCGSampler {
+  uint32_t x, y, z, w;
+
+  L2N_HD float draw1() {
+    x = taus_step(x, 13, 19, 12, 4294967294u);
+    y = taus_step(y, 2, 25, 4, 4294967288u);
+    z = taus_step(z, 3, 11, 17, 4294967280u);
+    w = 1664525u * w + 1013904223u;
+    return 2.3283064365387e-10f * static_cast<float>(x ^ y ^ z ^ w);
+  }
+  L2N_HD void draw2(float& u1, float& u2) {
+    u1 = draw1();
+    u2 = draw1();
+  }
+
+  L2N_HD static TausLCGSampler load(const PtParams&, const uint32_t* st,
+                                    size_t plane, size_t pix, uint32_t,
+                                    uint32_t) {
+    return TausLCGSampler{st[pix], st[plane + pix], st[2 * plane + pix],
+                          st[3 * plane + pix]};
+  }
+  L2N_HD void next_sample() {}
+  L2N_HD void store(uint32_t* st, size_t plane, size_t pix) const {
+    st[pix] = x;
+    st[plane + pix] = y;
+    st[2 * plane + pix] = z;
+    st[3 * plane + pix] = w;
+  }
+};
+
+// Return F::template run<Rng>(args...) for the sampler type of mode code
+// `rng`; -1 for an unknown code. The host entry points launch through it.
+template <class F, class... Args>
+inline int dispatch_rng(int rng, Args... args) {
+  switch (rng) {
+    case kRngThreefry:
+      return F::template run<ThreefrySampler>(args...);
+    case kRngPhilox:
+      return F::template run<PhiloxSampler>(args...);
+    case kRngTinyMT:
+      return F::template run<TinyMTSampler>(args...);
+    case kRngTausLCG:
+      return F::template run<TausLCGSampler>(args...);
+  }
+  return -1;
+}
+
+// The same for the counter-based modes only (the wavefront passes, whose
+// streams resume across the compaction); -1 for the stateful codes.
+template <class F, class... Args>
+inline int dispatch_counter_rng(int rng, Args... args) {
+  switch (rng) {
+    case kRngThreefry:
+      return F::template run<ThreefrySampler>(args...);
+    case kRngPhilox:
+      return F::template run<PhiloxSampler>(args...);
+  }
+  return -1;
+}
 
 // ---------------------------------------------------------------------------
 // Math (maths/sampling.py, maths/fastmath.py), float32, JAX operation order.
@@ -233,9 +491,9 @@ struct Hit {
 // Procedural-Lambert bounce at the diffuse vertex with normal h.n and
 // albedo row `h.index`: cosine-sampled new direction d, throughput times
 // albedo, Russian roulette. Returns false when the path dies.
-template <class Scene>
-L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s,
-                                 Sampler& rng, const Hit& h, float& dx,
+template <class Scene, class Rng>
+L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s, Rng& rng,
+                                 const Hit& h, float& dx,
                                  float& dy, float& dz, float tp[3]) {
   // frame_z: tangent from the smaller of |n.x|, |n.y|; bitangent n x t.
   const float zx = h.nx, zy = h.ny, zz = h.nz;
@@ -301,8 +559,8 @@ struct Continuation {
 // kFirstVertex stops after iteration b's scatter and returns whether the
 // path goes on, with its new cast in c; c keeps the scattered direction and
 // throughput of a path that roulette ended.
-template <bool kFirstVertex, class Scene>
-L2N_HD bool trace_from(const PtParams& p, const Scene& s, Sampler& rng, int b,
+template <bool kFirstVertex, class Scene, class Rng>
+L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
                        Continuation& c, float col[3]) {
   // Vertex base: the JAX tracer places vertices 0 and 1 from the cast
   // origin (the camera, then the first cast) and later vertices from the
@@ -353,8 +611,8 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Sampler& rng, int b,
 // scatter's direction and throughput and, for a survivor of Russian
 // roulette, its cast origin; the others are parked at kFar. Returns true
 // when the path goes on.
-template <class Scene>
-L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Sampler& rng,
+template <class Scene, class Rng>
+L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Rng& rng,
                           float ox, float oy, float oz, float dx, float dy,
                           float dz, float col[3], Continuation& c) {
   col[0] = col[1] = col[2] = 0.0f;
@@ -366,16 +624,16 @@ L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Sampler& rng,
 
 // The rest of a path from its first cast c: bounces 1 .. max_bounces-1 and
 // the last segment (ops/pathtrace.py::trace_wavefront_continue).
-template <class Scene>
-L2N_HD void trace_continue(const PtParams& p, const Scene& s, Sampler& rng,
+template <class Scene, class Rng>
+L2N_HD void trace_continue(const PtParams& p, const Scene& s, Rng& rng,
                            Continuation c, float col[3]) {
   trace_from<false>(p, s, rng, 1, c, col);
 }
 
 // Radiance of one sample (ops/pathtrace.py::trace_path): the whole path in
 // one loop.
-template <class Scene>
-L2N_HD void trace_sample(const PtParams& p, const Scene& s, Sampler& rng,
+template <class Scene, class Rng>
+L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float col[3]) {
   col[0] = col[1] = col[2] = 0.0f;
@@ -406,43 +664,12 @@ L2N_HD float safe_gamma(float x, float gamma) {
   return x <= 0.0f ? 0.0f : expf(gamma * logf(safe));
 }
 
-// The sampler of one sample of one pixel, at pair 0.
-L2N_HD Sampler make_sampler(const PtParams& p, uint32_t pixel_index,
-                            uint32_t sample_index) {
-  Sampler rng;
-  rng.k0 = p.seed;
-  rng.k1 = p.stream;
-  rng.pixel = pixel_index;
-  rng.base = sample_index * static_cast<uint32_t>(p.max_pairs);
-  rng.pair = 0;
-  rng.has_spare = false;
-  rng.spare = 0.0f;
-  return rng;
-}
-
-// The same sampler in the middle of its sample (rng/sampler.py::
-// ThreefrySampler.resumed): the next fresh pair is next_pair and, with
-// has_spare, the second word of pair next_pair - 1 is pending, regenerated.
-L2N_HD Sampler resumed_sampler(const PtParams& p, uint32_t pixel_index,
-                               uint32_t sample_index, int next_pair,
-                               bool has_spare) {
-  Sampler rng = make_sampler(p, pixel_index, sample_index);
-  if (has_spare) {
-    rng.pair = static_cast<uint32_t>(next_pair - 1);
-    float unused;
-    rng.draw2(unused, rng.spare);
-    rng.has_spare = true;
-  } else {
-    rng.pair = static_cast<uint32_t>(next_pair);
-  }
-  return rng;
-}
-
 // Draw the pixel jitter and return the primary ray's direction
 // (ops/pathtrace.py::generate_rays, "fovy" form); the origin is the camera
 // position cam[32..34].
-L2N_HD void primary_direction(const PtParams& p, Sampler& rng, int row,
-                              int col, float& dx, float& dy, float& dz) {
+template <class Rng>
+L2N_HD void primary_direction(const PtParams& p, Rng& rng, int row, int col,
+                              float& dx, float& dy, float& dz) {
   const float* cam = p.cam;
   float u1, u2;
   rng.draw2(u1, u2);  // pixel jitter
@@ -487,20 +714,25 @@ L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
 }
 
 // Render `spp` samples of pixel (row, col) of the padded framebuffer and
-// update accum and output in place.
-template <class Scene>
+// update accum and output in place; a stateful sampler loads its pixel's
+// state planes from rng_state once, steps them through the samples in
+// order and stores them once (rng_state is unused by the counter-based
+// samplers and may be null for them).
+template <class Rng, class Scene>
 L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
-                         float* accum, float* output) {
+                         float* accum, float* output, uint32_t* rng_state) {
+  const size_t plane = plane_size(p);
+  const size_t pix = pixel_offset(p, row, col);
   const uint32_t pixel_index =
       static_cast<uint32_t>(col + row * p.padded_width);
-  const uint32_t sample_index = static_cast<uint32_t>(
-      static_cast<int32_t>(accum[3 * plane_size(p) + pixel_offset(p, row, col)]));
+  const uint32_t sample_index =
+      static_cast<uint32_t>(static_cast<int32_t>(accum[3 * plane + pix]));
   const float* cam = p.cam;
 
+  Rng rng = Rng::load(p, rng_state, plane, pix, pixel_index, sample_index);
   float sum[3] = {0.0f, 0.0f, 0.0f};
   for (int si = 0; si < p.spp; ++si) {
-    Sampler rng =
-        make_sampler(p, pixel_index, sample_index + static_cast<uint32_t>(si));
+    if (si > 0) rng.next_sample();
     float dx, dy, dz;
     primary_direction(p, rng, row, col, dx, dy, dz);
     float c[3];
@@ -512,6 +744,7 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
     sum[1] = sum[1] + c[1];
     sum[2] = sum[2] + c[2];
   }
+  rng.store(rng_state, plane, pix);
   accumulate_pixel(p, row, col, sum, accum, output);
 }
 
@@ -533,6 +766,7 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.seed = static_cast<uint32_t>(ip[11]);
   p.stream = static_cast<uint32_t>(ip[12]);
   p.aov = ip[13];
+  p.rng = ip[14];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel l2n_tpu/ops/kernels/triangle_pt.py::_kernel (the
 // Pallas program per scheduled 32x128 tile, pallas_call in
 // build_triangle_call). It computes the same step: for every pixel of the K
-// scheduled tiles, `spp` threefry-keyed samples (jittered primary ray,
+// scheduled tiles, `spp` samples (jittered primary ray,
 // nearest triangle hit, at most `max_bounces` diffuse bounces with Russian
 // roulette, any-hit test on the last segment, Mandelbrot sky on a miss, or
 // the tex_coords / param_uv AOV of the primary hit), then accumulate into
@@ -29,6 +29,10 @@
 // no slab-group level; a block is one row of one tile (tile_width threads),
 // so the grid is K x tile_height.
 //
+// One instantiation per sampler (pathtrace.cuh::dispatch_rng), as in
+// csrc/sphere_pt.cu: the stateful samplers' per-pixel state planes are
+// loaded once per thread, stepped through its samples and stored once.
+//
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the path body is in pathtrace.cuh, the traversal in
 // triangle_pt.cuh.
@@ -39,6 +43,7 @@
 
 namespace {
 
+template <class Rng>
 __global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
                                    const int32_t* __restrict__ sched,
                                    const float* __restrict__ mesh_bounds,
@@ -49,7 +54,8 @@ __global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
                                    const float* __restrict__ attrs,
                                    const float* __restrict__ albedo,
                                    float* __restrict__ accum,
-                                   float* __restrict__ output) {
+                                   float* __restrict__ output,
+                                   uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
   const int m = p.n_scene;
   float* s_bounds = smem;                  // (M, 4)
@@ -79,8 +85,26 @@ __global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
   scene.ar = s_albedo;
   scene.ag = s_albedo + m;
   scene.ab = s_albedo + 2 * m;
-  l2n::render_pixel(p, scene, row, col, accum, output);
+  l2n::render_pixel<Rng>(p, scene, row, col, accum, output, rng_state);
 }
+
+struct LaunchTrianglePt {
+  template <class Rng>
+  static int run(l2n::PtParams p, int n_slabs, int tpad, const int32_t* sched,
+                 const float* mesh_bounds, const int32_t* slab_count,
+                 const float* slab_bounds, const float* sub_bounds,
+                 const float* tris, const float* attrs, const float* albedo,
+                 float* accum, float* output, uint32_t* rng_state,
+                 cudaStream_t stream) {
+    const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
+    const dim3 block(static_cast<unsigned>(p.tile_width));
+    const size_t smem = sizeof(float) * 8 * static_cast<size_t>(p.n_scene);
+    triangle_pt_kernel<Rng><<<grid, block, smem, stream>>>(
+        p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
+        sub_bounds, tris, attrs, albedo, accum, output, rng_state);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
 
 }  // namespace
 
@@ -90,7 +114,9 @@ __global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
 // pointers: sched (K, 2) int32; mesh_bounds (M, 4), slab_count (M,) int32,
 // slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), tris (M * tpad, 12),
 // attrs (T, 16), albedo (3, M), accum (4, Hp, Wp), output (3, Hp, Wp)
-// float32. Returns cudaGetLastError() after the launch (0 on success).
+// float32; rng_state (8 or 4, Hp, Wp) 32-bit words, null for the
+// counter-based samplers. Returns cudaGetLastError() after the launch (0 on
+// success), -1 for an unknown sampler code (ip[14]).
 extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                int n_slabs, int tpad, const int32_t* sched,
                                const float* mesh_bounds,
@@ -98,13 +124,11 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                const float* slab_bounds,
                                const float* sub_bounds, const float* tris,
                                const float* attrs, const float* albedo,
-                               float* accum, float* output, void* stream) {
+                               float* accum, float* output,
+                               uint32_t* rng_state, void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
-  const dim3 block(static_cast<unsigned>(p.tile_width));
-  const size_t smem = sizeof(float) * 8 * static_cast<size_t>(p.n_scene);
-  triangle_pt_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-      sub_bounds, tris, attrs, albedo, accum, output);
-  return static_cast<int>(cudaGetLastError());
+  return l2n::dispatch_rng<LaunchTrianglePt>(
+      p.rng, p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
+      sub_bounds, tris, attrs, albedo, accum, output, rng_state,
+      static_cast<cudaStream_t>(stream));
 }

@@ -5,12 +5,13 @@
 //     per sample of every pixel of the K scheduled tiles, the jittered
 //     primary ray, the nearest-sphere sweep, the first-vertex resolve
 //     (emission, primary-miss sky), the b=0 scatter and Russian roulette;
-//     writes the continuation planes, the partial radiance and the threefry
-//     meta planes;
+//     writes the continuation planes, the partial radiance and the meta
+//     planes (pixel and sample index) that key the sampler;
 //   * pass B, _pass_b_kernel: over the compacted survivors (a dense prefix of
 //     n_alive lanes, built between the passes by torch ops on the device,
 //     ops/kernels/wavefront.py::compact_survivors), resume each sample's
-//     threefry stream and finish its path; writes the bounce contribution;
+//     counter-based stream and finish its path; writes the bounce
+//     contribution;
 //   * pass C, _pass_c_kernel: per pixel, sum + colA + contrib per sample,
 //     then accumulate into `accum` and tonemap into `output`, IN PLACE.
 // The image is the fused kernel's (csrc/sphere_pt.cu) to the bit: the same
@@ -40,6 +41,11 @@
 // into pass A with a warp-aggregated append); no persistent threads to
 // refill warps as paths die.
 //
+// Passes A and B are instantiated for the two counter-based samplers,
+// threefry and Philox (rng="tpu_hw"), picked by the host entry points
+// (pathtrace.cuh::dispatch_counter_rng); the stateful modes cannot resume
+// across the compaction and are refused.
+//
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the per-lane bodies are in wavefront.cuh.
 
@@ -57,6 +63,7 @@ __device__ void stage_spheres(const float* __restrict__ spheres, float* smem,
   __syncthreads();
 }
 
+template <class Rng>
 __global__ void wavefront_pass_a_kernel(l2n::PtParams p,
                                         const int32_t* __restrict__ sched,
                                         const float* __restrict__ spheres,
@@ -68,11 +75,12 @@ __global__ void wavefront_pass_a_kernel(l2n::PtParams p,
   stage_spheres(spheres, smem, p.n_scene);
   const int k = blockIdx.x / p.tile_height;
   const int r = blockIdx.x % p.tile_height;
-  l2n::wavefront_pass_a_pixel(p, l2n::scene_view(smem, p.n_scene), k, r,
+  l2n::wavefront_pass_a_pixel<Rng>(p, l2n::scene_view(smem, p.n_scene), k, r,
                               static_cast<int>(threadIdx.x), sched, accum,
                               rays, col, meta);
 }
 
+template <class Rng>
 __global__ void wavefront_pass_b_kernel(l2n::PtParams p, int next_pair,
                                         int has_spare,
                                         const int32_t* __restrict__ n_alive,
@@ -87,7 +95,7 @@ __global__ void wavefront_pass_b_kernel(l2n::PtParams p, int next_pair,
   stage_spheres(spheres, smem, p.n_scene);
   const size_t lane = start + threadIdx.x;
   if (lane >= alive) return;
-  l2n::wavefront_pass_b_lane(p, l2n::scene_view(smem, p.n_scene), next_pair,
+  l2n::wavefront_pass_b_lane<Rng>(p, l2n::scene_view(smem, p.n_scene), next_pair,
                              has_spare != 0, lane, l2n::lane_count(p), rays,
                              meta, contrib);
 }
@@ -104,11 +112,44 @@ __global__ void wavefront_pass_c_kernel(l2n::PtParams p,
                               col, back, accum, output);
 }
 
+struct LaunchPassA {
+  template <class Rng>
+  static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
+                 const float* accum, float* rays, float* col, int32_t* meta,
+                 cudaStream_t stream) {
+    const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
+    const dim3 block(static_cast<unsigned>(p.tile_width));
+    const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
+    wavefront_pass_a_kernel<Rng><<<grid, block, smem, stream>>>(
+        p, sched, spheres, accum, rays, col, meta);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct LaunchPassB {
+  template <class Rng>
+  static int run(l2n::PtParams p, int next_pair, int has_spare,
+                 const int32_t* n_alive, const float* spheres,
+                 const float* rays, const int32_t* meta, float* contrib,
+                 cudaStream_t stream) {
+    const size_t n = l2n::lane_count(p);
+    const dim3 grid(
+        static_cast<unsigned>((n + kPassBThreads - 1) / kPassBThreads));
+    const dim3 block(kPassBThreads);
+    const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
+    wavefront_pass_b_kernel<Rng><<<grid, block, smem, stream>>>(
+        p, next_pair, has_spare, n_alive, spheres, rays, meta, contrib);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 }  // namespace
 
 // The three launchers run on `stream` and return cudaGetLastError() after
-// the launch (0 on success). ip/fp: host arrays of l2n::kIntParams ints and
-// l2n::kFloatParams floats (ops/kernels/common.py::step_params). Device
+// the launch (0 on success; passes A and B return -1 for a sampler code,
+// ip[14], that is not counter-based). ip/fp: host arrays of
+// l2n::kIntParams ints and l2n::kFloatParams floats
+// (ops/kernels/common.py::step_params). Device
 // pointers: sched (K, 2) int32; spheres (7, n) float32; accum (4, Hp, Wp)
 // and output (3, Hp, Wp) float32; lane arrays in wavefront.cuh's layout:
 // rays (9, n_lanes) and col, contrib, back (3, n_lanes) float32, meta (2,
@@ -120,16 +161,12 @@ extern "C" int l2n_wavefront_pass_a(const int32_t* ip, const float* fp,
                                     float* rays, float* col, int32_t* meta,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
-  const dim3 block(static_cast<unsigned>(p.tile_width));
-  const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
-  wavefront_pass_a_kernel<<<grid, block, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      p, sched, spheres, accum, rays, col, meta);
-  return static_cast<int>(cudaGetLastError());
+  return l2n::dispatch_counter_rng<LaunchPassA>(
+      p.rng, p, sched, spheres, accum, rays, col, meta,
+      static_cast<cudaStream_t>(stream));
 }
 
-// next_pair/has_spare: the resume point of the threefry stream after pass A
+// next_pair/has_spare: the resume point of the sampler's stream after pass A
 // (ops/pathtrace.py::wavefront_draw_position). The grid covers all n_lanes;
 // blocks past *n_alive exit at once.
 extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
@@ -139,14 +176,9 @@ extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
                                     const int32_t* meta, float* contrib,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  const size_t n = l2n::lane_count(p);
-  const dim3 grid(static_cast<unsigned>((n + kPassBThreads - 1) / kPassBThreads));
-  const dim3 block(kPassBThreads);
-  const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
-  wavefront_pass_b_kernel<<<grid, block, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      p, next_pair, has_spare, n_alive, spheres, rays, meta, contrib);
-  return static_cast<int>(cudaGetLastError());
+  return l2n::dispatch_counter_rng<LaunchPassB>(
+      p.rng, p, next_pair, has_spare, n_alive, spheres, rays, meta, contrib,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int l2n_wavefront_pass_c(const int32_t* ip, const float* fp,

@@ -13,6 +13,10 @@
 //                    dead lanes have cast_ox = kFar;
 //   col  (3 planes): pass A's partial radiance;
 //   meta (2 planes): pixel index and sample index, as int32 bit patterns.
+//
+// The passes are templates on a counter-based sampler (ThreefrySampler, or
+// PhiloxSampler for rng="tpu_hw"): pass B regenerates each path's stream
+// from its meta planes and resumes it where pass A stopped.
 
 #pragma once
 
@@ -34,7 +38,7 @@ L2N_HD size_t lane_index(const PtParams& p, int k, int s, int r, int c) {
 
 // Pass A for pixel (r, c) of scheduled tile k: per sample, the jittered
 // primary ray, its first vertex (trace_primary) and the lane's planes.
-template <class Scene>
+template <class Rng, class Scene>
 L2N_HD void wavefront_pass_a_pixel(const PtParams& p, const Scene& s, int k,
                                    int r, int c, const int32_t* sched,
                                    const float* accum, float* rays,
@@ -48,7 +52,7 @@ L2N_HD void wavefront_pass_a_pixel(const PtParams& p, const Scene& s, int k,
   const size_t n = lane_count(p);
   for (int si = 0; si < p.spp; ++si) {
     const uint32_t sample = sample_index + static_cast<uint32_t>(si);
-    Sampler rng = make_sampler(p, pixel_index, sample);
+    Rng rng = Rng::at(p, pixel_index, sample);
     float dx, dy, dz;
     primary_direction(p, rng, row, column, dx, dy, dz);
     float rgb[3];
@@ -69,7 +73,7 @@ L2N_HD void wavefront_pass_a_pixel(const PtParams& p, const Scene& s, int k,
 // Pass B for compacted lane `lane` of n_lanes: resume the sample's stream
 // at (next_pair, has_spare), finish the path (trace_continue) and write its
 // contribution (3 planes of n_lanes).
-template <class Scene>
+template <class Rng, class Scene>
 L2N_HD void wavefront_pass_b_lane(const PtParams& p, const Scene& s,
                                   int next_pair, bool has_spare, size_t lane,
                                   size_t n_lanes, const float* rays,
@@ -82,9 +86,9 @@ L2N_HD void wavefront_pass_b_lane(const PtParams& p, const Scene& s,
   cont.dy = rays[4 * n_lanes + lane];
   cont.dz = rays[5 * n_lanes + lane];
   for (int i = 0; i < 3; ++i) cont.tp[i] = rays[(6 + i) * n_lanes + lane];
-  Sampler rng = resumed_sampler(p, static_cast<uint32_t>(meta[lane]),
-                                static_cast<uint32_t>(meta[n_lanes + lane]),
-                                next_pair, has_spare);
+  Rng rng = Rng::resumed(p, static_cast<uint32_t>(meta[lane]),
+                         static_cast<uint32_t>(meta[n_lanes + lane]), next_pair,
+                         has_spare);
   float rgb[3] = {0.0f, 0.0f, 0.0f};
   trace_continue(p, s, rng, cont, rgb);
   for (int ch = 0; ch < 3; ++ch) contrib[ch * n_lanes + lane] = rgb[ch];

@@ -96,19 +96,20 @@ def build() -> tuple[Path, float]:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p = ctypes.c_void_p
-    lib.l2n_sphere_pt.argtypes = [p, p, p, p, p, p, p]
-    lib.l2n_sphere_pt.restype = ctypes.c_int
-    lib.l2n_uv_demo.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p]
-    lib.l2n_uv_demo.restype = ctypes.c_int
-    lib.l2n_triangle_pt.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
-    lib.l2n_triangle_pt.restype = ctypes.c_int
-    i = ctypes.c_int
-    lib.l2n_wavefront_pass_a.argtypes = [p] * 9
-    lib.l2n_wavefront_pass_b.argtypes = [p, p, i, i, p, p, p, p, p, p]
-    lib.l2n_wavefront_pass_c.argtypes = [p] * 8
-    for name in ("a", "b", "c"):
-        getattr(lib, f"l2n_wavefront_pass_{name}").restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argtypes = {
+        "sphere_pt": [p] * 8,
+        "uv_demo": [i, i, p, p, p],
+        "triangle_pt": [p, p, i, i] + [p] * 12,
+        "wavefront_pass_a": [p] * 9,
+        "wavefront_pass_b": [p, p, i, i, p, p, p, p, p, p],
+        "wavefront_pass_c": [p] * 8,
+        "philox_bits": [p, i, i, p, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, f"l2n_{name}")
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -12,7 +12,9 @@ import torch
 
 from l2n_tpu_torch.ops.kernels import build
 from l2n_tpu_torch.ops.pathtrace import generate_rays, shade
-from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
+from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
+from l2n_tpu_torch.rng.state import STATE_PLANES, sampler_from_planes
+from l2n_tpu_torch.rng.threefry import as_words, to_int32
 
 # Launches of each hand-written kernel, by kernel name. A wrapper adds one
 # right after its kernel launched, and nowhere else: the plain versions a
@@ -31,9 +33,6 @@ def check_supported(cfg) -> None:
     cfg.validate()
     triangle = cfg.scene_kind == "triangle"
     unsupported = [
-        (cfg.rng != "threefry",
-         f"rng={cfg.rng!r}: tinymt/tauslcg are ROADMAP Queue 1 #10, tpu_hw "
-         "becomes a Philox option (ROADMAP Queue 2, ported last)"),
         (cfg.nee or cfg.mis, "nee/mis are ROADMAP Queue 1 #9"),
         (cfg.material_mode != "procedural",
          f"material_mode={cfg.material_mode!r} is ROADMAP Queue 1 #9"),
@@ -74,6 +73,26 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 # The kernels' AOV codes (csrc/pathtrace.cuh kAov*).
 AOV_CODES = {"pathtracing": 0, "tex_coords": 1, "param_uv": 2}
+# The kernels' sampler codes (csrc/pathtrace.cuh kRng*): the host entry
+# points pick the kernel instantiation of the configured sampler.
+RNG_CODES = {"threefry": 0, "tpu_hw": 1, "tinymt": 2, "tauslcg": 3}
+
+
+def check_rng_state(cfg, rng_state, device) -> None:
+    """The stateful modes' state planes: (planes, Hp, Wp) int32 (32-bit
+    words as int32 bit patterns, rng/state.STATE_PLANES) on the frame's
+    device, updated in place; None for the counter-based modes."""
+    planes = STATE_PLANES.get(cfg.rng, 0)
+    if not planes:
+        if rng_state is not None:
+            raise ValueError(f"rng_state: rng={cfg.rng!r} keeps no state "
+                             "planes; pass None")
+        return
+    if rng_state is None:
+        raise ValueError(f"rng_state: rng={cfg.rng!r} needs its "
+                         f"({planes}, Hp, Wp) state planes")
+    check_tensor("rng_state", rng_state, torch.int32,
+                 (planes, cfg.padded_height, cfg.padded_width), device)
 
 
 def step_params(cfg, k: int, n_scene: int, camera: np.ndarray):
@@ -85,7 +104,8 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray):
                    cfg.max_bounces, max_pairs_per_sample(cfg.max_bounces),
                    cfg.emissive_every,
                    1 if cfg.env_mode == "mandelbrot" else 0,
-                   cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov]],
+                   cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
+                   RNG_CODES[cfg.rng]],
                   dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
@@ -156,13 +176,36 @@ def accumulate_and_tonemap(cfg, accum: torch.Tensor, output: torch.Tensor,
     out[:, flat] = torch.stack([safe_gamma(c * inv, cfg.gamma) for c in rgb])
 
 
+def _sample_samplers(cfg, flat, sample_index, rng_state):
+    """The sampler of each of the step's `spp` samples over the lanes
+    `flat`, made lazily: a fresh counter-based sampler per sample, or one
+    stateful sampler over the states gathered at `flat` whose state chains
+    from sample to sample. After the last sample the stepped states are
+    scattered back into `rng_state` IN PLACE."""
+    spp = cfg.spp_per_step
+    if cfg.rng in COUNTER_SAMPLERS:
+        cls = COUNTER_SAMPLERS[cfg.rng]
+        max_pairs = max_pairs_per_sample(cfg.max_bounces)
+        for s in range(spp):
+            yield cls(cfg.seed, 0, flat, sample_index + s, max_pairs)
+        return
+    planes = rng_state.view(rng_state.shape[0], -1)
+    sampler = sampler_from_planes(cfg.rng, [
+        as_words(planes[i, flat]) for i in range(planes.shape[0])])
+    for _ in range(spp):
+        yield sampler
+    for i, w in enumerate(sampler.final_state()):
+        planes[i, flat] = to_int32(w)
+
+
 def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
                        albedo: torch.Tensor, accum: torch.Tensor,
-                       output: torch.Tensor) -> None:
+                       output: torch.Tensor, rng_state=None) -> None:
     """The plain torch step shared by the kernels' plain versions: for every
     pixel of the scheduled tiles, `spp` samples in lockstep through
     ops/pathtrace.shade with the scene's `intersect`/`anyhit` closures and
-    (n, 3) albedo table, then accumulate + tonemap IN PLACE."""
+    (n, 3) albedo table, then accumulate + tonemap IN PLACE; the stateful
+    modes' `rng_state` planes are stepped IN PLACE too."""
     dev = accum.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
@@ -170,30 +213,24 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
     sample_index = accum[3].reshape(-1)[flat].to(torch.int32)
     rowf = row.reshape(-1).to(torch.float32)
     colf = col.reshape(-1).to(torch.float32)
-    max_pairs = max_pairs_per_sample(cfg.max_bounces)
 
     spp = cfg.spp_per_step
     sums = [torch.zeros(flat.shape, dtype=torch.float32, device=dev)
             for _ in range(3)]
-    for s in range(spp):
-        sampler = ThreefrySampler(cfg.seed, 0, flat, sample_index + s,
-                                  max_pairs)
-        u1, u2 = sampler.draw2()  # pixel jitter
+    for sampler in _sample_samplers(cfg, flat, sample_index, rng_state):
+        u1, u2 = sampler.draw2()  # pixel jitter, every lane
         rays = generate_rays(cfg, cam, colf, rowf, u1, u2)
         rgb = shade(cfg, intersect, anyhit, albedo, sampler, *rays)
         sums = [a + b for a, b in zip(sums, rgb)]
     accumulate_and_tonemap(cfg, accum, output, flat, sums, spp)
 
 
-def launch(name: str, cfg, device: torch.device, *args) -> None:
+def launch_raw(name: str, device: torch.device, *args) -> None:
     """Launch the C entry point `l2n_<name>` of the kernel library on the
     current stream of `device` and count it. `args` are host numpy arrays
-    (passed by address), device tensors (by data pointer) or Python ints,
-    in the entry point's order before its stream. Raises on a refused
-    launch; builds the library at its first use."""
-    if cfg.tile_width > 1024:
-        raise ValueError(f"{name}: tile_width must be <= 1024 (one thread "
-                         "per column of a tile row)")
+    (passed by address), device tensors (by data pointer), None (a null
+    pointer) or Python ints, in the entry point's order before its stream.
+    Raises on a refused launch; builds the library at its first use."""
     fn = getattr(build.load(), f"l2n_{name}")
 
     def arg(a):
@@ -201,6 +238,8 @@ def launch(name: str, cfg, device: torch.device, *args) -> None:
             return ctypes.c_void_p(a.ctypes.data)
         if isinstance(a, torch.Tensor):
             return ctypes.c_void_p(a.data_ptr())
+        if a is None:
+            return ctypes.c_void_p(None)
         return ctypes.c_int(a)
 
     with torch.cuda.device(device):
@@ -209,3 +248,12 @@ def launch(name: str, cfg, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
+
+
+def launch(name: str, cfg, device: torch.device, *args) -> None:
+    """`launch_raw` for a path-tracing step kernel of config `cfg`, whose
+    blocks are one tile row of at most 1024 threads."""
+    if cfg.tile_width > 1024:
+        raise ValueError(f"{name}: tile_width must be <= 1024 (one thread "
+                         "per column of a tile row)")
+    launch_raw(name, device, *args)

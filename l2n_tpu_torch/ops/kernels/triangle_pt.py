@@ -1,9 +1,9 @@
 """The triangle path-tracing step: the CUDA kernel's wrapper and its plain
 torch version (counterpart of l2n_tpu/ops/kernels/triangle_pt.py).
 
-`triangle_pt(cfg, sched, camera, buffers, accum, output)` renders the
-scheduled tiles of a triangle scene and updates `accum` and `output` IN
-PLACE:
+`triangle_pt(cfg, sched, camera, buffers, accum, output, rng_state)`
+renders the scheduled tiles of a triangle scene and updates `accum`,
+`output` and, for the stateful rng modes, the `rng_state` planes IN PLACE:
   * on CUDA tensors it launches `csrc/triangle_pt.cu` (one thread per pixel
     of the K scheduled tiles, each walking the packed bound hierarchy) or
     raises; nothing falls back;
@@ -27,6 +27,7 @@ import torch
 from l2n_tpu_torch.maths.sampling import procedural_color
 from l2n_tpu_torch.ops.kernels.common import (
     check_camera,
+    check_rng_state,
     check_schedule,
     check_supported,
     check_tensor,
@@ -103,11 +104,12 @@ class TriangleBuffers:
             attrs=dev(attrs))
 
 
-def _check(cfg, sched, camera, buffers, accum, output):
+def _check(cfg, sched, camera, buffers, accum, output, rng_state):
     check_supported(cfg)
     if cfg.scene_kind != "triangle":
         raise ValueError(f"triangle_pt: scene_kind={cfg.scene_kind!r}")
     check_schedule(cfg, sched, accum, output)
+    check_rng_state(cfg, rng_state, accum.device)
     if not isinstance(buffers, TriangleBuffers):
         raise TypeError(f"buffers: expected TriangleBuffers, got "
                         f"{type(buffers)}")
@@ -127,16 +129,19 @@ def _check(cfg, sched, camera, buffers, accum, output):
 
 
 def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
-                accum: torch.Tensor, output: torch.Tensor) -> None:
+                accum: torch.Tensor, output: torch.Tensor,
+                rng_state: torch.Tensor | None = None) -> None:
     """One render step over the scheduled tiles, in place (see module doc).
 
     sched (K, 2) int32 (tile_x, tile_y); camera the packed (10, 4) float32
     host array; buffers the scene's TriangleBuffers; accum (4, Hp, Wp) and
-    output (3, Hp, Wp) float32, all on one device.
+    output (3, Hp, Wp) float32; rng_state the (8 or 4, Hp, Wp) int32 state
+    planes of rng="tinymt"/"tauslcg", else None; all on one device.
     """
-    camera = _check(cfg, sched, camera, buffers, accum, output)
+    camera = _check(cfg, sched, camera, buffers, accum, output, rng_state)
     if accum.device.type == "cpu":
-        triangle_pt_plain(cfg, sched, camera, buffers, accum, output)
+        triangle_pt_plain(cfg, sched, camera, buffers, accum, output,
+                          rng_state)
         return
     if accum.device.type != "cuda":
         raise ValueError(f"triangle_pt: no kernel for device {accum.device}")
@@ -148,12 +153,13 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
     launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
            buffers.mesh_bounds, buffers.slab_count, buffers.slab_bounds,
            buffers.sub_bounds, buffers.tris, buffers.attrs,
-           buffers.albedo, accum, output)
+           buffers.albedo, accum, output, rng_state)
 
 
 def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
                       buffers: TriangleBuffers, accum: torch.Tensor,
-                      output: torch.Tensor) -> None:
+                      output: torch.Tensor,
+                      rng_state: torch.Tensor | None = None) -> None:
     """The plain torch version of `triangle_pt`: the same in-place update,
     computed in lockstep over the pixels of the scheduled tiles, with a
     brute-force sweep over every triangle, on whatever device the tensors
@@ -162,4 +168,4 @@ def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
     intersect = triangle_intersector(buffers.soup)
     render_tiles_plain(cfg, sched, camera, intersect,
                        triangle_anyhit(intersect), buffers.albedo.T, accum,
-                       output)
+                       output, rng_state)

@@ -5,11 +5,9 @@ build chain, used as its smoke test."""
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from l2n_tpu_torch.ops.kernels.common import check_tensor, launches
+from l2n_tpu_torch.ops.kernels.common import check_tensor, launch_raw
 
 
 def uv_demo(time_s: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -23,18 +21,9 @@ def uv_demo(time_s: torch.Tensor, height: int, width: int) -> torch.Tensor:
         return uv_demo_plain(time_s, height, width)
     if time_s.device.type != "cuda":
         raise ValueError(f"uv_demo: no kernel for device {time_s.device}")
-    from l2n_tpu_torch.ops.kernels import build
-    lib = build.load()
     out = torch.empty((3, height, width), dtype=torch.float32,
                       device=time_s.device)
-    with torch.cuda.device(time_s.device):
-        stream = torch.cuda.current_stream(time_s.device).cuda_stream
-        rc = lib.l2n_uv_demo(height, width, ctypes.c_void_p(time_s.data_ptr()),
-                             ctypes.c_void_p(out.data_ptr()),
-                             ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"uv_demo kernel launch failed: CUDA error {rc}")
-    launches["uv_demo"] += 1
+    launch_raw("uv_demo", time_s.device, height, width, time_s, out)
     return out
 
 

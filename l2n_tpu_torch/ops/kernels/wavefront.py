@@ -24,8 +24,10 @@ after its first vertex:
 Lane arrays have the JAX package's layout (planes, K, spp * tile_height,
 tile_width); see csrc/wavefront.cuh. The image equals the fused step's to
 the bit: both compose the same path helpers (ops/pathtrace.py, csrc/
-pathtrace.cuh) and the threefry stream resumes in pass B exactly where pass
-A stopped.
+pathtrace.cuh) and the counter-based stream (threefry, or Philox for
+rng="tpu_hw") resumes in pass B exactly where pass A stopped. The stateful
+rng modes cannot resume across the compaction; RenderConfig refuses them
+with the wavefront step, and the passes raise for them.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (`*_plain`) for CPU tensors; `sphere_wavefront_step` chains
@@ -57,7 +59,7 @@ from l2n_tpu_torch.ops.pathtrace import (
     wavefront_draw_position,
 )
 from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
-from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
+from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
 
 f32, i32 = torch.float32, torch.int32
 
@@ -88,6 +90,15 @@ def _check_spheres(spheres, device) -> int:
     return n
 
 
+def _sampler_class(cfg):
+    """The counter-based sampler of cfg.rng; the stateful modes raise."""
+    if cfg.rng not in COUNTER_SAMPLERS:
+        raise ValueError(f"wavefront: rng={cfg.rng!r} is stateful; the "
+                         "wavefront passes need a stateless sampler "
+                         "(threefry or tpu_hw)")
+    return COUNTER_SAMPLERS[cfg.rng]
+
+
 def _device(t: torch.Tensor, what: str) -> torch.device:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {t.device}")
@@ -107,6 +118,7 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     (9, K, spp*th, tw) float32, col (3, ...) float32, meta (2, ...) int32).
     """
     check_supported(cfg)
+    _sampler_class(cfg)
     dev = _device(accum, "wavefront_pass_a")
     k = check_schedule(cfg, sched, accum)
     camera = check_camera(camera)
@@ -129,6 +141,7 @@ def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
     pixels of the scheduled tiles, one sample at a time (lanes in the fused
     plain step's order, so every operation sees the same vectors)."""
     dev = accum.device
+    sampler_cls = _sampler_class(cfg)
     intersect, _, albedo = _scene(spheres)
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     k, th, tw, spp = (sched.shape[0], cfg.tile_height, cfg.tile_width,
@@ -144,8 +157,7 @@ def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
     rgb = torch.empty((3, k, spp, th, tw), dtype=f32, device=dev)
     meta = torch.empty((2, k, spp, th, tw), dtype=i32, device=dev)
     for s in range(spp):
-        sampler = ThreefrySampler(cfg.seed, 0, flat, sample_index + s,
-                                  max_pairs)
+        sampler = sampler_cls(cfg.seed, 0, flat, sample_index + s, max_pairs)
         u1, u2 = sampler.draw2()  # pixel jitter
         out = trace_wavefront_primary(
             cfg, intersect, albedo, sampler,
@@ -206,6 +218,7 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
     read by the kernel, never by the host). Returns contrib (3, n_lanes)
     float32, defined in its first n_alive lanes."""
     check_supported(cfg)
+    _sampler_class(cfg)
     dev = _device(rays, "wavefront_pass_b")
     camera = check_camera(camera)
     n = _check_spheres(spheres, dev)
@@ -238,7 +251,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
     del camera, n_alive  # the port's stream is 0; all lanes are computed
     intersect, anyhit, albedo = _scene(spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)
-    sampler = ThreefrySampler.resumed(
+    sampler = _sampler_class(cfg).resumed(
         cfg.seed, 0, meta[0], meta[1], max_pairs_per_sample(cfg.max_bounces),
         next_pair, has_spare)
     return torch.stack(trace_wavefront_continue(
@@ -292,7 +305,11 @@ def wavefront_pass_c_plain(cfg, sched: torch.Tensor, col: torch.Tensor,
 # The step
 # ---------------------------------------------------------------------------
 
-def _step(passes, cfg, sched, camera, spheres, accum, output) -> None:
+def _step(passes, cfg, sched, camera, spheres, accum, output,
+          rng_state) -> None:
+    if rng_state is not None:
+        raise ValueError("wavefront: the counter-based samplers keep no "
+                         "rng_state planes")
     pass_a, pass_b, pass_c = passes
     rays, col, meta = pass_a(cfg, sched, camera, spheres, accum)
     comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
@@ -303,20 +320,21 @@ def _step(passes, cfg, sched, camera, spheres, accum, output) -> None:
 
 def sphere_wavefront_step(cfg, sched: torch.Tensor, camera,
                           spheres: torch.Tensor, accum: torch.Tensor,
-                          output: torch.Tensor) -> None:
+                          output: torch.Tensor, rng_state=None) -> None:
     """One wavefront render step over the scheduled tiles, updating accum
     and output IN PLACE (the arguments of sphere_pt.sphere_pt): the three
     kernels on CUDA tensors, their plain versions on CPU tensors."""
     _step((wavefront_pass_a, wavefront_pass_b, wavefront_pass_c), cfg, sched,
-          camera, spheres, accum, output)
+          camera, spheres, accum, output, rng_state)
 
 
 def sphere_wavefront_step_plain(cfg, sched: torch.Tensor, camera,
                                 spheres: torch.Tensor, accum: torch.Tensor,
-                                output: torch.Tensor) -> None:
+                                output: torch.Tensor,
+                                rng_state=None) -> None:
     """The same step through the three plain versions, on any device."""
     check_supported(cfg)
     camera = check_camera(camera)
     _step((wavefront_pass_a_plain, wavefront_pass_b_plain,
            wavefront_pass_c_plain), cfg, sched, camera, spheres, accum,
-          output)
+          output, rng_state)

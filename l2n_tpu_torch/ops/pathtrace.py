@@ -120,7 +120,9 @@ def _scatter_and_roulette(cfg, albedo, sampler, bo, bd, cur_t, n, index,
     hz = boz + cur_t * bdz
     kd = albedo[index.clamp(min=0)]  # miss lanes read row 0, never kept
     tangent, bitangent = frame_z(*n)
-    u1, u2 = sampler.draw2()
+    # Only diffuse lanes consume draws (the stateful samplers step no
+    # other lane; the counter-based ones ignore the mask).
+    u1, u2 = sampler.draw2(mask=diffuse)
     (lx, ly, lz), _ = cosine_sample_hemisphere(u1, u2)
     wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n))
 
@@ -129,7 +131,7 @@ def _scatter_and_roulette(cfg, albedo, sampler, bo, bd, cur_t, n, index,
     bd = tuple(torch.where(diffuse, w, b) for w, b in zip(wd, bd))
     tp = tuple(torch.where(diffuse, t * kd[..., i], t) for i, t in enumerate(tp))
 
-    rr = sampler.draw1()
+    rr = sampler.draw1(mask=diffuse)
     rr_prob = torch.clamp(luminance(*tp), max=cfg.rr_ceiling)
     survive = diffuse & (rr < rr_prob)
     rcp_p = 1.0 / torch.clamp(rr_prob, min=1e-20)
@@ -269,11 +271,14 @@ def trace_wavefront_continue(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
 
 @functools.cache
 def wavefront_draw_position(cfg) -> tuple[int, bool]:
-    """(next_pair, has_spare) of the threefry stream after pass A: the
-    resume point of pass B (ThreefrySampler.resumed). Read off a sampler
+    """(next_pair, has_spare) of the counter-based stream (threefry or
+    Philox, which address pairs alike) after pass A: the resume point of
+    pass B (`resumed`). Read off a sampler
     that ran pass A on a one-lane dummy after the pixel jitter; the lockstep
     draw pattern does not depend on the scene or the data."""
     from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
+
+    # Philox (rng="tpu_hw") has the same pair addressing and resume point.
 
     one = torch.ones((1,), dtype=torch.float32)
     idx = torch.zeros((1,), dtype=torch.int64)

@@ -18,8 +18,13 @@ plain versions); a triangle config or another AOV ignores the flag and
 renders through its single-pass kernel, as the JAX package does
 (l2n_tpu/ops/kernels/__init__.py::build_pallas_step).
 
-The step updates the state's `accum` and `output` IN PLACE and returns a
-new FrameState sharing them with advanced counters (render/state.py).
+Every rng mode runs on both backends: the counter-based threefry and
+tpu_hw (Philox on the card, rng/philox.py), and the stateful tinymt and
+tauslcg, whose per-pixel state planes ride in the FrameState.
+
+The step updates the state's `accum`, `output` and `rng_state` IN PLACE and
+returns a new FrameState sharing them with advanced counters
+(render/state.py).
 """
 
 from __future__ import annotations
@@ -95,7 +100,7 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None):
     def step(state: FrameState, camera) -> FrameState:
         sched = scheduled_tiles(tiles, state.tile_offset, k)
         kernel(cfg, sched, np.asarray(camera, np.float32), buffers,
-               state.accum, state.output)
+               state.accum, state.output, state.rng_state)
         return dataclasses.replace(
             state, tile_offset=advance_offset(cfg, state.tile_offset),
             iteration=state.iteration + 1)

@@ -1,1 +1,2 @@
-"""Counter-based threefry RNG (the slice's only sampler)."""
+"""The samplers of every `RenderConfig.rng` mode: counter-based threefry and
+Philox (`tpu_hw`), and the stateful TinyMT and TausLCG parity modes."""

@@ -33,6 +33,12 @@ def as_words(x):
     return x.to(torch.int64) & MASK32
 
 
+def to_int32(words: torch.Tensor) -> torch.Tensor:
+    """Words held in int64 as int32 tensors of the same bit patterns (how
+    the state planes store them; `as_words` reads them back)."""
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
 def _rotl(x, r: int):
     return ((x << r) & MASK32) | (x >> (32 - r))
 

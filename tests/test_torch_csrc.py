@@ -28,7 +28,8 @@ from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.envlight import mandelbrot_le
-from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
+from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
@@ -42,7 +43,10 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
     wavefront_pass_c_plain,
 )
 from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+from l2n_tpu_torch.render.state import init_rng_state
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+from l2n_tpu_torch.rng import philox, tauslcg, tinymt
+from l2n_tpu_torch.rng.state import init_tauslcg_states, init_tinymt_states
 from l2n_tpu_torch.rng.threefry import threefry2x32
 from l2n_tpu_torch.scene import load_obj, torus_field_obj
 from l2n_tpu_torch.scene.spheres import compute_spheres
@@ -75,37 +79,105 @@ SHIM = r"""
 #include "triangle_pt.cuh"
 #include "wavefront.cuh"
 
-template <class Scene>
-static void render_tiles(const l2n::PtParams& p, const Scene& s,
-                         const int32_t* sched, float* accum, float* output) {
-  for (int k = 0; k < p.k; ++k)
-    for (int r = 0; r < p.tile_height; ++r)
-      for (int c = 0; c < p.tile_width; ++c)
-        l2n::render_pixel(p, s, sched[2 * k + 1] * p.tile_height + r,
-                          sched[2 * k] * p.tile_width + c, accum, output);
-}
+// The kernels' per-thread bodies over every pixel of the scheduled tiles,
+// with the sampler instantiation the mode code picks (as the entry points).
+struct RenderTiles {
+  template <class Rng, class Scene>
+  static int run(l2n::PtParams p, Scene s, const int32_t* sched,
+                 float* accum, float* output, uint32_t* rng_state) {
+    for (int k = 0; k < p.k; ++k)
+      for (int r = 0; r < p.tile_height; ++r)
+        for (int c = 0; c < p.tile_width; ++c)
+          l2n::render_pixel<Rng>(p, s, sched[2 * k + 1] * p.tile_height + r,
+                                 sched[2 * k] * p.tile_width + c, accum,
+                                 output, rng_state);
+    return 0;
+  }
+};
+
+struct PassA {
+  template <class Rng>
+  static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
+                 const float* accum, float* rays, float* col, int32_t* meta) {
+    const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+    for (int k = 0; k < p.k; ++k)
+      for (int r = 0; r < p.tile_height; ++r)
+        for (int c = 0; c < p.tile_width; ++c)
+          l2n::wavefront_pass_a_pixel<Rng>(p, s, k, r, c, sched, accum, rays,
+                                           col, meta);
+    return 0;
+  }
+};
+
+struct PassB {
+  template <class Rng>
+  static int run(l2n::PtParams p, int next_pair, int has_spare,
+                 const int32_t* n_alive, const float* spheres,
+                 const float* rays, const int32_t* meta, float* contrib) {
+    const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+    for (size_t lane = 0; lane < static_cast<size_t>(n_alive[0]); ++lane)
+      l2n::wavefront_pass_b_lane<Rng>(p, s, next_pair, has_spare != 0, lane,
+                                      l2n::lane_count(p), rays, meta,
+                                      contrib);
+    return 0;
+  }
+};
 
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
-                       float* accum, float* output) {
+                       float* accum, float* output, uint32_t* rng_state) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  render_tiles(p, l2n::scene_view(spheres, p.n_scene), sched, accum, output);
-  return 0;
+  return l2n::dispatch_rng<RenderTiles>(
+      p.rng, p, l2n::scene_view(spheres, p.n_scene), sched, accum, output,
+      rng_state);
 }
 int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          int tpad, const int32_t* sched,
                          const float* mesh_bounds, const int32_t* slab_count,
                          const float* slab_bounds, const float* sub_bounds,
                          const float* tris, const float* attrs,
-                         const float* albedo, float* accum, float* output) {
+                         const float* albedo, float* accum, float* output,
+                         uint32_t* rng_state) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   const int m = p.n_scene;
   const l2n::TriSceneView s{m, n_slabs, tpad, mesh_bounds, slab_count,
                             slab_bounds, sub_bounds, tris, attrs, albedo,
                             albedo + m, albedo + 2 * m};
-  render_tiles(p, s, sched, accum, output);
-  return 0;
+  return l2n::dispatch_rng<RenderTiles>(p.rng, p, s, sched, accum, output,
+                                        rng_state);
+}
+void l2n_philox_host(uint32_t k0, uint32_t k1, const uint32_t* ctr,
+                     uint32_t* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t c[4] = {ctr[i], ctr[n + i], ctr[2 * n + i], ctr[3 * n + i]};
+    l2n::philox4x32_10(k0, k1, c);
+    for (int w = 0; w < 4; ++w) out[w * n + i] = c[w];
+  }
+}
+void l2n_philox_bits_host(uint32_t k0, uint32_t k1, int k, int h,
+                          uint32_t* out) {
+  const size_t per_draw = static_cast<size_t>(h) * 128;
+  for (size_t i = 0; i < static_cast<size_t>(k) * per_draw; ++i)
+    out[i] = l2n::philox_bits_word(k0, k1, static_cast<uint32_t>(i % per_draw),
+                                   static_cast<uint32_t>(i / per_draw));
+}
+// `draws` draw1s of each of n stateful streams (mode code rng) over state
+// planes of n lanes, stepped in place; values (draws, n).
+void l2n_stateful_draws_host(int rng, uint32_t* st, int64_t n, int draws,
+                             float* out) {
+  l2n::PtParams p{};
+  for (int64_t i = 0; i < n; ++i) {
+    if (rng == l2n::kRngTinyMT) {
+      auto s = l2n::TinyMTSampler::load(p, st, n, i, 0, 0);
+      for (int d = 0; d < draws; ++d) out[d * n + i] = s.draw1();
+      s.store(st, n, i);
+    } else {
+      auto s = l2n::TausLCGSampler::load(p, st, n, i, 0, 0);
+      for (int d = 0; d < draws; ++d) out[d * n + i] = s.draw1();
+      s.store(st, n, i);
+    }
+  }
 }
 void l2n_threefry_host(uint32_t k0, uint32_t k1, const uint32_t* x0,
                        const uint32_t* x1, uint32_t* o0, uint32_t* o1,
@@ -126,13 +198,8 @@ int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const float* accum, float* rays, float* col,
                               int32_t* meta) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
-  for (int k = 0; k < p.k; ++k)
-    for (int r = 0; r < p.tile_height; ++r)
-      for (int c = 0; c < p.tile_width; ++c)
-        l2n::wavefront_pass_a_pixel(p, s, k, r, c, sched, accum, rays, col,
-                                    meta);
-  return 0;
+  return l2n::dispatch_counter_rng<PassA>(p.rng, p, sched, spheres, accum,
+                                          rays, col, meta);
 }
 int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp,
                               int next_pair, int has_spare,
@@ -140,11 +207,9 @@ int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp,
                               const float* rays, const int32_t* meta,
                               float* contrib) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
-  for (size_t lane = 0; lane < static_cast<size_t>(n_alive[0]); ++lane)
-    l2n::wavefront_pass_b_lane(p, s, next_pair, has_spare != 0, lane,
-                               l2n::lane_count(p), rays, meta, contrib);
-  return 0;
+  return l2n::dispatch_counter_rng<PassB>(p.rng, p, next_pair, has_spare,
+                                          n_alive, spheres, rays, meta,
+                                          contrib);
 }
 int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* col,
@@ -175,10 +240,16 @@ def lib(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     p = ctypes.c_void_p
-    lib.l2n_sphere_pt_host.argtypes = [p] * 6
+    lib.l2n_sphere_pt_host.argtypes = [p] * 7
     lib.l2n_sphere_pt_host.restype = ctypes.c_int
-    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 10
+    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
     lib.l2n_triangle_pt_host.restype = ctypes.c_int
+    u32 = ctypes.c_uint32
+    lib.l2n_philox_host.argtypes = [u32, u32, p, p, ctypes.c_int64]
+    lib.l2n_philox_bits_host.argtypes = [u32, u32, ctypes.c_int,
+                                         ctypes.c_int, p]
+    lib.l2n_stateful_draws_host.argtypes = [ctypes.c_int, p, ctypes.c_int64,
+                                            ctypes.c_int, p]
     lib.l2n_threefry_host.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                       p, p, p, p, ctypes.c_int64]
     lib.l2n_mandelbrot_host.argtypes = [p, p, ctypes.c_int64]
@@ -235,24 +306,30 @@ def _aimed_view(cfg):
                    np.array([0.0, 1.0, 0.0], np.float32))
 
 
-def _render(cfg, cam, steps, host_lib=None):
+def _render(cfg, cam, steps, host_lib=None, with_state=False):
+    """accum, output (and the rng_state planes, or None) after `steps`
+    steps of the plain step or of the host-built header."""
     sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
     spheres = sc.packed()
     tiles = torch.as_tensor(tile_grid(cfg))
     accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
     output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+    planes = init_rng_state(cfg)
     k = cfg.effective_tiles_per_step
     for i in range(steps):
         sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
         if host_lib is None:
-            sphere_pt_plain(cfg, sched, cam, spheres, accum, output)
+            sphere_pt_plain(cfg, sched, cam, spheres, accum, output, planes)
         else:
             ip, fp = step_params(cfg, k, sc.count, cam)
             s_np, sp_np = sched.numpy(), spheres.numpy()
             a_np, o_np = accum.numpy(), output.numpy()
             assert host_lib.l2n_sphere_pt_host(
                 _ptr(ip), _ptr(fp), _ptr(s_np), _ptr(sp_np), _ptr(a_np),
-                _ptr(o_np)) == 0
+                _ptr(o_np), None if planes is None else _ptr(planes.numpy())
+            ) == 0
+    if with_state:
+        return accum.numpy(), output.numpy(), planes
     return accum.numpy(), output.numpy()
 
 
@@ -279,8 +356,9 @@ def test_header_matches_plain_step(lib, case):
 
 
 @pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
-                                   {"max_bounces": 1}],
-                         ids=["reference", "spp2_bounces3", "bounces1"])
+                                   {"max_bounces": 1}, {"rng": "tpu_hw"}],
+                         ids=["reference", "spp2_bounces3", "bounces1",
+                              "tpu_hw"])
 def test_wavefront_header_matches_plain_passes(lib, extra):
     """csrc/wavefront.cuh's per-lane pass A/B/C bodies against the plain
     passes on the same inputs, pass by pass, over 2 steps of the aimed
@@ -383,7 +461,7 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
                   output]
         assert host_lib.l2n_triangle_pt_host(
             _ptr(ip), _ptr(fp), s, s * 128,
-            *(_ptr(a.numpy()) for a in arrays)) == 0
+            *(_ptr(a.numpy()) for a in arrays), None) == 0
     return accum.numpy(), output.numpy()
 
 
@@ -441,14 +519,15 @@ import ctypes, sys
 import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
+from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.render.tiles import tile_grid
 from l2n_tpu_torch.scene import (build_triangle_scene, compute_spheres,
                                  load_obj, torus_field_obj)
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
-lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 10
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
 cfg = RenderConfig(width=128, height=64, scene_kind="triangle").validate()
 cfg = cfg.replace(tiles_per_step=cfg.tile_count)
 for scene in (build_triangle_scene(compute_spheres(128)),
@@ -464,7 +543,8 @@ for scene in (build_triangle_scene(compute_spheres(128)),
         buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, accum, output)]
     ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]
     for _ in range(2):
-        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:]) == 0
+        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:],
+                                        None) == 0
     assert float(accum[3].sum()) == 2 * cfg.padded_height * cfg.padded_width
 print("clean")
 """
@@ -497,3 +577,170 @@ def test_triangle_header_memcheck_asan(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("clean")
+
+
+# ---------------------------------------------------------------------------
+# The samplers of every rng mode (csrc/pathtrace.cuh) against the plain ones
+# ---------------------------------------------------------------------------
+
+TORCH_PHILOX = r"""
+#include <ATen/core/PhiloxRNGEngine.h>
+#include <cstdint>
+// Rows of kc: key k0, k1, counter c0..c3. at::Philox4_32(seed, subsequence,
+// offset) keys with seed = k1:k0 and counts from (offset = c1:c0,
+// subsequence = c3:c2); its four draws are the block's words.
+extern "C" void l2n_torch_philox(const uint32_t* kc, uint32_t* out,
+                                 int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    const uint32_t* r = kc + 6 * i;
+    at::Philox4_32 e(r[0] | (uint64_t(r[1]) << 32),
+                     r[4] | (uint64_t(r[5]) << 32),
+                     r[2] | (uint64_t(r[3]) << 32));
+    for (int w = 0; w < 4; ++w) out[4 * i + w] = e();
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def torch_philox(tmp_path_factory):
+    """torch's own Philox4x32-10 (ATen/core/PhiloxRNGEngine.h, shipped in
+    the wheel's include directory), built with g++."""
+    cxx = shutil.which("g++") or shutil.which("clang++")
+    include = Path(torch.__file__).resolve().parent / "include"
+    if cxx is None or not (include / "ATen/core/PhiloxRNGEngine.h").is_file():
+        pytest.skip("no C++ compiler or no ATen headers")
+    d = tmp_path_factory.mktemp("torch_philox")
+    (d / "philox.cpp").write_text(TORCH_PHILOX)
+    out = d / "libtorch_philox.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{include}", str(d / "philox.cpp"), "-o", str(out)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    lib.l2n_torch_philox.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int64]
+    return lib
+
+
+def test_philox_matches_torch_and_header(lib, torch_philox):
+    """The plain Philox4x32-10 (rng/philox.py) equals torch's
+    at::Philox4_32 and the header's philox4x32_10 on 10^5 random (key,
+    counter) pairs, and gives Random123's known answer for key 0, counter
+    0."""
+    gen = np.random.Generator(np.random.PCG64(23))
+    kc = gen.integers(0, 2**32, (100_000, 6), dtype=np.uint32)
+    kc[0] = 0
+    want = np.empty((kc.shape[0], 4), np.uint32)
+    torch_philox.l2n_torch_philox(_ptr(kc), _ptr(want), kc.shape[0])
+    assert want[0].tolist() == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                                0x9B00DBD8]
+    t = [torch.from_numpy(kc[:, i].astype(np.int64)) for i in range(6)]
+    got = philox.philox4x32(t[0], t[1], *t[2:])
+    np.testing.assert_array_equal(
+        np.stack([g.numpy() for g in got], 1), want.astype(np.int64))
+    # The header, one key for all lanes (the samplers' use).
+    ctr = np.ascontiguousarray(kc[:, 2:].T)
+    head = np.empty_like(ctr)
+    lib.l2n_philox_host(kc[1, 0], kc[1, 1], _ptr(ctr), _ptr(head),
+                        ctr.shape[1])
+    got = philox.philox4x32(int(kc[1, 0]), int(kc[1, 1]),
+                            *(torch.from_numpy(c.astype(np.int64))
+                              for c in ctr))
+    np.testing.assert_array_equal(head.astype(np.int64),
+                                  np.stack([g.numpy() for g in got]))
+
+
+def test_philox_bits_header_matches_plain(lib):
+    out = np.empty((4, 256, 128), np.uint32)
+    lib.l2n_philox_bits_host(0xBEEF, 7, 4, 256, _ptr(out))
+    want = philox_bits_plain(torch.tensor([0xBEEF, 7], dtype=torch.int32))
+    np.testing.assert_array_equal(out.view(np.int32), want.numpy())
+
+
+@pytest.mark.parametrize("mode", ["tinymt", "tauslcg"])
+def test_stateful_sampler_header_matches_plain(lib, mode):
+    """12 draw1s of 8,192 per-pixel streams: values and stepped states."""
+    if mode == "tinymt":
+        status, params = init_tinymt_states(64, 128, 3)
+        words = list(status) + list(params)
+    else:
+        words = list(init_tauslcg_states(64, 128, 3))
+    planes = np.ascontiguousarray(
+        np.stack([w.reshape(-1).numpy() for w in words]).astype(np.uint32))
+    n, draws = planes.shape[1], 12
+    out = np.empty((draws, n), np.float32)
+    lib.l2n_stateful_draws_host(RNG_CODES[mode], _ptr(planes), n, draws,
+                                _ptr(out))
+    state = tuple(w.reshape(-1) for w in words[:4])
+    for d in range(draws):
+        if mode == "tinymt":
+            v, state = tinymt.generate_float_oo(
+                state, tuple(w.reshape(-1) for w in words[4:7]))
+        else:
+            v, state = tauslcg.rand1(state)
+        np.testing.assert_array_equal(out[d].view(np.uint32),
+                                      v.numpy().view(np.uint32))
+    for i in range(4):
+        np.testing.assert_array_equal(planes[i].astype(np.int64),
+                                      state[i].numpy())
+
+
+@pytest.mark.parametrize("mode", ["tpu_hw", "tinymt", "tauslcg"])
+def test_header_matches_plain_step_every_rng(lib, mode):
+    """The per-pixel path body with each sampler against the plain step on
+    the aimed config, 3 steps of 2 samples. The gates of
+    test_header_matches_plain_step; for the stateful modes the state planes
+    too: bit-equal except where the C library's sinf/cosf and torch's
+    vectorised CPU ones (an ulp or two apart) flip a path's decision, and
+    with it that pixel's draw count (on the card nvcc's and torch's are the
+    same functions, and chip_smoke.py expects bit-equal planes)."""
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, spp_per_step=2, rng=mode).validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    ha, ho, hs = _render(cfg, cam, 3, host_lib=lib, with_state=True)
+    pa, po, ps = _render(cfg, cam, 3, with_state=True)
+    assert (pa[:3].max(0) > 0).mean() > 0.3  # a lit frame
+    np.testing.assert_array_equal(ha[3], pa[3])
+    assert np.sqrt(((ha - pa) ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+    if mode != "tpu_hw":
+        assert not torch.equal(ps, init_rng_state(cfg))
+        assert (hs != ps).any(0).float().mean() < 2e-3
+
+
+def test_triangle_header_matches_plain_step_tinymt(lib):
+    """The triangle traversal with the TinyMT sampler, 2 steps: accum and
+    the state planes bit-equal (tests/test_kernels.py:125-151's gates)."""
+    cfg = TRI_CFG.replace(rng="tinymt")
+    scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
+                                                 cfg.world_size,
+                                                 cfg.scene_seed),
+                                 cfg.disc_lat, cfg.disc_long)
+    cam = _tri_aimed_camera(cfg).packed()
+    buf = TriangleBuffers.from_scene(scene)
+    tiles = torch.as_tensor(tile_grid(cfg))
+    k = cfg.effective_tiles_per_step
+    frames = []
+    for host in (True, False):
+        accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+        output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+        planes = init_rng_state(cfg)
+        for i in range(2):
+            sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+            if not host:
+                triangle_pt_plain(cfg, sched, cam, buf, accum, output, planes)
+                continue
+            m, s = buf.slab_bounds.shape[:2]
+            ip, fp = step_params(cfg, k, m, cam)
+            arrays = [sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
+                      buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, accum,
+                      output, planes]
+            assert lib.l2n_triangle_pt_host(
+                _ptr(ip), _ptr(fp), s, s * 128,
+                *(_ptr(a.numpy()) for a in arrays)) == 0
+        frames.append((accum.numpy(), planes.numpy()))
+    (ha, hs), (pa, ps) = frames
+    assert (pa[:3].max(0) > 0).mean() > 0.05
+    np.testing.assert_array_equal(ha, pa)
+    np.testing.assert_array_equal(hs, ps)
+    assert (ps != init_rng_state(cfg).numpy()).any()

@@ -36,6 +36,7 @@ from l2n_tpu_torch.ops import envlight, intersect, pathtrace
 from l2n_tpu_torch.ops.kernels.common import launches
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.uv_demo import uv_demo, uv_demo_plain
+from l2n_tpu_torch.render.state import init_rng_state
 from l2n_tpu_torch.scene.spheres import compute_spheres
 
 
@@ -271,6 +272,20 @@ def test_sphere_pt_wrapper_checks():
     meta = [t.to("meta") for t in (sched, spheres, accum, output)]
     with pytest.raises(ValueError, match="no kernel"):
         sphere_pt(cfg, meta[0], cam, meta[1], meta[2], meta[3])
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        sphere_pt(cfg.replace(rng="tinymt"), sched, cam, spheres, accum,
-                  output)
+    # rng="tinymt" was refused (ROADMAP Queue 1 #10) until the stateful
+    # modes were ported: the wrapper now takes the state planes, checks
+    # them, and steps them in place with the frame.
+    tcfg = cfg.replace(rng="tinymt")
+    with pytest.raises(ValueError, match="rng_state"):
+        sphere_pt(tcfg, sched, cam, spheres, accum, output)
+    with pytest.raises(ValueError, match="rng_state"):
+        sphere_pt(cfg, sched, cam, spheres, accum, output,
+                  torch.zeros((8, 64, 128), dtype=torch.int32))
+    planes = init_rng_state(tcfg)
+    with pytest.raises(TypeError, match="rng_state"):
+        sphere_pt(tcfg, sched, cam, spheres, accum, output, planes.long())
+    before = planes.clone()
+    sphere_pt(tcfg, sched, cam, spheres, accum, output, planes)
+    assert (accum[3] == 1).all()
+    assert (planes[:4] != before[:4]).any(0).all()  # every pixel drew
+    assert torch.equal(planes[4:], before[4:])  # parameters untouched

@@ -185,7 +185,10 @@ def test_backend_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"aov": "tex_coords"}, "#8"), ({"rng": "tinymt"}, "#10"),
+    ({"aov": "tex_coords"}, "#8"),
+    # the id predates the stateful rng port, when the mode was refused
+    # (#10); it now builds and renders (item None)
+    pytest.param({"rng": "tinymt"}, None, id="kw1-#10"),
     ({"nee": True}, "#9"), ({"material_mode": "microfacet"}, "#9"),
     ({"normal_map": 0.5}, "#9"), ({"fog_density": 0.01}, "#9"),
     ({"env_mode": "sun"}, "#9"), ({"ray_gen": "viewproj"}, "#9"),
@@ -239,7 +242,9 @@ def test_unsupported_program_options_raise(tmp_path):
 
 SLICE_MODULES = [
     "l2n_tpu_torch", "l2n_tpu_torch.config", "l2n_tpu_torch.rng.threefry",
-    "l2n_tpu_torch.rng.sampler",
+    "l2n_tpu_torch.rng.philox", "l2n_tpu_torch.rng.tinymt",
+    "l2n_tpu_torch.rng.tauslcg", "l2n_tpu_torch.rng.tinymt_params",
+    "l2n_tpu_torch.rng.state", "l2n_tpu_torch.rng.sampler",
     "l2n_tpu_torch.maths.linalg", "l2n_tpu_torch.maths.fastmath",
     "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.camera.camera",
     "l2n_tpu_torch.camera.cache", "l2n_tpu_torch.camera.view_controller",
@@ -251,6 +256,7 @@ SLICE_MODULES = [
     "l2n_tpu_torch.ops.pathtrace", "l2n_tpu_torch.ops.kernels.build",
     "l2n_tpu_torch.ops.kernels.common", "l2n_tpu_torch.ops.kernels.sphere_pt",
     "l2n_tpu_torch.ops.kernels.uv_demo",
+    "l2n_tpu_torch.ops.kernels.philox_bits",
     "l2n_tpu_torch.ops.kernels.triangle_pack",
     "l2n_tpu_torch.ops.kernels.triangle_pt",
     "l2n_tpu_torch.ops.kernels.wavefront", "l2n_tpu_torch.render.step",

@@ -425,9 +425,20 @@ def test_wavefront_wrapper_checks():
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         wf.wavefront_pass_a(cfg.replace(nee=True), sched, cam, spheres,
                             accum)
-    with pytest.raises(NotImplementedError, match="Philox"):
-        build_render_step(cfg.replace(wavefront=True, rng="tpu_hw"),
-                          compute_spheres(16), backend="torch")
+    # rng="tpu_hw" was refused until the Philox sampler was ported: the
+    # wavefront step now renders it, to the bit the fused step's image.
+    hw = cfg.replace(rng="tpu_hw")
+    accums = []
+    for wavefront in (True, False):
+        step = build_render_step(hw.replace(wavefront=wavefront),
+                                 compute_spheres(16), backend="torch")
+        st = step(init_frame_state(hw), cam)
+        accums.append(st.accum.numpy())
+    np.testing.assert_array_equal(accums[0], accums[1])
+    assert accums[0][3].sum() > 0
+    with pytest.raises(ValueError, match="stateful"):
+        wf.wavefront_pass_a(cfg.replace(rng="tauslcg"), sched, cam, spheres,
+                            accum)
     with pytest.raises(ValueError, match="stateless"):
         build_render_step(cfg.replace(wavefront=True, rng="tinymt"),
                           compute_spheres(16), backend="torch")
