@@ -5,9 +5,11 @@ Renderer -> SphereProgram / TriangleProgram -> render step -> sphere_pt,
 triangle_pt, or the wavefront step's three kernels) at the default
 1280x720 config with every rng mode (threefry; tpu_hw, which is Philox on
 the card; the stateful tinymt and tauslcg), runs the tpu_hw statistical
-gates on the raw-bits kernel philox_bits and on renders, and times kernel
-and plain versions beside the least time the card could take for the same
-work.
+gates on the raw-bits kernel philox_bits and on renders, runs the three
+probes (l2n_tpu_torch/probes: cond_cost, sweep_variants, onehot_recovery)
+through their entry points with their kernels held against the plain
+versions, and times kernel and plain versions beside the least time the
+card could take for the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -32,12 +34,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 GOLDEN = ROOT / "tests" / "golden" / "sphere_pt_256x128_4spp.npz"
 TRI_GOLDEN = ROOT / "tests" / "golden" / "triangle_pt_256x128_4spp.npz"
 
 
 def phase(n: int, text: str) -> None:
-    print(f"[phase {n}] {text}", flush=True)
+    print(f"[phase {n}] ({time.perf_counter() - T0:.1f} s) {text}",
+          flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -65,6 +69,18 @@ def timed_calls(fn, warm: int, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def timed_result(fn):
+    """(fn(), device ms of that one call from CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def timed_steps(step, state, cam, n: int):
@@ -104,6 +120,10 @@ def profile_steps(step, state, cam, n: int, kernels):
         kern = [e for e in dev if kernel in e.name]
         per[kernel] = (sum(e.time_range.elapsed_us() for e in kern)
                        / len(kern) / 1e3) if kern else None
+        if not kern:
+            print(f"[profile] no device event named {kernel}; the window "
+                  f"held {collections.Counter(e.name for e in dev)}",
+                  flush=True)
     if not dev:
         return per, None, None, state
     span = (max(e.time_range.end for e in dev)
@@ -263,7 +283,8 @@ def step_contributions(cfg, scene, steps):
 
 # ---------------------------------------------------------------------------
 # The least time the card could take: bound_ms = max(operations / fp32 peak,
-# bytes / memory rate), H100 SXM peaks (NVIDIA's data sheet). Bytes: each
+# bytes / memory rate), H100 SXM peaks (NVIDIA's data sheet; for the
+# fp32 rate see PEAK_FP32). Bytes: each
 # input read once, each output written once. Operations: what the kernels'
 # per-thread code executes for this run's data, counted by running the
 # plain version with counting scene closures (the plain version is
@@ -304,7 +325,14 @@ STATE_BYTES = {"threefry": 0, "tpu_hw": 0, "tinymt": 44, "tauslcg": 32}
 # four words; csrc/philox_bits.cu evaluates a whole block per word, which
 # the bound does not count), plus the word's index arithmetic.
 PHILOX_BITS_OPS = PHILOX_BLOCK_OPS / 4 + 4
-PEAK_FP32 = 67e12      # operations/s, H100 SXM, no tensor cores
+# fp32 instructions/s outside the tensor cores: 132 SMs x 128 lanes x 1.98
+# GHz. The data sheet's 67 TFLOP/s counts an FMA as two operations; the
+# kernels build with -fmad=false and the counts above take every
+# instruction as one, so the instruction rate is the peak they divide by.
+# Integer and SFU work (sqrt, sin, exp) counted at this rate still gives a
+# lower bound: the card issues those no faster.
+PEAK_FP32 = 33.5e12
+PEAK_FP64_TENSOR = 67e12  # FLOP/s, FP64 tensor cores (DMMA), dense
 PEAK_BYTES = 3.35e12   # bytes/s, HBM3
 
 
@@ -448,6 +476,302 @@ def sphere_bounds(c, n_spheres: int, k: int, alive: int, rng="threefry"):
     }
 
 
+def kernel_row(name, source, replaces, n, err, tol, profiled, event_ms,
+               plain_ms, bound_pair, **extra):
+    """One row of the `kernels` line. `ms` is the kernel's device time per
+    launch from torch.profiler (`ms_from` says so), or, where the profiler
+    recorded none, the CUDA events' time per call or step (`event_ms`,
+    host dispatch included)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "tolerance": tol,
+            "ms": event_ms if profiled is None else profiled,
+            "ms_from": "CUDA events" if profiled is None else "torch.profiler",
+            "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+            "library_ms": None, **extra}
+
+
+# ---------------------------------------------------------------------------
+# The probes (l2n_tpu_torch/probes): operations per item, read off
+# csrc/sweep_probe.cuh, sweep_variants.cu, onehot_recovery.cu and
+# cond_cost.cu, each instruction one operation. The sweeps' terms that do
+# not depend on the direction count once per (lane, sphere), not once per
+# repeat: with the spheres outside and the repeats' winners in registers,
+# the same function computes them once.
+PROBE_OPS = dict(
+    two_root_o=9,    # TwoRoot::t, once per (lane, sphere): o - c, |o - c|^2 - r2
+    two_root_d=15,   # per repeat: hb, the discriminant, sqrt, the roots and
+                     # their selects, the `t < best` test
+    t1_only=21,      # T1Only::t and its test
+    vpu_rep=11,      # per lane and repeat: perturb, accumulate
+    mma_pair_o=4,    # per (lane, sphere): o.c's conversion, c
+    mma_pair_d=14,   # per repeat: d.c's conversion, hb, the roots, the min
+    mma_rep=29,      # per lane and repeat: o.d, perturb, 2 shuffle rounds,
+                     # the gather and the accumulate
+    any=4,           # cond_cost per element and repeat: compare, vote, select, add
+    cond=3,          # compare, vote, carry 0
+)
+SWEEP_SRC = "l2n_tpu_torch/csrc/sweep_variants.cu"
+ONEHOT_SRC = "l2n_tpu_torch/csrc/onehot_recovery.cu"
+
+
+def cond_cost_bound(mode, w, grid, reps):
+    """Every program's work (all `grid` programs compute and store it)."""
+    per = {"work": 2 * w, "any": PROBE_OPS["any"],
+           "cond_taken": PROBE_OPS["cond"] + 2 * w,
+           "cond_skipped": PROBE_OPS["cond"]}[mode]
+    return bound(grid * reps * 4096 * per, 2 * 4096 * 4)
+
+
+def sweep_bounds(lanes, n, reps):
+    """{kernel: (bound_ms, bound_by)} of the three sweep kernels (the
+    carry's 4 selects per candidate, or vpu2's 2 and its gather); the mma
+    variant's products at the FP64 tensor rate against its fp32 epilogue
+    and its bytes."""
+    cand, pairs = lanes * reps * n, lanes * n
+    io = lanes * 32
+    scalar = pairs * PROBE_OPS["two_root_o"]
+    vpu = (scalar + cand * (PROBE_OPS["two_root_d"] + 4)
+           + lanes * reps * PROBE_OPS["vpu_rep"])
+    vpu2 = (scalar + cand * (PROBE_OPS["two_root_d"] + 2)
+            + lanes * reps * (PROBE_OPS["vpu_rep"] + 1))
+    mma_ops = (pairs * PROBE_OPS["mma_pair_o"] + cand * PROBE_OPS["mma_pair_d"]
+               + lanes * reps * PROBE_OPS["mma_rep"])
+    mma_ms, mma_by = bound(mma_ops, io + 32 * n)
+    tensor_ms = mma_tensor_ms(lanes, n, reps)
+    return {"sweep_vpu": bound(vpu, io + 16 * n),
+            "sweep_vpu2": bound(vpu2, io + 16 * n),
+            "sweep_mma": ((tensor_ms, "operations (FP64 tensor)")
+                          if tensor_ms > mma_ms else (mma_ms, mma_by))}
+
+
+def mma_tensor_ms(lanes, n, reps):
+    """The mma sweep's products at the FP64 tensor rate: a dot product of
+    3 multiply-adds (6 FLOP) per lane and sphere for o.c, and one per lane,
+    sphere and repeat for d.c."""
+    return lanes * n * (reps + 1) * 6 / PEAK_FP64_TENSOR * 1e3
+
+
+def onehot_bounds(lanes, s):
+    cand = lanes * s
+    return {"onehot_carry": bound(cand * (PROBE_OPS["t1_only"] + 6)
+                                  + lanes * 7, lanes * 48 + 16 * s),
+            "onehot_gather": bound(cand * (PROBE_OPS["t1_only"] + 2)
+                                   + lanes * 12, lanes * 48 + 48 * s)}
+
+
+def probe_cond_cost(card):
+    """Phase 19: the cond_cost probe's main (every setting, grid 256), each
+    setting's kernel against its plain version (bit-equal), and each
+    setting's kernel time from torch.profiler; the row is work, w=256 (the
+    probe's slope)."""
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.probes import cond_cost as cc
+    reset_launches()
+    ns = cc.main([])
+    torch.cuda.synchronize()
+    n = launches["cond_cost"]
+    require(n > 0, "the cond_cost probe launched its kernel")
+    x = torch.ones((1, 32, 128), dtype=torch.float32, device="cuda")
+    firsts, plain_ms = {}, {}
+    for s in cc.SETTINGS:
+        got = cc.cond_cost(x, *s)
+        want, plain_ms[s] = timed_result(lambda: cc.cond_cost_plain(x, *s))
+        require(torch.equal(got, want),
+                f"cond_cost {s} kernel/plain bit-equal")
+        firsts[s[0], s[2]] = float(got.flatten()[0])
+    require(firsts["any", 0] == 1.0 and firsts["cond_skipped", 16] == 1.0,
+            "any and cond_skipped leave 1.0")
+    require(firsts["work", 16] == float(np.float32(1.0000305)),
+            "work w=16 gives 1.0000305")
+    kernel = {s: profile_calls(lambda s=s: cc.cond_cost(x, *s), 10,
+                               "cond_cost_kernel") for s in cc.SETTINGS}
+    units = cc.GRID * cc.REPS
+    label = lambda s: f"{s[0]} m={s[1]} w={s[2]}"  # noqa: E731
+    per_setting = {label(s): {
+        "kernel_ns_per_unit": None if kernel[s] is None
+        else round(kernel[s] * 1e6 / units, 3),
+        "main_ns_per_unit": round(ns[s], 3),
+        "bound_ns_per_unit": round(cond_cost_bound(s[0], s[2], cc.GRID,
+                                                   cc.REPS)[0] * 1e6 / units,
+                                   4)} for s in cc.SETTINGS}
+    top = ("work", 0, 256)
+    call = (lambda: cc.cond_cost(x, *top))
+    event = timed_calls(call, 3, 50)
+    b = cond_cost_bound("work", 256, cc.GRID, cc.REPS)
+    phase(19, f"cond_cost probe (grid {cc.GRID}, {cc.REPS} repeats, one "
+              f"1,024-thread block per program): every setting bit-equal to "
+              f"its plain version; ns per unit (program x repeat): kernel "
+              f"(torch.profiler, 10 launches each), the probe's main (CUDA "
+              f"graph replay) and bound {per_setting}; work w=256: kernel "
+              f"{kernel[top]} ms/launch, {event:.4f} ms/call (CUDA events, "
+              f"back-to-back calls), plain {plain_ms[top]:.4f} ms/call, "
+              f"bound {b[0]:.6f} ms ({b[1]}); card: {card}")
+    return [kernel_row("cond_cost", "l2n_tpu_torch/csrc/cond_cost.cu",
+                       "benchmarks/cond_cost.py:31", n, 0.0,
+                       "bit-equal (every setting)", kernel[top], event,
+                       plain_ms[top], b, setting="work, w=256, grid 256")]
+
+
+def probe_sweep(card):
+    """Phase 20: the sweep_variants probe's main (64 blocks, 128 spheres,
+    16 repeats), each kernel against its plain version, the probe's own
+    check (vpu2 = vpu) and the mma gate."""
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.probes import sweep_variants as sv
+    reset_launches()
+    res = sv.main([])
+    torch.cuda.synchronize()
+    names = ("sweep_vpu", "sweep_vpu2", "sweep_mma")
+    n_launch = {k: launches[k] for k in names}
+    require(all(n_launch.values()), f"every sweep kernel launched {n_launch}")
+    dev = torch.device("cuda")
+    data = {k: torch.from_numpy(v).to(dev) for k, v in sv.inputs().items()}
+    o, d, cmat = data["o"], data["d"], data["cmat"]
+    sph = [data[k] for k in ("cx", "cy", "cz", "r2")]
+    bias = torch.zeros((o.shape[1], 32, 128), dtype=torch.float32, device=dev)
+    reps, n = sv.REPEATS, cmat.shape[1]
+    calls = {
+        "sweep_vpu": (lambda: sv.sweep_vpu(o, d, *sph, bias),
+                      lambda: sv.sweep_vpu_plain(o, d, *sph, bias)),
+        "sweep_vpu2": (lambda: sv.sweep_vpu2(o, d, *sph, bias),
+                       lambda: sv.sweep_vpu2_plain(o, d, *sph, bias)),
+    }
+    out, err, plain_ms = {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        out[name] = kern()
+        want, plain_ms[name] = timed_result(plain)
+        require(torch.equal(out[name], want), f"{name} kernel/plain bit-equal")
+        err[name] = 0.0
+    require(torch.equal(out["sweep_vpu2"], out["sweep_vpu"]),
+            "vpu2 = vpu bit for bit")
+    require(torch.equal(res["vpu"][0], out["sweep_vpu"])
+            and torch.equal(res["vpu2carry"][0], out["sweep_vpu2"]),
+            "the probe's main computed the same sweeps")
+    ik = torch.empty((reps, *bias.shape), dtype=torch.int32, device=dev)
+    ip = torch.empty_like(ik)
+    mk = sv.sweep_mma(o, d, cmat, bias, reps, ik)
+    mp, plain_ms["sweep_mma"] = timed_result(
+        lambda: sv.sweep_mma_plain(o, d, cmat, bias, reps, ip))
+    same = (ik == ip).all(0)
+    agree = float(same.float().mean())
+    tol = 1e-4 * mp.abs().clamp(min=1.0)
+    within = bool(((mk - mp).abs() <= tol)[same].all())
+    bit_equal = float((mk == mp).float().mean())
+    require(agree >= 0.999, f"sweep_mma winners agree on {agree} of lanes")
+    require(within, "sweep_mma |d acc| <= 1e-4 max(|acc|, 1) where winners "
+                    "agree")
+    err["sweep_mma"] = float((mk - mp).abs().max())
+    # The kernel against the JAX kernel's arithmetic, float32 dot products
+    # (reported, not gated: float32 sums of o.c lose the low bits that a
+    # grazing ray's discriminant keeps).
+    i32 = torch.empty_like(ik)
+    m32 = sv.sweep_mma_plain(o, d, cmat, bias, reps, i32, exact_dots=False)
+    same32 = (ik == i32).all(0)
+    breach = same32 & ((mk - m32).abs() > 1e-4 * m32.abs().clamp(min=1.0))
+    fp32 = {"winners_agree": float(same32.float().mean()),
+            "breaches": int(breach.sum()),
+            "max_breach": float((mk - m32).abs()[breach].max())
+            if bool(breach.any()) else 0.0,
+            "max_abs": float((mk - m32).abs().max())}
+    mma_vpu = float((mk - out["sweep_vpu"]).abs().max())
+    kernels = {name: kern for name, (kern, _) in calls.items()}
+    kernels["sweep_mma"] = lambda: sv.sweep_mma(o, d, cmat, bias)
+    lanes = bias.numel()
+    bounds = sweep_bounds(lanes, n, reps)
+    rows, times = [], {}
+    for name, kern in kernels.items():
+        ms = profile_calls(kern, 10, f"{name}_kernel")
+        event = timed_calls(kern, 2, 10)
+        ps = (event if ms is None else ms) * 1e9 / (lanes * reps * n)
+        times[name] = {"kernel_ms": ms, "event_ms": round(event, 4),
+                       "plain_ms": round(plain_ms[name], 2),
+                       "ps_per_lane_cand": round(ps, 3),
+                       "bound_ms": round(bounds[name][0], 5)}
+        rows.append(kernel_row(
+            name, SWEEP_SRC, f"benchmarks/sweep_variants.py:"
+            f"{ {'sweep_vpu': 83, 'sweep_vpu2': 101, 'sweep_mma': 138}[name] }",
+            n_launch[name], err[name],
+            "bit-equal" if name != "sweep_mma" else
+            "winners agree on >= 99.9% of lanes, there |d acc| <= 1e-4 "
+            "max(|acc|, 1)", ms, event, plain_ms[name], bounds[name],
+            ps_per_lane_candidate=ps))
+    phase(20, f"sweep_variants probe ({bias.shape[0]} blocks, {n} spheres, "
+              f"{reps} repeats): vpu, vpu2 bit-equal to their plain "
+              f"versions and to each other; mma winners agree with its "
+              f"plain version on {agree:.6f} of lanes ({bit_equal:.6f} "
+              f"bit-equal), max |d acc| "
+              f"{err['sweep_mma']:.4g} (gate 1e-4 max(|acc|, 1)); against "
+              f"float32 dot products (the JAX kernel's arithmetic; lanes of "
+              f"{lanes}: winners agree in every repeat, |d acc| above the "
+              f"gate there, largest such, largest overall) {fp32}; max |mma - "
+              f"vpu| {mma_vpu:.4g}; mma products at the FP64 tensor rate "
+              f"{mma_tensor_ms(lanes, n, reps):.4f} ms; probe main ms/call "
+              f"{ {k: round(v[1], 4) for k, v in res.items()} } (device "
+              f"time of a CUDA graph of 8 chained calls, best of 3 "
+              f"replays); per kernel (ms/launch by torch.profiler, ms/call "
+              f"by CUDA events, plain ms/call) {times}; "
+              f"card: {card}")
+    return rows, times
+
+
+def probe_onehot(card):
+    """Phase 21: the onehot_recovery probe's check and time modes (S =
+    128), each kernel against its plain version, gather = carry on hits."""
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.probes import onehot_recovery as oh
+    reset_launches()
+    require(oh.main(["check"]) is True, "onehot check: gather = carry on hits")
+    marginal = oh.main(["time"])
+    torch.cuda.synchronize()
+    n_launch = {k: launches[k] for k in ("onehot_carry", "onehot_gather")}
+    require(all(n_launch.values()), f"both onehot kernels launched {n_launch}")
+    dev = torch.device("cuda")
+    x = {k: torch.from_numpy(v).to(dev) for k, v in oh.inputs().items()}
+    calls = {
+        "onehot_carry": (lambda: oh.onehot_carry(x["rays"], x["spheres"]),
+                         lambda: oh.onehot_carry_plain(x["rays"],
+                                                       x["spheres"])),
+        "onehot_gather": (lambda: oh.onehot_gather(x["rays"], x["spheres"],
+                                                   x["table"]),
+                          lambda: oh.onehot_gather_plain(
+                              x["rays"], x["spheres"], x["table"]))}
+    got, plain_ms = {}, {}
+    for name, (kern, plain) in calls.items():
+        got[name] = kern()
+        want, plain_ms[name] = timed_result(plain)
+        require(torch.equal(got[name], want),
+                f"{name} kernel/plain bit-equal (all lanes)")
+    hit = got["onehot_carry"][1] >= 0
+    require(torch.equal(got["onehot_carry"][:, hit],
+                        got["onehot_gather"][:, hit]), "gather = carry on hits")
+    require(bool((got["onehot_carry"][5][~hit] == 1).all())
+            and bool((got["onehot_gather"][5][~hit] == 0).all()),
+            "misses: carry r2 = 1, gather r2 = 0")
+    bounds = onehot_bounds(32 * 128, x["spheres"].shape[1])
+    rows, times = [], {}
+    for name, (kern, _) in calls.items():
+        ms = profile_calls(kern, 50, f"{name}_kernel")
+        event = timed_calls(kern, 5, 200)
+        times[name] = {"kernel_ms": ms, "event_ms": round(event, 5),
+                       "plain_ms": round(plain_ms[name], 3),
+                       "bound_ms": round(bounds[name][0], 6)}
+        rows.append(kernel_row(
+            name, ONEHOT_SRC, "benchmarks/onehot_recovery.py:"
+            f"{100 if name == 'onehot_carry' else 112}", n_launch[name], 0.0,
+            "bit-equal (all lanes)", ms, event, plain_ms[name],
+            bounds[name]))
+    phase(21, f"onehot_recovery probe (S = {x['spheres'].shape[1]}, one "
+              f"32x128 block, hit fraction {float(hit.float().mean()):.3f}): "
+              f"check PASS, both kernels bit-equal to their plain versions, "
+              f"gather = carry on hits, miss r2 1 / 0; marginal ms/call "
+              f"{ {k: round(v, 5) for k, v in marginal.items()} } (host "
+              f"clock, (t(800) - t(400)) / 400); per kernel {times}; card: "
+              f"{card}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -506,11 +830,17 @@ def main() -> int:
     ptxas, kernel = [], "?"
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(sphere_pt|triangle_pt|uv_demo|philox_bits|"
-                      r"wavefront_pass_[abc])_kernel", ln)
+                      r"wavefront_pass_[abc]|cond_cost|sweep_vpu2?|"
+                      r"sweep_mma|onehot_carry|onehot_gather)_kernel", ln)
         if "Compiling entry function" in ln and m:
-            # one instantiation per sampler: name it
+            # one instantiation per sampler, or per cond_cost mode and
+            # carry count: name it
             rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
-            kernel = m.group(1) + (f"<{rng.group(1)}>" if rng else "")
+            mode_m = re.search(r"cond_cost_kernelILi(\d+)ELi(\d+)E", ln)
+            kernel = m.group(1) + (
+                f"<{rng.group(1)}>" if rng else
+                f"<mode {mode_m.group(1)}, m {mode_m.group(2)}>" if mode_m
+                else "")
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
@@ -914,6 +1244,11 @@ def main() -> int:
                   f"state init at {cfg.padded_width}x{cfg.padded_height} "
                   f"(seconds): {init_s}")
 
+    # --- 19-21: the probes through their entry points ----------------------
+    probe_rows = probe_cond_cost(card)
+    sweep_rows, sweep_times = probe_sweep(card)
+    probe_rows += sweep_rows + probe_onehot(card)
+
     # --- timings: kernel and plain, reference and whole-frame schedules -----
     timings, kernel_ms = {}, {}
     families = (
@@ -1141,22 +1476,26 @@ def main() -> int:
           f"whole-frame: { {n: (round(b, 6), by) for n, (b, by) in bounds_whole.items()} } "
           f"(ms; fp32 {PEAK_FP32:.3g} op/s, {PEAK_BYTES:.3g} B/s); card: "
           f"{card}", flush=True)
+    # sphere_pt's in-kernel sweep rate beside the probes': kernel time per
+    # nearest-hit candidate (casts x spheres), and per candidate with the
+    # shadow rays' any-hit tests counted too. The whole-frame step renders
+    # the frame its work was counted on; the 10-tile step's kernel time is
+    # the mean over rotating schedules, its count that of tiles 0-9.
+    rates = {}
+    for label, w in (("10-tile", work10), ("whole-frame", work_whole)):
+        k_ms = kernel_ms[("sphere_pt", label)]
+        cand = (w["a_casts"] + w["b_casts"]) * scene.count
+        rates[label] = None if k_ms is None else {
+            "nearest": round(k_ms * 1e9 / cand, 4),
+            "with_anyhit": round(k_ms * 1e9 / (cand + w["b_anyhit_tests"]),
+                                 4)}
+    print(f"[rate] ps per (lane x candidate): sphere_pt (torch.profiler "
+          f"kernel time) {rates}; the sweep probe "
+          f"{ {k: v['ps_per_lane_cand'] for k, v in sweep_times.items()} }; "
+          f"card: {card}", flush=True)
 
-    def row(name, source, replaces, n, err, tol, profiled, event_ms,
-            plain_ms):
-        """`ms` is the kernel's device time per launch from torch.profiler
-        (`ms_from` says so), or, where the profiler recorded none, the CUDA
-        events' time per call or step (`event_ms`, host dispatch
-        included)."""
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                "tolerance": tol,
-                "ms": event_ms if profiled is None else profiled,
-                "ms_from": ("CUDA events" if profiled is None
-                            else "torch.profiler"),
-                "event_ms": event_ms, "plain_ms": plain_ms,
-                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": None}
+    def row(name, *args):
+        return kernel_row(name, *args, bounds[name])
 
     frame_tol = "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3"
     wave_src = "l2n_tpu_torch/csrc/wavefront.cu"
@@ -1169,6 +1508,8 @@ def main() -> int:
                 ", output flips < 2e-3" if name.endswith("c") else ""),
             wave[("10-tile", "passes")][kernel_names[name]], pass_ms[name],
             pass_plain_ms[name]))
+    print(f"[time] {time.perf_counter() - T0:.1f} s from the start of the "
+          f"script to the kernels line", flush=True)
     print(json.dumps({"kernels": [
         row("sphere_pt", "l2n_tpu_torch/csrc/sphere_pt.cu",
             "l2n_tpu/ops/kernels/sphere_pt.py:214",
@@ -1189,7 +1530,8 @@ def main() -> int:
         row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
             "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",
             bits_t[256]["kernel_ms"], bits_t[256]["wrapper_ms"],
-            bits_t[256]["plain_ms"])]}))
+            bits_t[256]["plain_ms"]),
+        *probe_rows]}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,6 +105,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "wavefront_pass_b": [p, p, i, i, p, p, p, p, p, p],
         "wavefront_pass_c": [p] * 8,
         "philox_bits": [p, i, i, p, p],
+        "cond_cost": [p, i, i, i, i, i, p, p],
+        "sweep_vpu": [p] * 6 + [i, i, i, p, p, p],
+        "sweep_vpu2": [p] * 6 + [i, i, i, p, p, p],
+        "sweep_mma": [p, p, p, i, i, i, p, p, p, p],
+        "onehot_carry": [p, p, i, i, p, p],
+        "onehot_gather": [p, p, i, p, i, p, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, f"l2n_{name}")

@@ -43,6 +43,7 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
     wavefront_pass_c_plain,
 )
 from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+from l2n_tpu_torch.probes import onehot_recovery, sweep_variants
 from l2n_tpu_torch.render.state import init_rng_state
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
 from l2n_tpu_torch.rng import philox, tauslcg, tinymt
@@ -76,6 +77,7 @@ CSRC = Path(__file__).resolve().parents[1] / "l2n_tpu_torch" / "csrc"
 
 SHIM = r"""
 #include "sphere_pt.cuh"
+#include "sweep_probe.cuh"
 #include "triangle_pt.cuh"
 #include "wavefront.cuh"
 
@@ -223,6 +225,45 @@ int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
                                     output);
   return 0;
 }
+// The probes' per-lane bodies over `lanes` lanes: sweep_variants' vpu
+// (carry) / vpu2 lane and onehot_recovery's carry / gather lane.
+void l2n_sweep_lanes_host(int carry, const float* o, const float* d,
+                          const float* rows, int n, int64_t lanes,
+                          int repeats, const float* bias, float* out) {
+  const l2n_probe::Spheres s{rows, n};
+  for (int64_t p = 0; p < lanes; ++p) {
+    const float* a = o + p;
+    const float* b = d + p;
+    out[p] = carry ? l2n_probe::sweep_lane<true>(
+                         s, repeats, a[0], a[lanes], a[2 * lanes], b[0],
+                         b[lanes], b[2 * lanes], bias[p])
+                   : l2n_probe::sweep_lane<false>(
+                         s, repeats, a[0], a[lanes], a[2 * lanes], b[0],
+                         b[lanes], b[2 * lanes], bias[p]);
+  }
+}
+void l2n_onehot_lanes_host(int carry, const float* rays, const float* rows,
+                           int n, const float* table, int64_t lanes,
+                           float* out) {
+  const l2n_probe::Spheres s{rows, n};
+  for (int64_t p = 0; p < lanes; ++p) {
+    const float* r = rays + p;
+    l2n_probe::Winner w;
+    if (carry) {
+      w = l2n_probe::sweep<true, l2n_probe::T1Only>(
+          s, r[0], r[lanes], r[2 * lanes], r[3 * lanes], r[4 * lanes],
+          r[5 * lanes], 1.0f);
+    } else {
+      w = l2n_probe::sweep<false, l2n_probe::T1Only>(
+          s, r[0], r[lanes], r[2 * lanes], r[3 * lanes], r[4 * lanes],
+          r[5 * lanes], 1.0f);
+      l2n_probe::gather(table, 8, 1, w);
+    }
+    const float v[6] = {w.t, static_cast<float>(w.i), w.cx, w.cy, w.cz,
+                        w.r2};
+    for (int k = 0; k < 6; ++k) out[k * lanes + p] = v[k];
+  }
+}
 }
 """
 
@@ -257,6 +298,9 @@ def lib(tmp_path_factory):
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 8
     lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, p, p, p, p, p]
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
+    i64 = ctypes.c_int64
+    lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
+    lib.l2n_onehot_lanes_host.argtypes = [i, p, p, i, p, i64, p]
     return lib
 
 
@@ -744,3 +788,47 @@ def test_triangle_header_matches_plain_step_tinymt(lib):
     np.testing.assert_array_equal(ha, pa)
     np.testing.assert_array_equal(hs, ps)
     assert (ps != init_rng_state(cfg).numpy()).any()
+
+
+# ---------------------------------------------------------------------------
+# The probes' per-lane bodies (csrc/sweep_probe.cuh) against the plain ones
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("carry", [True, False], ids=["vpu", "vpu2"])
+def test_sweep_probe_header_matches_plain(lib, carry):
+    """sweep_variants' lane body over one block (4,096 random rays), 16
+    spheres of the default scene, 3 repeats from a random bias: bit-equal
+    to the plain sweep_vpu / sweep_vpu2."""
+    data = sweep_variants.inputs(blocks=1)
+    o, d = data["o"], data["d"]
+    rows = np.ascontiguousarray(
+        np.stack([data[k][:16] for k in ("cx", "cy", "cz", "r2")]))
+    bias = np.random.default_rng(24).uniform(
+        -1, 1, (1, 32, 128)).astype(np.float32)
+    out = np.empty_like(bias)
+    lib.l2n_sweep_lanes_host(int(carry), _ptr(o), _ptr(d), _ptr(rows), 16,
+                             bias.size, 3, _ptr(bias), _ptr(out))
+    plain = (sweep_variants.sweep_vpu_plain if carry
+             else sweep_variants.sweep_vpu2_plain)
+    want = plain(torch.from_numpy(o), torch.from_numpy(d),
+                 *(torch.from_numpy(r) for r in rows),
+                 torch.from_numpy(bias), 3).numpy()
+    assert (want > bias).mean() > 0.01  # some lanes hit
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("carry", [True, False], ids=["carry", "gather"])
+def test_onehot_probe_header_matches_plain(lib, carry):
+    """onehot_recovery's lane body over its 4,096 rays and 16 spheres:
+    all six planes bit-equal to the plain onehot_carry / onehot_gather
+    (misses included: r2 = 1 for the carry, 0 for the gather)."""
+    x = onehot_recovery.inputs(16)
+    out = np.empty_like(x["rays"])
+    lib.l2n_onehot_lanes_host(int(carry), _ptr(x["rays"]), _ptr(x["spheres"]),
+                              16, _ptr(x["table"]), 32 * 128, _ptr(out))
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    want = (onehot_recovery.onehot_carry_plain(t["rays"], t["spheres"])
+            if carry else onehot_recovery.onehot_gather_plain(
+                t["rays"], t["spheres"], t["table"])).numpy()
+    assert 0.01 < (want[1] >= 0).mean() < 0.99
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
