@@ -8,8 +8,10 @@ the card; the stateful tinymt and tauslcg), runs the tpu_hw statistical
 gates on the raw-bits kernel philox_bits and on renders, runs the three
 probes (l2n_tpu_torch/probes: cond_cost, sweep_variants, onehot_recovery)
 through their entry points with their kernels held against the plain
-versions, and times kernel and plain versions beside the least time the
-card could take for the same work.
+versions, holds sphere_pt and triangle_pt to their plain versions bit for
+bit from views that make their per-tile cone cull hard (phase 22), and
+times kernel and plain versions beside the least time the card could take
+for the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -289,17 +291,38 @@ def step_contributions(cfg, scene, steps):
 # per-thread code executes for this run's data, counted by running the
 # plain version with counting scene closures (the plain version is
 # bit-equal to the kernels, so its rays are theirs). Every instruction
-# counts as one fp32 operation, sqrt/sin/cos/exp/log included, and the
-# triangle walk counts only its mesh-bound tests: a lower bound.
-# Per-item operation counts, read off csrc/pathtrace.cuh, sphere_pt.cuh,
-# triangle_pt.cuh and wavefront.cuh:
+# counts as one fp32 operation, sqrt/sin/cos/exp/log included: a lower
+# bound. What the reference kernels need for these inputs: a primary cast
+# tests only its tile's cone-visible spheres or mesh bounds (the plain
+# visibility_table's count), plus the per-tile table; a bounce or any-hit
+# cast tests every sphere or mesh bound; a sphere candidate pays for its
+# square root and roots only where the ray's line meets it (disc >= 0,
+# counted per lane); a triangle segment that hits adds
+# its winner's slab test, the slab's 8 sub-cluster tests and the 16
+# Moller-Trumbore tests of the winner's sub-cluster (a miss needs no
+# triangle test).
+# Per-item operation counts, read off csrc/pathtrace.cuh, cull.cuh,
+# sphere_pt.cuh, triangle_pt.cuh and wavefront.cuh:
 OPS = dict(
     threefry=125,      # one threefry-2x32 pair: 20 rounds, 5 key injections
     ray=30,            # primary_direction: NDC, camera transform, normalize
-    sphere=24,         # one candidate of SceneView::nearest
+    sphere=24,         # one candidate of SceneView::nearest whose line
+                       # meets the ray (disc >= 0): sqrt, roots, selects
+    sphere_miss=17,    # one whose line misses: o - c (3), hb (5),
+                       # |o - c|^2 - r^2 (6), disc (2), disc >= 0 (1)
+    sphere_primary=15,  # the two of nearest_primary: the 9 origin terms
+    sphere_primary_miss=8,  # (o - c, |o - c|^2 - r^2) are hoisted
     nearest_fixed=20,  # the winner's hit point and normal
     anyhit=19,         # one candidate tested by SceneView::anyhit
-    mesh_bound=14,     # one mesh-bound test of the triangle walk
+    cone=186,          # tile_cone: 5 rays, 4 dot products and minima, the
+                       # relaxed cosine and sine
+    cone_test=29,      # cone_keeps for one sphere or mesh bound
+    primary_terms=9,   # one visible sphere's hoisted origin terms
+    mesh_bound=20,     # one bound test of the triangle walk (bound_enter
+                       # up to its enter test)
+    bound_entry=7,     # an entered bound's entry distance and margin test
+    moller=62,         # one Moller-Trumbore candidate with its valid test
+    tri_fixed=27,      # the winner's normal, texcoords and barycentrics
     scatter=70,        # frame, cosine sample, albedo, roulette, cast origin
     emit=10,           # emit_term and its accumulation
     sky_box=8,         # the Mandelbrot direction-box test
@@ -370,9 +393,52 @@ class WorkCount:
     primary cast (the wavefront's pass A), "b_" to the rest (pass B).
     Lanes whose cast origin is parked at 3e30 are dead and not counted."""
 
-    def __init__(self, cfg, spheres=None):
+    def __init__(self, cfg, spheres=None, mesh_bounds=None, visible=None):
         self.cfg, self.spheres = cfg, spheres
+        self.mesh_bounds = mesh_bounds
+        self.visible = visible  # (K, n) bool: the tiles' visible spheres
         self.c = collections.Counter()
+
+    def _meets(self, mask, ox, oy, oz, dx, dy, dz, tag):
+        """Sphere candidates whose line meets the masked casts (disc >= 0,
+        the sweep's roots; a_meets and b_meets over every sphere), and
+        for primaries those among their tile's visible spheres
+        (a_meets_vis). Primary lanes are the K tiles' pixels in order."""
+        if self.spheres is None:
+            return
+        lane = torch.nonzero(mask.reshape(-1))[:, 0]
+        o = [torch.broadcast_to(a, mask.shape).reshape(-1)
+             for a in (ox, oy, oz)]
+        d = [torch.broadcast_to(a, mask.shape).reshape(-1)
+             for a in (dx, dy, dz)]
+        per_tile = self.cfg.tile_height * self.cfg.tile_width
+        for i in range(0, lane.numel(), 1 << 16):  # bounded memory
+            li = lane[i:i + (1 << 16)]
+            ro = [o[k][li, None] - self.spheres[k] for k in range(3)]
+            hb = (ro[0] * d[0][li, None] + ro[1] * d[1][li, None]
+                  + ro[2] * d[2][li, None])
+            cc = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - self.spheres[3]
+            meet = hb * hb - cc >= 0.0
+            self.c[tag + "meets"] += int(meet.sum())
+            if tag == "a_" and self.visible is not None:
+                vis = self.visible[li // per_tile]
+                self.c["a_meets_vis"] += int((meet & vis).sum())
+
+    def _entries(self, mask, ox, oy, oz, dx, dy, dz):
+        """Mesh bounds entered by the masked casts (the walk's enter test
+        at best = inf: inside, or ahead with a real root)."""
+        if self.mesh_bounds is None:
+            return
+        o = [torch.broadcast_to(a, mask.shape)[mask] for a in (ox, oy, oz)]
+        d = [torch.broadcast_to(a, mask.shape)[mask] for a in (dx, dy, dz)]
+        for i in range(0, o[0].numel(), 1 << 16):  # bounded memory
+            ro = [o[k][i:i + (1 << 16), None] - self.mesh_bounds[:, k]
+                  for k in range(3)]
+            dd = [d[k][i:i + (1 << 16), None] for k in range(3)]
+            hb = ro[0] * dd[0] + ro[1] * dd[1] + ro[2] * dd[2]
+            cc = ro[0] ** 2 + ro[1] ** 2 + ro[2] ** 2 - self.mesh_bounds[:, 3]
+            enter = (cc < 0) | ((hb < 0) & (hb * hb - cc >= 0))
+            self.c["b_mesh_entries"] += int(enter.sum())
 
     def _sky(self, mask, dx, dy, dz, tag):
         d = [torch.broadcast_to(a, mask.shape)[mask] for a in (dx, dy, dz)]
@@ -390,6 +456,10 @@ class WorkCount:
             self.c[tag + "casts"] += int(live.sum())
             self._sky(live & (h.t == -1.0), dx, dy, dz, tag)
             hit = live & (h.t >= 0.0)
+            self.c[tag + "hits"] += int(hit.sum())
+            if tag == "b_":
+                self._entries(live, ox, oy, oz, dx, dy, dz)
+            self._meets(live, ox, oy, oz, dx, dy, dz, tag)
             emissive = hit & (h.index % self.cfg.emissive_every == 0)
             self.c[tag + "emissive"] += int(emissive.sum())
             self.c[tag + "scatters"] += int((hit & ~emissive).sum())
@@ -401,6 +471,8 @@ class WorkCount:
             hit = inner(ox, oy, oz, dx, dy, dz)
             live = torch.broadcast_to(ox, dx.shape) < 1e30
             self.c["b_anyhit"] += int(live.sum())
+            self.c["b_anyhit_hits"] += int((live & hit).sum())
+            self._entries(live, ox, oy, oz, dx, dy, dz)
             if self.spheres is not None:  # candidates up to the first hit
                 o = [torch.broadcast_to(a, dx.shape)[live] for a in (ox, oy, oz)]
                 d = [a[live] for a in (dx, dy, dz)]
@@ -418,12 +490,32 @@ class WorkCount:
 
 
 def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
-               rng_state=None):
+               rng_state=None, cull_bounds=None, mesh_bounds=None):
     """Counters of one plain render of the scheduled tiles (`accum` and
-    `rng_state` are copied, not updated)."""
+    `rng_state` are copied, not updated). With `cull_bounds` (4, n), the
+    tiles' cone-visible counts over those spheres (the plain
+    visibility_table): vis_sum and vis_max over the tiles, and
+    vis_candidates, the visible candidates of every primary cast; with
+    `mesh_bounds` (M, 4), the mesh bounds each bounce and any-hit cast
+    enters (b_mesh_entries); with `spheres`, the candidates whose line
+    meets the ray (a_meets, a_meets_vis, b_meets)."""
     from l2n_tpu_torch.ops.kernels.common import render_tiles_plain
+    from l2n_tpu_torch.ops.kernels.sphere_pt import visibility_table
     intersect, anyhit, albedo = scene_closures
-    w = WorkCount(cfg, spheres)
+    visible = None
+    if cull_bounds is not None:
+        table = visibility_table(cfg, cull_bounds, cam, sched).long()
+        n_vis = table[:, 0]
+        rank = torch.arange(table.shape[1] - 1, device=table.device)
+        visible = torch.zeros(table.shape[0], table.shape[1] - 1,
+                              dtype=torch.bool, device=table.device)
+        visible.scatter_(1, table[:, 1:], rank[None, :] < n_vis[:, None])
+    w = WorkCount(cfg, spheres, mesh_bounds, visible)
+    if cull_bounds is not None:
+        w.c["vis_sum"] = int(n_vis.sum())
+        w.c["vis_max"] = int(n_vis.max())
+        w.c["vis_candidates"] = (w.c["vis_sum"] * cfg.tile_height
+                                 * cfg.tile_width * cfg.spp_per_step)
     acc = accum.clone()
     render_tiles_plain(cfg, sched, cam, w.intersect(intersect),
                        w.anyhit(anyhit), albedo, acc, torch.empty_like(acc[:3]),
@@ -456,24 +548,60 @@ def sphere_bounds(c, n_spheres: int, k: int, alive: int, rng="threefry"):
     passes for the counters `c` of one step of K tiles, with rng mode
     `rng`'s draws and state planes."""
     pair = PAIR_OPS[rng]
-    cast = n_spheres * OPS["sphere"] + OPS["nearest_fixed"]
+    # A cast's candidates at the miss cost, plus the roots of those whose
+    # line meets the ray (counted per lane by count_work).
+    cast = n_spheres * OPS["sphere_miss"] + OPS["nearest_fixed"]
+    roots = OPS["sphere"] - OPS["sphere_miss"]
+    a_roots, b_roots = c["a_meets"] * roots, c["b_meets"] * roots
     any_ops = c["b_anyhit_tests"] * OPS["anyhit"]
     scene_bytes, sched_bytes = 7 * n_spheres * 4, 8 * k
     tonemap = c["pixels"] * OPS["accumulate"] + c["samples"] * OPS["sample_sum"]
     lanes = c["samples"]
+    # sphere_pt's primaries sweep their tile's visible spheres (counted by
+    # count_work's cull_bounds), after one table per tile; the wavefront's
+    # pass A sweeps every sphere.
+    culled = (c["vis_candidates"] * OPS["sphere_primary_miss"]
+              + c["a_meets_vis"] * (OPS["sphere_primary"]
+                                    - OPS["sphere_primary_miss"])
+              + c["a_casts"] * OPS["nearest_fixed"]
+              + k * (OPS["cone"] + n_spheres * OPS["cone_test"])
+              + c["vis_sum"] * OPS["primary_terms"])
     return {
-        "sphere_pt": bound(path_ops(c, cast, pair=pair) + any_ops + tonemap,
+        "sphere_pt": bound(path_ops(c, cast, pair=pair) - c["a_casts"] * cast
+                           + culled + b_roots + any_ops + tonemap,
                            c["pixels"] * (44 + STATE_BYTES[rng])
                            + scene_bytes + sched_bytes),
-        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",), pair),
+        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",), pair) + a_roots,
                                   c["pixels"] * 4 + lanes * 56 + scene_bytes
                                   + sched_bytes),
-        "wavefront_pass_b": bound(path_ops(c, cast, ("b_",), pair) + any_ops
-                                  + alive * pair,
+        "wavefront_pass_b": bound(path_ops(c, cast, ("b_",), pair) + b_roots
+                                  + any_ops + alive * pair,
                                   alive * 56 + scene_bytes + 4),
         "wavefront_pass_c": bound(tonemap + lanes * 6,
                                   lanes * 24 + c["pixels"] * 44 + sched_bytes),
     }
+
+
+def triangle_bound(c, m: int, k: int, scene_bytes: int):
+    """(bound_ms, bound_by) of triangle_pt for the counters `c` of one step
+    of K tiles over M meshes (count_work with cull_bounds and mesh_bounds):
+    the path's own work, the primaries' visible mesh-bound tests and table,
+    every mesh bound for the other casts, the entered ones' entry tests,
+    and per hitting segment its slab, sub-cluster and triangle tests."""
+    hit_walk = (OPS["mesh_bound"] + OPS["bound_entry"]        # the slab
+                + 8 * OPS["mesh_bound"] + OPS["bound_entry"]  # its subs
+                + 16 * OPS["moller"])
+    hits = c["a_hits"] + c["b_hits"]
+    ops = (path_ops(c, 0.0)
+           + c["vis_candidates"] * OPS["mesh_bound"]
+           + k * (OPS["cone"] + m * OPS["cone_test"])
+           + (c["b_casts"] + c["b_anyhit"]) * m * OPS["mesh_bound"]
+           + (hits + c["b_mesh_entries"]) * OPS["bound_entry"]
+           + (hits + c["b_anyhit_hits"]) * hit_walk
+           + hits * OPS["tri_fixed"]
+           + c["pixels"] * OPS["accumulate"]
+           + c["samples"] * OPS["sample_sum"])
+    return bound(ops, c["pixels"] * 44 + scene_bytes + 8 * k)
 
 
 def kernel_row(name, source, replaces, n, err, tol, profiled, event_ms,
@@ -772,6 +900,132 @@ def probe_onehot(card):
     return rows
 
 
+def straddling(cfg, bounds, cam):
+    """Spheres (bound spheres) kept by more than one tile's cone, and the
+    visible counts per tile (the plain visibility_table)."""
+    from l2n_tpu_torch.ops.kernels.sphere_pt import full_visibility_table
+    table = full_visibility_table(cfg, bounds, cam).cpu()
+    kept = torch.zeros(bounds.shape[1], dtype=torch.int64)
+    for row in table:
+        kept[row[1:1 + row[0]].long()] += 1
+    return int((kept > 1).sum()), table[:, 0]
+
+
+def orbit_view(cfg, bounds, radius_scale=1.0):
+    """The default camera orbited about the scene's centre: of 24 steps of
+    15 degrees around the vertical, the view whose tile cones are straddled
+    by the most bounds (each kept by more than one tile)."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
+    b = bounds.cpu().numpy().astype(np.float64)
+    centre = b[:3].mean(1)
+    base = Camera.from_config(cfg).packed()[8, :3].astype(np.float64)
+    off = (base - centre) * radius_scale
+    best = None
+    for i in range(24):
+        a = np.radians(15.0 * i)
+        rot = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                        [-np.sin(a), 0.0, np.cos(a)]])
+        eye = centre + rot @ off
+        vm = look_at(eye.astype(np.float32), centre.astype(np.float32),
+                     np.array([0.0, 1.0, 0.0], np.float32))
+        cam = Camera.from_config(cfg, view_matrix=vm).packed()
+        n, _ = straddling(cfg, bounds, cam)
+        if best is None or n > best[0]:
+            best = (n, 15 * i, cam)
+    return best
+
+
+def inside_view(cfg, bounds, j, toward, fraction):
+    """The eye inside bound j, `fraction` of its radius from its centre
+    toward bound `toward`, looking at bound `toward`."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
+    b = bounds.cpu().numpy().astype(np.float64)
+    to = (b[:3, toward] - b[:3, j]) / np.linalg.norm(b[:3, toward] - b[:3, j])
+    eye = b[:3, j] + to * fraction * np.sqrt(b[3, j])
+    vm = look_at(eye.astype(np.float32), b[:3, toward].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+def facet_gap_view(cfg, buf, j, toward):
+    """The eye between tessellated mesh j and its bound sphere (inside the
+    bound, outside the facets), over the facet that faces bound `toward`,
+    looking at it."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
+    b = buf.mesh_bounds.cpu().numpy().astype(np.float64)
+    soup = {k: v.cpu().numpy().astype(np.float64) for k, v in buf.soup.items()}
+    mine = soup["mesh_id"] == j
+    cen = np.stack([soup[f"v1{a}"] + (soup[f"e1{a}"] + soup[f"e2{a}"]) / 3.0
+                    for a in "xyz"], 1)[mine]
+    radial = cen - b[j, :3]
+    dist = np.linalg.norm(radial, axis=1)
+    out = radial / dist[:, None]
+    to = b[toward, :3] - b[j, :3]
+    f = int(np.argmax(out @ (to / np.linalg.norm(to))))
+    eye = cen[f] + out[f] * 0.5 * (np.sqrt(b[j, 3]) - dist[f])
+    require(float(((eye - b[j, :3]) ** 2).sum()) < b[j, 3],
+            "the facet-gap eye lies inside its mesh's bound")
+    vm = look_at(eye.astype(np.float32), b[toward, :3].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+def hard_culling_phase(cfg, spheres, tri_cfg, tri_buf):
+    """Phase 22: sphere_pt and triangle_pt against their plain versions, 4
+    whole-frame steps each, from views that make the cone cull hard: the
+    default camera orbited until the most bounds straddle tile-cone edges,
+    and the eye inside a bound (the d2 <= r2 case): inside the emissive
+    sphere 0 for spheres (every primary hits it from inside), in the gap
+    between a tessellated sphere and its bound for meshes (a lit view out of
+    the bound), that one also as the tex_coords AOV (1 step), which walks
+    only the culled meshes. Gates: accum max abs 0, lit > 5%."""
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        triangle_pt,
+        triangle_pt_plain,
+    )
+    swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+    twhole = tri_cfg.replace(tiles_per_step=tri_cfg.tile_count)
+    sb = spheres[:4].contiguous()
+    mb = tri_buf.mesh_bounds.T.contiguous()
+    c = sb.cpu().numpy()
+    d = np.linalg.norm(c[:3].T - c[:3, 0], axis=1)
+    d[0] = np.inf
+    near0 = int(np.argmin(d))
+    views = []
+    n, deg, cam = orbit_view(swhole, sb)
+    views.append(("sphere orbit", sphere_pt, sphere_pt_plain, swhole,
+                  spheres, cam, sb, f"{deg} deg, {n} spheres straddle"))
+    views.append(("sphere eye inside emissive sphere 0", sphere_pt,
+                  sphere_pt_plain, swhole, spheres,
+                  inside_view(swhole, sb, 0, near0, 1.0 / 3.0), sb, ""))
+    n, deg, cam = orbit_view(twhole, mb)
+    views.append(("mesh orbit", triangle_pt, triangle_pt_plain, twhole,
+                  tri_buf, cam, mb, f"{deg} deg, {n} bounds straddle"))
+    gap = facet_gap_view(twhole, tri_buf, near0, 0)
+    views.append((f"mesh eye in mesh {near0}'s bound gap", triangle_pt,
+                  triangle_pt_plain, twhole, tri_buf, gap, mb, ""))
+    views.append((f"mesh eye in mesh {near0}'s bound gap, tex_coords",
+                  triangle_pt, triangle_pt_plain,
+                  twhole.replace(aov="tex_coords"), tri_buf, gap, mb, ""))
+    out = {}
+    for name, kern, plain, vcfg, scene_arg, cam, bounds, note in views:
+        n_straddle, counts = straddling(vcfg, bounds, cam)
+        steps = 4 if vcfg.aov == "pathtracing" else 1
+        _, err, _, lit, _ = kernel_vs_plain(kern, plain, vcfg, scene_arg,
+                                            cam, steps)
+        require(err == 0.0, f"{name}: kernel/plain accum max abs {err}")
+        out[name] = {"max_abs": err, "lit": round(lit, 4),
+                     "visible_mean": round(float(counts.float().mean()), 3),
+                     "visible_max": int(counts.max()),
+                     "straddling": n_straddle, **({"view": note} if note
+                                                  else {})}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -907,10 +1161,11 @@ def main() -> int:
     rmse, max_err, flips, lit = compare(
         ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
         pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg)
+    require(max_err == 0.0, f"sphere_pt kernel/plain accum max abs {max_err}")
     phase(4, f"sphere_pt kernel vs plain, default {cfg.width}x{cfg.height}, "
              f"{steps} steps x {k} tiles: accum RMSE {rmse:.3e} (gate 1e-3), "
-             f"max abs {max_err:.3e}, output flip fraction {flips:.3e} "
-             f"(gate 2e-3), lit {lit:.4f}")
+             f"max abs {max_err:.3e} (gate 0), output flip fraction "
+             f"{flips:.3e} (gate 2e-3), lit {lit:.4f}")
     del ka, pa
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -969,12 +1224,14 @@ def main() -> int:
         tri_buf = TriangleBuffers.from_scene(tri_scene, dev)
         rmse, tri_err, flips, lit, _ = kernel_vs_plain(
             triangle_pt, triangle_pt_plain, whole, tri_buf, cam, 4)
+        require(tri_err == 0.0,
+                f"triangle_pt kernel/plain accum max abs {tri_err}")
         phase(7, f"triangle_pt kernel vs plain, default triangle config "
                  f"{whole.width}x{whole.height}, {tri_scene.total_triangles} "
                  f"triangles in {tri_scene.mesh_count} meshes, 4 whole-frame "
                  f"steps: accum RMSE {rmse:.3e} (gate 1e-3), max abs "
-                 f"{tri_err:.3e}, output flip fraction {flips:.3e} (gate "
-                 f"2e-3), lit {lit:.4f}")
+                 f"{tri_err:.3e} (gate 0), output flip fraction {flips:.3e} "
+                 f"(gate 2e-3), lit {lit:.4f}")
 
         # --- 8: kernel vs plain on the multi-slab torus field -------------
         tori = load_obj(torus_field_obj())
@@ -1244,6 +1501,12 @@ def main() -> int:
                   f"state init at {cfg.padded_width}x{cfg.padded_height} "
                   f"(seconds): {init_s}")
 
+        # --- 22: both kernels vs plain where culling is hard ------------
+        hard = hard_culling_phase(cfg, spheres, tri_cfg, tri_buf)
+        phase(22, f"hard culling, 4 whole-frame steps per view (1 for the "
+                  f"AOV), kernel vs plain (gates: accum max abs 0, lit > "
+                  f"0.05): {hard}")
+
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
     sweep_rows, sweep_times = probe_sweep(card)
@@ -1427,11 +1690,13 @@ def main() -> int:
     # --- work counts and bounds ------------------------------------------
     sphere_scene = (sphere_intersector(*spheres[:4]),
                     sphere_anyhit(*spheres[:4]), spheres[4:7].T)
-    work10 = count_work(wcfg, s10, cam, a10.accum, sphere_scene, spheres)
+    sphere_cull = spheres[:4].contiguous()
+    work10 = count_work(wcfg, s10, cam, a10.accum, sphere_scene, spheres,
+                        cull_bounds=sphere_cull)
     bounds = sphere_bounds(work10, scene.count, k, alive10)
     work_whole = count_work(wwhole, wsched, cam,
                             init_frame_state(wwhole, dev).accum,
-                            sphere_scene, spheres)
+                            sphere_scene, spheres, cull_bounds=sphere_cull)
     bounds_whole = sphere_bounds(work_whole, scene.count,
                                  wwhole.tile_count, na)
     for label, w in (("10-tile", work10), ("whole-frame", work_whole)):
@@ -1441,22 +1706,37 @@ def main() -> int:
               f" {dict(w)}; mean path segments per sample {segs:.4f}, "
               f"Mandelbrot iterations per sample {iters:.4f} (counted on "
               f"the plain path)", flush=True)
-    tri10 = tri_cfg
-    ts10 = scheduled_tiles(tiles, 0, tri10.effective_tiles_per_step)
     tri_intersect = triangle_intersector(tri_buf.soup)
-    work_tri = count_work(tri10, ts10, cam, init_frame_state(tri10, dev).accum,
-                          (tri_intersect, triangle_anyhit(tri_intersect),
-                           tri_buf.albedo.T))
+    tri_closures = (tri_intersect, triangle_anyhit(tri_intersect),
+                    tri_buf.albedo.T)
     m = tri_buf.mesh_bounds.shape[0]
     tri_bytes = sum(getattr(tri_buf, f).numel() * 4 for f in (
         "albedo", "mesh_bounds", "slab_count", "slab_bounds", "sub_bounds",
         "tris", "attrs"))
-    bounds["triangle_pt"] = bound(
-        path_ops(work_tri, m * OPS["mesh_bound"] + OPS["nearest_fixed"])
-        + work_tri["b_anyhit"] * m * OPS["mesh_bound"]
-        + work_tri["pixels"] * OPS["accumulate"]
-        + work_tri["samples"] * OPS["sample_sum"],
-        work_tri["pixels"] * 44 + tri_bytes + 8 * ts10.shape[0])
+    mesh_cull = tri_buf.mesh_bounds.T.contiguous()
+    tri_work = {}
+    for label, lcfg in (("10-tile", tri_cfg), ("whole-frame", whole)):
+        lsched = scheduled_tiles(tiles, 0, lcfg.effective_tiles_per_step)
+        w = tri_work[label] = count_work(
+            lcfg, lsched, cam, init_frame_state(lcfg, dev).accum,
+            tri_closures, cull_bounds=mesh_cull,
+            mesh_bounds=tri_buf.mesh_bounds)
+        (bounds if label == "10-tile" else bounds_whole)["triangle_pt"] = (
+            triangle_bound(w, m, lsched.shape[0], tri_bytes))
+        print(f"[work] triangle default config, {label} step from zero "
+              f"state: {dict(w)} (counted on the plain path)", flush=True)
+    # The culled lists: visible spheres and mesh bounds per tile of the
+    # default views (whole frame), and the mesh bounds a bounce or any-hit
+    # cast enters.
+    tw = tri_work["whole-frame"]
+    print(f"[cull] visible per tile, default view, whole frame: spheres mean "
+          f"{work_whole['vis_sum'] / wwhole.tile_count:.3f} max "
+          f"{work_whole['vis_max']} of {scene.count}; meshes mean "
+          f"{tw['vis_sum'] / whole.tile_count:.3f} max {tw['vis_max']} of "
+          f"{m}; mesh bounds entered per bounce or any-hit ray "
+          f"{tw['b_mesh_entries'] / max(tw['b_casts'] + tw['b_anyhit'], 1):.4f}"
+          f" ({tw['b_casts'] + tw['b_anyhit']} rays; counted on the plain "
+          f"path)", flush=True)
     bounds["uv_demo"] = bound(720 * 1280 * 12, 720 * 1280 * 12 + 4)
     bounds["philox_bits"] = bits_t[256]["bound"]
     mode_bounds = {}
@@ -1466,7 +1746,7 @@ def main() -> int:
             mcfg = lcfg.replace(rng=rng)
             st0 = init_frame_state(mcfg, dev)
             w = count_work(mcfg, lsched, cam, st0.accum, sphere_scene,
-                           spheres, st0.rng_state)
+                           spheres, st0.rng_state, cull_bounds=sphere_cull)
             mode_bounds[f"{rng} {label}"] = sphere_bounds(
                 w, scene.count, lsched.shape[0], 0, rng)["sphere_pt"]
     print(f"[bound] sphere_pt per rng mode (ms, by): "
@@ -1477,14 +1757,15 @@ def main() -> int:
           f"(ms; fp32 {PEAK_FP32:.3g} op/s, {PEAK_BYTES:.3g} B/s); card: "
           f"{card}", flush=True)
     # sphere_pt's in-kernel sweep rate beside the probes': kernel time per
-    # nearest-hit candidate (casts x spheres), and per candidate with the
+    # nearest-hit candidate (the primaries' visible spheres, every sphere of
+    # a bounce cast), and per candidate with the
     # shadow rays' any-hit tests counted too. The whole-frame step renders
     # the frame its work was counted on; the 10-tile step's kernel time is
     # the mean over rotating schedules, its count that of tiles 0-9.
     rates = {}
     for label, w in (("10-tile", work10), ("whole-frame", work_whole)):
         k_ms = kernel_ms[("sphere_pt", label)]
-        cand = (w["a_casts"] + w["b_casts"]) * scene.count
+        cand = w["vis_candidates"] + w["b_casts"] * scene.count
         rates[label] = None if k_ms is None else {
             "nearest": round(k_ms * 1e9 / cand, 4),
             "with_anyhit": round(k_ms * 1e9 / (cand + w["b_anyhit_tests"]),
@@ -1494,8 +1775,17 @@ def main() -> int:
           f"{ {k: v['ps_per_lane_cand'] for k, v in sweep_times.items()} }; "
           f"card: {card}", flush=True)
 
-    def row(name, *args):
-        return kernel_row(name, *args, bounds[name])
+    def row(name, *args, **extra):
+        return kernel_row(name, *args, bounds[name], **extra)
+
+    def whole_frame(name):
+        """The whole-frame step's kernel time (torch.profiler), plain step
+        time and bound, beside the row's 10-tile figures."""
+        return {"whole_frame_ms": kernel_ms[(name, "whole-frame")],
+                "whole_frame_plain_ms": timings[(name, "whole-frame",
+                                                 "torch")],
+                "whole_frame_bound_ms": bounds_whole[name][0],
+                "whole_frame_bound_by": bounds_whole[name][1]}
 
     frame_tol = "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3"
     wave_src = "l2n_tpu_torch/csrc/wavefront.cu"
@@ -1516,7 +1806,8 @@ def main() -> int:
             sphere_launches.get("sphere_pt", 0), max_err, frame_tol,
             kernel_ms[("sphere_pt", "10-tile")],
             timings[("sphere_pt", "10-tile", "cuda")],
-            timings[("sphere_pt", "10-tile", "torch")]),
+            timings[("sphere_pt", "10-tile", "torch")],
+            **whole_frame("sphere_pt")),
         row("uv_demo", "l2n_tpu_torch/csrc/uv_demo.cu",
             "l2n_tpu/ops/kernels/uv_demo.py:22", uv_launches, uv_err,
             "max abs err <= 1e-5", uv_kernel_ms, uv_ms, uv_plain_ms),
@@ -1525,7 +1816,8 @@ def main() -> int:
             tri_launches.get("triangle_pt", 0), max(tri_err, tori_err),
             frame_tol, kernel_ms[("triangle_pt", "10-tile")],
             timings[("triangle_pt", "10-tile", "cuda")],
-            timings[("triangle_pt", "10-tile", "torch")]),
+            timings[("triangle_pt", "10-tile", "torch")],
+            **whole_frame("triangle_pt")),
         *wave_rows,
         row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
             "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",

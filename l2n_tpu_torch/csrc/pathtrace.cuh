@@ -12,7 +12,11 @@
 //
 // The path body is a template on the scene: a scene type provides
 //   Hit nearest(ox, oy, oz, dx, dy, dz) const;  // t = -1 on a miss
+//   Hit nearest_primary(ox, oy, oz, dx, dy, dz) const;  // the same hit
 //   bool anyhit(ox, oy, oz, dx, dy, dz) const;   // == nearest(...).t >= 0
+// where nearest_primary serves the primary casts (origin = the camera, the
+// direction through a pixel of the thread's tile) and may walk only the
+// tile's cone-visible candidates (csrc/cull.cuh),
 // and the albedo rows `ar`, `ag`, `ab`, indexed by Hit::index (csrc/
 // sphere_pt.cuh: spheres; csrc/triangle_pt.cuh: meshes).
 //
@@ -574,7 +578,11 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
       }
       return false;
     }
-    const Hit h = s.nearest(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz);
+    // b = 0 is the primary cast: trace_sample and trace_primary start it
+    // at the camera.
+    const Hit h =
+        b == 0 ? s.nearest_primary(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz)
+               : s.nearest(c.ox, c.oy, c.oz, c.dx, c.dy, c.dz);
     if (h.t == -1.0f) {
       const float le = env_le(p, c.dx, c.dy, c.dz);
       for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + c.tp[ch] * le;
@@ -646,7 +654,7 @@ L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
 template <class Scene>
 L2N_HD void aov_sample(const PtParams& p, const Scene& s, float ox, float oy,
                        float oz, float dx, float dy, float dz, float col[3]) {
-  const Hit h = s.nearest(ox, oy, oz, dx, dy, dz);
+  const Hit h = s.nearest_primary(ox, oy, oz, dx, dy, dz);
   if (h.t >= 0.0f) {
     col[0] = p.aov == kAovTexCoords ? h.tc_u : h.b_u;
     col[1] = p.aov == kAovTexCoords ? h.tc_v : h.b_v;
@@ -664,17 +672,14 @@ L2N_HD float safe_gamma(float x, float gamma) {
   return x <= 0.0f ? 0.0f : expf(gamma * logf(safe));
 }
 
-// Draw the pixel jitter and return the primary ray's direction
-// (ops/pathtrace.py::generate_rays, "fovy" form); the origin is the camera
+// The "fovy" camera ray through float pixel coordinates (px + u1, py + u2)
+// (ops/pathtrace.py::generate_rays), normalized; the origin is the camera
 // position cam[32..34].
-template <class Rng>
-L2N_HD void primary_direction(const PtParams& p, Rng& rng, int row, int col,
-                              float& dx, float& dy, float& dz) {
+L2N_HD void fovy_direction(const PtParams& p, float px, float py, float u1,
+                           float u2, float& dx, float& dy, float& dz) {
   const float* cam = p.cam;
-  float u1, u2;
-  rng.draw2(u1, u2);  // pixel jitter
-  const float sx = (static_cast<float>(col) + u1) * p.inv_width;
-  const float sy = (static_cast<float>(row) + u2) * p.inv_height;
+  const float sx = (px + u1) * p.inv_width;
+  const float sy = (py + u2) * p.inv_height;
   const float ndx = -1.0f + 2.0f * sx;
   const float ndy = -1.0f + 2.0f * sy;
   const float vx = ndx * cam[36] * cam[37];
@@ -684,6 +689,33 @@ L2N_HD void primary_direction(const PtParams& p, Rng& rng, int row, int col,
   dy = cam[4] * vx + cam[5] * vy + cam[6] * vz + cam[7] - cam[33];
   dz = cam[8] * vx + cam[9] * vy + cam[10] * vz + cam[11] - cam[34];
   normalize3(dx, dy, dz);
+}
+
+// Draw the pixel jitter and return the primary ray's direction.
+template <class Rng>
+L2N_HD void primary_direction(const PtParams& p, Rng& rng, int row, int col,
+                              float& dx, float& dy, float& dz) {
+  float u1, u2;
+  rng.draw2(u1, u2);  // pixel jitter
+  fovy_direction(p, static_cast<float>(col), static_cast<float>(row), u1, u2,
+                 dx, dy, dz);
+}
+
+// The pixel (r, c) within its tile of thread t of a tile's `sub`-th block,
+// for the fused kernels' grids of tile_height blocks of tile_width threads
+// per tile. Where the tile's shape allows, a block covers 4 rows x
+// tile_width / 4 columns and a warp 4 rows x 8 columns, so that the paths
+// of a warp start close together and their bounce rays walk the same
+// bounds; else a block is one row of the tile.
+L2N_HD void block_pixel(const PtParams& p, int sub, int t, int& r, int& c) {
+  if (p.tile_width % 32 == 0 && p.tile_height % 4 == 0) {
+    const int lane = t % 32, warp = t / 32;
+    r = (sub / 4) * 4 + lane / 8;
+    c = (sub % 4) * (p.tile_width / 4) + warp * 8 + lane % 8;
+  } else {
+    r = sub;
+    c = t;
+  }
 }
 
 L2N_HD size_t pixel_offset(const PtParams& p, int row, int col) {

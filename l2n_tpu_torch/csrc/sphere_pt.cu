@@ -10,20 +10,39 @@
 // PLACE (the counterpart of the JAX step's donated buffers).
 //
 // What bounds it on this card: fp32 ALU and SFU throughput, not memory. A
-// sample costs about 3 sweeps x 128 spheres (~20 flops and a sqrt each) plus
-// up to 64 Mandelbrot iterations, against 28 bytes read and written per
-// pixel-step (accum 16 B in and out, output 12 B out). What the design does
-// about that:
+// sample casts ~1.25 rays; a bounce or any-hit cast tests all 128 spheres
+// (~24 operations and a sqrt each), plus up to 64 Mandelbrot iterations,
+// against 28 bytes read and written per pixel-step (accum 16 B in and out,
+// output 12 B out). What the design does about that:
 //   * one thread per pixel, so a thread exits when its path dies (emissive
 //     hit, miss, roulette) instead of running masked lanes as the TPU's
 //     lockstep tiles must; the sky's escape loop runs only for paths that
 //     end on a miss, behind an exact direction-box test;
+//   * primaries are cone-culled per tile (csrc/cull.cuh, the TPU kernel's
+//     visibility table): each block tests its tile's cone against every
+//     sphere in its prologue and compacts the visible ones into shared
+//     memory in ascending index order (a warp ballot and a block prefix),
+//     with their origin terms o - c and |o - c|^2 - r^2, the same floats for
+//     every primary, computed once; the primary sweep visits only that list
+//     (a handful of the 128 spheres on the default view) and, as it keeps
+//     the first index of the minimum t, finds the full sweep's hit;
+//   * every sweep keeps (t, index) and reads the winner's centre and r^2
+//     once afterwards (the gather form, faster than carrying them in the
+//     PR 5 probes), and skips a sphere's square root and roots when no
+//     lane of the warp has a real root (a warp vote; the lane's own miss
+//     is a NaN comparison anyway): bounce rays are incoherent, but most
+//     of the 128 spheres miss all of a warp's lines;
 //   * the sphere SoA and albedo table (7 x n floats) are staged once per
 //     block into shared memory: every thread of a warp reads the same
 //     sphere in a sweep, a broadcast;
-//   * the camera and step constants travel by value in the parameter block.
-// Simple first: no cone culling of primaries, no wgmma/TMA; a block is one
-// row of one tile (tile_width threads), so the grid is K x tile_height.
+//   * the camera and step constants travel by value in the parameter block;
+//   * a block is tile_width pixels of one tile, 4 rows x tile_width / 4
+//     columns where the tile's shape allows, a warp 4 x 8 pixels
+//     (l2n::block_pixel): a warp's bounce rays start close together, so
+//     more spheres miss all of them. The grid is K x tile_height blocks,
+//     so each of a tile's 32 blocks builds the tile's list, which costs
+//     less than giving a block more pixels (PERF.md, PR 6).
+// Not done: no tensor-core sweep (ROADMAP Queue 3 #14), no TMA.
 //
 // One instantiation per sampler (pathtrace.cuh::dispatch_rng): threefry,
 // Philox (rng="tpu_hw"), and the stateful TinyMT and TausLCG, whose
@@ -40,6 +59,15 @@
 
 namespace {
 
+// Shared memory of a block over n spheres: the (7, n) SoA, the visible list
+// (n ints), its origin terms (4 rows of n) and 33 ints for the compaction.
+size_t smem_bytes(int n) {
+  return sizeof(float) * (12 * static_cast<size_t>(n) + 33);
+}
+
+// A block is tile_width pixels of one tile (l2n::block_pixel): it stages
+// the scene, builds the tile's visible list and the list's origin terms,
+// then renders its pixels.
 template <class Rng>
 __global__ void sphere_pt_kernel(l2n::PtParams p,
                                  const int32_t* __restrict__ sched,
@@ -48,28 +76,60 @@ __global__ void sphere_pt_kernel(l2n::PtParams p,
                                  float* __restrict__ output,
                                  uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
-  const int words = 7 * p.n_scene;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) smem[i] = spheres[i];
+  const int n = p.n_scene;
+  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) smem[i] = spheres[i];
+  int32_t* s_index = reinterpret_cast<int32_t*>(smem + 7 * n);
+  float* s_terms = smem + 8 * n;  // rox | roy | roz | c
+  int32_t* s_counts = reinterpret_cast<int32_t*>(smem + 12 * n);
   __syncthreads();
 
   const int tile = blockIdx.x / p.tile_height;
-  const int local_row = blockIdx.x % p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
-  const int row = tile_y * p.tile_height + local_row;
-  const int col = tile_x * p.tile_width + static_cast<int>(threadIdx.x);
-  const l2n::SceneView scene = l2n::scene_view(smem, p.n_scene);
-  l2n::render_pixel<Rng>(p, scene, row, col, accum, output, rng_state);
+  l2n::SceneView scene = l2n::scene_view(smem, n);
+  const l2n::TileCone cone = l2n::tile_cone(p, tile_x, tile_y);
+  const int n_vis = l2n::build_visible_block(
+      p, cone,
+      [&](int i, float& cx, float& cy, float& cz, float& r2) {
+        cx = scene.cx[i];
+        cy = scene.cy[i];
+        cz = scene.cz[i];
+        r2 = scene.r2[i];
+      },
+      n, s_index, s_counts);
+  l2n::primary_terms(p, scene, s_index, n_vis, s_terms, s_terms + n,
+                     s_terms + 2 * n, s_terms + 3 * n,
+                     static_cast<int>(threadIdx.x),
+                     static_cast<int>(blockDim.x));
+  __syncthreads();
+  scene.vis = l2n::Primaries{s_index, s_terms, s_terms + n, s_terms + 2 * n,
+                             s_terms + 3 * n, n_vis, p.cam[32], p.cam[33],
+                             p.cam[34]};
+
+  int r, c;
+  l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
+  l2n::render_pixel<Rng>(p, scene, tile_y * p.tile_height + r,
+                         tile_x * p.tile_width + c, accum, output, rng_state);
 }
 
 struct LaunchSpherePt {
   template <class Rng>
-  static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
-                 float* accum, float* output, uint32_t* rng_state,
-                 cudaStream_t stream) {
+  static int run(l2n::PtParams p, const int32_t* sched,
+                 const float* spheres, float* accum, float* output,
+                 uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    const size_t smem = sizeof(float) * 7 * static_cast<size_t>(p.n_scene);
+    const size_t smem = smem_bytes(p.n_scene);
+    // Opt in to more than 48 KiB once per instantiation (not again while
+    // a CUDA graph captures the launch).
+    static size_t opted = 48 * 1024;
+    if (smem > opted) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          sphere_pt_kernel<Rng>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+      opted = smem;
+    }
     sphere_pt_kernel<Rng><<<grid, block, smem, stream>>>(
         p, sched, spheres, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());

@@ -5,57 +5,113 @@
 // `__host__ __device__` like the path body: the CPU tests build this header
 // with g++ against the plain torch path. The sweeps are the JAX package's
 // half-b form (ops/intersect.py) in the same order of operations.
+//
+// The sweeps keep only (t, index) in the loop and read the winner's centre
+// and r^2 once afterwards (the gather form), and skip a sphere's square
+// root when no lane of the warp needs it. A primary cast may sweep only
+// the tile's cone-visible spheres (csrc/cull.cuh), whose origin terms
+// o - c and |o - c|^2 - r^2 are the same floats for every primary and are
+// computed once per block (`Primaries`).
 
 #pragma once
 
-#include "pathtrace.cuh"
+#include <assert.h>
+
+#include "cull.cuh"
 
 namespace l2n {
+
+// The primary casts' visible spheres: indices in ascending order and, per
+// entry, the origin terms rox, roy, roz and c of the sweep, computed from
+// the camera position (ox, oy, oz) as the sweep computes them.
+struct Primaries {
+  const int32_t* index;
+  const float *rox, *roy, *roz, *c;
+  int n;
+  float ox, oy, oz;
+};
 
 // Sphere SoA plus the per-sphere albedo table: rows of a (7, n) buffer.
 struct SceneView {
   const float *cx, *cy, *cz, *r2, *ar, *ag, *ab;
   int n;
+  Primaries vis;  // vis.index null: the primary cast sweeps all spheres
 
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const;
+  L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,
+                             float dy, float dz) const;
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const;
+  L2N_HD Hit resolve(float best, int bi, float ox, float oy, float oz,
+                     float dx, float dy, float dz) const;
 };
 
 L2N_HD SceneView scene_view(const float* packed, int n) {
-  return SceneView{packed, packed + n, packed + 2 * n, packed + 3 * n,
-                   packed + 4 * n, packed + 5 * n, packed + 6 * n, n};
+  return SceneView{packed,         packed + n,     packed + 2 * n,
+                   packed + 3 * n, packed + 4 * n, packed + 5 * n,
+                   packed + 6 * n, n,              Primaries{}};
 }
 
-// Half-b sweep: a negative discriminant makes sqrtf NaN, and NaN fails every
-// comparison, so the candidate is a miss.
-L2N_HD Hit SceneView::nearest(float ox, float oy, float oz, float dx,
-                              float dy, float dz) const {
-  float best = kBig, bcx = 0.0f, bcy = 0.0f, bcz = 0.0f, br2 = 1.0f;
-  int bi = -1;
-  for (int i = 0; i < n; ++i) {
-    const float rox = ox - cx[i], roy = oy - cy[i], roz = oz - cz[i];
-    const float hb = rox * dx + roy * dy + roz * dz;
-    const float c = rox * rox + roy * roy + roz * roz - r2[i];
-    const float disc = hb * hb - c;
-    const float sq = sqrtf(disc);
-    const float nhb = -hb;
-    const float t1 = nhb - sq;
-    const float t2 = nhb + sq;
-    float t = t1 >= 0.0f ? t1 : t2;
-    t = t >= 0.0f ? t : kBig;
-    if (t < best) {
-      best = t;
-      bi = i;
-      bcx = cx[i];
-      bcy = cy[i];
-      bcz = cz[i];
-      br2 = r2[i];
-    }
+// Fill the visible list's origin terms for entries first, first + step, ...
+// (the kernel's threads split the list; the host passes 0 and 1).
+L2N_HD void primary_terms(const PtParams& p, const SceneView& s,
+                          const int32_t* index, int n_vis, float* rox,
+                          float* roy, float* roz, float* c, int first,
+                          int step) {
+  const float ox = p.cam[32], oy = p.cam[33], oz = p.cam[34];
+  for (int j = first; j < n_vis; j += step) {
+    const int i = index[j];
+    const float x = ox - s.cx[i], y = oy - s.cy[i], z = oz - s.cz[i];
+    rox[j] = x;
+    roy[j] = y;
+    roz[j] = z;
+    c[j] = x * x + y * y + z * z - s.r2[i];
   }
-  Hit h;
+}
+
+// The threads of the warp that call together (one on the host), and
+// whether any of them holds `pred`. A sweep skips a sphere's square root
+// and roots when no lane's ray line meets it (every discriminant < 0, so
+// every lane's t would be a miss): the same hit, for fewer instructions.
+L2N_HD unsigned active_lanes() {
+#if defined(__CUDA_ARCH__)
+  return __activemask();
+#else
+  return 1u;
+#endif
+}
+
+L2N_HD bool any_lane(unsigned lanes, bool pred) {
+#if defined(__CUDA_ARCH__)
+  return __any_sync(lanes, pred);
+#else
+  (void)lanes;
+  return pred;
+#endif
+}
+
+// One candidate of the half-b sweep: t >= 0, or kBig for a miss. A negative
+// discriminant makes sqrtf NaN, and NaN fails every comparison.
+L2N_HD float sweep_t(float hb, float c) {
+  const float disc = hb * hb - c;
+  const float sq = sqrtf(disc);
+  const float nhb = -hb;
+  const float t1 = nhb - sq;
+  const float t2 = nhb + sq;
+  const float t = t1 >= 0.0f ? t1 : t2;
+  return t >= 0.0f ? t : kBig;
+}
+
+// The hit of the winner bi (-1: none) at distance best: its normal and r^2
+// gathered from the SoA once.
+L2N_HD Hit SceneView::resolve(float best, int bi, float ox, float oy,
+                              float oz, float dx, float dy, float dz) const {
   const bool hit = best < kBig;
+  const float bcx = bi >= 0 ? cx[bi] : 0.0f;
+  const float bcy = bi >= 0 ? cy[bi] : 0.0f;
+  const float bcz = bi >= 0 ? cz[bi] : 0.0f;
+  Hit h;
   h.t = hit ? best : -1.0f;
   const float nx = ox + h.t * dx - bcx;
   const float ny = oy + h.t * dy - bcy;
@@ -65,9 +121,54 @@ L2N_HD Hit SceneView::nearest(float ox, float oy, float oz, float dx,
   h.ny = ny * rcp;
   h.nz = nz * rcp;
   h.index = bi;
-  h.r2 = br2;
+  h.r2 = bi >= 0 ? r2[bi] : 1.0f;
   h.tc_u = h.tc_v = h.b_u = h.b_v = 0.0f;
   return h;
+}
+
+// The first index of the minimum t over all spheres.
+L2N_HD Hit SceneView::nearest(float ox, float oy, float oz, float dx,
+                              float dy, float dz) const {
+  float best = kBig;
+  int bi = -1;
+  const unsigned lanes = active_lanes();
+  for (int i = 0; i < n; ++i) {
+    const float rox = ox - cx[i], roy = oy - cy[i], roz = oz - cz[i];
+    const float hb = rox * dx + roy * dy + roz * dz;
+    const float c = rox * rox + roy * roy + roz * roz - r2[i];
+    if (!any_lane(lanes, hb * hb - c >= 0.0f)) continue;
+    const float t = sweep_t(hb, c);
+    if (t < best) {
+      best = t;
+      bi = i;
+    }
+  }
+  return resolve(best, bi, ox, oy, oz, dx, dy, dz);
+}
+
+// The same hit for a primary ray (origin the camera): over the visible list
+// in ascending index order with the hoisted origin terms, so the first index
+// of the minimum t is the full sweep's. The terms ignore the origin passed;
+// the host build (the CPU tests) asserts that it is the list's.
+L2N_HD Hit SceneView::nearest_primary(float ox, float oy, float oz, float dx,
+                                      float dy, float dz) const {
+  if (vis.index == nullptr) return nearest(ox, oy, oz, dx, dy, dz);
+#if !defined(__CUDA_ARCH__)
+  assert(ox == vis.ox && oy == vis.oy && oz == vis.oz);
+#endif
+  float best = kBig;
+  int bj = -1;
+  const unsigned lanes = active_lanes();
+  for (int j = 0; j < vis.n; ++j) {
+    const float hb = vis.rox[j] * dx + vis.roy[j] * dy + vis.roz[j] * dz;
+    if (!any_lane(lanes, hb * hb - vis.c[j] >= 0.0f)) continue;
+    const float t = sweep_t(hb, vis.c[j]);
+    if (t < best) {
+      best = t;
+      bj = j;
+    }
+  }
+  return resolve(best, bj >= 0 ? vis.index[bj] : -1, ox, oy, oz, dx, dy, dz);
 }
 
 // Any sphere with t >= 0: origin inside (c < 0) or ahead with a real root.

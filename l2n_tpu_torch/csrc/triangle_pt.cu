@@ -9,25 +9,45 @@
 // the tex_coords / param_uv AOV of the primary hit), then accumulate into
 // `accum` and write the tonemapped `output`, both IN PLACE.
 //
-// What bounds it on this card: fp32 ALU work in the triangle tests and the
-// latency of the bound and triangle loads a thread walks through, not
-// bandwidth (the default scene's 32,768 triangles are ~1.5 MB of slot rows
-// plus ~2 MB of attributes, resident in the 50 MB L2). What the design does
+// What bounds it on this card: fp32 ALU work in the bound and triangle
+// tests and the latency of the loads a thread walks through, not bandwidth
+// (the default scene's 32,768 triangles are ~1.5 MB of slot rows plus ~2 MB
+// of attributes, resident in the 50 MB L2); and, under SIMT, divergence: a
+// warp runs every loop body any of its lanes enters. What the design does
 // about that:
 //   * one thread per pixel walks its own rays through the packed bound
-//     hierarchy (mesh -> slab -> sub-cluster -> 16 triangles), pruning a
-//     bound whose entry lies beyond the running best; the TPU kernel's
-//     lockstep machinery (cone tables, flag passes, compaction, slab DMA,
-//     the procedural shellwalk, certain-hit seeding) exists because a
-//     (32,128) lane block must agree on one walk, and is not needed here;
-//   * the per-mesh bounds, slab counts and albedo rows (8 floats per mesh)
-//     are staged once per block into shared memory; slab and sub-cluster
-//     bounds, slot rows (three 16-byte loads per triangle) and the winner's
-//     attributes are read through the read-only data cache;
-//   * attributes are interpolated once per ray, for the winner only.
-// Simple first: no front-to-back mesh order, no cone culling of primaries,
-// no slab-group level; a block is one row of one tile (tile_width threads),
-// so the grid is K x tile_height.
+//     hierarchy (mesh -> slab -> sub-cluster -> 16 triangles);
+//   * primaries are cone-culled per tile (csrc/cull.cuh, the TPU kernel's
+//     mesh visibility table): each block builds its tile's visible-mesh
+//     list in its prologue (a warp ballot and a block prefix, ascending
+//     order), and primary casts and the tex_coords / param_uv AOVs test
+//     only those mesh bounds;
+//   * per lane, the meshes a ray enters are kept in a short list sorted
+//     front to back by entry distance (the per-ray counterpart of the TPU
+//     kernel's mesh_order), then walked by ONE loop over the lane's own
+//     (mesh, slab, sub-cluster) work items, bound tests until a
+//     sub-cluster to sweep, then its 16 triangles (Aila & Laine's
+//     "while-while" traversal): a warp pays for its longest lane's walk
+//     instead of the union of its lanes' meshes, and near hits prune the
+//     farther meshes early (`enter <= best`). The winner rule is order-
+//     independent, so the hit is the brute-force sweep's in any order;
+//   * the per-mesh bounds, slab counts, albedo rows and the visible list
+//     (9 words per mesh) are staged once per block into shared memory; the
+//     slab and sub-cluster bounds, slot rows (three 16-byte loads per
+//     triangle) and the winner's attributes are read through the read-only
+//     data cache: staging the slab bounds too gained nothing, and staging
+//     the default scene's 41 KB of sub-cluster bounds per block cost more
+//     than it saved (PERF.md §6 keeps the three times);
+//   * attributes are interpolated once per ray, for the winner only;
+//   * a block covers 4 rows x tile_width / 4 columns of a tile where its
+//     shape allows, a warp 4 x 8 pixels (l2n::block_pixel): a warp's bounce
+//     rays start in the same few meshes and walk the same sub-clusters;
+//   * registers are capped at 80 so that six blocks fit on an SM (the
+//     walk is latency-bound; 64 and 72 spill and are faster at whole frame
+//     but slower at the reference's 10 tiles).
+// Not done: the TPU kernel's slab-group level, certain-hit seeding and
+// procedural shellwalk (ROADMAP Queue 2 #3-#5). The grid is K x
+// tile_height blocks of tile_width threads.
 //
 // One instantiation per sampler (pathtrace.cuh::dispatch_rng), as in
 // csrc/sphere_pt.cu: the stateful samplers' per-pixel state planes are
@@ -43,35 +63,50 @@
 
 namespace {
 
+// Threads of a block (tile_width pixels of one tile, l2n::block_pixel)
+// build the tile's visible-mesh list over the staged mesh bounds, then
+// render their pixels. Registers are
+// capped at 80 (93-99 uncapped): six 128-thread blocks per SM instead of
+// five hide more of the walk's load latency.
 template <class Rng>
-__global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
-                                   const int32_t* __restrict__ sched,
-                                   const float* __restrict__ mesh_bounds,
-                                   const int32_t* __restrict__ slab_count,
-                                   const float* __restrict__ slab_bounds,
-                                   const float* __restrict__ sub_bounds,
-                                   const float* __restrict__ tris,
-                                   const float* __restrict__ attrs,
-                                   const float* __restrict__ albedo,
-                                   float* __restrict__ accum,
-                                   float* __restrict__ output,
-                                   uint32_t* __restrict__ rng_state) {
+__global__ void __maxnreg__(80)
+triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
+                   const int32_t* __restrict__ sched,
+                   const float* __restrict__ mesh_bounds,
+                   const int32_t* __restrict__ slab_count,
+                   const float* __restrict__ slab_bounds,
+                   const float* __restrict__ sub_bounds,
+                   const float* __restrict__ tris,
+                   const float* __restrict__ attrs,
+                   const float* __restrict__ albedo,
+                   float* __restrict__ accum, float* __restrict__ output,
+                   uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
   const int m = p.n_scene;
   float* s_bounds = smem;                  // (M, 4)
   float* s_albedo = smem + 4 * m;          // (3, M)
   int32_t* s_scount = reinterpret_cast<int32_t*>(smem + 7 * m);  // (M,)
+  int32_t* s_vis = s_scount + m;           // (M,) visible meshes
+  int32_t* s_counts = s_vis + m;           // 33 ints for the compaction
   for (int i = threadIdx.x; i < 4 * m; i += blockDim.x) s_bounds[i] = mesh_bounds[i];
   for (int i = threadIdx.x; i < 3 * m; i += blockDim.x) s_albedo[i] = albedo[i];
   for (int i = threadIdx.x; i < m; i += blockDim.x) s_scount[i] = slab_count[i];
   __syncthreads();
 
   const int tile = blockIdx.x / p.tile_height;
-  const int local_row = blockIdx.x % p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
-  const int row = tile_y * p.tile_height + local_row;
-  const int col = tile_x * p.tile_width + static_cast<int>(threadIdx.x);
+  const l2n::TileCone cone = l2n::tile_cone(p, tile_x, tile_y);
+  const int n_vis = l2n::build_visible_block(
+      p, cone,
+      [&](int i, float& cx, float& cy, float& cz, float& r2) {
+        cx = s_bounds[4 * i];
+        cy = s_bounds[4 * i + 1];
+        cz = s_bounds[4 * i + 2];
+        r2 = s_bounds[4 * i + 3];
+      },
+      m, s_vis, s_counts);
+
   l2n::TriSceneView scene;
   scene.n = m;
   scene.n_slabs = n_slabs;
@@ -85,7 +120,17 @@ __global__ void triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
   scene.ar = s_albedo;
   scene.ag = s_albedo + m;
   scene.ab = s_albedo + 2 * m;
-  l2n::render_pixel<Rng>(p, scene, row, col, accum, output, rng_state);
+  scene.vis = s_vis;
+  scene.n_vis = n_vis;
+  int r, c;
+  l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
+  l2n::render_pixel<Rng>(p, scene, tile_y * p.tile_height + r,
+                         tile_x * p.tile_width + c, accum, output, rng_state);
+}
+
+// Shared memory of a block for M meshes: 9 words per mesh and 33 more.
+size_t smem_bytes(int m) {
+  return sizeof(float) * (9 * static_cast<size_t>(m) + 33);
 }
 
 struct LaunchTrianglePt {
@@ -98,7 +143,18 @@ struct LaunchTrianglePt {
                  cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    const size_t smem = sizeof(float) * 8 * static_cast<size_t>(p.n_scene);
+    const size_t smem = smem_bytes(p.n_scene);
+    // Opt in to more than 48 KiB once per instantiation (not again while a
+    // CUDA graph captures the launch).
+    static size_t opted = 48 * 1024;
+    if (smem > opted) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          triangle_pt_kernel<Rng>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+      opted = smem;
+    }
     triangle_pt_kernel<Rng><<<grid, block, smem, stream>>>(
         p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
         sub_bounds, tris, attrs, albedo, accum, output, rng_state);
@@ -118,7 +174,8 @@ struct LaunchTrianglePt {
 // counter-based samplers. Returns cudaGetLastError() after the launch (0 on
 // success), -1 for an unknown sampler code (ip[14]).
 extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
-                               int n_slabs, int tpad, const int32_t* sched,
+                               int n_slabs, int tpad,
+                               const int32_t* sched,
                                const float* mesh_bounds,
                                const int32_t* slab_count,
                                const float* slab_bounds,
@@ -128,7 +185,7 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                uint32_t* rng_state, void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   return l2n::dispatch_rng<LaunchTrianglePt>(
-      p.rng, p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-      sub_bounds, tris, attrs, albedo, accum, output, rng_state,
+      p.rng, p, n_slabs, tpad, sched, mesh_bounds, slab_count,
+      slab_bounds, sub_bounds, tris, attrs, albedo, accum, output, rng_state,
       static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,7 @@
 // (csrc/triangle_pt.cu): per-thread traversal of the packed bound hierarchy
 // (mesh sphere -> 128-triangle slab sphere -> 16-triangle sub-cluster
 // sphere -> Möller-Trumbore), which the shared path body
-// (csrc/pathtrace.cuh) calls as nearest() and anyhit().
+// (csrc/pathtrace.cuh) calls as nearest(), nearest_primary() and anyhit().
 //
 // `__host__ __device__` like the path body: the CPU tests build this header
 // with g++ against the plain torch path (brute force over the soup).
@@ -20,7 +20,7 @@
 
 #pragma once
 
-#include "pathtrace.cuh"
+#include "cull.cuh"
 
 namespace l2n {
 
@@ -69,17 +69,32 @@ L2N_HD int float_as_int(float f) {
 // JAX package's sqrt-free form `c < 0 || (hb < 0 && hb*hb - c >= 0)` (never
 // `hb*hb >= c`). The entry distance -hb - sqrt(hb*hb - c) loses digits to
 // cancellation at grazing incidence, so it is held against best plus a
-// margin of 1e-3 |hb|: visiting a bound too many changes nothing.
-L2N_HD bool bound_visit(float ox, float oy, float oz, float dx, float dy,
+// margin of 1e-3 |hb|: visiting a bound too many changes nothing. `enter`
+// and `margin` return the two sides' terms (-inf and 0 for an origin inside
+// the bound), so the test can be repeated later against a smaller best.
+L2N_HD bool bound_enter(float ox, float oy, float oz, float dx, float dy,
                         float dz, float cx, float cy, float cz, float r2,
-                        float best) {
+                        float best, float& enter, float& margin) {
   const float rox = ox - cx, roy = oy - cy, roz = oz - cz;
   const float hb = rox * dx + roy * dy + roz * dz;
   const float c = rox * rox + roy * roy + roz * roz - r2;
-  if (c < 0.0f) return true;
+  if (c < 0.0f) {
+    enter = -INFINITY;
+    margin = 0.0f;
+    return true;
+  }
   const float disc = hb * hb - c;
   if (!(hb < 0.0f && disc >= 0.0f)) return false;
-  return -hb - sqrtf(disc) <= best + 1e-3f * -hb;
+  enter = -hb - sqrtf(disc);
+  margin = 1e-3f * -hb;
+  return enter <= best + margin;
+}
+
+L2N_HD bool bound_visit(float ox, float oy, float oz, float dx, float dy,
+                        float dz, const float* b, float best) {
+  float enter, margin;
+  return bound_enter(ox, oy, oz, dx, dy, dz, b[0], b[1], b[2], b[3], best,
+                     enter, margin);
 }
 
 // The running nearest hit: the first soup index of the minimum t.
@@ -107,6 +122,18 @@ struct AnyVisit {
   }
 };
 
+// Entries of a lane's front-to-back list of entered meshes; a ray that
+// enters more meshes walks them in chunks of this many (TriSceneView::walk).
+#ifndef L2N_LANE_LIST
+#define L2N_LANE_LIST 8
+#endif
+constexpr int kLaneList = L2N_LANE_LIST;
+// A hook the CPU tests define to count each scan's list length and whether
+// it overflowed; nothing in the kernels.
+#ifndef L2N_NOTE_SCAN
+#define L2N_NOTE_SCAN(cnt, more) ((void)0)
+#endif
+
 struct TriSceneView {
   int n;          // meshes
   int n_slabs;    // slab capacity per mesh (S)
@@ -118,69 +145,158 @@ struct TriSceneView {
   const float* tris;          // (M * tpad, kTriStride)
   const float* attrs;         // (T, kAttrStride)
   const float *ar, *ag, *ab;  // albedo rows, (3, M)
+  const int32_t* vis = nullptr;  // the primaries' visible meshes, ascending;
+  int n_vis = 0;                 // null: every mesh
 
-  // Walk every triangle whose bounds the ray visits: `visit(soup_index, t,
-  // u, v)` gets each valid candidate and returns true to stop the walk
-  // (any-hit); `visit.best` is read for pruning.
+  // Does the ray visit bound b (4 floats at `b`, read through the
+  // read-only data cache) at the running best?
+  L2N_HD static bool visits(float ox, float oy, float oz, float dx, float dy,
+                            float dz, const float* b, float best) {
+    const float c[4] = {load1(b), load1(b + 1), load1(b + 2), load1(b + 3)};
+    return bound_visit(ox, oy, oz, dx, dy, dz, c, best);
+  }
+
+  // Walk every triangle whose bounds the ray visits among the candidate
+  // meshes `cand` (n_cand mesh indices; null: 0 .. n_cand - 1):
+  // `visit(soup_index, t, u, v)` gets each valid candidate and returns true
+  // to stop the walk (any-hit); `visit.best` is read for pruning.
+  //
+  // Per lane, not per warp: the lane tests the candidates' mesh bounds and
+  // keeps the meshes it enters in a list sorted front to back by entry
+  // distance (ties by index), then runs ONE loop over its own work items,
+  // (mesh, slab, sub-cluster) bound tests until it reaches a sub-cluster to
+  // sweep, then that sub-cluster's 16 triangles: the "while-while" traversal
+  // of Aila & Laine (HPG 2009), so a warp pays for its longest lane's walk,
+  // not for the union of its lanes' meshes. A lane that enters more than
+  // kLaneList meshes takes them in chunks: each scan keeps the kLaneList
+  // nearest meshes after the last one walked, and a mesh the running best
+  // has pruned is never taken again; none is dropped.
   template <class Visit>
-  L2N_HD void walk(float ox, float oy, float oz, float dx, float dy, float dz,
+  L2N_HD void walk(const int32_t* cand, int n_cand, float ox, float oy,
+                   float oz, float dx, float dy, float dz,
                    Visit& visit) const {
-    for (int m = 0; m < n; ++m) {
-      const float* mb = mesh_bounds + 4 * m;
-      if (!bound_visit(ox, oy, oz, dx, dy, dz, mb[0], mb[1], mb[2], mb[3],
-                       visit.best))
-        continue;
-      const int slabs = slab_count[m];  // never past the mesh's own slabs
-      for (int s = 0; s < slabs; ++s) {
-        const int ms = m * n_slabs + s;
-        const float* sb = slab_bounds + kBoundStride * ms;
-        if (!bound_visit(ox, oy, oz, dx, dy, dz, load1(sb), load1(sb + 1),
-                         load1(sb + 2), load1(sb + 3), visit.best))
+    float last_enter = -INFINITY;
+    int last_mesh = -1;
+    for (;;) {
+      float ent[kLaneList], mar[kLaneList];
+      int mi[kLaneList];
+      int cnt = 0;
+      bool more = false;
+      for (int j = 0; j < n_cand; ++j) {
+        const int m = cand ? cand[j] : j;
+        const float* mb = mesh_bounds + 4 * m;
+        float enter, margin;
+        if (!bound_enter(ox, oy, oz, dx, dy, dz, mb[0], mb[1], mb[2], mb[3],
+                         visit.best, enter, margin))
           continue;
-        for (int c = 0; c < kSubs; ++c) {
-          const float* cb = sub_bounds + kBoundStride * (ms * kSubs + c);
-          if (!bound_visit(ox, oy, oz, dx, dy, dz, load1(cb), load1(cb + 1),
-                           load1(cb + 2), load1(cb + 3), visit.best))
+        if (enter < last_enter || (enter == last_enter && m <= last_mesh))
+          continue;  // walked in an earlier chunk
+        if (cnt == kLaneList) {
+          more = true;
+          if (enter > ent[cnt - 1] ||
+              (enter == ent[cnt - 1] && m > mi[cnt - 1]))
             continue;
-          const int slot0 = m * tpad + s * kSlab + c * kSubSize;
-          for (int i = 0; i < kSubSize; ++i) {
-            const float* row = tris + static_cast<size_t>(slot0 + i) * kTriStride;
-            const F4 a = load4(row), b = load4(row + 4), g = load4(row + 8);
-            const float v1x = a.x, v1y = a.y, v1z = a.z;
-            const float e1x = a.w, e1y = b.x, e1z = b.y;
-            const float e2x = b.z, e2y = b.w, e2z = g.x;
-            // P = cross(dir, e2); det = dot(e1, P)
-            const float px = dy * e2z - dz * e2y;
-            const float py = dz * e2x - dx * e2z;
-            const float pz = dx * e2y - dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const bool det_ok = fabsf(det) >= kMtEps;
-            const float rcp_det = 1.0f / (det_ok ? det : 1.0f);
-            const float tx = ox - v1x, ty = oy - v1y, tz = oz - v1z;
-            const float u = (tx * px + ty * py + tz * pz) * rcp_det;
-            // Q = cross(T, e1)
-            const float qx = ty * e1z - tz * e1y;
-            const float qy = tz * e1x - tx * e1z;
-            const float qz = tx * e1y - ty * e1x;
-            const float v = (dx * qx + dy * qy + dz * qz) * rcp_det;
-            const float t = (e2x * qx + e2y * qy + e2z * qz) * rcp_det;
-            const bool valid = det_ok && u >= 0.0f && u <= 1.0f &&
-                               v >= 0.0f && u + v <= 1.0f && t >= kMtEps;
-            // An infinite t never wins the oracle's strict `<` against its
-            // initial inf, so it is no hit.
-            if (valid && t < INFINITY &&
-                visit(float_as_int(g.y), t, u, v))
-              return;
-          }
+          --cnt;  // evict the farthest; a later chunk takes it
         }
+        int q = cnt++;
+        for (; q > 0 && (ent[q - 1] > enter ||
+                         (ent[q - 1] == enter && mi[q - 1] > m));
+             --q) {
+          ent[q] = ent[q - 1];
+          mar[q] = mar[q - 1];
+          mi[q] = mi[q - 1];
+        }
+        ent[q] = enter;
+        mar[q] = margin;
+        mi[q] = m;
+      }
+      L2N_NOTE_SCAN(cnt, more);
+      if (walk_list(ent, mar, mi, cnt, ox, oy, oz, dx, dy, dz, visit) ||
+          !more)
+        return;
+      last_enter = ent[cnt - 1];
+      last_mesh = mi[cnt - 1];
+    }
+  }
+
+  // The work-item loop over a lane's sorted meshes (see walk); true when
+  // `visit` stopped it.
+  template <class Visit>
+  L2N_HD bool walk_list(const float* ent, const float* mar, const int* mi,
+                        int cnt, float ox, float oy, float oz, float dx,
+                        float dy, float dz, Visit& visit) const {
+    int li = 0, level = 0, m = 0, slabs = 0, s = 0, c = 0;
+    for (;;) {
+      // Bound tests until a sub-cluster to sweep (slot0) or the list's end.
+      int slot0 = -1;
+      while (li < cnt) {
+        if (level == 0) {  // the next mesh, pruned against the running best
+          if (ent[li] <= visit.best + mar[li]) {
+            m = mi[li];
+            slabs = slab_count[m];  // never past the mesh's own slabs
+            s = 0;
+            level = 1;
+          } else {
+            ++li;
+          }
+        } else if (level == 1) {  // slab s of mesh m
+          if (s == slabs) {
+            ++li;
+            level = 0;
+          } else if (visits(ox, oy, oz, dx, dy, dz,
+                            slab_bounds + kBoundStride * (m * n_slabs + s),
+                            visit.best)) {
+            c = 0;
+            level = 2;
+          } else {
+            ++s;
+          }
+        } else if (c == kSubs) {  // sub-clusters of slab s done
+          ++s;
+          level = 1;
+        } else {  // sub-cluster c of slab s
+          const int ms = m * n_slabs + s;
+          const bool in = visits(
+              ox, oy, oz, dx, dy, dz,
+              sub_bounds + kBoundStride * (ms * kSubs + c), visit.best);
+          if (in) slot0 = m * tpad + s * kSlab + c * kSubSize;
+          ++c;
+          if (in) break;
+        }
+      }
+      if (slot0 < 0) return false;
+      for (int i = 0; i < kSubSize; ++i) {
+        const float* row = tris + static_cast<size_t>(slot0 + i) * kTriStride;
+        const F4 a = load4(row), b = load4(row + 4), g = load4(row + 8);
+        const float v1x = a.x, v1y = a.y, v1z = a.z;
+        const float e1x = a.w, e1y = b.x, e1z = b.y;
+        const float e2x = b.z, e2y = b.w, e2z = g.x;
+        // P = cross(dir, e2); det = dot(e1, P)
+        const float px = dy * e2z - dz * e2y;
+        const float py = dz * e2x - dx * e2z;
+        const float pz = dx * e2y - dy * e2x;
+        const float det = e1x * px + e1y * py + e1z * pz;
+        const bool det_ok = fabsf(det) >= kMtEps;
+        const float rcp_det = 1.0f / (det_ok ? det : 1.0f);
+        const float tx = ox - v1x, ty = oy - v1y, tz = oz - v1z;
+        const float u = (tx * px + ty * py + tz * pz) * rcp_det;
+        // Q = cross(T, e1)
+        const float qx = ty * e1z - tz * e1y;
+        const float qy = tz * e1x - tx * e1z;
+        const float qz = tx * e1y - ty * e1x;
+        const float v = (dx * qx + dy * qy + dz * qz) * rcp_det;
+        const float t = (e2x * qx + e2y * qy + e2z * qz) * rcp_det;
+        const bool valid = det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                           u + v <= 1.0f && t >= kMtEps;
+        // An infinite t never wins the oracle's strict `<` against its
+        // initial inf, so it is no hit.
+        if (valid && t < INFINITY && visit(float_as_int(g.y), t, u, v))
+          return true;
       }
     }
   }
 
-  L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
-                     float dz) const {
-    NearestVisit nv;
-    walk(ox, oy, oz, dx, dy, dz, nv);
+  L2N_HD Hit resolve(const NearestVisit& nv) const {
     const float best = nv.best, bu = nv.bu, bv = nv.bv;
     const int bi = nv.bi;
     Hit h;
@@ -211,11 +327,26 @@ struct TriSceneView {
     return h;
   }
 
+  L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
+                     float dz) const {
+    NearestVisit nv;
+    walk(nullptr, n, ox, oy, oz, dx, dy, dz, nv);
+    return resolve(nv);
+  }
+
+  // The primary cast walks only the tile's visible meshes (csrc/cull.cuh).
+  L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,
+                             float dy, float dz) const {
+    NearestVisit nv;
+    walk(vis, vis ? n_vis : n, ox, oy, oz, dx, dy, dz, nv);
+    return resolve(nv);
+  }
+
   // Any valid candidate: exactly nearest(...).t >= 0.
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
     AnyVisit av;
-    walk(ox, oy, oz, dx, dy, dz, av);
+    walk(nullptr, n, ox, oy, oz, dx, dy, dz, av);
     return av.hit;
   }
 };

@@ -250,6 +250,10 @@ def launch_raw(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
+# Shared memory a Hopper block can opt in to.
+MAX_SMEM = 227 * 1024
+
+
 def launch(name: str, cfg, device: torch.device, *args) -> None:
     """`launch_raw` for a path-tracing step kernel of config `cfg`, whose
     blocks are one tile row of at most 1024 threads."""

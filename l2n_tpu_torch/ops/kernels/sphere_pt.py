@@ -12,16 +12,23 @@ counterpart of the JAX step's donated and aliased buffers:
 
 Both read the scene's albedo table, evaluated once on the host (the
 albedo hash magnifies one-ulp sin differences), and both use the
-kernel-form tonemap. Not in this slice: the cone-cull visibility table
-(the kernel sweeps all spheres for primary rays) and the t1-only
-`assume_outside` sweep of disjoint scenes.
+kernel-form tonemap. The kernel sweeps only the tile's cone-visible
+spheres for primary rays (csrc/cull.cuh, built per block in its
+prologue); `visibility_table` is the same table in plain torch, the
+counterpart of the JAX package's, against which the tests hold it. The
+plain step sweeps every sphere: culling changes the work, not the image.
+Not ported: the t1-only `assume_outside` sweep of disjoint scenes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from l2n_tpu_torch.camera.camera import ROW_POSITION
+from l2n_tpu_torch.maths.sampling import sqrt
 from l2n_tpu_torch.ops.kernels.common import (
+    MAX_SMEM,
     check_camera,
     check_rng_state,
     check_schedule,
@@ -31,11 +38,13 @@ from l2n_tpu_torch.ops.kernels.common import (
     render_tiles_plain,
     step_params,
 )
+from l2n_tpu_torch.ops.pathtrace import generate_rays
 from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
 
-# The kernel stages the (7, n) scene into shared memory without opting in
-# to more than the default 48 KiB of dynamic shared memory per block.
-MAX_SPHERES = (48 * 1024) // (7 * 4)
+# A block's shared memory (csrc/sphere_pt.cu smem_bytes): the (7, n) scene,
+# the visible list and its origin terms, 12 words per sphere, plus 33
+# words; at most the 227 KiB a Hopper block can opt in to.
+MAX_SPHERES = (MAX_SMEM - 33 * 4) // (12 * 4)
 
 
 def _check(cfg, sched, camera, spheres, accum, output, rng_state):
@@ -87,3 +96,63 @@ def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     render_tiles_plain(cfg, sched, camera, sphere_intersector(cx, cy, cz, r2),
                        sphere_anyhit(cx, cy, cz, r2), spheres[4:7].T, accum,
                        output, rng_state)
+
+
+def visibility_table(cfg, bounds: torch.Tensor, camera,
+                     sched: torch.Tensor) -> torch.Tensor:
+    """(K, 1 + n) int32 -- per scheduled tile: [n_visible, kept indices in
+    ascending order..., culled indices...], for the spheres `bounds` (4, n)
+    float32 rows cx, cy, cz, r^2 (the sphere SoA, or the mesh bounds
+    transposed) seen from the packed (10, 4) `camera`.
+
+    The plain version of the kernels' in-block table (csrc/cull.cuh) and
+    the counterpart of the JAX package's visibility_table, operation for
+    operation in float32: every jittered primary ray of a tile lies in the
+    cone of its corner rays (through generate_rays with zero jitter); a
+    sphere is kept if it meets that cone, relaxed by 5% of 1 - cos plus
+    1e-4, or holds the camera (d2 <= r2). Unlike the JAX table, whose
+    scalar-memory padding caps a row at 127 entries, no row is capped.
+    Square roots are taken in float64 and rounded (maths/sampling.sqrt).
+    """
+    dev = bounds.device
+    cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
+    x0 = sched[:, 0].to(torch.float32) * float(cfg.tile_width)
+    y0 = sched[:, 1].to(torch.float32) * float(cfg.tile_height)
+    x1 = x0 + float(cfg.tile_width)
+    y1 = y0 + float(cfg.tile_height)
+    zero = torch.zeros_like(x0)
+
+    def dir_at(px, py):
+        return generate_rays(cfg, cam, px, py, zero, zero)[3:]
+
+    ax, ay, az = dir_at(0.5 * (x0 + x1), 0.5 * (y0 + y1))
+    cos_min = torch.ones_like(ax)
+    for px, py in ((x0, y0), (x1, y0), (x0, y1), (x1, y1)):
+        dx, dy, dz = dir_at(px, py)
+        cos_min = torch.minimum(cos_min, dx * ax + dy * ay + dz * az)
+    cos_safe = cos_min - 0.05 * (1.0 - cos_min) - 1e-4
+    sin_safe = sqrt(torch.clamp(1.0 - cos_safe * cos_safe, min=0.0))
+
+    pos = cam[ROW_POSITION]
+    vx = bounds[0][None, :] - pos[0]
+    vy = bounds[1][None, :] - pos[1]
+    vz = bounds[2][None, :] - pos[2]
+    r2 = bounds[3][None, :]
+    d2 = vx * vx + vy * vy + vz * vz
+    dlen = sqrt(torch.clamp(d2, min=1e-20))
+    cos_phi = (vx * ax[:, None] + vy * ay[:, None] + vz * az[:, None]) / dlen
+    sin_a = torch.clamp(sqrt(r2) / dlen, max=1.0)
+    cos_a = sqrt(torch.clamp(1.0 - sin_a * sin_a, min=0.0))
+    keep = (d2 <= r2) | (
+        cos_phi >= cos_safe[:, None] * cos_a - sin_safe[:, None] * sin_a)
+    n_vis = keep.sum(dim=1, dtype=torch.int32)
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    return torch.cat([n_vis[:, None], order.to(torch.int32)], dim=1)
+
+
+def full_visibility_table(cfg, bounds: torch.Tensor, camera) -> torch.Tensor:
+    """`visibility_table` for every tile of the frame, rows in tile-id order
+    (tid = tile_y * tile_count_x + tile_x)."""
+    tid = torch.arange(cfg.tile_count, dtype=torch.int32, device=bounds.device)
+    sched = torch.stack([tid % cfg.tile_count_x, tid // cfg.tile_count_x], 1)
+    return visibility_table(cfg, bounds, camera, sched)

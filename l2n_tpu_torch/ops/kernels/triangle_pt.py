@@ -5,8 +5,9 @@ torch version (counterpart of l2n_tpu/ops/kernels/triangle_pt.py).
 renders the scheduled tiles of a triangle scene and updates `accum`,
 `output` and, for the stateful rng modes, the `rng_state` planes IN PLACE:
   * on CUDA tensors it launches `csrc/triangle_pt.cu` (one thread per pixel
-    of the K scheduled tiles, each walking the packed bound hierarchy) or
-    raises; nothing falls back;
+    of the K scheduled tiles, each walking the packed bound hierarchy front
+    to back: primaries over the tile's cone-visible meshes, built per block
+    in the kernel's prologue) or raises; nothing falls back;
   * on CPU tensors it runs `triangle_pt_plain`, the same update in lockstep
     torch with a brute-force sweep over the whole soup
     (ops/scenes.triangle_intersector), which is also `backend="torch"`.
@@ -26,6 +27,7 @@ import torch
 
 from l2n_tpu_torch.maths.sampling import procedural_color
 from l2n_tpu_torch.ops.kernels.common import (
+    MAX_SMEM,
     check_camera,
     check_rng_state,
     check_schedule,
@@ -38,9 +40,11 @@ from l2n_tpu_torch.ops.kernels.common import (
 from l2n_tpu_torch.ops.kernels.triangle_pack import SUBS, pack_mesh_blocks
 from l2n_tpu_torch.ops.scenes import triangle_anyhit, triangle_intersector
 
-# The kernel stages 8 floats per mesh (bounds, albedo, slab count) into
-# shared memory without opting in to more than the default 48 KiB.
-MAX_MESHES = (48 * 1024) // (8 * 4)
+# A block stages 9 words per mesh (bounds, albedo, slab count, the visible
+# list) and 33 more (csrc/triangle_pt.cu smem_bytes), at most the 227 KiB a
+# Hopper block can opt in to; the slab and sub-cluster bounds are read
+# through the read-only cache.
+MAX_MESHES = (MAX_SMEM - 33 * 4) // (9 * 4)
 
 # Rows of the kernel's per-slot and per-triangle buffers (csrc/
 # triangle_pt.cuh kTriStride, kAttrStride).

@@ -50,7 +50,6 @@ from l2n_tpu_torch.ops.kernels.common import (
     step_params,
     tile_pixel_coords,
 )
-from l2n_tpu_torch.ops.kernels.sphere_pt import MAX_SPHERES
 from l2n_tpu_torch.ops.pathtrace import (
     WAVEFRONT_FAR_THRESHOLD,
     generate_rays,
@@ -62,6 +61,10 @@ from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
 from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
 
 f32, i32 = torch.float32, torch.int32
+
+# Passes A and B stage the (7, n) scene into shared memory without opting
+# in to more than the default 48 KiB of dynamic shared memory per block.
+MAX_SPHERES = (48 * 1024) // (7 * 4)
 
 
 def _ray_plane_count(cfg) -> int:

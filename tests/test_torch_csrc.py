@@ -30,7 +30,10 @@ from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.envlight import mandelbrot_le
 from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
 from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
-from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
+from l2n_tpu_torch.ops.kernels.sphere_pt import (
+    sphere_pt_plain,
+    visibility_table,
+)
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
     triangle_pt_plain,
@@ -76,10 +79,65 @@ def _port_unloaded_after_module():
 CSRC = Path(__file__).resolve().parents[1] / "l2n_tpu_torch" / "csrc"
 
 SHIM = r"""
+#include <cstdint>
+#include <vector>
+// Each walk's scans: how many, how many overflowed the per-lane list, and
+// the longest list (the kernels define no hook).
+static int64_t g_scans = 0, g_overflows = 0, g_longest = 0;
+#define L2N_NOTE_SCAN(cnt, more) \
+  (++g_scans, g_overflows += (more), \
+   g_longest = (cnt) > g_longest ? (cnt) : g_longest)
 #include "sphere_pt.cuh"
 #include "sweep_probe.cuh"
 #include "triangle_pt.cuh"
 #include "wavefront.cuh"
+
+// A scheduled tile's view of the scene, as the kernels' prologue builds it:
+// the cone-visible list of its primaries (serially, with the kernels' test)
+// and, for spheres, the list's origin terms.
+struct TileLists {
+  std::vector<int32_t> index;
+  std::vector<float> terms;
+};
+
+l2n::SceneView for_tile(const l2n::PtParams& p, l2n::SceneView s, int tx,
+                        int ty, TileLists& lists) {
+  const int n = s.n;
+  lists.index.assign(n, -1);
+  lists.terms.assign(4 * static_cast<size_t>(n), 0.0f);
+  const int nv = l2n::build_visible_serial(
+      p, l2n::tile_cone(p, tx, ty),
+      [&](int i, float& cx, float& cy, float& cz, float& r2) {
+        cx = s.cx[i];
+        cy = s.cy[i];
+        cz = s.cz[i];
+        r2 = s.r2[i];
+      },
+      n, lists.index.data());
+  float* t = lists.terms.data();
+  l2n::primary_terms(p, s, lists.index.data(), nv, t, t + n, t + 2 * n,
+                     t + 3 * n, 0, 1);
+  s.vis = l2n::Primaries{lists.index.data(), t, t + n, t + 2 * n, t + 3 * n,
+                         nv, p.cam[32], p.cam[33], p.cam[34]};
+  return s;
+}
+
+l2n::TriSceneView for_tile(const l2n::PtParams& p, l2n::TriSceneView s,
+                             int tx, int ty, TileLists& lists) {
+  lists.index.assign(s.n, -1);
+  const float* b = s.mesh_bounds;
+  s.n_vis = l2n::build_visible_serial(
+      p, l2n::tile_cone(p, tx, ty),
+      [&](int i, float& cx, float& cy, float& cz, float& r2) {
+        cx = b[4 * i];
+        cy = b[4 * i + 1];
+        cz = b[4 * i + 2];
+        r2 = b[4 * i + 3];
+      },
+      s.n, lists.index.data());
+  s.vis = lists.index.data();
+  return s;
+}
 
 // The kernels' per-thread bodies over every pixel of the scheduled tiles,
 // with the sampler instantiation the mode code picks (as the entry points).
@@ -87,12 +145,15 @@ struct RenderTiles {
   template <class Rng, class Scene>
   static int run(l2n::PtParams p, Scene s, const int32_t* sched,
                  float* accum, float* output, uint32_t* rng_state) {
-    for (int k = 0; k < p.k; ++k)
+    TileLists lists;
+    for (int k = 0; k < p.k; ++k) {
+      const Scene ts = for_tile(p, s, sched[2 * k], sched[2 * k + 1], lists);
       for (int r = 0; r < p.tile_height; ++r)
         for (int c = 0; c < p.tile_width; ++c)
-          l2n::render_pixel<Rng>(p, s, sched[2 * k + 1] * p.tile_height + r,
+          l2n::render_pixel<Rng>(p, ts, sched[2 * k + 1] * p.tile_height + r,
                                  sched[2 * k] * p.tile_width + c, accum,
                                  output, rng_state);
+    }
     return 0;
   }
 };
@@ -143,11 +204,55 @@ int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          uint32_t* rng_state) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   const int m = p.n_scene;
-  const l2n::TriSceneView s{m, n_slabs, tpad, mesh_bounds, slab_count,
-                            slab_bounds, sub_bounds, tris, attrs, albedo,
-                            albedo + m, albedo + 2 * m};
+  const l2n::TriSceneView s{m,          n_slabs, tpad,   mesh_bounds,
+                              slab_count, slab_bounds, sub_bounds, tris,
+                              attrs,      albedo,  albedo + m,
+                              albedo + 2 * m};
   return l2n::dispatch_rng<RenderTiles>(p.rng, p, s, sched, accum, output,
                                         rng_state);
+}
+// The header's visibility table over n spheres `bounds` (4, n) for the K
+// scheduled tiles: rows of [count, kept indices..., -1...] (K, 1 + n).
+void l2n_visibility_host(const int32_t* ip, const float* fp,
+                         const int32_t* sched, const float* bounds, int n,
+                         int32_t* out) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  for (int k = 0; k < p.k; ++k) {
+    int32_t* row = out + static_cast<size_t>(k) * (n + 1);
+    for (int i = 0; i <= n; ++i) row[i] = -1;
+    row[0] = l2n::build_visible_serial(
+        p, l2n::tile_cone(p, sched[2 * k], sched[2 * k + 1]),
+        [&](int i, float& cx, float& cy, float& cz, float& r2) {
+          cx = bounds[i];
+          cy = bounds[n + i];
+          cz = bounds[2 * n + i];
+          r2 = bounds[3 * n + i];
+        },
+        n, row + 1);
+  }
+}
+// The fused kernels' thread-to-pixel map over one tile: out[r * tw + c] is
+// sub * tw + t of the thread t of block sub that renders pixel (r, c), -1
+// for a pixel no thread renders.
+void l2n_block_pixel_host(int th, int tw, int32_t* out) {
+  l2n::PtParams p{};
+  p.tile_height = th;
+  p.tile_width = tw;
+  for (int i = 0; i < th * tw; ++i) out[i] = -1;
+  for (int sub = 0; sub < th; ++sub)
+    for (int t = 0; t < tw; ++t) {
+      int r, c;
+      l2n::block_pixel(p, sub, t, r, c);
+      if (r >= 0 && r < th && c >= 0 && c < tw) out[r * tw + c] = sub * tw + t;
+    }
+}
+// The triangle walks' scan counters since the last call: scans, overflowed
+// scans, the longest list; then zeroed.
+void l2n_walk_stats_host(int64_t* out) {
+  out[0] = g_scans;
+  out[1] = g_overflows;
+  out[2] = g_longest;
+  g_scans = g_overflows = g_longest = 0;
 }
 void l2n_philox_host(uint32_t k0, uint32_t k1, const uint32_t* ctr,
                      uint32_t* out, int64_t n) {
@@ -268,8 +373,7 @@ void l2n_onehot_lanes_host(int carry, const float* rays, const float* rows,
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build_shim(tmp_path_factory, *defines):
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no C++ compiler")
@@ -277,7 +381,8 @@ def lib(tmp_path_factory):
     (d / "shim.cpp").write_text(SHIM)
     out = d / "libsphere_pt_host.so"
     subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared",
-                    "-fPIC", f"-I{CSRC}", str(d / "shim.cpp"), "-o", str(out)],
+                    "-fPIC", *defines, f"-I{CSRC}", str(d / "shim.cpp"),
+                    "-o", str(out)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     p = ctypes.c_void_p
@@ -285,6 +390,9 @@ def lib(tmp_path_factory):
     lib.l2n_sphere_pt_host.restype = ctypes.c_int
     lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
     lib.l2n_triangle_pt_host.restype = ctypes.c_int
+    lib.l2n_visibility_host.argtypes = [p, p, p, p, ctypes.c_int, p]
+    lib.l2n_walk_stats_host.argtypes = [p]
+    lib.l2n_block_pixel_host.argtypes = [ctypes.c_int, ctypes.c_int, p]
     u32 = ctypes.c_uint32
     lib.l2n_philox_host.argtypes = [u32, u32, p, p, ctypes.c_int64]
     lib.l2n_philox_bits_host.argtypes = [u32, u32, ctypes.c_int,
@@ -304,8 +412,49 @@ def lib(tmp_path_factory):
     return lib
 
 
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _build_shim(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def lib_list1(tmp_path_factory):
+    """The headers with a one-entry per-lane mesh list: every ray that
+    enters two meshes walks them in chunks (csrc/triangle_pt.cuh walk)."""
+    return _build_shim(tmp_path_factory, "-DL2N_LANE_LIST=1")
+
+
+def _walk_stats(host_lib):
+    """(scans, overflowed scans, longest list) of the triangle walks since
+    the last call."""
+    out = np.zeros(3, np.int64)
+    host_lib.l2n_walk_stats_host(_ptr(out))
+    return tuple(int(x) for x in out)
+
+
 def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
+
+
+@pytest.mark.parametrize("shape", [(32, 128), (32, 256), (16, 64),
+                                   (30, 128), (32, 100)])
+def test_block_pixel_renders_each_pixel_once(lib, shape):
+    """csrc/pathtrace.cuh block_pixel, the fused kernels' thread-to-pixel
+    map (tile_height blocks of tile_width threads per tile): every pixel of
+    the tile exactly once; where the shape allows, each warp a 4 x 8
+    rectangle, else each block one row."""
+    th, tw = shape
+    out = np.empty(th * tw, np.int32)
+    lib.l2n_block_pixel_host(th, tw, _ptr(out))
+    assert np.array_equal(np.sort(out), np.arange(th * tw))
+    r, c = np.divmod(np.arange(th * tw), tw)
+    if tw % 32 == 0 and th % 4 == 0:
+        warp = out // 32
+        for w in np.unique(warp):
+            mine = warp == w
+            assert np.ptp(r[mine]) == 3 and np.ptp(c[mine]) == 7
+    else:
+        np.testing.assert_array_equal(out // tw, r)
 
 
 def test_threefry_header_bit_exact(lib):
@@ -377,12 +526,35 @@ def _render(cfg, cam, steps, host_lib=None, with_state=False):
     return accum.numpy(), output.numpy()
 
 
-@pytest.mark.parametrize("case", ["aimed", "default"])
+def _inside_view(cfg, j):
+    """The eye inside sphere j, a third of its radius off its centre,
+    looking through its wall at the nearest other sphere (the d2 <= r2 case
+    of the cone cull: sphere j is every tile's first hit)."""
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    c = np.stack([sc.center_x.numpy(), sc.center_y.numpy(),
+                  sc.center_z.numpy()], 1).astype(np.float64)
+    d = np.linalg.norm(c - c[j], axis=1)
+    d[j] = np.inf
+    to = (c[np.argmin(d)] - c[j]) / d.min()
+    eye = c[j] + to * np.sqrt(float(sc.sqr_radius[j])) / 3.0
+    return look_at(eye.astype(np.float32), c[np.argmin(d)].astype(np.float32),
+                   np.array([0.0, 1.0, 0.0], np.float32))
+
+
+@pytest.mark.parametrize("case", ["aimed", "default", "inside"])
 def test_header_matches_plain_step(lib, case):
+    """The kernels' per-pixel body with their cone-culled primaries (the
+    tile's visible list and its hoisted origin terms, csrc/cull.cuh) against
+    the plain step, which sweeps every sphere: the aimed small scene, the
+    default 128 spheres, and the eye inside an emissive sphere."""
     if case == "aimed":
         cfg = RenderConfig(width=128, height=64, sphere_count=16,
                            emissive_every=2).validate()
         view = _aimed_view(cfg)
+    elif case == "inside":
+        cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                           emissive_every=2).validate()
+        view = _inside_view(cfg, 0)
     else:
         cfg = RenderConfig(width=128, height=64, sphere_count=128,
                            tiles_per_step=2).validate()
@@ -390,13 +562,47 @@ def test_header_matches_plain_step(lib, case):
     cam = Camera.from_config(cfg, view).packed()
     ha, ho = _render(cfg, cam, 4, host_lib=lib)
     pa, po = _render(cfg, cam, 4)
-    if case == "aimed":
+    if case != "default":
         assert (pa[:3].max(0) > 0).mean() > 0.3  # a lit frame
     assert (pa[3] > 0).all()
     np.testing.assert_array_equal(ha[3], pa[3])
     rmse = np.sqrt(((ha - pa) ** 2).mean())
     assert rmse < 1e-3, f"host header / plain RMSE {rmse}"
     assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+@pytest.mark.parametrize("case", ["default_spheres", "default_meshes",
+                                  "inside"])
+def test_visibility_header_matches_plain(lib, case):
+    """csrc/cull.cuh's table (the kernels' per-tile visible list, built here
+    serially with the same per-sphere test) equals the plain
+    visibility_table on every tile of the 1280x720 frame: the default
+    spheres, the default triangle scene's mesh bounds, and the eye inside a
+    sphere."""
+    cfg = RenderConfig().validate()
+    if case == "default_meshes":
+        scene = build_triangle_scene(compute_spheres(
+            cfg.sphere_count, cfg.world_size, cfg.scene_seed),
+            cfg.disc_lat, cfg.disc_long)
+        bounds = TriangleBuffers.from_scene(scene).mesh_bounds.T.contiguous()
+    else:
+        bounds = compute_spheres(cfg.sphere_count, cfg.world_size,
+                                 cfg.scene_seed).packed()[:4].contiguous()
+    view = _inside_view(cfg, 5) if case == "inside" else None
+    cam = Camera.from_config(cfg, view).packed()
+    sched = torch.as_tensor(tile_grid(cfg))
+    n = bounds.shape[1]
+    ip, fp = step_params(cfg, cfg.tile_count, n, cam)
+    got = np.empty((cfg.tile_count, n + 1), np.int32)
+    lib.l2n_visibility_host(_ptr(ip), _ptr(fp), _ptr(sched.numpy()),
+                            _ptr(bounds.numpy()), n, _ptr(got))
+    want = visibility_table(cfg, bounds, cam, sched).numpy()
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[1:1 + w[0]], w[1:1 + w[0]])
+    assert 0 < want[:, 0].max() and want[:, 0].mean() < n
+    if case == "inside":
+        assert all(5 in w[1:1 + w[0]] for w in want)
 
 
 @pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
@@ -511,7 +717,8 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
 
 @pytest.mark.parametrize("aov", ["pathtracing", "tex_coords", "param_uv"])
 def test_triangle_header_matches_plain_step(lib, aov):
-    """The kernel's bound traversal (mesh -> slab -> sub-cluster) against
+    """The kernel's bound traversal (the culled primaries, then per lane
+    its entered meshes front to back, mesh -> slab -> sub-cluster) against
     the plain brute-force sweep on the aimed small config, 2 steps; gates
     of tests/test_kernels.py:125-151, bit-equality expected."""
     cfg = TRI_CFG.replace(aov=aov)
@@ -520,7 +727,9 @@ def test_triangle_header_matches_plain_step(lib, aov):
                                                  cfg.scene_seed),
                                  cfg.disc_lat, cfg.disc_long)
     cam = _tri_aimed_camera(cfg).packed()
+    _walk_stats(lib)
     ha, ho = _render_triangles(cfg, scene, cam, 2, host_lib=lib)
+    assert _walk_stats(lib)[0] > 0  # through the per-lane walk
     pa, po = _render_triangles(cfg, scene, cam, 2)
     assert (pa[:3].max(0) > 0).mean() > 0.05  # a lit frame
     np.testing.assert_array_equal(ha[3], pa[3])
@@ -531,6 +740,59 @@ def test_triangle_header_matches_plain_step(lib, aov):
     else:
         assert (d > 1e-4).mean() < 1e-3
     assert d.max() == 0.0, f"host header / plain max abs {d.max()}"
+
+
+def _facet_gap_camera(cfg, scene):
+    """The eye in the gap between a tessellated sphere and its bound sphere
+    (inside mesh j's bound, outside its facets: the d2 <= r2 case of the
+    mesh cull with a lit view), looking at the emissive mesh 0 from j, the
+    mesh nearest to it."""
+    buf = TriangleBuffers.from_scene(scene)
+    b = buf.mesh_bounds.numpy().astype(np.float64)
+    d = np.linalg.norm(b[:, :3] - b[0, :3], axis=1)
+    d[0] = np.inf
+    j = int(np.argmin(d))
+    soup = {k: v.numpy().astype(np.float64) for k, v in buf.soup.items()}
+    mine = soup["mesh_id"] == j
+    cen = np.stack([soup[f"v1{a}"] + (soup[f"e1{a}"] + soup[f"e2{a}"]) / 3.0
+                    for a in "xyz"], 1)[mine]
+    radial = cen - b[j, :3]
+    dist = np.linalg.norm(radial, axis=1)
+    out = radial / dist[:, None]
+    f = int(np.argmax(out @ ((b[0, :3] - b[j, :3]) / d[j])))
+    eye = cen[f] + out[f] * 0.5 * (np.sqrt(b[j, 3]) - dist[f])
+    assert np.linalg.norm(eye - b[j, :3]) ** 2 < b[j, 3]  # inside the bound
+    vm = look_at(eye.astype(np.float32), b[0, :3].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed(), j
+
+
+@pytest.mark.parametrize("lane_list", [8, 1], ids=["list8", "list1"])
+def test_triangle_header_hard_culling(lib, lib_list1, lane_list):
+    """The triangle walk with the eye inside a mesh's bound (the culled
+    primaries keep that mesh in every tile) against the plain brute-force
+    sweep, bit-equal over 2 steps; with a one-entry per-lane list every ray
+    that enters two meshes overflows it and walks them in chunks."""
+    host = lib if lane_list == 8 else lib_list1
+    cfg = TRI_CFG
+    scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
+                                                 cfg.world_size,
+                                                 cfg.scene_seed),
+                                 cfg.disc_lat, cfg.disc_long)
+    cam, j = _facet_gap_camera(cfg, scene)
+    bounds = TriangleBuffers.from_scene(scene).mesh_bounds.T.contiguous()
+    table = visibility_table(cfg, bounds, cam,
+                             torch.as_tensor(tile_grid(cfg))).numpy()
+    assert all(j in row[1:1 + row[0]] for row in table)
+    _walk_stats(host)
+    ha, _ = _render_triangles(cfg, scene, cam, 2, host_lib=host)
+    scans, overflows, longest = _walk_stats(host)
+    pa, _ = _render_triangles(cfg, scene, cam, 2)
+    assert (pa[:3].max(0) > 0).mean() > 0.05  # a lit frame
+    np.testing.assert_array_equal(ha, pa)
+    assert scans > 0 and 1 < longest <= lane_list or lane_list == 1
+    if lane_list == 1:
+        assert longest == 1 and overflows > 0
 
 
 def test_triangle_header_multi_slab_obj(lib):
@@ -599,8 +861,19 @@ def test_triangle_header_memcheck_asan(tmp_path):
     read a slab past a mesh's count): the header built with
     AddressSanitizer renders the default 128-mesh scene and the multi-slab
     torus field, every device-side read landing in a heap buffer of exactly
-    its size. compute-sanitizer, the card's counterpart, does not run on the
-    card's machine."""
+    its size, through the culled primaries' lists and the per-lane walk.
+    compute-sanitizer, the card's counterpart, does not run on the card's
+    machine."""
+    _asan_render(tmp_path)
+
+
+def test_triangle_header_memcheck_asan_list_overflow(tmp_path):
+    """The same memory check with a two-entry per-lane mesh list, so the
+    walk's chunked rescans run (ROADMAP Queue 3 #15)."""
+    _asan_render(tmp_path, "-DL2N_LANE_LIST=2")
+
+
+def _asan_render(tmp_path, *defines):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++")
@@ -612,7 +885,7 @@ def test_triangle_header_memcheck_asan(tmp_path):
     lib_path = tmp_path / "libtriangle_asan.so"
     subprocess.run([cxx, "-O1", "-g", "-fsanitize=address",
                     "-fno-omit-frame-pointer", "-ffp-contract=off",
-                    "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}",
+                    "-std=c++17", "-shared", "-fPIC", *defines, f"-I{CSRC}",
                     str(tmp_path / "shim.cpp"), "-o", str(lib_path)],
                    check=True, capture_output=True, text=True)
     env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
