@@ -9,9 +9,13 @@ gates on the raw-bits kernel philox_bits and on renders, runs the three
 probes (l2n_tpu_torch/probes: cond_cost, sweep_variants, onehot_recovery)
 through their entry points with their kernels held against the plain
 versions, holds sphere_pt and triangle_pt to their plain versions bit for
-bit from views that make their per-tile cone cull hard (phase 22), and
-times kernel and plain versions beside the least time the card could take
-for the same work.
+bit from views that make their per-tile cone cull hard (phase 22), runs
+the wavefront step twice from one state to show that its image does not
+depend on the order of pass A's survivor slots (phase 23), holds the
+wavefront step to sphere_pt bit for bit at the 10-tile schedule, where
+pass B splits each ray's sweeps over 8 lanes (phase 24), and times
+kernel and plain versions beside the least time the card could take for
+the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -103,10 +107,11 @@ def timed_steps(step, state, cam, n: int):
 
 def profile_steps(step, state, cam, n: int, kernels):
     """({kernel: device ms per launch}, device busy share between the first
-    and the last device event, device ms per step of every other kernel,
-    state) from torch.profiler over n steps; a kernel the profiler recorded
-    no device time for maps to None. A short profile first takes the
-    profiler's own start-up cost."""
+    and the last device event, (device ms per step of every other device
+    event, {its name: (events per step, device ms per step)}), state) from
+    torch.profiler over n steps; a kernel the profiler recorded no device
+    time for maps to None. A short profile first takes the profiler's own
+    start-up cost."""
     from torch.profiler import ProfilerActivity, profile
     for steps in (2, n):
         torch.cuda.synchronize()
@@ -131,8 +136,13 @@ def profile_steps(step, state, cam, n: int, kernels):
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     busy = sum(e.time_range.elapsed_us() for e in dev) / span
-    other = sum(e.time_range.elapsed_us() for e in dev
-                if not any(k in e.name for k in kernels)) / n / 1e3
+    rest = collections.defaultdict(list)
+    for e in dev:
+        if not any(k in e.name for k in kernels):
+            rest[e.name[:60]].append(e.time_range.elapsed_us())
+    other = (sum(map(sum, rest.values())) / n / 1e3,
+             {k: (round(len(v) / n, 2), round(sum(v) / n / 1e3, 5))
+              for k, v in rest.items()})
     return per, busy, other, state
 
 
@@ -142,6 +152,12 @@ def profile_calls(fn, n: int, kernel: str):
     per, _, _, _ = profile_steps(lambda state, cam: fn(), None, None, n,
                                  (kernel,))
     return per[kernel]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit, NaN included: the 32-bit patterns compared."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
 
 
 def compare(kacc, kout, pacc, pout, cfg):
@@ -193,6 +209,16 @@ def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
     return (*compare(ka.accum.cpu().numpy(), ka.output.cpu().numpy(),
                      pa.accum.cpu().numpy(), pa.output.cpu().numpy(), cfg),
             state_eq)
+
+
+def pass_b_group(alive: int) -> int:
+    """The group of lanes per ray that pass B's kernel picks for `alive`
+    survivors on this card: csrc/wavefront.cuh group_size against the
+    card's SMs x threads per SM (csrc/wavefront.cu pass_b_grid)."""
+    props = torch.cuda.get_device_properties(0)
+    threads = props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+    return 8 if alive * 8 <= threads else 1
 
 
 def run_main_path(app, frames: int, names):
@@ -545,38 +571,49 @@ def path_ops(c, cast_cost: float, tags=("a_", "b_"), pair=OPS["threefry"]):
 
 def sphere_bounds(c, n_spheres: int, k: int, alive: int, rng="threefry"):
     """{kernel: (bound_ms, bound_by)} of sphere_pt and the three wavefront
-    passes for the counters `c` of one step of K tiles, with rng mode
-    `rng`'s draws and state planes."""
+    passes (and of pass A with the JAX layout's bytes) for the counters `c`
+    of one step of K tiles with `alive` survivors, with rng mode `rng`'s
+    draws and state planes."""
     pair = PAIR_OPS[rng]
     # A cast's candidates at the miss cost, plus the roots of those whose
     # line meets the ray (counted per lane by count_work).
     cast = n_spheres * OPS["sphere_miss"] + OPS["nearest_fixed"]
     roots = OPS["sphere"] - OPS["sphere_miss"]
-    a_roots, b_roots = c["a_meets"] * roots, c["b_meets"] * roots
+    b_roots = c["b_meets"] * roots
     any_ops = c["b_anyhit_tests"] * OPS["anyhit"]
     scene_bytes, sched_bytes = 7 * n_spheres * 4, 8 * k
     tonemap = c["pixels"] * OPS["accumulate"] + c["samples"] * OPS["sample_sum"]
     lanes = c["samples"]
-    # sphere_pt's primaries sweep their tile's visible spheres (counted by
-    # count_work's cull_bounds), after one table per tile; the wavefront's
-    # pass A sweeps every sphere.
+    # Primaries sweep their tile's visible spheres (counted by count_work's
+    # cull_bounds), after one table per tile: sphere_pt's and the
+    # wavefront's pass A's (the JAX pass A reads the per-camera table,
+    # cone_cull=True).
     culled = (c["vis_candidates"] * OPS["sphere_primary_miss"]
               + c["a_meets_vis"] * (OPS["sphere_primary"]
                                     - OPS["sphere_primary_miss"])
               + c["a_casts"] * OPS["nearest_fixed"]
               + k * (OPS["cone"] + n_spheres * OPS["cone_test"])
               + c["vis_sum"] * OPS["primary_terms"])
+    a_ops = path_ops(c, cast, ("a_",), pair) - c["a_casts"] * cast + culled
     return {
         "sphere_pt": bound(path_ops(c, cast, pair=pair) - c["a_casts"] * cast
                            + culled + b_roots + any_ops + tonemap,
                            c["pixels"] * (44 + STATE_BYTES[rng])
                            + scene_bytes + sched_bytes),
-        "wavefront_pass_a": bound(path_ops(c, cast, ("a_",), pair) + a_roots,
-                                  c["pixels"] * 4 + lanes * 56 + scene_bytes
-                                  + sched_bytes),
+        # the sample counts in; col (12 B) out for every lane, then back = 0
+        # (12 B) for a path that ended or 9 ray and 3 meta planes (48 B)
+        # for a survivor
+        "wavefront_pass_a": bound(a_ops, c["pixels"] * 4 + lanes * 12
+                                  + (lanes - alive) * 12 + alive * 48
+                                  + scene_bytes + sched_bytes),
+        # the yardstick of the JAX layout: 14 planes (56 B) for every lane
+        "wavefront_pass_a_jax_layout": bound(a_ops, c["pixels"] * 4
+                                             + lanes * 56 + scene_bytes
+                                             + sched_bytes),
+        # the survivors' 9 ray and 3 meta planes in, 3 planes of back out
         "wavefront_pass_b": bound(path_ops(c, cast, ("b_",), pair) + b_roots
                                   + any_ops + alive * pair,
-                                  alive * 56 + scene_bytes + 4),
+                                  alive * 60 + scene_bytes + 4),
         "wavefront_pass_c": bound(tonemap + lanes * 6,
                                   lanes * 24 + c["pixels"] * 44 + sched_bytes),
     }
@@ -1049,9 +1086,8 @@ def main() -> int:
     )
     from l2n_tpu_torch.ops.kernels.uv_demo import uv_demo, uv_demo_plain
     from l2n_tpu_torch.ops.kernels.wavefront import (
-        compact_survivors,
-        scatter_back,
         sphere_wavefront_step,
+        wavefront_lanes,
         wavefront_pass_a,
         wavefront_pass_a_plain,
         wavefront_pass_b,
@@ -1273,18 +1309,34 @@ def main() -> int:
 
         # --- 10: the wavefront passes, kernel vs plain, one whole frame ---
         # Each kernel and its plain version get the same inputs: pass B and
-        # pass C take what the plain passes before them made.
+        # pass C take what the plain passes before them made. Pass A's
+        # survivors land in slots in no fixed order: compared as sets,
+        # sorted by their lane plane. Pass B also at the 10-tile schedule,
+        # where it splits each ray's sweeps across a group of lanes.
         wcfg = RenderConfig(wavefront=True).validate()
         wwhole = wcfg.replace(tiles_per_step=wcfg.tile_count)
         wsched = scheduled_tiles(tiles, 0, wwhole.tile_count)
         wst = init_frame_state(wwhole, dev)
-        ka_out = wavefront_pass_a(wwhole, wsched, cam, spheres, wst.accum)
-        pa_out = wavefront_pass_a_plain(wwhole, wsched, cam, spheres,
-                                        wst.accum)
+        ka = wavefront_lanes(wwhole, wwhole.tile_count, dev)
+        ka.back.fill_(float("nan"))  # pass A leaves the survivors' lanes
+        wavefront_pass_a(wwhole, wsched, cam, spheres, wst.accum, ka)
+        pa = wavefront_pass_a_plain(wwhole, wsched, cam, spheres, wst.accum)
         torch.cuda.synchronize()
-        require(torch.equal(ka_out[2], pa_out[2]),
-                "pass A meta planes bit-equal")
-        wave_err = {}
+        na = int(pa.n_alive[0])
+        n_lanes = pa.col[0].numel()
+        alive_whole = na / n_lanes
+        require(int(ka.n_alive[0]) == na,
+                f"pass A n_alive {int(ka.n_alive[0])} == plain {na}")
+        require(bits_equal(ka.col, pa.col), "pass A col bit-equal")
+        require(bits_equal(ka.back, pa.back),
+                "pass A back bit-equal (0 at the dead lanes)")
+        korder = torch.argsort(ka.meta[2, :na])
+        require(torch.equal(ka.meta[:, :na][:, korder], pa.meta[:, :na]),
+                "pass A meta equal as sets (sorted by lane)")
+        require(bits_equal(ka.rays[:, :na][:, korder], pa.rays[:, :na]),
+                "pass A rays equal as sets (sorted by lane)")
+        moved = int((ka.meta[2, :na] != pa.meta[2, :na]).sum())
+        wave_err = {"wavefront_pass_a": 0.0}
 
         def lane_gate(name, got, want):
             d = (got - want).double()
@@ -1292,23 +1344,33 @@ def main() -> int:
             require(rmse < 1e-3, f"{name} kernel/plain RMSE {rmse} < 1e-3")
             return float(d.abs().max())
 
-        wave_err["wavefront_pass_a"] = max(
-            lane_gate("pass A rays", ka_out[0], pa_out[0]),
-            lane_gate("pass A colA", ka_out[1], pa_out[1]))
-        comp, comp_meta, perm, alive, n_alive = compact_survivors(
-            pa_out[0], pa_out[2])
-        kb = wavefront_pass_b(wwhole, cam, spheres, comp, comp_meta, n_alive)
-        pb = wavefront_pass_b_plain(wwhole, cam, spheres, comp, comp_meta,
-                                    n_alive)
-        torch.cuda.synchronize()
-        na = int(n_alive[0])
-        alive_whole = na / alive.numel()
-        wave_err["wavefront_pass_b"] = lane_gate("pass B contrib",
-                                                 kb[:, :na], pb[:, :na])
-        back = scatter_back(pb, perm, alive).view(pa_out[1].shape)
+        def pass_b_gate(bcfg, a, label):
+            """Kernel pass B vs plain on the plain pass A's outputs `a`:
+            every survivor's lane written, RMSE over them < 1e-3, back
+            bit-equal; returns (max abs, G the kernel picks)."""
+            kb, pb = a.back.clone(), a.back.clone()
+            wavefront_pass_b(bcfg, cam, spheres, a.rays, a.meta, a.n_alive,
+                             kb)
+            wavefront_pass_b_plain(bcfg, cam, spheres, a.rays, a.meta,
+                                   a.n_alive, pb)
+            torch.cuda.synchronize()
+            require(not kb.isnan().any(),
+                    f"pass B ({label}) wrote every survivor's lane")
+            lanes = a.meta[2, :int(a.n_alive[0])].long()
+            err = lane_gate(f"pass B back ({label})",
+                            kb.view(3, -1)[:, lanes], pb.view(3, -1)[:, lanes])
+            require(bits_equal(kb, pb), f"pass B ({label}) back bit-equal")
+            return err, pass_b_group(int(a.n_alive[0])), pb
+
+        b_err, b_group, back = pass_b_gate(wwhole, pa, "whole frame")
+        s10 = scheduled_tiles(tiles, 0, wcfg.effective_tiles_per_step)
+        p10 = wavefront_pass_a_plain(wcfg, s10, cam, spheres,
+                                     init_frame_state(wcfg, dev).accum)
+        b10_err, b10_group, _ = pass_b_gate(wcfg, p10, "10 tiles")
+        wave_err["wavefront_pass_b"] = max(b_err, b10_err)
         kc, pc = init_frame_state(wwhole, dev), init_frame_state(wwhole, dev)
-        wavefront_pass_c(wwhole, wsched, pa_out[1], back, kc.accum, kc.output)
-        wavefront_pass_c_plain(wwhole, wsched, pa_out[1], back, pc.accum,
+        wavefront_pass_c(wwhole, wsched, pa.col, back, kc.accum, kc.output)
+        wavefront_pass_c_plain(wwhole, wsched, pa.col, back, pc.accum,
                                pc.output)
         torch.cuda.synchronize()
         require(torch.equal(kc.accum[3], pc.accum[3]), "pass C accum[3] equal")
@@ -1318,24 +1380,94 @@ def main() -> int:
             lane_gate("pass C accum", kc.accum, pc.accum),
             float((kc.output - pc.output).abs().max()))
         phase(10, f"wavefront passes kernel vs plain, default config, one "
-                  f"whole-frame step ({alive.numel()} lanes): pass A meta "
-                  f"bit-equal, max abs (rays, colA) "
-                  f"{wave_err['wavefront_pass_a']:.3e}; alive fraction "
-                  f"{na} / {alive.numel()} = {alive_whole:.4f}; pass B "
-                  f"max abs over the {na} live lanes "
-                  f"{wave_err['wavefront_pass_b']:.3e}; pass C max abs "
-                  f"(accum, output) {wave_err['wavefront_pass_c']:.3e}, "
-                  f"output flips {flips_c:.3e} (gates: RMSE < 1e-3, flips "
-                  f"< 2e-3)")
-        del ka_out, kb, pb, kc, pc, comp, comp_meta, back
+                  f"whole-frame step ({n_lanes} lanes): pass A n_alive "
+                  f"{na} = {alive_whole:.4f} of the lanes, col and back "
+                  f"bit-equal, rays and meta equal as sets ({moved} of "
+                  f"{na} slots hold another lane than the plain stable "
+                  f"order); pass B max abs over the survivors' lanes "
+                  f"{b_err:.3e} (G = {b_group}), at 10 tiles "
+                  f"({int(p10.n_alive[0])} survivors) {b10_err:.3e} (G = "
+                  f"{b10_group}); pass C max abs (accum, output) "
+                  f"{wave_err['wavefront_pass_c']:.3e}, output flips "
+                  f"{flips_c:.3e} (gates: pass A exact, pass B bit-equal, "
+                  f"RMSE < 1e-3, flips < 2e-3)")
+        del ka, pa, p10, back, kc, pc
 
         # --- 11: the wavefront CUDA step vs the sphere_pt CUDA step --------
         rmse, wf_vs_fused, flips, lit, _ = kernel_vs_plain(
             sphere_wavefront_step, sphere_pt, wwhole, spheres, cam, 4)
+        require(wf_vs_fused == 0.0, f"wavefront/fused max abs {wf_vs_fused}")
         phase(11, f"wavefront CUDA step vs sphere_pt CUDA step, default "
                   f"config, 4 whole-frame steps: accum RMSE {rmse:.3e} (gate "
-                  f"1e-3), max abs {wf_vs_fused:.3e} (0 expected), output "
-                  f"flip fraction {flips:.3e} (gate 2e-3), lit {lit:.4f}")
+                  f"1e-3), max abs {wf_vs_fused:.3e} (bit-equal required), "
+                  f"output flip fraction {flips:.3e} (gate 2e-3), lit "
+                  f"{lit:.4f}")
+
+        # --- 24: the same at the 10-tile schedule, where pass B splits ----
+        # each ray's sweeps over 8 lanes; also with 100 spheres, which 8
+        # does not divide, and with tpu_hw. Two passes over the frame (46
+        # steps of 10 tiles) per case.
+        split = {}
+        steps10 = 2 * -(-wcfg.tile_count // wcfg.effective_tiles_per_step)
+        for count in (wcfg.sphere_count, 100):
+            sc = compute_spheres(count, wcfg.world_size, wcfg.scene_seed,
+                                 device=dev).packed()
+            for rng in ("threefry", "tpu_hw"):
+                scfg = wcfg.replace(sphere_count=count, rng=rng)
+                k = scfg.effective_tiles_per_step
+                kst, fst = (init_frame_state(scfg, dev) for _ in range(2))
+                lanes = wavefront_lanes(scfg, k, dev)
+                groups = set()
+                for i in range(steps10):
+                    ssched = scheduled_tiles(tiles, i * k % scfg.tile_count, k)
+                    sphere_wavefront_step(scfg, ssched, cam, sc, kst.accum,
+                                          kst.output, lanes=lanes)
+                    groups.add(pass_b_group(int(lanes.n_alive[0])))
+                    sphere_pt(scfg, ssched, cam, sc, fst.accum, fst.output)
+                torch.cuda.synchronize()
+                err = float((kst.accum - fst.accum).abs().max())
+                lit = float((fst.accum[:3, :scfg.height, :scfg.width]
+                             .amax(0) > 0).float().mean())
+                label = f"{count} spheres, {rng}"
+                require(groups == {8}, f"10 tiles ({label}): pass B split "
+                                       f"every step (G {sorted(groups)})")
+                require(err == 0.0, f"10-tile wavefront/fused ({label}) max "
+                                    f"abs {err}")
+                require(lit > 0.02, f"10 tiles ({label}) lit {lit} > 0.02")
+                split[label] = {"max_abs": err, "lit": round(lit, 4)}
+        phase(24, f"wavefront CUDA step vs sphere_pt CUDA step at 10 tiles, "
+                  f"{steps10} steps, pass B at G = 8: {split} (gates: accum "
+                  f"max abs 0, lit > 0.02)")
+
+        # --- 23: two runs of the wavefront CUDA step from one state --------
+        # The slot order of pass A's append changes from run to run; the
+        # image must not. Both schedules: 10 tiles splits pass B's sweeps.
+        determinism = {}
+        for label, dcfg in (("whole frame", wwhole), ("10 tiles", wcfg)):
+            k = dcfg.effective_tiles_per_step
+            dsched = scheduled_tiles(tiles, 0, k)
+            runs = []
+            for _ in range(2):
+                st = init_frame_state(dcfg, dev)
+                st.accum[3] = 3.0  # a later step's sample index
+                lanes = wavefront_lanes(dcfg, k, dev)
+                for _ in range(2):
+                    sphere_wavefront_step(dcfg, dsched, cam, spheres,
+                                          st.accum, st.output, lanes=lanes)
+                torch.cuda.synchronize()
+                runs.append((st, lanes.meta[2, :int(lanes.n_alive[0])]))
+            (s1, m1), (s2, m2) = runs
+            require(torch.equal(s1.accum, s2.accum)
+                    and torch.equal(s1.output, s2.output),
+                    f"two wavefront runs ({label}) give the same image")
+            require(torch.equal(torch.sort(m1).values, torch.sort(m2).values),
+                    f"two wavefront runs ({label}) keep the same survivors")
+            determinism[label] = (int((m1 != m2).sum()), m1.numel())
+        phase(23, f"wavefront CUDA step run twice from one state, 2 steps "
+                  f"each: accum and output identical (max abs 0); slots "
+                  f"holding another lane in the second run: "
+                  + ", ".join(f"{lbl} {d} of {n}"
+                              for lbl, (d, n) in determinism.items()))
 
         # --- 12: the wavefront main path through Application --------------
         app = Application(RenderConfig(wavefront=True), backend="cuda",
@@ -1593,7 +1725,10 @@ def main() -> int:
               flush=True)
         del tst, tstep
 
-    # --- the wavefront step: device and host time, each pass, the glue ----
+    # --- the wavefront step: device and host time, each pass, the rest ---
+    # Since pass A appends the survivors and pass B writes back by lane, the
+    # only other device work of the step is the counter's memset and the
+    # step's schedule gather (render/tiles.scheduled_tiles).
     wave = {}
     kernel_names = {n: f"{n}_kernel" for n in wave_names}
     for label, tcfg in (("10-tile", wcfg), ("whole-frame", wwhole)):
@@ -1611,15 +1746,17 @@ def main() -> int:
                 per, busy, other, tst = profile_steps(
                     tstep, tst, cam, 20, tuple(kernel_names.values()))
                 wave[(label, "passes")] = per
+                wave[(label, "busy")] = busy
                 print(f"[profile] wavefront {label} backend=cuda: "
                       + ", ".join(
                           f"{n} " + ("not measured" if per[kn] is None else
                                      f"{per[kn]:.4f} ms/launch")
                           for n, kn in kernel_names.items())
                       + ("" if other is None else
-                         f"; glue (every other kernel of the step) "
-                         f"{other:.4f} ms/step; device busy {busy:.3f} of "
-                         f"the span from first to last device event")
+                         f"; the rest of the step's device work "
+                         f"{other[0]:.4f} ms/step, by name (events, ms) per "
+                         f"step {other[1]}; device busy {busy:.3f} of the span "
+                         f"from first to last device event")
                       + f" (torch.profiler); card: {card}", flush=True)
             print(f"[timing] wavefront {label} ({k} tiles, {samples} "
                   f"samples/step) backend={backend}: {dev_ms:.4f} ms/step "
@@ -1627,52 +1764,34 @@ def main() -> int:
                   f"sync), {samples / dev_ms / 1e3:.2f} Msamples/s; card: "
                   f"{card}", flush=True)
             del tst, tstep
-        # The glue alone (compaction + scatter-back) on this schedule's
-        # pass A output: 11 planes gathered, 3 scattered back.
-        s0 = scheduled_tiles(tiles, 0, k)
-        a0 = init_frame_state(tcfg, dev)
-        rays, colA, meta = wavefront_pass_a(tcfg, s0, cam, spheres, a0.accum)
-        contrib = torch.zeros((3, samples), device=dev)
-
-        def glue():
-            c = compact_survivors(rays, meta)
-            scatter_back(contrib, c[2], c[3])
-
-        glue_ms = timed_calls(glue, 3, 50)
-        glue_bytes = samples * 4 * (11 + 3)
-        print(f"[timing] wavefront {label} glue (compact_survivors + "
-              f"scatter_back): {glue_ms:.4f} ms/call (CUDA events), "
-              f"{glue_bytes} bytes of planes gathered and scattered "
-              f"({glue_bytes / glue_ms / 1e6:.1f} GB/s); card: {card}",
-              flush=True)
         torch.cuda.empty_cache()
 
     # --- each pass alone at the main path's 10-tile shape -----------------
     k = wcfg.effective_tiles_per_step
-    s10 = scheduled_tiles(tiles, 0, k)
     a10 = init_frame_state(wcfg, dev)
-    rays, colA, meta = wavefront_pass_a_plain(wcfg, s10, cam, spheres,
-                                              a10.accum)
-    comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
-    contrib = wavefront_pass_b_plain(wcfg, cam, spheres, comp, comp_meta,
-                                     n_alive)
-    back = scatter_back(contrib, perm, alive).view(colA.shape)
-    alive10 = int(n_alive[0])
+    p10 = wavefront_pass_a_plain(wcfg, s10, cam, spheres, a10.accum)
+    alive10 = int(p10.n_alive[0])
+    lanes10 = p10.col[0].numel()
+    back10 = p10.back.clone()
+    wavefront_pass_b_plain(wcfg, cam, spheres, p10.rays, p10.meta,
+                           p10.n_alive, back10)
+    k10 = wavefront_lanes(wcfg, k, dev)
+    bk10 = p10.back.clone()
     scratch = init_frame_state(wcfg, dev)
     pass_calls = {
         "wavefront_pass_a": (
-            lambda: wavefront_pass_a(wcfg, s10, cam, spheres, a10.accum),
+            lambda: wavefront_pass_a(wcfg, s10, cam, spheres, a10.accum, k10),
             lambda: wavefront_pass_a_plain(wcfg, s10, cam, spheres,
                                            a10.accum)),
         "wavefront_pass_b": (
-            lambda: wavefront_pass_b(wcfg, cam, spheres, comp, comp_meta,
-                                     n_alive),
-            lambda: wavefront_pass_b_plain(wcfg, cam, spheres, comp,
-                                           comp_meta, n_alive)),
+            lambda: wavefront_pass_b(wcfg, cam, spheres, p10.rays, p10.meta,
+                                     p10.n_alive, bk10),
+            lambda: wavefront_pass_b_plain(wcfg, cam, spheres, p10.rays,
+                                           p10.meta, p10.n_alive, bk10)),
         "wavefront_pass_c": (
-            lambda: wavefront_pass_c(wcfg, s10, colA, back, scratch.accum,
-                                     scratch.output),
-            lambda: wavefront_pass_c_plain(wcfg, s10, colA, back,
+            lambda: wavefront_pass_c(wcfg, s10, p10.col, back10,
+                                     scratch.accum, scratch.output),
+            lambda: wavefront_pass_c_plain(wcfg, s10, p10.col, back10,
                                            scratch.accum, scratch.output))}
     pass_ms, pass_plain_ms = {}, {}
     for name, (kernel_call, plain_call) in pass_calls.items():
@@ -1680,7 +1799,7 @@ def main() -> int:
         pass_plain_ms[name] = timed_calls(plain_call, 1, 5)
         profiled = wave[("10-tile", "passes")][kernel_names[name]]
         print(f"[timing] {name} alone, 10-tile inputs ({alive10} of "
-              f"{alive.numel()} lanes alive, {alive10 / alive.numel():.4f}):"
+              f"{lanes10} lanes alive, {alive10 / lanes10:.4f}):"
               f" kernel {pass_ms[name]:.4f} ms/call (CUDA events), "
               + ("" if profiled is None else
                  f"{profiled:.4f} ms/launch (torch.profiler, in the step), ")
@@ -1790,14 +1909,21 @@ def main() -> int:
     frame_tol = "accum RMSE < 1e-3, output |d|>1e-3 fraction < 2e-3"
     wave_src = "l2n_tpu_torch/csrc/wavefront.cu"
     wave_rows = []
+    wave_tol = {
+        "wavefront_pass_a": "n_alive, col, back bit-equal; rays and meta "
+                            "equal as sets",
+        "wavefront_pass_b": "back bit-equal; RMSE < 1e-3 over the "
+                            "survivors' lanes",
+        "wavefront_pass_c": "RMSE < 1e-3, output flips < 2e-3"}
     for name, line in zip(wave_names, (113, 194, 247)):
         wave_rows.append(row(
             name, wave_src, f"l2n_tpu/ops/kernels/wavefront.py:{line}",
-            wave_launches.get(name, 0), wave_err[name],
-            "meta bit-equal; RMSE < 1e-3" + (
-                ", output flips < 2e-3" if name.endswith("c") else ""),
+            wave_launches.get(name, 0), wave_err[name], wave_tol[name],
             wave[("10-tile", "passes")][kernel_names[name]], pass_ms[name],
-            pass_plain_ms[name]))
+            pass_plain_ms[name],
+            whole_frame_ms=wave[("whole-frame", "passes")][kernel_names[name]],
+            whole_frame_bound_ms=bounds_whole[name][0],
+            whole_frame_bound_by=bounds_whole[name][1]))
     print(f"[time] {time.perf_counter() - T0:.1f} s from the start of the "
           f"script to the kernels line", flush=True)
     print(json.dumps({"kernels": [

@@ -59,15 +59,9 @@
 
 namespace {
 
-// Shared memory of a block over n spheres: the (7, n) SoA, the visible list
-// (n ints), its origin terms (4 rows of n) and 33 ints for the compaction.
-size_t smem_bytes(int n) {
-  return sizeof(float) * (12 * static_cast<size_t>(n) + 33);
-}
-
 // A block is tile_width pixels of one tile (l2n::block_pixel): it stages
-// the scene, builds the tile's visible list and the list's origin terms,
-// then renders its pixels.
+// the scene, builds the tile's visible list and the list's origin terms
+// (l2n::stage_culled_scene), then renders its pixels.
 template <class Rng>
 __global__ void sphere_pt_kernel(l2n::PtParams p,
                                  const int32_t* __restrict__ sched,
@@ -76,36 +70,11 @@ __global__ void sphere_pt_kernel(l2n::PtParams p,
                                  float* __restrict__ output,
                                  uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
-  const int n = p.n_scene;
-  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) smem[i] = spheres[i];
-  int32_t* s_index = reinterpret_cast<int32_t*>(smem + 7 * n);
-  float* s_terms = smem + 8 * n;  // rox | roy | roz | c
-  int32_t* s_counts = reinterpret_cast<int32_t*>(smem + 12 * n);
-  __syncthreads();
-
   const int tile = blockIdx.x / p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
-  l2n::SceneView scene = l2n::scene_view(smem, n);
-  const l2n::TileCone cone = l2n::tile_cone(p, tile_x, tile_y);
-  const int n_vis = l2n::build_visible_block(
-      p, cone,
-      [&](int i, float& cx, float& cy, float& cz, float& r2) {
-        cx = scene.cx[i];
-        cy = scene.cy[i];
-        cz = scene.cz[i];
-        r2 = scene.r2[i];
-      },
-      n, s_index, s_counts);
-  l2n::primary_terms(p, scene, s_index, n_vis, s_terms, s_terms + n,
-                     s_terms + 2 * n, s_terms + 3 * n,
-                     static_cast<int>(threadIdx.x),
-                     static_cast<int>(blockDim.x));
-  __syncthreads();
-  scene.vis = l2n::Primaries{s_index, s_terms, s_terms + n, s_terms + 2 * n,
-                             s_terms + 3 * n, n_vis, p.cam[32], p.cam[33],
-                             p.cam[34]};
-
+  const l2n::SceneView scene =
+      l2n::stage_culled_scene(p, spheres, smem, tile_x, tile_y);
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
   l2n::render_pixel<Rng>(p, scene, tile_y * p.tile_height + r,
@@ -119,17 +88,11 @@ struct LaunchSpherePt {
                  uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    const size_t smem = smem_bytes(p.n_scene);
-    // Opt in to more than 48 KiB once per instantiation (not again while
-    // a CUDA graph captures the launch).
+    const size_t smem =
+        sizeof(float) * l2n::culled_scene_floats(p.n_scene);
     static size_t opted = 48 * 1024;
-    if (smem > opted) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          sphere_pt_kernel<Rng>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (rc != cudaSuccess) return static_cast<int>(rc);
-      opted = smem;
-    }
+    const cudaError_t rc = l2n::allow_smem(sphere_pt_kernel<Rng>, smem, opted);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
     sphere_pt_kernel<Rng><<<grid, block, smem, stream>>>(
         p, sched, spheres, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());

@@ -11,7 +11,9 @@
 // root when no lane of the warp needs it. A primary cast may sweep only
 // the tile's cone-visible spheres (csrc/cull.cuh), whose origin terms
 // o - c and |o - c|^2 - r^2 are the same floats for every primary and are
-// computed once per block (`Primaries`).
+// computed once per block (`Primaries`). The block prologue that builds them
+// (stage_culled_scene) is shared by sphere_pt's kernel and the wavefront's
+// pass A (csrc/wavefront.cu).
 
 #pragma once
 
@@ -182,5 +184,62 @@ L2N_HD bool SceneView::anyhit(float ox, float oy, float oz, float dx,
   }
   return false;
 }
+
+#if defined(__CUDACC__)
+// Let `kernel` launch with `bytes` of dynamic shared memory: above the
+// default 48 KiB a kernel opts in, once per instantiation (`opted`, the
+// caller's static record, so not again while a CUDA graph captures).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& opted) {
+  if (bytes <= opted) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (rc == cudaSuccess) opted = bytes;
+  return rc;
+}
+
+// Shared memory of stage_culled_scene over n spheres, in floats: the (7, n)
+// SoA, the visible list (n ints), its origin terms (4 rows of n) and
+// kCullCounts ints for block_rank, from float 12 n on.
+constexpr int kCullCounts = 33;
+inline size_t culled_scene_floats(int n) {
+  return 12 * static_cast<size_t>(n) + kCullCounts;
+}
+
+// A block's prologue for the primaries of tile (tile_x, tile_y): stage the
+// (7, n) scene into smem, build the tile's visible list and its origin
+// terms; returns the scene with `vis` set. Every thread of the block must
+// call it; it ends with a barrier.
+__device__ inline SceneView stage_culled_scene(
+    const PtParams& p, const float* __restrict__ spheres, float* smem,
+    int tile_x, int tile_y) {
+  const int n = p.n_scene;
+  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) smem[i] = spheres[i];
+  int32_t* s_index = reinterpret_cast<int32_t*>(smem + 7 * n);
+  float* s_terms = smem + 8 * n;  // rox | roy | roz | c
+  int32_t* s_counts = reinterpret_cast<int32_t*>(smem + 12 * n);
+  __syncthreads();
+  SceneView scene = scene_view(smem, n);
+  const TileCone cone = tile_cone(p, tile_x, tile_y);
+  const int n_vis = build_visible_block(
+      p, cone,
+      [&](int i, float& cx, float& cy, float& cz, float& r2) {
+        cx = scene.cx[i];
+        cy = scene.cy[i];
+        cz = scene.cz[i];
+        r2 = scene.r2[i];
+      },
+      n, s_index, s_counts);
+  primary_terms(p, scene, s_index, n_vis, s_terms, s_terms + n,
+                s_terms + 2 * n, s_terms + 3 * n,
+                static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x));
+  __syncthreads();
+  scene.vis = Primaries{s_index, s_terms, s_terms + n, s_terms + 2 * n,
+                        s_terms + 3 * n, n_vis, p.cam[32], p.cam[33],
+                        p.cam[34]};
+  return scene;
+}
+#endif
 
 }  // namespace l2n

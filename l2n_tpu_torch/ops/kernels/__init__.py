@@ -11,8 +11,9 @@ kernels they replace).
     l2n_tpu/ops/kernels/uv_demo.py::_kernel;
   * `wavefront.wavefront_pass_a/b/c` — csrc/wavefront.cu, replace
     l2n_tpu/ops/kernels/wavefront.py::_pass_a_kernel/_pass_b_kernel/
-    _pass_c_kernel; `wavefront.sphere_wavefront_step` chains them with the
-    compaction (torch ops on the device) for `RenderConfig(wavefront=True)`.
+    _pass_c_kernel; `wavefront.sphere_wavefront_step` chains them for
+    `RenderConfig(wavefront=True)` (pass A appends the survivors, pass B
+    writes back by lane: no torch op between the passes).
 
 The path body the path-tracing kernels share is csrc/pathtrace.cuh.
 Routing (render/step.py::build_render_step): a sphere config with

@@ -101,7 +101,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sphere_pt": [p] * 8,
         "uv_demo": [i, i, p, p, p],
         "triangle_pt": [p, p, i, i] + [p] * 12,
-        "wavefront_pass_a": [p] * 9,
+        "wavefront_pass_a": [p] * 11,
         "wavefront_pass_b": [p, p, i, i, p, p, p, p, p, p],
         "wavefront_pass_c": [p] * 8,
         "philox_bits": [p, i, i, p, p],

@@ -1,46 +1,54 @@
-"""The wavefront sphere step: three CUDA kernels, the compaction between
-them, and their plain torch versions (counterpart of
-l2n_tpu/ops/kernels/wavefront.py).
+"""The wavefront sphere step: three CUDA kernels and their plain torch
+versions (counterpart of l2n_tpu/ops/kernels/wavefront.py).
 
 The fused step (sphere_pt.py) traces every sample's whole path in one
 thread. The wavefront step, `RenderConfig(wavefront=True)`, cuts each path
 after its first vertex:
 
   pass A  (`wavefront_pass_a`, csrc/wavefront.cu): per sample of every pixel
-          of the scheduled tiles, the jittered primary ray, its first vertex
-          and the b=0 scatter + Russian roulette -> continuation planes,
-          partial radiance, meta planes (pixel and sample index);
-  compact (`compact_survivors`, torch ops on the device): the alive flag
-          (cast_ox < 1e30), a cumsum, the stable rank permutation and its
-          inverse, one gather of the ray and meta planes into a dense prefix
-          of n_alive lanes; n_alive stays on the device (no host sync);
-  pass B  (`wavefront_pass_b`): one thread per compacted lane, the bounce
-          continuation from the sampler's resume point;
-  back    (`scatter_back`): the contributions gathered back to lane order,
-          zero where no path went on;
-  pass C  (`wavefront_pass_c`): per pixel, sum + colA + contrib per sample,
+          of the scheduled tiles, the jittered primary ray (sweeping only
+          the tile's cone-visible spheres), its first vertex and the b=0
+          scatter + Russian roulette -> the partial radiance `col` and, for
+          a path that ends there, `back` = 0, both by lane; each survivor's
+          ray planes and meta (pixel, sample, lane) appended to a dense
+          prefix of slots, counted in `n_alive` (zeroed by a memset first);
+  pass B  (`wavefront_pass_b`): over the n_alive slots, the bounce
+          continuation from the sampler's resume point, written to `back`
+          at the survivor's lane;
+  pass C  (`wavefront_pass_c`): per pixel, sum + colA + back per sample,
           then accumulate + tonemap IN PLACE.
+
+On the card no torch operation runs between the passes: pass A's append is
+the JAX step's compaction, pass B's write by lane its scatter-back, and
+n_alive stays on the device (no host sync). The slot order changes from
+run to run; the image does not. The plain pass A compacts in stable lane
+order (`compact_survivors`, the JAX step's formula), which is the order the
+kernel's append gives within a warp.
 
 Lane arrays have the JAX package's layout (planes, K, spp * tile_height,
 tile_width); see csrc/wavefront.cuh. The image equals the fused step's to
 the bit: both compose the same path helpers (ops/pathtrace.py, csrc/
 pathtrace.cuh) and the counter-based stream (threefry, or Philox for
 rng="tpu_hw") resumes in pass B exactly where pass A stopped. The stateful
-rng modes cannot resume across the compaction; RenderConfig refuses them
-with the wavefront step, and the passes raise for them.
+rng modes cannot resume across the split; RenderConfig refuses them with
+the wavefront step, and the passes raise for them.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (`*_plain`) for CPU tensors; `sphere_wavefront_step` chains
-the wrappers (`backend="cuda"`), `sphere_wavefront_step_plain` the plain
-versions (`backend="torch"`, on any device).
+the wrappers (`backend="cuda"`, with the lane buffers a built step owns,
+`wavefront_lanes`), `sphere_wavefront_step_plain` the plain versions
+(`backend="torch"`, on any device).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from l2n_tpu_torch.ops.kernels.common import (
+    MAX_SMEM,
     accumulate_and_tonemap,
     check_camera,
     check_schedule,
@@ -62,20 +70,41 @@ from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
 
 f32, i32 = torch.float32, torch.int32
 
-# Passes A and B stage the (7, n) scene into shared memory without opting
-# in to more than the default 48 KiB of dynamic shared memory per block.
-MAX_SPHERES = (48 * 1024) // (7 * 4)
+# Pass A's block (csrc/wavefront.cu): sphere_pt's culled scene, 12 words
+# per sphere plus 33; at most the 227 KiB a Hopper block can opt in to.
+# Pass B stages 11 words per sphere (the SoA and a packed copy).
+MAX_SPHERES = (MAX_SMEM - 33 * 4) // (12 * 4)
+RAY_PLANES, META_PLANES = 9, 3
 
 
-def _ray_plane_count(cfg) -> int:
-    """Cast origin (3) + direction (3) + throughput (3), and the BSDF pdf
-    under NEE+MIS (not in the port). The alive flag costs no plane: alive
-    <=> cast_ox < WAVEFRONT_FAR_THRESHOLD."""
-    return 10 if (cfg.nee and cfg.mis) else 9
+class WavefrontLanes(NamedTuple):
+    """Pass A's outputs. col and back (3, K, spp * th, tw) float32 by lane:
+    the partial radiance, and 0 where the path ended in pass A (pass B
+    writes the survivors' lanes; the plain pass A leaves NaN there). rays
+    (9, n_lanes) float32 and meta (3, n_lanes) int32 by slot: the survivors
+    in slots 0 .. n_alive - 1, meta holding pixel index, sample index and
+    lane. n_alive (1,) int32, on the device."""
+    col: torch.Tensor
+    back: torch.Tensor
+    rays: torch.Tensor
+    meta: torch.Tensor
+    n_alive: torch.Tensor
 
 
 def _lane_shape(cfg, k: int, planes: int) -> tuple[int, int, int, int]:
     return (planes, k, cfg.spp_per_step * cfg.tile_height, cfg.tile_width)
+
+
+def wavefront_lanes(cfg, k: int, device) -> WavefrontLanes:
+    """Uninitialised pass A outputs for K scheduled tiles on `device`: the
+    buffers a built step allocates once and passes to every step."""
+    n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+    return WavefrontLanes(
+        torch.empty(_lane_shape(cfg, k, 3), dtype=f32, device=device),
+        torch.empty(_lane_shape(cfg, k, 3), dtype=f32, device=device),
+        torch.empty((RAY_PLANES, n), dtype=f32, device=device),
+        torch.empty((META_PLANES, n), dtype=i32, device=device),
+        torch.empty((1,), dtype=i32, device=device))
 
 
 def _scene(spheres: torch.Tensor):
@@ -91,6 +120,16 @@ def _check_spheres(spheres, device) -> int:
         raise ValueError(f"wavefront: {n} spheres exceed the kernels' shared "
                          f"memory ({MAX_SPHERES} max)")
     return n
+
+
+def _check_lanes(cfg, k: int, lanes: WavefrontLanes, device) -> None:
+    n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+    for name, shape, dtype in (("col", _lane_shape(cfg, k, 3), f32),
+                               ("back", _lane_shape(cfg, k, 3), f32),
+                               ("rays", (RAY_PLANES, n), f32),
+                               ("meta", (META_PLANES, n), i32),
+                               ("n_alive", (1,), i32)):
+        check_tensor(name, getattr(lanes, name), dtype, shape, device)
 
 
 def _sampler_class(cfg):
@@ -113,13 +152,15 @@ def _device(t: torch.Tensor, what: str) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
-                     accum: torch.Tensor):
-    """Primary cast, first vertex, b=0 scatter over the scheduled tiles.
+                     accum: torch.Tensor,
+                     lanes: WavefrontLanes | None = None) -> WavefrontLanes:
+    """Primary cast, first vertex, b=0 scatter over the scheduled tiles, and
+    the survivors' append.
 
     sched (K, 2) int32; camera the packed (10, 4) host array; spheres (7, n)
-    float32; accum (4, Hp, Wp), read for the sample counts. Returns (rays
-    (9, K, spp*th, tw) float32, col (3, ...) float32, meta (2, ...) int32).
-    """
+    float32; accum (4, Hp, Wp), read for the sample counts. On the card the
+    outputs go to `lanes` (`wavefront_lanes`), or to new buffers; on the
+    CPU the plain version returns new ones."""
     check_supported(cfg)
     _sampler_class(cfg)
     dev = _device(accum, "wavefront_pass_a")
@@ -128,21 +169,22 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     n = _check_spheres(spheres, dev)
     if dev.type == "cpu":
         return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
-    rays = torch.empty(_lane_shape(cfg, k, _ray_plane_count(cfg)), dtype=f32,
-                       device=dev)
-    col = torch.empty(_lane_shape(cfg, k, 3), dtype=f32, device=dev)
-    meta = torch.empty(_lane_shape(cfg, k, 2), dtype=i32, device=dev)
+    if lanes is None:
+        lanes = wavefront_lanes(cfg, k, dev)
+    _check_lanes(cfg, k, lanes, dev)
     ip, fp = step_params(cfg, k, n, camera)
-    launch("wavefront_pass_a", cfg, dev, ip, fp, sched, spheres, accum, rays,
-           col, meta)
-    return rays, col, meta
+    launch("wavefront_pass_a", cfg, dev, ip, fp, sched, spheres, accum,
+           *lanes)
+    return lanes
 
 
-def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
-                           spheres: torch.Tensor, accum: torch.Tensor):
-    """The plain torch version of `wavefront_pass_a`, lockstep over the
-    pixels of the scheduled tiles, one sample at a time (lanes in the fused
-    plain step's order, so every operation sees the same vectors)."""
+def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
+                        spheres: torch.Tensor, accum: torch.Tensor):
+    """Every lane of pass A in lane order, before the append: (rays (9, K,
+    spp*th, tw) float32, dead lanes parked at 3e30; col (3, ...) float32;
+    meta (2, ...) int32, pixel and sample index). Lockstep over the pixels
+    of the scheduled tiles, one sample at a time (lanes in the fused plain
+    step's order, so every operation sees the same vectors)."""
     dev = accum.device
     sampler_cls = _sampler_class(cfg)
     intersect, _, albedo = _scene(spheres)
@@ -155,8 +197,7 @@ def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
     rowf = row.reshape(-1).to(f32)
     colf = col.reshape(-1).to(f32)
     max_pairs = max_pairs_per_sample(cfg.max_bounces)
-    planes = _ray_plane_count(cfg)
-    rays = torch.empty((planes, k, spp, th, tw), dtype=f32, device=dev)
+    rays = torch.empty((RAY_PLANES, k, spp, th, tw), dtype=f32, device=dev)
     rgb = torch.empty((3, k, spp, th, tw), dtype=f32, device=dev)
     meta = torch.empty((2, k, spp, th, tw), dtype=i32, device=dev)
     for s in range(spp):
@@ -166,24 +207,37 @@ def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
             cfg, intersect, albedo, sampler,
             *generate_rays(cfg, cam, colf, rowf, u1, u2))
         rgb[:, :, s] = torch.stack(out[:3]).view(3, k, th, tw)
-        rays[:, :, s] = torch.stack(out[3:]).view(planes, k, th, tw)
+        rays[:, :, s] = torch.stack(out[3:]).view(RAY_PLANES, k, th, tw)
         meta[0, :, s] = flat.to(i32).view(k, th, tw)
         meta[1, :, s] = (sample_index + s).view(k, th, tw)
-    return (rays.view(_lane_shape(cfg, k, planes)),
+    return (rays.view(_lane_shape(cfg, k, RAY_PLANES)),
             rgb.view(_lane_shape(cfg, k, 3)), meta.view(_lane_shape(cfg, k, 2)))
 
 
-# ---------------------------------------------------------------------------
-# Compaction (torch ops on the device, no host sync)
-# ---------------------------------------------------------------------------
+def wavefront_pass_a_plain(cfg, sched: torch.Tensor, camera,
+                           spheres: torch.Tensor,
+                           accum: torch.Tensor) -> WavefrontLanes:
+    """The plain torch version of `wavefront_pass_a`: every lane
+    (`primary_lanes_plain`), then the stable compaction
+    (`compact_survivors`). back is 0 at the dead lanes and NaN at the
+    survivors' (pass B writes those); the slots past n_alive hold the dead
+    lanes in lane order."""
+    rays, col, meta = primary_lanes_plain(cfg, sched, camera, spheres, accum)
+    comp, comp_meta, n_alive = compact_survivors(rays, meta)
+    back = torch.where(rays[:1] < WAVEFRONT_FAR_THRESHOLD, float("nan"), 0.0)
+    return WavefrontLanes(col, back.expand_as(col).contiguous(), comp,
+                          comp_meta, n_alive)
+
 
 def compact_survivors(rays: torch.Tensor, meta: torch.Tensor):
-    """Move the alive lanes to a dense prefix, in stable lane order.
+    """Move the alive lanes (cast_ox < 1e30) to a dense prefix, in stable
+    lane order: the JAX step's rank permutation (perm: alive lanes to their
+    rank, dead lanes after them) and its inverse.
 
-    Returns (comp_rays (P, n), comp_meta (2, n), perm (n,) int64, alive (n,)
-    bool, n_alive (1,) int32): lane i's destination is perm[i] (the alive
-    lanes' rank, dead lanes after them), and comp[:, perm[i]] = rays[:, i].
-    Every operation stays on the rays' device; nothing is read back."""
+    rays (9, ...) and meta (2, ...) in lane layout. Returns (comp (9,
+    n_lanes), comp_meta (3, n_lanes) int32, whose third plane is each slot's
+    lane, n_alive (1,) int32). Every operation stays on the rays' device;
+    nothing is read back."""
     planes = rays.shape[0]
     raysf = rays.reshape(planes, -1)
     n = raysf.shape[1]
@@ -194,18 +248,9 @@ def compact_survivors(rays: torch.Tensor, meta: torch.Tensor):
     perm = torch.where(alive, rank, n_alive + iota - rank - 1)
     inv = torch.empty_like(perm).scatter_(0, perm, iota)
     comp = raysf.index_select(1, inv)
-    comp_meta = meta.reshape(2, n).index_select(1, inv)
-    return comp, comp_meta, perm, alive, n_alive.to(i32)
-
-
-def scatter_back(contrib: torch.Tensor, perm: torch.Tensor,
-                 alive: torch.Tensor) -> torch.Tensor:
-    """Lane i's contribution from compacted lane perm[i]; 0 where lane i
-    has no continuation. A `where`, never a product with the mask: lanes
-    past n_alive hold whatever pass B left there, NaN included."""
-    back = contrib.index_select(1, perm)
-    return torch.where(alive, back, torch.zeros((), dtype=f32,
-                                                device=back.device))
+    comp_meta = torch.cat([meta.reshape(2, n).index_select(1, inv),
+                           inv[None].to(i32)])
+    return comp, comp_meta, n_alive.to(i32)
 
 
 # ---------------------------------------------------------------------------
@@ -213,52 +258,71 @@ def scatter_back(contrib: torch.Tensor, perm: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
-                     meta: torch.Tensor, n_alive: torch.Tensor) -> torch.Tensor:
-    """Finish the compacted survivors' paths.
+                     meta: torch.Tensor, n_alive: torch.Tensor,
+                     back: torch.Tensor) -> None:
+    """Finish the survivors' paths and write each contribution to `back` at
+    its lane, IN PLACE.
 
-    rays (9, n_lanes) float32 and meta (2, n_lanes) int32 hold the alive
-    lanes in their first n_alive (a (1,) int32 tensor on the same device,
-    read by the kernel, never by the host). Returns contrib (3, n_lanes)
-    float32, defined in its first n_alive lanes."""
+    rays (9, n_lanes) float32 and meta (3, n_lanes) int32 hold the
+    survivors in their first n_alive slots (a (1,) int32 tensor on the same
+    device, read by the kernel, never by the host); back (3, K, spp*th, tw)
+    float32 by lane, as pass A returns them."""
     check_supported(cfg)
     _sampler_class(cfg)
     dev = _device(rays, "wavefront_pass_b")
     camera = check_camera(camera)
     n = _check_spheres(spheres, dev)
     n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
-    check_tensor("rays", rays, f32, (_ray_plane_count(cfg), n_lanes), dev)
-    check_tensor("meta", meta, i32, (2, n_lanes), dev)
+    check_tensor("rays", rays, f32, (RAY_PLANES, n_lanes), dev)
+    check_tensor("meta", meta, i32, (META_PLANES, n_lanes), dev)
     check_tensor("n_alive", n_alive, i32, (1,), dev)
     per_tile = cfg.spp_per_step * cfg.tile_height * cfg.tile_width
     if n_lanes < per_tile or n_lanes % per_tile:
         raise ValueError(f"rays: {n_lanes} lanes are not whole tiles of "
                          f"{per_tile}")
+    k = n_lanes // per_tile
+    check_tensor("back", back, f32, _lane_shape(cfg, k, 3), dev)
     if dev.type == "cpu":
-        return wavefront_pass_b_plain(cfg, camera, spheres, rays, meta,
-                                      n_alive)
+        wavefront_pass_b_plain(cfg, camera, spheres, rays, meta, n_alive,
+                               back)
+        return
     next_pair, has_spare = wavefront_draw_position(cfg)
-    contrib = torch.empty((3, n_lanes), dtype=f32, device=dev)
-    ip, fp = step_params(cfg, n_lanes // per_tile, n, camera)
+    ip, fp = step_params(cfg, k, n, camera)
     launch("wavefront_pass_b", cfg, dev, ip, fp, next_pair, int(has_spare),
-           n_alive, spheres, rays, meta, contrib)
-    return contrib
+           n_alive, spheres, rays, meta, back)
 
 
 def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
                            rays: torch.Tensor, meta: torch.Tensor,
-                           n_alive: torch.Tensor) -> torch.Tensor:
+                           n_alive: torch.Tensor, back: torch.Tensor) -> None:
     """The plain torch version of `wavefront_pass_b`: the continuation of
-    every lane in lockstep, the padding past n_alive included (as the
-    Pallas kernel's blocks compute their padding lanes), so it needs no
-    host read of n_alive."""
-    del camera, n_alive  # the port's stream is 0; all lanes are computed
+    every slot in lockstep, the slots past n_alive included (as the Pallas
+    kernel's blocks compute their padding lanes), then the first n_alive
+    written to back at their lanes (`write_back`), so no host read of
+    n_alive is needed."""
+    del camera  # the port's stream is 0
     intersect, anyhit, albedo = _scene(spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)
     sampler = _sampler_class(cfg).resumed(
         cfg.seed, 0, meta[0], meta[1], max_pairs_per_sample(cfg.max_bounces),
         next_pair, has_spare)
-    return torch.stack(trace_wavefront_continue(
-        cfg, intersect, anyhit, albedo, sampler, *rays[:9]))
+    contrib = torch.stack(trace_wavefront_continue(
+        cfg, intersect, anyhit, albedo, sampler, *rays))
+    write_back(back, contrib, meta, n_alive)
+
+
+def write_back(back: torch.Tensor, contrib: torch.Tensor, meta: torch.Tensor,
+               n_alive: torch.Tensor) -> None:
+    """back[:, meta[2, j]] = contrib[:, j] for the slots j < n_alive, IN
+    PLACE. The slots past n_alive go to a spare column, never a lane (their
+    lane plane may hold anything), so nothing is read back to the host."""
+    n = contrib.shape[1]
+    backf = back.view(3, -1)
+    slot = torch.arange(n, device=contrib.device)
+    lane = torch.where(slot < n_alive, meta[2].to(torch.int64), n)
+    padded = torch.cat([backf, backf.new_zeros((3, 1))], 1)
+    padded.scatter_(1, lane.expand(3, n), contrib)
+    backf.copy_(padded[:, :n])
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +332,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
 def wavefront_pass_c(cfg, sched: torch.Tensor, col: torch.Tensor,
                      back: torch.Tensor, accum: torch.Tensor,
                      output: torch.Tensor) -> None:
-    """Per pixel of the scheduled tiles: per sample sum + colA + contrib,
+    """Per pixel of the scheduled tiles: per sample sum + colA + back,
     then accum += (sum, spp) and output = gamma(rgb / n), IN PLACE. col and
     back are (3, K, spp*th, tw) float32 lane arrays."""
     check_supported(cfg)
@@ -309,26 +373,27 @@ def wavefront_pass_c_plain(cfg, sched: torch.Tensor, col: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _step(passes, cfg, sched, camera, spheres, accum, output,
-          rng_state) -> None:
+          rng_state, **lanes) -> None:
     if rng_state is not None:
         raise ValueError("wavefront: the counter-based samplers keep no "
                          "rng_state planes")
     pass_a, pass_b, pass_c = passes
-    rays, col, meta = pass_a(cfg, sched, camera, spheres, accum)
-    comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
-    contrib = pass_b(cfg, camera, spheres, comp, comp_meta, n_alive)
-    back = scatter_back(contrib, perm, alive).view(col.shape)
-    pass_c(cfg, sched, col, back, accum, output)
+    a = pass_a(cfg, sched, camera, spheres, accum, **lanes)
+    pass_b(cfg, camera, spheres, a.rays, a.meta, a.n_alive, a.back)
+    pass_c(cfg, sched, a.col, a.back, accum, output)
 
 
 def sphere_wavefront_step(cfg, sched: torch.Tensor, camera,
                           spheres: torch.Tensor, accum: torch.Tensor,
-                          output: torch.Tensor, rng_state=None) -> None:
+                          output: torch.Tensor, rng_state=None,
+                          lanes: WavefrontLanes | None = None) -> None:
     """One wavefront render step over the scheduled tiles, updating accum
     and output IN PLACE (the arguments of sphere_pt.sphere_pt): the three
-    kernels on CUDA tensors, their plain versions on CPU tensors."""
+    kernels on CUDA tensors, their plain versions on CPU tensors. `lanes`
+    (`wavefront_lanes`) are the kernels' buffers, reused from step to step;
+    without them each step allocates its own."""
     _step((wavefront_pass_a, wavefront_pass_b, wavefront_pass_c), cfg, sched,
-          camera, spheres, accum, output, rng_state)
+          camera, spheres, accum, output, rng_state, lanes=lanes)
 
 
 def sphere_wavefront_step_plain(cfg, sched: torch.Tensor, camera,

@@ -1,25 +1,37 @@
-"""Device time of the fused step kernels, sphere_pt and triangle_pt, at the
-default configs' two schedules (the reference's 10 tiles and whole-frame
-steps of 230 tiles), for holding two versions of the kernels against each
-other on one card in one call.
+"""Device time of the render steps at the default configs' two schedules
+(the reference's 10 tiles and whole-frame steps of 230 tiles), for holding
+two or more versions of the kernels against each other on one card in one
+call: the fused step kernels, sphere_pt and triangle_pt, and the wavefront
+step (`RenderConfig(wavefront=True)`, threefry and tpu_hw), whole and pass
+by pass.
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
+    # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
+    # V1, this, DIR; --only wavefront skips the fused families
+    python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
+        --variant V2 --only wavefront
 
 Each measurement runs in a process of its own that imports the package
 from its tree (`--root`), renders from a zero frame state with the default
-camera, and times N back-to-back calls of the public wrapper captured once
-into a CUDA graph and replayed between CUDA events, the best of 3 replays:
-the kernels' device time without the host's dispatch. Needs one CUDA card;
-prints one JSON line per process and a summary, and the card's name and
-power limit.
+camera, and times N back-to-back calls captured once into a CUDA graph and
+replayed between CUDA events, the best of 3 replays: the device time
+without the host's dispatch. The fused families time their public wrapper;
+the wavefront step is the built step (render/step.build_render_step,
+backend="cuda"), as the main path runs it, schedule gather included. Its
+passes are timed by torch.profiler over eager steps (device ms per launch
+of each `wavefront_pass_*_kernel`, and every other device event of the step
+summed per step, "rest"). Needs one CUDA card; prints one JSON line per
+process and a summary, and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -89,17 +101,73 @@ def _schedules(torch, cfg):
                             scheduled_tiles(tiles, 0, cfg.tile_count))}
 
 
-def measure_tree(root: Path) -> dict:
-    """ms per call of each family's public wrapper, per schedule."""
+def profile_ms(torch, fn, n: int):
+    """{pass kernel: device ms per launch} of the wavefront passes, and
+    "rest": every other device event, ms per call, from torch.profiler over
+    n eager calls of fn() (after one unprofiled call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches, rest = collections.defaultdict(list), 0.0
+    for e in dev:
+        m = re.search(r"wavefront_pass_[abc]_kernel", e.name)
+        if m:
+            launches[m.group(0)].append(e.time_range.elapsed_us())
+        else:
+            rest += e.time_range.elapsed_us()
+    out = {k: sum(v) / len(v) / 1e3 for k, v in sorted(launches.items())}
+    out["rest"] = rest / n / 1e3
+    return out
+
+
+def _wavefront(torch, cam, times: dict) -> None:
+    """The wavefront step's times per rng mode and schedule into `times`."""
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.scene import compute_spheres
+    dev = torch.device("cuda")
+    cfg = RenderConfig(wavefront=True).validate()
+    scene = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    for rng in ("threefry", "tpu_hw"):
+        for label in CALLS:
+            lcfg = cfg.replace(rng=rng)
+            if label == "whole-frame":
+                lcfg = lcfg.replace(tiles_per_step=lcfg.tile_count)
+            step = build_render_step(lcfg, scene, backend="cuda", device=dev)
+            box = [init_frame_state(lcfg, dev)]
+
+            def call():
+                box[0] = step(box[0], cam)
+
+            key = f"wavefront {rng} {label}"
+            times[key] = graph_ms(torch, call, CALLS[label])
+            for name, ms in profile_ms(torch, call, 20).items():
+                times[f"{key} {name}"] = ms
+
+
+def measure_tree(root: Path, only: str) -> dict:
+    """ms per call of each family's public wrapper or step, per schedule."""
     torch, cam, families = _families(root)
     from l2n_tpu_torch.render.state import init_frame_state
     times = {}
-    for name, (mod, cfg, scene) in families.items():
-        kernel = getattr(mod, name)
-        for label, (scfg, sched) in _schedules(torch, cfg).items():
-            st = init_frame_state(scfg, torch.device("cuda"))
-            times[f"{name} {label}"] = graph_ms(torch, lambda: kernel(
-                scfg, sched, cam, scene, st.accum, st.output), CALLS[label])
+    if only in ("all", "fused"):
+        for name, (mod, cfg, scene) in families.items():
+            kernel = getattr(mod, name)
+            for label, (scfg, sched) in _schedules(torch, cfg).items():
+                st = init_frame_state(scfg, torch.device("cuda"))
+                times[f"{name} {label}"] = graph_ms(torch, lambda: kernel(
+                    scfg, sched, cam, scene, st.accum, st.output),
+                    CALLS[label])
+    if only in ("all", "wavefront"):
+        _wavefront(torch, cam, times)
     return {"root": str(root), "card": card(), "ms": times}
 
 
@@ -115,25 +183,32 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path,
                     help="the other tree: measure DIR, this, this, DIR")
+    ap.add_argument("--variant", type=Path, action="append", default=[],
+                    help="one more tree, measured after this one")
+    ap.add_argument("--only", choices=("all", "fused", "wavefront"),
+                    default="all")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:  # one measurement, in this process
-        print(json.dumps(measure_tree(args.root.resolve())), flush=True)
+        print(json.dumps(measure_tree(args.root.resolve(), args.only)),
+              flush=True)
         return 0
     if args.parent is None:
         ap.error("--parent DIR")
-    turns = [args.parent.resolve(), THIS_TREE, THIS_TREE,
-             args.parent.resolve()]
-    runs = []
-    for root in turns:
-        runs.append(_run(["--root", str(root)]))
-        print(json.dumps(runs[-1]), flush=True)
-    keys = runs[0]["ms"].keys()
-    summary = {k: {"parent": [runs[0]["ms"][k], runs[3]["ms"][k]],
-                   "this": [runs[1]["ms"][k], runs[2]["ms"][k]]}
+    trees = {"parent": args.parent.resolve(), "this": THIS_TREE}
+    for v in args.variant:
+        trees[v.name] = v.resolve()
+    names = list(trees)
+    turns = names + names[::-1]
+    runs = {name: [] for name in names}
+    for name in turns:
+        run = _run(["--root", str(trees[name]), "--only", args.only])
+        runs[name].append(run["ms"])
+        print(json.dumps({"tree": name, **run}), flush=True)
+    keys = runs["this"][0].keys()
+    summary = {k: {name: [r.get(k) for r in rs] for name, rs in runs.items()}
                for k in keys}
-    print(json.dumps({"turns": ["parent", "this", "this", "parent"],
-                      "ms": summary}), flush=True)
+    print(json.dumps({"turns": turns, "ms": summary}), flush=True)
     print(card())
     return 0
 

@@ -30,6 +30,7 @@ returns a new FrameState sharing them with advanced counters
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from l2n_tpu_torch.ops.kernels.triangle_pt import (
 from l2n_tpu_torch.ops.kernels.wavefront import (
     sphere_wavefront_step,
     sphere_wavefront_step_plain,
+    wavefront_lanes,
 )
 from l2n_tpu_torch.render.state import FrameState
 from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
@@ -85,8 +87,11 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None):
             raise TypeError("sphere config needs a SphereScene")
         buffers = scene.packed().to(device)
         if cfg.wavefront and cfg.aov == "pathtracing":
-            kernel = (sphere_wavefront_step if backend == "cuda"
-                      else sphere_wavefront_step_plain)
+            kernel = sphere_wavefront_step_plain
+            if backend == "cuda":  # the kernels' buffers, kept by the step
+                kernel = functools.partial(
+                    sphere_wavefront_step, lanes=wavefront_lanes(
+                        cfg, cfg.effective_tiles_per_step, device))
         else:
             kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
     else:

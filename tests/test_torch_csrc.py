@@ -39,8 +39,6 @@ from l2n_tpu_torch.ops.kernels.triangle_pt import (
     triangle_pt_plain,
 )
 from l2n_tpu_torch.ops.kernels.wavefront import (
-    compact_survivors,
-    scatter_back,
     wavefront_pass_a_plain,
     wavefront_pass_b_plain,
     wavefront_pass_c_plain,
@@ -158,31 +156,66 @@ struct RenderTiles {
   }
 };
 
+// Pass A's append, serial: over the lanes in lane order it gives the
+// stable order of the plain compaction.
+struct SerialAppend {
+  int32_t* n_alive;
+  int operator()(bool alive) { return alive ? (*n_alive)++ : -1; }
+};
+
 struct PassA {
   template <class Rng>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
-                 const float* accum, float* rays, float* col, int32_t* meta) {
+                 const float* accum, l2n::PassALanes out, int32_t* n_alive) {
     const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
-    for (int k = 0; k < p.k; ++k)
-      for (int r = 0; r < p.tile_height; ++r)
-        for (int c = 0; c < p.tile_width; ++c)
-          l2n::wavefront_pass_a_pixel<Rng>(p, s, k, r, c, sched, accum, rays,
-                                           col, meta);
+    TileLists lists;
+    *n_alive = 0;
+    SerialAppend append{n_alive};
+    for (int k = 0; k < p.k; ++k) {
+      const l2n::SceneView ts = for_tile(p, s, sched[2 * k], sched[2 * k + 1],
+                                         lists);
+      for (int si = 0; si < p.spp; ++si)
+        for (int r = 0; r < p.tile_height; ++r)
+          for (int c = 0; c < p.tile_width; ++c)
+            l2n::wavefront_pass_a_sample<Rng>(p, ts, k, si, r, c, sched,
+                                              accum, out, append);
+    }
     return 0;
   }
 };
 
+// Pass B over the first n_alive slots, each ray's sweeps split into
+// `group` parts as a group of lanes of the kernel splits them, over the
+// packed spheres the kernel stages.
 struct PassB {
+  template <class Rng, int G>
+  static void slots(const l2n::PtParams& p, const l2n::SceneView& s,
+                    int next_pair, int has_spare, const int32_t* n_alive,
+                    const float* rays, const int32_t* meta, float* back) {
+    std::vector<l2n::Sphere4> packed(s.n);
+    for (int i = 0; i < s.n; ++i)
+      packed[i] = l2n::Sphere4{s.cx[i], s.cy[i], s.cz[i], s.r2[i]};
+    const l2n::GroupScene<G> gs{s, packed.data(), 0, 0u};
+    for (size_t slot = 0; slot < static_cast<size_t>(n_alive[0]); ++slot)
+      l2n::wavefront_pass_b_slot<Rng>(p, gs, next_pair, has_spare != 0, slot,
+                                      l2n::lane_count(p), rays, meta, back,
+                                      true);
+  }
   template <class Rng>
-  static int run(l2n::PtParams p, int next_pair, int has_spare,
+  static int run(l2n::PtParams p, int group, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
-                 const float* rays, const int32_t* meta, float* contrib) {
+                 const float* rays, const int32_t* meta, float* back) {
     const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
-    for (size_t lane = 0; lane < static_cast<size_t>(n_alive[0]); ++lane)
-      l2n::wavefront_pass_b_lane<Rng>(p, s, next_pair, has_spare != 0, lane,
-                                      l2n::lane_count(p), rays, meta,
-                                      contrib);
-    return 0;
+    switch (group) {
+      case 1:
+        slots<Rng, 1>(p, s, next_pair, has_spare, n_alive, rays, meta, back);
+        return 0;
+      case l2n::kMaxGroup:
+        slots<Rng, l2n::kMaxGroup>(p, s, next_pair, has_spare, n_alive, rays,
+                                   meta, back);
+        return 0;
+    }
+    return -2;
   }
 };
 
@@ -302,21 +335,25 @@ void l2n_mandelbrot_host(const float* d, float* out, int64_t n) {
 }
 int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* spheres,
-                              const float* accum, float* rays, float* col,
-                              int32_t* meta) {
+                              const float* accum, float* col, float* back,
+                              float* rays, int32_t* meta, int32_t* n_alive) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<PassA>(p.rng, p, sched, spheres, accum,
-                                          rays, col, meta);
+  return l2n::dispatch_counter_rng<PassA>(
+      p.rng, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
+      n_alive);
 }
-int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp,
+int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp, int group,
                               int next_pair, int has_spare,
                               const int32_t* n_alive, const float* spheres,
                               const float* rays, const int32_t* meta,
-                              float* contrib) {
+                              float* back) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<PassB>(p.rng, p, next_pair, has_spare,
-                                          n_alive, spheres, rays, meta,
-                                          contrib);
+  return l2n::dispatch_counter_rng<PassB>(p.rng, p, group, next_pair,
+                                          has_spare, n_alive, spheres, rays,
+                                          meta, back);
+}
+int l2n_group_size_host(int64_t alive, int64_t threads) {
+  return l2n::group_size(alive, threads);
 }
 int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* col,
@@ -403,8 +440,9 @@ def _build_shim(tmp_path_factory, *defines):
                                       p, p, p, p, ctypes.c_int64]
     lib.l2n_mandelbrot_host.argtypes = [p, p, ctypes.c_int64]
     i = ctypes.c_int
-    lib.l2n_wavefront_pass_a_host.argtypes = [p] * 8
-    lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, p, p, p, p, p]
+    lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
+    lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
+    lib.l2n_group_size_host.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
     i64 = ctypes.c_int64
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
@@ -606,21 +644,28 @@ def test_visibility_header_matches_plain(lib, case):
 
 
 @pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
-                                   {"max_bounces": 1}, {"rng": "tpu_hw"}],
+                                   {"max_bounces": 1}, {"rng": "tpu_hw"},
+                                   {"sphere_count": 13}],
                          ids=["reference", "spp2_bounces3", "bounces1",
-                              "tpu_hw"])
+                              "tpu_hw", "spheres13"])
 def test_wavefront_header_matches_plain_passes(lib, extra):
     """csrc/wavefront.cuh's per-lane pass A/B/C bodies against the plain
     passes on the same inputs, pass by pass, over 2 steps of the aimed
-    config. Bit-equal: the meta planes, the partial radiance, the cast
-    origin and throughput planes, and pass C's accum. The rest differs only
-    through the C library's sinf/cosf/expf/logf against torch's vectorised
-    CPU ones (both within an ulp or two; on the card nvcc's and torch's are
-    the same functions, and chip_smoke.py expects max abs 0): the direction
-    planes to 1e-5 relative on under 1% of lanes, pass B's contributions
-    under the fused header test's gates, pass C's output to 1e-6."""
-    cfg = RenderConfig(width=128, height=64, sphere_count=16,
-                       emissive_every=2, wavefront=True, **extra).validate()
+    config. Pass A's host append is serial in lane order, so its slots are
+    the plain pass A's stable compaction. Bit-equal: n_alive, the meta
+    planes (pixel, sample, lane), the partial radiance, back (0 at the dead
+    lanes, untouched at the survivors'), the cast origin and throughput
+    planes, pass B with each ray's sweeps split into 8 parts against 1
+    (with 13 spheres, 8 does not divide the scene), and pass C's accum. The rest differs only through the C
+    library's sinf/cosf/expf/logf against torch's vectorised CPU ones (both
+    within an ulp or two; on the card nvcc's and torch's are the same
+    functions, and chip_smoke.py expects max abs 0): the direction planes
+    to 1e-5 relative on under 1% of lanes, pass B's contributions at the
+    survivors' lanes under the fused header test's gates, pass C's output
+    to 1e-6."""
+    cfg = RenderConfig(**{"width": 128, "height": 64, "sphere_count": 16,
+                          "emissive_every": 2, "wavefront": True,
+                          **extra}).validate()
     cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
     sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
     spheres = sc.packed()
@@ -632,48 +677,68 @@ def test_wavefront_header_matches_plain_passes(lib, extra):
     next_pair, has_spare = wavefront_draw_position(cfg)
     for i in range(2):
         sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
-        rays, col, meta = wavefront_pass_a_plain(cfg, sched, cam, spheres,
-                                                 accum)
-        h_rays, h_col, h_meta = (torch.empty_like(t) for t in (rays, col,
-                                                                meta))
+        a = wavefront_pass_a_plain(cfg, sched, cam, spheres, accum)
+        h_col = torch.empty_like(a.col)
+        h_back = torch.full_like(a.back, float("nan"))
+        h_rays = torch.full_like(a.rays, float("nan"))
+        h_meta = torch.full_like(a.meta, -7)
+        h_n = torch.zeros(1, dtype=torch.int32)
         assert lib.l2n_wavefront_pass_a_host(
             _ptr(ip), _ptr(fp), *(_ptr(t.numpy()) for t in (
-                sched, spheres, accum, h_rays, h_col, h_meta))) == 0
-        np.testing.assert_array_equal(h_meta.numpy(), meta.numpy())
-        np.testing.assert_array_equal(h_col.numpy(), col.numpy())
+                sched, spheres, accum, h_col, h_back, h_rays, h_meta,
+                h_n))) == 0
+        na = int(a.n_alive[0])
+        assert int(h_n[0]) == na and 0 < na < a.col[0].numel()
+        np.testing.assert_array_equal(h_meta[:, :na].numpy(),
+                                      a.meta[:, :na].numpy())
+        np.testing.assert_array_equal(h_col.numpy(), a.col.numpy())
+        np.testing.assert_array_equal(h_back.numpy(), a.back.numpy())
         for planes in (slice(0, 3), slice(6, 9)):  # origin, throughput
-            np.testing.assert_array_equal(h_rays[planes].numpy(),
-                                          rays[planes].numpy())
-        hd, d = h_rays[3:6].numpy(), rays[3:6].numpy()
+            np.testing.assert_array_equal(h_rays[planes, :na].numpy(),
+                                          a.rays[planes, :na].numpy())
+        hd, d = h_rays[3:6, :na].numpy(), a.rays[3:6, :na].numpy()
         np.testing.assert_allclose(hd, d, rtol=1e-5, atol=0)
-        assert (hd != d).any(0).mean() < 1e-2
+        assert (hd != d).any(0).sum() < 1e-2 * a.col[0].numel()
 
-        comp, comp_meta, perm, alive, n_alive = compact_survivors(rays, meta)
-        na = int(n_alive[0])
-        assert 0 < na < alive.numel()
-        contrib = wavefront_pass_b_plain(cfg, cam, spheres, comp, comp_meta,
-                                         n_alive)
-        h_contrib = torch.full_like(contrib, float("nan"))
-        assert lib.l2n_wavefront_pass_b_host(
-            _ptr(ip), _ptr(fp), next_pair, int(has_spare),
-            *(_ptr(t.numpy()) for t in (n_alive, spheres, comp, comp_meta,
-                                        h_contrib))) == 0
-        dc = (h_contrib[:, :na] - contrib[:, :na]).numpy()
+        back = a.back.clone()
+        wavefront_pass_b_plain(cfg, cam, spheres, a.rays, a.meta, a.n_alive,
+                               back)
+        assert not back.isnan().any()  # every survivor's lane written
+        h_backs = []
+        for group in (1, 8):
+            h_backs.append(a.back.clone())
+            assert lib.l2n_wavefront_pass_b_host(
+                _ptr(ip), _ptr(fp), group, next_pair, int(has_spare),
+                *(_ptr(t.numpy()) for t in (a.n_alive, spheres, a.rays,
+                                            a.meta, h_backs[-1]))) == 0
+        for h in h_backs[1:]:
+            np.testing.assert_array_equal(h.numpy(), h_backs[0].numpy())
+        lanes = a.meta[2, :na].long()
+        live = back.view(3, -1)[:, lanes]
+        dc = (h_backs[0].view(3, -1)[:, lanes] - live).numpy()
         assert np.sqrt((dc ** 2).mean()) < 1e-3
         assert (np.abs(dc) > 1e-3).mean() < 2e-3
         if cfg.max_bounces > 1:  # one bounce sees only the sky, occluded
-            assert contrib[:, :na].max() > 0  # survivors found light
+            assert live.max() > 0  # survivors found light
 
-        back = scatter_back(contrib, perm, alive).view(col.shape)
         h_accum, h_output = accum.clone(), output.clone()
         assert lib.l2n_wavefront_pass_c_host(
             _ptr(ip), _ptr(fp), *(_ptr(t.numpy()) for t in (
-                sched, col, back, h_accum, h_output))) == 0
-        wavefront_pass_c_plain(cfg, sched, col, back, accum, output)
+                sched, a.col, back, h_accum, h_output))) == 0
+        wavefront_pass_c_plain(cfg, sched, a.col, back, accum, output)
         np.testing.assert_array_equal(h_accum.numpy(), accum.numpy())
         np.testing.assert_allclose(h_output.numpy(), output.numpy(), rtol=0,
                                    atol=1e-6)
     assert (accum[:3].amax(0) > 0).float().mean() > 0.3  # a lit frame
+
+
+@pytest.mark.parametrize("alive,threads,want", [
+    (0, 1024, 8), (100, 1024, 8), (128, 1024, 8), (129, 1024, 1),
+    (300, 1024, 1), (513, 1024, 1), (10**6, 1024, 1)])
+def test_group_size_header(lib, alive, threads, want):
+    """Pass B's group: 8 lanes per ray while every survivor still gets its
+    own group of 8 among the threads, else 1."""
+    assert lib.l2n_group_size_host(alive, threads) == want
 
 
 TRI_CFG = RenderConfig(width=128, height=64, tile_width=128, tile_height=32,
@@ -856,6 +921,75 @@ print("clean")
 """
 
 
+ASAN_WAVEFRONT = r"""
+import ctypes, sys
+import numpy as np
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import compute_spheres
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
+lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+cfg = RenderConfig(width=128, height=64, spp_per_step=2,
+                   wavefront=True).validate()
+cfg = cfg.replace(tiles_per_step=cfg.tile_count)
+sched = np.ascontiguousarray(tile_grid(cfg), np.int32)
+# 100 spheres: 8 does not divide the scene, so pass B's split sweeps end
+# on a partial round
+for count in (128, 100):
+    spheres = compute_spheres(count).packed().numpy()
+    n = cfg.tile_count * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+    accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+    ip, fp = step_params(cfg, cfg.tile_count, count,
+                         Camera.from_config(cfg).packed())
+    next_pair, has_spare = wavefront_draw_position(cfg)
+    for step in range(2):
+        col = np.empty((3, n), np.float32)
+        back = np.full((3, n), np.nan, np.float32)
+        rays = np.empty((9, n), np.float32)
+        meta = np.empty((3, n), np.int32)
+        n_alive = np.full(1, -1, np.int32)
+        assert lib.l2n_wavefront_pass_a_host(*map(ptr, (
+            ip, fp, sched, spheres, accum, col, back, rays, meta,
+            n_alive))) == 0
+        na = int(n_alive[0])
+        assert 0 < na < n, na
+        lanes = meta[2, :na]
+        # each survivor's lane once, and pass A wrote back at exactly the
+        # others
+        assert lanes.min() >= 0 and lanes.max() < n
+        assert np.unique(lanes).size == na
+        dead = np.ones(n, bool)
+        dead[lanes] = False
+        assert (back[:, dead] == 0).all() and np.isnan(back[:, ~dead]).all()
+        for group in (1, 8):
+            b = back.copy()
+            assert lib.l2n_wavefront_pass_b_host(
+                ptr(ip), ptr(fp), group, next_pair, int(has_spare),
+                *map(ptr, (n_alive, spheres, rays, meta, b))) == 0
+            assert not np.isnan(b).any() and (b[:, dead] == 0).all()
+        accum[3] += cfg.spp_per_step
+print("clean")
+"""
+
+
+def test_wavefront_header_memcheck_asan(tmp_path):
+    """The memory check of the wavefront passes: the header built with
+    AddressSanitizer runs passes A and B on two whole-frame steps of the
+    default 128-sphere scene and of 100 spheres (pass B's groups of 8 end
+    on a partial round) at 2 spp, into
+    slot and lane arrays of exactly
+    n_lanes entries each, so a slot written past n_lanes is caught; every
+    lane's back is written exactly once, by pass A (the dead lanes, 0) or by
+    pass B (each survivor's lane, which the slots name once)."""
+    _asan_render(tmp_path, script=ASAN_WAVEFRONT)
+
+
 def test_triangle_header_memcheck_asan(tmp_path):
     """The memory check of the triangle traversal (ROADMAP Queue 3 #4: never
     read a slab past a mesh's count): the header built with
@@ -873,7 +1007,7 @@ def test_triangle_header_memcheck_asan_list_overflow(tmp_path):
     _asan_render(tmp_path, "-DL2N_LANE_LIST=2")
 
 
-def _asan_render(tmp_path, *defines):
+def _asan_render(tmp_path, *defines, script=ASAN_RENDER):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++")
@@ -890,7 +1024,7 @@ def _asan_render(tmp_path, *defines):
                    check=True, capture_output=True, text=True)
     env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
                PYTHONPATH=str(CSRC.parents[1]))
-    proc = subprocess.run([sys.executable, "-c", ASAN_RENDER, str(lib_path)],
+    proc = subprocess.run([sys.executable, "-c", script, str(lib_path)],
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("clean")

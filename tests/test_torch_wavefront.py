@@ -243,51 +243,130 @@ def test_trace_wavefront_continue_matches_jax(max_bounces):
 # The compaction
 # ---------------------------------------------------------------------------
 
+def _jax_compaction(rays, meta):
+    """The JAX step's compaction (l2n_tpu/ops/kernels/wavefront.py
+    kernel_step: the rank permutation, its inverse and the gathers), with
+    jnp on numpy lane arrays: (comp rays, comp meta, inv, n_alive)."""
+    raysf = jnp.asarray(rays.reshape(rays.shape[0], -1))
+    n = raysf.shape[1]
+    alive = raysf[0] < jnp.float32(pathtrace.WAVEFRONT_FAR_THRESHOLD)
+    csum = jnp.cumsum(alive.astype(jnp.int32))
+    n_alive = csum[-1:]
+    iota = jnp.arange(n, dtype=jnp.int32)
+    perm = jnp.where(alive, csum - 1, n_alive[0] + iota - (csum - 1) - 1)
+    inv = jnp.zeros((n,), jnp.int32).at[perm].set(iota, unique_indices=True)
+    metaf = jnp.asarray(meta.reshape(2, n))
+    return (np.asarray(raysf[:, inv]), np.asarray(metaf[:, inv]),
+            np.asarray(inv), int(n_alive[0]))
+
+
 @pytest.mark.parametrize("alive_fraction", [0.0, 0.2, 0.5, 1.0])
 def test_compact_survivors_matches_jax_formula(alive_fraction):
-    """perm equals the JAX package's formula (wavefront.py's
-    kernel_step) on a random alive mask; the dense prefix holds the alive
-    lanes in lane order, and scatter_back returns each lane's value or 0."""
+    """The plain pass A's compaction on a random alive mask equals the JAX
+    package's formula (wavefront.py's kernel_step, run with jnp): the ray
+    and meta planes gathered by the inverse rank permutation, the lane
+    plane that permutation itself, and n_alive; write_back then puts each
+    of the first n_alive slots back at its lane."""
     gen = _gen(int(alive_fraction * 10) + 51)
     n = 4 * 4096
     alive = gen.random(n) < alive_fraction
     rays = gen.normal(size=(9, n)).astype(np.float32)
     rays[0] = np.where(alive, rays[0], np.float32(3.0e30))
     meta = gen.integers(-2**31, 2**31, (2, n)).astype(np.int32)
-    comp, comp_meta, perm, t_alive, n_alive = wf.compact_survivors(
+    comp, comp_meta, n_alive = wf.compact_survivors(
         torch.from_numpy(rays).view(9, 4, 64, 64),
         torch.from_numpy(meta).view(2, 4, 64, 64))
-
-    ja = jnp.asarray(alive)
-    csum = jnp.cumsum(ja.astype(jnp.int32))
-    jn = csum[-1:]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    jperm = jnp.where(ja, csum - 1, jn[0] + iota - (csum - 1) - 1)
-    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
-    np.testing.assert_array_equal(t_alive.numpy(), alive)
-    assert n_alive.dtype == torch.int32 and int(n_alive[0]) == alive.sum()
+    jcomp, jmeta, jinv, jn = _jax_compaction(rays, meta)
+    np.testing.assert_array_equal(comp.numpy(), jcomp)
+    np.testing.assert_array_equal(comp_meta[:2].numpy(), jmeta)
+    np.testing.assert_array_equal(comp_meta[2].numpy(), jinv)
+    assert n_alive.dtype == torch.int32 and int(n_alive[0]) == jn
     na = int(alive.sum())
+    assert jn == na
     np.testing.assert_array_equal(comp[:, :na].numpy(), rays[:, alive])
-    np.testing.assert_array_equal(comp_meta[:, :na].numpy(), meta[:, alive])
-    np.testing.assert_array_equal(comp.numpy()[:, perm.numpy()], rays)
 
+    back = torch.from_numpy(np.where(alive, np.float32(np.nan),
+                                     np.float32(0.0))[None].repeat(3, 0))
     contrib = torch.full((3, n), float("nan"))
-    contrib[:, :na] = torch.from_numpy(rays[3:6, alive])
-    back = wf.scatter_back(contrib, perm, t_alive).numpy()
-    np.testing.assert_array_equal(back, np.where(alive, rays[3:6], 0.0))
+    contrib[:, :na] = comp[3:6, :na]
+    wf.write_back(back, contrib, comp_meta, n_alive)
+    np.testing.assert_array_equal(back.numpy(), np.where(alive, rays[3:6],
+                                                         0.0))
 
 
 def test_compaction_reads_nothing_back():
-    """The compaction and the scatter-back run on the meta device, which
+    """The compaction and the write-back run on the meta device, which
     holds shapes and no data: none of their operations reads a value back
     to the host (no .item(), no nonzero, no int(n_alive))."""
     rays = torch.empty((9, 2, 32, 128), device="meta")
     meta = torch.empty((2, 2, 32, 128), dtype=torch.int32, device="meta")
-    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(rays, meta)
-    assert comp.shape == (9, 8192) and comp_meta.shape == (2, 8192)
-    assert perm.shape == alive.shape == (8192,) and n_alive.shape == (1,)
-    back = wf.scatter_back(torch.empty((3, 8192), device="meta"), perm, alive)
-    assert back.shape == (3, 8192) and back.device.type == "meta"
+    comp, comp_meta, n_alive = wf.compact_survivors(rays, meta)
+    assert comp.shape == (9, 8192) and comp_meta.shape == (3, 8192)
+    assert n_alive.shape == (1,) and comp_meta.dtype == torch.int32
+    back = torch.empty((3, 2, 32, 128), device="meta")
+    wf.write_back(back, torch.empty((3, 8192), device="meta"), comp_meta,
+                  n_alive)
+    assert back.shape == (3, 2, 32, 128) and back.device.type == "meta"
+
+
+@pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2}],
+                         ids=["reference", "spp2"])
+def test_pass_a_plain_matches_jax_compaction(extra):
+    """The plain pass A's outputs against the JAX step's compaction of its
+    own lanes (run with jnp): the survivors' ray and meta planes in stable
+    lane order, each slot's lane, n_alive; col by lane; back 0 at the dead
+    lanes and NaN (pass B's to write) at the survivors'."""
+    cfg = RenderConfig(**SMALL, **extra).validate()
+    sched, cam, spheres, accum, _ = _pass_inputs(cfg)
+    rays, col, meta = wf.primary_lanes_plain(cfg, sched, cam, spheres, accum)
+    a = wf.wavefront_pass_a_plain(cfg, sched, cam, spheres, accum)
+    jcomp, jmeta, jinv, jn = _jax_compaction(rays.numpy(), meta.numpy())
+    assert int(a.n_alive[0]) == jn and 0 < jn < jinv.size
+    np.testing.assert_array_equal(a.rays[:, :jn].numpy(), jcomp[:, :jn])
+    np.testing.assert_array_equal(a.meta[:2, :jn].numpy(), jmeta[:, :jn])
+    np.testing.assert_array_equal(a.meta[2, :jn].numpy(), jinv[:jn])
+    np.testing.assert_array_equal(a.col.numpy(), col.numpy())
+    alive = rays[0].numpy() < pathtrace.WAVEFRONT_FAR_THRESHOLD
+    np.testing.assert_array_equal(np.isnan(a.back.numpy()), alive[None]
+                                  .repeat(3, 0))
+    assert (a.back.numpy()[:, ~alive] == 0).all()
+
+
+def test_pass_b_write_back_matches_scatter_back():
+    """The plain pass B's write by lane against the scatter-back it
+    replaces (the JAX step's: contributions gathered from each lane's rank,
+    0 where no path went on): the same back, bit for bit, on pass A's
+    survivors of the aimed small config with a padded tail of garbage
+    slots past n_alive."""
+    cfg = RenderConfig(spp_per_step=2, max_bounces=3, **SMALL).validate()
+    sched, cam, spheres, accum, _ = _pass_inputs(cfg)
+    rays, col, meta = wf.primary_lanes_plain(cfg, sched, cam, spheres, accum)
+    a = wf.wavefront_pass_a_plain(cfg, sched, cam, spheres, accum)
+    na = int(a.n_alive[0])
+    gen = _gen(61)
+    comp_meta = a.meta.clone()
+    comp_meta[:, na:] = torch.from_numpy(gen.integers(
+        -2**31, 2**31, (3, comp_meta.shape[1] - na)).astype(np.int32))
+    back = a.back.clone()
+    wf.wavefront_pass_b_plain(cfg, cam, spheres, a.rays, comp_meta,
+                              a.n_alive, back)
+
+    # the scatter-back: the contributions of every slot, gathered by perm
+    intersect, anyhit, albedo = wf._scene(spheres)
+    next_pair, has_spare = pathtrace.wavefront_draw_position(cfg)
+    sampler = tsampler.ThreefrySampler.resumed(
+        cfg.seed, 0, a.meta[0], a.meta[1],
+        tsampler.max_pairs_per_sample(cfg.max_bounces), next_pair, has_spare)
+    contrib = torch.stack(pathtrace.trace_wavefront_continue(
+        cfg, intersect, anyhit, albedo, sampler, *a.rays))
+    alive = rays.reshape(9, -1)[0] < pathtrace.WAVEFRONT_FAR_THRESHOLD
+    rank = torch.cumsum(alive, 0) - 1
+    iota = torch.arange(alive.numel())
+    perm = torch.where(alive, rank, na + iota - rank - 1)
+    want = torch.where(alive, contrib.index_select(1, perm),
+                       torch.zeros(())).view(col.shape)
+    np.testing.assert_array_equal(back.numpy(), want.numpy())
+    assert (want.view(3, -1)[:, alive] > 0).any()  # survivors found light
 
 
 # ---------------------------------------------------------------------------
@@ -373,19 +452,27 @@ def test_wavefront_wrappers_cpu_are_plain():
     b = wf.wavefront_pass_a_plain(cfg, sched, cam, spheres, accum)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
-    assert a[0].shape == (9, 1, 64, 128) and a[2].dtype == torch.int32
+    assert a.col.shape == a.back.shape == (3, 1, 64, 128)
+    assert a.rays.shape == (9, 8192) and a.meta.dtype == torch.int32
+    na = int(a.n_alive[0])
     # meta: pixel index = col + row * padded width, sample = count + s
-    np.testing.assert_array_equal(a[2][1, 0, :32].numpy(), 5)
-    np.testing.assert_array_equal(a[2][1, 0, 32:].numpy(), 6)
-    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(a[0], a[2])
-    c1 = wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta, n_alive)
-    c2 = wf.wavefront_pass_b_plain(cfg, cam, spheres, comp, comp_meta,
-                                   n_alive)
-    np.testing.assert_array_equal(c1.numpy(), c2.numpy())
-    back = wf.scatter_back(c1, perm, alive).view(a[1].shape)
+    # (lanes 0..4095 are sample 0), lane = its lane
+    lane = a.meta[2, :na]
+    np.testing.assert_array_equal(a.meta[1, :na].numpy(),
+                                  np.where(lane.numpy() < 4096, 5, 6))
+    tx, ty = (int(v) for v in sched[0])
+    row, c = ty * 32 + lane % 4096 // 128, tx * 128 + lane % 128
+    np.testing.assert_array_equal(a.meta[0, :na].numpy(),
+                                  (row * cfg.padded_width + c).numpy())
+    back1, back2 = a.back.clone(), a.back.clone()
+    wf.wavefront_pass_b(cfg, cam, spheres, a.rays, a.meta, a.n_alive, back1)
+    wf.wavefront_pass_b_plain(cfg, cam, spheres, a.rays, a.meta, a.n_alive,
+                              back2)
+    np.testing.assert_array_equal(back1.numpy(), back2.numpy())
+    assert not back1.isnan().any()
     acc1, out1 = accum.clone(), output.clone()
-    wf.wavefront_pass_c(cfg, sched, a[1], back, acc1, out1)
-    wf.wavefront_pass_c_plain(cfg, sched, a[1], back, accum, output)
+    wf.wavefront_pass_c(cfg, sched, a.col, back1, acc1, out1)
+    wf.wavefront_pass_c_plain(cfg, sched, a.col, back1, accum, output)
     np.testing.assert_array_equal(acc1.numpy(), accum.numpy())
     np.testing.assert_array_equal(out1.numpy(), output.numpy())
     # the whole step against the fused plain step from the same state
@@ -407,17 +494,23 @@ def test_wavefront_wrapper_checks():
     with pytest.raises(ValueError, match="no kernel"):
         wf.wavefront_pass_a(cfg, sched.to("meta"), cam, spheres.to("meta"),
                             accum.to("meta"))
-    rays, col, meta = wf.wavefront_pass_a(cfg, sched, cam, spheres, accum)
-    comp, comp_meta, perm, alive, n_alive = wf.compact_survivors(rays, meta)
+    col, back, rays, meta, n_alive = wf.wavefront_pass_a(cfg, sched, cam,
+                                                         spheres, accum)
     with pytest.raises(TypeError, match="n_alive"):
-        wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta,
-                            n_alive.long())
+        wf.wavefront_pass_b(cfg, cam, spheres, rays, meta, n_alive.long(),
+                            back)
     with pytest.raises(ValueError, match="whole tiles"):
-        wf.wavefront_pass_b(cfg, cam, spheres, comp[:, :100].contiguous(),
-                            comp_meta[:, :100].contiguous(), n_alive)
+        wf.wavefront_pass_b(cfg, cam, spheres, rays[:, :100].contiguous(),
+                            meta[:, :100].contiguous(), n_alive, back)
     with pytest.raises(TypeError, match="meta"):
-        wf.wavefront_pass_b(cfg, cam, spheres, comp, comp_meta.float(),
-                            n_alive)
+        wf.wavefront_pass_b(cfg, cam, spheres, rays, meta.float(), n_alive,
+                            back)
+    with pytest.raises(ValueError, match="meta"):
+        wf.wavefront_pass_b(cfg, cam, spheres, rays, meta[:2].contiguous(),
+                            n_alive, back)
+    with pytest.raises(ValueError, match="back"):
+        wf.wavefront_pass_b(cfg, cam, spheres, rays, meta, n_alive,
+                            back.view(3, -1))
     with pytest.raises(ValueError, match="back"):
         wf.wavefront_pass_c(cfg, sched, col, col[:, :, :16], accum, output)
     with pytest.raises(ValueError, match="output"):
@@ -425,6 +518,9 @@ def test_wavefront_wrapper_checks():
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         wf.wavefront_pass_a(cfg.replace(nee=True), sched, cam, spheres,
                             accum)
+    lanes = wf.wavefront_lanes(cfg, 1, torch.device("cpu"))
+    assert [t.shape for t in lanes] == [(3, 1, 32, 128), (3, 1, 32, 128),
+                                        (9, 4096), (3, 4096), (1,)]
     # rng="tpu_hw" was refused until the Philox sampler was ported: the
     # wavefront step now renders it, to the bit the fused step's image.
     hw = cfg.replace(rng="tpu_hw")
