@@ -8,7 +8,7 @@ the card; the stateful tinymt and tauslcg), runs the tpu_hw statistical
 gates on the raw-bits kernel philox_bits and on renders, runs the three
 probes (l2n_tpu_torch/probes: cond_cost, sweep_variants, onehot_recovery)
 through their entry points with their kernels held against the plain
-versions, holds sphere_pt and triangle_pt to their plain versions bit for
+versions (the onehot pair also at 100 and 16 spheres), holds sphere_pt and triangle_pt to their plain versions bit for
 bit from views that make their per-tile cone cull hard (phase 22), runs
 the wavefront step twice from one state to show that its image does not
 depend on the order of pass A's survivor slots (phase 23), holds the
@@ -642,16 +642,20 @@ def triangle_bound(c, m: int, k: int, scene_bytes: int):
 
 
 def kernel_row(name, source, replaces, n, err, tol, profiled, event_ms,
-               plain_ms, bound_pair, **extra):
+               plain_ms, bound_pair, graph_ms=None, **extra):
     """One row of the `kernels` line. `ms` is the kernel's device time per
     launch from torch.profiler (`ms_from` says so), or, where the profiler
-    recorded none, the CUDA events' time per call or step (`event_ms`,
-    host dispatch included)."""
+    recorded none, the device time per call by CUDA-graph replay
+    (`graph_ms`, where the row has one), else the CUDA events' time per
+    call or step (`event_ms`, host dispatch included)."""
+    ms, ms_from = ((profiled, "torch.profiler") if profiled is not None
+                   else (graph_ms, "CUDA graph replay")
+                   if graph_ms is not None else (event_ms, "CUDA events"))
+    if graph_ms is not None:
+        extra["graph_ms"] = graph_ms
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
-            "tolerance": tol,
-            "ms": event_ms if profiled is None else profiled,
-            "ms_from": "CUDA events" if profiled is None else "torch.profiler",
+            "tolerance": tol, "ms": ms, "ms_from": ms_from,
             "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
             "library_ms": None, **extra}
@@ -668,7 +672,10 @@ PROBE_OPS = dict(
     two_root_o=9,    # TwoRoot::t, once per (lane, sphere): o - c, |o - c|^2 - r2
     two_root_d=15,   # per repeat: hb, the discriminant, sqrt, the roots and
                      # their selects, the `t < best` test
-    t1_only=21,      # T1Only::t and its test
+    t1_only=22,      # a t1-only candidate whose line meets the ray: co =
+                     # c - o (3), nhb (5), c (6), disc (2), disc >= 0 (1),
+                     # sqrt, t1, t1 >= 0 and its select (4), t < best (1)
+    t1_only_miss=17,  # one whose line misses: up to disc >= 0
     vpu_rep=11,      # per lane and repeat: perturb, accumulate
     mma_pair_o=4,    # per (lane, sphere): o.c's conversion, c
     mma_pair_d=14,   # per repeat: d.c's conversion, hb, the roots, the min
@@ -718,11 +725,26 @@ def mma_tensor_ms(lanes, n, reps):
     return lanes * n * (reps + 1) * 6 / PEAK_FP64_TENSOR * 1e3
 
 
-def onehot_bounds(lanes, s):
-    cand = lanes * s
-    return {"onehot_carry": bound(cand * (PROBE_OPS["t1_only"] + 6)
+def onehot_meets(rays, spheres) -> int:
+    """Candidates (lane, sphere) of the t1-only sweep whose line meets the
+    ray (nhb^2 - c >= 0), in float32 as the kernels compute them."""
+    ox, oy, oz, dx, dy, dz = (r.reshape(-1, 1) for r in rays)
+    cx, cy, cz, r2 = spheres
+    cox, coy, coz = cx - ox, cy - oy, cz - oz
+    nhb = cox * dx + coy * dy + coz * dz
+    c = (cox * cox - r2) + coy * coy + coz * coz
+    return int((nhb * nhb - c >= 0).sum())
+
+
+def onehot_bounds(lanes, s, meets):
+    """The pair's bounds: a candidate pays for its sqrt, root and update
+    (the carry's 4 attribute selects and 2 more, the gather's 2) only where
+    the ray's line meets the sphere (`meets` of lanes x s), as the renderers'
+    sweeps are counted."""
+    miss = (lanes * s - meets) * PROBE_OPS["t1_only_miss"]
+    return {"onehot_carry": bound(miss + meets * (PROBE_OPS["t1_only"] + 6)
                                   + lanes * 7, lanes * 48 + 16 * s),
-            "onehot_gather": bound(cand * (PROBE_OPS["t1_only"] + 2)
+            "onehot_gather": bound(miss + meets * (PROBE_OPS["t1_only"] + 2)
                                    + lanes * 12, lanes * 48 + 48 * s)}
 
 
@@ -881,10 +903,23 @@ def probe_sweep(card):
     return rows, times
 
 
+def onehot_calls(oh, x):
+    """{kernel: (the wrapper's call, its plain version's)} on inputs x."""
+    r, sp, tb = x["rays"], x["spheres"], x["table"]
+    return {"onehot_carry": (lambda: oh.onehot_carry(r, sp),
+                             lambda: oh.onehot_carry_plain(r, sp)),
+            "onehot_gather": (lambda: oh.onehot_gather(r, sp, tb),
+                              lambda: oh.onehot_gather_plain(r, sp, tb))}
+
+
 def probe_onehot(card):
     """Phase 21: the onehot_recovery probe's check and time modes (S =
-    128), each kernel against its plain version, gather = carry on hits."""
+    128), then each kernel against its plain version at S = 128, 100 and
+    16 (all six planes bit-equal, gather = carry on hits, miss r2 1 / 0),
+    and each kernel's time by torch.profiler, CUDA-graph replay and CUDA
+    events."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.probes import elapsed_ms
     from l2n_tpu_torch.probes import onehot_recovery as oh
     reset_launches()
     require(oh.main(["check"]) is True, "onehot check: gather = carry on hits")
@@ -893,46 +928,61 @@ def probe_onehot(card):
     n_launch = {k: launches[k] for k in ("onehot_carry", "onehot_gather")}
     require(all(n_launch.values()), f"both onehot kernels launched {n_launch}")
     dev = torch.device("cuda")
-    x = {k: torch.from_numpy(v).to(dev) for k, v in oh.inputs().items()}
-    calls = {
-        "onehot_carry": (lambda: oh.onehot_carry(x["rays"], x["spheres"]),
-                         lambda: oh.onehot_carry_plain(x["rays"],
-                                                       x["spheres"])),
-        "onehot_gather": (lambda: oh.onehot_gather(x["rays"], x["spheres"],
-                                                   x["table"]),
-                          lambda: oh.onehot_gather_plain(
-                              x["rays"], x["spheres"], x["table"]))}
-    got, plain_ms = {}, {}
-    for name, (kern, plain) in calls.items():
-        got[name] = kern()
-        want, plain_ms[name] = timed_result(plain)
-        require(torch.equal(got[name], want),
-                f"{name} kernel/plain bit-equal (all lanes)")
-    hit = got["onehot_carry"][1] >= 0
-    require(torch.equal(got["onehot_carry"][:, hit],
-                        got["onehot_gather"][:, hit]), "gather = carry on hits")
-    require(bool((got["onehot_carry"][5][~hit] == 1).all())
-            and bool((got["onehot_gather"][5][~hit] == 0).all()),
-            "misses: carry r2 = 1, gather r2 = 0")
-    bounds = onehot_bounds(32 * 128, x["spheres"].shape[1])
+    hits, plain_ms = {}, {}
+    for s in (oh.S, 100, 16):
+        x = {k: torch.from_numpy(v).to(dev) for k, v in oh.inputs(s).items()}
+        calls = onehot_calls(oh, x)
+        got = {}
+        for name, (kern, plain) in calls.items():
+            got[name] = kern()
+            want, ms = timed_result(plain)
+            if s == oh.S:
+                plain_ms[name] = ms
+            require(bits_equal(got[name], want),
+                    f"{name} kernel/plain bit-equal (all lanes, S = {s})")
+        hit = got["onehot_carry"][1] >= 0
+        require(torch.equal(got["onehot_carry"][:, hit],
+                            got["onehot_gather"][:, hit]),
+                f"gather = carry on hits (S = {s})")
+        require(bool((got["onehot_carry"][5][~hit] == 1).all())
+                and bool((got["onehot_gather"][5][~hit] == 0).all()),
+                f"misses: carry r2 = 1, gather r2 = 0 (S = {s})")
+        hits[s] = round(float(hit.float().mean()), 4)
+        if s == oh.S:
+            main_calls, main_x = calls, x
+    lanes, s = oh.TH * oh.TW, oh.S
+    meets = onehot_meets(main_x["rays"].reshape(6, -1), main_x["spheres"])
+    bounds = onehot_bounds(lanes, s, meets)
+    group, threads, blocks = oh.launch_shape(lanes)
     rows, times = [], {}
-    for name, (kern, _) in calls.items():
+    for name, (kern, _) in main_calls.items():
         ms = profile_calls(kern, 50, f"{name}_kernel")
+        graph = elapsed_ms(kern, 200, dev, rounds=3)
         event = timed_calls(kern, 5, 200)
-        times[name] = {"kernel_ms": ms, "event_ms": round(event, 5),
+        times[name] = {"kernel_ms": ms, "graph_ms": round(graph, 5),
+                       "event_ms": round(event, 5),
                        "plain_ms": round(plain_ms[name], 3),
-                       "bound_ms": round(bounds[name][0], 6)}
+                       "bound_ms": round(bounds[name][0], 6),
+                       "share_of_bound": round(
+                           bounds[name][0] / (graph if ms is None else ms),
+                           4)}
         rows.append(kernel_row(
             name, ONEHOT_SRC, "benchmarks/onehot_recovery.py:"
             f"{100 if name == 'onehot_carry' else 112}", n_launch[name], 0.0,
-            "bit-equal (all lanes)", ms, event, plain_ms[name],
-            bounds[name]))
-    phase(21, f"onehot_recovery probe (S = {x['spheres'].shape[1]}, one "
-              f"32x128 block, hit fraction {float(hit.float().mean()):.3f}): "
-              f"check PASS, both kernels bit-equal to their plain versions, "
-              f"gather = carry on hits, miss r2 1 / 0; marginal ms/call "
+            "bit-equal (all six planes, all lanes; S = 128, 100, 16)", ms,
+            event, plain_ms[name], bounds[name], graph_ms=graph,
+            lanes_per_ray=group, grid=blocks))
+    phase(21, f"onehot_recovery probe (one 32x128 block; {group} lanes per "
+              f"ray, {threads}-thread blocks, grid {blocks}): check PASS, "
+              f"both kernels bit-equal to their plain versions on all six "
+              f"planes at S = 128, 100, 16 (hit fraction {hits}), gather = "
+              f"carry on hits, miss r2 1 / 0; {meets} of {lanes * s} "
+              f"candidates meet their ray at S = {s}; launches {n_launch}; "
+              f"marginal ms/call "
               f"{ {k: round(v, 5) for k, v in marginal.items()} } (host "
-              f"clock, (t(800) - t(400)) / 400); per kernel {times}; card: "
+              f"clock, (t(800) - t(400)) / 400); per kernel (ms/launch by "
+              f"torch.profiler over 50, ms/call by CUDA-graph replay of 200, "
+              f"best of 3, and by CUDA events over 200) {times}; card: "
               f"{card}")
     return rows
 
@@ -1133,9 +1183,15 @@ def main() -> int:
                 else "")
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+    from l2n_tpu_torch.probes.onehot_recovery import TH, TW, launch_shape
+    group, threads, blocks = launch_shape(TH * TW)
+    onehot_regs = [ln for ln in ptxas if ln.startswith("onehot_")
+                   and "registers" in ln]
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}; kernels built in {build_s:.1f} s "
-             f"({lib_path.name}); ptxas: {' | '.join(ptxas)}")
+             f"({lib_path.name}); onehot_recovery: {group} lanes per ray, "
+             f"{threads}-thread blocks, grid {blocks} at {TH * TW} lanes, "
+             f"{onehot_regs}; ptxas: {' | '.join(ptxas)}")
 
     # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)

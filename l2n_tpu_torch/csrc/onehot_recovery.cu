@@ -9,16 +9,22 @@
 //     (0, 0, 0, 1), so a miss leaves r2 = 1;
 //   * onehot_gather: (t, index) only, the attributes read afterwards from
 //     the (S, 8) table. The TPU recovered them with a one-hot matmul at
-//     Precision.HIGHEST, an exact gather (0 on a miss); here it is four
-//     loads of the winner's table row.
+//     Precision.HIGHEST, an exact gather (0 on a miss); here it is one
+//     16-byte load of the winner's table row.
 //
-// What bounds them on this card: fp32 issue, ~19 operations and a sqrt per
-// lane-candidate against 24 bytes read and 24 written per lane; at one
-// block (4,096 lanes, 16 blocks of 256 threads on 132 SMs) launch latency
-// and the serial chain of S candidates dominate. Design: one thread per
-// lane; the sphere rows staged once per block into shared memory (a
-// broadcast read per candidate); the body is csrc/sweep_probe.cuh's, which
-// the CPU tests build with g++.
+// What bounds them on this card: ~17 fp32 operations per lane-candidate
+// (a sqrt and ~5 more only where the ray's line meets the sphere) against
+// 24 bytes read and 24 written per lane; at 4,096 lanes a thread per lane
+// fills 16 blocks of 132 SMs and runs a dependent chain of S candidates,
+// and the whole probe's work is below a launch's own time.
+// Design: each ray's sweep is split over a group of kGroup lanes of a warp
+// (csrc/sweep_probe.cuh `split_sweep`): lane g sweeps spheres g, g + G, ...,
+// and the group keeps the smaller t, then the smaller index, over log2(G)
+// shuffle rounds, which is the serial sweep's winner to the bit (G = 16:
+// 256 blocks, 8 candidates per lane); the spheres are staged once per block
+// as 16-byte records in shared memory (one broadcast load per candidate);
+// the sqrt is taken only on a real discriminant. Lane 0 of each group
+// writes the six planes. The CPU tests build the same header with g++.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,9 +34,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Lanes per ray, measured on the card among 4, 8, 16 and 32 (PERF.md).
+constexpr int kGroup = 16;
+static_assert(kThreads % kGroup == 0, "a block holds whole groups");
 
 // rays: (6, lanes) ox, oy, oz, dx, dy, dz; spheres: (4, s) cx, cy, cz, r2;
-// table: (s, 8), columns 0-3 cx, cy, cz, r2 (gather only); out: (6, lanes).
+// table: (s, 8), columns 0-3 cx, cy, cz, r2, 16-byte aligned (gather only);
+// out: (6, lanes).
 template <bool kCarry>
 __device__ __forceinline__ void onehot_body(const float* __restrict__ rays,
                                             const float* __restrict__ spheres,
@@ -38,16 +48,23 @@ __device__ __forceinline__ void onehot_body(const float* __restrict__ rays,
                                             const float* __restrict__ table,
                                             int lanes,
                                             float* __restrict__ out) {
-  extern __shared__ float rows[];
-  for (int j = threadIdx.x; j < 4 * s; j += blockDim.x) rows[j] = spheres[j];
+  extern __shared__ l2n_probe::Sphere4 packed[];
+  const int p = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  const bool live = p < lanes;
+  // The ray's loads are issued before the barrier, beside the staging.
+  float r[6] = {};
+  if (live)
+    for (int k = 0; k < 6; ++k) r[k] = rays[k * lanes + p];
+  for (int j = threadIdx.x; j < s; j += blockDim.x)
+    packed[j] = l2n_probe::packed_sphere(spheres, s, j);
   __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= lanes) return;
-  const l2n_probe::Spheres sc{rows, s};
-  l2n_probe::Winner w = l2n_probe::sweep<kCarry, l2n_probe::T1Only>(
-      sc, rays[p], rays[lanes + p], rays[2 * lanes + p], rays[3 * lanes + p],
-      rays[4 * lanes + p], rays[5 * lanes + p], 1.0f);
-  if (!kCarry) l2n_probe::gather(table, 8, 1, w);
+  if (!live) return;  // the whole group leaves together
+  const int g = threadIdx.x % kGroup;
+  l2n_probe::Winner w = l2n_probe::split_sweep<kCarry, kGroup>(
+      packed, s, g, l2n_probe::group_mask<kGroup>(threadIdx.x % 32), r[0],
+      r[1], r[2], r[3], r[4], r[5], 1.0f);
+  if (g != 0) return;
+  if (!kCarry) l2n_probe::gather_row(table, w);
   out[p] = w.t;
   out[lanes + p] = static_cast<float>(w.i);
   out[2 * lanes + p] = w.cx;
@@ -71,11 +88,16 @@ __global__ void onehot_gather_kernel(const float* __restrict__ rays,
   onehot_body<false>(rays, spheres, s, table, lanes, out);
 }
 
+int grid_for(int lanes) {
+  return static_cast<int>(
+      (static_cast<long long>(lanes) * kGroup + kThreads - 1) / kThreads);
+}
+
 template <bool kCarry>
 int launch(const float* rays, const float* spheres, int s, const float* table,
            int lanes, float* out, void* stream) {
-  const dim3 grid(static_cast<unsigned>((lanes + kThreads - 1) / kThreads));
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(s);
+  const dim3 grid(static_cast<unsigned>(grid_for(lanes)));
+  const size_t smem = sizeof(l2n_probe::Sphere4) * static_cast<size_t>(s);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kCarry) {
     onehot_carry_kernel<<<grid, kThreads, smem, st>>>(rays, spheres, s, table,
@@ -100,4 +122,13 @@ extern "C" int l2n_onehot_gather(const float* rays, const float* spheres,
                                  int s, const float* table, int lanes,
                                  float* out, void* stream) {
   return launch<false>(rays, spheres, s, table, lanes, out, stream);
+}
+
+// The launch shape at `lanes` lanes into shape[0..2]: lanes per ray (G),
+// threads per block, blocks. Returns 0.
+extern "C" int l2n_onehot_shape(int lanes, int* shape) {
+  shape[0] = kGroup;
+  shape[1] = kThreads;
+  shape[2] = grid_for(lanes);
+  return 0;
 }

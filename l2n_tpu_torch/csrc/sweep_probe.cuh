@@ -16,6 +16,8 @@
 // Each sweep is a template on `kCarry`: carry the winner's four attributes
 // through every candidate (true), or keep (t, index) only and read the
 // attributes afterwards (false, `gather`).
+// onehot_recovery.cu runs the t1-only form through `split_sweep` (end of
+// this file): one ray's sweep split over a group of lanes.
 
 #pragma once
 
@@ -147,6 +149,148 @@ L2N_HD float sweep_lane(const Spheres& s, int repeats, float ox, float oy,
     acc = accumulate_vpu(acc, w);
   }
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// onehot_recovery's split sweep (csrc/onehot_recovery.cu): the t1-only
+// sweep of one ray split over a group of G lanes of a warp, the spheres
+// packed 16 bytes each.
+// ---------------------------------------------------------------------------
+
+// A sphere's centre and r^2 in one 16-byte word: one shared-memory load per
+// candidate instead of four.
+struct alignas(16) Sphere4 {
+  float cx, cy, cz, r2;
+};
+
+// Sphere j of the (4, n) SoA rows, packed.
+L2N_HD Sphere4 packed_sphere(const float* rows, int n, int j) {
+  return Sphere4{rows[j], rows[n + j], rows[2 * n + j], rows[3 * n + j]};
+}
+
+// T1Only::t with the square root taken only on a real discriminant. The
+// same value to the bit: where nhb^2 - c < 0 (or is NaN) T1Only's sqrtf is
+// NaN and fails t1 >= 0, giving kBig; -0.0 passes `>= 0.0f` and takes the
+// sqrt as before.
+L2N_HD float t1_only_guarded(float ox, float oy, float oz, float dx,
+                             float dy, float dz, const Sphere4& q) {
+  const float cox = q.cx - ox, coy = q.cy - oy, coz = q.cz - oz;
+  const float nhb = cox * dx + coy * dy + coz * dz;
+  const float c = (cox * cox - q.r2) + coy * coy + coz * coz;
+  const float disc = nhb * nhb - c;
+  if (!(disc >= 0.0f)) return kBig;
+  const float t1 = nhb - sqrtf(disc);
+  return t1 >= 0.0f ? t1 : kBig;
+}
+
+// Part `part` of the sweep: spheres part, part + G, ... in ascending order,
+// kept as `sweep` keeps them (strictly smaller t). Every lane runs the same
+// ceil(n / G) rounds, a lane past the last sphere testing none, so that the
+// group's shuffles after the sweep stay matched when G does not divide n or
+// exceeds it.
+template <bool kCarry, int G>
+L2N_HD void sweep_part(const Sphere4* s, int n, int part, float ox, float oy,
+                       float oz, float dx, float dy, float dz, Winner& w) {
+  for (int base = 0; base < n; base += G) {
+    const int j = base + part;
+    const bool in = j < n;
+    const Sphere4 q = s[in ? j : 0];
+    const float t = in ? t1_only_guarded(ox, oy, oz, dx, dy, dz, q) : kBig;
+    if (t < w.t) {
+      w.t = t;
+      w.i = j;
+      if (kCarry) {
+        w.cx = q.cx;
+        w.cy = q.cy;
+        w.cz = q.cz;
+        w.r2 = q.r2;
+      }
+    }
+  }
+}
+
+// Keep the other part's winner if its t is smaller or, on a tie, its index:
+// over all parts, the first index of the minimum t, which is the serial
+// sweep's winner. A part that hits nothing stays (kBig, -1, 0, 0, 0,
+// miss_r2), and no candidate's t is kBig, so an all-miss ray keeps the
+// serial sweep's miss values. With kCarry the winner's attributes move
+// with it.
+template <bool kCarry>
+L2N_HD void combine(Winner& w, const Winner& o) {
+  if (o.t < w.t || (o.t == w.t && o.i < w.i)) {
+    w.t = o.t;
+    w.i = o.i;
+    if (kCarry) {
+      w.cx = o.cx;
+      w.cy = o.cy;
+      w.cz = o.cz;
+      w.r2 = o.r2;
+    }
+  }
+}
+
+// The lanes of the G-lane group holding warp lane `lane` (groups aligned to
+// G within the warp).
+template <int G>
+L2N_HD unsigned group_mask(int lane) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
+                "G is a power of two up to a warp");
+  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+}
+
+// `sweep<kCarry, T1Only>` over the packed spheres, split across the G lanes
+// of a group: lane g sweeps part g, then log2(G) rounds of __shfl_xor_sync
+// over the group's lanes (`mask`) combine the parts, (t, index) and, with
+// kCarry, the four attributes. Every lane of the group returns the winner.
+// The host build (the CPU tests) runs the G parts one after another, last
+// part first, and combines them the same way: the tie rule is a total order
+// on (t, index), so the order of combination does not change the winner,
+// and combining the higher parts first leaves a tie to the rule.
+template <bool kCarry, int G>
+L2N_HD Winner split_sweep(const Sphere4* s, int n, int g, unsigned mask,
+                          float ox, float oy, float oz, float dx, float dy,
+                          float dz, float miss_r2) {
+  Winner w{kBig, -1, 0.0f, 0.0f, 0.0f, miss_r2};
+#if defined(__CUDA_ARCH__)
+  sweep_part<kCarry, G>(s, n, g, ox, oy, oz, dx, dy, dz, w);
+  for (int off = 1; off < G; off <<= 1) {
+    Winner o;
+    o.t = __shfl_xor_sync(mask, w.t, off);
+    o.i = __shfl_xor_sync(mask, w.i, off);
+    if (kCarry) {
+      o.cx = __shfl_xor_sync(mask, w.cx, off);
+      o.cy = __shfl_xor_sync(mask, w.cy, off);
+      o.cz = __shfl_xor_sync(mask, w.cz, off);
+      o.r2 = __shfl_xor_sync(mask, w.r2, off);
+    }
+    combine<kCarry>(w, o);
+  }
+#else
+  (void)g;
+  (void)mask;
+  for (int part = G - 1; part >= 0; --part) {
+    Winner o{kBig, -1, 0.0f, 0.0f, 0.0f, miss_r2};
+    sweep_part<kCarry, G>(s, n, part, ox, oy, oz, dx, dy, dz, o);
+    combine<kCarry>(w, o);
+  }
+#endif
+  return w;
+}
+
+// `gather` from onehot_recovery's (S, 8) table in one 16-byte load of the
+// winner's row (columns 0-3: cx, cy, cz, r2; rows 32 bytes apart, so
+// 16-byte aligned when the table is), or (0, 0, 0, 0) on a miss.
+L2N_HD void gather_row(const float* table, Winner& w) {
+  if (w.i >= 0) {
+    const Sphere4 a =
+        *reinterpret_cast<const Sphere4*>(table + static_cast<size_t>(w.i) * 8);
+    w.cx = a.cx;
+    w.cy = a.cy;
+    w.cz = a.cz;
+    w.r2 = a.r2;
+  } else {
+    w.cx = w.cy = w.cz = w.r2 = 0.0f;
+  }
 }
 
 }  // namespace l2n_probe

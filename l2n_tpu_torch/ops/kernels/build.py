@@ -111,6 +111,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sweep_mma": [p, p, p, i, i, i, p, p, p, p],
         "onehot_carry": [p, p, i, i, p, p],
         "onehot_gather": [p, p, i, p, i, p, p],
+        "onehot_shape": [i, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, f"l2n_{name}")

@@ -11,7 +11,8 @@ winner's index as float (-1 on a miss), and its cx, cy, cz, r2:
     the (S, 8) table (the TPU's exact one-hot matmul; 0 on a miss).
 
 Each wrapper launches csrc/onehot_recovery.cu on CUDA tensors and runs its
-`*_plain` version on CPU tensors.
+`*_plain` version on CPU tensors. The kernels split each ray's sweep over a
+group of lanes (`launch_shape` gives the group, block and grid).
 
     python3 -m l2n_tpu_torch.probes.onehot_recovery [check|time]
         [--device cuda|cpu]
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from l2n_tpu_torch.maths.sampling import sqrt
+from l2n_tpu_torch.ops.kernels import build
 from l2n_tpu_torch.ops.kernels.common import check_tensor, launch_raw
 from l2n_tpu_torch.probes import probe_device
 
@@ -91,9 +93,20 @@ def onehot_gather(rays: torch.Tensor, spheres: torch.Tensor,
     s, dev = _check(rays, spheres, table)
     if dev.type == "cpu":
         return onehot_gather_plain(rays, spheres, table)
+    if table.data_ptr() % 16:
+        raise ValueError("table: must be 16-byte aligned (the kernel reads "
+                         "a winner's row in one 16-byte load)")
     out = torch.empty_like(rays)
     launch_raw("onehot_gather", dev, rays, spheres, s, table, TH * TW, out)
     return out
+
+
+def launch_shape(lanes: int = TH * TW) -> tuple[int, int, int]:
+    """(lanes per ray, threads per block, blocks) of the kernels at
+    `lanes` lanes, from the built library."""
+    shape = np.zeros(3, np.int32)
+    build.load().l2n_onehot_shape(lanes, shape.ctypes.data)
+    return tuple(int(v) for v in shape)
 
 
 def _sweep_plain(rays, spheres, carry: bool):

@@ -3,13 +3,13 @@
 two or more versions of the kernels against each other on one card in one
 call: the fused step kernels, sphere_pt and triangle_pt, and the wavefront
 step (`RenderConfig(wavefront=True)`, threefry and tpu_hw), whole and pass
-by pass.
+by pass; and the onehot_recovery probe's two kernels at its S = 128.
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
-    # V1, this, DIR; --only wavefront skips the fused families
+    # V1, this, DIR; --only fused|wavefront|onehot times one family
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -22,8 +22,10 @@ the wavefront step is the built step (render/step.build_render_step,
 backend="cuda"), as the main path runs it, schedule gather included. Its
 passes are timed by torch.profiler over eager steps (device ms per launch
 of each `wavefront_pass_*_kernel`, and every other device event of the step
-summed per step, "rest"). Needs one CUDA card; prints one JSON line per
-process and a summary, and the card's name and power limit.
+summed per step, "rest"). The onehot pair is timed per call of its
+wrapper by graph replay, and per launch by torch.profiler ("... kernel").
+Needs one CUDA card; prints one JSON line per process and a summary, and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -101,10 +103,11 @@ def _schedules(torch, cfg):
                             scheduled_tiles(tiles, 0, cfg.tile_count))}
 
 
-def profile_ms(torch, fn, n: int):
-    """{pass kernel: device ms per launch} of the wavefront passes, and
-    "rest": every other device event, ms per call, from torch.profiler over
-    n eager calls of fn() (after one unprofiled call)."""
+def profile_ms(torch, fn, n: int, kernels=r"wavefront_pass_[abc]_kernel"):
+    """{kernel: device ms per launch} of the kernels whose names match
+    `kernels` (the wavefront passes), and "rest": every other device event,
+    ms per call, from torch.profiler over n eager calls of fn() (after one
+    unprofiled call)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -117,7 +120,7 @@ def profile_ms(torch, fn, n: int):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     launches, rest = collections.defaultdict(list), 0.0
     for e in dev:
-        m = re.search(r"wavefront_pass_[abc]_kernel", e.name)
+        m = re.search(kernels, e.name)
         if m:
             launches[m.group(0)].append(e.time_range.elapsed_us())
         else:
@@ -153,11 +156,32 @@ def _wavefront(torch, cam, times: dict) -> None:
                 times[f"{key} {name}"] = ms
 
 
+def _onehot(torch, root: Path, times: dict) -> None:
+    """The onehot pair's device ms per call of its wrapper (graph replay of
+    200 calls) and per launch (torch.profiler over 50) into `times`."""
+    sys.path.insert(0, str(root))
+    from l2n_tpu_torch.probes import onehot_recovery as oh
+    assert Path(oh.__file__).resolve().is_relative_to(root)
+    x = {k: torch.from_numpy(v).to("cuda") for k, v in oh.inputs().items()}
+    calls = {"onehot_carry": lambda: oh.onehot_carry(x["rays"], x["spheres"]),
+             "onehot_gather": lambda: oh.onehot_gather(x["rays"], x["spheres"],
+                                                       x["table"])}
+    for name, fn in calls.items():
+        times[name] = graph_ms(torch, fn, 200)
+        times[f"{name} kernel"] = profile_ms(torch, fn, 50,
+                                             f"{name}_kernel").get(
+                                                 f"{name}_kernel")
+
+
 def measure_tree(root: Path, only: str) -> dict:
     """ms per call of each family's public wrapper or step, per schedule."""
-    torch, cam, families = _families(root)
-    from l2n_tpu_torch.render.state import init_frame_state
+    import torch
     times = {}
+    if only in ("all", "onehot"):
+        _onehot(torch, root, times)
+    if only in ("all", "fused", "wavefront"):
+        _, cam, families = _families(root)
+        from l2n_tpu_torch.render.state import init_frame_state
     if only in ("all", "fused"):
         for name, (mod, cfg, scene) in families.items():
             kernel = getattr(mod, name)
@@ -185,7 +209,7 @@ def main() -> int:
                     help="the other tree: measure DIR, this, this, DIR")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="one more tree, measured after this one")
-    ap.add_argument("--only", choices=("all", "fused", "wavefront"),
+    ap.add_argument("--only", choices=("all", "fused", "wavefront", "onehot"),
                     default="all")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()

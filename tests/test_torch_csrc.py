@@ -14,6 +14,7 @@ lives in this one file.
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -219,6 +220,34 @@ struct PassB {
   }
 };
 
+// The kernels' split sweep (csrc/onehot_recovery.cu) with G = `group`
+// lanes per ray: the spheres packed into a buffer of exactly n records, as
+// the block prologue stages them, then each lane's G parts combined.
+template <bool kCarry, int G>
+void onehot_split_lanes(const float* rays, const l2n_probe::Sphere4* s,
+                        int n, const float* table, int64_t lanes,
+                        float* out) {
+  for (int64_t p = 0; p < lanes; ++p) {
+    const float* r = rays + p;
+    l2n_probe::Winner w = l2n_probe::split_sweep<kCarry, G>(
+        s, n, 0, 0u, r[0], r[lanes], r[2 * lanes], r[3 * lanes],
+        r[4 * lanes], r[5 * lanes], 1.0f);
+    if (!kCarry) l2n_probe::gather_row(table, w);
+    const float v[6] = {w.t, static_cast<float>(w.i), w.cx, w.cy, w.cz,
+                        w.r2};
+    for (int k = 0; k < 6; ++k) out[k * lanes + p] = v[k];
+  }
+}
+template <int G>
+void onehot_split_group(int carry, const float* rays,
+                        const l2n_probe::Sphere4* s, int n,
+                        const float* table, int64_t lanes, float* out) {
+  if (carry)
+    onehot_split_lanes<true, G>(rays, s, n, table, lanes, out);
+  else
+    onehot_split_lanes<false, G>(rays, s, n, table, lanes, out);
+}
+
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
@@ -406,6 +435,23 @@ void l2n_onehot_lanes_host(int carry, const float* rays, const float* rows,
     for (int k = 0; k < 6; ++k) out[k * lanes + p] = v[k];
   }
 }
+int l2n_onehot_split_host(int carry, int group, const float* rays,
+                          const float* rows, int n, const float* table,
+                          int64_t lanes, float* out) {
+  std::vector<l2n_probe::Sphere4> packed(n);
+  for (int j = 0; j < n; ++j) packed[j] = l2n_probe::packed_sphere(rows, n, j);
+  const l2n_probe::Sphere4* s = packed.data();
+  switch (group) {
+    case 1: onehot_split_group<1>(carry, rays, s, n, table, lanes, out); break;
+    case 2: onehot_split_group<2>(carry, rays, s, n, table, lanes, out); break;
+    case 4: onehot_split_group<4>(carry, rays, s, n, table, lanes, out); break;
+    case 8: onehot_split_group<8>(carry, rays, s, n, table, lanes, out); break;
+    case 16: onehot_split_group<16>(carry, rays, s, n, table, lanes, out); break;
+    case 32: onehot_split_group<32>(carry, rays, s, n, table, lanes, out); break;
+    default: return 1;
+  }
+  return 0;
+}
 }
 """
 
@@ -447,6 +493,8 @@ def _build_shim(tmp_path_factory, *defines):
     i64 = ctypes.c_int64
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
     lib.l2n_onehot_lanes_host.argtypes = [i, p, p, i, p, i64, p]
+    lib.l2n_onehot_split_host.argtypes = [i, i, p, p, i, p, i64, p]
+    lib.l2n_onehot_split_host.restype = ctypes.c_int
     return lib
 
 
@@ -1007,6 +1055,45 @@ def test_triangle_header_memcheck_asan_list_overflow(tmp_path):
     _asan_render(tmp_path, "-DL2N_LANE_LIST=2")
 
 
+ASAN_ONEHOT = r"""
+import ctypes, sys
+import numpy as np
+import torch
+from l2n_tpu_torch.probes import onehot_recovery as oh
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_onehot_split_host.argtypes = [i, i, p, p, i, p, ctypes.c_int64, p]
+lib.l2n_onehot_split_host.restype = i
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+# 32 lanes per ray: at 16 spheres half of each group's lanes hold none, at
+# 100 the last round is partial
+for s in (16, 100):
+    x = oh.inputs(s)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    for carry in (1, 0):
+        out = np.empty_like(x["rays"])
+        assert lib.l2n_onehot_split_host(
+            carry, 32, ptr(x["rays"]), ptr(x["spheres"]), s, ptr(x["table"]),
+            x["rays"][0].size, ptr(out)) == 0
+        want = (oh.onehot_carry_plain(t["rays"], t["spheres"]) if carry
+                else oh.onehot_gather_plain(t["rays"], t["spheres"],
+                                            t["table"])).numpy()
+        assert np.array_equal(out.view(np.int32), want.view(np.int32))
+print("clean")
+"""
+
+
+def test_onehot_split_header_memcheck_asan(tmp_path):
+    """The memory check of onehot_recovery's split sweep (ROADMAP Queue 3
+    #15): the header built with AddressSanitizer sweeps 4,096 rays with 32
+    lanes per ray over a packed buffer of exactly S spheres and gathers
+    from an (S, 8) table of exactly S rows, at S = 16 (lanes 16-31 of
+    every group hold no sphere) and S = 100 (a partial last round), carry
+    and gather, bit-equal to the plain versions: a lane past the last
+    sphere reads none."""
+    _asan_render(tmp_path, script=ASAN_ONEHOT)
+
+
 def _asan_render(tmp_path, *defines, script=ASAN_RENDER):
     cxx = shutil.which("g++")
     if cxx is None:
@@ -1239,3 +1326,60 @@ def test_onehot_probe_header_matches_plain(lib, carry):
                 t["rays"], t["spheres"], t["table"])).numpy()
     assert 0.01 < (want[1] >= 0).mean() < 0.99
     np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@functools.cache
+def _onehot_plain(carry, s, tied=False):
+    """onehot_recovery's inputs at s spheres and the plain carry or gather
+    output. `tied`: the first s // 2 spheres each twice, at indices 2j and
+    2j + 1, so that every hit ties across two of a group's parts."""
+    x = onehot_recovery.inputs(s)
+    if tied:
+        x["spheres"] = np.ascontiguousarray(
+            np.repeat(x["spheres"][:, :s // 2], 2, axis=1))
+        x["table"][:, :4] = x["spheres"].T
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    want = (onehot_recovery.onehot_carry_plain(t["rays"], t["spheres"])
+            if carry else onehot_recovery.onehot_gather_plain(
+                t["rays"], t["spheres"], t["table"])).numpy()
+    return x, want
+
+
+def _onehot_split(lib, carry, group, x):
+    out = np.empty_like(x["rays"])
+    s = x["spheres"].shape[1]
+    assert lib.l2n_onehot_split_host(
+        int(carry), group, _ptr(x["rays"]), _ptr(x["spheres"]), s,
+        _ptr(x["table"]), 32 * 128, _ptr(out)) == 0
+    return out
+
+
+@pytest.mark.parametrize("s", [16, 100, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("carry", [True, False], ids=["carry", "gather"])
+def test_onehot_split_header_matches_plain(lib, carry, group, s):
+    """The kernels' split sweep (csrc/sweep_probe.cuh `split_sweep`, G
+    lanes per ray, packed spheres, sqrt only on a real discriminant, the
+    gather's one 16-byte row load) over the probe's 4,096 rays: all six
+    planes bit-equal to the plain onehot_carry / onehot_gather, misses
+    included (r2 = 1 for the carry, 0 for the gather); G = 8 and 32 do not
+    divide 100, G = 32 exceeds 16."""
+    x, want = _onehot_plain(carry, s)
+    out = _onehot_split(lib, carry, group, x)
+    assert 0.01 < (want[1] >= 0).mean() < 0.99
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("carry", [True, False], ids=["carry", "gather"])
+def test_onehot_split_header_tie_rule(lib, carry, group):
+    """Every sphere twice, at indices 2j and 2j + 1, which lie in two parts
+    of a group for G >= 2: every hit is a tie in t, and the split sweep
+    keeps the smaller index, as the serial sweep does (bit-equal to the
+    plain versions, every winner's index even)."""
+    x, want = _onehot_plain(carry, 64, tied=True)
+    out = _onehot_split(lib, carry, group, x)
+    hit = want[1] >= 0
+    assert hit.mean() > 0.01 and (want[1][hit] % 2 == 0).all()
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
