@@ -154,6 +154,66 @@ def profile_calls(fn, n: int, kernel: str):
     return per[kernel]
 
 
+# The serial lane body the scalar sweep kernels ran before the chunked one
+# (csrc/sweep_probe.cuh `sweep_lane`: repeats outside, spheres inside, the
+# sphere rows in shared memory), built on its own beside the kernels for
+# its registers and SASS.
+SERIAL_SWEEP_CU = r"""
+#include "sweep_probe.cuh"
+template <bool kCarry>
+__device__ void serial(const float* o, const float* d, const float* sph,
+                       int n, int lanes, int repeats, const float* bias,
+                       float* out) {
+  extern __shared__ float rows[];
+  for (int j = threadIdx.x; j < 4 * n; j += blockDim.x) rows[j] = sph[j];
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= lanes) return;
+  out[p] = l2n_probe::sweep_lane<kCarry>(
+      l2n_probe::Spheres{rows, n}, repeats, o[p], o[lanes + p],
+      o[2 * lanes + p], d[p], d[lanes + p], d[2 * lanes + p], bias[p]);
+}
+extern "C" __global__ void serial_sweep_vpu(
+    const float* o, const float* d, const float* sph, int n, int lanes,
+    int repeats, const float* bias, float* out) {
+  serial<true>(o, d, sph, n, lanes, repeats, bias, out);
+}
+extern "C" __global__ void serial_sweep_vpu2(
+    const float* o, const float* d, const float* sph, int n, int lanes,
+    int repeats, const float* bias, float* out) {
+  serial<false>(o, d, sph, n, lanes, repeats, bias, out);
+}
+"""
+
+
+def start_serial_sweep(build, tmp: Path) -> subprocess.Popen:
+    """nvcc of SERIAL_SWEEP_CU into tmp/serial_sweep.cubin, with the
+    kernels' flags, started in the background."""
+    src = tmp / "serial_sweep.cu"
+    src.write_text(SERIAL_SWEEP_CU)
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-cubin", f"-I{build.CSRC}",
+         str(src), "-o", str(tmp / "serial_sweep.cubin")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def sass_calls(cuobjdump: str, path: Path, pattern: str) -> dict:
+    """{kernel: CALL instructions in its SASS} for the kernels of `path`
+    whose (mangled) names match `pattern`, from cuobjdump -sass."""
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, current = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(pattern, ln)
+            current = m.group(0) if m else None
+            if current:
+                counts.setdefault(current, 0)
+        elif current and re.search(r"\bCALL\b", ln):
+            counts[current] += 1
+    return counts
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal to the bit, NaN included: the 32-bit patterns compared."""
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
@@ -669,9 +729,13 @@ def kernel_row(name, source, replaces, n, err, tol, profiled, event_ms,
 # repeat: with the spheres outside and the repeats' winners in registers,
 # the same function computes them once.
 PROBE_OPS = dict(
-    two_root_o=9,    # TwoRoot::t, once per (lane, sphere): o - c, |o - c|^2 - r2
-    two_root_d=15,   # per repeat: hb, the discriminant, sqrt, the roots and
-                     # their selects, the `t < best` test
+    two_root_o=11,   # the two-root form once per (lane, sphere): o - c (3),
+                     # c = |o - c|^2 - r2 (6), and hb's products roy dy,
+                     # roz dz (2), which the repeats share (dx alone moves)
+    two_root_miss=6,  # per repeat, a candidate whose line misses: hb on
+                      # those products (3), the discriminant (2), its test (1)
+    two_root_d=14,   # one whose line meets: those 6, sqrt, the roots (2)
+                     # and their selects (4), the `t < best` test (1)
     t1_only=22,      # a t1-only candidate whose line meets the ray: co =
                      # c - o (3), nhb (5), c (6), disc (2), disc >= 0 (1),
                      # sqrt, t1, t1 >= 0 and its select (4), t < best (1)
@@ -696,17 +760,21 @@ def cond_cost_bound(mode, w, grid, reps):
     return bound(grid * reps * 4096 * per, 2 * 4096 * 4)
 
 
-def sweep_bounds(lanes, n, reps):
-    """{kernel: (bound_ms, bound_by)} of the three sweep kernels (the
-    carry's 4 selects per candidate, or vpu2's 2 and its gather); the mma
-    variant's products at the FP64 tensor rate against its fp32 epilogue
-    and its bytes."""
+def sweep_bounds(lanes, n, reps, meets):
+    """{kernel: (bound_ms, bound_by)} of the three sweep kernels. The scalar
+    pair's candidates pay for the sqrt, roots and update (the carry's 4
+    selects, or vpu2's 2 and its gather) only where the line meets the
+    sphere (`meets` of lanes x reps x n, `sweep_meets`), as the renderers'
+    and the onehot pair's sweeps are counted; the mma variant (not
+    recounted) its products at the FP64 tensor rate against its fp32
+    epilogue and its bytes."""
     cand, pairs = lanes * reps * n, lanes * n
     io = lanes * 32
-    scalar = pairs * PROBE_OPS["two_root_o"]
-    vpu = (scalar + cand * (PROBE_OPS["two_root_d"] + 4)
+    scalar = (pairs * PROBE_OPS["two_root_o"]
+              + (cand - meets) * PROBE_OPS["two_root_miss"])
+    vpu = (scalar + meets * (PROBE_OPS["two_root_d"] + 4)
            + lanes * reps * PROBE_OPS["vpu_rep"])
-    vpu2 = (scalar + cand * (PROBE_OPS["two_root_d"] + 2)
+    vpu2 = (scalar + meets * (PROBE_OPS["two_root_d"] + 2)
             + lanes * reps * (PROBE_OPS["vpu_rep"] + 1))
     mma_ops = (pairs * PROBE_OPS["mma_pair_o"] + cand * PROBE_OPS["mma_pair_d"]
                + lanes * reps * PROBE_OPS["mma_rep"])
@@ -723,6 +791,43 @@ def mma_tensor_ms(lanes, n, reps):
     3 multiply-adds (6 FLOP) per lane and sphere for o.c, and one per lane,
     sphere and repeat for d.c."""
     return lanes * n * (reps + 1) * 6 / PEAK_FP64_TENSOR * 1e3
+
+
+def sweep_meets(o, d, spheres, repeats, chunks=()):
+    """(candidates (lane, sphere, repeat) of the two-root sweep whose line
+    meets the sphere, hb^2 - c >= 0, in float32 as the kernels compute
+    them, over every repeat's perturbed direction; {R: (the share of (lane,
+    sphere, chunk of R repeats) that the scalar kernels' pass 1 marks, and
+    their pass 2's rounds per warp and chunk: the most marked spheres of a
+    lane of the warp in each block of 32 spheres, summed over the blocks)}
+    for each R of `chunks`)."""
+    ox, oy, oz = (t.reshape(-1, 1) for t in o)
+    dx, dy, dz = (t.reshape(-1, 1) for t in d)
+    cx, cy, cz, r2 = spheres
+    rox, roy, roz = ox - cx, oy - cy, oz - cz
+    py, pz = roy * dy, roz * dz
+    c = rox * rox + roy * roy + roz * roz - r2
+    one, step = (torch.tensor(v, dtype=torch.float32, device=ox.device)
+                 for v in (1.0, 1e-4))
+    meets, per_repeat = 0, []
+    for r in range(repeats):
+        hb = rox * (dx * (one + step * float(r))) + py + pz
+        per_repeat.append(hb * hb - c >= 0)
+        meets += int(per_repeat[-1].sum())
+    n = c.shape[1]
+    pad = -n % 32
+    passes = {}
+    for k in chunks:
+        marked, rounds = [], []
+        for r0 in range(0, repeats, k):
+            mk = torch.stack(per_repeat[r0:r0 + k]).any(0).to(torch.int32)
+            marked.append(float(mk.float().mean()))
+            blocks = torch.nn.functional.pad(mk, (0, pad)).reshape(
+                -1, 32, (n + pad) // 32, 32).sum(3).amax(1)
+            rounds.append(float(blocks.sum(1).float().mean()))
+        passes[k] = (round(sum(marked) / len(marked), 6),
+                     round(sum(rounds) / len(rounds), 4))
+    return meets, passes
 
 
 def onehot_meets(rays, spheres) -> int:
@@ -804,8 +909,11 @@ def probe_cond_cost(card):
 def probe_sweep(card):
     """Phase 20: the sweep_variants probe's main (64 blocks, 128 spheres,
     16 repeats), each kernel against its plain version, the probe's own
-    check (vpu2 = vpu) and the mma gate."""
+    check (vpu2 = vpu) and the mma gate; the scalar pair also at (n,
+    repeats) = (100, 5) and (13, 3) on 4 blocks, and timed by CUDA-graph
+    replay beside torch.profiler."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.probes import elapsed_ms
     from l2n_tpu_torch.probes import sweep_variants as sv
     reset_launches()
     res = sv.main([])
@@ -819,23 +927,40 @@ def probe_sweep(card):
     sph = [data[k] for k in ("cx", "cy", "cz", "r2")]
     bias = torch.zeros((o.shape[1], 32, 128), dtype=torch.float32, device=dev)
     reps, n = sv.REPEATS, cmat.shape[1]
-    calls = {
-        "sweep_vpu": (lambda: sv.sweep_vpu(o, d, *sph, bias),
-                      lambda: sv.sweep_vpu_plain(o, d, *sph, bias)),
-        "sweep_vpu2": (lambda: sv.sweep_vpu2(o, d, *sph, bias),
-                       lambda: sv.sweep_vpu2_plain(o, d, *sph, bias)),
-    }
+    scalar = {"sweep_vpu": (sv.sweep_vpu, sv.sweep_vpu_plain),
+              "sweep_vpu2": (sv.sweep_vpu2, sv.sweep_vpu2_plain)}
+    calls = {name: (lambda k=k: k(o, d, *sph, bias),
+                    lambda p=p: p(o, d, *sph, bias))
+             for name, (k, p) in scalar.items()}
     out, err, plain_ms = {}, {}, {}
     for name, (kern, plain) in calls.items():
         out[name] = kern()
         want, plain_ms[name] = timed_result(plain)
-        require(torch.equal(out[name], want), f"{name} kernel/plain bit-equal")
+        require(bits_equal(out[name], want), f"{name} kernel/plain bit-equal")
         err[name] = 0.0
-    require(torch.equal(out["sweep_vpu2"], out["sweep_vpu"]),
+    require(bits_equal(out["sweep_vpu2"], out["sweep_vpu"]),
             "vpu2 = vpu bit for bit")
     require(torch.equal(res["vpu"][0], out["sweep_vpu"])
             and torch.equal(res["vpu2carry"][0], out["sweep_vpu2"]),
             "the probe's main computed the same sweeps")
+    # Fewer spheres and repeats than the chunk and the sphere loop's unroll
+    # divide: remainder chunks and the remainder loop, 4 blocks.
+    small = {}
+    for sn, sreps in ((100, 5), (13, 3)):
+        x = {k: torch.from_numpy(v[:sn] if v.ndim == 1 else v).to(dev)
+             for k, v in sv.inputs(blocks=4).items() if k != "cmat"}
+        xs = [x[k] for k in ("cx", "cy", "cz", "r2")]
+        b = torch.zeros((4, 32, 128), dtype=torch.float32, device=dev)
+        got = {}
+        for name, (kern, plain) in scalar.items():
+            got[name] = kern(x["o"], x["d"], *xs, b, sreps)
+            require(bits_equal(got[name], plain(x["o"], x["d"], *xs, b, sreps)),
+                    f"{name} kernel/plain bit-equal at n = {sn}, "
+                    f"{sreps} repeats")
+        require(bits_equal(got["sweep_vpu2"], got["sweep_vpu"]),
+                f"vpu2 = vpu at n = {sn}, {sreps} repeats")
+        small[f"n={sn},repeats={sreps}"] = round(
+            float((got["sweep_vpu"] > b).float().mean()), 4)
     ik = torch.empty((reps, *bias.shape), dtype=torch.int32, device=dev)
     ip = torch.empty_like(ik)
     mk = sv.sweep_mma(o, d, cmat, bias, reps, ik)
@@ -866,27 +991,47 @@ def probe_sweep(card):
     kernels = {name: kern for name, (kern, _) in calls.items()}
     kernels["sweep_mma"] = lambda: sv.sweep_mma(o, d, cmat, bias)
     lanes = bias.numel()
-    bounds = sweep_bounds(lanes, n, reps)
+    shape = {name: sv.launch_shape(name == "sweep_vpu", lanes, n)
+             for name in scalar}
+    meets, passes = sweep_meets(o.reshape(3, -1), d.reshape(3, -1), sph,
+                                reps, sorted({v[0] for v in shape.values()}))
+    bounds = sweep_bounds(lanes, n, reps, meets)
     rows, times = [], {}
     for name, kern in kernels.items():
         ms = profile_calls(kern, 10, f"{name}_kernel")
+        graph = elapsed_ms(kern, 20, dev, rounds=3)
         event = timed_calls(kern, 2, 10)
-        ps = (event if ms is None else ms) * 1e9 / (lanes * reps * n)
-        times[name] = {"kernel_ms": ms, "event_ms": round(event, 4),
+        ps = (graph if ms is None else ms) * 1e9 / (lanes * reps * n)
+        times[name] = {"kernel_ms": ms, "graph_ms": round(graph, 5),
+                       "event_ms": round(event, 4),
                        "plain_ms": round(plain_ms[name], 2),
                        "ps_per_lane_cand": round(ps, 3),
-                       "bound_ms": round(bounds[name][0], 5)}
+                       "bound_ms": round(bounds[name][0], 5),
+                       "share_of_bound": round(
+                           bounds[name][0] / (graph if ms is None else ms),
+                           4)}
+        extra = {}
+        if name in shape:
+            extra = dict(zip(("repeats_per_chunk", "threads", "grid",
+                              "blocks_per_sm"), shape[name]))
         rows.append(kernel_row(
             name, SWEEP_SRC, f"benchmarks/sweep_variants.py:"
             f"{ {'sweep_vpu': 83, 'sweep_vpu2': 101, 'sweep_mma': 138}[name] }",
             n_launch[name], err[name],
-            "bit-equal" if name != "sweep_mma" else
+            "bit-equal (also at n = 100 and 13)" if name != "sweep_mma" else
             "winners agree on >= 99.9% of lanes, there |d acc| <= 1e-4 "
             "max(|acc|, 1)", ms, event, plain_ms[name], bounds[name],
-            ps_per_lane_candidate=ps))
+            graph_ms=graph, ps_per_lane_candidate=ps, **extra))
+    cand = lanes * reps * n
     phase(20, f"sweep_variants probe ({bias.shape[0]} blocks, {n} spheres, "
               f"{reps} repeats): vpu, vpu2 bit-equal to their plain "
-              f"versions and to each other; mma winners agree with its "
+              f"versions and to each other, also at (n, repeats) = (100, 5) "
+              f"and (13, 3) on 4 blocks (lanes that hit {small}); launch "
+              f"(repeats per chunk, threads, grid, blocks per SM) {shape}; "
+              f"{meets} of {cand} candidates ({meets / cand:.5f}) meet their "
+              f"sphere; by repeats per chunk, the share of (lane, sphere, "
+              f"chunk) that pass 1 marks and pass 2's rounds per warp and "
+              f"chunk {passes}; mma winners agree with its "
               f"plain version on {agree:.6f} of lanes ({bit_equal:.6f} "
               f"bit-equal), max |d acc| "
               f"{err['sweep_mma']:.4g} (gate 1e-4 max(|acc|, 1)); against "
@@ -897,9 +1042,9 @@ def probe_sweep(card):
               f"{mma_tensor_ms(lanes, n, reps):.4f} ms; probe main ms/call "
               f"{ {k: round(v[1], 4) for k, v in res.items()} } (device "
               f"time of a CUDA graph of 8 chained calls, best of 3 "
-              f"replays); per kernel (ms/launch by torch.profiler, ms/call "
-              f"by CUDA events, plain ms/call) {times}; "
-              f"card: {card}")
+              f"replays); per kernel (ms/launch by torch.profiler over 10, "
+              f"ms/call by CUDA-graph replay of 20, best of 3, and by CUDA "
+              f"events, plain ms/call) {times}; card: {card}")
     return rows, times
 
 
@@ -1165,6 +1310,8 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     # --- 1: card, versions, build ------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    serial_build = start_serial_sweep(build, Path(tmp.name))
     lib_path, build_s = build.build()
     build.load()
     ptxas, kernel = [], "?"
@@ -1187,11 +1334,39 @@ def main() -> int:
     group, threads, blocks = launch_shape(TH * TW)
     onehot_regs = [ln for ln in ptxas if ln.startswith("onehot_")
                    and "registers" in ln]
+    # The scalar sweeps: the kept kernels' registers and spills (no spill
+    # allowed), the serial body's beside them, and each one's CALL sites.
+    _, serial_err = serial_build.communicate()
+    require(serial_build.returncode == 0,
+            f"nvcc of the serial sweep body: {serial_err[-2000:]}")
+    sweep_regs = [ln for ln in ptxas if re.match(r"sweep_vpu2?:", ln)]
+    require(sweep_regs and not any(
+        re.search(r"[1-9]\d* bytes (spill|stack)", ln)
+        for ln in sweep_regs),
+        f"sweep_vpu / sweep_vpu2 spill nothing: {sweep_regs}")
+    serial_regs, kernel = [], "?"
+    for ln in serial_err.splitlines():
+        m = re.search(r"serial_sweep_vpu2?", ln)
+        if "Compiling entry function" in ln and m:
+            kernel = m.group(0)
+        elif "registers" in ln or "spill" in ln:
+            serial_regs.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    calls = ("cuobjdump not found" if not cuobjdump.exists() else {
+        **sass_calls(str(cuobjdump), lib_path, r"sweep_vpu2?_kernel"),
+        **sass_calls(str(cuobjdump), Path(tmp.name) / "serial_sweep.cubin",
+                     r"serial_sweep_vpu2?")})
+    tmp.cleanup()
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}; kernels built in {build_s:.1f} s "
              f"({lib_path.name}); onehot_recovery: {group} lanes per ray, "
              f"{threads}-thread blocks, grid {blocks} at {TH * TW} lanes, "
-             f"{onehot_regs}; ptxas: {' | '.join(ptxas)}")
+             f"{onehot_regs}; sweep_vpu / sweep_vpu2 (chunked) {sweep_regs}, "
+             f"the serial body they replaced (sweep_lane) {serial_regs}; "
+             f"CALL instructions in their SASS (cuobjdump -sass; one site a "
+             f"sqrtf, whose slow path takes arguments outside its fast "
+             f"range, negative ones included) {calls}; "
+             f"ptxas: {' | '.join(ptxas)}")
 
     # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)

@@ -16,8 +16,11 @@
 // Each sweep is a template on `kCarry`: carry the winner's four attributes
 // through every candidate (true), or keep (t, index) only and read the
 // attributes afterwards (false, `gather`).
-// onehot_recovery.cu runs the t1-only form through `split_sweep` (end of
-// this file): one ray's sweep split over a group of lanes.
+// onehot_recovery.cu runs the t1-only form through `split_sweep`: one ray's
+// sweep split over a group of lanes. sweep_variants.cu runs the two-root
+// form through `sweep_lane_chunked` (end of this file): the spheres
+// outside, a chunk of repeats inside. `sweep_lane` (serial, repeats
+// outside) is the order both are tested against.
 
 #pragma once
 
@@ -183,6 +186,21 @@ L2N_HD float t1_only_guarded(float ox, float oy, float oz, float dx,
   return t1 >= 0.0f ? t1 : kBig;
 }
 
+// TwoRoot::t from its half-b `hb` and c = |o - c|^2 - r^2, with the square
+// root taken only on a real discriminant. The same value to the bit: where
+// hb^2 - c < 0 (or is NaN) TwoRoot's sqrtf is NaN, so t1 and then t2 fail
+// `>= 0`, giving kBig; -0.0 and +inf pass `>= 0.0f` and take the sqrt as
+// before.
+L2N_HD float two_root_guarded(float hb, float c) {
+  const float disc = hb * hb - c;
+  if (!(disc >= 0.0f)) return kBig;
+  const float sq = sqrtf(disc);
+  const float t1 = -hb - sq;
+  const float t2 = -hb + sq;
+  const float t = t1 >= 0.0f ? t1 : t2;
+  return t >= 0.0f ? t : kBig;
+}
+
 // Part `part` of the sweep: spheres part, part + G, ... in ascending order,
 // kept as `sweep` keeps them (strictly smaller t). Every lane runs the same
 // ceil(n / G) rounds, a lane past the last sphere testing none, so that the
@@ -277,13 +295,11 @@ L2N_HD Winner split_sweep(const Sphere4* s, int n, int g, unsigned mask,
   return w;
 }
 
-// `gather` from onehot_recovery's (S, 8) table in one 16-byte load of the
-// winner's row (columns 0-3: cx, cy, cz, r2; rows 32 bytes apart, so
-// 16-byte aligned when the table is), or (0, 0, 0, 0) on a miss.
-L2N_HD void gather_row(const float* table, Winner& w) {
+// `gather` from packed records, `stride` records apart, in one 16-byte load
+// of the winner's, or (0, 0, 0, 0) on a miss.
+L2N_HD void gather_packed(const Sphere4* s, int stride, Winner& w) {
   if (w.i >= 0) {
-    const Sphere4 a =
-        *reinterpret_cast<const Sphere4*>(table + static_cast<size_t>(w.i) * 8);
+    const Sphere4 a = s[static_cast<size_t>(w.i) * stride];
     w.cx = a.cx;
     w.cy = a.cy;
     w.cz = a.cz;
@@ -291,6 +307,164 @@ L2N_HD void gather_row(const float* table, Winner& w) {
   } else {
     w.cx = w.cy = w.cz = w.r2 = 0.0f;
   }
+}
+
+// `gather` from onehot_recovery's (S, 8) table: columns 0-3 (cx, cy, cz,
+// r2) of the winner's row, rows 32 bytes apart, so 16-byte aligned when the
+// table is.
+L2N_HD void gather_row(const float* table, Winner& w) {
+  gather_packed(reinterpret_cast<const Sphere4*>(table), 2, w);
+}
+
+// ---------------------------------------------------------------------------
+// sweep_variants' chunked sweep (csrc/sweep_variants.cu): the spheres
+// outside, a chunk of R repeats inside, the spheres packed 16 bytes each,
+// the roots only for the spheres that a lane's line meets.
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDACC__)
+#define L2N_UNROLL _Pragma("unroll")
+#else
+#define L2N_UNROLL
+#endif
+
+// Spheres per round of pass 1's loop over a block of spheres; a remainder
+// loop takes the rest.
+constexpr int kSphereUnroll = 4;
+
+// The index of the lowest set bit of v != 0.
+L2N_HD int lowest_bit(unsigned v) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(static_cast<int>(v)) - 1;
+#else
+  return __builtin_ctz(v);
+#endif
+}
+
+// What a lane's candidates of one sphere share across the repeats: o - c's
+// x, hb's products roy dy and roz dz (the repeats perturb dx only), and
+// c = |o - c|^2 - r^2, each rounded as TwoRoot rounds it.
+struct SphereTerms {
+  float rox, py, pz, c;
+};
+
+L2N_HD SphereTerms sphere_terms(const Sphere4& q, float ox, float oy,
+                                float oz, float dy, float dz) {
+  const float rox = ox - q.cx, roy = oy - q.cy, roz = oz - q.cz;
+  return SphereTerms{rox, roy * dy, roz * dz,
+                     rox * rox + roy * roy + roz * roz - q.r2};
+}
+
+// TwoRoot's hb = rox dx + roy dy + roz dz for the direction's x `dxr`.
+L2N_HD float chunk_hb(const SphereTerms& a, float dxr) {
+  return a.rox * dxr + a.py + a.pz;
+}
+
+// Pass 1: does the lane's line meet the sphere (hb^2 - c >= 0, TwoRoot's
+// discriminant) in a repeat of the chunk?
+template <int R>
+L2N_HD bool chunk_meets(const SphereTerms& a, const float (&dxr)[R]) {
+  bool meets = false;
+  L2N_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const float hb = chunk_hb(a, dxr[k]);
+    meets |= hb * hb - a.c >= 0.0f;
+  }
+  return meets;
+}
+
+// Pass 2: sphere j's roots in each repeat of the chunk, each repeat's
+// winner kept as `sweep` keeps it (strictly smaller t).
+template <bool kCarry, int R>
+L2N_HD void chunk_roots(const Sphere4& q, int j, const SphereTerms& a,
+                        const float (&dxr)[R], Winner (&w)[R]) {
+  L2N_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const float t = two_root_guarded(chunk_hb(a, dxr[k]), a.c);
+    if (t < w[k].t) {
+      w[k].t = t;
+      w[k].i = j;
+      if (kCarry) {
+        w[k].cx = q.cx;
+        w[k].cy = q.cy;
+        w[k].cz = q.cz;
+        w[k].r2 = q.r2;
+      }
+    }
+  }
+}
+
+// Repeats r0 .. r0 + R - 1 of sweep_lane, over the spheres in blocks of
+// 32: pass 1 marks in a 32-bit mask the spheres of the block that the
+// lane's line meets in a repeat of the chunk, pass 2 runs the roots of the
+// marked ones, lowest index first. A sphere that pass 1 leaves out has no
+// real discriminant in any repeat, so its roots are kBig and would change
+// no winner: every repeat keeps the serial sweep's winner, ties included.
+// Then each repeat's accumulation, in order (without kCarry, after its
+// gather).
+template <bool kCarry, int R>
+L2N_HD void sweep_chunk(const Sphere4* s, int n, int r0, float ox, float oy,
+                        float oz, float dx, float dy, float dz, float& acc) {
+  float dxr[R];
+  Winner w[R];
+  L2N_UNROLL
+  for (int k = 0; k < R; ++k) {
+    dxr[k] = dx * perturb_scale(r0 + k);
+    w[k] = Winner{kBig, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+  }
+  for (int base = 0; base < n; base += 32) {
+    const int m = n - base < 32 ? n - base : 32;
+    unsigned hits = 0u;
+    int u = 0;
+    for (; u + kSphereUnroll <= m; u += kSphereUnroll) {
+      L2N_UNROLL
+      for (int v = 0; v < kSphereUnroll; ++v) {
+        const SphereTerms a = sphere_terms(s[base + u + v], ox, oy, oz, dy, dz);
+        hits |= static_cast<unsigned>(chunk_meets<R>(a, dxr)) << (u + v);
+      }
+    }
+    for (; u < m; ++u) {
+      const SphereTerms a = sphere_terms(s[base + u], ox, oy, oz, dy, dz);
+      hits |= static_cast<unsigned>(chunk_meets<R>(a, dxr)) << u;
+    }
+    for (; hits != 0u; hits &= hits - 1u) {
+      const int j = base + lowest_bit(hits);
+      chunk_roots<kCarry, R>(s[j], j, sphere_terms(s[j], ox, oy, oz, dy, dz),
+                             dxr, w);
+    }
+  }
+  L2N_UNROLL
+  for (int k = 0; k < R; ++k) {
+    if (!kCarry) gather_packed(s, 1, w[k]);
+    acc = accumulate_vpu(acc, w[k]);
+  }
+}
+
+// `count` repeats from r0 in chunks of R, then what is left in chunks of
+// R / 2, R / 4, ... 1.
+template <bool kCarry, int R>
+L2N_HD void sweep_chunks(const Sphere4* s, int n, int r0, int count,
+                         float ox, float oy, float oz, float dx, float dy,
+                         float dz, float& acc) {
+  static_assert(R >= 1, "a chunk holds a repeat");
+  for (; count >= R; r0 += R, count -= R)
+    sweep_chunk<kCarry, R>(s, n, r0, ox, oy, oz, dx, dy, dz, acc);
+  if constexpr (R > 1)
+    sweep_chunks<kCarry, R / 2>(s, n, r0, count, ox, oy, oz, dx, dy, dz,
+                                acc);
+}
+
+// sweep_lane over the packed spheres, chunks of R repeats: each repeat
+// still meets the spheres in ascending index and keeps a strictly smaller
+// t, so its winner, ties included, is the serial sweep's, and the
+// accumulation runs repeat by repeat in order: the same value to the bit.
+template <bool kCarry, int R>
+L2N_HD float sweep_lane_chunked(const Sphere4* s, int n, int repeats,
+                                float ox, float oy, float oz, float dx,
+                                float dy, float dz, float bias) {
+  float acc = bias;
+  sweep_chunks<kCarry, R>(s, n, 0, repeats, ox, oy, oz, dx, dy, dz, acc);
+  return acc;
 }
 
 }  // namespace l2n_probe

@@ -7,7 +7,7 @@
 // repeat r, and accumulates t, the winner's cx and r2 and its index into
 // `out`, starting from `bias`:
 //   * sweep_vpu: the production sweep, the winner's attributes carried
-//     through every candidate (selects per candidate);
+//     with it (selected at every update of the winner);
 //   * sweep_vpu2: (t, index) only, the attributes read afterwards. The TPU
 //     has no gather and recovered them with a one-hot sum; here it is one
 //     shared-memory load, and the result is bit-equal to sweep_vpu;
@@ -18,12 +18,27 @@
 //     (|c|^2 - r^2), hb = o.d - c.d), not the scalar sweep's, so it differs
 //     from sweep_vpu by design.
 //
-// What bounds them on this card: fp32 issue, not memory. A lane-candidate
-// costs ~24 operations and a sqrt (vpu), against 28 bytes per lane read and
-// written once for all R x n candidates. Design:
-//   * vpu / vpu2: one thread per lane, the sphere rows staged once per block
-//     into shared memory (every thread of a warp reads the same sphere, a
-//     broadcast), the body shared with the CPU tests (csrc/sweep_probe.cuh);
+// What bounds them on this card: fp32 issue, not memory (32 bytes per lane
+// read and written once for all R x n candidates). A lane-candidate whose
+// line misses the sphere needs 6 operations (hb on the products roy dy and
+// roz dz, which the repeats share as they perturb dx only; the
+// discriminant; its test); the sqrt, the roots and the update only where
+// it meets (0.34% of the probe's candidates); o - c and c once per (lane,
+// sphere), not once per repeat. Design:
+//   * vpu / vpu2: one thread per lane, the spheres staged once per block
+//     into shared memory as 16-byte records (every thread of a warp reads
+//     the same sphere, a broadcast); the spheres outside and a chunk of
+//     kChunk repeats inside (csrc/sweep_probe.cuh `sweep_lane_chunked`,
+//     the body shared with the CPU tests), each repeat's winner in
+//     registers. Per block of 32 spheres, pass 1 only tests whether the
+//     lane's line meets each sphere in a repeat of the chunk and marks it
+//     in a 32-bit mask; pass 2 runs the roots (and sqrtf) for the marked
+//     spheres, lowest index first. So no negative discriminant reaches
+//     sqrtf's slow path, and pass 2 holds a warp for as many rounds as its
+//     lane with the most marked spheres (about one in ten (warp, sphere,
+//     chunk) has one); a vote per (sphere, chunk) or a branch per
+//     candidate were slower (PERF.md). __launch_bounds__ keeps 4 blocks
+//     (1,024 threads) per SM with no spill;
 //   * mma: one warp per 8 lanes. mma.sync m8n8k4 in FP64 (DMMA): A is the
 //     8 lanes' (x, y, z, 0) as doubles, B the (x, y, z, 0) of 8 spheres
 //     from shared memory, so K = 4 holds the three components with one
@@ -52,54 +67,70 @@ using l2n_probe::kBig;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Blocks per SM that __launch_bounds__ asks room for (at most 64 registers
+// a thread), and the repeats per chunk of each scalar kernel (measured on
+// the card, PERF.md): the carry holds 4 values a repeat (t, index, cx,
+// r2), vpu2 2, and at 8 repeats a chunk the carry no longer fits 64
+// registers without a spill.
+constexpr int kMinBlocks = 4;
+constexpr int kChunkVpu = 4;
+constexpr int kChunkVpu2 = 8;
 
-// sweep_vpu (kCarry) / sweep_vpu2: one thread per lane.
-template <bool kCarry>
+// sweep_vpu (kCarry) / sweep_vpu2: one thread per lane, R repeats a chunk.
+template <bool kCarry, int R>
 __device__ __forceinline__ void sweep_vpu_body(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ cx, const float* __restrict__ cy,
     const float* __restrict__ cz, const float* __restrict__ r2, int n,
     int lanes, int repeats, const float* __restrict__ bias,
     float* __restrict__ out) {
-  extern __shared__ float rows[];  // (4, n): cx, cy, cz, r2
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    rows[j] = cx[j];
-    rows[n + j] = cy[j];
-    rows[2 * n + j] = cz[j];
-    rows[3 * n + j] = r2[j];
-  }
-  __syncthreads();
+  extern __shared__ l2n_probe::Sphere4 packed[];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= lanes) return;
-  const l2n_probe::Spheres s{rows, n};
-  out[p] = l2n_probe::sweep_lane<kCarry>(
-      s, repeats, o[p], o[lanes + p], o[2 * lanes + p], d[p], d[lanes + p],
-      d[2 * lanes + p], bias[p]);
+  const bool live = p < lanes;
+  // The ray's loads are issued before the barrier, beside the staging.
+  float ray[6] = {}, b = 0.0f;
+  if (live) {
+    for (int k = 0; k < 3; ++k) {
+      ray[k] = o[k * lanes + p];
+      ray[3 + k] = d[k * lanes + p];
+    }
+    b = bias[p];
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    packed[j] = l2n_probe::Sphere4{cx[j], cy[j], cz[j], r2[j]};
+  __syncthreads();
+  if (!live) return;
+  out[p] = l2n_probe::sweep_lane_chunked<kCarry, R>(
+      packed, n, repeats, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], b);
 }
 
 // One kernel name per variant, so that a profile tells them apart.
-__global__ void sweep_vpu_kernel(const float* __restrict__ o,
-                                 const float* __restrict__ d,
-                                 const float* __restrict__ cx,
-                                 const float* __restrict__ cy,
-                                 const float* __restrict__ cz,
-                                 const float* __restrict__ r2, int n,
-                                 int lanes, int repeats,
-                                 const float* __restrict__ bias,
-                                 float* __restrict__ out) {
-  sweep_vpu_body<true>(o, d, cx, cy, cz, r2, n, lanes, repeats, bias, out);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sweep_vpu_kernel(const float* __restrict__ o,
+                     const float* __restrict__ d,
+                     const float* __restrict__ cx,
+                     const float* __restrict__ cy,
+                     const float* __restrict__ cz,
+                     const float* __restrict__ r2, int n,
+                     int lanes, int repeats,
+                     const float* __restrict__ bias,
+                     float* __restrict__ out) {
+  sweep_vpu_body<true, kChunkVpu>(o, d, cx, cy, cz, r2, n, lanes, repeats,
+                                  bias, out);
 }
 
-__global__ void sweep_vpu2_kernel(const float* __restrict__ o,
-                                  const float* __restrict__ d,
-                                  const float* __restrict__ cx,
-                                  const float* __restrict__ cy,
-                                  const float* __restrict__ cz,
-                                  const float* __restrict__ r2, int n,
-                                  int lanes, int repeats,
-                                  const float* __restrict__ bias,
-                                  float* __restrict__ out) {
-  sweep_vpu_body<false>(o, d, cx, cy, cz, r2, n, lanes, repeats, bias, out);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sweep_vpu2_kernel(const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const float* __restrict__ cx,
+                      const float* __restrict__ cy,
+                      const float* __restrict__ cz,
+                      const float* __restrict__ r2, int n,
+                      int lanes, int repeats,
+                      const float* __restrict__ bias,
+                      float* __restrict__ out) {
+  sweep_vpu_body<false, kChunkVpu2>(o, d, cx, cy, cz, r2, n, lanes, repeats,
+                                    bias, out);
 }
 
 // D (8x8, f64) = A (8x4, row) . B (4x8, col). Thread `lane` holds
@@ -214,13 +245,19 @@ __global__ void sweep_mma_kernel(const float* __restrict__ o,
   }
 }
 
+int vpu_grid(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+
+size_t vpu_smem(int n) {
+  return sizeof(l2n_probe::Sphere4) * static_cast<size_t>(n);
+}
+
 template <bool kCarry>
 int launch_vpu(const float* o, const float* d, const float* cx,
                const float* cy, const float* cz, const float* r2, int n,
                int lanes, int repeats, const float* bias, float* out,
                void* stream) {
-  const dim3 grid(static_cast<unsigned>((lanes + kThreads - 1) / kThreads));
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(n);
+  const dim3 grid(static_cast<unsigned>(vpu_grid(lanes)));
+  const size_t smem = vpu_smem(n);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kCarry) {
     sweep_vpu_kernel<<<grid, kThreads, smem, s>>>(o, d, cx, cy, cz, r2, n,
@@ -251,6 +288,19 @@ extern "C" int l2n_sweep_vpu2(const float* o, const float* d, const float* cx,
                               const float* bias, float* out, void* stream) {
   return launch_vpu<false>(o, d, cx, cy, cz, r2, n, lanes, repeats, bias,
                            out, stream);
+}
+
+// The scalar kernels' launch shape at `lanes` lanes and n spheres into
+// shape[0..3]: repeats per chunk, threads per block, blocks, and the blocks
+// an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns that call's CUDA error (0 on success).
+extern "C" int l2n_sweep_shape(int carry, int lanes, int n, int* shape) {
+  shape[0] = carry ? kChunkVpu : kChunkVpu2;
+  shape[1] = kThreads;
+  shape[2] = vpu_grid(lanes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &shape[3], carry ? sweep_vpu_kernel : sweep_vpu2_kernel, kThreads,
+      vpu_smem(n)));
 }
 
 // o, d: (3, lanes); cmat: (8, n), n a multiple of 8; bias, out: (lanes,),

@@ -3,13 +3,15 @@
 two or more versions of the kernels against each other on one card in one
 call: the fused step kernels, sphere_pt and triangle_pt, and the wavefront
 step (`RenderConfig(wavefront=True)`, threefry and tpu_hw), whole and pass
-by pass; and the onehot_recovery probe's two kernels at its S = 128.
+by pass; the onehot_recovery probe's two kernels at its S = 128; and the
+sweep_variants probe's three kernels at its size (64 blocks, 128 spheres,
+16 repeats).
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
-    # V1, this, DIR; --only fused|wavefront|onehot times one family
+    # V1, this, DIR; --only fused|wavefront|onehot|sweep times one family
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -23,7 +25,8 @@ backend="cuda"), as the main path runs it, schedule gather included. Its
 passes are timed by torch.profiler over eager steps (device ms per launch
 of each `wavefront_pass_*_kernel`, and every other device event of the step
 summed per step, "rest"). The onehot pair is timed per call of its
-wrapper by graph replay, and per launch by torch.profiler ("... kernel").
+wrapper by graph replay, and per launch by torch.profiler ("... kernel");
+the sweeps the same way (sweep_vpu, sweep_vpu2, sweep_mma).
 Needs one CUDA card; prints one JSON line per process and a summary, and
 the card's name and power limit.
 """
@@ -173,12 +176,35 @@ def _onehot(torch, root: Path, times: dict) -> None:
                                                  f"{name}_kernel")
 
 
+def _sweep(torch, root: Path, times: dict) -> None:
+    """The sweep probe's kernels' device ms per call of their wrappers
+    (graph replay of 20 calls) and per launch (torch.profiler over 10) into
+    `times`."""
+    sys.path.insert(0, str(root))
+    from l2n_tpu_torch.probes import sweep_variants as sv
+    assert Path(sv.__file__).resolve().is_relative_to(root)
+    x = {k: torch.from_numpy(v).to("cuda") for k, v in sv.inputs().items()}
+    o, d, cmat = x["o"], x["d"], x["cmat"]
+    sph = [x[k] for k in ("cx", "cy", "cz", "r2")]
+    bias = torch.zeros(o.shape[1:], dtype=torch.float32, device="cuda")
+    calls = {"sweep_vpu": lambda: sv.sweep_vpu(o, d, *sph, bias),
+             "sweep_vpu2": lambda: sv.sweep_vpu2(o, d, *sph, bias),
+             "sweep_mma": lambda: sv.sweep_mma(o, d, cmat, bias)}
+    for name, fn in calls.items():
+        times[name] = graph_ms(torch, fn, 20)
+        times[f"{name} kernel"] = profile_ms(torch, fn, 10,
+                                             f"{name}_kernel").get(
+                                                 f"{name}_kernel")
+
+
 def measure_tree(root: Path, only: str) -> dict:
     """ms per call of each family's public wrapper or step, per schedule."""
     import torch
     times = {}
     if only in ("all", "onehot"):
         _onehot(torch, root, times)
+    if only in ("all", "sweep"):
+        _sweep(torch, root, times)
     if only in ("all", "fused", "wavefront"):
         _, cam, families = _families(root)
         from l2n_tpu_torch.render.state import init_frame_state
@@ -209,8 +235,8 @@ def main() -> int:
                     help="the other tree: measure DIR, this, this, DIR")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="one more tree, measured after this one")
-    ap.add_argument("--only", choices=("all", "fused", "wavefront", "onehot"),
-                    default="all")
+    ap.add_argument("--only", choices=("all", "fused", "wavefront", "onehot",
+                                       "sweep"), default="all")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:  # one measurement, in this process

@@ -16,7 +16,9 @@ r, and accumulates t, the winner's cx and r2 and its index from `bias`:
     instead, as the JAX kernel's float32 dot does.
 
 Each wrapper launches csrc/sweep_variants.cu on CUDA tensors and runs its
-`*_plain` version on CPU tensors.
+`*_plain` version on CPU tensors. The scalar kernels walk the spheres once
+per chunk of repeats (`launch_shape` gives the chunk, block, grid and the
+blocks an SM holds).
 
 CAVEAT (benchmarks/PROFILE.md, "methodology"): an isolated harness's
 absolute rate need not be the fused kernel's; the chained repeats
@@ -41,6 +43,7 @@ import torch
 
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.sampling import sqrt
+from l2n_tpu_torch.ops.kernels import build
 from l2n_tpu_torch.ops.kernels.common import check_tensor, launch_raw
 from l2n_tpu_torch.probes import elapsed_ms, probe_device
 from l2n_tpu_torch.scene.spheres import compute_spheres
@@ -167,6 +170,19 @@ def _sweep(name, o, d, cx, cy, cz, r2, bias, repeats):
     out = torch.empty_like(bias)
     launch_raw(name, dev, o, d, cx, cy, cz, r2, n, lanes, repeats, bias, out)
     return out
+
+
+def launch_shape(carry: bool, lanes: int, n: int = SPHERES
+                 ) -> tuple[int, int, int, int]:
+    """(repeats per chunk, threads per block, blocks, blocks per SM) of
+    sweep_vpu (carry) or sweep_vpu2 at `lanes` lanes and n spheres, from the
+    built library and the current card."""
+    shape = np.zeros(4, np.int32)
+    rc = build.load().l2n_sweep_shape(int(carry), lanes, n,
+                                      shape.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"sweep launch shape: CUDA error {rc}")
+    return tuple(int(v) for v in shape)
 
 
 def sweep_vpu_plain(o, d, cx, cy, cz, r2, bias, repeats: int = REPEATS):

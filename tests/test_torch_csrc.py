@@ -248,6 +248,25 @@ void onehot_split_group(int carry, const float* rays,
     onehot_split_lanes<false, G>(rays, s, n, table, lanes, out);
 }
 
+// sweep_variants' chunked lane body (csrc/sweep_variants.cu) with R repeats
+// a chunk, over the spheres packed into a buffer of exactly n records, as
+// the kernels' block prologue stages them.
+template <int R>
+void sweep_chunked_lanes(int carry, const float* o, const float* d,
+                         const l2n_probe::Sphere4* s, int n, int64_t lanes,
+                         int repeats, const float* bias, float* out) {
+  for (int64_t p = 0; p < lanes; ++p) {
+    const float* a = o + p;
+    const float* b = d + p;
+    out[p] = carry ? l2n_probe::sweep_lane_chunked<true, R>(
+                         s, n, repeats, a[0], a[lanes], a[2 * lanes], b[0],
+                         b[lanes], b[2 * lanes], bias[p])
+                   : l2n_probe::sweep_lane_chunked<false, R>(
+                         s, n, repeats, a[0], a[lanes], a[2 * lanes], b[0],
+                         b[lanes], b[2 * lanes], bias[p]);
+  }
+}
+
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
@@ -413,6 +432,23 @@ void l2n_sweep_lanes_host(int carry, const float* o, const float* d,
                          b[lanes], b[2 * lanes], bias[p]);
   }
 }
+int l2n_sweep_chunked_host(int carry, int chunk, const float* o,
+                           const float* d, const float* rows, int n,
+                           int64_t lanes, int repeats, const float* bias,
+                           float* out) {
+  std::vector<l2n_probe::Sphere4> packed(n);
+  for (int j = 0; j < n; ++j) packed[j] = l2n_probe::packed_sphere(rows, n, j);
+  const l2n_probe::Sphere4* s = packed.data();
+  switch (chunk) {
+    case 1: sweep_chunked_lanes<1>(carry, o, d, s, n, lanes, repeats, bias, out); break;
+    case 2: sweep_chunked_lanes<2>(carry, o, d, s, n, lanes, repeats, bias, out); break;
+    case 4: sweep_chunked_lanes<4>(carry, o, d, s, n, lanes, repeats, bias, out); break;
+    case 8: sweep_chunked_lanes<8>(carry, o, d, s, n, lanes, repeats, bias, out); break;
+    case 16: sweep_chunked_lanes<16>(carry, o, d, s, n, lanes, repeats, bias, out); break;
+    default: return 1;
+  }
+  return 0;
+}
 void l2n_onehot_lanes_host(int carry, const float* rays, const float* rows,
                            int n, const float* table, int64_t lanes,
                            float* out) {
@@ -492,6 +528,8 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
     i64 = ctypes.c_int64
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
+    lib.l2n_sweep_chunked_host.argtypes = [i, i, p, p, p, i, i64, i, p, p]
+    lib.l2n_sweep_chunked_host.restype = ctypes.c_int
     lib.l2n_onehot_lanes_host.argtypes = [i, p, p, i, p, i64, p]
     lib.l2n_onehot_split_host.argtypes = [i, i, p, p, i, p, i64, p]
     lib.l2n_onehot_split_host.restype = ctypes.c_int
@@ -1083,6 +1121,49 @@ print("clean")
 """
 
 
+ASAN_SWEEP = r"""
+import ctypes, sys
+import numpy as np
+import torch
+from l2n_tpu_torch.probes import sweep_variants as sv
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_sweep_chunked_host.argtypes = [i, i, p, p, p, i, ctypes.c_int64, i,
+                                       p, p]
+lib.l2n_sweep_chunked_host.restype = i
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+data = sv.inputs(blocks=1)
+bias = np.zeros((1, 32, 128), np.float32)
+# 4 repeats a chunk: 5 repeats leave a remainder chunk of 1, 3 one of 2 and
+# one of 1; 100 and 13 spheres end in a partial block of 32, and 13 in the
+# sphere loop's remainder
+for n, reps in ((100, 5), (13, 3)):
+    rows = np.ascontiguousarray(
+        np.stack([data[k][:n] for k in ("cx", "cy", "cz", "r2")]))
+    for carry in (1, 0):
+        out = np.empty_like(bias)
+        assert lib.l2n_sweep_chunked_host(
+            carry, 4, ptr(data["o"]), ptr(data["d"]), ptr(rows), n,
+            bias.size, reps, ptr(bias), ptr(out)) == 0
+        plain = sv.sweep_vpu_plain if carry else sv.sweep_vpu2_plain
+        want = plain(torch.from_numpy(data["o"]), torch.from_numpy(data["d"]),
+                     *(torch.from_numpy(r) for r in rows),
+                     torch.from_numpy(bias), reps).numpy()
+        assert np.array_equal(out.view(np.int32), want.view(np.int32))
+print("clean")
+"""
+
+
+def test_sweep_chunked_header_memcheck_asan(tmp_path):
+    """The memory check of sweep_variants' chunked sweep (ROADMAP Queue 3
+    #15): the header built with AddressSanitizer sweeps 4,096 rays over a
+    packed buffer of exactly n spheres, 4 repeats a chunk, at (n, repeats)
+    = (100, 5) and (13, 3), carry and gather, bit-equal to the plain
+    versions: neither the unrolled sphere loop, its remainder, the gather
+    nor a remainder chunk reads past the last sphere."""
+    _asan_render(tmp_path, script=ASAN_SWEEP)
+
+
 def test_onehot_split_header_memcheck_asan(tmp_path):
     """The memory check of onehot_recovery's split sweep (ROADMAP Queue 3
     #15): the header built with AddressSanitizer sweeps 4,096 rays with 32
@@ -1308,6 +1389,67 @@ def test_sweep_probe_header_matches_plain(lib, carry):
                  *(torch.from_numpy(r) for r in rows),
                  torch.from_numpy(bias), 3).numpy()
     assert (want > bias).mean() > 0.01  # some lanes hit
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@functools.cache
+def _sweep_plain(carry, n, repeats, tied=False):
+    """sweep_variants' inputs for one block (4,096 rays) at n spheres of the
+    default scene, a random bias, and the plain sweep_vpu / sweep_vpu2 over
+    `repeats` repeats. `tied`: the first n // 2 spheres each twice, at
+    indices 2j and 2j + 1, so that every hit is a tie in t."""
+    data = sweep_variants.inputs(blocks=1)
+    rows = np.stack([data[k][:n] for k in ("cx", "cy", "cz", "r2")])
+    if tied:
+        rows = np.repeat(rows[:, :n // 2], 2, axis=1)
+    rows = np.ascontiguousarray(rows)
+    bias = np.random.default_rng(24).uniform(
+        -1, 1, (1, 32, 128)).astype(np.float32)
+    plain = (sweep_variants.sweep_vpu_plain if carry
+             else sweep_variants.sweep_vpu2_plain)
+    want = plain(torch.from_numpy(data["o"]), torch.from_numpy(data["d"]),
+                 *(torch.from_numpy(r) for r in rows),
+                 torch.from_numpy(bias), repeats).numpy()
+    return data["o"], data["d"], rows, bias, want
+
+
+def _sweep_chunked(lib, carry, chunk, o, d, rows, bias, repeats):
+    out = np.empty_like(bias)
+    assert lib.l2n_sweep_chunked_host(
+        int(carry), chunk, _ptr(o), _ptr(d), _ptr(rows), rows.shape[1],
+        bias.size, repeats, _ptr(bias), _ptr(out)) == 0
+    return out
+
+
+@pytest.mark.parametrize("n,repeats", [(16, 3), (100, 5), (128, 16),
+                                       (13, 3)])
+@pytest.mark.parametrize("chunk", [1, 4, 8, 16])
+@pytest.mark.parametrize("carry", [True, False], ids=["vpu", "vpu2"])
+def test_sweep_chunked_header_matches_plain(lib, carry, chunk, n, repeats):
+    """The kernels' chunked lane body (csrc/sweep_probe.cuh
+    `sweep_lane_chunked`: spheres outside, `chunk` repeats inside, packed
+    spheres in blocks of 32, the roots only for the spheres a ray meets in
+    a repeat of the chunk) over one block of 4,096 rays: bit-equal to the
+    plain sweep_vpu / sweep_vpu2 (the kernels run 4 and 8 repeats a
+    chunk). 4, 8 and 16 do not divide 3 or 5 repeats (remainder chunks),
+    32 does not divide 100 or 13 (a partial block), and the sphere loop's
+    unroll does not divide 13."""
+    o, d, rows, bias, want = _sweep_plain(carry, n, repeats)
+    out = _sweep_chunked(lib, carry, chunk, o, d, rows, bias, repeats)
+    assert (want > bias).mean() > 0.01  # some lanes hit
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("carry", [True, False], ids=["vpu", "vpu2"])
+def test_sweep_chunked_header_tie_rule(lib, carry, chunk):
+    """Every sphere twice, at indices 2j and 2j + 1: every hit is a tie in
+    t, and each repeat of a chunk keeps the smaller index, as the serial
+    sweep does (bit-equal to the plain versions, whose accumulation adds
+    the winner's index / 1000 in every repeat)."""
+    o, d, rows, bias, want = _sweep_plain(carry, 64, 5, tied=True)
+    out = _sweep_chunked(lib, carry, chunk, o, d, rows, bias, 5)
+    assert (want > bias).mean() > 0.01
     np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
 
 
