@@ -186,15 +186,113 @@ extern "C" __global__ void serial_sweep_vpu2(
 """
 
 
-def start_serial_sweep(build, tmp: Path) -> subprocess.Popen:
-    """nvcc of SERIAL_SWEEP_CU into tmp/serial_sweep.cubin, with the
-    kernels' flags, started in the background."""
-    src = tmp / "serial_sweep.cu"
-    src.write_text(SERIAL_SWEEP_CU)
+# The tensor-core sweep kernel before its redesign (FP64 mma.sync m8n8k4 for
+# o.c and d.c in every repeat, sqrtf on every candidate), built on its own
+# beside the kernels for its registers and SASS.
+OLD_MMA_CU = r"""
+#include "sweep_probe.cuh"
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%4, %5};\n"
+      : "=d"(d0), "=d"(d1) : "d"(a), "d"(b), "d"(0.0), "d"(0.0));
+}
+__device__ __forceinline__ float root_t(float oo, float od, float oc,
+                                        float cd, float ccr) {
+  const float c = oo - (oc + oc) + ccr;
+  const float hb = od - cd;
+  const float sq = sqrtf(hb * hb - c);
+  const float t1 = -hb - sq, t2 = -hb + sq;
+  const float t = t1 >= 0.0f ? t1 : t2;
+  return t >= 0.0f ? t : l2n_probe::kBig;
+}
+extern "C" __global__ void old_sweep_mma(
+    const float* o, const float* d, const float* cmat, int n, int lanes,
+    int repeats, const float* bias, float* out, int* index) {
+  extern __shared__ double smem[];
+  double* bfrag = smem;
+  float* ccr = reinterpret_cast<float*>(smem + 4 * n);
+  float* wcx = ccr + n;
+  float* wr2 = wcx + n;
+  for (int e = threadIdx.x; e < 4 * n; e += blockDim.x) {
+    const int j = (e >> 5) * 8 + ((e & 31) >> 2), k = e & 3;
+    bfrag[e] = k < 3 ? static_cast<double>(cmat[k * n + j]) : 0.0;
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    ccr[j] = cmat[4 * n + j];
+    wcx[j] = cmat[j];
+    wr2[j] = cmat[3 * n + j];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, q = lane & 3, warps = blockDim.x / 32;
+  for (int tile = blockIdx.x * warps + (threadIdx.x >> 5); tile < lanes / 8;
+       tile += gridDim.x * warps) {
+    const int p = tile * 8 + (lane >> 2);
+    const float ox = o[p], oy = o[lanes + p], oz = o[2 * lanes + p];
+    const float dx0 = d[p], dy = d[lanes + p], dz = d[2 * lanes + p];
+    const double a_o = q == 0 ? ox : q == 1 ? oy : q == 2 ? oz : 0.0;
+    const float oo = ox * ox + oy * oy + oz * oz;
+    float acc = bias[p];
+    for (int r = 0; r < repeats; ++r) {
+      const float dx = dx0 * l2n_probe::perturb_scale(r);
+      const double a_d = q == 0 ? dx : q == 1 ? dy : q == 2 ? dz : 0.0;
+      const float od = ox * dx + oy * dy + oz * dz;
+      float best = l2n_probe::kBig;
+      int bi = n;
+      for (int st = 0; st < n / 8; ++st) {
+        const double b = bfrag[st * 32 + lane];
+        double cd0, cd1, oc0, oc1;
+        dmma(cd0, cd1, a_d, b);
+        dmma(oc0, oc1, a_o, b);
+        const int j = st * 8 + 2 * q;
+        const float t0 = root_t(oo, od, static_cast<float>(oc0),
+                                static_cast<float>(cd0), ccr[j]);
+        const float t1 = root_t(oo, od, static_cast<float>(oc1),
+                                static_cast<float>(cd1), ccr[j + 1]);
+        if (t0 < best) { best = t0; bi = j; }
+        if (t1 < best) { best = t1; bi = j + 1; }
+      }
+      for (int m = 1; m <= 2; m <<= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, best, m);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, m);
+        if (ot < best || (ot == best && oi < bi)) { best = ot; bi = oi; }
+      }
+      const bool hit = best < l2n_probe::kBig;
+      const int idx = hit ? bi : -1;
+      acc = acc + ((hit ? best : 0.0f) + (hit ? wcx[bi] : 0.0f) * 1e-6f +
+                   (hit ? wr2[bi] : 0.0f) * 1e-9f +
+                   static_cast<float>(idx) * 1e-3f);
+      if (index != nullptr && q == 0) index[r * lanes + p] = idx;
+    }
+    if (q == 0) out[p] = acc;
+  }
+}
+"""
+
+
+def start_cubin(build, tmp: Path, stem: str, source: str) -> subprocess.Popen:
+    """nvcc of `source` into tmp/<stem>.cubin, with the kernels' flags,
+    started in the background."""
+    src = tmp / f"{stem}.cu"
+    src.write_text(source)
     return subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-cubin", f"-I{build.CSRC}",
-         str(src), "-o", str(tmp / "serial_sweep.cubin")],
+         str(src), "-o", str(tmp / f"{stem}.cubin")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_lines(log: str, pattern: str) -> list:
+    """`name: registers / spill` lines of ptxas -v output for the entry
+    functions whose names match `pattern`."""
+    lines, kernel = [], "?"
+    for ln in log.splitlines():
+        m = re.search(pattern, ln)
+        if "Compiling entry function" in ln:
+            kernel = m.group(0) if m else None
+        elif kernel and ("registers" in ln or "spill" in ln):
+            lines.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def sass_calls(cuobjdump: str, path: Path, pattern: str) -> dict:
@@ -431,8 +529,8 @@ PAIR_OPS = {"threefry": 125, "tpu_hw": PHILOX_BLOCK_OPS / 2 + 2,
 # words and writes 4, TausLCG reads and writes 4.
 STATE_BYTES = {"threefry": 0, "tpu_hw": 0, "tinymt": 44, "tauslcg": 32}
 # The raw bits: a quarter of a Philox block per output word (a block gives
-# four words; csrc/philox_bits.cu evaluates a whole block per word, which
-# the bound does not count), plus the word's index arithmetic.
+# four words, and csrc/philox_bits.cu evaluates each block once), plus the
+# word's index arithmetic.
 PHILOX_BITS_OPS = PHILOX_BLOCK_OPS / 4 + 4
 # fp32 instructions/s outside the tensor cores: 132 SMs x 128 lanes x 1.98
 # GHz. The data sheet's 67 TFLOP/s counts an FMA as two operations; the
@@ -741,10 +839,14 @@ PROBE_OPS = dict(
                      # sqrt, t1, t1 >= 0 and its select (4), t < best (1)
     t1_only_miss=17,  # one whose line misses: up to disc >= 0
     vpu_rep=11,      # per lane and repeat: perturb, accumulate
-    mma_pair_o=4,    # per (lane, sphere): o.c's conversion, c
-    mma_pair_d=14,   # per repeat: d.c's conversion, hb, the roots, the min
-    mma_rep=29,      # per lane and repeat: o.d, perturb, 2 shuffle rounds,
-                     # the gather and the accumulate
+    mma_pair=3,      # the mma algebra once per (lane, sphere): c = |o|^2 -
+                     # (o.c + o.c) + (|c|^2 - r^2) (o.c: the tensor rate)
+    mma_miss=4,      # per repeat, a candidate whose line misses: hb = o.d -
+                     # c.d, hb^2, the discriminant, its test
+    mma_meet=12,     # one whose line meets: those 4, sqrt, the roots (2)
+                     # and their selects (4), the `t < best` test (1)
+    mma_rep=19,      # per lane and repeat: o.d (5), the perturbation (3),
+                     # the gather (2), the row and its accumulation (9)
     any=4,           # cond_cost per element and repeat: compare, vote, select, add
     cond=3,          # compare, vote, carry 0
 )
@@ -760,14 +862,16 @@ def cond_cost_bound(mode, w, grid, reps):
     return bound(grid * reps * 4096 * per, 2 * 4096 * 4)
 
 
-def sweep_bounds(lanes, n, reps, meets):
-    """{kernel: (bound_ms, bound_by)} of the three sweep kernels. The scalar
-    pair's candidates pay for the sqrt, roots and update (the carry's 4
-    selects, or vpu2's 2 and its gather) only where the line meets the
-    sphere (`meets` of lanes x reps x n, `sweep_meets`), as the renderers'
-    and the onehot pair's sweeps are counted; the mma variant (not
-    recounted) its products at the FP64 tensor rate against its fp32
-    epilogue and its bytes."""
+def sweep_bounds(lanes, n, reps, meets, meets_mma):
+    """{kernel: (bound_ms, bound_by)} of the three sweep kernels. A
+    candidate pays for its sqrt, roots and update (the carry's 4 selects,
+    or vpu2's 2 and its gather) only where its line meets the sphere:
+    `meets` of lanes x reps x n for the scalar pair's algebra
+    (`sweep_meets`), `meets_mma` for the mma sweep's (`mma_meets`), as the
+    renderers' and the onehot pair's sweeps are counted. The mma sweep's
+    dot products count at the FP64 tensor rate (the exact products its
+    plain version defines, whatever computes them), against its fp32 work
+    and its bytes."""
     cand, pairs = lanes * reps * n, lanes * n
     io = lanes * 32
     scalar = (pairs * PROBE_OPS["two_root_o"]
@@ -776,7 +880,9 @@ def sweep_bounds(lanes, n, reps, meets):
            + lanes * reps * PROBE_OPS["vpu_rep"])
     vpu2 = (scalar + meets * (PROBE_OPS["two_root_d"] + 2)
             + lanes * reps * (PROBE_OPS["vpu_rep"] + 1))
-    mma_ops = (pairs * PROBE_OPS["mma_pair_o"] + cand * PROBE_OPS["mma_pair_d"]
+    mma_ops = (pairs * PROBE_OPS["mma_pair"]
+               + (cand - meets_mma) * PROBE_OPS["mma_miss"]
+               + meets_mma * PROBE_OPS["mma_meet"]
                + lanes * reps * PROBE_OPS["mma_rep"])
     mma_ms, mma_by = bound(mma_ops, io + 32 * n)
     tensor_ms = mma_tensor_ms(lanes, n, reps)
@@ -828,6 +934,26 @@ def sweep_meets(o, d, spheres, repeats, chunks=()):
         passes[k] = (round(sum(marked) / len(marked), 6),
                      round(sum(rounds) / len(rounds), 4))
     return meets, passes
+
+
+def mma_meets(o, d, cmat, repeats) -> int:
+    """Candidates (lane, sphere, repeat) of the mma sweep's algebra whose
+    line meets the sphere, hb^2 - c >= 0 in its plain version's arithmetic
+    (probes/sweep_variants.py sweep_mma_plain: the dot products exact and
+    rounded once), over every repeat's perturbed direction."""
+    from l2n_tpu_torch.probes import sweep_variants as sv
+    n = cmat.shape[1]
+    centre = tuple(cmat[k].view(n, 1) for k in range(3))
+    ox, oy, oz = (t.reshape(1, -1) for t in o)
+    dy, dz = (t.reshape(1, -1) for t in d[1:])
+    oc = sv._dot(centre, ox, oy, oz, True)
+    c = ox * ox + oy * oy + oz * oz - (oc + oc) + cmat[4].view(n, 1)
+    meets = 0
+    for r in range(repeats):
+        dx = d[0].reshape(1, -1) * sv._scale(r, ox.device)
+        hb = (ox * dx + oy * dy + oz * dz) - sv._dot(centre, dx, dy, dz, True)
+        meets += int((hb * hb - c >= 0).sum())
+    return meets
 
 
 def onehot_meets(rays, spheres) -> int:
@@ -908,10 +1034,11 @@ def probe_cond_cost(card):
 
 def probe_sweep(card):
     """Phase 20: the sweep_variants probe's main (64 blocks, 128 spheres,
-    16 repeats), each kernel against its plain version, the probe's own
-    check (vpu2 = vpu) and the mma gate; the scalar pair also at (n,
-    repeats) = (100, 5) and (13, 3) on 4 blocks, and timed by CUDA-graph
-    replay beside torch.profiler."""
+    16 repeats), each kernel against its plain version (bit-equal) and the
+    probe's own check (vpu2 = vpu); the scalar pair also at (n, repeats) =
+    (100, 5) and (13, 3), the mma sweep at (8, 1), (24, 3) and (120, 5),
+    on 4 blocks; all three timed by CUDA-graph replay beside
+    torch.profiler."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
     from l2n_tpu_torch.probes import elapsed_ms
     from l2n_tpu_torch.probes import sweep_variants as sv
@@ -961,20 +1088,34 @@ def probe_sweep(card):
                 f"vpu2 = vpu at n = {sn}, {sreps} repeats")
         small[f"n={sn},repeats={sreps}"] = round(
             float((got["sweep_vpu"] > b).float().mean()), 4)
+    # The mma sweep, bit-equal to its plain version (acc and every
+    # repeat's index) at the probe's size and, on 4 blocks, at (n, repeats)
+    # that are not multiples of the sphere tile (16) or the chunk (16); its
+    # counts of the miss test's passes and the resolve's rounds.
     ik = torch.empty((reps, *bias.shape), dtype=torch.int32, device=dev)
     ip = torch.empty_like(ik)
-    mk = sv.sweep_mma(o, d, cmat, bias, reps, ik)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    mk = sv.sweep_mma(o, d, cmat, bias, reps, ik, stats)
     mp, plain_ms["sweep_mma"] = timed_result(
         lambda: sv.sweep_mma_plain(o, d, cmat, bias, reps, ip))
-    same = (ik == ip).all(0)
-    agree = float(same.float().mean())
-    tol = 1e-4 * mp.abs().clamp(min=1.0)
-    within = bool(((mk - mp).abs() <= tol)[same].all())
-    bit_equal = float((mk == mp).float().mean())
-    require(agree >= 0.999, f"sweep_mma winners agree on {agree} of lanes")
-    require(within, "sweep_mma |d acc| <= 1e-4 max(|acc|, 1) where winners "
-                    "agree")
-    err["sweep_mma"] = float((mk - mp).abs().max())
+    require(bits_equal(mk, mp) and torch.equal(ik, ip),
+            "sweep_mma kernel/plain bit-equal, acc and index")
+    err["sweep_mma"] = 0.0
+    mma_small = {}
+    x4 = {k: torch.from_numpy(v).to(dev)
+          for k, v in sv.inputs(blocks=4).items()}
+    b4 = torch.zeros((4, 32, 128), dtype=torch.float32, device=dev)
+    for sn, sreps in ((8, 1), (24, 3), (120, 5)):
+        sc = x4["cmat"][:, :sn].contiguous()
+        i_k = torch.empty((sreps, 4, 32, 128), dtype=torch.int32, device=dev)
+        i_p = torch.empty_like(i_k)
+        got = sv.sweep_mma(x4["o"], x4["d"], sc, b4, sreps, i_k)
+        want = sv.sweep_mma_plain(x4["o"], x4["d"], sc, b4, sreps, i_p)
+        require(bits_equal(got, want) and torch.equal(i_k, i_p),
+                f"sweep_mma kernel/plain bit-equal at n = {sn}, {sreps} "
+                f"repeats")
+        mma_small[f"n={sn},repeats={sreps}"] = round(
+            float((i_k >= 0).float().mean()), 4)
     # The kernel against the JAX kernel's arithmetic, float32 dot products
     # (reported, not gated: float32 sums of o.c lose the low bits that a
     # grazing ray's discriminant keeps).
@@ -991,11 +1132,20 @@ def probe_sweep(card):
     kernels = {name: kern for name, (kern, _) in calls.items()}
     kernels["sweep_mma"] = lambda: sv.sweep_mma(o, d, cmat, bias)
     lanes = bias.numel()
-    shape = {name: sv.launch_shape(name == "sweep_vpu", lanes, n)
-             for name in scalar}
+    shape = {name: sv.launch_shape(name, lanes, n) for name in names}
     meets, passes = sweep_meets(o.reshape(3, -1), d.reshape(3, -1), sph,
-                                reps, sorted({v[0] for v in shape.values()}))
-    bounds = sweep_bounds(lanes, n, reps, meets)
+                                reps, sorted({shape[k][0] for k in scalar}))
+    meets_mma = mma_meets(o, d, cmat, reps)
+    st = [int(v) for v in stats.tolist()]
+    chunks = -(-reps // shape["sweep_mma"][0])
+    mma_test = {"meets": meets_mma,
+                "meets_share": meets_mma / (lanes * reps * n),
+                "pairs_passed": st[0],
+                "pair_share": st[0] / (lanes * n * chunks),
+                "resolved": st[1],
+                "resolved_share": st[1] / (lanes * reps * n),
+                "rounds_per_warp_chunk": st[2] / st[3]}
+    bounds = sweep_bounds(lanes, n, reps, meets, meets_mma)
     rows, times = [], {}
     for name, kern in kernels.items():
         ms = profile_calls(kern, 10, f"{name}_kernel")
@@ -1019,8 +1169,8 @@ def probe_sweep(card):
             f"{ {'sweep_vpu': 83, 'sweep_vpu2': 101, 'sweep_mma': 138}[name] }",
             n_launch[name], err[name],
             "bit-equal (also at n = 100 and 13)" if name != "sweep_mma" else
-            "winners agree on >= 99.9% of lanes, there |d acc| <= 1e-4 "
-            "max(|acc|, 1)", ms, event, plain_ms[name], bounds[name],
+            "bit-equal, acc and index (also at (n, repeats) = (8, 1), "
+            "(24, 3), (120, 5))", ms, event, plain_ms[name], bounds[name],
             graph_ms=graph, ps_per_lane_candidate=ps, **extra))
     cand = lanes * reps * n
     phase(20, f"sweep_variants probe ({bias.shape[0]} blocks, {n} spheres, "
@@ -1031,13 +1181,18 @@ def probe_sweep(card):
               f"{meets} of {cand} candidates ({meets / cand:.5f}) meet their "
               f"sphere; by repeats per chunk, the share of (lane, sphere, "
               f"chunk) that pass 1 marks and pass 2's rounds per warp and "
-              f"chunk {passes}; mma winners agree with its "
-              f"plain version on {agree:.6f} of lanes ({bit_equal:.6f} "
-              f"bit-equal), max |d acc| "
-              f"{err['sweep_mma']:.4g} (gate 1e-4 max(|acc|, 1)); against "
+              f"chunk {passes}; sweep_mma bit-equal to its plain version "
+              f"(acc and index), also at (n, repeats) = (8, 1), (24, 3), "
+              f"(120, 5) on 4 blocks (lanes that hit in a repeat "
+              f"{mma_small}); its algebra's meeting candidates, the (lane, "
+              f"sphere) pairs whose miss test passed in a chunk of "
+              f"{shape['sweep_mma'][0]} repeats (true meets and margin "
+              f"passes), the candidates resolved exactly and the resolve's "
+              f"rounds per (warp, chunk) {mma_test}; against "
               f"float32 dot products (the JAX kernel's arithmetic; lanes of "
-              f"{lanes}: winners agree in every repeat, |d acc| above the "
-              f"gate there, largest such, largest overall) {fp32}; max |mma - "
+              f"{lanes}: winners agree in every repeat, |d acc| above 1e-4 "
+              f"max(|acc|, 1) there, largest such, largest overall) {fp32}; "
+              f"max |mma - "
               f"vpu| {mma_vpu:.4g}; mma products at the FP64 tensor rate "
               f"{mma_tensor_ms(lanes, n, reps):.4f} ms; probe main ms/call "
               f"{ {k: round(v[1], 4) for k, v in res.items()} } (device "
@@ -1311,7 +1466,9 @@ def main() -> int:
     card = card_line()
     # --- 1: card, versions, build ------------------------------------------
     tmp = tempfile.TemporaryDirectory()
-    serial_build = start_serial_sweep(build, Path(tmp.name))
+    side = {stem: start_cubin(build, Path(tmp.name), stem, src)
+            for stem, src in (("serial_sweep", SERIAL_SWEEP_CU),
+                              ("old_sweep_mma", OLD_MMA_CU))}
     lib_path, build_s = build.build()
     build.load()
     ptxas, kernel = [], "?"
@@ -1334,39 +1491,46 @@ def main() -> int:
     group, threads, blocks = launch_shape(TH * TW)
     onehot_regs = [ln for ln in ptxas if ln.startswith("onehot_")
                    and "registers" in ln]
-    # The scalar sweeps: the kept kernels' registers and spills (no spill
-    # allowed), the serial body's beside them, and each one's CALL sites.
-    _, serial_err = serial_build.communicate()
-    require(serial_build.returncode == 0,
-            f"nvcc of the serial sweep body: {serial_err[-2000:]}")
-    sweep_regs = [ln for ln in ptxas if re.match(r"sweep_vpu2?:", ln)]
-    require(sweep_regs and not any(
-        re.search(r"[1-9]\d* bytes (spill|stack)", ln)
-        for ln in sweep_regs),
-        f"sweep_vpu / sweep_vpu2 spill nothing: {sweep_regs}")
-    serial_regs, kernel = [], "?"
-    for ln in serial_err.splitlines():
-        m = re.search(r"serial_sweep_vpu2?", ln)
-        if "Compiling entry function" in ln and m:
-            kernel = m.group(0)
-        elif "registers" in ln or "spill" in ln:
-            serial_regs.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+    # The sweeps: the kept kernels' registers and spills (no spill
+    # allowed), those of the bodies they replaced (the serial scalar body,
+    # the FP64 mma kernel) beside them, and each one's CALL sites.
+    side_log = {}
+    for stem, proc in side.items():
+        _, side_log[stem] = proc.communicate()
+        require(proc.returncode == 0,
+                f"nvcc of {stem}: {side_log[stem][-2000:]}")
+    sweep_regs = [ln for ln in ptxas if re.match(r"sweep_(vpu2?|mma):", ln)]
+    require(len([ln for ln in sweep_regs if "spill" in ln]) == 3
+            and not any(re.search(r"[1-9]\d* bytes (spill|stack)", ln)
+                        for ln in sweep_regs),
+            f"sweep_vpu, sweep_vpu2, sweep_mma spill nothing: {sweep_regs}")
+    old_regs = (ptxas_lines(side_log["serial_sweep"], r"serial_sweep_vpu2?")
+                + ptxas_lines(side_log["old_sweep_mma"], r"old_sweep_mma"))
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     calls = ("cuobjdump not found" if not cuobjdump.exists() else {
-        **sass_calls(str(cuobjdump), lib_path, r"sweep_vpu2?_kernel"),
+        **sass_calls(str(cuobjdump), lib_path,
+                     r"sweep_(vpu2?|mma)_kernel"),
         **sass_calls(str(cuobjdump), Path(tmp.name) / "serial_sweep.cubin",
-                     r"serial_sweep_vpu2?")})
+                     r"serial_sweep_vpu2?"),
+        **sass_calls(str(cuobjdump), Path(tmp.name) / "old_sweep_mma.cubin",
+                     r"old_sweep_mma")})
     tmp.cleanup()
+    from l2n_tpu_torch.probes import sweep_variants as sv
+    mma_shape = sv.launch_shape("sweep_mma", sv.BLOCKS * sv.TH * sv.TW,
+                                sv.SPHERES)
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}; kernels built in {build_s:.1f} s "
              f"({lib_path.name}); onehot_recovery: {group} lanes per ray, "
              f"{threads}-thread blocks, grid {blocks} at {TH * TW} lanes, "
-             f"{onehot_regs}; sweep_vpu / sweep_vpu2 (chunked) {sweep_regs}, "
-             f"the serial body they replaced (sweep_lane) {serial_regs}; "
-             f"CALL instructions in their SASS (cuobjdump -sass; one site a "
+             f"{onehot_regs}; sweep_vpu / sweep_vpu2 (chunked) and "
+             f"sweep_mma (3xTF32 miss test, exact resolve; repeats per "
+             f"chunk, threads, grid, blocks per SM at the probe's size "
+             f"{mma_shape}) {sweep_regs}, the bodies they replaced (the "
+             f"serial sweep_lane; the FP64 mma kernel) {old_regs}; CALL "
+             f"instructions in their SASS (cuobjdump -sass; one site a "
              f"sqrtf, whose slow path takes arguments outside its fast "
-             f"range, negative ones included) {calls}; "
-             f"ptxas: {' | '.join(ptxas)}")
+             f"range, negative ones included; sweep_mma's only sqrtf is its "
+             f"resolve's) {calls}; ptxas: {' | '.join(ptxas)}")
 
     # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)
@@ -1723,7 +1887,8 @@ def main() -> int:
         bits_seeds = torch.tensor([0x1234, 0x5678], dtype=torch.int32,
                                   device=dev)
         whole_h = cfg.padded_height * cfg.padded_width // 128
-        for shape in ((4, 256), (4, whole_h)):
+        # k not a multiple of 4: the last Philox block gives fewer words
+        for shape in ((4, 256), (4, whole_h), (5, 256), (3, 33)):
             got_bits = philox_bits(bits_seeds, *shape)
             want_bits = philox_bits_plain(bits_seeds, *shape)
             torch.cuda.synchronize()
@@ -1754,9 +1919,9 @@ def main() -> int:
                     n_plain),
                 "bound": bound(4 * h * 128 * PHILOX_BITS_OPS,
                                4 * h * 128 * 4 + 8)}
-        phase(13, f"philox_bits kernel vs plain bit-equal at (4, 256, 128) "
-                  f"and (4, {whole_h}, 128); the five bit gates of "
-                  f"tests/test_tpu_hw.py on the card's bits pass: "
+        phase(13, f"philox_bits kernel vs plain bit-equal at (4, 256, 128), "
+                  f"(4, {whole_h}, 128), (5, 256, 128) and (3, 33, 128); "
+                  f"the five bit gates of tests/test_tpu_hw.py on the card's bits pass: "
                   f"{bit_stats} ({bits_launches} launches); per h of "
                   f"(4, h, 128): kernel ms/launch (torch.profiler), wrapper "
                   f"ms/call (CUDA events over back-to-back calls), plain "

@@ -176,17 +176,20 @@ L2N_HD void philox4x32_10(uint32_t k0, uint32_t k1, uint32_t c[4]) {
   }
 }
 
-// Draw `draw` of pixel `pixel` in the raw-bits layout (csrc/philox_bits.cu,
-// ops/kernels/philox_bits.py): sample 0, pair draw >> 1, word draw & 1 of
-// the pair, i.e. word draw & 3 of the block at counter (pixel, 0, draw >> 2,
-// 0).
-L2N_HD uint32_t philox_bits_word(uint32_t k0, uint32_t k1, uint32_t pixel,
-                                 uint32_t draw) {
-  uint32_t c[4] = {pixel, 0u, draw >> 2, 0u};
-  philox4x32_10(k0, k1, c);
-  const uint32_t lo = (draw & 2u) ? c[2] : c[0];
-  const uint32_t hi = (draw & 2u) ? c[3] : c[1];
-  return (draw & 1u) ? hi : lo;
+// The raw-bits layout (csrc/philox_bits.cu, ops/kernels/philox_bits.py):
+// draw i of pixel p is sample 0, pair i >> 1, word i & 1 of the pair, i.e.
+// word i & 3 of the block at counter (p, 0, i >> 2, 0). So the block at
+// counter (pixel, 0, block, 0) holds draws 4 block .. 4 block + 3, its
+// word `word` being draw 4 block + word, stored at `offset` = draw *
+// per_draw + pixel, per_draw the h * 128 words of a draw. False (nothing to
+// store) for a draw at or past k: the last block of a k that is not a
+// multiple of 4 gives fewer words.
+L2N_HD bool philox_bits_slot(uint32_t pixel, uint32_t block, uint32_t word,
+                             uint32_t k, size_t per_draw, size_t& offset) {
+  const uint32_t draw = 4u * block + word;
+  if (draw >= k) return false;
+  offset = static_cast<size_t>(draw) * per_draw + pixel;
+  return true;
 }
 
 // Top 23 bits as mantissa, lowest mantissa bit forced: a float in (1, 2).

@@ -18,14 +18,16 @@
 // attributes afterwards (false, `gather`).
 // onehot_recovery.cu runs the t1-only form through `split_sweep`: one ray's
 // sweep split over a group of lanes. sweep_variants.cu runs the two-root
-// form through `sweep_lane_chunked` (end of this file): the spheres
-// outside, a chunk of repeats inside. `sweep_lane` (serial, repeats
-// outside) is the order both are tested against.
+// form through `sweep_lane_chunked`: the spheres outside, a chunk of
+// repeats inside. `sweep_lane` (serial, repeats outside) is the order both
+// are tested against. The tensor-core sweep's pieces (the mma algebra, its
+// miss test and exact resolve) close the file.
 
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef L2N_HD
 #if defined(__CUDACC__)
@@ -465,6 +467,268 @@ L2N_HD float sweep_lane_chunked(const Sphere4* s, int n, int repeats,
   float acc = bias;
   sweep_chunks<kCarry, R>(s, n, 0, repeats, ox, oy, oz, dx, dy, dz, acc);
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// sweep_variants' tensor-core sweep (csrc/sweep_variants.cu sweep_mma): the
+// JAX mxu kernel's algebra (benchmarks/sweep_variants.py:170-198), as its
+// plain version defines it (probes/sweep_variants.py sweep_mma_plain: the
+// two dot products exact and rounded once to float32),
+//   c = |o|^2 - (o.c + o.c) + (|c|^2 - r^2),  hb = o.d - c.d,
+// then the two roots, a miss mapped to kBig, the lowest index among equal t.
+// The kernel takes c.d - o.d on the tensor cores in 3xTF32 (below), rejects
+// a (lane, sphere, repeat) whose line provably misses (`mma_threshold`), and
+// resolves the rest exactly (`mma_resolve_t`): every repeat's winner is then
+// the plain version's, to the bit.
+// ---------------------------------------------------------------------------
+
+// A float's bits and back.
+L2N_HD uint32_t f32_bits(float x) {
+#if defined(__CUDA_ARCH__)
+  return __float_as_uint(x);
+#else
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  return u;
+#endif
+}
+
+L2N_HD float bits_f32(uint32_t u) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+
+// x rounded to TF32 (10 fraction bits), to nearest, ties away from zero
+// (cvt.rna.tf32.f32's rounding), as a float whose 13 low fraction bits are
+// zero: half of the last kept bit added to the magnitude, then the rest
+// cleared (integer operations on the card, where a cvt issues at the
+// conversion rate). Infinities and NaN are left as they are.
+L2N_HD float tf32_rna(float x) {
+  const uint32_t u = f32_bits(x);
+  const uint32_t r = (u & 0x7F800000u) != 0x7F800000u ? u + 0x1000u : u;
+  return bits_f32(r & 0xFFFFE000u);
+}
+
+// The 12 products of one (lane, sphere) pair, 8 for an m16n8k8 and 4 for an
+// m16n8k4 mma: x = big + small, big = tf32_rna(x), small = tf32_rna(x -
+// big) (x - big is exact in float32), for the direction d and the centre c;
+// each component's big.big, big.small and small.big (small.small dropped);
+// and o.d in three TF32 parts whose sum is o.d exactly (after two roundings
+// to 11 significant bits the rest has at most two), each against -1. Slot
+// k of the lane side multiplies slot k of the sphere side:
+//   slot  0    1    2    3    4    5    6    7    8    9    10   11
+//   lane  dx.b dx.b dx.s od.b od.s od.t dy.b dy.b dy.s dz.b dz.b dz.s
+//   sph.  cx.b cx.s cx.b -1   -1   -1   cy.b cy.s cy.b cz.b cz.s cz.b
+// so the sum over the slots is c.d - o.d = -hb. A repeat changes slots 0-5
+// (dx and o.d) only: the kernel's thread of column q of the m16n8k8's B
+// holds lane slots q and q + 4 (one register pair per repeat) and q + 8 of
+// the m16n8k4 (the same in every repeat).
+constexpr int kMmaSlots = 12;
+
+L2N_HD void mma_lane_slots(float dx, float dy, float dz, float od,
+                           float (&s)[kMmaSlots]) {
+  const float xb = tf32_rna(dx), xs = tf32_rna(dx - xb);
+  const float yb = tf32_rna(dy), ys = tf32_rna(dy - yb);
+  const float zb = tf32_rna(dz), zs = tf32_rna(dz - zb);
+  const float ob = tf32_rna(od), os = tf32_rna(od - ob);
+  const float ot = (od - ob) - os;
+  const float v[kMmaSlots] = {xb, xb, xs, ob, os, ot, yb, yb, ys, zb, zb, zs};
+  for (int k = 0; k < kMmaSlots; ++k) s[k] = v[k];
+}
+
+L2N_HD void mma_sphere_slots(float cx, float cy, float cz,
+                             float (&s)[kMmaSlots]) {
+  const float xb = tf32_rna(cx), xs = tf32_rna(cx - xb);
+  const float yb = tf32_rna(cy), ys = tf32_rna(cy - yb);
+  const float zb = tf32_rna(cz), zs = tf32_rna(cz - zb);
+  const float v[kMmaSlots] = {xb, xs, xb, -1.0f, -1.0f, -1.0f, yb, ys, yb,
+                              zb, zs, zb};
+  for (int k = 0; k < kMmaSlots; ++k) s[k] = v[k];
+}
+
+// The exact dot product of float32 vectors rounded once to float32, in the
+// plain version's order: ((cx x + cy y) + cz z) in float64 (the products
+// are exact there, so the fused form rounds the same), then to float32.
+L2N_HD float exact_dot(double cx, double cy, double cz, double x, double y,
+                       double z) {
+#if defined(__CUDA_ARCH__)
+  return __double2float_rn(__fma_rn(cz, z, __fma_rn(cy, y, cx * x)));
+#else
+  return static_cast<float>((cx * x + cy * y) + cz * z);
+#endif
+}
+
+// A sphere as the kernel reads it: the centre, |c|^2 - r^2 (cmat row 4),
+// r^2 (row 3, which the accumulation gathers with cx), |cx| + |cy| + |cz|
+// and the |c|^2 - r^2 term of the c margin (`mma_pair_c_lower`).
+struct alignas(16) MmaSphere {
+  float cx, cy, cz, ccr, r2, c1, cm, pad;
+};
+
+// The miss test's margin. Write S_d = sum_k |c_k| |d_k| and D for the
+// tensor cores' sum over the 12 slots, which approximates c.d - o.d, with
+// od = o.d as the plain version rounds it. Its error, against cd - od, cd =
+// c.d exact rounded to float32 as the plain version takes it:
+//   * the dropped products: x - big - small is at most 2^-22 |x| (two
+//     roundings to 11 significant bits), |big| <= (1 + 2^-11) |x|, |small|
+//     <= 2^-11 (1 + 2^-11) |x|, so small.small, big.(c - big - small),
+//     small.(c - ...) and (d - big - small).c together are at most
+//     3.01 2^-22 S_d = 6.02 2^-23 S_d; od's three parts are exact;
+//   * the tensor cores: TF32 x TF32 products are exact in float32; an
+//     mma.sync sums its k products and C in an unspecified order, possibly
+//     truncating: model it as off by at most 2^-23 times the sum of the
+//     magnitudes it adds for each term it adds (C and the k products) and
+//     once more for its result, k + 2 units. The m16n8k8 (C = 0) and the
+//     m16n8k4 (C = the m16n8k8's sum) then err by at most 16.01 2^-23
+//     (1.002 S_d + 1.001 |od|);
+//   * cd itself: float64 sums of exact products, rounded to float32, is
+//     within 0.51 2^-23 S_d of c.d.
+// So |D - (cd - od)| <= E = 2^-23 (22.57 S_d + 16.02 |od|). The kernel uses
+// four times E, rounded up: kMmaDirMargin and kMmaOdMargin are 92 and 68
+// units of 2^-23, taken on bounds of S_d (|c|_1 times the lane's largest
+// |d_k| over every repeat) and |od| (sum_k |o_k| |d_k|, likewise);
+// kMmaAbsMargin covers flushed subnormals.
+//
+// The threshold takes c from o.c summed in float32 (`mma_pair_c_lower`),
+// not from the exact o.c the plain version rounds once (the resolve
+// computes that): with S_o = sum_k |c_k| |o_k| and u = 2^-24, the two o.c
+// differ by at most 4.02 u S_o (three float32 roundings against one
+// float64 sum rounded to float32), so the two c = (|o|^2 - (oc + oc)) +
+// (|c|^2 - r^2) by at most u (16.13 S_o + 4.02 |o|^2 + 2 ||c|^2 - r^2|)
+// (the doubled difference, and both sides' two roundings). The threshold
+// uses c less four times that, rounded up (kMmaSoMargin, kMmaOoMargin,
+// kMmaCcrMargin: 65, 17 and 8 units of u, S_o bounded by |c|_1 max_k
+// |o_k|), which also covers the subtraction's own rounding: never more
+// than the plain version's c.
+constexpr float kMmaDirMargin = 23.0f * 0x1p-21f;
+constexpr float kMmaOdMargin = 17.0f * 0x1p-21f;
+constexpr float kMmaAbsMargin = 1e-30f;
+constexpr float kMmaSoMargin = 65.0f * 0x1p-24f;
+constexpr float kMmaOoMargin = 17.0f * 0x1p-24f;
+constexpr float kMmaCcrMargin = 8.0f * 0x1p-24f;
+// sqrt(c) from rsqrt (2 ulp: 2^-22 relative) shrunk by 2^-18.
+constexpr float kMmaSqrtShrink = 1.0f - 0x1p-18f;
+constexpr float kMmaTinyC = 1e-30f;
+
+L2N_HD MmaSphere mma_sphere(float cx, float cy, float cz, float r2,
+                            float ccr) {
+  return MmaSphere{cx,  cy, cz, ccr, r2, (fabsf(cx) + fabsf(cy)) + fabsf(cz),
+                   kMmaCcrMargin * fabsf(ccr), 0.0f};
+}
+
+// 1 / sqrt(c) for a normal c, within 2^-22 (the card's rsqrt.approx: one
+// MUFU.RSQ, no subnormal scaling).
+L2N_HD float mma_rsqrt(float c) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(c));
+  return r;
+#else
+  return 1.0f / sqrtf(c);
+#endif
+}
+
+// What one lane's pairs share across the repeats: o, |o|^2 as the plain
+// version rounds it, and the lane's terms of the margins: of D (per unit
+// of |c|_1, and the o.d term) for every repeat up to `scale_max`
+// (perturb_scale of the last repeat: dx grows with the repeat), and of c
+// (per unit of |c|_1, and the |o|^2 term).
+struct MmaLane {
+  float ox, oy, oz, oo, md, mo, mc, mcoo;
+};
+
+L2N_HD MmaLane mma_lane(float ox, float oy, float oz, float dx, float dy,
+                        float dz, float scale_max) {
+  const float dxm = fabsf(dx) * scale_max, ady = fabsf(dy), adz = fabsf(dz);
+  const float dinf = fmaxf(dxm, fmaxf(ady, adz));
+  const float sod = (fabsf(ox) * dxm + fabsf(oy) * ady) + fabsf(oz) * adz;
+  const float oinf = fmaxf(fabsf(ox), fmaxf(fabsf(oy), fabsf(oz)));
+  const float oo = (ox * ox + oy * oy) + oz * oz;
+  return MmaLane{ox,
+                 oy,
+                 oz,
+                 oo,
+                 kMmaDirMargin * dinf,
+                 kMmaOdMargin * sod + kMmaAbsMargin,
+                 kMmaSoMargin * oinf,
+                 kMmaOoMargin * oo};
+}
+
+// A lower bound of the plain version's c of a pair, from o.c summed in
+// float32 (see the margin above).
+L2N_HD float mma_pair_c_lower(const MmaLane& l, const MmaSphere& s) {
+  const float oc = (s.cx * l.ox + s.cy * l.oy) + s.cz * l.oz;
+  const float c = (l.oo - (oc + oc)) + s.ccr;
+  return c - fmaf(s.c1, l.mc, l.mcoo + s.cm);
+}
+
+// The plain version's c of a pair: o.c exact rounded once, then
+// (|o|^2 - (oc + oc)) + (|c|^2 - r^2).
+L2N_HD float mma_pair_c(float ox, float oy, float oz, const MmaSphere& s) {
+  const float oc = exact_dot(s.cx, s.cy, s.cz, ox, oy, oz);
+  return ((ox * ox + oy * oy) + oz * oz - (oc + oc)) + s.ccr;
+}
+
+// The pair's miss threshold T from c, at most the plain version's c: where
+// |D| < T the plain version's discriminant is negative in every repeat, so
+// its t is kBig. Proof: T = fl(sq shrink - delta), delta >= 4 E (above), sq
+// = c rsqrt(c) <= sqrt(c) (1 + 2^-22)(1 + 2^-24), so T <= sqrt(c) (1 -
+// 2^-20) - delta, and the plain version's c is larger. Then |D| < T
+// gives |od - cd| < |D| + E < sqrt(c) (1 - 2^-20), hb = fl(od - cd) within
+// (1 + 2^-24) of it, fl(hb hb) <= hb^2 (1 + 2^-24) < c, and hb hb - c < 0
+// (the difference of two unequal floats is never zero). c <= kMmaTinyC, or
+// NaN, gives T = -1: no pair is rejected; |D| NaN is never rejected either.
+L2N_HD float mma_threshold(float c, float c1, const MmaLane& l) {
+  const bool real = c > kMmaTinyC;
+  const float cr = real ? c : 1.0f;
+  const float t =
+      fmaf(cr * mma_rsqrt(cr), kMmaSqrtShrink, -fmaf(c1, l.md, l.mo));
+  return real ? t : -1.0f;
+}
+
+// The exact (lane, sphere) candidate of one repeat, the plain version's t
+// to the bit: c and od as it rounds them, cd exact rounded once, hb = od -
+// cd, and the two roots with the square root taken only on a real
+// discriminant.
+L2N_HD float mma_resolve_t(float ox, float oy, float oz, float dx, float dy,
+                           float dz, const MmaSphere& s) {
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float cd = exact_dot(s.cx, s.cy, s.cz, dx, dy, dz);
+  return two_root_guarded(od - cd, mma_pair_c(ox, oy, oz, s));
+}
+
+// A repeat's winner as one 64-bit key that orders as the plain version
+// picks: the smaller t, then the smaller index (t in [0, kBig); -0.0 orders
+// as 0.0 and keeps its sign in the low bit). kMmaNoHit: no candidate.
+constexpr uint64_t kMmaNoHit = ~0ull;
+
+L2N_HD uint64_t mma_key(float t, int j) {
+  const uint32_t u = f32_bits(t);
+  return (static_cast<uint64_t>(u & 0x7FFFFFFFu) << 32) |
+         (static_cast<uint64_t>(j) << 1) | (u >> 31);
+}
+
+// The winner of a key, with the attributes the accumulation reads (cx and
+// r^2 of sphere j of `s`), or the miss values.
+L2N_HD Winner mma_winner(uint64_t key, const MmaSphere* s) {
+  if (key == kMmaNoHit) return Winner{kBig, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+  const uint32_t lo = static_cast<uint32_t>(key);
+  const float t = bits_f32(static_cast<uint32_t>(key >> 32) | (lo << 31));
+  const int j = static_cast<int>(lo >> 1);
+  return Winner{t, j, s[j].cx, 0.0f, 0.0f, s[j].r2};
+}
+
+// One repeat's term of the mma sweep's accumulation (benchmarks/
+// sweep_variants.py:192-193), summed before it is added to the lane's
+// acc: t (0 on a miss) + cx 1e-6 + r2 1e-9 + index 1e-3.
+L2N_HD float mma_row(const Winner& w) {
+  return (w.t < kBig ? w.t : 0.0f) + w.cx * 1e-6f + w.r2 * 1e-9f +
+         static_cast<float>(w.i) * 1e-3f;
 }
 
 }  // namespace l2n_probe

@@ -109,7 +109,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sweep_vpu": [p] * 6 + [i, i, i, p, p, p],
         "sweep_vpu2": [p] * 6 + [i, i, i, p, p, p],
         "sweep_shape": [i, i, i, p],
-        "sweep_mma": [p, p, p, i, i, i, p, p, p, p],
+        "sweep_mma": [p, p, p, i, i, i, p, p, p, p, p],
         "onehot_carry": [p, p, i, i, p, p],
         "onehot_gather": [p, p, i, p, i, p, p],
         "onehot_shape": [i, p],

@@ -3,15 +3,17 @@
 two or more versions of the kernels against each other on one card in one
 call: the fused step kernels, sphere_pt and triangle_pt, and the wavefront
 step (`RenderConfig(wavefront=True)`, threefry and tpu_hw), whole and pass
-by pass; the onehot_recovery probe's two kernels at its S = 128; and the
+by pass; the onehot_recovery probe's two kernels at its S = 128; the
 sweep_variants probe's three kernels at its size (64 blocks, 128 spheres,
-16 repeats).
+16 repeats); and philox_bits at (4, 256, 128) and (4, 7360, 128), the
+raw-bits gates' draw and a whole padded frame's.
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
-    # V1, this, DIR; --only fused|wavefront|onehot|sweep times one family
+    # V1, this, DIR; --only FAMILY[,FAMILY...] (fused, wavefront, onehot,
+    # sweep, philox) times only those
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -26,7 +28,9 @@ passes are timed by torch.profiler over eager steps (device ms per launch
 of each `wavefront_pass_*_kernel`, and every other device event of the step
 summed per step, "rest"). The onehot pair is timed per call of its
 wrapper by graph replay, and per launch by torch.profiler ("... kernel");
-the sweeps the same way (sweep_vpu, sweep_vpu2, sweep_mma).
+the sweeps the same way (sweep_vpu, sweep_vpu2, sweep_mma), and
+philox_bits per shape (graph replay of 200 calls, torch.profiler over
+50).
 Needs one CUDA card; prints one JSON line per process and a summary, and
 the card's name and power limit.
 """
@@ -197,18 +201,41 @@ def _sweep(torch, root: Path, times: dict) -> None:
                                                  f"{name}_kernel")
 
 
+def _philox(torch, root: Path, times: dict) -> None:
+    """philox_bits' device ms per call of its wrapper (graph replay of 200
+    calls) and per launch (torch.profiler over 50) per shape into
+    `times`."""
+    sys.path.insert(0, str(root))
+    from l2n_tpu_torch.ops.kernels import philox_bits as pb
+    assert Path(pb.__file__).resolve().is_relative_to(root)
+    seeds = torch.tensor([123, 456], dtype=torch.int32, device="cuda")
+    for k, h in ((4, 256), (4, 7360)):
+        name = f"philox_bits ({k},{h},128)"
+        fn = (lambda k=k, h=h: pb.philox_bits(seeds, k, h))
+        times[name] = graph_ms(torch, fn, 200)
+        times[f"{name} kernel"] = profile_ms(
+            torch, fn, 50, "philox_bits_kernel").get("philox_bits_kernel")
+
+
+FAMILIES = ("fused", "wavefront", "onehot", "sweep", "philox")
+
+
 def measure_tree(root: Path, only: str) -> dict:
-    """ms per call of each family's public wrapper or step, per schedule."""
+    """ms per call of each family's public wrapper or step, per schedule;
+    `only` is "all" or a comma-separated list of FAMILIES."""
     import torch
+    want = set(FAMILIES if only == "all" else only.split(","))
     times = {}
-    if only in ("all", "onehot"):
+    if "onehot" in want:
         _onehot(torch, root, times)
-    if only in ("all", "sweep"):
+    if "sweep" in want:
         _sweep(torch, root, times)
-    if only in ("all", "fused", "wavefront"):
+    if "philox" in want:
+        _philox(torch, root, times)
+    if want & {"fused", "wavefront"}:
         _, cam, families = _families(root)
         from l2n_tpu_torch.render.state import init_frame_state
-    if only in ("all", "fused"):
+    if "fused" in want:
         for name, (mod, cfg, scene) in families.items():
             kernel = getattr(mod, name)
             for label, (scfg, sched) in _schedules(torch, cfg).items():
@@ -216,7 +243,7 @@ def measure_tree(root: Path, only: str) -> dict:
                 times[f"{name} {label}"] = graph_ms(torch, lambda: kernel(
                     scfg, sched, cam, scene, st.accum, st.output),
                     CALLS[label])
-    if only in ("all", "wavefront"):
+    if "wavefront" in want:
         _wavefront(torch, cam, times)
     return {"root": str(root), "card": card(), "ms": times}
 
@@ -235,10 +262,13 @@ def main() -> int:
                     help="the other tree: measure DIR, this, this, DIR")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="one more tree, measured after this one")
-    ap.add_argument("--only", choices=("all", "fused", "wavefront", "onehot",
-                                       "sweep"), default="all")
+    ap.add_argument("--only", default="all",
+                    help="all, or families to time, comma-separated: "
+                    + ", ".join(FAMILIES))
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.only != "all" and not set(args.only.split(",")) <= set(FAMILIES):
+        ap.error(f"--only: families are {', '.join(FAMILIES)}")
     if args.root is not None:  # one measurement, in this process
         print(json.dumps(measure_tree(args.root.resolve(), args.only)),
               flush=True)

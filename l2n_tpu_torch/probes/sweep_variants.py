@@ -9,15 +9,17 @@ r, and accumulates t, the winner's cx and r2 and its index from `bias`:
     through every candidate;
   * `sweep_vpu2` — (t, index) only, the attributes gathered afterwards
     (bit-equal to `sweep_vpu`);
-  * `sweep_mma` — the dot products on the tensor cores and the JAX mxu
-    kernel's algebra (not bit-equal to `sweep_vpu`, by design). Its plain
-    version takes the dot products exact and rounded once, as the kernel's
-    FP64 tensor cores give them; `exact_dots=False` sums float32 products
+  * `sweep_mma` — the JAX mxu kernel's algebra (not bit-equal to
+    `sweep_vpu`, by design), its dot products on the tensor cores. Its
+    plain version takes the dot products exact and rounded once; the
+    kernel rejects on the tensor cores (3xTF32) only the candidates whose
+    line provably misses and resolves the rest exactly, so it equals the
+    plain version to the bit. `exact_dots=False` sums float32 products
     instead, as the JAX kernel's float32 dot does.
 
 Each wrapper launches csrc/sweep_variants.cu on CUDA tensors and runs its
-`*_plain` version on CPU tensors. The scalar kernels walk the spheres once
-per chunk of repeats (`launch_shape` gives the chunk, block, grid and the
+`*_plain` version on CPU tensors. The kernels walk the spheres once per
+chunk of repeats (`launch_shape` gives the chunk, block, grid and the
 blocks an SM holds).
 
 CAVEAT (benchmarks/PROFILE.md, "methodology"): an isolated harness's
@@ -172,14 +174,14 @@ def _sweep(name, o, d, cx, cy, cz, r2, bias, repeats):
     return out
 
 
-def launch_shape(carry: bool, lanes: int, n: int = SPHERES
+def launch_shape(name: str, lanes: int, n: int = SPHERES
                  ) -> tuple[int, int, int, int]:
-    """(repeats per chunk, threads per block, blocks, blocks per SM) of
-    sweep_vpu (carry) or sweep_vpu2 at `lanes` lanes and n spheres, from the
-    built library and the current card."""
+    """(repeats per chunk, threads per block, blocks, blocks per SM) of the
+    kernel `name` (sweep_vpu, sweep_vpu2 or sweep_mma) at `lanes` lanes and
+    n spheres, from the built library and the current card."""
+    kind = ("sweep_vpu2", "sweep_vpu", "sweep_mma").index(name)
     shape = np.zeros(4, np.int32)
-    rc = build.load().l2n_sweep_shape(int(carry), lanes, n,
-                                      shape.ctypes.data)
+    rc = build.load().l2n_sweep_shape(kind, lanes, n, shape.ctypes.data)
     if rc != 0:
         raise RuntimeError(f"sweep launch shape: CUDA error {rc}")
     return tuple(int(v) for v in shape)
@@ -209,28 +211,38 @@ def _check_cmat(cmat, dev) -> int:
     return n
 
 
-def sweep_mma(o, d, cmat, bias, repeats: int = REPEATS, index=None):
+def sweep_mma(o, d, cmat, bias, repeats: int = REPEATS, index=None,
+              stats=None):
     """(blocks, 32, 128) float32: the tensor-core sweep. `index`, if given,
     a (repeats, blocks, 32, 128) int32 tensor that receives each repeat's
-    winner (-1 on a miss), in place."""
+    winner (-1 on a miss), in place. `stats`, if given (the kernel only), a
+    (4,) int64 tensor on the card that the kernel adds its counts to: the
+    (lane, sphere) pairs whose miss test passed in a chunk of repeats, the
+    candidates it resolved exactly, its resolve rounds (32 candidates a
+    warp), and its (warp, chunk)s."""
     lanes, dev = _check_rays(o, d, bias, repeats)
     n = _check_cmat(cmat, dev)
     if index is not None:
         check_tensor("index", index, torch.int32, (repeats, *bias.shape), dev)
     if dev.type == "cpu":
+        if stats is not None:
+            raise ValueError("sweep_mma: stats count the kernel's work; the "
+                             "plain version has none")
         return sweep_mma_plain(o, d, cmat, bias, repeats, index)
+    if stats is not None:
+        check_tensor("stats", stats, torch.int64, (4,), dev)
     out = torch.empty_like(bias)
     launch_raw("sweep_mma", dev, o, d, cmat, n, lanes, repeats, bias, out,
-               index)
+               index, stats)
     return out
 
 
 def _dot(c, x, y, z, exact: bool) -> torch.Tensor:
     """(n, blocks, 32, 128) float32: the sphere centres `c` (n, 1, 1, 1) x3
-    dotted with the lanes' (x, y, z). `exact`: rounded once to float32, as
-    the kernel's FP64 tensor-core product gives it (the products of float32
-    values are exact in float64, and their sum is rounded once more there
-    before the float32 rounding); else float32 products summed in float32."""
+    dotted with the lanes' (x, y, z). `exact`: rounded once to float32 (the
+    products of float32 values are exact in float64, and their sum is
+    rounded once more there before the float32 rounding), as the kernel's
+    exact resolve takes it; else float32 products summed in float32."""
     if not exact:
         return (c[0] * x + c[1] * y) + c[2] * z
     f64 = torch.float64
@@ -243,7 +255,7 @@ def sweep_mma_plain(o, d, cmat, bias, repeats: int = REPEATS, index=None,
     """The plain torch version of `sweep_mma`: the JAX mxu kernel's algebra
     (benchmarks/sweep_variants.py:170-198) in elementwise ops over (sphere,
     lane) planes, float32 but for the two dot products, which are the exact
-    ones rounded to float32 (the kernel's FP64 tensor-core product).
+    ones rounded to float32.
     `exact_dots=False` sums their float32 products in float32 instead, the
     JAX kernel's arithmetic: that moves the roots of grazing rays, and
     chip_smoke.py reports how far the kernel lies from it."""

@@ -78,6 +78,7 @@ def _port_unloaded_after_module():
 CSRC = Path(__file__).resolve().parents[1] / "l2n_tpu_torch" / "csrc"
 
 SHIM = r"""
+#include <cmath>
 #include <cstdint>
 #include <vector>
 // Each walk's scans: how many, how many overflowed the per-lane list, and
@@ -267,6 +268,63 @@ void sweep_chunked_lanes(int carry, const float* o, const float* d,
   }
 }
 
+// The tensor cores' sum of C and k exact products, emulated in one of the
+// orders and roundings an mma.sync may use: 0 in slot order, 1 reversed,
+// 2 pairwise, 3 in slot order truncating every sum, 4 every term aligned
+// to the largest and truncated to its 24 bits, summed exactly, the result
+// truncated.
+static float to_float_rz(double s) {
+  float f = static_cast<float>(s);
+  if (std::fabs(static_cast<double>(f)) > std::fabs(s))
+    f = std::nextafter(f, 0.0f);
+  return f;
+}
+static float add_rz(float a, float b) {
+  return to_float_rz(static_cast<double>(a) + b);
+}
+static float emulated_sum(int mode, float c, const float* p, int k) {
+  float t[16];
+  t[0] = c;
+  for (int i = 0; i < k; ++i) t[1 + i] = p[i];
+  int m = k + 1;
+  float s = 0.0f;
+  switch (mode) {
+    case 0:
+      s = t[0];
+      for (int i = 1; i < m; ++i) s = s + t[i];
+      return s;
+    case 1:
+      s = t[m - 1];
+      for (int i = m - 2; i >= 0; --i) s = s + t[i];
+      return s;
+    case 2:
+      while (m > 1) {
+        for (int i = 0; i < m / 2; ++i) t[i] = t[2 * i] + t[2 * i + 1];
+        if (m & 1) t[m / 2] = t[m - 1];
+        m = (m + 1) / 2;
+      }
+      return t[0];
+    case 3:
+      s = t[0];
+      for (int i = 1; i < m; ++i) s = add_rz(s, t[i]);
+      return s;
+    default: {
+      int e = -1000;
+      for (int i = 0; i < m; ++i)
+        if (t[i] != 0.0f) {
+          int ei;
+          std::frexp(t[i], &ei);
+          e = ei > e ? ei : e;
+        }
+      if (e == -1000) return 0.0f;
+      const double q = std::ldexp(1.0, e - 24);
+      double sum = 0.0;
+      for (int i = 0; i < m; ++i) sum += std::trunc(t[i] / q) * q;
+      return to_float_rz(sum);
+    }
+  }
+}
+
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
@@ -343,12 +401,27 @@ void l2n_philox_host(uint32_t k0, uint32_t k1, const uint32_t* ctr,
     for (int w = 0; w < 4; ++w) out[w * n + i] = c[w];
   }
 }
+// philox_bits' kernel over (k, h, 128) words: one Philox block per (lane,
+// block), its words stored through philox_bits_slot; `writes` counts the
+// stores of each word.
 void l2n_philox_bits_host(uint32_t k0, uint32_t k1, int k, int h,
-                          uint32_t* out) {
+                          uint32_t* out, int32_t* writes) {
   const size_t per_draw = static_cast<size_t>(h) * 128;
-  for (size_t i = 0; i < static_cast<size_t>(k) * per_draw; ++i)
-    out[i] = l2n::philox_bits_word(k0, k1, static_cast<uint32_t>(i % per_draw),
-                                   static_cast<uint32_t>(i / per_draw));
+  const uint32_t blocks = static_cast<uint32_t>((k + 3) / 4);
+  for (uint32_t b = 0; b < blocks; ++b)
+    for (size_t p = 0; p < per_draw; ++p) {
+      uint32_t c[4] = {static_cast<uint32_t>(p), 0u, b, 0u};
+      l2n::philox4x32_10(k0, k1, c);
+      for (uint32_t w = 0; w < 4; ++w) {
+        size_t offset;
+        if (l2n::philox_bits_slot(static_cast<uint32_t>(p), b, w,
+                                  static_cast<uint32_t>(k), per_draw,
+                                  offset)) {
+          out[offset] = c[w];
+          ++writes[offset];
+        }
+      }
+    }
 }
 // `draws` draw1s of each of n stateful streams (mode code rng) over state
 // planes of n lanes, stepped in place; values (draws, n).
@@ -449,6 +522,62 @@ int l2n_sweep_chunked_host(int carry, int chunk, const float* o,
   }
   return 0;
 }
+// sweep_mma over `lanes` lanes as its kernel decides (csrc/
+// sweep_variants.cu), the tensor cores' sums emulated (`emulated_sum`
+// mode): per (lane, sphere) the miss threshold T, per repeat D over
+// the 12 slots (8 products from C = 0, then 4 more from that), |D| < T
+// rejects, the rest resolved exactly and kept by their key; then each
+// repeat's row. out (lanes,); index (repeats, lanes) or null; rejected
+// (lanes, n, repeats) and threshold (lanes, n) or null.
+void l2n_sweep_mma_host(int mode, const float* o, const float* d,
+                        const float* cmat, int n, int64_t lanes, int repeats,
+                        const float* bias, float* out, int32_t* index,
+                        uint8_t* rejected, float* threshold) {
+  using namespace l2n_probe;
+  std::vector<MmaSphere> sph(n);
+  std::vector<float> slots(static_cast<size_t>(n) * kMmaSlots);
+  for (int j = 0; j < n; ++j) {
+    sph[j] = mma_sphere(cmat[j], cmat[n + j], cmat[2 * n + j],
+                        cmat[3 * n + j], cmat[4 * n + j]);
+    float sj[kMmaSlots];
+    mma_sphere_slots(cmat[j], cmat[n + j], cmat[2 * n + j], sj);
+    for (int k = 0; k < kMmaSlots; ++k) slots[j * kMmaSlots + k] = sj[k];
+  }
+  const float scale_max = perturb_scale(repeats > 0 ? repeats - 1 : 0);
+  std::vector<uint64_t> keys(repeats);
+  for (int64_t p = 0; p < lanes; ++p) {
+    const float ox = o[p], oy = o[lanes + p], oz = o[2 * lanes + p];
+    const float dx0 = d[p], dy = d[lanes + p], dz = d[2 * lanes + p];
+    const MmaLane lane = mma_lane(ox, oy, oz, dx0, dy, dz, scale_max);
+    for (int r = 0; r < repeats; ++r) keys[r] = kMmaNoHit;
+    for (int j = 0; j < n; ++j) {
+      const float t = mma_threshold(mma_pair_c_lower(lane, sph[j]), sph[j].c1,
+                                    lane);
+      if (threshold != nullptr) threshold[p * n + j] = t;
+      for (int r = 0; r < repeats; ++r) {
+        const float dx = dx0 * perturb_scale(r);
+        float ls[kMmaSlots], prod[kMmaSlots];
+        mma_lane_slots(dx, dy, dz, ox * dx + oy * dy + oz * dz, ls);
+        for (int k = 0; k < kMmaSlots; ++k)
+          prod[k] = ls[k] * slots[j * kMmaSlots + k];
+        const float dd = emulated_sum(mode, emulated_sum(mode, 0.0f, prod, 8),
+                                      prod + 8, 4);
+        const bool rej = fabsf(dd) < t;
+        if (rejected != nullptr) rejected[(p * n + j) * repeats + r] = rej;
+        if (rej) continue;
+        const float tk = mma_resolve_t(ox, oy, oz, dx, dy, dz, sph[j]);
+        if (tk < kBig && mma_key(tk, j) < keys[r]) keys[r] = mma_key(tk, j);
+      }
+    }
+    float acc = bias[p];
+    for (int r = 0; r < repeats; ++r) {
+      const Winner w = mma_winner(keys[r], sph.data());
+      acc = acc + mma_row(w);
+      if (index != nullptr) index[r * lanes + p] = w.i;
+    }
+    out[p] = acc;
+  }
+}
 void l2n_onehot_lanes_host(int carry, const float* rays, const float* rows,
                            int n, const float* table, int64_t lanes,
                            float* out) {
@@ -515,7 +644,7 @@ def _build_shim(tmp_path_factory, *defines):
     u32 = ctypes.c_uint32
     lib.l2n_philox_host.argtypes = [u32, u32, p, p, ctypes.c_int64]
     lib.l2n_philox_bits_host.argtypes = [u32, u32, ctypes.c_int,
-                                         ctypes.c_int, p]
+                                         ctypes.c_int, p, p]
     lib.l2n_stateful_draws_host.argtypes = [ctypes.c_int, p, ctypes.c_int64,
                                             ctypes.c_int, p]
     lib.l2n_threefry_host.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
@@ -530,6 +659,7 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
     lib.l2n_sweep_chunked_host.argtypes = [i, i, p, p, p, i, i64, i, p, p]
     lib.l2n_sweep_chunked_host.restype = ctypes.c_int
+    lib.l2n_sweep_mma_host.argtypes = [i, p, p, p, i, i64, i, p, p, p, p, p]
     lib.l2n_onehot_lanes_host.argtypes = [i, p, p, i, p, i64, p]
     lib.l2n_onehot_split_host.argtypes = [i, i, p, p, i, p, i64, p]
     lib.l2n_onehot_split_host.restype = ctypes.c_int
@@ -1154,6 +1284,48 @@ print("clean")
 """
 
 
+ASAN_MMA = r"""
+import ctypes, sys
+import numpy as np
+import torch
+from l2n_tpu_torch.probes import sweep_variants as sv
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_sweep_mma_host.argtypes = [i, p, p, p, i, ctypes.c_int64, i, p, p,
+                                   p, p, p]
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+data = sv.inputs(blocks=1)
+bias = np.zeros((1, 32, 128), np.float32)
+# 24 and 120 spheres: what the kernel pads to a tile of 16; every buffer
+# exactly sized
+for n, reps in ((24, 3), (120, 5)):
+    cmat = np.ascontiguousarray(data["cmat"][:, :n])
+    out = np.empty_like(bias)
+    index = np.empty((reps, 1, 32, 128), np.int32)
+    rejected = np.empty((bias.size, n, reps), np.uint8)
+    threshold = np.empty((bias.size, n), np.float32)
+    lib.l2n_sweep_mma_host(4, ptr(data["o"]), ptr(data["d"]), ptr(cmat), n,
+                           bias.size, reps, ptr(bias), ptr(out), ptr(index),
+                           ptr(rejected), ptr(threshold))
+    want_index = torch.empty((reps, 1, 32, 128), dtype=torch.int32)
+    want = sv.sweep_mma_plain(torch.from_numpy(data["o"]),
+                              torch.from_numpy(data["d"]),
+                              torch.from_numpy(cmat), torch.from_numpy(bias),
+                              reps, want_index).numpy()
+    assert np.array_equal(out.view(np.int32), want.view(np.int32))
+    assert np.array_equal(index, want_index.numpy())
+print("clean")
+"""
+
+
+def test_sweep_mma_header_memcheck_asan(tmp_path):
+    """The memory check of the mma sweep's pieces (ROADMAP Queue 3 #15):
+    the header built with AddressSanitizer runs the host sweep over 4,096
+    rays at (n, repeats) = (24, 3) and (120, 5), every buffer exactly
+    sized, bit-equal to the plain sweep_mma in acc and index."""
+    _asan_render(tmp_path, script=ASAN_MMA)
+
+
 def test_sweep_chunked_header_memcheck_asan(tmp_path):
     """The memory check of sweep_variants' chunked sweep (ROADMAP Queue 3
     #15): the header built with AddressSanitizer sweeps 4,096 rays over a
@@ -1269,10 +1441,18 @@ def test_philox_matches_torch_and_header(lib, torch_philox):
                                   np.stack([g.numpy() for g in got]))
 
 
+def _philox_bits_host(lib, k, h):
+    """(out, writes) of the raw-bits kernel's block mapping at (k, h)."""
+    out = np.zeros((k, h, 128), np.uint32)
+    writes = np.zeros((k, h, 128), np.int32)
+    lib.l2n_philox_bits_host(0xBEEF, 7, k, h, _ptr(out), _ptr(writes))
+    return out, writes
+
+
 def test_philox_bits_header_matches_plain(lib):
-    out = np.empty((4, 256, 128), np.uint32)
-    lib.l2n_philox_bits_host(0xBEEF, 7, 4, 256, _ptr(out))
+    out, writes = _philox_bits_host(lib, 4, 256)
     want = philox_bits_plain(torch.tensor([0xBEEF, 7], dtype=torch.int32))
+    assert (writes == 1).all()
     np.testing.assert_array_equal(out.view(np.int32), want.numpy())
 
 
@@ -1525,3 +1705,185 @@ def test_onehot_split_header_tie_rule(lib, carry, group):
     assert hit.mean() > 0.01 and (want[1][hit] % 2 == 0).all()
     np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
 
+
+
+# ---------------------------------------------------------------------------
+# sweep_variants' tensor-core sweep: the pieces of csrc/sweep_probe.cuh the
+# kernel runs (slots, c, miss threshold, exact resolve, winner key, row),
+# the tensor cores' sums emulated in five orders and roundings
+# ---------------------------------------------------------------------------
+
+MMA_MODES = {"order": 0, "reversed": 1, "pairwise": 2, "truncated": 3,
+             "aligned": 4}
+
+
+@functools.cache
+def _mma_plain(n, repeats, tied=False):
+    """sweep_variants' inputs for one block (4,096 rays) at n spheres of the
+    default scene (`tied`: the first n // 2 each twice, at 2j and 2j + 1),
+    a random bias, and the plain sweep_mma's acc and index."""
+    data = sweep_variants.inputs(blocks=1)
+    cmat = data["cmat"][:, :n]
+    if tied:
+        cmat = np.repeat(cmat[:, :n // 2], 2, axis=1)
+    cmat = np.ascontiguousarray(cmat)
+    bias = np.random.default_rng(24).uniform(
+        -1, 1, (1, 32, 128)).astype(np.float32)
+    index = torch.empty((repeats, 1, 32, 128), dtype=torch.int32)
+    want = sweep_variants.sweep_mma_plain(
+        torch.from_numpy(data["o"]), torch.from_numpy(data["d"]),
+        torch.from_numpy(cmat), torch.from_numpy(bias), repeats,
+        index).numpy()
+    return data["o"], data["d"], cmat, bias, want, index.numpy()
+
+
+def _mma_host(lib, mode, o, d, cmat, bias, repeats):
+    """The host sweep's (acc, index, rejected (lanes, n, repeats),
+    threshold (lanes, n))."""
+    n = cmat.shape[1]
+    out = np.empty_like(bias)
+    index = np.empty((repeats, *bias.shape), np.int32)
+    rejected = np.empty((bias.size, n, repeats), np.uint8)
+    threshold = np.empty((bias.size, n), np.float32)
+    lib.l2n_sweep_mma_host(mode, _ptr(o), _ptr(d), _ptr(cmat), n, bias.size,
+                           repeats, _ptr(bias), _ptr(out), _ptr(index),
+                           _ptr(rejected), _ptr(threshold))
+    return out, index, rejected.astype(bool), threshold
+
+
+def _mma_discriminants(o, d, cmat, repeats):
+    """(repeats, n, lanes) hb^2 - c and (n, lanes) c of the plain sweep_mma's
+    algebra, in its arithmetic (probes/sweep_variants.py sweep_mma_plain)."""
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    n = cmat.shape[1]
+    col = lambda k: torch.from_numpy(cmat[k]).view(n, 1, 1, 1)  # noqa: E731
+    centre = (col(0), col(1), col(2))
+    ox, oy, oz = o
+    oo = ox * ox + oy * oy + oz * oz
+    c = oo - (sweep_variants._dot(centre, ox, oy, oz, True) * 2) + col(4)
+    discs = []
+    for r in range(repeats):
+        dx = d[0] * sweep_variants._scale(r, o.device)
+        od = ox * dx + oy * d[1] + oz * d[2]
+        hb = od - sweep_variants._dot(centre, dx, d[1], d[2], True)
+        discs.append((hb * hb - c).reshape(n, -1))
+    return torch.stack(discs).numpy(), c.reshape(n, -1).numpy()
+
+
+@pytest.mark.parametrize("n,repeats", [(8, 1), (8, 3), (8, 16), (24, 1),
+                                       (24, 3), (24, 16), (128, 1),
+                                       (128, 3), (128, 16)])
+@pytest.mark.parametrize("mode", list(MMA_MODES.values()),
+                         ids=list(MMA_MODES))
+def test_sweep_mma_header_matches_plain(lib, mode, n, repeats):
+    """The mma sweep's per-pair pieces (csrc/sweep_probe.cuh: the 3xTF32
+    slots, c and the miss threshold once per (lane, sphere), |D| < T per
+    repeat, the exact resolve of the rest, the (t, index) key, the row)
+    over one block of 4,096 rays, the tensor cores' sums emulated in
+    order, reversed, pairwise, truncating and aligned-and-truncated:
+    bit-equal to the plain sweep_mma, acc and every repeat's index. n = 24
+    is not a multiple of 16 (the kernel pads its last sphere tile)."""
+    o, d, cmat, bias, want, want_index = _mma_plain(n, repeats)
+    out, index, rejected, _ = _mma_host(lib, mode, o, d, cmat, bias, repeats)
+    assert (want_index >= 0).mean() > 0.01  # some lanes hit
+    assert rejected.mean() > 0.99  # the test rejects nearly every pair
+    np.testing.assert_array_equal(index, want_index)
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("mode", list(MMA_MODES.values()),
+                         ids=list(MMA_MODES))
+def test_sweep_mma_header_tie_rule(lib, mode):
+    """Every sphere twice, at indices 2j and 2j + 1: every hit is a tie in
+    t, and the key keeps the smaller index in every repeat, as the plain
+    version does (bit-equal, acc and index)."""
+    o, d, cmat, bias, want, want_index = _mma_plain(64, 5, tied=True)
+    out, index, _, _ = _mma_host(lib, mode, o, d, cmat, bias, 5)
+    assert (want_index >= 0).mean() > 0.01
+    assert (want_index[want_index >= 0] % 2 == 0).all()
+    np.testing.assert_array_equal(index, want_index)
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@functools.cache
+def _grazing_rays(repeats=3, seed=7):
+    """4,096 rays (one block) whose lines pass sphere p % 8 of 8 large
+    spheres of the default scene at a distance whose square is r^2 - u,
+    u ~ U(-30, 30) on two thirds of them and U(-1, 1) on the rest: hb^2 - c
+    lies within the miss test's margin (about +-18 here) for many pairs.
+    Returns (o, d, cmat, bias) and the plain sweep_mma's (acc, index)."""
+    data = sweep_variants.inputs(blocks=1)
+    pick = np.flatnonzero(data["r2"] > 100.0)[:8]
+    cmat = np.ascontiguousarray(data["cmat"][:, pick])
+    rng = np.random.default_rng(seed)
+    lanes = 32 * 128
+    j = np.arange(lanes) % 8
+    centre = cmat[:3, j].T.astype(np.float64)
+    r2 = cmat[3, j].astype(np.float64)
+    o = rng.uniform(-400, 400, (lanes, 3))
+    w = centre - o
+    dist = np.linalg.norm(w, axis=1, keepdims=True)
+    far = np.maximum(1.0, 4.0 * np.sqrt(r2)[:, None] / dist)
+    o = centre - w * far  # at least 4 radii from the centre
+    w = centre - o
+    length = np.linalg.norm(w, axis=1)
+    v = rng.normal(size=(lanes, 3))
+    v -= (np.sum(v * w, axis=1) / length ** 2)[:, None] * w
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    u = np.where(np.arange(lanes) % 3 == 0, rng.uniform(-1, 1, lanes),
+                 rng.uniform(-30, 30, lanes))
+    rho = np.sqrt(r2 - u)
+    s = rho * length / np.sqrt(length ** 2 - rho ** 2)
+    dvec = w + s[:, None] * v
+    dvec /= np.linalg.norm(dvec, axis=1, keepdims=True)
+    o32 = np.ascontiguousarray(o.T.reshape(3, 1, 32, 128).astype(np.float32))
+    d32 = np.ascontiguousarray(
+        dvec.T.reshape(3, 1, 32, 128).astype(np.float32))
+    bias = np.zeros((1, 32, 128), np.float32)
+    index = torch.empty((repeats, 1, 32, 128), dtype=torch.int32)
+    want = sweep_variants.sweep_mma_plain(
+        torch.from_numpy(o32), torch.from_numpy(d32), torch.from_numpy(cmat),
+        torch.from_numpy(bias), repeats, index).numpy()
+    return o32, d32, cmat, bias, want, index.numpy()
+
+
+@pytest.mark.parametrize("mode", list(MMA_MODES.values()),
+                         ids=list(MMA_MODES))
+def test_sweep_mma_header_margin_adversarial(lib, mode):
+    """Grazing rays (`_grazing_rays`): hb^2 - c falls inside the margin's
+    band (c - T^2 in the discriminant's units) for most of each ray's
+    target pairs, and on both sides of zero. The miss test never rejects a
+    candidate whose discriminant is >= 0 in the plain version's arithmetic
+    (which would take its roots), and the sweep stays bit-equal to the
+    plain sweep_mma."""
+    repeats = 3
+    o, d, cmat, bias, want, want_index = _grazing_rays(repeats)
+    out, index, rejected, threshold = _mma_host(lib, mode, o, d, cmat, bias,
+                                                repeats)
+    disc, c = _mma_discriminants(o, d, cmat, repeats)  # (R, n, L), (n, L)
+    kept = disc >= 0  # the plain version takes these roots
+    assert not (rejected.transpose(2, 1, 0) & kept).any()
+    band = c - np.maximum(threshold.T, 0.0) ** 2  # (n, L)
+    lanes = np.arange(c.shape[1])
+    target = (lanes % 8, lanes)
+    inside = np.abs(disc[0][target]) <= band[target]
+    assert inside.mean() > 0.5
+    assert kept[0][target][inside].mean() > 0.2
+    assert (~kept[0][target][inside]).mean() > 0.2
+    np.testing.assert_array_equal(index, want_index)
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("k,h", [(1, 1), (3, 33), (5, 7), (9, 2)])
+def test_philox_blocks_header_matches_plain(lib, k, h):
+    """philox_bits' kernel mapping (csrc/pathtrace.cuh philox_bits_slot:
+    one Philox block per (lane, block), its words to draws 4 block ..
+    4 block + 3, fewer for the last block of a k that is not a multiple of
+    4) at shapes beside test_philox_bits_header_matches_plain's (4, 256):
+    every word of the (k, h, 128) output written once and bit-equal to
+    philox_bits_plain."""
+    out, writes = _philox_bits_host(lib, k, h)
+    want = philox_bits_plain(torch.tensor([0xBEEF, 7], dtype=torch.int32),
+                             k, h)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out.view(np.int32), want.numpy())

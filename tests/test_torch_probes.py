@@ -325,6 +325,19 @@ def test_sweep_wrappers_route_and_check():
         port_sv.sweep_vpu(*(t.to("meta") for t in (o, d, *sph, bias)))
 
 
+def test_sweep_mma_stats_kernel_only():
+    """`stats` counts the kernel's miss tests and resolves: the plain
+    version, which a CPU tensor runs, has none, and the wrapper says so
+    rather than leave the counters untouched."""
+    data = port_sv.inputs(blocks=1)
+    o, d = _t(data["o"]), _t(data["d"])
+    cmat = _t(np.ascontiguousarray(data["cmat"][:, :8]))
+    bias = torch.zeros((1, TH, TW))
+    with pytest.raises(ValueError, match="stats"):
+        port_sv.sweep_mma(o, d, cmat, bias, 1,
+                          stats=torch.zeros(4, dtype=torch.int64))
+
+
 # ---------------------------------------------------------------------------
 # onehot_recovery
 # ---------------------------------------------------------------------------
