@@ -13,7 +13,11 @@ bit from views that make their per-tile cone cull hard (phase 22), runs
 the wavefront step twice from one state to show that its image does not
 depend on the order of pass A's survivor slots (phase 23), holds the
 wavefront step to sphere_pt bit for bit at the 10-tile schedule, where
-pass B splits each ray's sweeps over 8 lanes (phase 24), and times
+pass B splits each ray's sweeps over 8 lanes (phase 24), holds sphere_pt,
+triangle_pt and wavefront passes A/B to their plain versions with the
+primary-only AOVs (normal, hit, ambient occlusion), the sun sky, the
+viewproj camera and fast_math in every rng mode, with a view whose misses
+see the sun (phases 25-28), drives their main paths (phase 29), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
@@ -1368,7 +1372,11 @@ def hard_culling_phase(cfg, spheres, tri_cfg, tri_buf):
     sphere 0 for spheres (every primary hits it from inside), in the gap
     between a tessellated sphere and its bound for meshes (a lit view out of
     the bound), that one also as the tex_coords AOV (1 step), which walks
-    only the culled meshes. Gates: accum max abs 0, lit > 5%."""
+    only the culled meshes; and the four path views again with the
+    viewproj camera, whose cones come from its own corner rays. Gates:
+    accum max abs 0, lit > 5%; for the meshes with viewproj, bit-equal but
+    at the pixels where the plain sweep kept a hit outside its mesh's
+    bound (triangle_vs_watched)."""
     from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
     from l2n_tpu_torch.ops.kernels.triangle_pt import (
         triangle_pt,
@@ -1398,19 +1406,400 @@ def hard_culling_phase(cfg, spheres, tri_cfg, tri_buf):
     views.append((f"mesh eye in mesh {near0}'s bound gap, tex_coords",
                   triangle_pt, triangle_pt_plain,
                   twhole.replace(aov="tex_coords"), tri_buf, gap, mb, ""))
+    # The same four views with the viewproj camera, whose tile cones come
+    # from its own corner rays (csrc/cull.cuh camera_direction).
+    views += [(f"{name}, viewproj", kern, plain,
+               vcfg.replace(ray_gen="viewproj"), scene_arg, cam, bounds, note)
+              for name, kern, plain, vcfg, scene_arg, cam, bounds, note
+              in views[:4]]
     out = {}
     for name, kern, plain, vcfg, scene_arg, cam, bounds, note in views:
         n_straddle, counts = straddling(vcfg, bounds, cam)
         steps = 4 if vcfg.aov == "pathtracing" else 1
-        _, err, _, lit, _ = kernel_vs_plain(kern, plain, vcfg, scene_arg,
-                                            cam, steps)
-        require(err == 0.0, f"{name}: kernel/plain accum max abs {err}")
+        if kern is triangle_pt and vcfg.ray_gen == "viewproj":
+            res = triangle_vs_watched(vcfg, scene_arg, cam, steps, 0.05)
+            err, lit = res["max_abs"], res["lit"]
+            extra = {k: res[k] for k in ("pixels_differing",
+                                         "pixels_sliver_hit")}
+        else:
+            _, err, _, lit, _ = kernel_vs_plain(kern, plain, vcfg, scene_arg,
+                                                cam, steps)
+            require(err == 0.0, f"{name}: kernel/plain accum max abs {err}")
+            extra = {}
         out[name] = {"max_abs": err, "lit": round(lit, 4),
                      "visible_mean": round(float(counts.float().mean()), 3),
                      "visible_max": int(counts.max()),
-                     "straddling": n_straddle, **({"view": note} if note
-                                                  else {})}
+                     "straddling": n_straddle, **extra,
+                     **({"view": note} if note else {})}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The primary-only AOVs, the sun sky, viewproj and fast_math (phases 25-28)
+# ---------------------------------------------------------------------------
+SUN_CFG = dict(env_mode="sun", ray_gen="viewproj")
+SUN_FAST_CFG = dict(SUN_CFG, fast_math=True)
+RNG_MODES = ("threefry", "tpu_hw", "tinymt", "tauslcg")
+
+
+def sun_view(cfg, spheres):
+    """The camera one world size from the scene's centre against the sun's
+    direction normalize(1, 1, -1), looking at the centre: the misses near
+    the view's axis see the sun lobe (pow 128, lit within ~25 degrees)."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
+    centre = spheres[:3].cpu().numpy().astype(np.float64).mean(1)
+    sun = np.array([1.0, 1.0, -1.0]) / np.sqrt(3.0)
+    eye = centre - sun * cfg.world_size
+    vm = look_at(eye.astype(np.float32), centre.astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+def sun_lanes(cfg, spheres, cam) -> torch.Tensor:
+    """(Hp, Wp) bool: the visible pixels whose zero-jitter primary ray
+    misses every sphere (so every mesh inside one) with sun_le > 0, from the
+    plain functions on the card."""
+    from l2n_tpu_torch.ops.envlight import sun_le
+    from l2n_tpu_torch.ops.intersect import intersect_sphere_scene
+    from l2n_tpu_torch.ops.pathtrace import generate_rays
+    dev = spheres.device
+    py, px = torch.meshgrid(
+        torch.arange(cfg.height, dtype=torch.float32, device=dev),
+        torch.arange(cfg.width, dtype=torch.float32, device=dev),
+        indexing="ij")
+    zero = torch.zeros_like(px)
+    rays = generate_rays(cfg, torch.as_tensor(cam).to(dev), px, py, zero,
+                         zero)
+    t = intersect_sphere_scene(*rays, *spheres[:4], cfg.fast_math)[0]
+    lit = (t < 0.0) & (sun_le(*rays[3:]) > 0.0)
+    out = torch.zeros((cfg.padded_height, cfg.padded_width), dtype=torch.bool,
+                      device=dev)
+    out[:cfg.height, :cfg.width] = lit
+    return out
+
+
+def watched_triangle_plain(flags):
+    """triangle_pt_plain with its nearest-hit sweep watched: `flags` (Hp *
+    Wp,) bool gets, IN PLACE, every pixel one of whose rays the brute-force
+    sweep hit outside the hit mesh's bound sphere (r^2 grown by 1e-3). No
+    triangle lies there: such a hit is Moller-Trumbore's on a pole sliver
+    whose |det| is just over its epsilon, and a t far from the triangle
+    that the oracle (the JAX package's too) keeps and no bound hierarchy
+    can find."""
+    from l2n_tpu_torch.ops.kernels.common import (
+        render_tiles_plain,
+        tile_pixel_coords,
+    )
+    from l2n_tpu_torch.ops.scenes import (
+        TRIANGLE_MISS_COLOR,
+        triangle_anyhit,
+        triangle_intersector,
+    )
+
+    def plain(cfg, sched, cam, buf, accum, output, rng_state=None):
+        inner = triangle_intersector(buf.soup)
+        mb = buf.mesh_bounds
+        row, col = tile_pixel_coords(cfg, sched)
+        flat = (row * cfg.padded_width + col).reshape(-1)
+
+        def intersect(ox, oy, oz, dx, dy, dz):
+            h = inner(ox, oy, oz, dx, dy, dz)
+            m = h.index.clamp(min=0)
+            d2 = sum((o + h.t * d - mb[m, i]) ** 2 for i, (o, d) in
+                     enumerate(((ox, dx), (oy, dy), (oz, dz))))
+            out = (h.t >= 0.0) & (d2 > mb[m, 3] * 1.001)
+            flags[flat] |= out.reshape(-1)
+            return h
+
+        render_tiles_plain(cfg, sched, cam, intersect,
+                           triangle_anyhit(intersect), buf.albedo.T, accum,
+                           output, rng_state, TRIANGLE_MISS_COLOR)
+
+    return plain
+
+
+def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02):
+    """triangle_pt against its watched plain version for `steps` steps:
+    accum[3] and the state planes equal, accum bit-equal at every pixel but
+    those where the plain sweep kept a hit outside its mesh's bound
+    (watched_triangle_plain), and more than `min_lit` of the rendered
+    pixels lit; returns the counts, the max abs and that share."""
+    from l2n_tpu_torch.ops.kernels.triangle_pt import triangle_pt
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    dev = torch.device("cuda")
+    tiles = torch.as_tensor(tile_grid(cfg)).to(dev)
+    k = cfg.effective_tiles_per_step
+    ka, pa = init_frame_state(cfg, dev), init_frame_state(cfg, dev)
+    flags = torch.zeros(cfg.padded_height * cfg.padded_width,
+                        dtype=torch.bool, device=dev)
+    plain = watched_triangle_plain(flags)
+    for i in range(steps):
+        sched = scheduled_tiles(tiles, i * k % cfg.tile_count, k)
+        triangle_pt(cfg, sched, cam, buf, ka.accum, ka.output, ka.rng_state)
+        plain(cfg, sched, cam, buf, pa.accum, pa.output, pa.rng_state)
+    torch.cuda.synchronize()
+    require(torch.equal(ka.accum[3], pa.accum[3]), "triangle accum[3] equal")
+    if ka.rng_state is not None:
+        require(torch.equal(ka.rng_state, pa.rng_state),
+                "triangle rng_state bit-equal")
+    diff = (ka.accum.view(torch.int32) != pa.accum.view(torch.int32)).any(0)
+    diff = diff.view(-1)
+    unexplained = int((diff & ~flags).sum())
+    require(unexplained == 0, f"triangle kernel/plain: {unexplained} pixels "
+                              f"differ where the plain sweep kept no hit "
+                              f"outside its mesh's bound")
+    shown = pa.accum[:, :cfg.height, :cfg.width]
+    lit = float(((shown[:3].abs().amax(0) > 0) & (shown[3] > 0)).sum()
+                / (shown[3] > 0).sum())
+    require(lit > min_lit, f"triangle lit {lit} > {min_lit} of the rendered "
+                           f"pixels")
+    return {"max_abs": float((ka.accum - pa.accum).abs().max()),
+            "pixels_differing": int(diff.sum()),
+            "pixels_sliver_hit": int(flags.sum()), "lit": lit}
+
+
+def wavefront_passes_vs_plain(wcfg, sched, cam, spheres):
+    """Pass A and pass B, kernel vs plain on the same inputs (pass B on the
+    plain pass A's outputs): pass A's n_alive, col and back bit-equal, its
+    rays and meta equal as sets (sorted by lane); pass B's back
+    bit-equal. Returns (n_alive, lanes)."""
+    from l2n_tpu_torch.ops.kernels.wavefront import (
+        wavefront_lanes,
+        wavefront_pass_a,
+        wavefront_pass_a_plain,
+        wavefront_pass_b,
+        wavefront_pass_b_plain,
+    )
+    from l2n_tpu_torch.render.state import init_frame_state
+    dev = torch.device("cuda")
+    accum = init_frame_state(wcfg, dev).accum
+    ka = wavefront_lanes(wcfg, sched.shape[0], dev)
+    ka.back.fill_(float("nan"))  # pass A leaves the survivors' lanes
+    ka = wavefront_pass_a(wcfg, sched, cam, spheres, accum, ka)
+    pa = wavefront_pass_a_plain(wcfg, sched, cam, spheres, accum)
+    torch.cuda.synchronize()
+    na = int(pa.n_alive[0])
+    require(int(ka.n_alive[0]) == na, "pass A n_alive equal")
+    require(bits_equal(ka.col, pa.col) and bits_equal(ka.back, pa.back),
+            "pass A col and back bit-equal")
+    order = torch.argsort(ka.meta[2, :na])
+    require(torch.equal(ka.meta[:, :na][:, order], pa.meta[:, :na])
+            and bits_equal(ka.rays[:, :na][:, order], pa.rays[:, :na]),
+            "pass A rays and meta equal as sets")
+    kb, pb = pa.back.clone(), pa.back.clone()
+    wavefront_pass_b(wcfg, cam, spheres, pa.rays, pa.meta, pa.n_alive, kb)
+    wavefront_pass_b_plain(wcfg, cam, spheres, pa.rays, pa.meta, pa.n_alive,
+                           pb)
+    torch.cuda.synchronize()
+    require(not kb.isnan().any() and bits_equal(kb, pb),
+            "pass B back bit-equal")
+    return na, pa.col[0].numel()
+
+
+def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
+    """Device time of the built step (CUDA events over back-to-back steps)
+    and of its kernels per launch (torch.profiler) for each setting of the
+    slice beside the default config's, at the main path's 10 tiles and at
+    whole frames, in one process on one card."""
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import build_render_step
+    wave = ("wavefront_pass_a_kernel", "wavefront_pass_b_kernel",
+            "wavefront_pass_c_kernel")
+    families = [
+        ("sphere_pt", cfg, scene, ("sphere_pt_kernel",),
+         {"default": {}, "normal": {"aov": "normal"}, "hit": {"aov": "hit"},
+          "ambient_occlusion": {"aov": "ambient_occlusion"},
+          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG}),
+        ("triangle_pt", tri_cfg, tri_scene, ("triangle_pt_kernel",),
+         {"default": {}, "normal": {"aov": "normal"},
+          "ambient_occlusion": {"aov": "ambient_occlusion"},
+          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG}),
+        ("wavefront", cfg.replace(wavefront=True), scene, wave,
+         {"default": {}, "sun+viewproj": SUN_CFG,
+          "sun+viewproj+fast_math": SUN_FAST_CFG})]
+    for family, fcfg, fscene, kernels, settings in families:
+        for label, lcfg in (("10-tile", fcfg), ("whole-frame", fcfg.replace(
+                tiles_per_step=fcfg.tile_count))):
+            for name, kw in settings.items():
+                scfg = lcfg.replace(**kw)
+                step = build_render_step(scfg, fscene, backend="cuda",
+                                         device=dev)
+                st = init_frame_state(scfg, dev)
+                for _ in range(3):
+                    st = step(st, cam)
+                n = 50 if label == "10-tile" else 10
+                dev_ms, _, st = timed_steps(step, st, cam, n)
+                per, _, _, st = profile_steps(step, st, cam, 10, kernels)
+                print(f"[settings] {family} {label} {name}: step {dev_ms:.4f} "
+                      f"ms (CUDA events); per launch (torch.profiler) "
+                      + ", ".join(f"{k} " + ("not measured" if v is None
+                                             else f"{v:.4f} ms")
+                                  for k, v in per.items())
+                      + f"; card: {card}", flush=True)
+                del st, step
+        torch.cuda.empty_cache()
+
+
+def slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam):
+    """Phases 25-28: the primary-only AOVs, the sun sky, viewproj and
+    fast_math through sphere_pt, triangle_pt and the wavefront passes:
+    kernel vs plain at the default 1280x720 config, whole frame for the
+    sphere family and 10-tile steps for meshes, in every rng mode, then the
+    main paths through Application."""
+    from l2n_tpu_torch.app.application import Application
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.wavefront import sphere_wavefront_step
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    dev = torch.device("cuda")
+    swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+
+    # --- 25: sphere_pt, every new setting and rng mode, 2 whole frames ---
+    settings = {"normal": {"aov": "normal"}, "hit": {"aov": "hit"},
+                "ambient_occlusion": {"aov": "ambient_occlusion"},
+                "sun+viewproj": SUN_CFG,
+                "sun+viewproj+fast_math": SUN_FAST_CFG,
+                "fast_math": {"fast_math": True}}
+    fused = {}
+    for name, kw in settings.items():
+        for rng in RNG_MODES:
+            scfg = swhole.replace(rng=rng, **kw)
+            # 1 spp lights 2.9% of the default view; the Mandelbrot sky
+            # needs 4 to pass the lit gate, the sun and the AOVs 2
+            steps = 4 if name == "fast_math" else 2
+            _, err, _, lit, state_eq = kernel_vs_plain(
+                sphere_pt, sphere_pt_plain, scfg, spheres, cam, steps)
+            require(err == 0.0, f"sphere_pt {name} rng={rng} max abs {err}")
+            require(state_eq in (None, True),
+                    f"sphere_pt {name} rng={rng} rng_state bit-equal")
+            fused[f"{name}/{rng}"] = round(lit, 4)
+    for aov in ("tex_coords", "param_uv"):
+        _, err, _, lit, _ = kernel_vs_plain(
+            sphere_pt, sphere_pt_plain, swhole.replace(aov=aov), spheres,
+            cam, 1)
+        require(err == 0.0, f"sphere_pt {aov} max abs {err}")
+        fused[f"{aov}/threefry"] = round(lit, 4)
+    phase(25, f"sphere_pt kernel vs plain, default {cfg.width}x{cfg.height} "
+              f"config, 2 whole-frame steps per setting and rng mode (4 for "
+              f"fast_math alone, 1 for tex_coords / param_uv): accum max abs "
+              f"0, rng_state "
+              f"bit-equal (fast_math too: torch.rsqrt on the card is "
+              f"rsqrtf); lit: {fused}")
+
+    # --- 26: the wavefront passes with the sun, viewproj, fast_math -----
+    wave = {}
+    s10 = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                          cfg.effective_tiles_per_step)
+    sall = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                           cfg.tile_count)
+    for name, kw in (("sun+viewproj", SUN_CFG),
+                     ("sun+viewproj+fast_math", SUN_FAST_CFG)):
+        for rng in ("threefry", "tpu_hw"):
+            wcfg = cfg.replace(wavefront=True, rng=rng, **kw)
+            whole = wcfg.replace(tiles_per_step=wcfg.tile_count)
+            na, n = wavefront_passes_vs_plain(whole, sall, cam, spheres)
+            na10, _ = wavefront_passes_vs_plain(wcfg, s10, cam, spheres)
+            _, err, _, lit, _ = kernel_vs_plain(
+                sphere_wavefront_step, sphere_pt, whole, spheres, cam, 2)
+            require(err == 0.0, f"wavefront/fused {name} {rng} max abs {err}")
+            wave[f"{name}/{rng}"] = {"alive": round(na / n, 4),
+                                     "alive_10_tiles": na10,
+                                     "lit": round(lit, 4)}
+    phase(26, f"wavefront passes A and B kernel vs plain (pass A n_alive, "
+              f"col, back bit-equal, rays and meta equal as sets; pass B "
+              f"back bit-equal) at one whole frame and at 10 tiles, and the "
+              f"wavefront CUDA step vs sphere_pt's, 2 whole-frame steps, "
+              f"max abs 0: {wave}")
+
+    # --- 27: the sun in view: misses along normalize(1, 1, -1) -----------
+    vcam = sun_view(cfg, spheres)
+    sun = {}
+    for name, kw in (("sun+viewproj", SUN_CFG),
+                     ("sun+viewproj+fast_math", SUN_FAST_CFG)):
+        scfg = swhole.replace(**kw)
+        lanes = sun_lanes(scfg, spheres, vcam)
+        n_sun = int(lanes.sum())
+        require(n_sun > 1000, f"{name}: {n_sun} primary misses see the sun")
+        ka_pa = {}
+        for label, kern, kcfg in (
+                ("sphere_pt", sphere_pt, scfg),
+                ("wavefront", sphere_wavefront_step,
+                 scfg.replace(wavefront=True))):
+            plain = sphere_pt_plain if label == "sphere_pt" else sphere_pt
+            k_st, p_st = (init_frame_state(kcfg, dev) for _ in range(2))
+            kern(kcfg, sall, vcam, spheres, k_st.accum, k_st.output)
+            plain(kcfg, sall, vcam, spheres, p_st.accum, p_st.output)
+            torch.cuda.synchronize()
+            err = float((k_st.accum - p_st.accum).abs().max())
+            require(err == 0.0, f"sun view {name} {label} max abs {err}")
+            sky = k_st.accum[:3].amax(0)[lanes]
+            lit_sun = float((sky > 0).float().mean())
+            require(lit_sun > 0.9, f"sun view {name} {label}: {lit_sun} of "
+                                   f"the sun lanes lit")
+            ka_pa[label] = {"max_abs": err, "sun_lanes_lit": round(lit_sun, 4),
+                            "sky_max": float(sky.max())}
+        tcfg = tri_cfg.replace(**kw)
+        ka_pa["triangle_pt 10 tiles"] = triangle_vs_watched(tcfg, tri_buf,
+                                                            vcam, 2)
+        sun[name] = {"sun_lanes": n_sun, **ka_pa}
+    phase(27, f"the sun in view (camera along normalize(1,1,-1) at the "
+              f"scene's centre), 1 whole-frame step, kernel vs plain (the "
+              f"wavefront step vs sphere_pt's), 2 steps of 10 tiles for "
+              f"meshes: {sun}")
+
+    # --- 28: triangle_pt, 10-tile steps, every new setting ---------------
+    tri = {}
+    tri_settings = dict(settings)
+    tri_settings.pop("fast_math")
+    for name, kw in tri_settings.items():
+        for rng in (RNG_MODES if name == "ambient_occlusion"
+                    else ("threefry",)):
+            tri[f"{name}/{rng}"] = triangle_vs_watched(
+                tri_cfg.replace(rng=rng, **kw), tri_buf, cam, 2)
+    phase(28, f"triangle_pt kernel vs plain, default triangle config, 2 "
+              f"steps of 10 tiles per setting (every rng mode for the AO): "
+              f"bit-equal (and rng_state) but at pixels whose plain "
+              f"brute-force sweep kept a hit outside its mesh's bound: {tri}")
+
+    # --- 29: the main paths ----------------------------------------------
+    paths = {}
+    for label, kw, renderer, names in (
+            ("normal", {"aov": "normal"}, "spherePT", ("sphere_pt",)),
+            ("hit", {"aov": "hit"}, "spherePT", ("sphere_pt",)),
+            ("ambient_occlusion", {"aov": "ambient_occlusion"}, "spherePT",
+             ("sphere_pt",)),
+            ("sun+viewproj+fast_math", SUN_FAST_CFG, "spherePT",
+             ("sphere_pt",)),
+            ("sun+viewproj+fast_math, wavefront",
+             dict(SUN_FAST_CFG, wavefront=True), "spherePT",
+             ("wavefront_pass_a", "wavefront_pass_b", "wavefront_pass_c")),
+            ("normal, meshes", {"aov": "normal"}, "trianglePT",
+             ("triangle_pt",)),
+            ("ambient_occlusion, meshes", {"aov": "ambient_occlusion"},
+             "trianglePT", ("triangle_pt",)),
+            ("sun+viewproj+fast_math, meshes", SUN_FAST_CFG, "trianglePT",
+             ("triangle_pt",))):
+        app = Application(RenderConfig(**kw), backend="cuda", device="cuda",
+                          workdir=tmp, initial_renderer=renderer)
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        got, lit, _ = run_main_path(app, frames, names)
+        paths[label] = (got, round(lit, 4))
+        del app
+    phase(29, f"main paths through Application(RenderConfig(...), "
+              f"backend=cuda), {frames} steps each, 10 spp everywhere, "
+              f"finite: launches and lit {paths}; card: {card}")
+
+
+
+# The compile-time settings of each step kernel's instantiations, in their
+# template order (csrc/pathtrace.cuh with_options).
+KERNEL_FLAGS = {"sphere_pt": ("aovs", "fast_math", "viewproj"),
+                "triangle_pt": ("aovs", "fast_math", "viewproj"),
+                "wavefront_pass_a": ("fast_math", "viewproj"),
+                "wavefront_pass_b": ("fast_math",)}
 
 
 def main() -> int:
@@ -1477,12 +1866,17 @@ def main() -> int:
                       r"wavefront_pass_[abc]|cond_cost|sweep_vpu2?|"
                       r"sweep_mma|onehot_carry|onehot_gather)_kernel", ln)
         if "Compiling entry function" in ln and m:
-            # one instantiation per sampler, or per cond_cost mode and
-            # carry count: name it
+            # one instantiation per sampler and compile-time setting (the
+            # fused kernels' AOVs, fast_math, viewproj; pass A's last two,
+            # pass B's fast_math), or per cond_cost mode and carry count:
+            # name it
             rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
+            flags = [name for name, bit in zip(KERNEL_FLAGS.get(
+                m.group(1), ()), re.findall(r"Lb([01])E", ln)) if bit == "1"]
+            rng_flags = ", ".join([rng.group(1)] + flags) if rng else ""
             mode_m = re.search(r"cond_cost_kernelILi(\d+)ELi(\d+)E", ln)
             kernel = m.group(1) + (
-                f"<{rng.group(1)}>" if rng else
+                f"<{rng_flags}>" if rng else
                 f"<mode {mode_m.group(1)}, m {mode_m.group(2)}>" if mode_m
                 else "")
         elif "registers" in ln or "spill" in ln:
@@ -2033,7 +2427,11 @@ def main() -> int:
         hard = hard_culling_phase(cfg, spheres, tri_cfg, tri_buf)
         phase(22, f"hard culling, 4 whole-frame steps per view (1 for the "
                   f"AOV), kernel vs plain (gates: accum max abs 0, lit > "
-                  f"0.05): {hard}")
+                  f"0.05; the mesh views with viewproj: bit-equal but at "
+                  f"pixels whose plain sweep kept a hit outside its mesh's "
+                  f"bound): {hard}")
+
+        slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -2161,6 +2559,9 @@ def main() -> int:
                   f"{card}", flush=True)
             del tst, tstep
         torch.cuda.empty_cache()
+
+    # --- the new settings: kernel ms per launch beside the default's -------
+    settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam)
 
     # --- each pass alone at the main path's 10-tile shape -----------------
     k = wcfg.effective_tiles_per_step

@@ -7,8 +7,9 @@
 // jittered pixel of the tile, so it lies inside the cone spanned by the
 // tile's corner rays. A sphere (or bound sphere) can be hit by a primary
 // only if it meets that cone. The test is the JAX table's, operation for
-// operation in float32: corner and centre rays through generate_rays's
-// "fovy" form with zero jitter, the cone's cosine relaxed by 5% of 1 - cos
+// operation in float32: corner and centre rays through generate_rays with
+// zero jitter (the configured camera form and normalization, as the
+// primaries), the cone's cosine relaxed by 5% of 1 - cos
 // plus 1e-4, and always kept when the camera lies inside the sphere
 // (d2 <= r2). It only ever keeps too many, so a sweep over the kept
 // spheres in ascending index order finds the full sweep's winner: a culled
@@ -38,14 +39,14 @@ L2N_HD TileCone tile_cone(const PtParams& p, int tile_x, int tile_y) {
   const float x1 = x0 + static_cast<float>(p.tile_width);
   const float y1 = y0 + static_cast<float>(p.tile_height);
   TileCone k;
-  fovy_direction(p, 0.5f * (x0 + x1), 0.5f * (y0 + y1), 0.0f, 0.0f, k.ax,
-                 k.ay, k.az);
+  camera_direction(p, 0.5f * (x0 + x1), 0.5f * (y0 + y1), 0.0f, 0.0f, k.ax,
+                   k.ay, k.az);
   float cos_min = 1.0f;
   const float xs[4] = {x0, x1, x0, x1};
   const float ys[4] = {y0, y0, y1, y1};
   for (int i = 0; i < 4; ++i) {
     float dx, dy, dz;
-    fovy_direction(p, xs[i], ys[i], 0.0f, 0.0f, dx, dy, dz);
+    camera_direction(p, xs[i], ys[i], 0.0f, 0.0f, dx, dy, dz);
     const float c = dx * k.ax + dy * k.ay + dz * k.az;
     cos_min = c < cos_min ? c : cos_min;
   }

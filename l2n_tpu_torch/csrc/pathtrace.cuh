@@ -14,6 +14,9 @@
 //   Hit nearest(ox, oy, oz, dx, dy, dz) const;  // t = -1 on a miss
 //   Hit nearest_primary(ox, oy, oz, dx, dy, dz) const;  // the same hit
 //   bool anyhit(ox, oy, oz, dx, dy, dz) const;   // == nearest(...).t >= 0
+//   bool occluded(ox, oy, oz, dx, dy, dz) const;  // the AO cast:
+//       // nearest(...).t >= 0 for a direction of any length
+//   static void miss_color(float col[3]);  // the normal AOV's miss colour
 // where nearest_primary serves the primary casts (origin = the camera, the
 // direction through a pixel of the thread's tile) and may walk only the
 // tile's cone-visible candidates (csrc/cull.cuh),
@@ -23,8 +26,11 @@
 // The path body is also a template on the sampler, one type per rng mode
 // (rng/sampler.py): ThreefrySampler, PhiloxSampler (rng="tpu_hw"),
 // TinyMTSampler and TausLCGSampler. A kernel is instantiated once per
-// sampler, and its host entry point picks the instantiation from the mode
-// code (dispatch_rng); nothing switches on the mode inside the path loop.
+// sampler (and per compile-time setting: the fused kernels' path tracer
+// and AOVs, fast_math and the camera form; with_options), and its host
+// entry point picks the instantiation from the codes (dispatch_rng,
+// dispatch_fused, dispatch_counter_rng_*); nothing switches on the mode
+// inside the path loop.
 // A sampler provides draw2/draw1 and the per-pixel protocol render_pixel
 // uses: load (sample 0 of the step), next_sample, store.
 //
@@ -43,6 +49,15 @@
 // The fused kernels run it whole (trace_sample); the wavefront kernels
 // (csrc/wavefront.cu) run the first vertex in pass A (trace_primary) and
 // the rest in pass B (trace_continue), with the sampler resumed between.
+// The primary-only AOVs (aov_sample) stop at the primary hit, but for the
+// ambient-occlusion ray.
+//
+// The step's settings ride in PtParams: the sky (none, Mandelbrot, sun),
+// the camera form (fovy, viewproj) and fast_math, which takes rsqrtf at
+// the JAX package's sites only: the nearest-sphere sweeps' square root
+// (as x * rsqrt(x)) and hit normal, the camera ray's normalize and the
+// scatter's frame and normalize. The any-hit sweeps, the AO frame and the
+// triangle tests stay exact.
 
 #pragma once
 
@@ -62,9 +77,22 @@ constexpr double kPi = 3.14159265358979323846;
 constexpr float kBig = 3.0e38f;
 constexpr int kMandelbrotIters = 64;
 
-// AOV codes (ops/kernels/common.py::AOV_CODES); 2 is param_uv.
+// AOV codes (ops/kernels/common.py::AOV_CODES).
 constexpr int kAovPathtracing = 0;
 constexpr int kAovTexCoords = 1;
+constexpr int kAovParamUv = 2;
+constexpr int kAovNormal = 3;
+constexpr int kAovHit = 4;
+constexpr int kAovAmbientOcclusion = 5;
+
+// Sky codes (ops/kernels/common.py::ENV_CODES).
+constexpr int kEnvNone = 0;
+constexpr int kEnvMandelbrot = 1;
+constexpr int kEnvSun = 2;
+
+// Camera ray forms (ops/kernels/common.py::RAY_GEN_CODES).
+constexpr int kRayGenFovy = 0;
+constexpr int kRayGenViewproj = 1;
 
 // Sampler codes (ops/kernels/common.py::RNG_CODES).
 constexpr int kRngThreefry = 0;
@@ -85,15 +113,17 @@ struct PtParams {
   int32_t max_bounces;
   int32_t max_pairs;
   int32_t emissive_every;
-  int32_t env_mandelbrot;  // 1 mandelbrot sky, 0 none
+  int32_t env;  // kEnv*
   uint32_t seed, stream;
   int32_t aov;  // kAov*
   int32_t rng;  // kRng*
+  int32_t ray_gen;  // kRayGen*
+  int32_t fast_math;  // 1: rsqrtf at the fast-math sites
   float inv_width, inv_height;  // float32(1 / width), float32(1 / height)
   float rr_ceiling, ray_epsilon, emission_scale, env_scale, gamma;
   float cam[40];
 };
-constexpr int kIntParams = 15;
+constexpr int kIntParams = 17;
 constexpr int kFloatParams = 7 + 40;
 
 L2N_HD float bits_to_float(uint32_t u) {
@@ -399,6 +429,36 @@ inline int dispatch_rng(int rng, Args... args) {
   return -1;
 }
 
+// F::template run<Rng, kFlags...> for the sampler dispatch_rng picks: a
+// kernel's instantiation for compile-time settings (with_options).
+template <class F, bool... kFlags>
+struct WithFlags {
+  template <class Rng, class... Args>
+  static int run(Args... args) {
+    return F::template run<Rng, kFlags...>(args...);
+  }
+};
+
+// The fused kernels' instantiations, eight per sampler:
+// F::template run<Rng, kAovs, kFast, kViewproj> with kAovs = (aov is not
+// pathtracing), so that the path tracer's code holds no AOV path, kFast =
+// fast_math and kViewproj = (ray_gen is viewproj) (with_options).
+template <class F, bool kAovs, class... Args>
+inline int dispatch_camera(const PtParams& p, Args... args) {
+  const bool vp = p.ray_gen == kRayGenViewproj;
+  if (p.fast_math)
+    return vp ? dispatch_rng<WithFlags<F, kAovs, true, true>>(p.rng, args...)
+              : dispatch_rng<WithFlags<F, kAovs, true, false>>(p.rng, args...);
+  return vp ? dispatch_rng<WithFlags<F, kAovs, false, true>>(p.rng, args...)
+            : dispatch_rng<WithFlags<F, kAovs, false, false>>(p.rng, args...);
+}
+
+template <class F, class... Args>
+inline int dispatch_fused(const PtParams& p, Args... args) {
+  return p.aov != kAovPathtracing ? dispatch_camera<F, true>(p, args...)
+                                  : dispatch_camera<F, false>(p, args...);
+}
+
 // The same for the counter-based modes only (the wavefront passes, whose
 // streams resume across the compaction); -1 for the stateful codes.
 template <class F, class... Args>
@@ -412,12 +472,51 @@ inline int dispatch_counter_rng(int rng, Args... args) {
   return -1;
 }
 
+// The wavefront passes' instantiations: F::template run<Rng, kFast> (pass
+// B), or F::template run<Rng, kFast, kViewproj> (pass A, which casts the
+// camera rays), for the counter-based samplers.
+template <class F, class... Args>
+inline int dispatch_counter_rng_fast(const PtParams& p, Args... args) {
+  return p.fast_math
+             ? dispatch_counter_rng<WithFlags<F, true>>(p.rng, args...)
+             : dispatch_counter_rng<WithFlags<F, false>>(p.rng, args...);
+}
+
+template <class F, class... Args>
+inline int dispatch_counter_rng_camera(const PtParams& p, Args... args) {
+  const bool vp = p.ray_gen == kRayGenViewproj;
+  if (p.fast_math)
+    return vp ? dispatch_counter_rng<WithFlags<F, true, true>>(p.rng, args...)
+              : dispatch_counter_rng<WithFlags<F, true, false>>(p.rng,
+                                                                args...);
+  return vp ? dispatch_counter_rng<WithFlags<F, false, true>>(p.rng, args...)
+            : dispatch_counter_rng<WithFlags<F, false, false>>(p.rng, args...);
+}
+
 // ---------------------------------------------------------------------------
 // Math (maths/sampling.py, maths/fastmath.py), float32, JAX operation order.
 // ---------------------------------------------------------------------------
 
-L2N_HD void normalize3(float& x, float& y, float& z) {
-  const float rcp = 1.0f / sqrtf(x * x + y * y + z * z);
+// 1 / sqrt(x) of the fast-math sites: the card's rsqrtf (approximate,
+// never built with --use_fast_math, so no other site changes). The host
+// build has no rsqrtf and takes the correctly rounded 1 / sqrtf(x): that is
+// the CPU twin's fast path (maths/sampling.py rsqrt on the CPU), not the
+// card's. Both give inf at 0 and NaN below.
+L2N_HD float rsqrt_fast(float x) {
+#if defined(__CUDA_ARCH__)
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+
+// 1 / |v| for the squared length nn: exact, or rsqrt under fast_math.
+L2N_HD float rcp_len(float nn, bool fast) {
+  return fast ? rsqrt_fast(nn) : 1.0f / sqrtf(nn);
+}
+
+L2N_HD void normalize3(float& x, float& y, float& z, bool fast) {
+  const float rcp = rcp_len(x * x + y * y + z * z, fast);
   x = x * rcp;
   y = y * rcp;
   z = z * rcp;
@@ -472,8 +571,25 @@ L2N_HD float mandelbrot_le(float dx, float dy, float dz) {
              : 0.0f;
 }
 
+// The sun lobe (ops/envlight.py::sun_le): pow(max(0, dot(s, d)), 128)
+// with s = normalize(1, 1, -1), each component float32(1 / sqrt 3), the
+// power as 7 squarings.
+L2N_HD float sun_le(float dx, float dy, float dz) {
+  const float s = 0.57735026918962576f;
+  float d = s * dx + s * dy - s * dz;
+  d = d < 0.0f ? 0.0f : d;
+  for (int i = 0; i < 7; ++i) d = d * d;
+  return d;
+}
+
 L2N_HD float env_le(const PtParams& p, float dx, float dy, float dz) {
-  return p.env_mandelbrot ? mandelbrot_le(dx, dy, dz) * p.env_scale : 0.0f;
+  switch (p.env) {
+    case kEnvMandelbrot:
+      return mandelbrot_le(dx, dy, dz) * p.env_scale;
+    case kEnvSun:
+      return sun_le(dx, dy, dz) * p.env_scale;
+  }
+  return 0.0f;
 }
 
 L2N_HD float emit_term(const PtParams& p, float r2) {
@@ -495,6 +611,50 @@ struct Hit {
 // One path sample (ops/pathtrace.py::trace_path for the port's config).
 // ---------------------------------------------------------------------------
 
+// A tangent frame around the normal z = (zx, zy, zz) (maths/sampling.py
+// frame_z): the tangent from the smaller of |z.x|, |z.y|, its length exact
+// or, with `fast`, by rsqrt; the bitangent z x t.
+struct Frame {
+  float zx, zy, zz, tx, ty, tz, bx, by, bz;
+};
+
+L2N_HD Frame frame_z(float zx, float zy, float zz, bool fast) {
+  Frame f;
+  f.zx = zx;
+  f.zy = zy;
+  f.zz = zz;
+  if (fabsf(zy) > fabsf(zx)) {
+    const float rcp = rcp_len(zx * zx + zy * zy, fast);
+    f.tx = zy * rcp;
+    f.ty = -zx * rcp;
+    f.tz = 0.0f;
+  } else {
+    const float rcp = rcp_len(zx * zx + zz * zz, fast);
+    f.tx = zz * rcp;
+    f.ty = 0.0f;
+    f.tz = -zx * rcp;
+  }
+  f.bx = zy * f.tz - zz * f.ty;
+  f.by = zz * f.tx - zx * f.tz;
+  f.bz = zx * f.ty - zy * f.tx;
+  return f;
+}
+
+// The cosine-weighted hemisphere direction of draws (u1, u2) in frame f,
+// not normalized (local to world).
+L2N_HD void hemisphere_direction(const Frame& f, float u1, float u2,
+                                 float& dx, float& dy, float& dz) {
+  const float r = sqrtf(u1);
+  const float phi = static_cast<float>(2.0 * kPi) * u2;
+  const float one_m = 1.0f - u1;
+  const float lz = sqrtf(one_m > 0.0f ? one_m : 0.0f);
+  const float lx = r * cosf(phi);
+  const float ly = r * sinf(phi);
+  dx = f.tx * lx + f.bx * ly + f.zx * lz;
+  dy = f.ty * lx + f.by * ly + f.zy * lz;
+  dz = f.tz * lx + f.bz * ly + f.zz * lz;
+}
+
 // Procedural-Lambert bounce at the diffuse vertex with normal h.n and
 // albedo row `h.index`: cosine-sampled new direction d, throughput times
 // albedo, Russian roulette. Returns false when the path dies.
@@ -502,36 +662,12 @@ template <class Scene, class Rng>
 L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s, Rng& rng,
                                  const Hit& h, float& dx,
                                  float& dy, float& dz, float tp[3]) {
-  // frame_z: tangent from the smaller of |n.x|, |n.y|; bitangent n x t.
-  const float zx = h.nx, zy = h.ny, zz = h.nz;
-  float tx, ty, tz;
-  if (fabsf(zy) > fabsf(zx)) {
-    const float rcp = 1.0f / sqrtf(zx * zx + zy * zy);
-    tx = zy * rcp;
-    ty = -zx * rcp;
-    tz = 0.0f;
-  } else {
-    const float rcp = 1.0f / sqrtf(zx * zx + zz * zz);
-    tx = zz * rcp;
-    ty = 0.0f;
-    tz = -zx * rcp;
-  }
-  const float bx = zy * tz - zz * ty;
-  const float by = zz * tx - zx * tz;
-  const float bz = zx * ty - zy * tx;
-
+  const bool fast = p.fast_math != 0;
+  const Frame f = frame_z(h.nx, h.ny, h.nz, fast);
   float u1, u2;
   rng.draw2(u1, u2);
-  const float r = sqrtf(u1);
-  const float phi = static_cast<float>(2.0 * kPi) * u2;
-  const float one_m = 1.0f - u1;
-  const float lz = sqrtf(one_m > 0.0f ? one_m : 0.0f);
-  const float lx = r * cosf(phi);
-  const float ly = r * sinf(phi);
-  dx = tx * lx + bx * ly + zx * lz;
-  dy = ty * lx + by * ly + zy * lz;
-  dz = tz * lx + bz * ly + zz * lz;
-  normalize3(dx, dy, dz);
+  hemisphere_direction(f, u1, u2, dx, dy, dz);
+  normalize3(dx, dy, dz, fast);
 
   tp[0] = tp[0] * s.ar[h.index];
   tp[1] = tp[1] * s.ag[h.index];
@@ -652,13 +788,52 @@ L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
   trace_from<false>(p, s, rng, 0, c, col);
 }
 
-// The primary-only AOVs (ops/pathtrace.py::aov_tex_coords / aov_param_uv):
-// (u, v, 0) of the hit, magenta on a miss.
-template <class Scene>
-L2N_HD void aov_sample(const PtParams& p, const Scene& s, float ox, float oy,
-                       float oz, float dx, float dy, float dz, float col[3]) {
+// One-bounce white-sky ambient occlusion at the primary hit h of the ray
+// (o, d) (ops/pathtrace.py::aov_ambient_occlusion): only a hit draws (a
+// stateful sampler's miss lane does not step), a cosine sample around the
+// hit's normal in the exact frame (fast_math or not), a nearest-hit cast
+// from the hit plus ray_epsilon along the unnormalized sample; 1 where it
+// misses.
+template <class Scene, class Rng>
+L2N_HD float ambient_occlusion(const PtParams& p, const Scene& s, Rng& rng,
+                               const Hit& h, float ox, float oy, float oz,
+                               float dx, float dy, float dz) {
+  if (!(h.t >= 0.0f)) return 0.0f;
+  const Frame f = frame_z(h.nx, h.ny, h.nz, false);
+  float u1, u2;
+  rng.draw2(u1, u2);
+  float wx, wy, wz;
+  hemisphere_direction(f, u1, u2, wx, wy, wz);
+  const float sx = ox + h.t * dx + p.ray_epsilon * wx;
+  const float sy = oy + h.t * dy + p.ray_epsilon * wy;
+  const float sz = oz + h.t * dz + p.ray_epsilon * wz;
+  return s.occluded(sx, sy, sz, wx, wy, wz) ? 0.0f : 1.0f;
+}
+
+// The primary-only AOVs (ops/pathtrace.py::aov_*) of one sample: the
+// primary hit's normal (a miss is Scene::miss_color: black for spheres,
+// magenta for meshes), 1 on a hit, ambient occlusion, or (u, v, 0) of the
+// texcoords / barycentrics (0 for spheres) with a magenta miss.
+template <class Scene, class Rng>
+L2N_HD void aov_sample(const PtParams& p, const Scene& s, Rng& rng, float ox,
+                       float oy, float oz, float dx, float dy, float dz,
+                       float col[3]) {
   const Hit h = s.nearest_primary(ox, oy, oz, dx, dy, dz);
-  if (h.t >= 0.0f) {
+  const bool hit = h.t >= 0.0f;
+  if (p.aov == kAovNormal) {
+    if (hit) {
+      col[0] = h.nx;
+      col[1] = h.ny;
+      col[2] = h.nz;
+    } else {
+      Scene::miss_color(col);
+    }
+  } else if (p.aov == kAovHit || p.aov == kAovAmbientOcclusion) {
+    col[0] = p.aov == kAovHit
+                 ? (hit ? 1.0f : 0.0f)
+                 : ambient_occlusion(p, s, rng, h, ox, oy, oz, dx, dy, dz);
+    col[1] = col[2] = col[0];
+  } else if (hit) {
     col[0] = p.aov == kAovTexCoords ? h.tc_u : h.b_u;
     col[1] = p.aov == kAovTexCoords ? h.tc_v : h.b_v;
     col[2] = 0.0f;
@@ -691,7 +866,39 @@ L2N_HD void fovy_direction(const PtParams& p, float px, float py, float u1,
   dx = cam[0] * vx + cam[1] * vy + cam[2] * vz + cam[3] - cam[32];
   dy = cam[4] * vx + cam[5] * vy + cam[6] * vz + cam[7] - cam[33];
   dz = cam[8] * vx + cam[9] * vy + cam[10] * vz + cam[11] - cam[34];
-  normalize3(dx, dy, dz);
+  normalize3(dx, dy, dz, p.fast_math != 0);
+}
+
+// The "viewproj" camera ray: NDC on the far plane (z = 1) through the
+// inverse view-projection (camera rows 4-7, cam[16..31]), 1 / w and a
+// multiply, minus the camera position, normalized.
+L2N_HD void viewproj_direction(const PtParams& p, float px, float py,
+                               float u1, float u2, float& dx, float& dy,
+                               float& dz) {
+  const float* cam = p.cam;
+  const float sx = (px + u1) * p.inv_width;
+  const float sy = (py + u2) * p.inv_height;
+  const float ndx = -1.0f + 2.0f * sx;
+  const float ndy = -1.0f + 2.0f * sy;
+  const float vz = 1.0f;
+  const float wx = cam[16] * ndx + cam[17] * ndy + cam[18] * vz + cam[19];
+  const float wy = cam[20] * ndx + cam[21] * ndy + cam[22] * vz + cam[23];
+  const float wz = cam[24] * ndx + cam[25] * ndy + cam[26] * vz + cam[27];
+  const float ww = cam[28] * ndx + cam[29] * ndy + cam[30] * vz + cam[31];
+  const float rcp_w = 1.0f / ww;
+  dx = wx * rcp_w - cam[32];
+  dy = wy * rcp_w - cam[33];
+  dz = wz * rcp_w - cam[34];
+  normalize3(dx, dy, dz, p.fast_math != 0);
+}
+
+// The camera ray of the configured form.
+L2N_HD void camera_direction(const PtParams& p, float px, float py, float u1,
+                             float u2, float& dx, float& dy, float& dz) {
+  if (p.ray_gen == kRayGenViewproj)
+    viewproj_direction(p, px, py, u1, u2, dx, dy, dz);
+  else
+    fovy_direction(p, px, py, u1, u2, dx, dy, dz);
 }
 
 // Draw the pixel jitter and return the primary ray's direction.
@@ -700,8 +907,8 @@ L2N_HD void primary_direction(const PtParams& p, Rng& rng, int row, int col,
                               float& dx, float& dy, float& dz) {
   float u1, u2;
   rng.draw2(u1, u2);  // pixel jitter
-  fovy_direction(p, static_cast<float>(col), static_cast<float>(row), u1, u2,
-                 dx, dy, dz);
+  camera_direction(p, static_cast<float>(col), static_cast<float>(row), u1,
+                   u2, dx, dy, dz);
 }
 
 // The pixel (r, c) within its tile of thread t of a tile's `sub`-th block,
@@ -752,8 +959,10 @@ L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
 // update accum and output in place; a stateful sampler loads its pixel's
 // state planes from rng_state once, steps them through the samples in
 // order and stores them once (rng_state is unused by the counter-based
-// samplers and may be null for them).
-template <class Rng, class Scene>
+// samplers and may be null for them). kAovs: the instantiation of the
+// primary-only AOVs; the other traces paths only, so that its code holds
+// no AOV path (dispatch_fused picks one from p.aov).
+template <class Rng, bool kAovs, class Scene>
 L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
                          float* accum, float* output, uint32_t* rng_state) {
   const size_t plane = plane_size(p);
@@ -771,16 +980,36 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
     float dx, dy, dz;
     primary_direction(p, rng, row, col, dx, dy, dz);
     float c[3];
-    if (p.aov == kAovPathtracing)
-      trace_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
+    if (kAovs)
+      aov_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
     else
-      aov_sample(p, s, cam[32], cam[33], cam[34], dx, dy, dz, c);
+      trace_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
     sum[0] = sum[0] + c[0];
     sum[1] = sum[1] + c[1];
     sum[2] = sum[2] + c[2];
   }
   rng.store(rng_state, plane, pix);
   accumulate_pixel(p, row, col, sum, accum, output);
+}
+
+// The step's parameters with fast_math the compile-time kFast and, where
+// the kernel casts camera rays, the camera form the compile-time
+// kViewproj: a kernel instantiated for them reads its parameters through
+// this copy, so that each fast-math site (rcp_len, sweep_t, normalize3)
+// and camera_direction fold to one form, and the default path runs no
+// branch for the others (measured: a runtime branch at each cost the
+// default path up to 5%, PERF.md).
+template <bool kFast>
+L2N_HD PtParams with_options(PtParams p) {
+  p.fast_math = kFast ? 1 : 0;
+  return p;
+}
+
+template <bool kFast, bool kViewproj>
+L2N_HD PtParams with_options(PtParams p) {
+  p = with_options<kFast>(p);
+  p.ray_gen = kViewproj ? kRayGenViewproj : kRayGenFovy;
+  return p;
 }
 
 // Fill the parameter struct from the wrappers' arrays (layout documented in
@@ -797,11 +1026,13 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.max_bounces = ip[7];
   p.max_pairs = ip[8];
   p.emissive_every = ip[9];
-  p.env_mandelbrot = ip[10];
+  p.env = ip[10];
   p.seed = static_cast<uint32_t>(ip[11]);
   p.stream = static_cast<uint32_t>(ip[12]);
   p.aov = ip[13];
   p.rng = ip[14];
+  p.ray_gen = ip[15];
+  p.fast_math = ip[16];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];

@@ -3,11 +3,14 @@
 // Replaces the TPU kernel l2n_tpu/ops/kernels/sphere_pt.py::_kernel (the
 // Pallas program per scheduled 32x128 tile, pallas_call in
 // build_sphere_call). It computes the same step: for every pixel of the K
-// scheduled tiles, `spp` samples (jittered primary ray,
+// scheduled tiles, `spp` samples (jittered primary ray, fovy or viewproj,
 // nearest-sphere sweep, at most `max_bounces` diffuse bounces with Russian
-// roulette, any-hit test on the last segment, Mandelbrot sky on a miss),
-// then accumulate into `accum` and write the tonemapped `output`, both IN
-// PLACE (the counterpart of the JAX step's donated buffers).
+// roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
+// miss; or one of the primary-only AOVs: normal, hit, ambient occlusion,
+// tex_coords / param_uv), then accumulate into `accum` and write the
+// tonemapped `output`, both IN PLACE (the counterpart of the JAX step's
+// donated buffers). fast_math takes rsqrtf at the JAX kernel's sites
+// (csrc/pathtrace.cuh).
 //
 // What bounds it on this card: fp32 ALU and SFU throughput, not memory. A
 // sample casts ~1.25 rays; a bounce or any-hit cast tests all 128 spheres
@@ -44,10 +47,13 @@
 //     less than giving a block more pixels (PERF.md, PR 6).
 // Not done: no tensor-core sweep (ROADMAP Queue 3 #14), no TMA.
 //
-// One instantiation per sampler (pathtrace.cuh::dispatch_rng): threefry,
-// Philox (rng="tpu_hw"), and the stateful TinyMT and TausLCG, whose
-// per-pixel state planes a thread loads once, steps through its `spp`
-// samples and stores once (the JAX kernel's aliased rng planes).
+// Eight instantiations per sampler (pathtrace.cuh::dispatch_fused): the
+// path tracer and the primary-only AOVs, so that the path tracer's code
+// holds no AOV path, each with fast_math and the camera form compiled in
+// (pathtrace.cuh::with_options). The samplers: threefry, Philox
+// (rng="tpu_hw"), and the stateful TinyMT and TausLCG, whose per-pixel
+// state planes a thread loads once, steps through its `spp` samples and
+// stores once (the JAX kernel's aliased rng planes).
 //
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the per-pixel path body is in pathtrace.cuh, the sweeps in
@@ -62,14 +68,15 @@ namespace {
 // A block is tile_width pixels of one tile (l2n::block_pixel): it stages
 // the scene, builds the tile's visible list and the list's origin terms
 // (l2n::stage_culled_scene), then renders its pixels.
-template <class Rng>
-__global__ void sphere_pt_kernel(l2n::PtParams p,
+template <class Rng, bool kAovs, bool kFast, bool kViewproj>
+__global__ void sphere_pt_kernel(l2n::PtParams params,
                                  const int32_t* __restrict__ sched,
                                  const float* __restrict__ spheres,
                                  float* __restrict__ accum,
                                  float* __restrict__ output,
                                  uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
+  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
   const int tile = blockIdx.x / p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
@@ -77,12 +84,13 @@ __global__ void sphere_pt_kernel(l2n::PtParams p,
       l2n::stage_culled_scene(p, spheres, smem, tile_x, tile_y);
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
-  l2n::render_pixel<Rng>(p, scene, tile_y * p.tile_height + r,
-                         tile_x * p.tile_width + c, accum, output, rng_state);
+  l2n::render_pixel<Rng, kAovs>(p, scene, tile_y * p.tile_height + r,
+                                tile_x * p.tile_width + c, accum, output,
+                                rng_state);
 }
 
 struct LaunchSpherePt {
-  template <class Rng>
+  template <class Rng, bool kAovs, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, const int32_t* sched,
                  const float* spheres, float* accum, float* output,
                  uint32_t* rng_state, cudaStream_t stream) {
@@ -91,9 +99,10 @@ struct LaunchSpherePt {
     const size_t smem =
         sizeof(float) * l2n::culled_scene_floats(p.n_scene);
     static size_t opted = 48 * 1024;
-    const cudaError_t rc = l2n::allow_smem(sphere_pt_kernel<Rng>, smem, opted);
+    const auto kernel = sphere_pt_kernel<Rng, kAovs, kFast, kViewproj>;
+    const cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    sphere_pt_kernel<Rng><<<grid, block, smem, stream>>>(
+    kernel<<<grid, block, smem, stream>>>(
         p, sched, spheres, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());
   }
@@ -112,7 +121,7 @@ extern "C" int l2n_sphere_pt(const int32_t* ip, const float* fp,
                              float* accum, float* output, uint32_t* rng_state,
                              void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_rng<LaunchSpherePt>(p.rng, p, sched, spheres, accum,
-                                           output, rng_state,
-                                           static_cast<cudaStream_t>(stream));
+  return l2n::dispatch_fused<LaunchSpherePt>(
+      p, p, sched, spheres, accum, output, rng_state,
+      static_cast<cudaStream_t>(stream));
 }

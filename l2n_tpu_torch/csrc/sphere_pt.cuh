@@ -37,7 +37,13 @@ struct Primaries {
 struct SceneView {
   const float *cx, *cy, *cz, *r2, *ar, *ag, *ab;
   int n;
+  bool fast;      // fast_math: the nearest sweeps' sqrt and normal by rsqrt
   Primaries vis;  // vis.index null: the primary cast sweeps all spheres
+
+  // The normal AOV's colour of a miss: black.
+  L2N_HD static void miss_color(float col[3]) {
+    col[0] = col[1] = col[2] = 0.0f;
+  }
 
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const;
@@ -45,14 +51,17 @@ struct SceneView {
                              float dy, float dz) const;
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const;
+  L2N_HD bool occluded(float ox, float oy, float oz, float dx, float dy,
+                       float dz) const;
   L2N_HD Hit resolve(float best, int bi, float ox, float oy, float oz,
                      float dx, float dy, float dz) const;
 };
 
-L2N_HD SceneView scene_view(const float* packed, int n) {
+L2N_HD SceneView scene_view(const float* packed, int n, bool fast) {
   return SceneView{packed,         packed + n,     packed + 2 * n,
                    packed + 3 * n, packed + 4 * n, packed + 5 * n,
-                   packed + 6 * n, n,              Primaries{}};
+                   packed + 6 * n, n,              fast,
+                   Primaries{}};
 }
 
 // Fill the visible list's origin terms for entries first, first + step, ...
@@ -94,10 +103,13 @@ L2N_HD bool any_lane(unsigned lanes, bool pred) {
 }
 
 // One candidate of the half-b sweep: t >= 0, or kBig for a miss. A negative
-// discriminant makes sqrtf NaN, and NaN fails every comparison.
-L2N_HD float sweep_t(float hb, float c) {
+// discriminant makes sqrtf NaN, and NaN fails every comparison. `fast`
+// (fast_math) takes the root as disc * rsqrt(disc), which is NaN at
+// disc == 0 too: a tangent ray misses, as in the JAX package. The sweeps'
+// vote (disc >= 0) lets that candidate through to be poisoned here.
+L2N_HD float sweep_t(float hb, float c, bool fast) {
   const float disc = hb * hb - c;
-  const float sq = sqrtf(disc);
+  const float sq = fast ? disc * rsqrt_fast(disc) : sqrtf(disc);
   const float nhb = -hb;
   const float t1 = nhb - sq;
   const float t2 = nhb + sq;
@@ -118,7 +130,7 @@ L2N_HD Hit SceneView::resolve(float best, int bi, float ox, float oy,
   const float nx = ox + h.t * dx - bcx;
   const float ny = oy + h.t * dy - bcy;
   const float nz = oz + h.t * dz - bcz;
-  const float rcp = hit ? 1.0f / sqrtf(nx * nx + ny * ny + nz * nz) : 0.0f;
+  const float rcp = hit ? rcp_len(nx * nx + ny * ny + nz * nz, fast) : 0.0f;
   h.nx = nx * rcp;
   h.ny = ny * rcp;
   h.nz = nz * rcp;
@@ -139,7 +151,7 @@ L2N_HD Hit SceneView::nearest(float ox, float oy, float oz, float dx,
     const float hb = rox * dx + roy * dy + roz * dz;
     const float c = rox * rox + roy * roy + roz * roz - r2[i];
     if (!any_lane(lanes, hb * hb - c >= 0.0f)) continue;
-    const float t = sweep_t(hb, c);
+    const float t = sweep_t(hb, c, fast);
     if (t < best) {
       best = t;
       bi = i;
@@ -164,13 +176,20 @@ L2N_HD Hit SceneView::nearest_primary(float ox, float oy, float oz, float dx,
   for (int j = 0; j < vis.n; ++j) {
     const float hb = vis.rox[j] * dx + vis.roy[j] * dy + vis.roz[j] * dz;
     if (!any_lane(lanes, hb * hb - vis.c[j] >= 0.0f)) continue;
-    const float t = sweep_t(hb, vis.c[j]);
+    const float t = sweep_t(hb, vis.c[j], fast);
     if (t < best) {
       best = t;
       bj = j;
     }
   }
   return resolve(best, bj >= 0 ? vis.index[bj] : -1, ox, oy, oz, dx, dy, dz);
+}
+
+// The ambient-occlusion cast: the nearest-hit sweep, as the JAX package
+// casts it (not the any-hit test, whose arithmetic differs).
+L2N_HD bool SceneView::occluded(float ox, float oy, float oz, float dx,
+                                float dy, float dz) const {
+  return nearest(ox, oy, oz, dx, dy, dz).t >= 0.0f;
 }
 
 // Any sphere with t >= 0: origin inside (c < 0) or ahead with a real root.
@@ -220,7 +239,7 @@ __device__ inline SceneView stage_culled_scene(
   float* s_terms = smem + 8 * n;  // rox | roy | roz | c
   int32_t* s_counts = reinterpret_cast<int32_t*>(smem + 12 * n);
   __syncthreads();
-  SceneView scene = scene_view(smem, n);
+  SceneView scene = scene_view(smem, n, p.fast_math != 0);
   const TileCone cone = tile_cone(p, tile_x, tile_y);
   const int n_vis = build_visible_block(
       p, cone,

@@ -3,11 +3,15 @@
 // Replaces the TPU kernel l2n_tpu/ops/kernels/triangle_pt.py::_kernel (the
 // Pallas program per scheduled 32x128 tile, pallas_call in
 // build_triangle_call). It computes the same step: for every pixel of the K
-// scheduled tiles, `spp` samples (jittered primary ray,
+// scheduled tiles, `spp` samples (jittered primary ray, fovy or viewproj,
 // nearest triangle hit, at most `max_bounces` diffuse bounces with Russian
-// roulette, any-hit test on the last segment, Mandelbrot sky on a miss, or
-// the tex_coords / param_uv AOV of the primary hit), then accumulate into
-// `accum` and write the tonemapped `output`, both IN PLACE.
+// roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
+// miss; or a primary-only AOV: the normal, with a magenta miss, hit,
+// ambient occlusion, whose second cast is the same per-lane walk, or the
+// tex_coords / param_uv of the primary hit), then accumulate into `accum`
+// and write the tonemapped `output`, both IN PLACE. fast_math takes rsqrtf
+// at the shared sites only (the camera ray and the scatter); the triangle
+// tests stay exact.
 //
 // What bounds it on this card: fp32 ALU work in the bound and triangle
 // tests and the latency of the loads a thread walks through, not bandwidth
@@ -49,9 +53,12 @@
 // procedural shellwalk (ROADMAP Queue 2 #3-#5). The grid is K x
 // tile_height blocks of tile_width threads.
 //
-// One instantiation per sampler (pathtrace.cuh::dispatch_rng), as in
-// csrc/sphere_pt.cu: the stateful samplers' per-pixel state planes are
-// loaded once per thread, stepped through its samples and stored once.
+// Eight instantiations per sampler (pathtrace.cuh::dispatch_fused), as in
+// csrc/sphere_pt.cu: the path tracer and the primary-only AOVs, whose
+// ambient-occlusion walk so adds no code, and no register, to the path
+// tracer's; each with fast_math and the camera form compiled in. The
+// stateful samplers' per-pixel state planes are loaded once per thread,
+// stepped through its samples and stored once.
 //
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the path body is in pathtrace.cuh, the traversal in
@@ -68,9 +75,9 @@ namespace {
 // render their pixels. Registers are
 // capped at 80 (93-99 uncapped): six 128-thread blocks per SM instead of
 // five hide more of the walk's load latency.
-template <class Rng>
+template <class Rng, bool kAovs, bool kFast, bool kViewproj>
 __global__ void __maxnreg__(80)
-triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
+triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    const int32_t* __restrict__ sched,
                    const float* __restrict__ mesh_bounds,
                    const int32_t* __restrict__ slab_count,
@@ -82,6 +89,7 @@ triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
                    float* __restrict__ accum, float* __restrict__ output,
                    uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
+  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
   const int m = p.n_scene;
   float* s_bounds = smem;                  // (M, 4)
   float* s_albedo = smem + 4 * m;          // (3, M)
@@ -124,8 +132,9 @@ triangle_pt_kernel(l2n::PtParams p, int n_slabs, int tpad,
   scene.n_vis = n_vis;
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
-  l2n::render_pixel<Rng>(p, scene, tile_y * p.tile_height + r,
-                         tile_x * p.tile_width + c, accum, output, rng_state);
+  l2n::render_pixel<Rng, kAovs>(p, scene, tile_y * p.tile_height + r,
+                                tile_x * p.tile_width + c, accum, output,
+                                rng_state);
 }
 
 // Shared memory of a block for M meshes: 9 words per mesh and 33 more.
@@ -134,7 +143,7 @@ size_t smem_bytes(int m) {
 }
 
 struct LaunchTrianglePt {
-  template <class Rng>
+  template <class Rng, bool kAovs, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, int n_slabs, int tpad, const int32_t* sched,
                  const float* mesh_bounds, const int32_t* slab_count,
                  const float* slab_bounds, const float* sub_bounds,
@@ -149,13 +158,14 @@ struct LaunchTrianglePt {
     static size_t opted = 48 * 1024;
     if (smem > opted) {
       const cudaError_t rc = cudaFuncSetAttribute(
-          triangle_pt_kernel<Rng>,
+          triangle_pt_kernel<Rng, kAovs, kFast, kViewproj>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (rc != cudaSuccess) return static_cast<int>(rc);
       opted = smem;
     }
-    triangle_pt_kernel<Rng><<<grid, block, smem, stream>>>(
+    triangle_pt_kernel<Rng, kAovs, kFast, kViewproj>
+        <<<grid, block, smem, stream>>>(
         p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
         sub_bounds, tris, attrs, albedo, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());
@@ -184,8 +194,8 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                float* accum, float* output,
                                uint32_t* rng_state, void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_rng<LaunchTrianglePt>(
-      p.rng, p, n_slabs, tpad, sched, mesh_bounds, slab_count,
+  return l2n::dispatch_fused<LaunchTrianglePt>(
+      p, p, n_slabs, tpad, sched, mesh_bounds, slab_count,
       slab_bounds, sub_bounds, tris, attrs, albedo, accum, output, rng_state,
       static_cast<cudaStream_t>(stream));
 }

@@ -148,6 +148,13 @@ struct TriSceneView {
   const int32_t* vis = nullptr;  // the primaries' visible meshes, ascending;
   int n_vis = 0;                 // null: every mesh
 
+  // The normal AOV's colour of a miss: magenta.
+  L2N_HD static void miss_color(float col[3]) {
+    col[0] = 1.0f;
+    col[1] = 0.0f;
+    col[2] = 1.0f;
+  }
+
   // Does the ray visit bound b (4 floats at `b`, read through the
   // read-only data cache) at the running best?
   L2N_HD static bool visits(float ox, float oy, float oz, float dx, float dy,
@@ -159,7 +166,10 @@ struct TriSceneView {
   // Walk every triangle whose bounds the ray visits among the candidate
   // meshes `cand` (n_cand mesh indices; null: 0 .. n_cand - 1):
   // `visit(soup_index, t, u, v)` gets each valid candidate and returns true
-  // to stop the walk (any-hit); `visit.best` is read for pruning.
+  // to stop the walk (any-hit); `visit.best` is read for pruning. The bound
+  // tests take the direction (bx, by, bz), which is (dx, dy, dz) but for a
+  // direction that is not of unit length (see occluded); the triangle tests
+  // take (dx, dy, dz).
   //
   // Per lane, not per warp: the lane tests the candidates' mesh bounds and
   // keeps the meshes it enters in a list sorted front to back by entry
@@ -173,8 +183,8 @@ struct TriSceneView {
   // has pruned is never taken again; none is dropped.
   template <class Visit>
   L2N_HD void walk(const int32_t* cand, int n_cand, float ox, float oy,
-                   float oz, float dx, float dy, float dz,
-                   Visit& visit) const {
+                   float oz, float dx, float dy, float dz, float bx,
+                   float by, float bz, Visit& visit) const {
     float last_enter = -INFINITY;
     int last_mesh = -1;
     for (;;) {
@@ -186,7 +196,7 @@ struct TriSceneView {
         const int m = cand ? cand[j] : j;
         const float* mb = mesh_bounds + 4 * m;
         float enter, margin;
-        if (!bound_enter(ox, oy, oz, dx, dy, dz, mb[0], mb[1], mb[2], mb[3],
+        if (!bound_enter(ox, oy, oz, bx, by, bz, mb[0], mb[1], mb[2], mb[3],
                          visit.best, enter, margin))
           continue;
         if (enter < last_enter || (enter == last_enter && m <= last_mesh))
@@ -211,7 +221,8 @@ struct TriSceneView {
         mi[q] = m;
       }
       L2N_NOTE_SCAN(cnt, more);
-      if (walk_list(ent, mar, mi, cnt, ox, oy, oz, dx, dy, dz, visit) ||
+      if (walk_list(ent, mar, mi, cnt, ox, oy, oz, dx, dy, dz, bx, by, bz,
+                    visit) ||
           !more)
         return;
       last_enter = ent[cnt - 1];
@@ -224,7 +235,8 @@ struct TriSceneView {
   template <class Visit>
   L2N_HD bool walk_list(const float* ent, const float* mar, const int* mi,
                         int cnt, float ox, float oy, float oz, float dx,
-                        float dy, float dz, Visit& visit) const {
+                        float dy, float dz, float bx, float by, float bz,
+                        Visit& visit) const {
     int li = 0, level = 0, m = 0, slabs = 0, s = 0, c = 0;
     for (;;) {
       // Bound tests until a sub-cluster to sweep (slot0) or the list's end.
@@ -243,7 +255,7 @@ struct TriSceneView {
           if (s == slabs) {
             ++li;
             level = 0;
-          } else if (visits(ox, oy, oz, dx, dy, dz,
+          } else if (visits(ox, oy, oz, bx, by, bz,
                             slab_bounds + kBoundStride * (m * n_slabs + s),
                             visit.best)) {
             c = 0;
@@ -257,7 +269,7 @@ struct TriSceneView {
         } else {  // sub-cluster c of slab s
           const int ms = m * n_slabs + s;
           const bool in = visits(
-              ox, oy, oz, dx, dy, dz,
+              ox, oy, oz, bx, by, bz,
               sub_bounds + kBoundStride * (ms * kSubs + c), visit.best);
           if (in) slot0 = m * tpad + s * kSlab + c * kSubSize;
           ++c;
@@ -330,7 +342,7 @@ struct TriSceneView {
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
     NearestVisit nv;
-    walk(nullptr, n, ox, oy, oz, dx, dy, dz, nv);
+    walk(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz, nv);
     return resolve(nv);
   }
 
@@ -338,7 +350,7 @@ struct TriSceneView {
   L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,
                              float dy, float dz) const {
     NearestVisit nv;
-    walk(vis, vis ? n_vis : n, ox, oy, oz, dx, dy, dz, nv);
+    walk(vis, vis ? n_vis : n, ox, oy, oz, dx, dy, dz, dx, dy, dz, nv);
     return resolve(nv);
   }
 
@@ -346,7 +358,24 @@ struct TriSceneView {
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
     AnyVisit av;
-    walk(nullptr, n, ox, oy, oz, dx, dy, dz, av);
+    walk(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz, av);
+    return av.hit;
+  }
+
+  // The ambient-occlusion cast along (dx, dy, dz) of any length: exactly
+  // nearest(...).t >= 0 (the JAX package's nearest-hit cast; whether a
+  // valid candidate exists does not depend on the order of the walk). Its
+  // direction is the unnormalized hemisphere sample, of length |n| < 1 for
+  // an interpolated mesh normal, which the bound tests' half-b form takes
+  // as 1: they take the direction normalized (the same line meets the same
+  // bounds), the triangle tests the direction as given, and a walk that
+  // stops at its first valid candidate prunes nothing by distance.
+  L2N_HD bool occluded(float ox, float oy, float oz, float dx, float dy,
+                       float dz) const {
+    float bx = dx, by = dy, bz = dz;
+    normalize3(bx, by, bz, false);
+    AnyVisit av;
+    walk(nullptr, n, ox, oy, oz, dx, dy, dz, bx, by, bz, av);
     return av.hit;
   }
 };

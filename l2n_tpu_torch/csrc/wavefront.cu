@@ -55,9 +55,11 @@
 //     host sync.
 //
 // Passes A and B are instantiated for the two counter-based samplers,
-// threefry and Philox (rng="tpu_hw"), picked by the host entry points
-// (pathtrace.cuh::dispatch_counter_rng); the stateful modes cannot resume
-// across the split and are refused.
+// threefry and Philox (rng="tpu_hw"), with fast_math (and, for pass A,
+// the camera form) compiled in, picked by the host entry points
+// (pathtrace.cuh::dispatch_counter_rng_camera / _fast); the stateful modes
+// cannot resume across the split and are refused. The sky (none,
+// Mandelbrot, sun) is a runtime parameter.
 //
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the per-lane bodies are in wavefront.cuh.
@@ -94,14 +96,15 @@ struct WarpAppend {
   }
 };
 
-template <class Rng>
-__global__ void wavefront_pass_a_kernel(l2n::PtParams p,
+template <class Rng, bool kFast, bool kViewproj>
+__global__ void wavefront_pass_a_kernel(l2n::PtParams params,
                                         const int32_t* __restrict__ sched,
                                         const float* __restrict__ spheres,
                                         const float* __restrict__ accum,
                                         l2n::PassALanes out,
                                         int32_t* __restrict__ n_alive) {
   extern __shared__ float smem[];
+  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
   const int k = blockIdx.x / p.tile_height;
   const int r = blockIdx.x % p.tile_height;
   const l2n::SceneView scene = l2n::stage_culled_scene(
@@ -141,15 +144,17 @@ size_t pass_b_floats(int n) {
 
 // group_threads: the threads against which G is picked (l2n::group_size),
 // the card's full complement.
-template <class Rng>
+template <class Rng, bool kFast>
 __global__ void __launch_bounds__(kPassBThreads)
-    wavefront_pass_b_kernel(l2n::PtParams p, int next_pair, int has_spare,
+    wavefront_pass_b_kernel(l2n::PtParams params, int next_pair,
+                            int has_spare,
                             int group_threads,
                             const int32_t* __restrict__ n_alive,
                             const float* __restrict__ spheres,
                             const float* __restrict__ rays,
                             const int32_t* __restrict__ meta,
                             float* __restrict__ back) {
+  const l2n::PtParams p = l2n::with_options<kFast>(params);
   const int alive = n_alive[0];
   const int g = l2n::group_size(alive, group_threads);
   // A block with no slot exits before staging the scene (uniform per
@@ -164,7 +169,7 @@ __global__ void __launch_bounds__(kPassBThreads)
     packed[i] = l2n::Sphere4{spheres[i], spheres[n + i], spheres[2 * n + i],
                              spheres[3 * n + i]};
   __syncthreads();
-  const l2n::SceneView scene = l2n::scene_view(smem, n);
+  const l2n::SceneView scene = l2n::scene_view(smem, n, p.fast_math != 0);
   const bool spare = has_spare != 0;
   if (g == l2n::kMaxGroup)
     pass_b_slot<Rng, l2n::kMaxGroup>(p, scene, packed, next_pair, spare,
@@ -187,20 +192,20 @@ __global__ void wavefront_pass_c_kernel(l2n::PtParams p,
 }
 
 struct LaunchPassA {
-  template <class Rng>
+  template <class Rng, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive,
                  cudaStream_t stream) {
     const size_t smem = sizeof(float) * l2n::culled_scene_floats(p.n_scene);
     static size_t opted = 48 * 1024;
-    cudaError_t rc =
-        l2n::allow_smem(wavefront_pass_a_kernel<Rng>, smem, opted);
+    const auto kernel = wavefront_pass_a_kernel<Rng, kFast, kViewproj>;
+    cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     rc = cudaMemsetAsync(n_alive, 0, sizeof(int32_t), stream);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    wavefront_pass_a_kernel<Rng><<<grid, block, smem, stream>>>(
+    kernel<<<grid, block, smem, stream>>>(
         p, sched, spheres, accum, out, n_alive);
     return static_cast<int>(cudaGetLastError());
   }
@@ -229,7 +234,7 @@ cudaError_t pass_b_grid(const l2n::PtParams& p, int& grid,
 }
 
 struct LaunchPassB {
-  template <class Rng>
+  template <class Rng, bool kFast>
   static int run(l2n::PtParams p, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
                  const float* rays, const int32_t* meta, float* back,
@@ -238,10 +243,10 @@ struct LaunchPassB {
     static size_t opted = 48 * 1024;
     int grid = 0, group_threads = 0;
     cudaError_t rc =
-        l2n::allow_smem(wavefront_pass_b_kernel<Rng>, smem, opted);
+        l2n::allow_smem(wavefront_pass_b_kernel<Rng, kFast>, smem, opted);
     if (rc == cudaSuccess) rc = pass_b_grid(p, grid, group_threads);
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    wavefront_pass_b_kernel<Rng>
+    wavefront_pass_b_kernel<Rng, kFast>
         <<<static_cast<unsigned>(grid), kPassBThreads, smem, stream>>>(
             p, next_pair, has_spare, group_threads, n_alive, spheres, rays,
             meta, back);
@@ -269,8 +274,8 @@ extern "C" int l2n_wavefront_pass_a(const int32_t* ip, const float* fp,
                                     int32_t* meta, int32_t* n_alive,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<LaunchPassA>(
-      p.rng, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
+  return l2n::dispatch_counter_rng_camera<LaunchPassA>(
+      p, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
       n_alive, static_cast<cudaStream_t>(stream));
 }
 
@@ -284,8 +289,8 @@ extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
                                     const int32_t* meta, float* back,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<LaunchPassB>(
-      p.rng, p, next_pair, has_spare, n_alive, spheres, rays, meta, back,
+  return l2n::dispatch_counter_rng_fast<LaunchPassB>(
+      p, p, next_pair, has_spare, n_alive, spheres, rays, meta, back,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -149,7 +149,7 @@ struct GroupScene : SceneView {
       const float hb = rox * dx + roy * dy + roz * dz;
       const float c = rox * rox + roy * roy + roz * roz - q.r2;
       if (!any_lane(lanes, in && hb * hb - c >= 0.0f) || !in) continue;
-      const float t = sweep_t(hb, c);
+      const float t = sweep_t(hb, c, fast);
       if (t < best) {
         best = t;
         bi = i;

@@ -25,12 +25,35 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(x) in the fast-math form (cfg.fast_math): torch.rsqrt on a
+    CUDA tensor, which is the card's rsqrtf that the kernels call; on the
+    CPU the correctly rounded 1/sqrt(x), which is what the headers' host
+    build takes for rsqrtf (csrc/pathtrace.cuh rsqrt_fast): the CPU twin's
+    fast path, not the card's. Both are within an ulp or two of 1/sqrt;
+    x = 0 gives inf, x < 0 NaN."""
+    if x.device.type == "cuda":
+        return torch.rsqrt(x)
+    return 1.0 / sqrt(x)
+
+
+def fast_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) as x * rsqrt(x), the fast-math form: NaN at x = 0 (0 * inf)
+    where sqrt gives 0, and for x < 0 (the nearest-sphere sweeps rely on
+    both poisoning their candidate)."""
+    return x * rsqrt(x)
+
+
+def _rcp_len(nn: torch.Tensor, fast: bool) -> torch.Tensor:
+    return rsqrt(nn) if fast else 1.0 / sqrt(nn)
+
+
 def cross3(ax, ay, az, bx, by, bz) -> Vec3:
     return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
 
 
-def normalize3(x, y, z) -> Vec3:
-    rcp = 1.0 / sqrt(x * x + y * y + z * z)
+def normalize3(x, y, z, fast: bool = False) -> Vec3:
+    rcp = _rcp_len(x * x + y * y + z * z, fast)
     return (x * rcp, y * rcp, z * rcp)
 
 
@@ -39,17 +62,18 @@ def luminance(r, g, b):
     return 0.212671 * r + 0.715160 * g + 0.072169 * b
 
 
-def frame_z(zx, zy, zz) -> tuple[Vec3, Vec3]:
+def frame_z(zx, zy, zz, fast: bool = False) -> tuple[Vec3, Vec3]:
     """Tangent frame around a normalized z axis: the tangent is built from
     the smaller of |z.x|, |z.y| (a lane-wise select); returns (tangent,
-    bitangent = cross(z, tangent))."""
+    bitangent = cross(z, tangent)). `fast` takes rsqrt for the tangent's
+    length."""
     use_y = torch.abs(zy) > torch.abs(zx)
     zero = torch.zeros_like(zx)
     # Branch A (|z.y| > |z.x|): t = (z.y, -z.x, 0) / len(z.xy)
-    rcp_a = 1.0 / sqrt(zx * zx + zy * zy)
+    rcp_a = _rcp_len(zx * zx + zy * zy, fast)
     ax, ay, az = zy * rcp_a, -zx * rcp_a, zero
     # Branch B: t = (z.z, 0, -z.x) / len(z.xz)
-    rcp_b = 1.0 / sqrt(zx * zx + zz * zz)
+    rcp_b = _rcp_len(zx * zx + zz * zz, fast)
     bx, by, bz = zz * rcp_b, zero, -zx * rcp_b
     tx = torch.where(use_y, ax, bx)
     ty = torch.where(use_y, ay, by)

@@ -1,5 +1,6 @@
-"""Environment light: the Mandelbrot escape-time sky (counterpart of
-l2n_tpu.ops.envlight for env_mode "mandelbrot" and "none").
+"""Environment light: the Mandelbrot escape-time sky and the sun lobe
+(counterpart of l2n_tpu.ops.envlight for env_mode "mandelbrot", "sun" and
+"none").
 
 Direction -> plane: theta = atan2(|d.xy|, d.z), phi = atan2(d.y, d.x),
 u = phi/pi, v = -1 + 2*theta/pi, p = (8u, 4v); iterate z <- z^2 + p and
@@ -13,12 +14,17 @@ test as an early exit and runs the escape loop only inside it.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from l2n_tpu_torch.maths.fastmath import atan2
 from l2n_tpu_torch.maths.sampling import PI, sqrt
 
 MANDELBROT_ITERS = 64
+# The sun's direction normalize(1, 1, -1): each component float32(1/sqrt 3).
+SUN_S = float(np.float32(1.0 / math.sqrt(3.0)))
 
 
 def mandelbrot_le(dx, dy, dz):
@@ -51,11 +57,21 @@ def mandelbrot_le(dx, dy, dz):
     return torch.where(in_box, le, torch.zeros_like(le))
 
 
+def sun_le(dx, dy, dz):
+    """Radiance of the sun lobe, pow(max(0, dot(sun, d)), 128) with sun =
+    normalize(1, 1, -1), the power as 7 squarings."""
+    d = torch.clamp(SUN_S * dx + SUN_S * dy - SUN_S * dz, min=0.0)
+    for _ in range(7):
+        d = d * d
+    return d
+
+
 def env_radiance(mode: str, dx, dy, dz):
     """Dispatch on RenderConfig.env_mode."""
     if mode == "mandelbrot":
         return mandelbrot_le(dx, dy, dz)
+    if mode == "sun":
+        return sun_le(dx, dy, dz)
     if mode == "none":
         return torch.zeros_like(dx)
-    raise NotImplementedError(
-        f"env_mode={mode!r}: the sun sky is ROADMAP Queue 1 #9")
+    raise ValueError(f"unknown env_mode {mode!r}")

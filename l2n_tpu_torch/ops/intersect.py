@@ -11,7 +11,9 @@ package's half-b form in the same order:
 
 A negative discriminant makes sqrt NaN, NaN compares false everywhere, and
 the candidate turns into a miss without an explicit test. Keep that form:
-the any-hit test below relies on it too.
+the any-hit test below relies on it too. With fast_math the nearest sweep
+takes sqrt as disc * rsqrt(disc), which also poisons disc == 0 (a tangent
+ray misses), and the hit normal's rsqrt; the any-hit test stays exact.
 
 Triangles: brute-force Möller-Trumbore over the flattened soup
 (`intersect_triangle_scene`), in chunks of triangles with a running best.
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from l2n_tpu_torch.maths.sampling import sqrt
+from l2n_tpu_torch.maths.sampling import fast_sqrt, rsqrt, sqrt
 
 _BIG = 3.0e38
 MOLLER_TRUMBORE_EPS = 1e-6
@@ -43,7 +45,8 @@ def _candidates(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2):
     return hb, c
 
 
-def intersect_sphere_scene(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2):
+def intersect_sphere_scene(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2,
+                           fast_math: bool = False):
     """Nearest hit of each ray against the spheres (cx, cy, cz, r2: (n,)).
 
     t = t1 if t1 >= 0 else t2 (a ray starting inside a sphere hits its
@@ -53,7 +56,7 @@ def intersect_sphere_scene(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2):
     """
     hb, c = _candidates(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2)
     disc = hb * hb - c
-    sq = sqrt(disc)
+    sq = fast_sqrt(disc) if fast_math else sqrt(disc)
     nhb = -hb
     t1 = nhb - sq
     t2 = nhb + sq
@@ -73,8 +76,8 @@ def intersect_sphere_scene(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2):
     py = oy + best_t * dy
     pz = oz + best_t * dz
     nx, ny, nz = px - bcx, py - bcy, pz - bcz
-    rcp = 1.0 / sqrt(nx * nx + ny * ny + nz * nz)
-    rcp = torch.where(hit, rcp, zero)
+    nn = nx * nx + ny * ny + nz * nz
+    rcp = torch.where(hit, rsqrt(nn) if fast_math else 1.0 / sqrt(nn), zero)
     index = torch.where(hit, best_i, torch.full_like(best_i, -1))
     return best_t, px, py, pz, nx * rcp, ny * rcp, nz * rcp, index, br2
 

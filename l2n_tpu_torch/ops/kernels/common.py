@@ -31,23 +31,12 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
     anything the port does not render. Nothing is silently ignored."""
     cfg.validate()
-    triangle = cfg.scene_kind == "triangle"
     unsupported = [
         (cfg.nee or cfg.mis, "nee/mis are ROADMAP Queue 1 #9"),
         (cfg.material_mode != "procedural",
          f"material_mode={cfg.material_mode!r} is ROADMAP Queue 1 #9"),
         (cfg.normal_map > 0.0, "normal_map is ROADMAP Queue 1 #9"),
         (cfg.fog_density > 0.0, "fog is ROADMAP Queue 1 #9"),
-        (cfg.env_mode == "sun", "env_mode='sun' is ROADMAP Queue 1 #9"),
-        (cfg.ray_gen != "fovy",
-         f"ray_gen={cfg.ray_gen!r} is ROADMAP Queue 1 #9"),
-        (cfg.fast_math, "fast_math is ROADMAP Queue 1 #9"),
-        (cfg.aov in ("tex_coords", "param_uv") and not triangle,
-         f"aov={cfg.aov!r} renders mesh texcoords/barycentrics; on the "
-         "sphere scene it is ROADMAP Queue 1 #8"),
-        (cfg.aov not in ("pathtracing", "tex_coords", "param_uv"),
-         f"aov={cfg.aov!r}: the normal, hit and ambient_occlusion AOVs are "
-         "ROADMAP Queue 1 #9"),
     ]
     for bad, why in unsupported:
         if bad:
@@ -71,8 +60,12 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
-# The kernels' AOV codes (csrc/pathtrace.cuh kAov*).
-AOV_CODES = {"pathtracing": 0, "tex_coords": 1, "param_uv": 2}
+# The kernels' AOV, sky and camera codes (csrc/pathtrace.cuh kAov*, kEnv*,
+# kRayGen*).
+AOV_CODES = {"pathtracing": 0, "tex_coords": 1, "param_uv": 2, "normal": 3,
+             "hit": 4, "ambient_occlusion": 5}
+ENV_CODES = {"none": 0, "mandelbrot": 1, "sun": 2}
+RAY_GEN_CODES = {"fovy": 0, "viewproj": 1}
 # The kernels' sampler codes (csrc/pathtrace.cuh kRng*): the host entry
 # points pick the kernel instantiation of the configured sampler.
 RNG_CODES = {"threefry": 0, "tpu_hw": 1, "tinymt": 2, "tauslcg": 3}
@@ -102,10 +95,10 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray):
     ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
                    cfg.padded_width, k, n_scene, cfg.spp_per_step,
                    cfg.max_bounces, max_pairs_per_sample(cfg.max_bounces),
-                   cfg.emissive_every,
-                   1 if cfg.env_mode == "mandelbrot" else 0,
+                   cfg.emissive_every, ENV_CODES[cfg.env_mode],
                    cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
-                   RNG_CODES[cfg.rng]],
+                   RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
+                   int(cfg.fast_math)],
                   dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
@@ -200,12 +193,14 @@ def _sample_samplers(cfg, flat, sample_index, rng_state):
 
 def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
                        albedo: torch.Tensor, accum: torch.Tensor,
-                       output: torch.Tensor, rng_state=None) -> None:
+                       output: torch.Tensor, rng_state=None,
+                       miss_color=(0.0, 0.0, 0.0)) -> None:
     """The plain torch step shared by the kernels' plain versions: for every
     pixel of the scheduled tiles, `spp` samples in lockstep through
-    ops/pathtrace.shade with the scene's `intersect`/`anyhit` closures and
-    (n, 3) albedo table, then accumulate + tonemap IN PLACE; the stateful
-    modes' `rng_state` planes are stepped IN PLACE too."""
+    ops/pathtrace.shade with the scene's `intersect`/`anyhit` closures,
+    (n, 3) albedo table and normal-AOV `miss_color`, then accumulate +
+    tonemap IN PLACE; the stateful modes' `rng_state` planes are stepped IN
+    PLACE too."""
     dev = accum.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
@@ -220,7 +215,8 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
     for sampler in _sample_samplers(cfg, flat, sample_index, rng_state):
         u1, u2 = sampler.draw2()  # pixel jitter, every lane
         rays = generate_rays(cfg, cam, colf, rowf, u1, u2)
-        rgb = shade(cfg, intersect, anyhit, albedo, sampler, *rays)
+        rgb = shade(cfg, intersect, anyhit, albedo, sampler, *rays,
+                    miss_color=miss_color)
         sums = [a + b for a, b in zip(sums, rgb)]
     accumulate_and_tonemap(cfg, accum, output, flat, sums, spp)
 

@@ -39,7 +39,11 @@ from l2n_tpu_torch.ops.kernels.common import (
     step_params,
 )
 from l2n_tpu_torch.ops.pathtrace import generate_rays
-from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
+from l2n_tpu_torch.ops.scenes import (
+    SPHERE_MISS_COLOR,
+    sphere_anyhit,
+    sphere_intersector,
+)
 
 # A block's shared memory (csrc/sphere_pt.cu smem_bytes): the (7, n) scene,
 # the visible list and its origin terms, 12 words per sphere, plus 33
@@ -93,9 +97,10 @@ def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     whatever device the tensors are on."""
     check_supported(cfg)
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
-    render_tiles_plain(cfg, sched, camera, sphere_intersector(cx, cy, cz, r2),
+    render_tiles_plain(cfg, sched, camera,
+                       sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
                        sphere_anyhit(cx, cy, cz, r2), spheres[4:7].T, accum,
-                       output, rng_state)
+                       output, rng_state, SPHERE_MISS_COLOR)
 
 
 def visibility_table(cfg, bounds: torch.Tensor, camera,
@@ -108,7 +113,8 @@ def visibility_table(cfg, bounds: torch.Tensor, camera,
     The plain version of the kernels' in-block table (csrc/cull.cuh) and
     the counterpart of the JAX package's visibility_table, operation for
     operation in float32: every jittered primary ray of a tile lies in the
-    cone of its corner rays (through generate_rays with zero jitter); a
+    cone of its corner rays (through generate_rays with zero jitter, so in
+    the configured camera form and normalization); a
     sphere is kept if it meets that cone, relaxed by 5% of 1 - cos plus
     1e-4, or holds the camera (d2 <= r2). Unlike the JAX table, whose
     scalar-memory padding caps a row at 127 entries, no row is capped.

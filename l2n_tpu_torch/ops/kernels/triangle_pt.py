@@ -38,7 +38,11 @@ from l2n_tpu_torch.ops.kernels.common import (
     step_params,
 )
 from l2n_tpu_torch.ops.kernels.triangle_pack import SUBS, pack_mesh_blocks
-from l2n_tpu_torch.ops.scenes import triangle_anyhit, triangle_intersector
+from l2n_tpu_torch.ops.scenes import (
+    TRIANGLE_MISS_COLOR,
+    triangle_anyhit,
+    triangle_intersector,
+)
 
 # A block stages 9 words per mesh (bounds, albedo, slab count, the visible
 # list) and 33 more (csrc/triangle_pt.cu smem_bytes), at most the 227 KiB a
@@ -172,4 +176,4 @@ def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
     intersect = triangle_intersector(buffers.soup)
     render_tiles_plain(cfg, sched, camera, intersect,
                        triangle_anyhit(intersect), buffers.albedo.T, accum,
-                       output, rng_state)
+                       output, rng_state, TRIANGLE_MISS_COLOR)

@@ -107,10 +107,10 @@ def wavefront_lanes(cfg, k: int, device) -> WavefrontLanes:
         torch.empty((1,), dtype=i32, device=device))
 
 
-def _scene(spheres: torch.Tensor):
+def _scene(cfg, spheres: torch.Tensor):
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
-    return (sphere_intersector(cx, cy, cz, r2), sphere_anyhit(cx, cy, cz, r2),
-            spheres[4:7].T)
+    return (sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
+            sphere_anyhit(cx, cy, cz, r2), spheres[4:7].T)
 
 
 def _check_spheres(spheres, device) -> int:
@@ -187,7 +187,7 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
     step's order, so every operation sees the same vectors)."""
     dev = accum.device
     sampler_cls = _sampler_class(cfg)
-    intersect, _, albedo = _scene(spheres)
+    intersect, _, albedo = _scene(cfg, spheres)
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     k, th, tw, spp = (sched.shape[0], cfg.tile_height, cfg.tile_width,
                       cfg.spp_per_step)
@@ -301,7 +301,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
     written to back at their lanes (`write_back`), so no host read of
     n_alive is needed."""
     del camera  # the port's stream is 0
-    intersect, anyhit, albedo = _scene(spheres)
+    intersect, anyhit, albedo = _scene(cfg, spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)
     sampler = _sampler_class(cfg).resumed(
         cfg.seed, 0, meta[0], meta[1], max_pairs_per_sample(cfg.max_bounces),

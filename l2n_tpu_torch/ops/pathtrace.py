@@ -1,6 +1,7 @@
 """The path tracer in lane-lockstep torch: ray generation, the masked
-bounce loop and the triangle AOVs (counterpart of l2n_tpu.ops.pathtrace
-for the port's configs: pathtracing, tex_coords and param_uv AOVs,
+bounce loop and the primary-only AOVs (counterpart of l2n_tpu.ops.pathtrace
+for the port's configs: the pathtracing, normal, hit, ambient_occlusion,
+tex_coords and param_uv AOVs, the fovy and viewproj cameras, fast_math,
 procedural Lambert, no NEE/MIS/fog/lights).
 
 This is the plain version the CPU tests and `backend="torch"` run. It is a
@@ -21,7 +22,12 @@ from typing import Callable
 
 import torch
 
-from l2n_tpu_torch.camera.camera import ROW_POSITION, ROW_PROJ, ROW_RCP_VIEW
+from l2n_tpu_torch.camera.camera import (
+    ROW_POSITION,
+    ROW_PROJ,
+    ROW_RCP_VIEW,
+    ROW_RCP_VIEW_PROJ,
+)
 from l2n_tpu_torch.maths.sampling import (
     PI,
     cosine_sample_hemisphere,
@@ -58,30 +64,44 @@ AnyHitFn = Callable[..., torch.Tensor]  # (ox, oy, oz, dx, dy, dz) -> bool
 
 
 def generate_rays(cfg, cam: torch.Tensor, px, py, u1, u2):
-    """Jittered primary rays for float pixel coords (px, py), the "fovy"
-    form: NDC scaled by (ratio*tanHalfFovy, tanHalfFovy, -1), then the
-    inverse view. `cam` is the packed (10, 4) camera block as a tensor.
-    Returns (ox, oy, oz, dx, dy, dz); the origin stays 0-dim (all primary
-    rays share the camera position)."""
-    if cfg.ray_gen != "fovy":
-        raise NotImplementedError(
-            f"ray_gen={cfg.ray_gen!r} is ROADMAP Queue 1 #9")
+    """Jittered primary rays for float pixel coords (px, py). `cam` is the
+    packed (10, 4) camera block as a tensor. Two forms:
+      * "fovy": NDC scaled by (ratio*tanHalfFovy, tanHalfFovy, -1), then the
+        inverse view;
+      * "viewproj": NDC on the far plane (z = 1) through the inverse
+        view-projection, then the perspective divide (1 / w and a multiply).
+    The direction is normalized (by rsqrt under fast_math). Returns (ox, oy,
+    oz, dx, dy, dz); the origin stays 0-dim (all primary rays share the
+    camera position)."""
     sx = (px + u1) * (1.0 / (cfg.ndc_width or cfg.width))
     sy = (py + u2) * (1.0 / (cfg.ndc_height or cfg.height))
     ndx = -1.0 + 2.0 * sx
     ndy = -1.0 + 2.0 * sy
     pos_x, pos_y, pos_z = (cam[ROW_POSITION, 0], cam[ROW_POSITION, 1],
                            cam[ROW_POSITION, 2])
-    ratio = cam[ROW_PROJ, 0]
-    tan_half = cam[ROW_PROJ, 1]
-    vx = ndx * ratio * tan_half
-    vy = ndy * tan_half
-    vz = -1.0
-    r = ROW_RCP_VIEW
-    wx = cam[r + 0, 0] * vx + cam[r + 0, 1] * vy + cam[r + 0, 2] * vz + cam[r + 0, 3]
-    wy = cam[r + 1, 0] * vx + cam[r + 1, 1] * vy + cam[r + 1, 2] * vz + cam[r + 1, 3]
-    wz = cam[r + 2, 0] * vx + cam[r + 2, 1] * vy + cam[r + 2, 2] * vz + cam[r + 2, 3]
-    dx, dy, dz = normalize3(wx - pos_x, wy - pos_y, wz - pos_z)
+    if cfg.ray_gen == "fovy":
+        ratio = cam[ROW_PROJ, 0]
+        tan_half = cam[ROW_PROJ, 1]
+        vx = ndx * ratio * tan_half
+        vy = ndy * tan_half
+        vz = -1.0
+        r = ROW_RCP_VIEW
+    elif cfg.ray_gen == "viewproj":
+        vx, vy, vz = ndx, ndy, 1.0
+        r = ROW_RCP_VIEW_PROJ
+    else:
+        raise ValueError(f"unknown ray_gen {cfg.ray_gen!r}")
+
+    def row(i):
+        return (cam[r + i, 0] * vx + cam[r + i, 1] * vy + cam[r + i, 2] * vz
+                + cam[r + i, 3])
+
+    wx, wy, wz = row(0), row(1), row(2)
+    if cfg.ray_gen == "viewproj":
+        rcp_w = 1.0 / row(3)
+        wx, wy, wz = wx * rcp_w, wy * rcp_w, wz * rcp_w
+    dx, dy, dz = normalize3(wx - pos_x, wy - pos_y, wz - pos_z,
+                            fast=cfg.fast_math)
     return pos_x, pos_y, pos_z, dx, dy, dz
 
 
@@ -119,12 +139,13 @@ def _scatter_and_roulette(cfg, albedo, sampler, bo, bd, cur_t, n, index,
     hy = boy + cur_t * bdy
     hz = boz + cur_t * bdz
     kd = albedo[index.clamp(min=0)]  # miss lanes read row 0, never kept
-    tangent, bitangent = frame_z(*n)
+    tangent, bitangent = frame_z(*n, fast=cfg.fast_math)
     # Only diffuse lanes consume draws (the stateful samplers step no
     # other lane; the counter-based ones ignore the mask).
     u1, u2 = sampler.draw2(mask=diffuse)
     (lx, ly, lz), _ = cosine_sample_hemisphere(u1, u2)
-    wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n))
+    wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n),
+                    fast=cfg.fast_math)
 
     bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
           torch.where(diffuse, hz, boz))
@@ -295,11 +316,51 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
 
 
 def _magenta_on_miss(h: Hit, r, g):
-    """(r, g, 0) where the primary ray hits, magenta (1, 0, 1) on a miss."""
+    """(r, g, 0) where the primary ray hits, magenta (1, 0, 1) on a miss;
+    None channels (spheres carry no texcoords or barycentrics) read 0."""
     m = h.t >= 0.0
     zero = torch.zeros_like(h.t)
     one = torch.ones_like(h.t)
+    r = zero if r is None else r
+    g = zero if g is None else g
     return torch.where(m, r, one), torch.where(m, g, zero), torch.where(m, zero, one)
+
+
+def aov_normal(intersect: IntersectFn, ox, oy, oz, dx, dy, dz,
+               miss=(0.0, 0.0, 0.0)):
+    """Shading normal of the primary hit, or the scene family's miss colour
+    (spheres black, meshes magenta: ops/scenes.py)."""
+    h = intersect(ox, oy, oz, dx, dy, dz)
+    m = h.t >= 0.0
+    return tuple(torch.where(m, n, torch.full_like(n, c))
+                 for n, c in zip((h.nx, h.ny, h.nz), miss))
+
+
+def aov_hit(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
+    """1 where the primary ray hits, else 0."""
+    h = intersect(ox, oy, oz, dx, dy, dz)
+    v = (h.t >= 0.0).to(h.t.dtype)
+    return v, v, v
+
+
+def aov_ambient_occlusion(cfg, intersect: IntersectFn, sampler, ox, oy, oz,
+                          dx, dy, dz):
+    """One-bounce white-sky AO: a cosine sample of the hemisphere around the
+    primary hit's normal (the exact frame, fast_math or not), cast from the
+    hit plus ray_epsilon along it with the nearest-hit sweep; white where
+    that cast misses. Only hit lanes draw."""
+    h = intersect(ox, oy, oz, dx, dy, dz)
+    active = h.t >= 0.0
+    n = (h.nx, h.ny, h.nz)
+    tangent, bitangent = frame_z(*n)
+    u1, u2 = sampler.draw2(mask=active)
+    (lx, ly, lz), _ = cosine_sample_hemisphere(u1, u2)
+    w = local_to_world(lx, ly, lz, tangent, bitangent, n)
+    s = tuple(o + h.t * d + cfg.ray_epsilon * wi
+              for o, d, wi in zip((ox, oy, oz), (dx, dy, dz), w))
+    h2 = intersect(*s, *w)
+    v = (active & (h2.t < 0.0)).to(h.t.dtype)
+    return v, v, v
 
 
 def aov_tex_coords(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
@@ -315,15 +376,21 @@ def aov_param_uv(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
 
 
 def shade(cfg, intersect: IntersectFn, anyhit: AnyHitFn, albedo, sampler,
-          ox, oy, oz, dx, dy, dz):
-    """Dispatch on cfg.aov: the path tracer, or a primary-only AOV."""
+          ox, oy, oz, dx, dy, dz, miss_color=(0.0, 0.0, 0.0)):
+    """Dispatch on cfg.aov: the path tracer, or a primary-only AOV;
+    `miss_color` is the normal AOV's colour of a miss."""
     if cfg.aov == "pathtracing":
         return trace_path(cfg, intersect, anyhit, albedo, sampler,
                           ox, oy, oz, dx, dy, dz)
+    if cfg.aov == "normal":
+        return aov_normal(intersect, ox, oy, oz, dx, dy, dz, miss_color)
+    if cfg.aov == "hit":
+        return aov_hit(intersect, ox, oy, oz, dx, dy, dz)
+    if cfg.aov == "ambient_occlusion":
+        return aov_ambient_occlusion(cfg, intersect, sampler,
+                                     ox, oy, oz, dx, dy, dz)
     if cfg.aov == "tex_coords":
         return aov_tex_coords(intersect, ox, oy, oz, dx, dy, dz)
     if cfg.aov == "param_uv":
         return aov_param_uv(intersect, ox, oy, oz, dx, dy, dz)
-    raise NotImplementedError(
-        f"aov={cfg.aov!r}: the normal, hit and ambient_occlusion AOVs are "
-        "ROADMAP Queue 1 #9")
+    raise ValueError(f"unknown aov {cfg.aov!r}")

@@ -12,14 +12,21 @@ from l2n_tpu_torch.ops.intersect import (
 )
 from l2n_tpu_torch.ops.pathtrace import AnyHitFn, Hit, IntersectFn
 
+# The normal AOV's colour of a miss, per scene family: black for spheres,
+# magenta for meshes (the JAX package's render/step.make_intersector).
+SPHERE_MISS_COLOR = (0.0, 0.0, 0.0)
+TRIANGLE_MISS_COLOR = (1.0, 0.0, 1.0)
+
 
 def sphere_intersector(cx: torch.Tensor, cy: torch.Tensor, cz: torch.Tensor,
-                       r2: torch.Tensor) -> IntersectFn:
-    """Nearest-hit closure over the sphere SoA (n,) tensors."""
+                       r2: torch.Tensor,
+                       fast_math: bool = False) -> IntersectFn:
+    """Nearest-hit closure over the sphere SoA (n,) tensors; `fast_math`
+    takes the sweep's square root and the normal's as rsqrt forms."""
 
     def intersect(ox, oy, oz, dx, dy, dz) -> Hit:
         t, _, _, _, nx, ny, nz, idx, br2 = intersect_sphere_scene(
-            ox, oy, oz, dx, dy, dz, cx, cy, cz, r2)
+            ox, oy, oz, dx, dy, dz, cx, cy, cz, r2, fast_math)
         return Hit(t=t, nx=nx, ny=ny, nz=nz, index=idx, emis_r2=br2)
 
     return intersect

@@ -28,7 +28,8 @@ import torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.ops.envlight import mandelbrot_le
+from l2n_tpu_torch.ops.envlight import SUN_S, mandelbrot_le, sun_le
+from l2n_tpu_torch.ops.intersect import intersect_sphere_scene
 from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
 from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
 from l2n_tpu_torch.ops.kernels.sphere_pt import (
@@ -44,7 +45,7 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
     wavefront_pass_b_plain,
     wavefront_pass_c_plain,
 )
-from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+from l2n_tpu_torch.ops.pathtrace import generate_rays, wavefront_draw_position
 from l2n_tpu_torch.probes import onehot_recovery, sweep_variants
 from l2n_tpu_torch.render.state import init_rng_state
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
@@ -140,19 +141,21 @@ l2n::TriSceneView for_tile(const l2n::PtParams& p, l2n::TriSceneView s,
 }
 
 // The kernels' per-thread bodies over every pixel of the scheduled tiles,
-// with the sampler instantiation the mode code picks (as the entry points).
+// with the sampler and AOV instantiation the codes pick (as the entry
+// points).
 struct RenderTiles {
-  template <class Rng, class Scene>
-  static int run(l2n::PtParams p, Scene s, const int32_t* sched,
+  template <class Rng, bool kAovs, bool kFast, bool kViewproj, class Scene>
+  static int run(l2n::PtParams params, Scene s, const int32_t* sched,
                  float* accum, float* output, uint32_t* rng_state) {
+    const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
     TileLists lists;
     for (int k = 0; k < p.k; ++k) {
       const Scene ts = for_tile(p, s, sched[2 * k], sched[2 * k + 1], lists);
       for (int r = 0; r < p.tile_height; ++r)
         for (int c = 0; c < p.tile_width; ++c)
-          l2n::render_pixel<Rng>(p, ts, sched[2 * k + 1] * p.tile_height + r,
-                                 sched[2 * k] * p.tile_width + c, accum,
-                                 output, rng_state);
+          l2n::render_pixel<Rng, kAovs>(
+              p, ts, sched[2 * k + 1] * p.tile_height + r,
+              sched[2 * k] * p.tile_width + c, accum, output, rng_state);
     }
     return 0;
   }
@@ -169,7 +172,8 @@ struct PassA {
   template <class Rng>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive) {
-    const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+    const l2n::SceneView s =
+        l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
     TileLists lists;
     *n_alive = 0;
     SerialAppend append{n_alive};
@@ -207,7 +211,8 @@ struct PassB {
   static int run(l2n::PtParams p, int group, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
                  const float* rays, const int32_t* meta, float* back) {
-    const l2n::SceneView s = l2n::scene_view(spheres, p.n_scene);
+    const l2n::SceneView s =
+        l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
     switch (group) {
       case 1:
         slots<Rng, 1>(p, s, next_pair, has_spare, n_alive, rays, meta, back);
@@ -330,9 +335,9 @@ int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
                        float* accum, float* output, uint32_t* rng_state) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_rng<RenderTiles>(
-      p.rng, p, l2n::scene_view(spheres, p.n_scene), sched, accum, output,
-      rng_state);
+  return l2n::dispatch_fused<RenderTiles>(
+      p, p, l2n::scene_view(spheres, p.n_scene, p.fast_math != 0), sched,
+      accum, output, rng_state);
 }
 int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          int tpad, const int32_t* sched,
@@ -347,8 +352,8 @@ int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                               slab_count, slab_bounds, sub_bounds, tris,
                               attrs,      albedo,  albedo + m,
                               albedo + 2 * m};
-  return l2n::dispatch_rng<RenderTiles>(p.rng, p, s, sched, accum, output,
-                                        rng_state);
+  return l2n::dispatch_fused<RenderTiles>(p, p, s, sched, accum, output,
+                                          rng_state);
 }
 // The header's visibility table over n spheres `bounds` (4, n) for the K
 // scheduled tiles: rows of [count, kept indices..., -1...] (K, 1 + n).
@@ -453,6 +458,36 @@ void l2n_threefry_host(uint32_t k0, uint32_t k1, const uint32_t* x0,
 void l2n_mandelbrot_host(const float* d, float* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     out[i] = l2n::mandelbrot_le(d[i], d[n + i], d[2 * n + i]);
+}
+void l2n_sun_host(const float* d, float* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = l2n::sun_le(d[i], d[n + i], d[2 * n + i]);
+}
+// The camera rays of the step's form through pixel coordinates
+// (px, py) + (u1, u2): xy (4, n) in, directions (3, n) out.
+void l2n_camera_dirs_host(const int32_t* ip, const float* fp, const float* xy,
+                          float* out, int64_t n) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  for (int64_t i = 0; i < n; ++i)
+    l2n::camera_direction(p, xy[i], xy[n + i], xy[2 * n + i], xy[3 * n + i],
+                          out[i], out[n + i], out[2 * n + i]);
+}
+// The full nearest-sphere sweep of rays (6, n) (origin, direction) over
+// the spheres (7, count), fast_math from the step's parameters: t and the
+// winner's index per ray.
+void l2n_sphere_nearest_host(const int32_t* ip, const float* fp,
+                             const float* spheres, const float* rays,
+                             float* t, int32_t* index, int64_t n) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::SceneView s =
+      l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
+  for (int64_t i = 0; i < n; ++i) {
+    const float* r = rays + i;
+    const l2n::Hit h = s.nearest(r[0], r[n], r[2 * n], r[3 * n], r[4 * n],
+                                 r[5 * n]);
+    t[i] = h.t;
+    index[i] = h.index;
+  }
 }
 int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* spheres,
@@ -650,6 +685,9 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_threefry_host.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                       p, p, p, p, ctypes.c_int64]
     lib.l2n_mandelbrot_host.argtypes = [p, p, ctypes.c_int64]
+    lib.l2n_sun_host.argtypes = [p, p, ctypes.c_int64]
+    lib.l2n_camera_dirs_host.argtypes = [p, p, p, p, ctypes.c_int64]
+    lib.l2n_sphere_nearest_host.argtypes = [p] * 6 + [ctypes.c_int64]
     i = ctypes.c_int
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
     lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
@@ -736,6 +774,85 @@ def test_mandelbrot_header_matches_plain(lib):
     assert (out != want).mean() <= 1e-3
 
 
+def test_sun_header_matches_plain(lib):
+    """csrc/pathtrace.cuh sun_le per lane against the plain sky, bit-equal
+    (subnormals included: neither build flushes them)."""
+    gen = np.random.Generator(np.random.PCG64(41))
+    d = gen.normal(size=(3, 50_000)).astype(np.float32)
+    d[:, :5000] += 20.0 * np.float32(SUN_S) * np.array(
+        [1, 1, -1], np.float32)[:, None]  # near the sun's direction
+    d /= np.linalg.norm(d, axis=0)
+    d = np.ascontiguousarray(d, np.float32)
+    out = np.empty(d.shape[1], np.float32)
+    lib.l2n_sun_host(_ptr(d), _ptr(out), d.shape[1])
+    want = sun_le(*(torch.from_numpy(a) for a in d)).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+    assert (want > 1e-2).sum() > 1000 and (want == 0).sum() > 10_000
+
+
+@pytest.mark.parametrize("ray_gen", ["fovy", "viewproj"])
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast_math"])
+def test_camera_direction_header_matches_plain(lib, ray_gen, fast):
+    """csrc/pathtrace.cuh camera_direction (fovy_direction or
+    viewproj_direction, normalized exactly or by rsqrt) per lane against the
+    plain generate_rays on random pixels and jitters, bit-equal: the host
+    build's rsqrt is the correctly rounded 1/sqrt the plain path takes on
+    the CPU."""
+    cfg = RenderConfig(width=1280, height=720, ray_gen=ray_gen,
+                       fast_math=fast).validate()
+    cam = Camera.from_config(cfg).packed()
+    gen = np.random.Generator(np.random.PCG64(42))
+    n = 20_000
+    xy = np.ascontiguousarray(np.stack([
+        gen.integers(0, cfg.width, n).astype(np.float32),
+        gen.integers(0, cfg.height, n).astype(np.float32),
+        *gen.random((2, n), dtype=np.float32)]))
+    ip, fp = step_params(cfg, 1, 1, cam)
+    out = np.empty((3, n), np.float32)
+    lib.l2n_camera_dirs_host(_ptr(ip), _ptr(fp), _ptr(xy), _ptr(out), n)
+    want = generate_rays(cfg, torch.from_numpy(cam),
+                         *(torch.from_numpy(a) for a in xy))[3:]
+    for g, w in zip(out, want):
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast_math"])
+def test_tangent_ray_header_matches_plain(lib, fast):
+    """Rays tangent to a sphere with a discriminant of exactly 0 (the sweep's
+    vote lets them through): the exact sweep hits at the tangent point, the
+    fast-math one takes 0 * rsqrt(0) = NaN and misses, as the JAX package's
+    fast_sqrt does; the header's full sweep equals the plain one either way,
+    and a ray that meets the sphere properly hits in both."""
+    spheres = np.zeros((7, 2), np.float32)
+    spheres[:4, 0] = [0.0, 0.0, -5.0, 1.0]      # r = 1 at z = -5
+    spheres[:4, 1] = [30.0, 30.0, 30.0, 4.0]    # out of the way
+    spheres[4:] = 0.5
+    # origin (x, 0, 0) looking down -z: hb = -5, c = x^2 + 25 - 1, so
+    # disc = 1 - x^2 is exactly 0 at x = +-1 and positive at x = 0.5;
+    # the fourth starts at y = 2 (disc = -3).
+    rays = np.zeros((6, 4), np.float32)
+    rays[0] = [1.0, -1.0, 0.5, 0.0]
+    rays[1] = [0.0, 0.0, 0.0, 2.0]
+    rays[5] = -1.0
+    cfg = RenderConfig(fast_math=fast).validate()
+    ip, fp = step_params(cfg, 1, 2, Camera.from_config(cfg).packed())
+    t = np.empty(4, np.float32)
+    idx = np.empty(4, np.int32)
+    lib.l2n_sphere_nearest_host(_ptr(ip), _ptr(fp), _ptr(spheres),
+                                _ptr(np.ascontiguousarray(rays)), _ptr(t),
+                                _ptr(idx), 4)
+    sp = torch.from_numpy(spheres)
+    want = intersect_sphere_scene(*(torch.from_numpy(r) for r in rays),
+                                  sp[0], sp[1], sp[2], sp[3], fast_math=fast)
+    np.testing.assert_array_equal(t, want[0].numpy())
+    np.testing.assert_array_equal(idx, want[7].numpy())
+    tangent = [-1.0, -1.0] if fast else [5.0, 5.0]
+    np.testing.assert_array_equal(t[:2], tangent)
+    assert idx[2] == 0 and 4.0 < t[2] < 5.0  # x = 0.5 meets the sphere
+    assert idx[3] == -1  # the fourth ray misses both
+
+
 def _aimed_view(cfg):
     """Look from between a diffuse (odd) sphere and its nearest emissive
     (even) one at the diffuse sphere: a lit frame (cf. tests/test_brdf.py)."""
@@ -795,13 +912,29 @@ def _inside_view(cfg, j):
                    np.array([0.0, 1.0, 0.0], np.float32))
 
 
-@pytest.mark.parametrize("case", ["aimed", "default", "inside"])
+@pytest.mark.parametrize("case", ["aimed", "default", "inside", "normal",
+                                  "hit", "ao", "tex_coords", "sun_viewproj",
+                                  "fast_math", "fast_ao_viewproj"])
 def test_header_matches_plain_step(lib, case):
     """The kernels' per-pixel body with their cone-culled primaries (the
     tile's visible list and its hoisted origin terms, csrc/cull.cuh) against
     the plain step, which sweeps every sphere: the aimed small scene, the
-    default 128 spheres, and the eye inside an emissive sphere."""
-    if case == "aimed":
+    default 128 spheres, and the eye inside an emissive sphere; and on the
+    aimed scene the primary-only AOVs (normal, hit, ambient occlusion,
+    tex_coords), the sun sky with the viewproj camera, and fast_math (the
+    host build's rsqrt is the plain CPU path's)."""
+    settings = {"normal": {"aov": "normal"}, "hit": {"aov": "hit"},
+                "ao": {"aov": "ambient_occlusion"},
+                "tex_coords": {"aov": "tex_coords"},
+                "sun_viewproj": {"env_mode": "sun", "ray_gen": "viewproj"},
+                "fast_math": {"fast_math": True},
+                "fast_ao_viewproj": {"fast_math": True, "ray_gen": "viewproj",
+                                     "aov": "ambient_occlusion"}}
+    if case in settings:
+        cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                           emissive_every=2, **settings[case]).validate()
+        view = _aimed_view(cfg)
+    elif case == "aimed":
         cfg = RenderConfig(width=128, height=64, sphere_count=16,
                            emissive_every=2).validate()
         view = _aimed_view(cfg)
@@ -816,7 +949,10 @@ def test_header_matches_plain_step(lib, case):
     cam = Camera.from_config(cfg, view).packed()
     ha, ho = _render(cfg, cam, 4, host_lib=lib)
     pa, po = _render(cfg, cam, 4)
-    if case != "default":
+    if cfg.aov != "pathtracing":  # hits cover a tenth of the aimed view
+        assert (np.abs(pa[:3]).max(0) > 0).mean() > 0.05
+        np.testing.assert_array_equal(ha, pa)
+    elif case != "default":
         assert (pa[:3].max(0) > 0).mean() > 0.3  # a lit frame
     assert (pa[3] > 0).all()
     np.testing.assert_array_equal(ha[3], pa[3])
@@ -826,15 +962,20 @@ def test_header_matches_plain_step(lib, case):
 
 
 @pytest.mark.parametrize("case", ["default_spheres", "default_meshes",
-                                  "inside"])
+                                  "inside", "viewproj_spheres",
+                                  "viewproj_fast_meshes"])
 def test_visibility_header_matches_plain(lib, case):
     """csrc/cull.cuh's table (the kernels' per-tile visible list, built here
     serially with the same per-sphere test) equals the plain
     visibility_table on every tile of the 1280x720 frame: the default
     spheres, the default triangle scene's mesh bounds, and the eye inside a
-    sphere."""
+    sphere; and with the viewproj camera (its corner rays, normalized
+    exactly or by rsqrt, as the primaries are)."""
     cfg = RenderConfig().validate()
-    if case == "default_meshes":
+    if case.startswith("viewproj"):
+        cfg = cfg.replace(ray_gen="viewproj",
+                          fast_math=case.endswith("fast_meshes"))
+    if case.endswith("meshes"):
         scene = build_triangle_scene(compute_spheres(
             cfg.sphere_count, cfg.world_size, cfg.scene_seed),
             cfg.disc_lat, cfg.disc_long)
@@ -861,9 +1002,12 @@ def test_visibility_header_matches_plain(lib, case):
 
 @pytest.mark.parametrize("extra", [{}, {"spp_per_step": 2, "max_bounces": 3},
                                    {"max_bounces": 1}, {"rng": "tpu_hw"},
-                                   {"sphere_count": 13}],
+                                   {"sphere_count": 13},
+                                   {"env_mode": "sun", "ray_gen": "viewproj"},
+                                   {"fast_math": True, "rng": "tpu_hw"}],
                          ids=["reference", "spp2_bounces3", "bounces1",
-                              "tpu_hw", "spheres13"])
+                              "tpu_hw", "spheres13", "sun_viewproj",
+                              "fast_math"])
 def test_wavefront_header_matches_plain_passes(lib, extra):
     """csrc/wavefront.cuh's per-lane pass A/B/C bodies against the plain
     passes on the same inputs, pass by pass, over 2 steps of the aimed
@@ -996,13 +1140,22 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
     return accum.numpy(), output.numpy()
 
 
-@pytest.mark.parametrize("aov", ["pathtracing", "tex_coords", "param_uv"])
+@pytest.mark.parametrize("aov", ["pathtracing", "tex_coords", "param_uv",
+                                 "normal", "hit", "ambient_occlusion",
+                                 "sun_viewproj_fast"])
 def test_triangle_header_matches_plain_step(lib, aov):
     """The kernel's bound traversal (the culled primaries, then per lane
     its entered meshes front to back, mesh -> slab -> sub-cluster) against
     the plain brute-force sweep on the aimed small config, 2 steps; gates
-    of tests/test_kernels.py:125-151, bit-equality expected."""
-    cfg = TRI_CFG.replace(aov=aov)
+    of tests/test_kernels.py:125-151, bit-equality expected: every AOV (the
+    ambient-occlusion cast walks with its unnormalized direction), and the
+    sun sky with the viewproj camera under fast_math."""
+    if aov == "sun_viewproj_fast":
+        cfg = TRI_CFG.replace(env_mode="sun", ray_gen="viewproj",
+                              fast_math=True)
+        aov = "pathtracing"
+    else:
+        cfg = TRI_CFG.replace(aov=aov)
     scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
                                                  cfg.world_size,
                                                  cfg.scene_seed),
@@ -1115,8 +1268,9 @@ from l2n_tpu_torch.scene import (build_triangle_scene, compute_spheres,
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
 lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
-cfg = RenderConfig(width=128, height=64, scene_kind="triangle").validate()
-cfg = cfg.replace(tiles_per_step=cfg.tile_count)
+cfg = RenderConfig(width=128, height=64, scene_kind="triangle",
+                   aov=sys.argv[2] if len(sys.argv) > 2 else "pathtracing")
+cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
 for scene in (build_triangle_scene(compute_spheres(128)),
               load_obj(torus_field_obj())):
     buf = TriangleBuffers.from_scene(scene)
@@ -1221,6 +1375,14 @@ def test_triangle_header_memcheck_asan_list_overflow(tmp_path):
     """The same memory check with a two-entry per-lane mesh list, so the
     walk's chunked rescans run (ROADMAP Queue 3 #15)."""
     _asan_render(tmp_path, "-DL2N_LANE_LIST=2")
+
+
+def test_triangle_header_memcheck_asan_ambient_occlusion(tmp_path):
+    """The same memory check for the ambient-occlusion AOV, whose second
+    cast walks every mesh with its own bound direction (TriSceneView::
+    occluded), with a two-entry per-lane list so that cast's chunked
+    rescans run too (ROADMAP Queue 3 #15)."""
+    _asan_render(tmp_path, "-DL2N_LANE_LIST=2", args=("ambient_occlusion",))
 
 
 ASAN_ONEHOT = r"""
@@ -1347,7 +1509,7 @@ def test_onehot_split_header_memcheck_asan(tmp_path):
     _asan_render(tmp_path, script=ASAN_ONEHOT)
 
 
-def _asan_render(tmp_path, *defines, script=ASAN_RENDER):
+def _asan_render(tmp_path, *defines, script=ASAN_RENDER, args=()):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++")
@@ -1364,7 +1526,7 @@ def _asan_render(tmp_path, *defines, script=ASAN_RENDER):
                    check=True, capture_output=True, text=True)
     env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
                PYTHONPATH=str(CSRC.parents[1]))
-    proc = subprocess.run([sys.executable, "-c", script, str(lib_path)],
+    proc = subprocess.run([sys.executable, "-c", script, str(lib_path), *args],
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("clean")
@@ -1507,10 +1669,38 @@ def test_header_matches_plain_step_every_rng(lib, mode):
         assert (hs != ps).any(0).float().mean() < 2e-3
 
 
+@pytest.mark.parametrize("mode", ["threefry", "tpu_hw", "tinymt", "tauslcg"])
+def test_ao_header_matches_plain_step_every_rng(lib, mode):
+    """The ambient-occlusion AOV in every rng mode, 3 steps of 2 samples:
+    only a hit draws, so a miss lane's TinyMT/TausLCG state stays where it
+    was; accum and the state planes bit-equal."""
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, spp_per_step=2, rng=mode,
+                       aov="ambient_occlusion").validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    ha, _, hs = _render(cfg, cam, 3, host_lib=lib, with_state=True)
+    pa, _, ps = _render(cfg, cam, 3, with_state=True)
+    np.testing.assert_array_equal(ha, pa)
+    assert 0 < (pa[0] > 0).mean() < (pa[3] > 0).mean()
+    if hs is not None:
+        np.testing.assert_array_equal(hs.numpy(), ps.numpy())
+        assert not torch.equal(ps, init_rng_state(cfg))
+
+
 def test_triangle_header_matches_plain_step_tinymt(lib):
     """The triangle traversal with the TinyMT sampler, 2 steps: accum and
     the state planes bit-equal (tests/test_kernels.py:125-151's gates)."""
-    cfg = TRI_CFG.replace(rng="tinymt")
+    _triangle_host_vs_plain_with_state(lib, TRI_CFG.replace(rng="tinymt"))
+
+
+def test_triangle_ao_header_matches_plain_step_tauslcg(lib):
+    """The ambient-occlusion AOV on meshes with the TausLCG sampler (only a
+    hit draws), 2 steps: accum and the state planes bit-equal."""
+    _triangle_host_vs_plain_with_state(
+        lib, TRI_CFG.replace(rng="tauslcg", aov="ambient_occlusion"))
+
+
+def _triangle_host_vs_plain_with_state(lib, cfg):
     scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
                                                  cfg.world_size,
                                                  cfg.scene_seed),

@@ -155,10 +155,23 @@ def test_mandelbrot_le():
 
 
 def test_env_radiance_none_and_sun():
+    """The sun sky was refused (ROADMAP Queue 1 #9) until it was ported:
+    it now dispatches to sun_le, equal to the JAX sky's on directions near
+    the sun's; an unknown mode raises."""
     d = [torch.ones(4)] * 3
     assert (envlight.env_radiance("none", *d) == 0).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        envlight.env_radiance("sun", *d)
+    gen = _gen(7)
+    s = np.float32(1.0 / np.sqrt(3.0))
+    near = (np.array([s, s, -s], np.float32)[:, None]
+            + 0.1 * gen.normal(size=(3, N)).astype(np.float32))
+    near = (near / np.linalg.norm(near, axis=0)).astype(np.float32)
+    t = envlight.env_radiance("sun", *(torch.from_numpy(a) for a in near))
+    j = np.asarray(jenvlight.env_radiance("sun", *(jnp.asarray(a)
+                                                   for a in near)))
+    np.testing.assert_array_equal(t.numpy(), j)
+    assert (j > 0.1).mean() > 0.1
+    with pytest.raises(ValueError, match="env_mode"):
+        envlight.env_radiance("moon", *d)
 
 
 def test_atan2():
@@ -207,9 +220,18 @@ def test_generate_rays():
         np.testing.assert_allclose(np.broadcast_to(b.numpy(), (N,)),
                                    np.broadcast_to(np.asarray(a), (N,)),
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        pathtrace.generate_rays(cfg.replace(ray_gen="viewproj"),
-                                torch.from_numpy(cam), *t[3:5], *t[3:5])
+    # viewproj was refused (ROADMAP Queue 1 #9) until it was ported: its
+    # rays now match the JAX package's too
+    vcfg = cfg.replace(ray_gen="viewproj")
+    j = jpathtrace.generate_rays(_jcfg(vcfg), jnp.asarray(cam),
+                                 *(jnp.asarray(a) for a in (px, py, u1, u2)))
+    t = pathtrace.generate_rays(vcfg, torch.from_numpy(cam),
+                                *(torch.from_numpy(a)
+                                  for a in (px, py, u1, u2)))
+    for a, b in zip(j, t):
+        np.testing.assert_allclose(np.broadcast_to(b.numpy(), (N,)),
+                                   np.broadcast_to(np.asarray(a), (N,)),
+                                   atol=1e-6)
 
 
 def test_procedural_color():

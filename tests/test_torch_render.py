@@ -185,19 +185,20 @@ def test_backend_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"aov": "tex_coords"}, "#8"),
-    # the id predates the stateful rng port, when the mode was refused
-    # (#10); it now builds and renders (item None)
+    # Each id names the ROADMAP item that refused the setting when the
+    # case was written; item None: the setting has been ported since and
+    # the case builds and renders a step: tex_coords on spheres (#8), the
+    # sun sky, viewproj, fast_math and the normal AOV (#9, its first
+    # slice), the stateful rng modes (#10) and the wavefront step (#13).
+    pytest.param({"aov": "tex_coords"}, None, id="kw0-#8"),
     pytest.param({"rng": "tinymt"}, None, id="kw1-#10"),
     ({"nee": True}, "#9"), ({"material_mode": "microfacet"}, "#9"),
     ({"normal_map": 0.5}, "#9"), ({"fog_density": 0.01}, "#9"),
-    ({"env_mode": "sun"}, "#9"), ({"ray_gen": "viewproj"}, "#9"),
-    ({"fast_math": True}, "#9"),
-    # the id predates the wavefront port, when the flag was refused (#13);
-    # a sphere config now accepts it (item None: it builds and renders)
+    pytest.param({"env_mode": "sun"}, None, id="kw6-#9"),
+    pytest.param({"ray_gen": "viewproj"}, None, id="kw7-#9"),
+    pytest.param({"fast_math": True}, None, id="kw8-#9"),
     pytest.param({"wavefront": True}, None, id="kw9-#13"),
-    # the id predates the triangle family, when this AOV was "#8/#9"
-    pytest.param({"aov": "normal"}, "#9", id="kw10-#8/#9")])
+    pytest.param({"aov": "normal"}, None, id="kw10-#8/#9")])
 def test_unsupported_configs_raise(kw, item):
     cfg = RenderConfig(width=128, height=64, sphere_count=16, **kw)
     if item is None:
@@ -235,9 +236,13 @@ def test_unsupported_program_options_raise(tmp_path):
     cfg = RenderConfig(width=128, height=64, sphere_count=16)
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         SphereProgram(cfg, backend="torch", point_lights=[])
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        Application(cfg.replace(aov="tex_coords"), workdir=tmp_path,
-                    backend="torch", renderer_names=("spherePT", "trianglePT"))
+    # The texcoord AOVs were mesh-only (#8) until the sphere family took
+    # them: both renderers now build and render one.
+    app = Application(cfg.replace(aov="tex_coords"), workdir=tmp_path,
+                      backend="torch", renderer_names=("spherePT",
+                                                       "trianglePT"))
+    st = app.run(1, save_camera=False)
+    assert float(st.accum[3].sum()) > 0
 
 
 SLICE_MODULES = [

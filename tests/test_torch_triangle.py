@@ -380,21 +380,34 @@ def test_switch_renderer_clears_accumulation(tmp_path):
 
 @pytest.mark.parametrize("kw,ok", [
     ({}, True), ({"aov": "tex_coords"}, True), ({"aov": "param_uv"}, True),
-    ({"nee": True}, "#9"), ({"aov": "normal"}, "#9"),
-    ({"aov": "ambient_occlusion"}, "#9"),
-    # the id predates the wavefront port, when the flag was refused (#13);
-    # a triangle config now accepts it and renders single-pass
+    ({"nee": True}, "#9"),
+    # The ids name the ROADMAP item that refused the setting when the case
+    # was written: the normal and AO AOVs (#9, its first slice) and the
+    # wavefront flag (#13, a triangle config renders single-pass) are
+    # accepted now, and each AOV renders a step.
+    pytest.param({"aov": "normal"}, True, id="kw4-#9"),
+    pytest.param({"aov": "ambient_occlusion"}, True, id="kw5-#9"),
     pytest.param({"wavefront": True}, True, id="kw6-#13")])
 def test_check_supported_triangle(kw, ok):
     cfg = _small_cfg(scene_kind="triangle", **kw)
-    if ok is True:
-        check_supported(cfg)
-    else:
+    if ok is not True:
         with pytest.raises(NotImplementedError, match=f"Queue 1 {ok}"):
             check_supported(cfg)
-    if "aov" in kw and ok is True:  # the texcoord AOVs are mesh-only
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-            check_supported(cfg.replace(scene_kind="sphere"))
+        return
+    check_supported(cfg)
+    if "aov" in kw:  # the sphere family takes every AOV too (#8, #9)
+        check_supported(cfg.replace(scene_kind="sphere"))
+    if kw.get("aov") in ("normal", "ambient_occlusion"):
+        cfg = cfg.replace(max_bounces=1)
+        scene = build_triangle_scene(compute_spheres(
+            cfg.sphere_count, cfg.world_size, cfg.scene_seed),
+            cfg.disc_lat, cfg.disc_long)
+        step = build_render_step(cfg, scene, backend="torch")
+        st = step(init_frame_state(cfg), _aimed_camera(cfg).packed())
+        assert float(st.accum[3].sum()) == (cfg.effective_tiles_per_step
+                                            * cfg.tile_height * cfg.tile_width)
+        assert bool(torch.isfinite(st.accum).all())
+        assert float(st.accum[:3].abs().sum()) > 0
 
 
 def test_triangle_wavefront_flag_renders_single_pass():

@@ -352,7 +352,7 @@ def test_pass_b_write_back_matches_scatter_back():
                               a.n_alive, back)
 
     # the scatter-back: the contributions of every slot, gathered by perm
-    intersect, anyhit, albedo = wf._scene(spheres)
+    intersect, anyhit, albedo = wf._scene(cfg, spheres)
     next_pair, has_spare = pathtrace.wavefront_draw_position(cfg)
     sampler = tsampler.ThreefrySampler.resumed(
         cfg.seed, 0, a.meta[0], a.meta[1],
