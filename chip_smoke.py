@@ -350,10 +350,11 @@ def golden_gates(got, want):
     return flip, rmse
 
 
-def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
+def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps, lights=None):
     """Render `steps` steps with the kernel and with its plain version from
-    fresh states; returns the gates of `compare` and whether the rng state
-    planes ended bit-equal (None for the counter-based modes)."""
+    fresh states (with explicit `lights`, ops/lights.ExplicitLights, where
+    given); returns the gates of `compare` and whether the rng state planes
+    ended bit-equal (None for the counter-based modes)."""
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
     dev = torch.device("cuda")
@@ -361,10 +362,13 @@ def kernel_vs_plain(kernel, plain, cfg, buffers, cam, steps):
     k = cfg.effective_tiles_per_step
     ka = init_frame_state(cfg, dev)
     pa = init_frame_state(cfg, dev)
+    kw = {} if lights is None else {"lights": lights}
     for i in range(steps):
         sched = scheduled_tiles(tiles, i * k % cfg.tile_count, k)
-        kernel(cfg, sched, cam, buffers, ka.accum, ka.output, ka.rng_state)
-        plain(cfg, sched, cam, buffers, pa.accum, pa.output, pa.rng_state)
+        kernel(cfg, sched, cam, buffers, ka.accum, ka.output, ka.rng_state,
+               **kw)
+        plain(cfg, sched, cam, buffers, pa.accum, pa.output, pa.rng_state,
+              **kw)
     torch.cuda.synchronize()
     state_eq = (None if ka.rng_state is None
                 else torch.equal(ka.rng_state, pa.rng_state))
@@ -1497,7 +1501,8 @@ def watched_triangle_plain(flags):
         triangle_intersector,
     )
 
-    def plain(cfg, sched, cam, buf, accum, output, rng_state=None):
+    def plain(cfg, sched, cam, buf, accum, output, rng_state=None,
+              lights=None):
         inner = triangle_intersector(buf.soup)
         mb = buf.mesh_bounds
         row, col = tile_pixel_coords(cfg, sched)
@@ -1513,18 +1518,19 @@ def watched_triangle_plain(flags):
             return h
 
         render_tiles_plain(cfg, sched, cam, intersect,
-                           triangle_anyhit(intersect), buf.albedo.T, accum,
-                           output, rng_state, TRIANGLE_MISS_COLOR)
+                           triangle_anyhit(intersect), buf.table(), accum,
+                           output, rng_state, TRIANGLE_MISS_COLOR, lights)
 
     return plain
 
 
-def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02):
-    """triangle_pt against its watched plain version for `steps` steps:
-    accum[3] and the state planes equal, accum bit-equal at every pixel but
-    those where the plain sweep kept a hit outside its mesh's bound
-    (watched_triangle_plain), and more than `min_lit` of the rendered
-    pixels lit; returns the counts, the max abs and that share."""
+def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02, lights=None):
+    """triangle_pt against its watched plain version for `steps` steps
+    (with explicit `lights` where given): accum[3] and the state planes
+    equal, accum bit-equal at every pixel but those where the plain sweep
+    kept a hit outside its mesh's bound (watched_triangle_plain; shadow
+    casts included), and more than `min_lit` of the rendered pixels lit;
+    returns the counts, the max abs and that share."""
     from l2n_tpu_torch.ops.kernels.triangle_pt import triangle_pt
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
@@ -1537,8 +1543,9 @@ def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02):
     plain = watched_triangle_plain(flags)
     for i in range(steps):
         sched = scheduled_tiles(tiles, i * k % cfg.tile_count, k)
-        triangle_pt(cfg, sched, cam, buf, ka.accum, ka.output, ka.rng_state)
-        plain(cfg, sched, cam, buf, pa.accum, pa.output, pa.rng_state)
+        triangle_pt(cfg, sched, cam, buf, ka.accum, ka.output, ka.rng_state,
+                    lights)
+        plain(cfg, sched, cam, buf, pa.accum, pa.output, pa.rng_state, lights)
     torch.cuda.synchronize()
     require(torch.equal(ka.accum[3], pa.accum[3]), "triangle accum[3] equal")
     if ka.rng_state is not None:
@@ -1607,25 +1614,41 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
     from l2n_tpu_torch.render.step import build_render_step
     wave = ("wavefront_pass_a_kernel", "wavefront_pass_b_kernel",
             "wavefront_pass_c_kernel")
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    microfacet = {"material_mode": "microfacet"}
+    materials = {"microfacet": microfacet,
+                 "disney": {"material_mode": "disney"},
+                 "normal_map": {"normal_map": 0.8},
+                 "microfacet+normal_map": dict(microfacet, normal_map=0.8),
+                 "lights": {"lights": True},
+                 "lights+microfacet": dict(microfacet, lights=True)}
     families = [
         ("sphere_pt", cfg, scene, ("sphere_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"}, "hit": {"aov": "hit"},
           "ambient_occlusion": {"aov": "ambient_occlusion"},
-          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG}),
+          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG,
+          **materials}),
         ("triangle_pt", tri_cfg, tri_scene, ("triangle_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"},
           "ambient_occlusion": {"aov": "ambient_occlusion"},
-          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG}),
+          "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG,
+          **materials}),
         ("wavefront", cfg.replace(wavefront=True), scene, wave,
          {"default": {}, "sun+viewproj": SUN_CFG,
-          "sun+viewproj+fast_math": SUN_FAST_CFG})]
+          "sun+viewproj+fast_math": SUN_FAST_CFG,
+          "microfacet": microfacet,
+          "disney+normal_map": {"material_mode": "disney",
+                                "normal_map": 0.8}})]
     for family, fcfg, fscene, kernels, settings in families:
         for label, lcfg in (("10-tile", fcfg), ("whole-frame", fcfg.replace(
                 tiles_per_step=fcfg.tile_count))):
             for name, kw in settings.items():
+                kw = dict(kw)
+                lights = (ExplicitLights(*light_containers())
+                          if kw.pop("lights", False) else None)
                 scfg = lcfg.replace(**kw)
                 step = build_render_step(scfg, fscene, backend="cuda",
-                                         device=dev)
+                                         device=dev, lights=lights)
                 st = init_frame_state(scfg, dev)
                 for _ in range(3):
                     st = step(st, cam)
@@ -1794,12 +1817,210 @@ def slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam):
 
 
 
+# ---------------------------------------------------------------------------
+# The material modes, the bump and the explicit lights (phases 30-33)
+# ---------------------------------------------------------------------------
+
+MATERIAL_SETTINGS = {
+    "microfacet": {"material_mode": "microfacet"},
+    "disney": {"material_mode": "disney"},
+    "normal_map": {"normal_map": 0.8},
+    "microfacet+normal_map": {"material_mode": "microfacet",
+                              "normal_map": 0.8},
+    "normal AOV+normal_map": {"aov": "normal", "normal_map": 0.8},
+    "microfacet+fast_math": {"material_mode": "microfacet",
+                             "fast_math": True}}
+
+
+def light_containers():
+    """tests/test_tpu_hw.py:256's buffers (materials, point_lights,
+    directional_lights): two Phong albedos, a point light at the origin with
+    intensity (5e7, 4e7, 3e7), a directional light (0.3, -1, 0.2) of
+    radiance (0.5, 0.5, 0.6)."""
+    from l2n_tpu_torch.scene.materials import (
+        DirectionalLights,
+        PhongMaterials,
+        PointLights,
+    )
+    return (
+        PhongMaterials.from_arrays(
+            np.array([[0.9, 0.2, 0.1, 1.0], [0.1, 0.8, 0.3, 1.0]],
+                     np.float32), np.zeros((2, 3), np.float32),
+            np.zeros(2, np.float32)),
+        PointLights.from_arrays(np.zeros((1, 3), np.float32),
+                                np.array([[5e7, 4e7, 3e7]], np.float32)),
+        DirectionalLights.from_arrays(
+            np.array([[0.3, -1.0, 0.2]], np.float32),
+            np.array([[0.5, 0.5, 0.6]], np.float32)))
+
+
+def cluster_view(cfg, spheres):
+    """The camera 0.6 world sizes from the scene's centre along
+    normalize(1, 0.5, 1), looking at the centre: the spheres (or their
+    meshes) fill most of the frame, so most primaries reach a material."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.maths.linalg import look_at
+    centre = spheres[:3].cpu().numpy().astype(np.float64).mean(1)
+    away = np.array([1.0, 0.5, 1.0]) / 1.5
+    eye = centre + away * 0.6 * cfg.world_size
+    vm = look_at(eye.astype(np.float32), centre.astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+def materials_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
+    """Phases 30-32: the material modes, the bump and the explicit lights
+    through sphere_pt, triangle_pt and the wavefront passes, kernel vs
+    plain at max abs 0 from a view into the cluster (cluster_view; spheres
+    at whole frames, meshes at 10-tile steps: the plain brute-force
+    triangle step takes ~5.8 s a whole frame), then the main paths through
+    Application and the programs from the default camera `cam`."""
+    from l2n_tpu_torch.app.application import Application
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.wavefront import sphere_wavefront_step
+    from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+    from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    dev = torch.device("cuda")
+    spheres = scene.packed().to(dev)
+    swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+    view = cluster_view(cfg, spheres)
+
+    # --- 30: kernel vs plain per setting and rng mode ---------------------
+    fused, tri = {}, {}
+    for name, kw in MATERIAL_SETTINGS.items():
+        modes = RNG_MODES if name in ("microfacet", "disney") else (
+            "threefry",)
+        for rng in modes:
+            scfg = swhole.replace(rng=rng, **kw)
+            _, err, _, lit, state_eq = kernel_vs_plain(
+                sphere_pt, sphere_pt_plain, scfg, spheres, view, 4)
+            require(err == 0.0, f"sphere_pt {name} rng={rng} max abs {err}")
+            require(state_eq in (None, True),
+                    f"sphere_pt {name} rng={rng} rng_state bit-equal")
+            fused[f"{name}/{rng}"] = round(lit, 4)
+            tri[f"{name}/{rng}"] = triangle_vs_watched(
+                tri_cfg.replace(rng=rng, **kw), tri_buf, view, 4)
+    wave = {}
+    s10 = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                          cfg.effective_tiles_per_step)
+    sall = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                           cfg.tile_count)
+    for name in ("microfacet", "disney"):
+        for rng in ("threefry", "tpu_hw"):
+            wcfg = cfg.replace(wavefront=True, rng=rng, normal_map=0.8,
+                               **MATERIAL_SETTINGS[name])
+            require(wavefront_draw_position(wcfg) == (3, False),
+                    "pass B resumes at pair 3 with no spare pending")
+            whole = wcfg.replace(tiles_per_step=wcfg.tile_count)
+            na, n = wavefront_passes_vs_plain(whole, sall, view, spheres)
+            na10, _ = wavefront_passes_vs_plain(wcfg, s10, view, spheres)
+            _, err, _, lit, _ = kernel_vs_plain(
+                sphere_wavefront_step, sphere_pt, whole, spheres, view, 4)
+            require(err == 0.0, f"wavefront/fused {name} {rng} max abs {err}")
+            wave[f"{name}+normal_map/{rng}"] = {
+                "alive": round(na / n, 4), "alive_10_tiles": na10,
+                "lit": round(lit, 4)}
+    phase(30, f"material modes and the bump, kernel vs plain from a view "
+              f"into the cluster: sphere_pt 4 "
+              f"whole-frame steps per setting and rng mode, accum max abs 0, "
+              f"rng_state bit-equal, lit {fused}; triangle_pt 4 steps of 10 "
+              f"tiles, bit-equal but at pixels whose plain sweep kept a hit "
+              f"outside its mesh's bound: {tri}; wavefront passes A/B vs "
+              f"plain (one whole frame and 10 tiles) and the wavefront CUDA "
+              f"step vs sphere_pt's, 4 whole-frame steps, max abs 0: {wave}")
+
+    # --- 31: the explicit lights through the fused kernels ----------------
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    lights = ExplicitLights(*light_containers())
+    lit_spheres = scene.with_tables(
+        albedo=lights.override_albedo(scene.albedo)).packed().to(dev)
+    lit_tri = tri_buf.with_tables(
+        albedo=lights.override_albedo(tri_buf.albedo.T))
+    got = {}
+    for mode in ("procedural", "microfacet"):
+        lcfg = swhole.replace(material_mode=mode)
+        _, err, _, lit, _ = kernel_vs_plain(
+            sphere_pt, sphere_pt_plain, lcfg, lit_spheres, view, 4, lights)
+        require(err == 0.0, f"sphere_pt lights {mode} max abs {err}")
+        energy = []
+        for lt in (lights, None):
+            st = init_frame_state(lcfg, dev)
+            sphere_pt(lcfg, sall, view, lit_spheres, st.accum, st.output,
+                      lights=lt)
+            energy.append(float(st.accum[:3].sum()))
+        require(energy[0] > 1.05 * energy[1],
+                f"the lights add light: {energy[0]} > 1.05 x {energy[1]}")
+        got[f"spheres/{mode}"] = {"lit": round(lit, 4),
+                                  "energy_with_without": energy}
+        got[f"meshes/{mode}"] = triangle_vs_watched(
+            tri_cfg.replace(material_mode=mode), lit_tri, view, 4,
+            lights=lights)
+    phase(31, f"explicit lights (two Phong albedos, a point light at the "
+              f"origin, a directional light), kernel vs plain: sphere_pt 4 "
+              f"whole-frame steps, accum max abs 0; triangle_pt 4 steps of "
+              f"10 tiles with the pole-sliver gate: {got}")
+
+    # --- 32: the main paths -----------------------------------------------
+    paths = {}
+    for label, kw, renderer, names in (
+            ("microfacet+normal_map", {"material_mode": "microfacet",
+                                       "normal_map": 0.8}, "spherePT",
+             ("sphere_pt",)),
+            ("microfacet+normal_map, meshes", {"material_mode": "microfacet",
+                                               "normal_map": 0.8},
+             "trianglePT", ("triangle_pt",)),
+            ("disney+normal_map, wavefront", {"material_mode": "disney",
+                                              "normal_map": 0.8,
+                                              "wavefront": True},
+             "spherePT", ("wavefront_pass_a", "wavefront_pass_b",
+                          "wavefront_pass_c"))):
+        app = Application(RenderConfig(**kw), backend="cuda", device="cuda",
+                          workdir=tmp, initial_renderer=renderer)
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        got_l, lit, _ = run_main_path(app, frames, names)
+        paths[label] = (got_l, round(lit, 4))
+        del app
+    buffers = dict(zip(("materials", "point_lights", "directional_lights"),
+                       light_containers()))
+    for label, program, name in (("lights, SphereProgram", SphereProgram,
+                                  "sphere_pt"),
+                                 ("lights, TriangleProgram", TriangleProgram,
+                                  "triangle_pt")):
+        pcfg = RenderConfig(material_mode="microfacet")
+        prog = program(pcfg, backend="cuda", device=dev, **buffers)
+        st = init_frame_state(prog.cfg, dev)
+        frames = pcfg.tile_count * 10 // pcfg.effective_tiles_per_step
+        reset_launches()
+        for _ in range(frames):
+            st = prog.step(st, cam)
+        torch.cuda.synchronize()
+        n_launch = launches.get(name, 0)
+        require(n_launch == frames, f"{label}: {name} launched {n_launch} "
+                                    f"times in {frames} steps")
+        shown = st.accum[:, :pcfg.height, :pcfg.width]
+        require(bool((shown[3] == 10).all()), f"{label}: 10 spp")
+        require(bool(torch.isfinite(shown).all()), f"{label}: finite")
+        lit = float((shown[:3].amax(0) > 0).float().mean())
+        require(lit > 0.05, f"{label}: lit {lit} > 0.05")
+        paths[label] = ({name: n_launch}, round(lit, 4))
+        del prog, st
+    phase(32, f"main paths, {frames} steps each through Application("
+              f"RenderConfig(...), backend=cuda) and the programs with "
+              f"explicit lights: launches and lit {paths}; card: {card}")
+
+
 # The compile-time settings of each step kernel's instantiations, in their
-# template order (csrc/pathtrace.cuh with_options).
-KERNEL_FLAGS = {"sphere_pt": ("aovs", "fast_math", "viewproj"),
-                "triangle_pt": ("aovs", "fast_math", "viewproj"),
-                "wavefront_pass_a": ("fast_math", "viewproj"),
-                "wavefront_pass_b": ("fast_math",)}
+# template order (csrc/pathtrace.cuh with_options, dispatch_pass_a/_b); the
+# fused kernels' body (kBody*) comes first, an int.
+KERNEL_FLAGS = {"sphere_pt": ("fast_math", "viewproj"),
+                "triangle_pt": ("fast_math", "viewproj"),
+                "wavefront_pass_a": ("materials", "fast_math", "viewproj"),
+                "wavefront_pass_b": ("materials", "fast_math")}
+BODIES = ("lambert", "aovs", "materials")
 
 
 def main() -> int:
@@ -1871,8 +2092,12 @@ def main() -> int:
             # pass B's fast_math), or per cond_cost mode and carry count:
             # name it
             rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
-            flags = [name for name, bit in zip(KERNEL_FLAGS.get(
-                m.group(1), ()), re.findall(r"Lb([01])E", ln)) if bit == "1"]
+            body = re.search(r"Li([012])ELb", ln)
+            flags = ([BODIES[int(body.group(1))]] if body and m.group(1) in (
+                "sphere_pt", "triangle_pt") else []) + [
+                name for name, bit in zip(KERNEL_FLAGS.get(
+                    m.group(1), ()), re.findall(r"Lb([01])E", ln))
+                if bit == "1"]
             rng_flags = ", ".join([rng.group(1)] + flags) if rng else ""
             mode_m = re.search(r"cond_cost_kernelILi(\d+)ELi(\d+)E", ln)
             kernel = m.group(1) + (
@@ -1925,6 +2150,12 @@ def main() -> int:
              f"sqrtf, whose slow path takes arguments outside its fast "
              f"range, negative ones included; sweep_mma's only sqrtf is its "
              f"resolve's) {calls}; ptxas: {' | '.join(ptxas)}")
+
+    print("[ptxas] the materials bodies' instantiations (registers, spill "
+          "and stack per instantiation; the fused kernels' kBodyMaterials, "
+          "passes A/B with materials): " + " | ".join(
+              ln for ln in ptxas if "materials" in ln.split(":")[0]),
+          flush=True)
 
     # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)
@@ -2432,6 +2663,7 @@ def main() -> int:
                   f"bound): {hard}")
 
         slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam)
+        materials_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)

@@ -20,17 +20,23 @@
 // where nearest_primary serves the primary casts (origin = the camera, the
 // direction through a pixel of the thread's tile) and may walk only the
 // tile's cone-visible candidates (csrc/cull.cuh),
-// and the albedo rows `ar`, `ag`, `ab`, indexed by Hit::index (csrc/
-// sphere_pt.cuh: spheres; csrc/triangle_pt.cuh: meshes).
+// and the per-object table indexed by Hit::index: the albedo rows `ar`,
+// `ag`, `ab` and, for the materials body, `mat`, the six rows of n floats
+// of scene/materials.py MATERIAL_CHANNELS (csrc/sphere_pt.cuh: spheres;
+// csrc/triangle_pt.cuh: meshes).
 //
 // The path body is also a template on the sampler, one type per rng mode
 // (rng/sampler.py): ThreefrySampler, PhiloxSampler (rng="tpu_hw"),
 // TinyMTSampler and TausLCGSampler. A kernel is instantiated once per
-// sampler (and per compile-time setting: the fused kernels' path tracer
-// and AOVs, fast_math and the camera form; with_options), and its host
-// entry point picks the instantiation from the codes (dispatch_rng,
-// dispatch_fused, dispatch_counter_rng_*); nothing switches on the mode
-// inside the path loop.
+// sampler (and per compile-time setting: the fused kernels' body, fast_math
+// and the camera form; with_options), and its host entry point picks the
+// instantiation from the codes (dispatch_rng, dispatch_fused,
+// dispatch_counter_rng_*); nothing switches on the mode inside the path
+// loop. The body (kBody*): the Lambert path tracer, which is the default
+// path and holds no material code; the primary-only AOVs; the materials
+// path tracer, which switches at run time on the material mode, the bump
+// and the explicit lights (scatter_materials), taken whenever one of them
+// is on.
 // A sampler provides draw2/draw1 and the per-pixel protocol render_pixel
 // uses: load (sample 0 of the step), next_sample, store.
 //
@@ -40,10 +46,14 @@
 // word of a pair. Replaying the lockstep tracer's call sequence along one
 // path gives its addresses: pair 0 jitter, pair 1 hemisphere at bounce 0,
 // pair 2 word 0 RR at bounce 0, pair 3 hemisphere at bounce 1, pair 2
-// word 1 RR at bounce 1. The stateful samplers step their pixel's state at
-// every draw, which is what the lockstep tracer's masks reproduce: the
-// jitter of every pixel, the hemisphere pair and the RR draw at diffuse
-// vertices only, nothing at an emissive hit, a miss or the last segment.
+// word 1 RR at bounce 1. In the material modes a bounce draws a pair, then
+// the lobe's draw1 and the RR draw1: pair 1 hemisphere, pair 2 word 0 lobe,
+// pair 2 word 1 RR at bounce 0, then pairs 3 and 4 at bounce 1, and so on
+// (no spare is pending after a bounce). The explicit lights draw nothing.
+// The stateful samplers step their pixel's state at every draw, which is
+// what the lockstep tracer's masks reproduce: the jitter of every pixel,
+// the scatter's draws and the RR draw at diffuse vertices only, nothing at
+// an emissive hit, a miss or the last segment.
 //
 // One loop traces a path (trace_from); it can stop after the first vertex.
 // The fused kernels run it whole (trace_sample); the wavefront kernels
@@ -53,11 +63,12 @@
 // ambient-occlusion ray.
 //
 // The step's settings ride in PtParams: the sky (none, Mandelbrot, sun),
-// the camera form (fovy, viewproj) and fast_math, which takes rsqrtf at
-// the JAX package's sites only: the nearest-sphere sweeps' square root
-// (as x * rsqrt(x)) and hit normal, the camera ray's normalize and the
-// scatter's frame and normalize. The any-hit sweeps, the AO frame and the
-// triangle tests stay exact.
+// the camera form (fovy, viewproj), the material mode, the bump, the
+// explicit lights and fast_math, which takes rsqrtf at the JAX package's
+// sites only: the nearest-sphere sweeps' square root (as x * rsqrt(x)) and
+// hit normal, the camera ray's normalize and the procedural scatter's frame
+// and normalize. The any-hit sweeps, the AO frame, the triangle tests, the
+// bump and the material modes' frames and normalizes stay exact.
 
 #pragma once
 
@@ -119,12 +130,20 @@ struct PtParams {
   int32_t rng;  // kRng*
   int32_t ray_gen;  // kRayGen*
   int32_t fast_math;  // 1: rsqrtf at the fast-math sites
+  int32_t material;  // kMaterial* (brdf.cuh)
+  int32_t n_point, n_dir;  // explicit lights
   float inv_width, inv_height;  // float32(1 / width), float32(1 / height)
   float rr_ceiling, ray_epsilon, emission_scale, env_scale, gamma;
   float cam[40];
+  float normal_map, normal_map_freq;  // the bump: off at normal_map 0
+  // The explicit lights' rows, six floats each (ops/lights.py::
+  // ExplicitLights.buffer): n_point points (x, y, z, intensity rgb), then
+  // n_dir directional lights (wi = -incidentDirection, radiance rgb). A
+  // device pointer the entry point sets; null without lights.
+  const float* lights;
 };
-constexpr int kIntParams = 17;
-constexpr int kFloatParams = 7 + 40;
+constexpr int kIntParams = 20;
+constexpr int kFloatParams = 7 + 40 + 2;
 
 L2N_HD float bits_to_float(uint32_t u) {
 #if defined(__CUDA_ARCH__)
@@ -439,24 +458,64 @@ struct WithFlags {
   }
 };
 
-// The fused kernels' instantiations, eight per sampler:
-// F::template run<Rng, kAovs, kFast, kViewproj> with kAovs = (aov is not
-// pathtracing), so that the path tracer's code holds no AOV path, kFast =
-// fast_math and kViewproj = (ray_gen is viewproj) (with_options).
-template <class F, bool kAovs, class... Args>
+template <class F, int kBody, bool... kFlags>
+struct WithBody {
+  template <class Rng, class... Args>
+  static int run(Args... args) {
+    return F::template run<Rng, kBody, kFlags...>(args...);
+  }
+};
+
+// The fused kernels' bodies (render_pixel): the Lambert path tracer, the
+// primary-only AOVs, the materials path tracer.
+constexpr int kBodyLambert = 0;
+constexpr int kBodyAovs = 1;
+constexpr int kBodyMaterials = 2;
+
+// The materials body is taken for a material mode, the bump or explicit
+// lights; the empty buffers and the procedural mode take the Lambert body.
+L2N_HD bool shades_materials(const PtParams& p) {
+  return p.material != 0 || p.normal_map > 0.0f || p.n_point + p.n_dir > 0;
+}
+
+L2N_HD int fused_body(const PtParams& p) {
+  if (p.aov != kAovPathtracing) return kBodyAovs;
+  return shades_materials(p) ? kBodyMaterials : kBodyLambert;
+}
+
+// The table rows a body reads: the albedo, and the material rows for the
+// materials body and for the AOVs' bumped normal.
+template <int kBody>
+L2N_HD int table_rows(const PtParams& p) {
+  return kBody == kBodyMaterials || (kBody == kBodyAovs && p.normal_map > 0.0f)
+             ? 9
+             : 3;
+}
+
+// The fused kernels' instantiations, twelve per sampler:
+// F::template run<Rng, kBody, kFast, kViewproj> with kBody = fused_body(p),
+// so that the default path tracer's code holds no AOV and no material
+// path, kFast = fast_math and kViewproj = (ray_gen is viewproj)
+// (with_options).
+template <class F, int kBody, class... Args>
 inline int dispatch_camera(const PtParams& p, Args... args) {
   const bool vp = p.ray_gen == kRayGenViewproj;
   if (p.fast_math)
-    return vp ? dispatch_rng<WithFlags<F, kAovs, true, true>>(p.rng, args...)
-              : dispatch_rng<WithFlags<F, kAovs, true, false>>(p.rng, args...);
-  return vp ? dispatch_rng<WithFlags<F, kAovs, false, true>>(p.rng, args...)
-            : dispatch_rng<WithFlags<F, kAovs, false, false>>(p.rng, args...);
+    return vp ? dispatch_rng<WithBody<F, kBody, true, true>>(p.rng, args...)
+              : dispatch_rng<WithBody<F, kBody, true, false>>(p.rng, args...);
+  return vp ? dispatch_rng<WithBody<F, kBody, false, true>>(p.rng, args...)
+            : dispatch_rng<WithBody<F, kBody, false, false>>(p.rng, args...);
 }
 
 template <class F, class... Args>
 inline int dispatch_fused(const PtParams& p, Args... args) {
-  return p.aov != kAovPathtracing ? dispatch_camera<F, true>(p, args...)
-                                  : dispatch_camera<F, false>(p, args...);
+  switch (fused_body(p)) {
+    case kBodyAovs:
+      return dispatch_camera<F, kBodyAovs>(p, args...);
+    case kBodyMaterials:
+      return dispatch_camera<F, kBodyMaterials>(p, args...);
+  }
+  return dispatch_camera<F, kBodyLambert>(p, args...);
 }
 
 // The same for the counter-based modes only (the wavefront passes, whose
@@ -472,25 +531,44 @@ inline int dispatch_counter_rng(int rng, Args... args) {
   return -1;
 }
 
-// The wavefront passes' instantiations: F::template run<Rng, kFast> (pass
-// B), or F::template run<Rng, kFast, kViewproj> (pass A, which casts the
-// camera rays), for the counter-based samplers.
-template <class F, class... Args>
+// The wavefront passes' instantiations: F::template run<Rng, kMaterials,
+// kFast> (pass B), or F::template run<Rng, kMaterials, kFast, kViewproj>
+// (pass A, which casts the camera rays), for the counter-based samplers;
+// kMaterials = shades_materials(p) (the split takes no explicit lights).
+template <class F, bool kMaterials, class... Args>
 inline int dispatch_counter_rng_fast(const PtParams& p, Args... args) {
   return p.fast_math
-             ? dispatch_counter_rng<WithFlags<F, true>>(p.rng, args...)
-             : dispatch_counter_rng<WithFlags<F, false>>(p.rng, args...);
+             ? dispatch_counter_rng<WithFlags<F, kMaterials, true>>(p.rng,
+                                                                   args...)
+             : dispatch_counter_rng<WithFlags<F, kMaterials, false>>(p.rng,
+                                                                    args...);
 }
 
 template <class F, class... Args>
+inline int dispatch_pass_b(const PtParams& p, Args... args) {
+  return shades_materials(p) ? dispatch_counter_rng_fast<F, true>(p, args...)
+                             : dispatch_counter_rng_fast<F, false>(p, args...);
+}
+
+template <class F, bool kMaterials, class... Args>
 inline int dispatch_counter_rng_camera(const PtParams& p, Args... args) {
   const bool vp = p.ray_gen == kRayGenViewproj;
   if (p.fast_math)
-    return vp ? dispatch_counter_rng<WithFlags<F, true, true>>(p.rng, args...)
-              : dispatch_counter_rng<WithFlags<F, true, false>>(p.rng,
-                                                                args...);
-  return vp ? dispatch_counter_rng<WithFlags<F, false, true>>(p.rng, args...)
-            : dispatch_counter_rng<WithFlags<F, false, false>>(p.rng, args...);
+    return vp ? dispatch_counter_rng<WithFlags<F, kMaterials, true, true>>(
+                    p.rng, args...)
+              : dispatch_counter_rng<WithFlags<F, kMaterials, true, false>>(
+                    p.rng, args...);
+  return vp ? dispatch_counter_rng<WithFlags<F, kMaterials, false, true>>(
+                  p.rng, args...)
+            : dispatch_counter_rng<WithFlags<F, kMaterials, false, false>>(
+                  p.rng, args...);
+}
+
+template <class F, class... Args>
+inline int dispatch_pass_a(const PtParams& p, Args... args) {
+  return shades_materials(p)
+             ? dispatch_counter_rng_camera<F, true>(p, args...)
+             : dispatch_counter_rng_camera<F, false>(p, args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -655,6 +733,28 @@ L2N_HD void hemisphere_direction(const Frame& f, float u1, float u2,
   dz = f.tz * lx + f.bz * ly + f.zz * lz;
 }
 
+}  // namespace l2n
+
+#include "brdf.cuh"
+
+namespace l2n {
+
+// Russian roulette on the throughput tp after the scatter: survive with
+// p = min(rr_ceiling, luminance(tp)), survivors' tp / p. Returns false when
+// the path dies.
+template <class Rng>
+L2N_HD bool roulette(const PtParams& p, Rng& rng, float tp[3]) {
+  const float rr = rng.draw1();
+  const float lum = luminance(tp[0], tp[1], tp[2]);
+  const float rr_prob = lum < p.rr_ceiling ? lum : p.rr_ceiling;
+  if (!(rr < rr_prob)) return false;
+  const float rcp_p = 1.0f / (rr_prob > 1e-20f ? rr_prob : 1e-20f);
+  tp[0] = tp[0] * rcp_p;
+  tp[1] = tp[1] * rcp_p;
+  tp[2] = tp[2] * rcp_p;
+  return true;
+}
+
 // Procedural-Lambert bounce at the diffuse vertex with normal h.n and
 // albedo row `h.index`: cosine-sampled new direction d, throughput times
 // albedo, Russian roulette. Returns false when the path dies.
@@ -672,15 +772,119 @@ L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s, Rng& rng,
   tp[0] = tp[0] * s.ar[h.index];
   tp[1] = tp[1] * s.ag[h.index];
   tp[2] = tp[2] * s.ab[h.index];
-  const float rr = rng.draw1();
-  const float lum = luminance(tp[0], tp[1], tp[2]);
-  const float rr_prob = lum < p.rr_ceiling ? lum : p.rr_ceiling;
-  if (!(rr < rr_prob)) return false;
-  const float rcp_p = 1.0f / (rr_prob > 1e-20f ? rr_prob : 1e-20f);
-  tp[0] = tp[0] * rcp_p;
-  tp[1] = tp[1] * rcp_p;
-  tp[2] = tp[2] * rcp_p;
-  return true;
+  return roulette(p, rng, tp);
+}
+
+// The explicit lights' direct radiance at the vertex (hx, hy, hz) with the
+// shading normal n (normalized here again, ops/lights.py), added to col
+// times the throughput tp before the scatter. eval(wi, f) fills f with the
+// BSDF for the direction wi. Each light whose cosine is positive casts a
+// nearest-hit shadow ray over the whole scene (a light facing away adds
+// f I 0 whatever the cast finds, so its cast is skipped). No draws.
+template <class Scene, class Eval>
+L2N_HD void explicit_lights(const PtParams& p, const Scene& s, float hx,
+                            float hy, float hz, float nx, float ny, float nz,
+                            const Eval& eval, const float tp[3],
+                            float col[3]) {
+  normalize3(nx, ny, nz, false);
+  const float eps = p.ray_epsilon;
+  float out[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < p.n_point + p.n_dir; ++i) {
+    const float* row = p.lights + 6 * i;
+    float wi[3], w;
+    if (i < p.n_point) {
+      wi[0] = row[0] - hx;
+      wi[1] = row[1] - hy;
+      wi[2] = row[2] - hz;
+      const float d2 = wi[0] * wi[0] + wi[1] * wi[1] + wi[2] * wi[2];
+      const float dist = sqrtf(max_nan(d2, 1e-20f));
+      const float rcp = 1.0f / dist;
+      for (int c = 0; c < 3; ++c) wi[c] = wi[c] * rcp;
+      const float cos_s = max_nan(nx * wi[0] + ny * wi[1] + nz * wi[2], 0.0f);
+      w = cos_s / max_nan(d2, 1e-20f);
+      if (cos_s != 0.0f) {
+        const float t = s.nearest(hx + eps * wi[0], hy + eps * wi[1],
+                                  hz + eps * wi[2], wi[0], wi[1], wi[2])
+                            .t;
+        if (!(t < 0.0f || t >= dist - 2.0f * eps)) w = 0.0f;
+      }
+    } else {
+      wi[0] = row[0];
+      wi[1] = row[1];
+      wi[2] = row[2];
+      const float cos_s = max_nan(nx * wi[0] + ny * wi[1] + nz * wi[2], 0.0f);
+      w = cos_s;
+      if (cos_s != 0.0f &&
+          !(s.nearest(hx + eps * wi[0], hy + eps * wi[1], hz + eps * wi[2],
+                      wi[0], wi[1], wi[2])
+                .t < 0.0f))
+        w = 0.0f;
+    }
+    float f[3];
+    eval(wi, f);
+    for (int c = 0; c < 3; ++c) out[c] = out[c] + f[c] * row[3 + c] * w;
+  }
+  for (int c = 0; c < 3; ++c) col[c] = col[c] + tp[c] * out[c];
+}
+
+// The materials body's bounce at the diffuse vertex (hx, hy, hz) of hit h
+// (ops/pathtrace.py::_scatter_and_roulette): the bump of the shading
+// normal (normal_map > 0); the procedural Lambert sample as
+// scatter_and_roulette draws it, or the material mode's mixture (exact
+// frame around the normalized normal, then draw2 for (u1, u2) and draw1
+// for the lobe); the explicit lights' direct term into col; the
+// throughput update and Russian roulette. Returns false when the path
+// dies.
+template <class Scene, class Rng>
+L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
+                              const Hit& h, float hx, float hy, float hz,
+                              float& dx, float& dy, float& dz, float tp[3],
+                              float col[3]) {
+  const int i = h.index;
+  const float kd[3] = {s.ar[i], s.ag[i], s.ab[i]};
+  const Material m = material_row(s.mat, s.n, i);
+  float nx = h.nx, ny = h.ny, nz = h.nz;
+  if (p.normal_map > 0.0f) perturb_normal(p, m.bump, hx, hy, hz, nx, ny, nz);
+  float w[3];
+  const bool lights = p.n_point + p.n_dir > 0;
+  if (p.material != kMaterialProcedural) {
+    float n[3] = {nx, ny, nz};
+    normalize3(n[0], n[1], n[2], false);
+    const Frame fr = frame_z(n[0], n[1], n[2], false);
+    const float wo[3] = {-dx, -dy, -dz};
+    float u1, u2;
+    rng.draw2(u1, u2);
+    const float u_lobe = rng.draw1();
+    float wi[3];
+    sample_material(p.material, u_lobe, u1, u2, fr, wo, kd, m, wi, w);
+    if (lights)
+      explicit_lights(
+          p, s, hx, hy, hz, nx, ny, nz,
+          [&](const float* l, float* f) {
+            eval_material(p.material, n, wo, l, kd, m, f);
+          },
+          tp, col);
+    dx = wi[0];
+    dy = wi[1];
+    dz = wi[2];
+  } else {
+    const bool fast = p.fast_math != 0;
+    const Frame f = frame_z(nx, ny, nz, fast);
+    float u1, u2;
+    rng.draw2(u1, u2);
+    if (lights)
+      explicit_lights(
+          p, s, hx, hy, hz, nx, ny, nz,
+          [&](const float*, float* fl) {
+            for (int c = 0; c < 3; ++c) fl[c] = kd[c] * kInvPi;
+          },
+          tp, col);
+    hemisphere_direction(f, u1, u2, dx, dy, dz);
+    normalize3(dx, dy, dz, fast);
+    for (int c = 0; c < 3; ++c) w[c] = kd[c];
+  }
+  for (int c = 0; c < 3; ++c) tp[c] = tp[c] * w[c];
+  return roulette(p, rng, tp);
 }
 
 // A path's pending cast: origin, direction and throughput (the wavefront
@@ -701,8 +905,9 @@ struct Continuation {
 // iteration max_bounces - 1 takes an any-hit test, then the sky.
 // kFirstVertex stops after iteration b's scatter and returns whether the
 // path goes on, with its new cast in c; c keeps the scattered direction and
-// throughput of a path that roulette ended.
-template <bool kFirstVertex, class Scene, class Rng>
+// throughput of a path that roulette ended. kMaterials scatters with
+// scatter_materials, else with the Lambert scatter_and_roulette.
+template <bool kFirstVertex, bool kMaterials, class Scene, class Rng>
 L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
                        Continuation& c, float col[3]) {
   // Vertex base: the JAX tracer places vertices 0 and 1 from the cast
@@ -734,8 +939,13 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
     }
     const float hx = bx + h.t * c.dx, hy = by + h.t * c.dy,
                 hz = bz + h.t * c.dz;
-    if (!scatter_and_roulette(p, s, rng, h, c.dx, c.dy, c.dz, c.tp))
-      return false;
+    bool alive;
+    if constexpr (kMaterials)
+      alive = scatter_materials(p, s, rng, h, hx, hy, hz, c.dx, c.dy, c.dz,
+                                c.tp, col);
+    else
+      alive = scatter_and_roulette(p, s, rng, h, c.dx, c.dy, c.dz, c.tp);
+    if (!alive) return false;
     c.ox = hx + p.ray_epsilon * c.dx;
     c.oy = hy + p.ray_epsilon * c.dy;
     c.oz = hz + p.ray_epsilon * c.dz;
@@ -758,34 +968,34 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
 // scatter's direction and throughput and, for a survivor of Russian
 // roulette, its cast origin; the others are parked at kFar. Returns true
 // when the path goes on.
-template <class Scene, class Rng>
+template <bool kMaterials, class Scene, class Rng>
 L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Rng& rng,
                           float ox, float oy, float oz, float dx, float dy,
                           float dz, float col[3], Continuation& c) {
   col[0] = col[1] = col[2] = 0.0f;
   c = Continuation{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
-  const bool alive = trace_from<true>(p, s, rng, 0, c, col);
+  const bool alive = trace_from<true, kMaterials>(p, s, rng, 0, c, col);
   if (!alive) c.ox = c.oy = c.oz = kFar;
   return alive;
 }
 
 // The rest of a path from its first cast c: bounces 1 .. max_bounces-1 and
 // the last segment (ops/pathtrace.py::trace_wavefront_continue).
-template <class Scene, class Rng>
+template <bool kMaterials, class Scene, class Rng>
 L2N_HD void trace_continue(const PtParams& p, const Scene& s, Rng& rng,
                            Continuation c, float col[3]) {
-  trace_from<false>(p, s, rng, 1, c, col);
+  trace_from<false, kMaterials>(p, s, rng, 1, c, col);
 }
 
 // Radiance of one sample (ops/pathtrace.py::trace_path): the whole path in
 // one loop.
-template <class Scene, class Rng>
+template <bool kMaterials, class Scene, class Rng>
 L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float col[3]) {
   col[0] = col[1] = col[2] = 0.0f;
   Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
-  trace_from<false>(p, s, rng, 0, c, col);
+  trace_from<false, kMaterials>(p, s, rng, 0, c, col);
 }
 
 // One-bounce white-sky ambient occlusion at the primary hit h of the ray
@@ -811,8 +1021,9 @@ L2N_HD float ambient_occlusion(const PtParams& p, const Scene& s, Rng& rng,
 }
 
 // The primary-only AOVs (ops/pathtrace.py::aov_*) of one sample: the
-// primary hit's normal (a miss is Scene::miss_color: black for spheres,
-// magenta for meshes), 1 on a hit, ambient occlusion, or (u, v, 0) of the
+// primary hit's normal, bumped at o + t d with normal_map > 0 (a miss is
+// Scene::miss_color: black for spheres, magenta for meshes), 1 on a hit,
+// ambient occlusion (around the unbumped normal), or (u, v, 0) of the
 // texcoords / barycentrics (0 for spheres) with a magenta miss.
 template <class Scene, class Rng>
 L2N_HD void aov_sample(const PtParams& p, const Scene& s, Rng& rng, float ox,
@@ -825,6 +1036,10 @@ L2N_HD void aov_sample(const PtParams& p, const Scene& s, Rng& rng, float ox,
       col[0] = h.nx;
       col[1] = h.ny;
       col[2] = h.nz;
+      if (p.normal_map > 0.0f)
+        perturb_normal(p, material_row(s.mat, s.n, h.index).bump,
+                       ox + h.t * dx, oy + h.t * dy, oz + h.t * dz, col[0],
+                       col[1], col[2]);
     } else {
       Scene::miss_color(col);
     }
@@ -959,10 +1174,11 @@ L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
 // update accum and output in place; a stateful sampler loads its pixel's
 // state planes from rng_state once, steps them through the samples in
 // order and stores them once (rng_state is unused by the counter-based
-// samplers and may be null for them). kAovs: the instantiation of the
-// primary-only AOVs; the other traces paths only, so that its code holds
-// no AOV path (dispatch_fused picks one from p.aov).
-template <class Rng, bool kAovs, class Scene>
+// samplers and may be null for them). kBody: the Lambert path tracer, the
+// primary-only AOVs or the materials path tracer (dispatch_fused picks one,
+// fused_body), so that the default path's code holds neither of the
+// others.
+template <class Rng, int kBody, class Scene>
 L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
                          float* accum, float* output, uint32_t* rng_state) {
   const size_t plane = plane_size(p);
@@ -980,10 +1196,11 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
     float dx, dy, dz;
     primary_direction(p, rng, row, col, dx, dy, dz);
     float c[3];
-    if (kAovs)
+    if constexpr (kBody == kBodyAovs)
       aov_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
     else
-      trace_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
+      trace_sample<kBody == kBodyMaterials>(p, s, rng, cam[32], cam[33],
+                                            cam[34], dx, dy, dz, c);
     sum[0] = sum[0] + c[0];
     sum[1] = sum[1] + c[1];
     sum[2] = sum[2] + c[2];
@@ -1033,6 +1250,9 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.rng = ip[14];
   p.ray_gen = ip[15];
   p.fast_math = ip[16];
+  p.material = ip[17];
+  p.n_point = ip[18];
+  p.n_dir = ip[19];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];
@@ -1041,6 +1261,9 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.env_scale = fp[5];
   p.gamma = fp[6];
   for (int i = 0; i < 40; ++i) p.cam[i] = fp[7 + i];
+  p.normal_map = fp[47];
+  p.normal_map_freq = fp[48];
+  p.lights = nullptr;
   return p;
 }
 

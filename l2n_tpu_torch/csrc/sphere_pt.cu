@@ -6,8 +6,10 @@
 // scheduled tiles, `spp` samples (jittered primary ray, fovy or viewproj,
 // nearest-sphere sweep, at most `max_bounces` diffuse bounces with Russian
 // roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
-// miss; or one of the primary-only AOVs: normal, hit, ambient occlusion,
-// tex_coords / param_uv), then accumulate into `accum` and write the
+// miss; the procedural Lambert bounce or the microfacet / Disney materials,
+// the bump, the explicit point and directional lights; or one of the
+// primary-only AOVs: normal, hit, ambient occlusion, tex_coords /
+// param_uv), then accumulate into `accum` and write the
 // tonemapped `output`, both IN PLACE (the counterpart of the JAX step's
 // donated buffers). fast_math takes rsqrtf at the JAX kernel's sites
 // (csrc/pathtrace.cuh).
@@ -47,10 +49,15 @@
 //     less than giving a block more pixels (PERF.md, PR 6).
 // Not done: no tensor-core sweep (ROADMAP Queue 3 #14), no TMA.
 //
-// Eight instantiations per sampler (pathtrace.cuh::dispatch_fused): the
-// path tracer and the primary-only AOVs, so that the path tracer's code
-// holds no AOV path, each with fast_math and the camera form compiled in
-// (pathtrace.cuh::with_options). The samplers: threefry, Philox
+// Twelve instantiations per sampler (pathtrace.cuh::dispatch_fused): the
+// Lambert path tracer, the primary-only AOVs and the materials path tracer,
+// so that the default path tracer's code holds no AOV and no material path,
+// each with fast_math and the camera form compiled in
+// (pathtrace.cuh::with_options). Only the materials body and the bumped
+// normal AOV stage the six material rows of the table; the materials body
+// reads the explicit lights from a small device buffer, and each light
+// casts its shadow ray with the nearest-hit sweep over every sphere (the
+// culled list serves the camera's rays only). The samplers: threefry, Philox
 // (rng="tpu_hw"), and the stateful TinyMT and TausLCG, whose per-pixel
 // state planes a thread loads once, steps through its `spp` samples and
 // stores once (the JAX kernel's aliased rng planes).
@@ -68,7 +75,7 @@ namespace {
 // A block is tile_width pixels of one tile (l2n::block_pixel): it stages
 // the scene, builds the tile's visible list and the list's origin terms
 // (l2n::stage_culled_scene), then renders its pixels.
-template <class Rng, bool kAovs, bool kFast, bool kViewproj>
+template <class Rng, int kBody, bool kFast, bool kViewproj>
 __global__ void sphere_pt_kernel(l2n::PtParams params,
                                  const int32_t* __restrict__ sched,
                                  const float* __restrict__ spheres,
@@ -80,26 +87,31 @@ __global__ void sphere_pt_kernel(l2n::PtParams params,
   const int tile = blockIdx.x / p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
+  // The table rows the body reads (l2n::table_rows), as a compile-time
+  // count: the bumped normal AOV's 9 picked at run time.
   const l2n::SceneView scene =
-      l2n::stage_culled_scene(p, spheres, smem, tile_x, tile_y);
+      kBody == l2n::kBodyAovs && p.normal_map > 0.0f
+          ? l2n::stage_culled_scene<9>(p, spheres, smem, tile_x, tile_y)
+          : l2n::stage_culled_scene<kBody == l2n::kBodyMaterials ? 9 : 3>(
+                p, spheres, smem, tile_x, tile_y);
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
-  l2n::render_pixel<Rng, kAovs>(p, scene, tile_y * p.tile_height + r,
+  l2n::render_pixel<Rng, kBody>(p, scene, tile_y * p.tile_height + r,
                                 tile_x * p.tile_width + c, accum, output,
                                 rng_state);
 }
 
 struct LaunchSpherePt {
-  template <class Rng, bool kAovs, bool kFast, bool kViewproj>
+  template <class Rng, int kBody, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, const int32_t* sched,
                  const float* spheres, float* accum, float* output,
                  uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    const size_t smem =
-        sizeof(float) * l2n::culled_scene_floats(p.n_scene);
+    const size_t smem = sizeof(float) * l2n::culled_scene_floats(
+                                            p.n_scene, l2n::table_rows<kBody>(p));
     static size_t opted = 48 * 1024;
-    const auto kernel = sphere_pt_kernel<Rng, kAovs, kFast, kViewproj>;
+    const auto kernel = sphere_pt_kernel<Rng, kBody, kFast, kViewproj>;
     const cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     kernel<<<grid, block, smem, stream>>>(
@@ -111,16 +123,19 @@ struct LaunchSpherePt {
 }  // namespace
 
 // Launch one step on `stream`. ip/fp: host arrays of l2n::kIntParams ints and
-// l2n::kFloatParams floats (ip[14] the sampler code); sched (K, 2) int32,
-// spheres (7, n) float32, accum (4, Hp, Wp) and output (3, Hp, Wp) float32
-// and rng_state (8 or 4, Hp, Wp) 32-bit words, null for the counter-based
-// samplers, are device pointers. Returns cudaGetLastError() after the
-// launch (0 on success), -1 for an unknown sampler code.
+// l2n::kFloatParams floats (ip[14] the sampler code, ip[18..19] the light
+// counts); sched (K, 2) int32, spheres (13, n) float32, lights (n_point +
+// n_dir, 6) float32 (null without lights), accum (4, Hp, Wp) and output
+// (3, Hp, Wp) float32 and rng_state (8 or 4, Hp, Wp) 32-bit words, null
+// for the counter-based samplers, are device pointers. Returns
+// cudaGetLastError() after the launch (0 on success), -1 for an unknown
+// sampler code.
 extern "C" int l2n_sphere_pt(const int32_t* ip, const float* fp,
                              const int32_t* sched, const float* spheres,
-                             float* accum, float* output, uint32_t* rng_state,
-                             void* stream) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+                             const float* lights, float* accum, float* output,
+                             uint32_t* rng_state, void* stream) {
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.lights = lights;
   return l2n::dispatch_fused<LaunchSpherePt>(
       p, p, sched, spheres, accum, output, rng_state,
       static_cast<cudaStream_t>(stream));

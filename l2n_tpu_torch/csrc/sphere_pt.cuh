@@ -33,9 +33,11 @@ struct Primaries {
   float ox, oy, oz;
 };
 
-// Sphere SoA plus the per-sphere albedo table: rows of a (7, n) buffer.
+// Sphere SoA plus the per-sphere table: rows of a (13, n) buffer
+// (SphereScene.packed()): centre, r^2, albedo, then the six material rows
+// `mat` (read by the materials body and the bumped normal AOV only).
 struct SceneView {
-  const float *cx, *cy, *cz, *r2, *ar, *ag, *ab;
+  const float *cx, *cy, *cz, *r2, *ar, *ag, *ab, *mat;
   int n;
   bool fast;      // fast_math: the nearest sweeps' sqrt and normal by rsqrt
   Primaries vis;  // vis.index null: the primary cast sweeps all spheres
@@ -60,8 +62,8 @@ struct SceneView {
 L2N_HD SceneView scene_view(const float* packed, int n, bool fast) {
   return SceneView{packed,         packed + n,     packed + 2 * n,
                    packed + 3 * n, packed + 4 * n, packed + 5 * n,
-                   packed + 6 * n, n,              fast,
-                   Primaries{}};
+                   packed + 6 * n, packed + 7 * n, n,
+                   fast,           Primaries{}};
 }
 
 // Fill the visible list's origin terms for entries first, first + step, ...
@@ -218,26 +220,34 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& opted) {
   return rc;
 }
 
-// Shared memory of stage_culled_scene over n spheres, in floats: the (7, n)
-// SoA, the visible list (n ints), its origin terms (4 rows of n) and
-// kCullCounts ints for block_rank, from float 12 n on.
+// Shared memory of stage_culled_scene over n spheres with `table` rows of
+// the per-sphere table (3, the albedo, or 9, pathtrace.cuh table_rows), in
+// floats: the first 4 + table rows of the (13, n) buffer, the visible list
+// (n ints), its origin terms (4 rows of n) and kCullCounts ints for
+// block_rank. The kernels stage a compile-time row count (kTable): as a
+// runtime argument it cost the default path two registers and ~2% of its
+// whole-frame time (PERF.md §6).
 constexpr int kCullCounts = 33;
-inline size_t culled_scene_floats(int n) {
-  return 12 * static_cast<size_t>(n) + kCullCounts;
+inline size_t culled_scene_floats(int n, int table) {
+  return (4 + table + 5) * static_cast<size_t>(n) + kCullCounts;
 }
 
 // A block's prologue for the primaries of tile (tile_x, tile_y): stage the
-// (7, n) scene into smem, build the tile's visible list and its origin
-// terms; returns the scene with `vis` set. Every thread of the block must
+// first 4 + kTable rows of the (13, n) scene into smem, build the tile's
+// visible list and its origin terms; returns the scene with `vis` set (its
+// `mat` rows valid only where kTable is 9). Every thread of the block must
 // call it; it ends with a barrier.
+template <int kTable>
 __device__ inline SceneView stage_culled_scene(
     const PtParams& p, const float* __restrict__ spheres, float* smem,
     int tile_x, int tile_y) {
   const int n = p.n_scene;
-  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) smem[i] = spheres[i];
-  int32_t* s_index = reinterpret_cast<int32_t*>(smem + 7 * n);
-  float* s_terms = smem + 8 * n;  // rox | roy | roz | c
-  int32_t* s_counts = reinterpret_cast<int32_t*>(smem + 12 * n);
+  constexpr int rows = 4 + kTable;
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
+    smem[i] = spheres[i];
+  int32_t* s_index = reinterpret_cast<int32_t*>(smem + rows * n);
+  float* s_terms = smem + (rows + 1) * n;  // rox | roy | roz | c
+  int32_t* s_counts = reinterpret_cast<int32_t*>(smem + (rows + 5) * n);
   __syncthreads();
   SceneView scene = scene_view(smem, n, p.fast_math != 0);
   const TileCone cone = tile_cone(p, tile_x, tile_y);

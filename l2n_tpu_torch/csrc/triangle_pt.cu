@@ -6,7 +6,10 @@
 // scheduled tiles, `spp` samples (jittered primary ray, fovy or viewproj,
 // nearest triangle hit, at most `max_bounces` diffuse bounces with Russian
 // roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
-// miss; or a primary-only AOV: the normal, with a magenta miss, hit,
+// miss; the procedural Lambert bounce or the microfacet / Disney
+// materials, the bump and the explicit point and directional lights, whose
+// shadow rays walk every mesh; or a primary-only AOV: the normal, with a
+// magenta miss, hit,
 // ambient occlusion, whose second cast is the same per-lane walk, or the
 // tex_coords / param_uv of the primary hit), then accumulate into `accum`
 // and write the tonemapped `output`, both IN PLACE. fast_math takes rsqrtf
@@ -36,7 +39,9 @@
 //     farther meshes early (`enter <= best`). The winner rule is order-
 //     independent, so the hit is the brute-force sweep's in any order;
 //   * the per-mesh bounds, slab counts, albedo rows and the visible list
-//     (9 words per mesh) are staged once per block into shared memory; the
+//     (9 words per mesh; 15 with the material rows, which only the
+//     materials body and the bumped normal AOV stage) are staged once per
+//     block into shared memory; the
 //     slab and sub-cluster bounds, slot rows (three 16-byte loads per
 //     triangle) and the winner's attributes are read through the read-only
 //     data cache: staging the slab bounds too gained nothing, and staging
@@ -53,10 +58,11 @@
 // procedural shellwalk (ROADMAP Queue 2 #3-#5). The grid is K x
 // tile_height blocks of tile_width threads.
 //
-// Eight instantiations per sampler (pathtrace.cuh::dispatch_fused), as in
-// csrc/sphere_pt.cu: the path tracer and the primary-only AOVs, whose
+// Twelve instantiations per sampler (pathtrace.cuh::dispatch_fused), as in
+// csrc/sphere_pt.cu: the Lambert path tracer, the primary-only AOVs, whose
 // ambient-occlusion walk so adds no code, and no register, to the path
-// tracer's; each with fast_math and the camera form compiled in. The
+// tracer's, and the materials path tracer; each with fast_math and the
+// camera form compiled in. The
 // stateful samplers' per-pixel state planes are loaded once per thread,
 // stepped through its samples and stored once.
 //
@@ -75,7 +81,7 @@ namespace {
 // render their pixels. Registers are
 // capped at 80 (93-99 uncapped): six 128-thread blocks per SM instead of
 // five hide more of the walk's load latency.
-template <class Rng, bool kAovs, bool kFast, bool kViewproj>
+template <class Rng, int kBody, bool kFast, bool kViewproj>
 __global__ void __maxnreg__(80)
 triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    const int32_t* __restrict__ sched,
@@ -86,18 +92,23 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    const float* __restrict__ tris,
                    const float* __restrict__ attrs,
                    const float* __restrict__ albedo,
+                   const float* __restrict__ material,
                    float* __restrict__ accum, float* __restrict__ output,
                    uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
   const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
   const int m = p.n_scene;
+  const int table = l2n::table_rows<kBody>(p);  // 3, or 9 with materials
   float* s_bounds = smem;                  // (M, 4)
-  float* s_albedo = smem + 4 * m;          // (3, M)
-  int32_t* s_scount = reinterpret_cast<int32_t*>(smem + 7 * m);  // (M,)
+  float* s_table = smem + 4 * m;           // (3, M) albedo, (6, M) material
+  int32_t* s_scount =
+      reinterpret_cast<int32_t*>(smem + (4 + table) * m);  // (M,)
   int32_t* s_vis = s_scount + m;           // (M,) visible meshes
   int32_t* s_counts = s_vis + m;           // 33 ints for the compaction
   for (int i = threadIdx.x; i < 4 * m; i += blockDim.x) s_bounds[i] = mesh_bounds[i];
-  for (int i = threadIdx.x; i < 3 * m; i += blockDim.x) s_albedo[i] = albedo[i];
+  for (int i = threadIdx.x; i < 3 * m; i += blockDim.x) s_table[i] = albedo[i];
+  for (int i = threadIdx.x; i < (table - 3) * m; i += blockDim.x)
+    s_table[3 * m + i] = material[i];
   for (int i = threadIdx.x; i < m; i += blockDim.x) s_scount[i] = slab_count[i];
   __syncthreads();
 
@@ -125,49 +136,52 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
   scene.sub_bounds = sub_bounds;
   scene.tris = tris;
   scene.attrs = attrs;
-  scene.ar = s_albedo;
-  scene.ag = s_albedo + m;
-  scene.ab = s_albedo + 2 * m;
+  scene.ar = s_table;
+  scene.ag = s_table + m;
+  scene.ab = s_table + 2 * m;
+  scene.mat = s_table + 3 * m;
   scene.vis = s_vis;
   scene.n_vis = n_vis;
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);
-  l2n::render_pixel<Rng, kAovs>(p, scene, tile_y * p.tile_height + r,
+  l2n::render_pixel<Rng, kBody>(p, scene, tile_y * p.tile_height + r,
                                 tile_x * p.tile_width + c, accum, output,
                                 rng_state);
 }
 
-// Shared memory of a block for M meshes: 9 words per mesh and 33 more.
-size_t smem_bytes(int m) {
-  return sizeof(float) * (9 * static_cast<size_t>(m) + 33);
+// Shared memory of a block for M meshes with `table` rows of the per-mesh
+// table: 6 + table words per mesh and 33 more.
+size_t smem_bytes(int m, int table) {
+  return sizeof(float) * ((6 + table) * static_cast<size_t>(m) + 33);
 }
 
 struct LaunchTrianglePt {
-  template <class Rng, bool kAovs, bool kFast, bool kViewproj>
+  template <class Rng, int kBody, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, int n_slabs, int tpad, const int32_t* sched,
                  const float* mesh_bounds, const int32_t* slab_count,
                  const float* slab_bounds, const float* sub_bounds,
                  const float* tris, const float* attrs, const float* albedo,
-                 float* accum, float* output, uint32_t* rng_state,
-                 cudaStream_t stream) {
+                 const float* material, float* accum, float* output,
+                 uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
-    const size_t smem = smem_bytes(p.n_scene);
+    const size_t smem = smem_bytes(p.n_scene, l2n::table_rows<kBody>(p));
     // Opt in to more than 48 KiB once per instantiation (not again while a
     // CUDA graph captures the launch).
     static size_t opted = 48 * 1024;
     if (smem > opted) {
       const cudaError_t rc = cudaFuncSetAttribute(
-          triangle_pt_kernel<Rng, kAovs, kFast, kViewproj>,
+          triangle_pt_kernel<Rng, kBody, kFast, kViewproj>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (rc != cudaSuccess) return static_cast<int>(rc);
       opted = smem;
     }
-    triangle_pt_kernel<Rng, kAovs, kFast, kViewproj>
+    triangle_pt_kernel<Rng, kBody, kFast, kViewproj>
         <<<grid, block, smem, stream>>>(
         p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-        sub_bounds, tris, attrs, albedo, accum, output, rng_state);
+        sub_bounds, tris, attrs, albedo, material, accum, output,
+        rng_state);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -179,10 +193,11 @@ struct LaunchTrianglePt {
 // S * 128 are the packed scene's slab capacity and slots per mesh. Device
 // pointers: sched (K, 2) int32; mesh_bounds (M, 4), slab_count (M,) int32,
 // slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), tris (M * tpad, 12),
-// attrs (T, 16), albedo (3, M), accum (4, Hp, Wp), output (3, Hp, Wp)
-// float32; rng_state (8 or 4, Hp, Wp) 32-bit words, null for the
-// counter-based samplers. Returns cudaGetLastError() after the launch (0 on
-// success), -1 for an unknown sampler code (ip[14]).
+// attrs (T, 16), albedo (3, M), material (6, M), lights (n_point + n_dir,
+// 6; null without lights), accum (4, Hp, Wp), output (3, Hp, Wp) float32;
+// rng_state (8 or 4, Hp, Wp) 32-bit words, null for the counter-based
+// samplers. Returns cudaGetLastError() after the launch (0 on success), -1
+// for an unknown sampler code (ip[14]).
 extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                int n_slabs, int tpad,
                                const int32_t* sched,
@@ -191,11 +206,13 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                const float* slab_bounds,
                                const float* sub_bounds, const float* tris,
                                const float* attrs, const float* albedo,
+                               const float* material, const float* lights,
                                float* accum, float* output,
                                uint32_t* rng_state, void* stream) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.lights = lights;
   return l2n::dispatch_fused<LaunchTrianglePt>(
       p, p, n_slabs, tpad, sched, mesh_bounds, slab_count,
-      slab_bounds, sub_bounds, tris, attrs, albedo, accum, output, rng_state,
-      static_cast<cudaStream_t>(stream));
+      slab_bounds, sub_bounds, tris, attrs, albedo, material, accum, output,
+      rng_state, static_cast<cudaStream_t>(stream));
 }

@@ -145,6 +145,7 @@ struct TriSceneView {
   const float* tris;          // (M * tpad, kTriStride)
   const float* attrs;         // (T, kAttrStride)
   const float *ar, *ag, *ab;  // albedo rows, (3, M)
+  const float* mat = nullptr;  // material rows, (6, M) (brdf.cuh Material)
   const int32_t* vis = nullptr;  // the primaries' visible meshes, ascending;
   int n_vis = 0;                 // null: every mesh
 

@@ -55,11 +55,13 @@
 //     host sync.
 //
 // Passes A and B are instantiated for the two counter-based samplers,
-// threefry and Philox (rng="tpu_hw"), with fast_math (and, for pass A,
-// the camera form) compiled in, picked by the host entry points
-// (pathtrace.cuh::dispatch_counter_rng_camera / _fast); the stateful modes
-// cannot resume across the split and are refused. The sky (none,
-// Mandelbrot, sun) is a runtime parameter.
+// threefry and Philox (rng="tpu_hw"), with the body (Lambert, or the
+// materials body for the material modes and the bump, which also stages
+// the table's six material rows), fast_math and, for pass A, the camera
+// form compiled in, picked by the host entry points (pathtrace.cuh::
+// dispatch_pass_a / dispatch_pass_b); the stateful modes cannot resume
+// across the split and are refused. The sky (none, Mandelbrot, sun) is a
+// runtime parameter.
 //
 // Built by l2n_tpu_torch/ops/kernels/build.py (nvcc -fmad=false, no fast
 // math); the per-lane bodies are in wavefront.cuh.
@@ -96,7 +98,13 @@ struct WarpAppend {
   }
 };
 
-template <class Rng, bool kFast, bool kViewproj>
+// The per-sphere table rows a pass reads: the albedo, and the material rows
+// for the materials body.
+__host__ __device__ constexpr int pass_table_rows(bool materials) {
+  return materials ? 9 : 3;
+}
+
+template <class Rng, bool kMaterials, bool kFast, bool kViewproj>
 __global__ void wavefront_pass_a_kernel(l2n::PtParams params,
                                         const int32_t* __restrict__ sched,
                                         const float* __restrict__ spheres,
@@ -107,18 +115,19 @@ __global__ void wavefront_pass_a_kernel(l2n::PtParams params,
   const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
   const int k = blockIdx.x / p.tile_height;
   const int r = blockIdx.x % p.tile_height;
-  const l2n::SceneView scene = l2n::stage_culled_scene(
-      p, spheres, smem, sched[2 * k], sched[2 * k + 1]);
+  const l2n::SceneView scene =
+      l2n::stage_culled_scene<pass_table_rows(kMaterials)>(
+          p, spheres, smem, sched[2 * k], sched[2 * k + 1]);
   WarpAppend append{n_alive};
   for (int si = 0; si < p.spp; ++si)
-    l2n::wavefront_pass_a_sample<Rng>(p, scene, k, si, r,
+    l2n::wavefront_pass_a_sample<Rng, kMaterials>(p, scene, k, si, r,
                                       static_cast<int>(threadIdx.x), sched,
                                       accum, out, append);
 }
 
 // The slot of this thread's group, G lanes to a ray (the grid covers
 // alive * G threads).
-template <class Rng, int G>
+template <class Rng, bool kMaterials, int G>
 __device__ void pass_b_slot(const l2n::PtParams& p,
                             const l2n::SceneView& scene,
                             const l2n::Sphere4* packed, int next_pair,
@@ -131,20 +140,22 @@ __device__ void pass_b_slot(const l2n::PtParams& p,
   const int g = static_cast<int>(threadIdx.x) % G;
   const unsigned mask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
   const l2n::GroupScene<G> s{scene, packed, g, mask};
-  l2n::wavefront_pass_b_slot<Rng>(p, s, next_pair, has_spare, slot,
+  l2n::wavefront_pass_b_slot<Rng, kMaterials>(p, s, next_pair, has_spare,
+                                              slot,
                                   l2n::lane_count(p), rays, meta, back,
                                   g == 0);
 }
 
-// Pass B's shared memory, in floats: the (7, n) SoA, then the packed
-// spheres from a 16-byte boundary.
-size_t pass_b_floats(int n) {
-  return (7 * static_cast<size_t>(n) + 3) / 4 * 4 + 4 * static_cast<size_t>(n);
+// Pass B's shared memory, in floats: the first 4 + table rows of the (13, n)
+// SoA, then the packed spheres from a 16-byte boundary.
+size_t pass_b_floats(int n, int table) {
+  return ((4 + table) * static_cast<size_t>(n) + 3) / 4 * 4 +
+         4 * static_cast<size_t>(n);
 }
 
 // group_threads: the threads against which G is picked (l2n::group_size),
 // the card's full complement.
-template <class Rng, bool kFast>
+template <class Rng, bool kMaterials, bool kFast>
 __global__ void __launch_bounds__(kPassBThreads)
     wavefront_pass_b_kernel(l2n::PtParams params, int next_pair,
                             int has_spare,
@@ -162,9 +173,11 @@ __global__ void __launch_bounds__(kPassBThreads)
   if (static_cast<long long>(blockIdx.x) * (blockDim.x / g) >= alive) return;
   extern __shared__ float smem[];
   const int n = p.n_scene;
-  for (int i = threadIdx.x; i < 7 * n; i += blockDim.x) smem[i] = spheres[i];
+  const int rows = 4 + pass_table_rows(kMaterials);
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
+    smem[i] = spheres[i];
   l2n::Sphere4* packed =
-      reinterpret_cast<l2n::Sphere4*>(smem + (7 * n + 3) / 4 * 4);
+      reinterpret_cast<l2n::Sphere4*>(smem + (rows * n + 3) / 4 * 4);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     packed[i] = l2n::Sphere4{spheres[i], spheres[n + i], spheres[2 * n + i],
                              spheres[3 * n + i]};
@@ -172,11 +185,11 @@ __global__ void __launch_bounds__(kPassBThreads)
   const l2n::SceneView scene = l2n::scene_view(smem, n, p.fast_math != 0);
   const bool spare = has_spare != 0;
   if (g == l2n::kMaxGroup)
-    pass_b_slot<Rng, l2n::kMaxGroup>(p, scene, packed, next_pair, spare,
-                                     alive, rays, meta, back);
+    pass_b_slot<Rng, kMaterials, l2n::kMaxGroup>(
+        p, scene, packed, next_pair, spare, alive, rays, meta, back);
   else
-    pass_b_slot<Rng, 1>(p, scene, packed, next_pair, spare, alive, rays,
-                        meta, back);
+    pass_b_slot<Rng, kMaterials, 1>(p, scene, packed, next_pair, spare,
+                                    alive, rays, meta, back);
 }
 
 __global__ void wavefront_pass_c_kernel(l2n::PtParams p,
@@ -192,13 +205,15 @@ __global__ void wavefront_pass_c_kernel(l2n::PtParams p,
 }
 
 struct LaunchPassA {
-  template <class Rng, bool kFast, bool kViewproj>
+  template <class Rng, bool kMaterials, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive,
                  cudaStream_t stream) {
-    const size_t smem = sizeof(float) * l2n::culled_scene_floats(p.n_scene);
+    const size_t smem = sizeof(float) * l2n::culled_scene_floats(
+                                            p.n_scene, pass_table_rows(kMaterials));
     static size_t opted = 48 * 1024;
-    const auto kernel = wavefront_pass_a_kernel<Rng, kFast, kViewproj>;
+    const auto kernel =
+        wavefront_pass_a_kernel<Rng, kMaterials, kFast, kViewproj>;
     cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     rc = cudaMemsetAsync(n_alive, 0, sizeof(int32_t), stream);
@@ -234,19 +249,20 @@ cudaError_t pass_b_grid(const l2n::PtParams& p, int& grid,
 }
 
 struct LaunchPassB {
-  template <class Rng, bool kFast>
+  template <class Rng, bool kMaterials, bool kFast>
   static int run(l2n::PtParams p, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
                  const float* rays, const int32_t* meta, float* back,
                  cudaStream_t stream) {
-    const size_t smem = sizeof(float) * pass_b_floats(p.n_scene);
+    const size_t smem =
+        sizeof(float) * pass_b_floats(p.n_scene, pass_table_rows(kMaterials));
     static size_t opted = 48 * 1024;
     int grid = 0, group_threads = 0;
-    cudaError_t rc =
-        l2n::allow_smem(wavefront_pass_b_kernel<Rng, kFast>, smem, opted);
+    const auto kernel = wavefront_pass_b_kernel<Rng, kMaterials, kFast>;
+    cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc == cudaSuccess) rc = pass_b_grid(p, grid, group_threads);
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    wavefront_pass_b_kernel<Rng, kFast>
+    kernel
         <<<static_cast<unsigned>(grid), kPassBThreads, smem, stream>>>(
             p, next_pair, has_spare, group_threads, n_alive, spheres, rays,
             meta, back);
@@ -261,7 +277,7 @@ struct LaunchPassB {
 // ip[14], that is not counter-based). ip/fp: host arrays of
 // l2n::kIntParams ints and l2n::kFloatParams floats
 // (ops/kernels/common.py::step_params). Device pointers: sched (K, 2)
-// int32; spheres (7, n) float32; accum (4, Hp, Wp) and output (3, Hp, Wp)
+// int32; spheres (13, n) float32; accum (4, Hp, Wp) and output (3, Hp, Wp)
 // float32; in wavefront.cuh's layouts, col and back (3, n_lanes) float32
 // by lane, rays (9, n_lanes) float32 and meta (3, n_lanes) int32 by slot,
 // n_alive one int32.
@@ -274,7 +290,7 @@ extern "C" int l2n_wavefront_pass_a(const int32_t* ip, const float* fp,
                                     int32_t* meta, int32_t* n_alive,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng_camera<LaunchPassA>(
+  return l2n::dispatch_pass_a<LaunchPassA>(
       p, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
       n_alive, static_cast<cudaStream_t>(stream));
 }
@@ -289,7 +305,7 @@ extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
                                     const int32_t* meta, float* back,
                                     void* stream) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng_fast<LaunchPassB>(
+  return l2n::dispatch_pass_b<LaunchPassB>(
       p, p, next_pair, has_spare, n_alive, spheres, rays, meta, back,
       static_cast<cudaStream_t>(stream));
 }

@@ -25,7 +25,10 @@
 //
 // Passes A and B are templates on a counter-based sampler (ThreefrySampler,
 // or PhiloxSampler for rng="tpu_hw"): pass B regenerates each path's
-// stream from its meta planes and resumes it where pass A stopped.
+// stream from its meta planes and resumes it where pass A stopped, which
+// depends on the material mode (ops/pathtrace.py::wavefront_draw_position).
+// kMaterials scatters with the materials body (the material modes and the
+// bump; the split takes no explicit lights, as in the JAX package).
 
 #pragma once
 
@@ -59,7 +62,7 @@ struct PassALanes {
 // either back = 0 at the lane or the survivor's planes at the slot that
 // `append(alive)` returns. The kernel's append is warp-collective, so every
 // thread calls it once per sample, alive or not; the host's is serial.
-template <class Rng, class Scene, class Append>
+template <class Rng, bool kMaterials, class Scene, class Append>
 L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
                                     int si, int r, int c,
                                     const int32_t* sched, const float* accum,
@@ -77,8 +80,8 @@ L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
   primary_direction(p, rng, row, column, dx, dy, dz);
   float rgb[3];
   Continuation cont;
-  const bool alive = trace_primary(p, s, rng, p.cam[32], p.cam[33], p.cam[34],
-                                   dx, dy, dz, rgb, cont);
+  const bool alive = trace_primary<kMaterials>(
+      p, s, rng, p.cam[32], p.cam[33], p.cam[34], dx, dy, dz, rgb, cont);
   const size_t n = lane_count(p);
   const size_t lane = lane_index(p, k, si, r, c);
   for (int ch = 0; ch < 3; ++ch) out.col[ch * n + lane] = rgb[ch];
@@ -211,7 +214,7 @@ struct GroupScene : SceneView {
 // Pass B for slot `slot` of n_lanes: resume the sample's stream at
 // (next_pair, has_spare), finish the path (trace_continue) and, if `write`,
 // write its contribution to back at the survivor's lane.
-template <class Rng, class Scene>
+template <class Rng, bool kMaterials, class Scene>
 L2N_HD void wavefront_pass_b_slot(const PtParams& p, const Scene& s,
                                   int next_pair, bool has_spare, size_t slot,
                                   size_t n_lanes, const float* rays,
@@ -229,7 +232,7 @@ L2N_HD void wavefront_pass_b_slot(const PtParams& p, const Scene& s,
                          static_cast<uint32_t>(meta[n_lanes + slot]),
                          next_pair, has_spare);
   float rgb[3] = {0.0f, 0.0f, 0.0f};
-  trace_continue(p, s, rng, cont, rgb);
+  trace_continue<kMaterials>(p, s, rng, cont, rgb);
   if (!write) return;
   const size_t lane = static_cast<size_t>(meta[2 * n_lanes + slot]);
   for (int ch = 0; ch < 3; ++ch) back[ch * n_lanes + lane] = rgb[ch];

@@ -48,6 +48,10 @@ def _rcp_len(nn: torch.Tensor, fast: bool) -> torch.Tensor:
     return rsqrt(nn) if fast else 1.0 / sqrt(nn)
 
 
+def dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
 def cross3(ax, ay, az, bx, by, bz) -> Vec3:
     return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
 

@@ -98,9 +98,9 @@ def build() -> tuple[Path, float]:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        "sphere_pt": [p] * 8,
+        "sphere_pt": [p] * 9,
         "uv_demo": [i, i, p, p, p],
-        "triangle_pt": [p, p, i, i] + [p] * 12,
+        "triangle_pt": [p, p, i, i] + [p] * 14,
         "wavefront_pass_a": [p] * 11,
         "wavefront_pass_b": [p, p, i, i, p, p, p, p, p, p],
         "wavefront_pass_c": [p] * 8,

@@ -33,9 +33,6 @@ def check_supported(cfg) -> None:
     cfg.validate()
     unsupported = [
         (cfg.nee or cfg.mis, "nee/mis are ROADMAP Queue 1 #9"),
-        (cfg.material_mode != "procedural",
-         f"material_mode={cfg.material_mode!r} is ROADMAP Queue 1 #9"),
-        (cfg.normal_map > 0.0, "normal_map is ROADMAP Queue 1 #9"),
         (cfg.fog_density > 0.0, "fog is ROADMAP Queue 1 #9"),
     ]
     for bad, why in unsupported:
@@ -69,6 +66,19 @@ RAY_GEN_CODES = {"fovy": 0, "viewproj": 1}
 # The kernels' sampler codes (csrc/pathtrace.cuh kRng*): the host entry
 # points pick the kernel instantiation of the configured sampler.
 RNG_CODES = {"threefry": 0, "tpu_hw": 1, "tinymt": 2, "tauslcg": 3}
+# The kernels' material codes (csrc/pathtrace.cuh kMaterial*).
+MATERIAL_CODES = {"procedural": 0, "microfacet": 1, "disney": 2}
+
+
+def table_rows(cfg, lights=None) -> int:
+    """Rows of the per-object table (albedo, then the material channels,
+    scene/materials.MATERIAL_CHANNELS) a kernel may stage: 9 with a
+    material mode, the bump or explicit lights (csrc/pathtrace.cuh
+    table_rows: the materials body and the bumped normal AOV), else the 3
+    albedo rows of the Lambert body."""
+    materials = (cfg.material_mode != "procedural" or cfg.normal_map > 0.0
+                 or (lights is not None and lights.has_lights))
+    return 9 if materials else 3
 
 
 def check_rng_state(cfg, rng_state, device) -> None:
@@ -88,24 +98,29 @@ def check_rng_state(cfg, rng_state, device) -> None:
                  (planes, cfg.padded_height, cfg.padded_width), device)
 
 
-def step_params(cfg, k: int, n_scene: int, camera: np.ndarray):
+def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     """The integer and float parameter arrays of csrc/pathtrace.cuh's
     params_from_arrays, in its order, for K scheduled tiles over a scene of
-    `n_scene` spheres or meshes."""
+    `n_scene` spheres or meshes, with the point and directional light
+    counts of `lights` (ops/lights.ExplicitLights, or None)."""
+    n_point = 0 if lights is None else lights.point.shape[0]
+    n_dir = 0 if lights is None else lights.directional.shape[0]
     ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
                    cfg.padded_width, k, n_scene, cfg.spp_per_step,
                    cfg.max_bounces, max_pairs_per_sample(cfg.max_bounces),
                    cfg.emissive_every, ENV_CODES[cfg.env_mode],
                    cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
                    RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
-                   int(cfg.fast_math)],
+                   int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
+                   n_point, n_dir],
                   dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
         [1.0 / (cfg.ndc_width or cfg.width),
          1.0 / (cfg.ndc_height or cfg.height), cfg.rr_ceiling,
          cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma],
-        dtype=np.float32), camera.reshape(-1)])
+        dtype=np.float32), camera.reshape(-1),
+        np.array([cfg.normal_map, cfg.normal_map_freq], np.float32)])
     return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
 
 
@@ -192,15 +207,16 @@ def _sample_samplers(cfg, flat, sample_index, rng_state):
 
 
 def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
-                       albedo: torch.Tensor, accum: torch.Tensor,
+                       table: torch.Tensor, accum: torch.Tensor,
                        output: torch.Tensor, rng_state=None,
-                       miss_color=(0.0, 0.0, 0.0)) -> None:
+                       miss_color=(0.0, 0.0, 0.0), lights=None) -> None:
     """The plain torch step shared by the kernels' plain versions: for every
     pixel of the scheduled tiles, `spp` samples in lockstep through
     ops/pathtrace.shade with the scene's `intersect`/`anyhit` closures,
-    (n, 3) albedo table and normal-AOV `miss_color`, then accumulate +
-    tonemap IN PLACE; the stateful modes' `rng_state` planes are stepped IN
-    PLACE too."""
+    per-object table (n, 9) (or its (n, 3) albedo columns where the config
+    reads no more, table_rows), normal-AOV `miss_color` and explicit
+    `lights`, then accumulate + tonemap IN PLACE; the stateful modes'
+    `rng_state` planes are stepped IN PLACE too."""
     dev = accum.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
@@ -215,8 +231,8 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
     for sampler in _sample_samplers(cfg, flat, sample_index, rng_state):
         u1, u2 = sampler.draw2()  # pixel jitter, every lane
         rays = generate_rays(cfg, cam, colf, rowf, u1, u2)
-        rgb = shade(cfg, intersect, anyhit, albedo, sampler, *rays,
-                    miss_color=miss_color)
+        rgb = shade(cfg, intersect, anyhit, table, sampler, *rays,
+                    miss_color=miss_color, lights=lights)
         sums = [a + b for a, b in zip(sums, rgb)]
     accumulate_and_tonemap(cfg, accum, output, flat, sums, spp)
 

@@ -10,9 +10,11 @@ counterpart of the JAX step's donated and aliased buffers:
   * on CPU tensors it runs `sphere_pt_plain`, the same update in lockstep
     torch (ops/pathtrace.shade), which is also `backend="torch"`.
 
-Both read the scene's albedo table, evaluated once on the host (the
-albedo hash magnifies one-ulp sin differences), and both use the
-kernel-form tonemap. The kernel sweeps only the tile's cone-visible
+Both read the scene's per-object table (albedo and the material
+channels, rows 4-12 of SphereScene.packed()), evaluated once on the host
+(the hash magnifies one-ulp sin differences), and both use the
+kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights) ride
+beside the scene; their shadow rays sweep every sphere. The kernel sweeps only the tile's cone-visible
 spheres for primary rays (csrc/cull.cuh, built per block in its
 prologue); `visibility_table` is the same table in plain torch, the
 counterpart of the JAX package's, against which the tests hold it. The
@@ -37,7 +39,9 @@ from l2n_tpu_torch.ops.kernels.common import (
     launch,
     render_tiles_plain,
     step_params,
+    table_rows,
 )
+from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.ops.pathtrace import generate_rays
 from l2n_tpu_torch.ops.scenes import (
     SPHERE_MISS_COLOR,
@@ -45,53 +49,76 @@ from l2n_tpu_torch.ops.scenes import (
     sphere_intersector,
 )
 
-# A block's shared memory (csrc/sphere_pt.cu smem_bytes): the (7, n) scene,
-# the visible list and its origin terms, 12 words per sphere, plus 33
-# words; at most the 227 KiB a Hopper block can opt in to.
-MAX_SPHERES = (MAX_SMEM - 33 * 4) // (12 * 4)
+# Rows of the packed sphere buffer (SphereScene.packed()): centre, r^2,
+# then the per-object table.
+SPHERE_ROWS = 13
 
 
-def _check(cfg, sched, camera, spheres, accum, output, rng_state):
+def max_spheres(cfg, lights=None) -> int:
+    """The spheres a block's shared memory holds (csrc/sphere_pt.cuh
+    culled_scene_floats): the centres, r^2 and the table rows it stages,
+    the visible list and its 4 origin terms per sphere, plus 33 words; at
+    most the 227 KiB a Hopper block can opt in to."""
+    return (MAX_SMEM - 33 * 4) // ((4 + table_rows(cfg, lights) + 5) * 4)
+
+
+def check_spheres(spheres, device) -> int:
+    """The (13, n) float32 packed spheres on `device`; returns n."""
+    n = spheres.shape[1] if isinstance(spheres, torch.Tensor) else -1
+    check_tensor("spheres", spheres, torch.float32, (SPHERE_ROWS, n), device)
+    return n
+
+
+def check_lights(lights) -> None:
+    if lights is not None and not isinstance(lights, ExplicitLights):
+        raise TypeError(f"lights: expected ExplicitLights, got {type(lights)}")
+
+
+def _check(cfg, sched, camera, spheres, accum, output, rng_state, lights):
     check_supported(cfg)
     if cfg.scene_kind != "sphere":
         raise ValueError(f"sphere_pt: scene_kind={cfg.scene_kind!r}")
     check_schedule(cfg, sched, accum, output)
     check_rng_state(cfg, rng_state, accum.device)
-    n = spheres.shape[1] if isinstance(spheres, torch.Tensor) else -1
-    check_tensor("spheres", spheres, torch.float32, (7, n), accum.device)
+    check_spheres(spheres, accum.device)
+    check_lights(lights)
     return check_camera(camera)
 
 
 def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
               accum: torch.Tensor, output: torch.Tensor,
-              rng_state: torch.Tensor | None = None) -> None:
+              rng_state: torch.Tensor | None = None, lights=None) -> None:
     """One render step over the scheduled tiles, in place (see module doc).
 
     sched (K, 2) int32 (tile_x, tile_y); camera the packed (10, 4) float32
-    host array; spheres (7, n) float32 (SphereScene.packed()); accum
+    host array; spheres (13, n) float32 (SphereScene.packed()); accum
     (4, Hp, Wp) and output (3, Hp, Wp) float32; rng_state the (8 or 4, Hp,
     Wp) int32 state planes of rng="tinymt"/"tauslcg", else None; all on one
-    device.
+    device. `lights`: ops/lights.ExplicitLights, or None (its albedo
+    override is the caller's, written into `spheres`).
     """
-    camera = _check(cfg, sched, camera, spheres, accum, output, rng_state)
+    camera = _check(cfg, sched, camera, spheres, accum, output, rng_state,
+                    lights)
     if accum.device.type == "cpu":
         sphere_pt_plain(cfg, sched, camera, spheres, accum, output,
-                        rng_state)
+                        rng_state, lights)
         return
     if accum.device.type != "cuda":
         raise ValueError(f"sphere_pt: no kernel for device {accum.device}")
     n = spheres.shape[1]
-    if n > MAX_SPHERES:
+    if n > max_spheres(cfg, lights):
         raise ValueError(f"sphere_pt: {n} spheres exceed the kernel's shared "
-                         f"memory ({MAX_SPHERES} max)")
-    ip, fp = step_params(cfg, sched.shape[0], n, camera)
-    launch("sphere_pt", cfg, accum.device, ip, fp, sched, spheres, accum,
-           output, rng_state)
+                         f"memory ({max_spheres(cfg, lights)} max)")
+    ip, fp = step_params(cfg, sched.shape[0], n, camera, lights)
+    light_rows = None if lights is None else lights.buffer(accum.device)
+    launch("sphere_pt", cfg, accum.device, ip, fp, sched, spheres,
+           light_rows, accum, output, rng_state)
 
 
 def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
                     accum: torch.Tensor, output: torch.Tensor,
-                    rng_state: torch.Tensor | None = None) -> None:
+                    rng_state: torch.Tensor | None = None,
+                    lights=None) -> None:
     """The plain torch version of `sphere_pt`: the same in-place update,
     computed in lockstep over the pixels of the scheduled tiles on
     whatever device the tensors are on."""
@@ -99,8 +126,8 @@ def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
     render_tiles_plain(cfg, sched, camera,
                        sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
-                       sphere_anyhit(cx, cy, cz, r2), spheres[4:7].T, accum,
-                       output, rng_state, SPHERE_MISS_COLOR)
+                       sphere_anyhit(cx, cy, cz, r2), spheres[4:].T, accum,
+                       output, rng_state, SPHERE_MISS_COLOR, lights)
 
 
 def visibility_table(cfg, bounds: torch.Tensor, camera,

@@ -12,8 +12,10 @@ renders the scheduled tiles of a triangle scene and updates `accum`,
     torch with a brute-force sweep over the whole soup
     (ops/scenes.triangle_intersector), which is also `backend="torch"`.
 
-Both read one per-mesh albedo table, evaluated once on the host, and both
-use the kernel-form tonemap. `TriangleBuffers` holds what either version
+Both read one per-mesh table (albedo, and the material channels of
+scene/materials.MATERIAL_CHANNELS), evaluated once on the host, and both
+use the kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights)
+ride beside the scene; their shadow rays walk every mesh. `TriangleBuffers` holds what either version
 reads: the soup for the plain version, the packed bounds, slot rows and
 attribute rows for the kernel (ops/kernels/triangle_pack.py).
 """
@@ -36,19 +38,25 @@ from l2n_tpu_torch.ops.kernels.common import (
     launch,
     render_tiles_plain,
     step_params,
+    table_rows,
 )
+from l2n_tpu_torch.ops.kernels.sphere_pt import check_lights
 from l2n_tpu_torch.ops.kernels.triangle_pack import SUBS, pack_mesh_blocks
 from l2n_tpu_torch.ops.scenes import (
     TRIANGLE_MISS_COLOR,
     triangle_anyhit,
     triangle_intersector,
 )
+from l2n_tpu_torch.scene.materials import material_table
 
-# A block stages 9 words per mesh (bounds, albedo, slab count, the visible
-# list) and 33 more (csrc/triangle_pt.cu smem_bytes), at most the 227 KiB a
-# Hopper block can opt in to; the slab and sub-cluster bounds are read
-# through the read-only cache.
-MAX_MESHES = (MAX_SMEM - 33 * 4) // (9 * 4)
+
+def max_meshes(cfg, lights=None) -> int:
+    """The meshes a block's shared memory holds (csrc/triangle_pt.cu
+    smem_bytes): per mesh its bound, the table rows it stages, its slab
+    count and a visible-list entry, plus 33 words; at most the 227 KiB a
+    Hopper block can opt in to. The slab and sub-cluster bounds are read
+    through the read-only cache."""
+    return (MAX_SMEM - 33 * 4) // ((4 + table_rows(cfg, lights) + 2) * 4)
 
 # Rows of the kernel's per-slot and per-triangle buffers (csrc/
 # triangle_pt.cuh kTriStride, kAttrStride).
@@ -64,6 +72,7 @@ class TriangleBuffers:
 
     soup         (T,) tensors of TriangleScene.soup() (the plain version);
     albedo       (3, M) procedural albedo rows (r, g, b) per mesh;
+    material     (6, M) rows of scene/materials.MATERIAL_CHANNELS per mesh;
     mesh_bounds  (M, 4) [cx cy cz r^2];  slab_count (M,) int32;
     slab_bounds  (M, S, 5);  sub_bounds (M, S, 8, 5);
     tris         (M * S * 128, 12): per slot v1 xyz, e1 xyz, e2 xyz, the
@@ -76,6 +85,7 @@ class TriangleBuffers:
 
     soup: dict
     albedo: torch.Tensor
+    material: torch.Tensor
     mesh_bounds: torch.Tensor
     slab_count: torch.Tensor
     slab_bounds: torch.Tensor
@@ -104,6 +114,7 @@ class TriangleBuffers:
         return cls(
             soup={k: dev(v) for k, v in soup_np.items()},
             albedo=albedo.to(device),
+            material=material_table(m).T.contiguous().to(device),
             mesh_bounds=dev(packed.bounds),
             slab_count=dev(packed.slab_count),
             slab_bounds=dev(packed.slab_bounds),
@@ -111,9 +122,31 @@ class TriangleBuffers:
             tris=dev(tris.reshape(-1, TRI_STRIDE)),
             attrs=dev(attrs))
 
+    def with_tables(self, albedo=None, material=None) -> "TriangleBuffers":
+        """The buffers with another (M, 3) albedo or (M, 6) material table
+        (host arrays or tensors; e.g. the JAX package's hash values, or an
+        albedo with the Phong override applied)."""
+        def rows(new, old):
+            if new is None:
+                return old
+            new = torch.as_tensor(new, dtype=torch.float32).T
+            if new.shape != old.shape:
+                raise ValueError(f"table shape {tuple(new.T.shape)}, "
+                                 f"expected {tuple(old.T.shape)}")
+            return new.contiguous().to(old.device)
 
-def _check(cfg, sched, camera, buffers, accum, output, rng_state):
+        return dataclasses.replace(
+            self, albedo=rows(albedo, self.albedo),
+            material=rows(material, self.material))
+
+    def table(self) -> torch.Tensor:
+        """(M, 9) the plain path's per-mesh table: albedo, then material."""
+        return torch.cat([self.albedo, self.material]).T
+
+
+def _check(cfg, sched, camera, buffers, accum, output, rng_state, lights):
     check_supported(cfg)
+    check_lights(lights)
     if cfg.scene_kind != "triangle":
         raise ValueError(f"triangle_pt: scene_kind={cfg.scene_kind!r}")
     check_schedule(cfg, sched, accum, output)
@@ -126,7 +159,8 @@ def _check(cfg, sched, camera, buffers, accum, output, rng_state):
     n_tri = buffers.attrs.shape[0]
     f32 = torch.float32
     for name, dtype, shape in (
-            ("albedo", f32, (3, m)), ("mesh_bounds", f32, (m, 4)),
+            ("albedo", f32, (3, m)), ("material", f32, (6, m)),
+            ("mesh_bounds", f32, (m, 4)),
             ("slab_count", torch.int32, (m,)),
             ("slab_bounds", f32, (m, s, 5)),
             ("sub_bounds", f32, (m, s, SUBS, 5)),
@@ -138,36 +172,42 @@ def _check(cfg, sched, camera, buffers, accum, output, rng_state):
 
 def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
                 accum: torch.Tensor, output: torch.Tensor,
-                rng_state: torch.Tensor | None = None) -> None:
+                rng_state: torch.Tensor | None = None, lights=None) -> None:
     """One render step over the scheduled tiles, in place (see module doc).
 
     sched (K, 2) int32 (tile_x, tile_y); camera the packed (10, 4) float32
     host array; buffers the scene's TriangleBuffers; accum (4, Hp, Wp) and
     output (3, Hp, Wp) float32; rng_state the (8 or 4, Hp, Wp) int32 state
     planes of rng="tinymt"/"tauslcg", else None; all on one device.
+    `lights`: ops/lights.ExplicitLights, or None (its albedo override is
+    the caller's, written into `buffers`).
     """
-    camera = _check(cfg, sched, camera, buffers, accum, output, rng_state)
+    camera = _check(cfg, sched, camera, buffers, accum, output, rng_state,
+                    lights)
     if accum.device.type == "cpu":
         triangle_pt_plain(cfg, sched, camera, buffers, accum, output,
-                          rng_state)
+                          rng_state, lights)
         return
     if accum.device.type != "cuda":
         raise ValueError(f"triangle_pt: no kernel for device {accum.device}")
     m, s = buffers.slab_bounds.shape[:2]
-    if m > MAX_MESHES:
+    if m > max_meshes(cfg, lights):
         raise ValueError(f"triangle_pt: {m} meshes exceed the kernel's "
-                         f"shared memory ({MAX_MESHES} max)")
-    ip, fp = step_params(cfg, sched.shape[0], m, camera)
+                         f"shared memory ({max_meshes(cfg, lights)} max)")
+    ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
+    light_rows = None if lights is None else lights.buffer(accum.device)
     launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
            buffers.mesh_bounds, buffers.slab_count, buffers.slab_bounds,
            buffers.sub_bounds, buffers.tris, buffers.attrs,
-           buffers.albedo, accum, output, rng_state)
+           buffers.albedo, buffers.material, light_rows, accum, output,
+           rng_state)
 
 
 def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
                       buffers: TriangleBuffers, accum: torch.Tensor,
                       output: torch.Tensor,
-                      rng_state: torch.Tensor | None = None) -> None:
+                      rng_state: torch.Tensor | None = None,
+                      lights=None) -> None:
     """The plain torch version of `triangle_pt`: the same in-place update,
     computed in lockstep over the pixels of the scheduled tiles, with a
     brute-force sweep over every triangle, on whatever device the tensors
@@ -175,5 +215,5 @@ def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
     check_supported(cfg)
     intersect = triangle_intersector(buffers.soup)
     render_tiles_plain(cfg, sched, camera, intersect,
-                       triangle_anyhit(intersect), buffers.albedo.T, accum,
-                       output, rng_state, TRIANGLE_MISS_COLOR)
+                       triangle_anyhit(intersect), buffers.table(), accum,
+                       output, rng_state, TRIANGLE_MISS_COLOR, lights)

@@ -31,7 +31,10 @@ the bit: both compose the same path helpers (ops/pathtrace.py, csrc/
 pathtrace.cuh) and the counter-based stream (threefry, or Philox for
 rng="tpu_hw") resumes in pass B exactly where pass A stopped. The stateful
 rng modes cannot resume across the split; RenderConfig refuses them with
-the wavefront step, and the passes raise for them.
+the wavefront step, and the passes raise for them. The material modes and
+the bump run through passes A and B (their resume point depends on the
+mode: ops/pathtrace.wavefront_draw_position); the explicit lights do not
+(render/step.py raises for them, as the JAX package does).
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (`*_plain`) for CPU tensors; `sphere_wavefront_step` chains
@@ -48,7 +51,6 @@ import numpy as np
 import torch
 
 from l2n_tpu_torch.ops.kernels.common import (
-    MAX_SMEM,
     accumulate_and_tonemap,
     check_camera,
     check_schedule,
@@ -58,6 +60,7 @@ from l2n_tpu_torch.ops.kernels.common import (
     step_params,
     tile_pixel_coords,
 )
+from l2n_tpu_torch.ops.kernels.sphere_pt import check_spheres, max_spheres
 from l2n_tpu_torch.ops.pathtrace import (
     WAVEFRONT_FAR_THRESHOLD,
     generate_rays,
@@ -70,10 +73,9 @@ from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
 
 f32, i32 = torch.float32, torch.int32
 
-# Pass A's block (csrc/wavefront.cu): sphere_pt's culled scene, 12 words
-# per sphere plus 33; at most the 227 KiB a Hopper block can opt in to.
-# Pass B stages 11 words per sphere (the SoA and a packed copy).
-MAX_SPHERES = (MAX_SMEM - 33 * 4) // (12 * 4)
+# Pass A's block (csrc/wavefront.cu) holds sphere_pt's culled scene
+# (sphere_pt.max_spheres); pass B stages no more per sphere (the SoA rows
+# it reads and a packed copy of 4 words).
 RAY_PLANES, META_PLANES = 9, 3
 
 
@@ -110,15 +112,14 @@ def wavefront_lanes(cfg, k: int, device) -> WavefrontLanes:
 def _scene(cfg, spheres: torch.Tensor):
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
     return (sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
-            sphere_anyhit(cx, cy, cz, r2), spheres[4:7].T)
+            sphere_anyhit(cx, cy, cz, r2), spheres[4:].T)
 
 
-def _check_spheres(spheres, device) -> int:
-    n = spheres.shape[1] if isinstance(spheres, torch.Tensor) else -1
-    check_tensor("spheres", spheres, f32, (7, n), device)
-    if device.type == "cuda" and n > MAX_SPHERES:
+def _check_spheres(cfg, spheres, device) -> int:
+    n = check_spheres(spheres, device)
+    if device.type == "cuda" and n > max_spheres(cfg):
         raise ValueError(f"wavefront: {n} spheres exceed the kernels' shared "
-                         f"memory ({MAX_SPHERES} max)")
+                         f"memory ({max_spheres(cfg)} max)")
     return n
 
 
@@ -157,8 +158,8 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     """Primary cast, first vertex, b=0 scatter over the scheduled tiles, and
     the survivors' append.
 
-    sched (K, 2) int32; camera the packed (10, 4) host array; spheres (7, n)
-    float32; accum (4, Hp, Wp), read for the sample counts. On the card the
+    sched (K, 2) int32; camera the packed (10, 4) host array; spheres (13,
+    n) float32 (SphereScene.packed()); accum (4, Hp, Wp), read for the sample counts. On the card the
     outputs go to `lanes` (`wavefront_lanes`), or to new buffers; on the
     CPU the plain version returns new ones."""
     check_supported(cfg)
@@ -166,7 +167,7 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     dev = _device(accum, "wavefront_pass_a")
     k = check_schedule(cfg, sched, accum)
     camera = check_camera(camera)
-    n = _check_spheres(spheres, dev)
+    n = _check_spheres(cfg, spheres, dev)
     if dev.type == "cpu":
         return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
     if lanes is None:
@@ -271,7 +272,7 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
     _sampler_class(cfg)
     dev = _device(rays, "wavefront_pass_b")
     camera = check_camera(camera)
-    n = _check_spheres(spheres, dev)
+    n = _check_spheres(cfg, spheres, dev)
     n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
     check_tensor("rays", rays, f32, (RAY_PLANES, n_lanes), dev)
     check_tensor("meta", meta, i32, (META_PLANES, n_lanes), dev)

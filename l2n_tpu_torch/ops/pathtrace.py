@@ -2,7 +2,8 @@
 bounce loop and the primary-only AOVs (counterpart of l2n_tpu.ops.pathtrace
 for the port's configs: the pathtracing, normal, hit, ambient_occlusion,
 tex_coords and param_uv AOVs, the fovy and viewproj cameras, fast_math,
-procedural Lambert, no NEE/MIS/fog/lights).
+procedural Lambert or the microfacet / Disney materials, normal mapping,
+the explicit point and directional lights; no NEE/MIS/fog).
 
 This is the plain version the CPU tests and `backend="torch"` run. It is a
 mask translation of the JAX package's `trace_path` / `_scatter_and_roulette`
@@ -28,6 +29,13 @@ from l2n_tpu_torch.camera.camera import (
     ROW_RCP_VIEW,
     ROW_RCP_VIEW_PROJ,
 )
+from l2n_tpu_torch.maths.brdf import (
+    eval_brdf,
+    eval_disney,
+    sample_brdf,
+    sample_disney,
+)
+from l2n_tpu_torch.maths.bump import perturb_normal
 from l2n_tpu_torch.maths.sampling import (
     PI,
     cosine_sample_hemisphere,
@@ -37,6 +45,7 @@ from l2n_tpu_torch.maths.sampling import (
     normalize3,
 )
 from l2n_tpu_torch.ops.envlight import env_radiance
+from l2n_tpu_torch.ops.lights import explicit_light_contribution
 
 
 @dataclasses.dataclass
@@ -128,29 +137,69 @@ def _resolve_vertex(cfg, dist, index, emis_r2, tp, col):
     return dist, diffuse, col
 
 
-def _scatter_and_roulette(cfg, albedo, sampler, bo, bd, cur_t, n, index,
-                          diffuse, tp):
-    """Procedural-Lambert bounce at the vertex bo + cur_t*bd: cosine sample,
-    throughput update, Russian roulette, continuation origin (far-parked for
-    dead lanes). Returns (bo, bd, tp, survive, cast_o)."""
+def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
+                          diffuse, tp, col, intersect=None, lights=None):
+    """The bounce at the vertex bo + cur_t*bd: the bump (normal_map), the
+    BSDF sample (procedural Lambert, or the microfacet / Disney mixture),
+    the explicit lights' direct term, the throughput update, Russian
+    roulette and the continuation origin (far-parked for dead lanes).
+
+    `table` is the scene's (n, 3 + 6) per-object table: albedo, then
+    scene/materials.MATERIAL_CHANNELS (an (n, 3) albedo table does for
+    the procedural mode without bump). `lights` (ops/lights.ExplicitLights)
+    with lights casts its shadow rays through `intersect`. Draws, at
+    diffuse lanes: the hemisphere pair, in the material modes one more
+    draw1 for the lobe, then the RR draw1 (which takes the lobe pair's
+    sibling; in the procedural mode it wastes one).
+
+    Returns (bo, bd, tp, col, survive, cast_o)."""
     box, boy, boz = bo
     bdx, bdy, bdz = bd
     hx = box + cur_t * bdx
     hy = boy + cur_t * bdy
     hz = boz + cur_t * bdz
-    kd = albedo[index.clamp(min=0)]  # miss lanes read row 0, never kept
-    tangent, bitangent = frame_z(*n, fast=cfg.fast_math)
-    # Only diffuse lanes consume draws (the stateful samplers step no
-    # other lane; the counter-based ones ignore the mask).
-    u1, u2 = sampler.draw2(mask=diffuse)
-    (lx, ly, lz), _ = cosine_sample_hemisphere(u1, u2)
-    wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n),
-                    fast=cfg.fast_math)
+    row = table[index.clamp(min=0)]  # miss lanes read row 0, never kept
+    kd = (row[..., 0], row[..., 1], row[..., 2])
+    if cfg.normal_map > 0.0:
+        n = perturb_normal(cfg, row[..., 8], (hx, hy, hz), n)
+    brdf_eval = None
+    if cfg.material_mode in ("microfacet", "disney"):
+        nh = normalize3(*n)
+        frame = frame_z(*nh)
+        rough = row[..., 3]
+        wo = (-bdx, -bdy, -bdz)
+        u1, u2 = sampler.draw2(mask=diffuse)
+        u_lobe = sampler.draw1(mask=diffuse)
+        if cfg.material_mode == "disney":
+            params = (row[..., 4], row[..., 5], row[..., 6], row[..., 7])
+            wd, w, _ = sample_disney(u_lobe, u1, u2, nh, frame, wo, kd,
+                                     rough, *params)
+
+            def brdf_eval(wi):
+                return eval_disney(nh, wo, wi, kd, rough, *params)
+        else:
+            wd, w, _ = sample_brdf(u_lobe, u1, u2, nh, frame, wo, kd, rough)
+
+            def brdf_eval(wi):
+                return eval_brdf(nh, wo, wi, kd, rough)
+    else:
+        tangent, bitangent = frame_z(*n, fast=cfg.fast_math)
+        # Only diffuse lanes consume draws (the stateful samplers step no
+        # other lane; the counter-based ones ignore the mask).
+        u1, u2 = sampler.draw2(mask=diffuse)
+        (lx, ly, lz), _ = cosine_sample_hemisphere(u1, u2)
+        wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n),
+                        fast=cfg.fast_math)
+        w = kd
+    if lights is not None and lights.has_lights:
+        e = explicit_light_contribution(cfg, lights, intersect, (hx, hy, hz),
+                                        n, kd, tp, brdf_eval)
+        col = tuple(torch.where(diffuse, c + ec, c) for c, ec in zip(col, e))
 
     bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
           torch.where(diffuse, hz, boz))
-    bd = tuple(torch.where(diffuse, w, b) for w, b in zip(wd, bd))
-    tp = tuple(torch.where(diffuse, t * kd[..., i], t) for i, t in enumerate(tp))
+    bd = tuple(torch.where(diffuse, wc, b) for wc, b in zip(wd, bd))
+    tp = tuple(torch.where(diffuse, t * wc, t) for t, wc in zip(tp, w))
 
     rr = sampler.draw1(mask=diffuse)
     rr_prob = torch.clamp(luminance(*tp), max=cfg.rr_ceiling)
@@ -160,11 +209,11 @@ def _scatter_and_roulette(cfg, albedo, sampler, bo, bd, cur_t, n, index,
     far = torch.full_like(bo[0], 3.0e30)
     cast_o = tuple(torch.where(survive, o + cfg.ray_epsilon * d, far)
                    for o, d in zip(bo, bd))
-    return bo, bd, tp, survive, cast_o
+    return bo, bd, tp, col, survive, cast_o
 
 
-def _finish_path(cfg, intersect, anyhit, albedo, sampler, entered, pending,
-                 dist, cast_o, bd, tp, col):
+def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
+                 dist, cast_o, bd, tp, col, lights=None):
     """Intersect the pending cast of iteration 0, run iterations
     1..max_bounces-1, resolve the last segment with the any-hit test and add
     the sky where a path that entered the scene (or missed it from the
@@ -191,8 +240,9 @@ def _finish_path(cfg, intersect, anyhit, albedo, sampler, entered, pending,
     dist = torch.where(pending, new.t, dist)
     for b in range(1, cfg.max_bounces):
         dist, diffuse, col = _resolve_vertex(cfg, dist, index, emis_r2, tp, col)
-        bo, bd, tp, survive, cast_o = _scatter_and_roulette(
-            cfg, albedo, sampler, bo, bd, cur_t, n, index, diffuse, tp)
+        bo, bd, tp, col, survive, cast_o = _scatter_and_roulette(
+            cfg, table, sampler, bo, bd, cur_t, n, index, diffuse, tp, col,
+            intersect, lights)
         dist = torch.where(diffuse & ~survive, torch.full_like(dist, -2.0), dist)
         if b + 1 == cfg.max_bounces:
             dist = final_dist(dist, survive, cast_o, bd)
@@ -208,13 +258,15 @@ def _finish_path(cfg, intersect, anyhit, albedo, sampler, entered, pending,
 
 
 def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
-               albedo: torch.Tensor, sampler, ox, oy, oz, dx, dy, dz):
+               table: torch.Tensor, sampler, ox, oy, oz, dx, dy, dz,
+               lights=None):
     """Trace one sample per lane; returns (r, g, b).
 
     Radiance is added when a lane resolves: emissive hits when they
-    terminate, the sky at the single environment site in _finish_path,
-    which covers primary misses too (their direction and throughput never
-    change). `albedo` is the scene's (n, 3) table.
+    terminate, the explicit lights at diffuse vertices, the sky at the
+    single environment site in _finish_path, which covers primary misses
+    too (their direction and throughput never change). `table` is the
+    scene's per-object table (_scatter_and_roulette).
     """
     hit = intersect(ox, oy, oz, dx, dy, dz)
     shape = dx.shape
@@ -228,13 +280,14 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     col = (base, base, base)
     dist = torch.where(p_emissive, torch.full_like(zero, -2.0), hit.t)
     ones = torch.ones_like(zero)
-    _, bd, tp, survive, cast_o = _scatter_and_roulette(
-        cfg, albedo, sampler, o, (dx, dy, dz), hit.t,
-        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones))
+    _, bd, tp, col, survive, cast_o = _scatter_and_roulette(
+        cfg, table, sampler, o, (dx, dy, dz), hit.t,
+        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
+        col, intersect, lights)
     dist = torch.where(p_diffuse & ~survive, torch.full_like(dist, -2.0), dist)
-    return _finish_path(cfg, intersect, anyhit, albedo, sampler,
+    return _finish_path(cfg, intersect, anyhit, table, sampler,
                         p_diffuse | p_miss, survive, dist, cast_o, bd, tp,
-                        col)
+                        col, lights)
 
 
 # The wavefront split (ops/kernels/wavefront.py): the same path integral as
@@ -248,7 +301,7 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
 WAVEFRONT_FAR_THRESHOLD = 1.0e30
 
 
-def trace_wavefront_primary(cfg, intersect: IntersectFn, albedo, sampler,
+def trace_wavefront_primary(cfg, intersect: IntersectFn, table, sampler,
                             ox, oy, oz, dx, dy, dz):
     """Pass A: primary cast, first-vertex resolve (emissive hit, primary
     miss sky), b=0 scatter and Russian roulette.
@@ -256,7 +309,7 @@ def trace_wavefront_primary(cfg, intersect: IntersectFn, albedo, sampler,
     Returns (col_r, col_g, col_b, cast_ox, cast_oy, cast_oz, bdx, bdy, bdz,
     tp_r, tp_g, tp_b): the partial radiance and the continuation ray. The
     JAX package's 13th output, the BSDF pdf, serves MIS only (not in the
-    port)."""
+    port). The split takes no explicit lights, as in the JAX package."""
     hit = intersect(ox, oy, oz, dx, dy, dz)
     shape = dx.shape
     o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
@@ -269,14 +322,15 @@ def trace_wavefront_primary(cfg, intersect: IntersectFn, albedo, sampler,
         base = base + torch.where(hit.t == -1.0, _env_term(cfg, dx, dy, dz),
                                   zero)
     ones = torch.ones_like(zero)
-    _, bd, tp, _, cast_o = _scatter_and_roulette(
-        cfg, albedo, sampler, o, (dx, dy, dz), hit.t,
-        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones))
+    _, bd, tp, _, _, cast_o = _scatter_and_roulette(
+        cfg, table, sampler, o, (dx, dy, dz), hit.t,
+        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
+        (base, base, base))
     return (base, base, base, *cast_o, *bd, *tp)
 
 
 def trace_wavefront_continue(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
-                             albedo, sampler, cast_ox, cast_oy, cast_oz,
+                             table, sampler, cast_ox, cast_oy, cast_oz,
                              bdx, bdy, bdz, tp_r, tp_g, tp_b):
     """Pass B: finish the paths of compacted survivors from their pending
     cast. Every lane is taken as alive (padding lanes compute values the
@@ -284,7 +338,7 @@ def trace_wavefront_continue(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     caller adds it to pass A's partial radiance."""
     zeros = torch.zeros_like(bdx)
     everyone = torch.ones(bdx.shape, dtype=torch.bool, device=bdx.device)
-    return _finish_path(cfg, intersect, anyhit, albedo, sampler, everyone,
+    return _finish_path(cfg, intersect, anyhit, table, sampler, everyone,
                         everyone, zeros, (cast_ox, cast_oy, cast_oz),
                         (bdx, bdy, bdz), (tp_r, tp_g, tp_b),
                         (zeros, zeros, zeros))
@@ -296,7 +350,9 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
     Philox, which address pairs alike) after pass A: the resume point of
     pass B (`resumed`). Read off a sampler
     that ran pass A on a one-lane dummy after the pixel jitter; the lockstep
-    draw pattern does not depend on the scene or the data."""
+    draw pattern depends on the material mode, not on the scene or the
+    data: (3, True) procedural (the RR draw left its pair's sibling), (3,
+    False) microfacet and disney (the RR draw took the lobe pair's)."""
     from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
 
     # Philox (rng="tpu_hw") has the same pair addressing and resume point.
@@ -310,7 +366,7 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
     sampler = ThreefrySampler(0, 0, idx, idx,
                               max_pairs_per_sample(cfg.max_bounces))
     sampler.draw2()  # the pixel jitter, drawn by the caller
-    trace_wavefront_primary(cfg, miss, torch.ones((1, 3)), sampler,
+    trace_wavefront_primary(cfg, miss, torch.ones((1, 9)), sampler,
                             one, one, one, one, one, one)
     return sampler.draw_position
 
@@ -326,14 +382,19 @@ def _magenta_on_miss(h: Hit, r, g):
     return torch.where(m, r, one), torch.where(m, g, zero), torch.where(m, zero, one)
 
 
-def aov_normal(intersect: IntersectFn, ox, oy, oz, dx, dy, dz,
+def aov_normal(cfg, intersect: IntersectFn, table, ox, oy, oz, dx, dy, dz,
                miss=(0.0, 0.0, 0.0)):
     """Shading normal of the primary hit, or the scene family's miss colour
-    (spheres black, meshes magenta: ops/scenes.py)."""
+    (spheres black, meshes magenta: ops/scenes.py). With normal_map > 0 the
+    bumped normal at o + t d (the table's bump channel)."""
     h = intersect(ox, oy, oz, dx, dy, dz)
     m = h.t >= 0.0
-    return tuple(torch.where(m, n, torch.full_like(n, c))
-                 for n, c in zip((h.nx, h.ny, h.nz), miss))
+    n = (h.nx, h.ny, h.nz)
+    if cfg.normal_map > 0.0:
+        p = tuple(o + h.t * d for o, d in zip((ox, oy, oz), (dx, dy, dz)))
+        n = perturb_normal(cfg, table[h.index.clamp(min=0), 8], p, n)
+    return tuple(torch.where(m, nc, torch.full_like(nc, c))
+                 for nc, c in zip(n, miss))
 
 
 def aov_hit(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
@@ -375,15 +436,17 @@ def aov_param_uv(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
     return _magenta_on_miss(h, h.b_u, h.b_v)
 
 
-def shade(cfg, intersect: IntersectFn, anyhit: AnyHitFn, albedo, sampler,
-          ox, oy, oz, dx, dy, dz, miss_color=(0.0, 0.0, 0.0)):
+def shade(cfg, intersect: IntersectFn, anyhit: AnyHitFn, table, sampler,
+          ox, oy, oz, dx, dy, dz, miss_color=(0.0, 0.0, 0.0), lights=None):
     """Dispatch on cfg.aov: the path tracer, or a primary-only AOV;
-    `miss_color` is the normal AOV's colour of a miss."""
+    `miss_color` is the normal AOV's colour of a miss, `lights` the
+    path tracer's explicit lights (ops/lights.ExplicitLights, or None)."""
     if cfg.aov == "pathtracing":
-        return trace_path(cfg, intersect, anyhit, albedo, sampler,
-                          ox, oy, oz, dx, dy, dz)
+        return trace_path(cfg, intersect, anyhit, table, sampler,
+                          ox, oy, oz, dx, dy, dz, lights)
     if cfg.aov == "normal":
-        return aov_normal(intersect, ox, oy, oz, dx, dy, dz, miss_color)
+        return aov_normal(cfg, intersect, table, ox, oy, oz, dx, dy, dz,
+                          miss_color)
     if cfg.aov == "hit":
         return aov_hit(intersect, ox, oy, oz, dx, dy, dz)
     if cfg.aov == "ambient_occlusion":

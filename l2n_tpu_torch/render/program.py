@@ -3,32 +3,43 @@ l2n_tpu.render.program): the sphere renderer and the triangle renderer."""
 
 from __future__ import annotations
 
+from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.render.step import build_render_step, resolve_device
+from l2n_tpu_torch.scene.materials import empty_lights
 from l2n_tpu_torch.scene.obj import load_obj
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
 from l2n_tpu_torch.scene.tessellate import TriangleScene, build_triangle_scene
 
 
 class PathtracingProgram:
-    """Base: owns the config, the scene, the device and the render step.
-
-    The JAX package's explicit material/light buffers are not in this
-    slice: passing any raises NotImplementedError.
+    """Base: owns the config, the scene, the device, the material and light
+    buffers (scene/materials.py containers; empty by default, the
+    reference's own state) and the render step. Point and directional
+    lights add direct lighting at diffuse vertices and PhongMaterials
+    diffuse rows override the per-object albedo (ops/lights.py); empty
+    buffers build today's step. Lights with `wavefront=True` raise
+    ValueError, as in the JAX package.
     """
 
     name = "basePT"
 
     def __init__(self, cfg, scene, backend: str = "cuda", device=None,
                  materials=None, point_lights=None, directional_lights=None):
-        if (materials, point_lights, directional_lights) != (None, None, None):
-            raise NotImplementedError(
-                "explicit lights and materials are ROADMAP Queue 1 #9")
         self.cfg = cfg
         self.backend = backend
         self.device = resolve_device(backend, device)
         self.scene = scene
+        default_mats, default_pl, default_dl = empty_lights()
+        self.materials = materials if materials is not None else default_mats
+        self.point_lights = (point_lights if point_lights is not None
+                             else default_pl)
+        self.directional_lights = (directional_lights
+                                   if directional_lights is not None
+                                   else default_dl)
+        self.lights = ExplicitLights(self.materials, self.point_lights,
+                                     self.directional_lights)
         self.step = build_render_step(cfg, scene, backend=backend,
-                                      device=self.device)
+                                      device=self.device, lights=self.lights)
 
 
 class SphereProgram(PathtracingProgram):

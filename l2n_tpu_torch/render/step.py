@@ -22,6 +22,12 @@ Every rng mode runs on both backends: the counter-based threefry and
 tpu_hw (Philox on the card, rng/philox.py), and the stateful tinymt and
 tauslcg, whose per-pixel state planes ride in the FrameState.
 
+The material modes and the bump are config settings. Explicit lights and
+the Phong albedo override come as `lights` (ops/lights.ExplicitLights):
+the override is written into the scene's albedo table once, the lights go
+to the fused kernels; lights that change nothing are dropped, and lights
+with `wavefront=True` raise, as in the JAX package.
+
 The step updates the state's `accum`, `output` and `rng_state` IN PLACE and
 returns a new FrameState sharing them with advanced counters
 (render/state.py).
@@ -47,6 +53,7 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
     sphere_wavefront_step_plain,
     wavefront_lanes,
 )
+from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.render.state import FrameState
 from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
 from l2n_tpu_torch.scene.spheres import SphereScene
@@ -73,18 +80,33 @@ def resolve_device(backend: str, device=None) -> torch.device:
     return torch.device(device if device is not None else "cpu")
 
 
-def build_render_step(cfg, scene, backend: str = "cuda", device=None):
+def build_render_step(cfg, scene, backend: str = "cuda", device=None,
+                      lights: ExplicitLights | None = None):
     """A step(state, packed_camera) -> FrameState for (config, scene).
 
-    `scene` is a SphereScene or a TriangleScene, per cfg.scene_kind; its
-    buffers move to the step's device once. The camera is the packed
-    (10, 4) host array (Camera.packed()).
+    `scene` is a SphereScene or a TriangleScene, per cfg.scene_kind, whose
+    buffers move to the step's device once; or, for meshes, TriangleBuffers
+    already packed on that device (e.g. with other tables,
+    TriangleBuffers.with_tables). The camera is the packed
+    (10, 4) host array (Camera.packed()). `lights`: see the module doc.
     """
     check_supported(cfg)
     device = resolve_device(backend, device)
+    if lights is not None and not lights.enabled:
+        lights = None
+    if lights is not None and cfg.wavefront:
+        raise ValueError(
+            "explicit lights + wavefront is unsupported (the wavefront "
+            "split does not thread the light term); use the single-pass "
+            "kernels")
+    kernel_lights = lights if lights is not None and lights.has_lights \
+        else None
     if cfg.scene_kind == "sphere":
         if not isinstance(scene, SphereScene):
             raise TypeError("sphere config needs a SphereScene")
+        if lights is not None:
+            scene = scene.with_tables(
+                albedo=lights.override_albedo(scene.albedo))
         buffers = scene.packed().to(device)
         if cfg.wavefront and cfg.aov == "pathtracing":
             kernel = sphere_wavefront_step_plain
@@ -93,12 +115,22 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None):
                     sphere_wavefront_step, lanes=wavefront_lanes(
                         cfg, cfg.effective_tiles_per_step, device))
         else:
-            kernel = sphere_pt if backend == "cuda" else sphere_pt_plain
+            kernel = functools.partial(
+                sphere_pt if backend == "cuda" else sphere_pt_plain,
+                lights=kernel_lights)
     else:
-        if not isinstance(scene, TriangleScene):
+        if isinstance(scene, TriangleBuffers):
+            buffers = scene
+        elif isinstance(scene, TriangleScene):
+            buffers = TriangleBuffers.from_scene(scene, device)
+        else:
             raise TypeError("triangle config needs a TriangleScene")
-        buffers = TriangleBuffers.from_scene(scene, device)
-        kernel = triangle_pt if backend == "cuda" else triangle_pt_plain
+        if lights is not None:
+            buffers = buffers.with_tables(
+                albedo=lights.override_albedo(buffers.albedo.T))
+        kernel = functools.partial(
+            triangle_pt if backend == "cuda" else triangle_pt_plain,
+            lights=kernel_lights)
     tiles = torch.as_tensor(tile_grid(cfg)).to(device)
     k = cfg.effective_tiles_per_step
 

@@ -4,7 +4,7 @@
 5% of worldSize, drawn with the same explicit numpy PCG64 generator as the
 JAX package, so both packages build byte-equal scenes. The scene is a
 structure of arrays — (cx, cy, cz, sqr_radius) component vectors — plus the
-per-sphere albedo table the kernel and the plain path share.
+per-sphere albedo and material tables the kernel and the plain path share.
 """
 
 from __future__ import annotations
@@ -15,12 +15,14 @@ import numpy as np
 import torch
 
 from l2n_tpu_torch.maths.sampling import procedural_color
+from l2n_tpu_torch.scene.materials import material_table
 
 
 @dataclasses.dataclass(frozen=True)
 class SphereScene:
     """SoA sphere scene on one device. center_*/sqr_radius: (n,) float32;
-    albedo: (n, 3) float32, the procedural albedo of each sphere index,
+    albedo: (n, 3) float32, the procedural albedo of each sphere index, and
+    material: (n, 6) float32, its scene/materials.MATERIAL_CHANNELS, both
     evaluated once on the host (see maths.sampling.procedural_color)."""
 
     center_x: torch.Tensor
@@ -28,6 +30,7 @@ class SphereScene:
     center_z: torch.Tensor
     sqr_radius: torch.Tensor
     albedo: torch.Tensor
+    material: torch.Tensor
 
     @property
     def count(self) -> int:
@@ -40,14 +43,33 @@ class SphereScene:
                 for a in (cx, cy, cz, r2)]
         n = cols[0].shape[0]
         albedo = torch.stack(procedural_color(torch.arange(n)), dim=1)
-        return cls(*(c.to(device) for c in cols), albedo=albedo.to(device))
+        return cls(*(c.to(device) for c in cols), albedo=albedo.to(device),
+                   material=material_table(n).to(device))
+
+    def with_tables(self, albedo=None, material=None) -> "SphereScene":
+        """The scene with another (n, 3) albedo or (n, 6) material table
+        (host arrays or tensors; e.g. the JAX package's hash values, or an
+        albedo with the Phong override applied)."""
+        def table(new, old):
+            if new is None:
+                return old
+            new = torch.as_tensor(new, dtype=torch.float32)
+            if new.shape != old.shape:
+                raise ValueError(f"table shape {tuple(new.shape)}, expected "
+                                 f"{tuple(old.shape)}")
+            return new.to(old.device)
+
+        return dataclasses.replace(
+            self, albedo=table(albedo, self.albedo),
+            material=table(material, self.material))
 
     def packed(self) -> torch.Tensor:
-        """(7, n) float32 rows [cx, cy, cz, r2, albedo r, g, b] — the one
-        buffer the sphere kernel stages into shared memory."""
+        """(13, n) float32 rows [cx, cy, cz, r2, albedo r, g, b, roughness,
+        metallic, specular, sheen, subsurface, bump] — the one buffer the
+        sphere kernels stage into shared memory (the rows they read)."""
         return torch.cat([torch.stack([self.center_x, self.center_y,
                                        self.center_z, self.sqr_radius]),
-                          self.albedo.T]).contiguous()
+                          self.albedo.T, self.material.T]).contiguous()
 
     def as_numpy(self) -> np.ndarray:
         """(N, 4) float32 [cx, cy, cz, sqrRadius]."""

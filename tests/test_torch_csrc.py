@@ -144,7 +144,7 @@ l2n::TriSceneView for_tile(const l2n::PtParams& p, l2n::TriSceneView s,
 // with the sampler and AOV instantiation the codes pick (as the entry
 // points).
 struct RenderTiles {
-  template <class Rng, bool kAovs, bool kFast, bool kViewproj, class Scene>
+  template <class Rng, int kBody, bool kFast, bool kViewproj, class Scene>
   static int run(l2n::PtParams params, Scene s, const int32_t* sched,
                  float* accum, float* output, uint32_t* rng_state) {
     const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
@@ -153,7 +153,7 @@ struct RenderTiles {
       const Scene ts = for_tile(p, s, sched[2 * k], sched[2 * k + 1], lists);
       for (int r = 0; r < p.tile_height; ++r)
         for (int c = 0; c < p.tile_width; ++c)
-          l2n::render_pixel<Rng, kAovs>(
+          l2n::render_pixel<Rng, kBody>(
               p, ts, sched[2 * k + 1] * p.tile_height + r,
               sched[2 * k] * p.tile_width + c, accum, output, rng_state);
     }
@@ -169,7 +169,7 @@ struct SerialAppend {
 };
 
 struct PassA {
-  template <class Rng>
+  template <class Rng, bool kMaterials>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive) {
     const l2n::SceneView s =
@@ -183,8 +183,8 @@ struct PassA {
       for (int si = 0; si < p.spp; ++si)
         for (int r = 0; r < p.tile_height; ++r)
           for (int c = 0; c < p.tile_width; ++c)
-            l2n::wavefront_pass_a_sample<Rng>(p, ts, k, si, r, c, sched,
-                                              accum, out, append);
+            l2n::wavefront_pass_a_sample<Rng, kMaterials>(
+                p, ts, k, si, r, c, sched, accum, out, append);
     }
     return 0;
   }
@@ -194,7 +194,7 @@ struct PassA {
 // `group` parts as a group of lanes of the kernel splits them, over the
 // packed spheres the kernel stages.
 struct PassB {
-  template <class Rng, int G>
+  template <class Rng, bool kMaterials, int G>
   static void slots(const l2n::PtParams& p, const l2n::SceneView& s,
                     int next_pair, int has_spare, const int32_t* n_alive,
                     const float* rays, const int32_t* meta, float* back) {
@@ -203,11 +203,11 @@ struct PassB {
       packed[i] = l2n::Sphere4{s.cx[i], s.cy[i], s.cz[i], s.r2[i]};
     const l2n::GroupScene<G> gs{s, packed.data(), 0, 0u};
     for (size_t slot = 0; slot < static_cast<size_t>(n_alive[0]); ++slot)
-      l2n::wavefront_pass_b_slot<Rng>(p, gs, next_pair, has_spare != 0, slot,
-                                      l2n::lane_count(p), rays, meta, back,
-                                      true);
+      l2n::wavefront_pass_b_slot<Rng, kMaterials>(
+          p, gs, next_pair, has_spare != 0, slot, l2n::lane_count(p), rays,
+          meta, back, true);
   }
-  template <class Rng>
+  template <class Rng, bool kMaterials>
   static int run(l2n::PtParams p, int group, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
                  const float* rays, const int32_t* meta, float* back) {
@@ -215,11 +215,12 @@ struct PassB {
         l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
     switch (group) {
       case 1:
-        slots<Rng, 1>(p, s, next_pair, has_spare, n_alive, rays, meta, back);
+        slots<Rng, kMaterials, 1>(p, s, next_pair, has_spare, n_alive, rays,
+                                  meta, back);
         return 0;
       case l2n::kMaxGroup:
-        slots<Rng, l2n::kMaxGroup>(p, s, next_pair, has_spare, n_alive, rays,
-                                   meta, back);
+        slots<Rng, kMaterials, l2n::kMaxGroup>(p, s, next_pair, has_spare,
+                                               n_alive, rays, meta, back);
         return 0;
     }
     return -2;
@@ -333,8 +334,10 @@ static float emulated_sum(int mode, float c, const float* p, int k) {
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
-                       float* accum, float* output, uint32_t* rng_state) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+                       const float* lights, float* accum, float* output,
+                       uint32_t* rng_state) {
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.lights = lights;
   return l2n::dispatch_fused<RenderTiles>(
       p, p, l2n::scene_view(spheres, p.n_scene, p.fast_math != 0), sched,
       accum, output, rng_state);
@@ -344,14 +347,17 @@ int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          const float* mesh_bounds, const int32_t* slab_count,
                          const float* slab_bounds, const float* sub_bounds,
                          const float* tris, const float* attrs,
-                         const float* albedo, float* accum, float* output,
+                         const float* albedo, const float* material,
+                         const float* lights, float* accum, float* output,
                          uint32_t* rng_state) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.lights = lights;
   const int m = p.n_scene;
-  const l2n::TriSceneView s{m,          n_slabs, tpad,   mesh_bounds,
-                              slab_count, slab_bounds, sub_bounds, tris,
-                              attrs,      albedo,  albedo + m,
-                              albedo + 2 * m};
+  l2n::TriSceneView s{m,          n_slabs, tpad,   mesh_bounds,
+                        slab_count, slab_bounds, sub_bounds, tris,
+                        attrs,      albedo,  albedo + m,
+                        albedo + 2 * m};
+  s.mat = material;
   return l2n::dispatch_fused<RenderTiles>(p, p, s, sched, accum, output,
                                           rng_state);
 }
@@ -494,9 +500,12 @@ int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const float* accum, float* col, float* back,
                               float* rays, int32_t* meta, int32_t* n_alive) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<PassA>(
-      p.rng, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
-      n_alive);
+  const l2n::PassALanes out{col, back, rays, meta};
+  return l2n::shades_materials(p)
+             ? l2n::dispatch_counter_rng<l2n::WithFlags<PassA, true>>(
+                   p.rng, p, sched, spheres, accum, out, n_alive)
+             : l2n::dispatch_counter_rng<l2n::WithFlags<PassA, false>>(
+                   p.rng, p, sched, spheres, accum, out, n_alive);
 }
 int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp, int group,
                               int next_pair, int has_spare,
@@ -504,12 +513,94 @@ int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp, int group,
                               const float* rays, const int32_t* meta,
                               float* back) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::dispatch_counter_rng<PassB>(p.rng, p, group, next_pair,
-                                          has_spare, n_alive, spheres, rays,
-                                          meta, back);
+  return l2n::shades_materials(p)
+             ? l2n::dispatch_counter_rng<l2n::WithFlags<PassB, true>>(
+                   p.rng, p, group, next_pair, has_spare, n_alive, spheres,
+                   rays, meta, back)
+             : l2n::dispatch_counter_rng<l2n::WithFlags<PassB, false>>(
+                   p.rng, p, group, next_pair, has_spare, n_alive, spheres,
+                   rays, meta, back);
 }
 int l2n_group_size_host(int64_t alive, int64_t threads) {
   return l2n::group_size(alive, threads);
+}
+// The material modes' BSDFs (csrc/brdf.cuh) over n lanes of (3, n) planes
+// n, wo, wi, kd and (6, n) material rows: f (3, n) and pdf (n,).
+void l2n_eval_material_host(int mode, const float* nv, const float* wo,
+                            const float* wi, const float* kd,
+                            const float* mat, int64_t n, float* f,
+                            float* pdf) {
+  for (int64_t i = 0; i < n; ++i) {
+    const float a[3] = {nv[i], nv[n + i], nv[2 * n + i]};
+    const float o[3] = {wo[i], wo[n + i], wo[2 * n + i]};
+    const float l[3] = {wi[i], wi[n + i], wi[2 * n + i]};
+    const float k[3] = {kd[i], kd[n + i], kd[2 * n + i]};
+    float fi[3];
+    pdf[i] = l2n::eval_material(mode, a, o, l, k,
+                                l2n::material_row(mat, n, i), fi);
+    for (int c = 0; c < 3; ++c) f[c * n + i] = fi[c];
+  }
+}
+// One draw of the mode's mixture per lane: u (3, n) = (u_lobe, u1, u2), the
+// exact frame around the unit normal n; wi, w (3, n) and pdf (n,).
+void l2n_sample_material_host(int mode, const float* u, const float* nv,
+                              const float* wo, const float* kd,
+                              const float* mat, int64_t n, float* wi,
+                              float* w, float* pdf) {
+  for (int64_t i = 0; i < n; ++i) {
+    const l2n::Frame fr =
+        l2n::frame_z(nv[i], nv[n + i], nv[2 * n + i], false);
+    const float o[3] = {wo[i], wo[n + i], wo[2 * n + i]};
+    const float k[3] = {kd[i], kd[n + i], kd[2 * n + i]};
+    float wii[3], wi3[3];
+    pdf[i] = l2n::sample_material(mode, u[i], u[n + i], u[2 * n + i], fr, o,
+                                  k, l2n::material_row(mat, n, i), wii, wi3);
+    for (int c = 0; c < 3; ++c) {
+      wi[c * n + i] = wii[c];
+      w[c * n + i] = wi3[c];
+    }
+  }
+}
+// The bump (csrc/brdf.cuh perturb_normal) of n lanes: amplitude (n,),
+// points and normals (3, n) -> the unit bumped normals (3, n).
+void l2n_perturb_normal_host(const int32_t* ip, const float* fp,
+                             const float* bump, const float* pts,
+                             const float* nv, int64_t n, float* out) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  for (int64_t i = 0; i < n; ++i) {
+    float x = nv[i], y = nv[n + i], z = nv[2 * n + i];
+    l2n::perturb_normal(p, bump[i], pts[i], pts[n + i], pts[2 * n + i], x, y,
+                        z);
+    out[i] = x;
+    out[n + i] = y;
+    out[2 * n + i] = z;
+  }
+}
+// The explicit lights' loop (csrc/pathtrace.cuh explicit_lights) over the
+// sphere scene (13, n_s) with Lambert's kd / pi, at n lanes of vertices h,
+// normals nv, albedo kd and throughput tp (3, n): col (3, n) gets the
+// direct term added.
+void l2n_explicit_lights_host(const int32_t* ip, const float* fp,
+                              const float* spheres, const float* lights,
+                              const float* h, const float* nv,
+                              const float* kd, const float* tp, int64_t n,
+                              float* col) {
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.lights = lights;
+  const l2n::SceneView s =
+      l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
+  for (int64_t i = 0; i < n; ++i) {
+    const float k[3] = {kd[i], kd[n + i], kd[2 * n + i]};
+    const float t[3] = {tp[i], tp[n + i], tp[2 * n + i]};
+    float c[3] = {col[i], col[n + i], col[2 * n + i]};
+    l2n::explicit_lights(
+        p, s, h[i], h[n + i], h[2 * n + i], nv[i], nv[n + i], nv[2 * n + i],
+        [&](const float*, float* f) {
+          for (int ch = 0; ch < 3; ++ch) f[ch] = k[ch] * l2n::kInvPi;
+        },
+        t, c);
+    for (int ch = 0; ch < 3; ++ch) col[ch * n + i] = c[ch];
+  }
 }
 int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* col,
@@ -669,9 +760,9 @@ def _build_shim(tmp_path_factory, *defines):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     p = ctypes.c_void_p
-    lib.l2n_sphere_pt_host.argtypes = [p] * 7
+    lib.l2n_sphere_pt_host.argtypes = [p] * 8
     lib.l2n_sphere_pt_host.restype = ctypes.c_int
-    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
+    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
     lib.l2n_triangle_pt_host.restype = ctypes.c_int
     lib.l2n_visibility_host.argtypes = [p, p, p, p, ctypes.c_int, p]
     lib.l2n_walk_stats_host.argtypes = [p]
@@ -692,6 +783,12 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
     lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
     lib.l2n_group_size_host.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.l2n_eval_material_host.argtypes = [i] + [p] * 5 + [ctypes.c_int64,
+                                                          p, p]
+    lib.l2n_sample_material_host.argtypes = [i] + [p] * 5 + [
+        ctypes.c_int64, p, p, p]
+    lib.l2n_perturb_normal_host.argtypes = [p] * 5 + [ctypes.c_int64, p]
+    lib.l2n_explicit_lights_host.argtypes = [p] * 8 + [ctypes.c_int64, p]
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
     i64 = ctypes.c_int64
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
@@ -889,9 +986,9 @@ def _render(cfg, cam, steps, host_lib=None, with_state=False):
             s_np, sp_np = sched.numpy(), spheres.numpy()
             a_np, o_np = accum.numpy(), output.numpy()
             assert host_lib.l2n_sphere_pt_host(
-                _ptr(ip), _ptr(fp), _ptr(s_np), _ptr(sp_np), _ptr(a_np),
-                _ptr(o_np), None if planes is None else _ptr(planes.numpy())
-            ) == 0
+                _ptr(ip), _ptr(fp), _ptr(s_np), _ptr(sp_np), None,
+                _ptr(a_np), _ptr(o_np),
+                None if planes is None else _ptr(planes.numpy())) == 0
     if with_state:
         return accum.numpy(), output.numpy(), planes
     return accum.numpy(), output.numpy()
@@ -1132,11 +1229,12 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
         m, s = buf.slab_bounds.shape[:2]
         ip, fp = step_params(cfg, k, m, cam)
         arrays = [sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-                  buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, accum,
-                  output]
+                  buf.sub_bounds, buf.tris, buf.attrs, buf.albedo,
+                  buf.material]
         assert host_lib.l2n_triangle_pt_host(
             _ptr(ip), _ptr(fp), s, s * 128,
-            *(_ptr(a.numpy()) for a in arrays), None) == 0
+            *(_ptr(a.numpy()) for a in arrays), None, _ptr(accum.numpy()),
+            _ptr(output.numpy()), None) == 0
     return accum.numpy(), output.numpy()
 
 
@@ -1267,7 +1365,7 @@ from l2n_tpu_torch.scene import (build_triangle_scene, compute_spheres,
                                  load_obj, torus_field_obj)
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
-lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 11
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
 cfg = RenderConfig(width=128, height=64, scene_kind="triangle",
                    aov=sys.argv[2] if len(sys.argv) > 2 else "pathtracing")
 cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
@@ -1281,11 +1379,12 @@ for scene in (build_triangle_scene(compute_spheres(128)),
     ip, fp = step_params(cfg, cfg.tile_count, m, Camera.from_config(cfg).packed())
     arrays = [ip, fp] + [t.numpy() for t in (
         sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-        buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, accum, output)]
+        buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, buf.material,
+        accum, output)]
     ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]
     for _ in range(2):
-        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:],
-                                        None) == 0
+        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:11],
+                                        None, *ptrs[11:], None) == 0
     assert float(accum[3].sum()) == 2 * cfg.padded_height * cfg.padded_width
 print("clean")
 """
@@ -1348,7 +1447,7 @@ print("clean")
 """
 
 
-def test_wavefront_header_memcheck_asan(tmp_path):
+def test_wavefront_header_memcheck_asan(asan_build):
     """The memory check of the wavefront passes: the header built with
     AddressSanitizer runs passes A and B on two whole-frame steps of the
     default 128-sphere scene and of 100 spheres (pass B's groups of 8 end
@@ -1357,10 +1456,10 @@ def test_wavefront_header_memcheck_asan(tmp_path):
     n_lanes entries each, so a slot written past n_lanes is caught; every
     lane's back is written exactly once, by pass A (the dead lanes, 0) or by
     pass B (each survivor's lane, which the slots name once)."""
-    _asan_render(tmp_path, script=ASAN_WAVEFRONT)
+    _asan_render(asan_build, script=ASAN_WAVEFRONT)
 
 
-def test_triangle_header_memcheck_asan(tmp_path):
+def test_triangle_header_memcheck_asan(asan_build):
     """The memory check of the triangle traversal (ROADMAP Queue 3 #4: never
     read a slab past a mesh's count): the header built with
     AddressSanitizer renders the default 128-mesh scene and the multi-slab
@@ -1368,21 +1467,21 @@ def test_triangle_header_memcheck_asan(tmp_path):
     its size, through the culled primaries' lists and the per-lane walk.
     compute-sanitizer, the card's counterpart, does not run on the card's
     machine."""
-    _asan_render(tmp_path)
+    _asan_render(asan_build)
 
 
-def test_triangle_header_memcheck_asan_list_overflow(tmp_path):
+def test_triangle_header_memcheck_asan_list_overflow(asan_build):
     """The same memory check with a two-entry per-lane mesh list, so the
     walk's chunked rescans run (ROADMAP Queue 3 #15)."""
-    _asan_render(tmp_path, "-DL2N_LANE_LIST=2")
+    _asan_render(asan_build, "-DL2N_LANE_LIST=2")
 
 
-def test_triangle_header_memcheck_asan_ambient_occlusion(tmp_path):
+def test_triangle_header_memcheck_asan_ambient_occlusion(asan_build):
     """The same memory check for the ambient-occlusion AOV, whose second
     cast walks every mesh with its own bound direction (TriSceneView::
     occluded), with a two-entry per-lane list so that cast's chunked
     rescans run too (ROADMAP Queue 3 #15)."""
-    _asan_render(tmp_path, "-DL2N_LANE_LIST=2", args=("ambient_occlusion",))
+    _asan_render(asan_build, "-DL2N_LANE_LIST=2", args=("ambient_occlusion",))
 
 
 ASAN_ONEHOT = r"""
@@ -1480,25 +1579,25 @@ print("clean")
 """
 
 
-def test_sweep_mma_header_memcheck_asan(tmp_path):
+def test_sweep_mma_header_memcheck_asan(asan_build):
     """The memory check of the mma sweep's pieces (ROADMAP Queue 3 #15):
     the header built with AddressSanitizer runs the host sweep over 4,096
     rays at (n, repeats) = (24, 3) and (120, 5), every buffer exactly
     sized, bit-equal to the plain sweep_mma in acc and index."""
-    _asan_render(tmp_path, script=ASAN_MMA)
+    _asan_render(asan_build, script=ASAN_MMA)
 
 
-def test_sweep_chunked_header_memcheck_asan(tmp_path):
+def test_sweep_chunked_header_memcheck_asan(asan_build):
     """The memory check of sweep_variants' chunked sweep (ROADMAP Queue 3
     #15): the header built with AddressSanitizer sweeps 4,096 rays over a
     packed buffer of exactly n spheres, 4 repeats a chunk, at (n, repeats)
     = (100, 5) and (13, 3), carry and gather, bit-equal to the plain
     versions: neither the unrolled sphere loop, its remainder, the gather
     nor a remainder chunk reads past the last sphere."""
-    _asan_render(tmp_path, script=ASAN_SWEEP)
+    _asan_render(asan_build, script=ASAN_SWEEP)
 
 
-def test_onehot_split_header_memcheck_asan(tmp_path):
+def test_onehot_split_header_memcheck_asan(asan_build):
     """The memory check of onehot_recovery's split sweep (ROADMAP Queue 3
     #15): the header built with AddressSanitizer sweeps 4,096 rays with 32
     lanes per ray over a packed buffer of exactly S spheres and gathers
@@ -1506,10 +1605,14 @@ def test_onehot_split_header_memcheck_asan(tmp_path):
     every group hold no sphere) and S = 100 (a partial last round), carry
     and gather, bit-equal to the plain versions: a lane past the last
     sphere reads none."""
-    _asan_render(tmp_path, script=ASAN_ONEHOT)
+    _asan_render(asan_build, script=ASAN_ONEHOT)
 
 
-def _asan_render(tmp_path, *defines, script=ASAN_RENDER, args=()):
+@pytest.fixture(scope="module")
+def asan_build(tmp_path_factory):
+    """build(*defines) -> (the shim built with AddressSanitizer, the ASan
+    runtime), compiled once per set of defines for the module (~30 s a
+    build)."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++")
@@ -1517,13 +1620,27 @@ def _asan_render(tmp_path, *defines, script=ASAN_RENDER, args=()):
                           capture_output=True, text=True).stdout.strip()
     if not Path(asan).is_file():
         pytest.skip("no AddressSanitizer runtime")
-    (tmp_path / "shim.cpp").write_text(SHIM)
-    lib_path = tmp_path / "libtriangle_asan.so"
-    subprocess.run([cxx, "-O1", "-g", "-fsanitize=address",
-                    "-fno-omit-frame-pointer", "-ffp-contract=off",
-                    "-std=c++17", "-shared", "-fPIC", *defines, f"-I{CSRC}",
-                    str(tmp_path / "shim.cpp"), "-o", str(lib_path)],
-                   check=True, capture_output=True, text=True)
+    built = {}
+
+    def build(*defines):
+        if defines not in built:
+            d = tmp_path_factory.mktemp("asan")
+            (d / "shim.cpp").write_text(SHIM)
+            lib_path = d / "libtriangle_asan.so"
+            subprocess.run([cxx, "-O1", "-g", "-fsanitize=address",
+                            "-fno-omit-frame-pointer", "-ffp-contract=off",
+                            "-std=c++17", "-shared", "-fPIC", *defines,
+                            f"-I{CSRC}", str(d / "shim.cpp"), "-o",
+                            str(lib_path)],
+                           check=True, capture_output=True, text=True)
+            built[defines] = lib_path
+        return built[defines], asan
+
+    return build
+
+
+def _asan_render(asan_build, *defines, script=ASAN_RENDER, args=()):
+    lib_path, asan = asan_build(*defines)
     env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
                PYTHONPATH=str(CSRC.parents[1]))
     proc = subprocess.run([sys.executable, "-c", script, str(lib_path), *args],
@@ -1722,11 +1839,12 @@ def _triangle_host_vs_plain_with_state(lib, cfg):
             m, s = buf.slab_bounds.shape[:2]
             ip, fp = step_params(cfg, k, m, cam)
             arrays = [sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-                      buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, accum,
-                      output, planes]
+                      buf.sub_bounds, buf.tris, buf.attrs, buf.albedo,
+                      buf.material]
             assert lib.l2n_triangle_pt_host(
                 _ptr(ip), _ptr(fp), s, s * 128,
-                *(_ptr(a.numpy()) for a in arrays)) == 0
+                *(_ptr(a.numpy()) for a in arrays), None,
+                *(_ptr(a.numpy()) for a in (accum, output, planes))) == 0
         frames.append((accum.numpy(), planes.numpy()))
     (ha, hs), (pa, ps) = frames
     assert (pa[:3].max(0) > 0).mean() > 0.05
@@ -2077,3 +2195,462 @@ def test_philox_blocks_header_matches_plain(lib, k, h):
                              k, h)
     assert (writes == 1).all()
     np.testing.assert_array_equal(out.view(np.int32), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The material modes, the bump and the explicit lights (csrc/brdf.cuh,
+# csrc/pathtrace.cuh scatter_materials / explicit_lights)
+# ---------------------------------------------------------------------------
+
+# tests/test_tpu_hw.py's explicit-light buffers: two Phong albedos, a point
+# light at the origin, a directional light.
+LIGHT_BUFFERS = dict(
+    diffuse=np.array([[0.9, 0.2, 0.2, 1.0], [0.2, 0.9, 0.2, 1.0]],
+                     np.float32),
+    point=(np.zeros((1, 3), np.float32),
+           np.array([[5e7, 4e7, 3e7]], np.float32)),
+    directional=(np.array([[0.3, -1.0, 0.2]], np.float32),
+                 np.array([[0.5, 0.5, 0.6]], np.float32)))
+
+
+def _explicit_lights(phong=True):
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    from l2n_tpu_torch.scene.materials import (
+        DirectionalLights,
+        PhongMaterials,
+        PointLights,
+    )
+    b = LIGHT_BUFFERS
+    mats = PhongMaterials.from_arrays(
+        b["diffuse"], np.zeros((2, 3), np.float32),
+        np.zeros(2, np.float32)) if phong else None
+    return ExplicitLights(mats, PointLights.from_arrays(*b["point"]),
+                          DirectionalLights.from_arrays(*b["directional"]))
+
+
+def _brdf_lanes(n=4096, seed=21):
+    """Lanes of (n, wo, wi, kd, material rows): unit normals, wo in the
+    upper hemisphere (some grazing), wi anywhere (a third below the
+    horizon, some grazing); roughness in {0.1, 0.4, 1.0} and random,
+    metallic in {0, 1} and random, the other channels random."""
+    gen = np.random.Generator(np.random.PCG64(seed))
+
+    def unit(k):
+        v = gen.normal(size=(3, k))
+        return v / np.linalg.norm(v, axis=0)
+
+    nv = unit(n)
+    wo = unit(n)
+    wo *= np.sign((wo * nv).sum(0))
+    wi = unit(n)
+    graze = np.arange(n) % 7 == 0  # wi and wo nearly in the tangent plane
+    for w in (wo, wi):
+        t = w - (w * nv).sum(0) * nv
+        t /= np.linalg.norm(t, axis=0)
+        w[:, graze] = (t + 1e-3 * nv)[:, graze]
+        w /= np.linalg.norm(w, axis=0)
+    mat = gen.random((6, n))
+    mat[0] = np.choose(np.arange(n) % 4, [0.1, 0.4, 1.0, mat[0]])
+    mat[1] = np.choose(np.arange(n) // 4 % 3, [0.0, 1.0, mat[1]])
+    kd = gen.random((3, n))
+    f = np.float32
+    return tuple(np.ascontiguousarray(a, f) for a in (nv, wo, wi, kd, mat))
+
+
+def _libm_trig_agrees(x64) -> np.ndarray:
+    """Where the C library's sinf and cosf of float32(x) equal torch's
+    (the host build's and the plain CPU path's transcendentals)."""
+    libm = ctypes.CDLL("libm.so.6")
+    for name in ("sinf", "cosf"):
+        getattr(libm, name).argtypes = [ctypes.c_float]
+        getattr(libm, name).restype = ctypes.c_float
+    x = np.asarray(x64, np.float32)
+    t = torch.from_numpy(x)
+    c_sin = np.array([libm.sinf(v) for v in x.tolist()], np.float32)
+    c_cos = np.array([libm.cosf(v) for v in x.tolist()], np.float32)
+    return (c_sin == torch.sin(t).numpy()) & (c_cos == torch.cos(t).numpy())
+
+
+@pytest.mark.parametrize("mode", ["microfacet", "disney"])
+def test_brdf_header_matches_plain(lib, mode):
+    """csrc/brdf.cuh's eval and sample of each material mode against
+    maths/brdf.py on lanes with roughness 0.1, 0.4, 1.0 and metallic 0, 1,
+    grazing angles and directions below the horizon (f and pdf 0 there).
+    eval takes no transcendental: bit-equal. sample takes the C library's
+    sinf/cosf against torch's: bit-equal where those agree on the azimuth,
+    elsewhere directions within 1e-6, pdf and weight within 1e-3 relative
+    (the card's nvcc and torch share those functions, and chip_smoke.py
+    holds them to max abs 0)."""
+    from l2n_tpu_torch.maths.brdf import (
+        eval_brdf,
+        eval_disney,
+        sample_brdf,
+        sample_disney,
+    )
+    from l2n_tpu_torch.maths.sampling import frame_z
+    from l2n_tpu_torch.ops.kernels.common import MATERIAL_CODES
+    nv, wo, wi, kd, mat = _brdf_lanes()
+    n = nv.shape[1]
+    code = MATERIAL_CODES[mode]
+    t = [tuple(torch.from_numpy(a[c]) for c in range(3))
+         for a in (nv, wo, wi, kd)]
+    m = [torch.from_numpy(mat[c]) for c in range(6)]
+    if mode == "disney":
+        want = eval_disney(*t, m[0], *m[1:5])
+    else:
+        want = eval_brdf(*t, m[0])
+    f = np.empty((3, n), np.float32)
+    pdf = np.empty(n, np.float32)
+    lib.l2n_eval_material_host(code, *map(_ptr, (nv, wo, wi, kd, mat)), n,
+                               _ptr(f), _ptr(pdf))
+    np.testing.assert_array_equal(f, torch.stack(want[:3]).numpy())
+    np.testing.assert_array_equal(pdf, want[3].numpy())
+    below = (nv * wi).sum(0) <= 0
+    assert below.mean() > 0.3 and (pdf[below] == 0).all()
+    assert (pdf[~below] > 0).mean() > 0.99
+
+    gen = np.random.Generator(np.random.PCG64(22))
+    u = gen.random((3, n), dtype=np.float32)
+    ut = [torch.from_numpy(u[c]) for c in range(3)]
+    frame = frame_z(*t[0])
+    if mode == "disney":
+        wwi, ww, wpdf = sample_disney(*ut, t[0], frame, t[1], t[3], m[0],
+                                      *m[1:5])
+    else:
+        wwi, ww, wpdf = sample_brdf(*ut, t[0], frame, t[1], t[3], m[0])
+    gwi, gw = np.empty((3, n), np.float32), np.empty((3, n), np.float32)
+    gpdf = np.empty(n, np.float32)
+    lib.l2n_sample_material_host(code, *map(_ptr, (u, nv, wo, kd, mat)), n,
+                                 _ptr(gwi), _ptr(gw), _ptr(gpdf))
+    # Bit-equal on the lanes where the C library's sinf and cosf of the
+    # azimuth equal torch's; elsewhere within an ulp's consequences (the
+    # GGX pdf at roughness 0.1 is steep: up to ~1.3e-4 relative).
+    same = _libm_trig_agrees((2.0 * np.pi) * u[2])
+    assert same.mean() > 0.9
+    for got, want in ((gwi, torch.stack(wwi)), (gw, torch.stack(ww)),
+                      (gpdf, wpdf)):
+        np.testing.assert_array_equal(got[..., same], want.numpy()[..., same])
+    np.testing.assert_allclose(gwi, torch.stack(wwi).numpy(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(gpdf, wpdf.numpy(), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(gw, torch.stack(ww).numpy(), rtol=1e-3,
+                               atol=1e-6)
+    assert (gpdf > 0).mean() > 0.5 and np.isfinite(gw).all()
+
+
+def test_bump_header_matches_plain(lib):
+    """csrc/brdf.cuh's perturb_normal against maths/bump.py: unit results
+    within 1e-6 of the plain ones (the C library's cosf against torch's),
+    normals of any length on entry."""
+    from l2n_tpu_torch.maths.bump import perturb_normal
+    gen = np.random.Generator(np.random.PCG64(23))
+    n = 4096
+    pts = (gen.random((3, n)) * 1024 - 512).astype(np.float32)
+    nv = (gen.normal(size=(3, n)) * gen.random(n) * 3).astype(np.float32)
+    bump = (0.25 + 0.75 * gen.random(n)).astype(np.float32)
+    cfg = RenderConfig(normal_map=0.8, normal_map_freq=0.35).validate()
+    ip, fp = step_params(cfg, 1, 1, np.zeros((10, 4), np.float32))
+    out = np.empty((3, n), np.float32)
+    lib.l2n_perturb_normal_host(_ptr(ip), _ptr(fp), _ptr(bump), _ptr(pts),
+                                _ptr(nv), n, _ptr(out))
+    want = torch.stack(perturb_normal(
+        cfg, torch.from_numpy(bump), tuple(torch.from_numpy(pts)),
+        tuple(torch.from_numpy(nv)))).numpy()
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(out, axis=0), 1.0, atol=1e-6)
+    unbumped = nv / np.linalg.norm(nv, axis=0)
+    assert np.abs(out - unbumped).max() > 0.1
+
+
+def test_explicit_lights_header_matches_plain(lib):
+    """csrc/pathtrace.cuh's light loop (a nearest-hit shadow cast per light
+    over the sphere scene, Lambert's kd / pi) against
+    ops/lights.explicit_light_contribution on vertices on the spheres'
+    surfaces, some of whose lights are occluded: bit-equal (no
+    transcendental), with both lit and shadowed lanes."""
+    from l2n_tpu_torch.ops.lights import explicit_light_contribution
+    from l2n_tpu_torch.ops.scenes import sphere_intersector
+    cfg = RenderConfig(sphere_count=128).validate()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    spheres = sc.packed()
+    gen = np.random.Generator(np.random.PCG64(24))
+    n = 4096
+    idx = gen.integers(0, 128, n)
+    nv = gen.normal(size=(3, n))
+    nv /= np.linalg.norm(nv, axis=0)
+    c = spheres[:3].numpy()[:, idx].astype(np.float64)
+    h = (c + nv * np.sqrt(spheres[3].numpy()[idx])).astype(np.float32)
+    nv = nv.astype(np.float32)
+    kd = gen.random((3, n), dtype=np.float32)
+    tp = gen.random((3, n), dtype=np.float32)
+    lights = _explicit_lights()
+    ip, fp = step_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
+                         lights)
+    col = np.zeros((3, n), np.float32)
+    rows = lights.buffer("cpu").numpy()
+    lib.l2n_explicit_lights_host(_ptr(ip), _ptr(fp),
+                                 _ptr(spheres.numpy()), _ptr(rows),
+                                 *map(_ptr, (h, nv, kd, tp)), n, _ptr(col))
+    intersect = sphere_intersector(*spheres[:4])
+    want = explicit_light_contribution(
+        cfg, lights, intersect, tuple(torch.from_numpy(h)),
+        tuple(torch.from_numpy(nv)), tuple(torch.from_numpy(kd)),
+        tuple(torch.from_numpy(tp)))
+    np.testing.assert_array_equal(col, torch.stack(want).numpy())
+    lit = col.max(0) > 0
+    assert 0.1 < lit.mean() < 0.9
+
+
+MATERIAL_CASES = {
+    "microfacet": {"material_mode": "microfacet"},
+    "disney": {"material_mode": "disney"},
+    "bump": {"normal_map": 0.8},
+    "bump_microfacet": {"normal_map": 0.8, "material_mode": "microfacet"},
+    "normal_aov_bump": {"normal_map": 0.8, "aov": "normal"},
+    "microfacet_fast_math": {"material_mode": "microfacet",
+                             "fast_math": True},
+    "disney_bump_tpu_hw": {"material_mode": "disney", "normal_map": 0.8,
+                           "rng": "tpu_hw"},
+    "microfacet_tinymt": {"material_mode": "microfacet", "rng": "tinymt"},
+    "disney_bump_tauslcg": {"material_mode": "disney", "normal_map": 0.8,
+                            "rng": "tauslcg"},
+    "lights": {"lights": True},
+    "lights_microfacet": {"material_mode": "microfacet", "lights": True},
+    "lights_disney_bump": {"material_mode": "disney", "normal_map": 0.8,
+                           "lights": True},
+}
+
+
+def _material_render(cfg, cam, steps, host_lib=None, lights=None):
+    """accum, output and the state planes after `steps` steps of the plain
+    step or the host-built header, with `lights` (its Phong albedo written
+    into the table, as the render step does)."""
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    if lights is not None:
+        sc = sc.with_tables(albedo=lights.override_albedo(sc.albedo))
+    spheres = sc.packed()
+    kl = lights if lights is not None and lights.has_lights else None
+    rows = None if kl is None else kl.buffer("cpu").numpy()
+    tiles = torch.as_tensor(tile_grid(cfg))
+    accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+    output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+    planes = init_rng_state(cfg)
+    k = cfg.effective_tiles_per_step
+    for i in range(steps):
+        sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+        if host_lib is None:
+            sphere_pt_plain(cfg, sched, cam, spheres, accum, output, planes,
+                            kl)
+            continue
+        ip, fp = step_params(cfg, k, sc.count, cam, kl)
+        assert host_lib.l2n_sphere_pt_host(
+            _ptr(ip), _ptr(fp), _ptr(sched.numpy()), _ptr(spheres.numpy()),
+            None if rows is None else _ptr(rows), _ptr(accum.numpy()),
+            _ptr(output.numpy()),
+            None if planes is None else _ptr(planes.numpy())) == 0
+    return accum.numpy(), output.numpy(), planes
+
+
+@pytest.mark.parametrize("case", list(MATERIAL_CASES))
+def test_material_header_matches_plain_step(lib, case):
+    """The kernels' materials body (the material modes, the bump, the
+    explicit lights' loop over the staged table rows and light rows) and the
+    bumped normal AOV against the plain step on the aimed 16-sphere view,
+    2 steps, in every rng mode among the cases: accum[3] equal, accum RMSE
+    < 1e-3, output |d| > 1e-3 on under 2e-3 of the values (the C library's
+    sinf/cosf against torch's), the stateful modes' state planes
+    bit-equal, a lit frame (hits cover a tenth of the view for the AOV)."""
+    kw = dict(MATERIAL_CASES[case])
+    lights = _explicit_lights() if kw.pop("lights", False) else None
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, **kw).validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    ha, ho, hs = _material_render(cfg, cam, 2, lib, lights)
+    pa, po, ps = _material_render(cfg, cam, 2, None, lights)
+    lit = (np.abs(pa[:3]).max(0) > 0).mean()
+    assert lit > (0.05 if cfg.aov == "normal" else 0.3), lit
+    np.testing.assert_array_equal(ha[3], pa[3])
+    rmse = np.sqrt(((ha - pa) ** 2).mean())
+    assert rmse < 1e-3, f"host header / plain RMSE {rmse}"
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+    if ps is not None:
+        np.testing.assert_array_equal(hs.numpy(), ps.numpy())
+    if lights is not None:  # the lights add light to the frame
+        base, _, _ = _material_render(cfg, cam, 2)
+        assert pa[:3].sum() > 1.05 * base[:3].sum()
+
+
+@pytest.mark.parametrize("case", ["microfacet", "disney_bump",
+                                  "lights_microfacet", "normal_aov_bump"])
+def test_material_triangle_header_matches_plain_step(lib, case):
+    """The same for meshes: the triangle walk's materials body (the table's
+    material rows staged beside the albedo, the lights' shadow casts through
+    TriSceneView::nearest) against the plain brute-force step, 2 steps of
+    the aimed small triangle config."""
+    kw = {"microfacet": {"material_mode": "microfacet"},
+          "disney_bump": {"material_mode": "disney", "normal_map": 0.8},
+          "lights_microfacet": {"material_mode": "microfacet"},
+          "normal_aov_bump": {"normal_map": 0.8, "aov": "normal"}}[case]
+    lights = _explicit_lights() if case.startswith("lights") else None
+    cfg = TRI_CFG.replace(**kw).validate()
+    scene = build_triangle_scene(compute_spheres(
+        cfg.sphere_count, cfg.world_size, cfg.scene_seed),
+        cfg.disc_lat, cfg.disc_long)
+    cam = _tri_aimed_camera(cfg).packed()
+    buf = TriangleBuffers.from_scene(scene)
+    if lights is not None:
+        buf = buf.with_tables(albedo=lights.override_albedo(buf.albedo.T))
+    rows = None if lights is None else lights.buffer("cpu").numpy()
+    tiles = torch.as_tensor(tile_grid(cfg))
+    k = cfg.effective_tiles_per_step
+    frames = []
+    for host in (True, False):
+        accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+        output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+        for i in range(2):
+            sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+            if not host:
+                triangle_pt_plain(cfg, sched, cam, buf, accum, output,
+                                  None, lights)
+                continue
+            m, s = buf.slab_bounds.shape[:2]
+            ip, fp = step_params(cfg, k, m, cam, lights)
+            arrays = [sched, buf.mesh_bounds, buf.slab_count,
+                      buf.slab_bounds, buf.sub_bounds, buf.tris, buf.attrs,
+                      buf.albedo, buf.material]
+            assert lib.l2n_triangle_pt_host(
+                _ptr(ip), _ptr(fp), s, s * 128,
+                *(_ptr(a.numpy()) for a in arrays),
+                None if rows is None else _ptr(rows), _ptr(accum.numpy()),
+                _ptr(output.numpy()), None) == 0
+        frames.append((accum.numpy(), output.numpy()))
+    (ha, ho), (pa, po) = frames
+    assert (np.abs(pa[:3]).max(0) > 0).mean() > 0.05
+    np.testing.assert_array_equal(ha[3], pa[3])
+    d = np.abs(ha - pa)
+    assert np.sqrt((d ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+@pytest.mark.parametrize("mode", ["microfacet", "disney"])
+def test_material_wavefront_header_matches_plain_step(lib, mode):
+    """Passes A, B (each ray's sweeps split into 8 parts) and C of the
+    headers' materials body, chained on the host, against the plain
+    wavefront step, which resumes pass B's stream at (3, False) in the
+    material modes (no spare pending): 2 steps of the aimed view with the
+    bump and 2 spp, the fused step's gates."""
+    from l2n_tpu_torch.ops.kernels.wavefront import (
+        sphere_wavefront_step_plain,
+    )
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, wavefront=True, spp_per_step=2,
+                       material_mode=mode, normal_map=0.8).validate()
+    assert wavefront_draw_position(cfg) == (3, False)
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    spheres = compute_spheres(cfg.sphere_count, cfg.world_size,
+                              cfg.scene_seed).packed()
+    tiles = torch.as_tensor(tile_grid(cfg))
+    k = cfg.effective_tiles_per_step
+    n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+    ip, fp = step_params(cfg, k, spheres.shape[1], cam)
+    frames = []
+    for host in (True, False):
+        accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+        output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+        for i in range(2):
+            sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+            if not host:
+                sphere_wavefront_step_plain(cfg, sched, cam, spheres, accum,
+                                            output)
+                continue
+            col, back = np.empty((3, n), np.float32), np.empty((3, n),
+                                                                np.float32)
+            rays = np.empty((9, n), np.float32)
+            meta = np.empty((3, n), np.int32)
+            n_alive = np.zeros(1, np.int32)
+            assert lib.l2n_wavefront_pass_a_host(
+                _ptr(ip), _ptr(fp), _ptr(sched.numpy()),
+                _ptr(spheres.numpy()), _ptr(accum.numpy()),
+                *map(_ptr, (col, back, rays, meta, n_alive))) == 0
+            assert 0 < n_alive[0] < n
+            assert lib.l2n_wavefront_pass_b_host(
+                _ptr(ip), _ptr(fp), 8, 3, 0,
+                *map(_ptr, (n_alive, spheres.numpy(), rays, meta,
+                            back))) == 0
+            assert lib.l2n_wavefront_pass_c_host(
+                _ptr(ip), _ptr(fp), _ptr(sched.numpy()), _ptr(col),
+                _ptr(back), _ptr(accum.numpy()), _ptr(output.numpy())) == 0
+        frames.append((accum.numpy(), output.numpy()))
+    (ha, ho), (pa, po) = frames
+    assert (pa[:3].max(0) > 0).mean() > 0.3
+    np.testing.assert_array_equal(ha[3], pa[3])
+    assert np.sqrt(((ha - pa) ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+ASAN_MATERIALS = r"""
+import ctypes, sys
+import numpy as np, torch
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.ops.lights import ExplicitLights
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import build_triangle_scene, compute_spheres
+from l2n_tpu_torch.scene.materials import DirectionalLights, PointLights
+lib = ctypes.CDLL(sys.argv[1])
+p = ctypes.c_void_p
+lib.l2n_sphere_pt_host.argtypes = [p] * 8
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+# Two point lights and three directional ones, each buffer exactly its
+# size: the light loop reads 6 floats per light and no more.
+lights = ExplicitLights(None, PointLights.from_arrays(
+    np.array([[0, 0, 0], [100, 200, -50]], np.float32),
+    np.array([[5e7, 4e7, 3e7], [1e7, 1e7, 1e7]], np.float32)),
+    DirectionalLights.from_arrays(
+        np.array([[0.3, -1, 0.2], [0, 0, 1], [-1, 0.5, 0]], np.float32),
+        np.full((3, 3), 0.5, np.float32)))
+rows = np.ascontiguousarray(lights.buffer("cpu").numpy())
+for mode in ("microfacet", "disney"):
+    cfg = RenderConfig(width=128, height=64, material_mode=mode,
+                       normal_map=0.8)
+    cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+    sched = np.ascontiguousarray(tile_grid(cfg), np.int32)
+    cam = Camera.from_config(cfg).packed()
+    # spheres: the (13, n) table of exactly n columns; 13 spheres
+    for count in (128, 13):
+        spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
+        accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+        output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        assert lib.l2n_sphere_pt_host(*map(ptr, (
+            ip, fp, sched, spheres, rows, accum, output)), None) == 0
+        assert accum[:3].max() > 0
+    tcfg = cfg.replace(scene_kind="triangle").validate()
+    buf = TriangleBuffers.from_scene(build_triangle_scene(compute_spheres(16),
+                                                          8, 8))
+    m, s = buf.slab_bounds.shape[:2]
+    accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+    output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    arrays = [np.ascontiguousarray(t.numpy()) for t in (
+        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
+        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    assert lib.l2n_triangle_pt_host(
+        ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
+        ptr(rows), ptr(accum), ptr(output), None) == 0
+    assert accum[3].sum() == cfg.padded_height * cfg.padded_width
+print("clean")
+"""
+
+
+def test_material_header_memcheck_asan(asan_build):
+    """The memory check of the materials body (ROADMAP Queue 3 #15): the
+    header built with AddressSanitizer renders whole frames of the
+    microfacet and Disney modes with the bump and five explicit lights, on
+    128 and 13 spheres and on 16 tessellated meshes, every table, light
+    and scene buffer a heap array of exactly its size: the extra table rows
+    and the light loop read nothing past them."""
+    _asan_render(asan_build, script=ASAN_MATERIALS)

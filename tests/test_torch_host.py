@@ -68,11 +68,14 @@ def test_compute_spheres_byte_equal(count, world, seed):
 
 
 def test_packed_scene_layout():
+    """Rows: centre, r^2, the albedo, then the material table's six
+    channels (scene/materials.MATERIAL_CHANNELS)."""
     t = compute_spheres(16)
     p = t.packed()
-    assert p.shape == (7, 16) and p.is_contiguous()
+    assert p.shape == (13, 16) and p.is_contiguous()
     _bytes_equal(p[3].numpy(), t.sqr_radius.numpy())
-    _bytes_equal(p[4:].T.numpy(), t.albedo.numpy())
+    _bytes_equal(p[4:7].T.numpy(), t.albedo.numpy())
+    _bytes_equal(p[7:].T.numpy(), t.material.numpy())
 
 
 @pytest.mark.parametrize("kw", [{}, {"width": 256, "height": 128},

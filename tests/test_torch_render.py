@@ -189,11 +189,14 @@ def test_backend_cuda_without_card_raises(monkeypatch):
     # case was written; item None: the setting has been ported since and
     # the case builds and renders a step: tex_coords on spheres (#8), the
     # sun sky, viewproj, fast_math and the normal AOV (#9, its first
+    # slice), the material modes and normal mapping (#9, its second
     # slice), the stateful rng modes (#10) and the wavefront step (#13).
     pytest.param({"aov": "tex_coords"}, None, id="kw0-#8"),
     pytest.param({"rng": "tinymt"}, None, id="kw1-#10"),
-    ({"nee": True}, "#9"), ({"material_mode": "microfacet"}, "#9"),
-    ({"normal_map": 0.5}, "#9"), ({"fog_density": 0.01}, "#9"),
+    ({"nee": True}, "#9"),
+    pytest.param({"material_mode": "microfacet"}, None, id="kw3-#9"),
+    pytest.param({"normal_map": 0.5}, None, id="kw4-#9"),
+    ({"fog_density": 0.01}, "#9"),
     pytest.param({"env_mode": "sun"}, None, id="kw6-#9"),
     pytest.param({"ray_gen": "viewproj"}, None, id="kw7-#9"),
     pytest.param({"fast_math": True}, None, id="kw8-#9"),
@@ -233,9 +236,37 @@ def test_sphere_wavefront_config_builds_and_renders():
 
 
 def test_unsupported_program_options_raise(tmp_path):
-    cfg = RenderConfig(width=128, height=64, sphere_count=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        SphereProgram(cfg, backend="torch", point_lights=[])
+    """The explicit material and light buffers were refused (Queue 1 #9)
+    until its second slice: a program with them now renders, and lights
+    with wavefront=True raise ValueError, as in the JAX package."""
+    from l2n_tpu_torch.scene.materials import (
+        DirectionalLights,
+        PhongMaterials,
+        PointLights,
+    )
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2)
+    mats = PhongMaterials.from_arrays(
+        np.array([[0.9, 0.2, 0.2, 1.0]], np.float32),
+        np.zeros((1, 3), np.float32), np.zeros(1, np.float32))
+    lights = dict(point_lights=PointLights.from_arrays(
+        np.zeros((1, 3), np.float32), np.array([[5e7, 4e7, 3e7]], np.float32)),
+        directional_lights=DirectionalLights.from_arrays(
+            np.array([[0.3, -1.0, 0.2]], np.float32),
+            np.array([[0.5, 0.5, 0.6]], np.float32)))
+    cam = _aimed_camera(cfg).packed()
+    sums = []
+    for kw in ({}, {"materials": mats, **lights}):
+        prog = SphereProgram(cfg, backend="torch", **kw)
+        st = prog.step(init_frame_state(cfg), cam)
+        assert bool(torch.isfinite(st.accum).all())
+        sums.append(float(st.accum[:3].sum()))
+    assert sums[1] > sums[0] > 0
+    with pytest.raises(ValueError, match="wavefront"):
+        SphereProgram(cfg.replace(wavefront=True), backend="torch", **lights)
+    with pytest.raises(ValueError, match="wavefront"):
+        SphereProgram(cfg.replace(wavefront=True), backend="torch",
+                      materials=mats)
     # The texcoord AOVs were mesh-only (#8) until the sphere family took
     # them: both renderers now build and render one.
     app = Application(cfg.replace(aov="tex_coords"), workdir=tmp_path,
@@ -251,7 +282,9 @@ SLICE_MODULES = [
     "l2n_tpu_torch.rng.tauslcg", "l2n_tpu_torch.rng.tinymt_params",
     "l2n_tpu_torch.rng.state", "l2n_tpu_torch.rng.sampler",
     "l2n_tpu_torch.maths.linalg", "l2n_tpu_torch.maths.fastmath",
-    "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.camera.camera",
+    "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.maths.brdf",
+    "l2n_tpu_torch.maths.bump", "l2n_tpu_torch.scene.materials",
+    "l2n_tpu_torch.ops.lights", "l2n_tpu_torch.camera.camera",
     "l2n_tpu_torch.camera.cache", "l2n_tpu_torch.camera.view_controller",
     "l2n_tpu_torch.scene.spheres", "l2n_tpu_torch.scene.tessellate",
     "l2n_tpu_torch.scene.obj", "l2n_tpu_torch.scene.procgen",

@@ -387,7 +387,10 @@ def test_switch_renderer_clears_accumulation(tmp_path):
     # accepted now, and each AOV renders a step.
     pytest.param({"aov": "normal"}, True, id="kw4-#9"),
     pytest.param({"aov": "ambient_occlusion"}, True, id="kw5-#9"),
-    pytest.param({"wavefront": True}, True, id="kw6-#13")])
+    pytest.param({"wavefront": True}, True, id="kw6-#13"),
+    # The material modes and the bump: Queue 1 #9's second slice.
+    pytest.param({"material_mode": "disney", "normal_map": 0.8}, True,
+                 id="kw7-#9")])
 def test_check_supported_triangle(kw, ok):
     cfg = _small_cfg(scene_kind="triangle", **kw)
     if ok is not True:
@@ -397,7 +400,8 @@ def test_check_supported_triangle(kw, ok):
     check_supported(cfg)
     if "aov" in kw:  # the sphere family takes every AOV too (#8, #9)
         check_supported(cfg.replace(scene_kind="sphere"))
-    if kw.get("aov") in ("normal", "ambient_occlusion"):
+    if kw.get("aov") in ("normal", "ambient_occlusion") or kw.get(
+            "material_mode"):
         cfg = cfg.replace(max_bounces=1)
         scene = build_triangle_scene(compute_spheres(
             cfg.sphere_count, cfg.world_size, cfg.scene_seed),
