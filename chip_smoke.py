@@ -17,7 +17,13 @@ pass B splits each ray's sweeps over 8 lanes (phase 24), holds sphere_pt,
 triangle_pt and wavefront passes A/B to their plain versions with the
 primary-only AOVs (normal, hit, ambient occlusion), the sun sky, the
 viewproj camera and fast_math in every rng mode, with a view whose misses
-see the sun (phases 25-28), drives their main paths (phase 29), and times
+see the sun (phases 25-28), drives their main paths (phase 29), holds the
+material modes, the bump and the explicit lights the same way (phases
+30-32), holds next event estimation and MIS (nee, nee+mis, nee+mis with
+microfacet and the bump, nee+mis with the explicit lights) through
+sphere_pt, triangle_pt and the wavefront passes to their plain versions in
+threefry and tpu_hw, gates the NEE estimator against its closed form
+through sphere_pt and drives the NEE main paths (phases 33-37), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
@@ -1484,8 +1490,9 @@ def sun_lanes(cfg, spheres, cam) -> torch.Tensor:
 
 
 def watched_triangle_plain(flags):
-    """triangle_pt_plain with its nearest-hit sweep watched: `flags` (Hp *
-    Wp,) bool gets, IN PLACE, every pixel one of whose rays the brute-force
+    """triangle_pt_plain (NEE's light sampler too) with its nearest-hit
+    sweep watched: `flags` (Hp * Wp,) bool gets, IN PLACE, every pixel one
+    of whose rays (NEE's shadow rays too) the brute-force
     sweep hit outside the hit mesh's bound sphere (r^2 grown by 1e-3). No
     triangle lies there: such a hit is Moller-Trumbore's on a pole sliver
     whose |det| is just over its epsilon, and a t far from the triangle
@@ -1495,6 +1502,7 @@ def watched_triangle_plain(flags):
         render_tiles_plain,
         tile_pixel_coords,
     )
+    from l2n_tpu_torch.ops.nee import mesh_light_sampler
     from l2n_tpu_torch.ops.scenes import (
         TRIANGLE_MISS_COLOR,
         triangle_anyhit,
@@ -1503,7 +1511,8 @@ def watched_triangle_plain(flags):
 
     def plain(cfg, sched, cam, buf, accum, output, rng_state=None,
               lights=None):
-        inner = triangle_intersector(buf.soup)
+        inner = triangle_intersector(
+            buf.soup, buf.mesh_bounds[:, 3] if cfg.nee else None)
         mb = buf.mesh_bounds
         row, col = tile_pixel_coords(cfg, sched)
         flat = (row * cfg.padded_width + col).reshape(-1)
@@ -1519,7 +1528,9 @@ def watched_triangle_plain(flags):
 
         render_tiles_plain(cfg, sched, cam, intersect,
                            triangle_anyhit(intersect), buf.table(), accum,
-                           output, rng_state, TRIANGLE_MISS_COLOR, lights)
+                           output, rng_state, TRIANGLE_MISS_COLOR, lights,
+                           mesh_light_sampler(cfg, buf.mesh_bounds)
+                           if cfg.nee else None)
 
     return plain
 
@@ -1570,8 +1581,9 @@ def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02, lights=None):
 def wavefront_passes_vs_plain(wcfg, sched, cam, spheres):
     """Pass A and pass B, kernel vs plain on the same inputs (pass B on the
     plain pass A's outputs): pass A's n_alive, col and back bit-equal, its
-    rays and meta equal as sets (sorted by lane); pass B's back
-    bit-equal. Returns (n_alive, lanes)."""
+    rays and meta equal as sets (sorted by lane); pass B's back and col
+    (which it zeroes at the survivors' lanes under NEE) bit-equal. Returns
+    (n_alive, lanes)."""
     from l2n_tpu_torch.ops.kernels.wavefront import (
         wavefront_lanes,
         wavefront_pass_a,
@@ -1596,20 +1608,24 @@ def wavefront_passes_vs_plain(wcfg, sched, cam, spheres):
             and bits_equal(ka.rays[:, :na][:, order], pa.rays[:, :na]),
             "pass A rays and meta equal as sets")
     kb, pb = pa.back.clone(), pa.back.clone()
-    wavefront_pass_b(wcfg, cam, spheres, pa.rays, pa.meta, pa.n_alive, kb)
+    kc, pc = pa.col.clone(), pa.col.clone()
+    wavefront_pass_b(wcfg, cam, spheres, pa.rays, pa.meta, pa.n_alive, kb,
+                     kc)
     wavefront_pass_b_plain(wcfg, cam, spheres, pa.rays, pa.meta, pa.n_alive,
-                           pb)
+                           pb, pc)
     torch.cuda.synchronize()
     require(not kb.isnan().any() and bits_equal(kb, pb),
             "pass B back bit-equal")
+    require(bits_equal(kc, pc), "pass B col bit-equal (NEE: 0 at survivors)")
     return na, pa.col[0].numel()
 
 
 def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
     """Device time of the built step (CUDA events over back-to-back steps)
     and of its kernels per launch (torch.profiler) for each setting of the
-    slice beside the default config's, at the main path's 10 tiles and at
-    whole frames, in one process on one card."""
+    slices beside the default config's, at the main path's 10 tiles and at
+    whole frames, in one process on one card. Returns {(family, label,
+    setting): {kernel: ms per launch, "step": ms per step}}."""
     from l2n_tpu_torch.render.state import init_frame_state
     from l2n_tpu_torch.render.step import build_render_step
     wave = ("wavefront_pass_a_kernel", "wavefront_pass_b_kernel",
@@ -1622,23 +1638,28 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
                  "microfacet+normal_map": dict(microfacet, normal_map=0.8),
                  "lights": {"lights": True},
                  "lights+microfacet": dict(microfacet, lights=True)}
+    nee = {"nee": NEE_SETTINGS["nee"], "nee+mis": NEE_SETTINGS["nee+mis"]}
     families = [
         ("sphere_pt", cfg, scene, ("sphere_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"}, "hit": {"aov": "hit"},
           "ambient_occlusion": {"aov": "ambient_occlusion"},
           "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG,
-          **materials}),
+          **materials, **nee,
+          "nee+mis+microfacet+normal_map":
+              NEE_SETTINGS["nee+mis+microfacet+normal_map"],
+          "nee+mis+lights": dict(NEE_SETTINGS["nee+mis"], lights=True)}),
         ("triangle_pt", tri_cfg, tri_scene, ("triangle_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"},
           "ambient_occlusion": {"aov": "ambient_occlusion"},
           "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG,
-          **materials}),
+          **materials, **nee}),
         ("wavefront", cfg.replace(wavefront=True), scene, wave,
          {"default": {}, "sun+viewproj": SUN_CFG,
           "sun+viewproj+fast_math": SUN_FAST_CFG,
           "microfacet": microfacet,
           "disney+normal_map": {"material_mode": "disney",
-                                "normal_map": 0.8}})]
+                                "normal_map": 0.8}, **nee})]
+    results = {}
     for family, fcfg, fscene, kernels, settings in families:
         for label, lcfg in (("10-tile", fcfg), ("whole-frame", fcfg.replace(
                 tiles_per_step=fcfg.tile_count))):
@@ -1655,6 +1676,7 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
                 n = 50 if label == "10-tile" else 10
                 dev_ms, _, st = timed_steps(step, st, cam, n)
                 per, _, _, st = profile_steps(step, st, cam, 10, kernels)
+                results[(family, label, name)] = dict(per, step=dev_ms)
                 print(f"[settings] {family} {label} {name}: step {dev_ms:.4f} "
                       f"ms (CUDA events); per launch (torch.profiler) "
                       + ", ".join(f"{k} " + ("not measured" if v is None
@@ -1663,6 +1685,7 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
                       + f"; card: {card}", flush=True)
                 del st, step
         torch.cuda.empty_cache()
+    return results
 
 
 def slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam):
@@ -2013,14 +2036,187 @@ def materials_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
               f"explicit lights: launches and lit {paths}; card: {card}")
 
 
+NEE_SETTINGS = {
+    "nee": {"nee": True},
+    "nee+mis": {"nee": True, "mis": True},
+    "nee+mis+microfacet+normal_map": {"nee": True, "mis": True,
+                                      "material_mode": "microfacet",
+                                      "normal_map": 0.8}}
+
+
+def nee_gallery(dev):
+    """tests/test_nee.py's analytic scene: the light (sphere 0, r = 2) at z
+    = 10 over a big sphere (r = 99) whose top sits at z = -1."""
+    from l2n_tpu_torch.scene.spheres import SphereScene
+    return SphereScene.from_numpy(
+        np.zeros(2, np.float32), np.zeros(2, np.float32),
+        np.array([10.0, -100.0], np.float32),
+        np.array([4.0, 99.0 ** 2], np.float32), device=dev)
+
+
+def nee_estimate(dev, **kw):
+    """The mean red radiance per sample of 2 whole frames of sphere_pt over
+    the analytic scene, the camera at (0, 0, 3) looking straight down with a
+    4 degree field, so every primary reaches the big sphere within 0.25 of
+    its top: (mean, samples, the red albedo kd of sphere 1)."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.maths.linalg import look_at
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    scene = nee_gallery(dev)
+    cfg = RenderConfig(env_mode="none", fovy_deg=4.0, **kw)
+    cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+    vm = look_at(np.array([0.0, 0.0, 3.0], np.float32),
+                 np.array([0.0, 0.0, -1.0], np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    cam = Camera.from_config(cfg, view_matrix=vm).packed()
+    st = init_frame_state(cfg, dev)
+    sched = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                            cfg.tile_count)
+    spheres = scene.packed()
+    for _ in range(2):
+        sphere_pt(cfg, sched, cam, spheres, st.accum, st.output)
+    torch.cuda.synchronize()
+    shown = st.accum[:, :cfg.height, :cfg.width].double()
+    return (float(shown[0].sum() / shown[3].sum()), int(shown[3].sum()),
+            float(scene.albedo[1, 0]))
+
+
+def nee_phases(card, tmp, cfg, scene, tri_cfg, tri_buf):
+    """Phases 33-37: next event estimation and MIS through sphere_pt,
+    triangle_pt and the wavefront passes, kernel vs plain at max abs 0 from
+    the view into the cluster (spheres at whole frames, meshes at 10-tile
+    steps with the pole-sliver gate), in threefry and tpu_hw; the analytic
+    NEE gate through sphere_pt; the main paths through Application."""
+    from l2n_tpu_torch.app.application import Application
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.wavefront import sphere_wavefront_step
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    dev = torch.device("cuda")
+    spheres = scene.packed().to(dev)
+    swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+    view = cluster_view(cfg, spheres)
+
+    # --- 33: sphere_pt, each NEE setting in threefry and tpu_hw ----------
+    fused = {}
+    for name, kw in NEE_SETTINGS.items():
+        for rng in ("threefry", "tpu_hw"):
+            _, err, _, lit, _ = kernel_vs_plain(
+                sphere_pt, sphere_pt_plain, swhole.replace(rng=rng, **kw),
+                spheres, view, 4)
+            require(err == 0.0, f"sphere_pt {name} rng={rng} max abs {err}")
+            fused[f"{name}/{rng}"] = round(lit, 4)
+    lights = ExplicitLights(*light_containers())
+    lit_spheres = scene.with_tables(
+        albedo=lights.override_albedo(scene.albedo)).packed().to(dev)
+    _, err, _, lit, _ = kernel_vs_plain(
+        sphere_pt, sphere_pt_plain, swhole.replace(**NEE_SETTINGS["nee+mis"]),
+        lit_spheres, view, 4, lights)
+    require(err == 0.0, f"sphere_pt nee+mis+lights max abs {err}")
+    fused["nee+mis+lights/threefry"] = round(lit, 4)
+    phase(33, f"NEE: sphere_pt kernel vs plain from the view into the "
+              f"cluster, 4 whole-frame steps per setting (area sampling of "
+              f"the 8 emissive spheres, a shadow ray over all 128): accum "
+              f"max abs 0, lit {fused}")
+
+    # --- 34: triangle_pt, 4 steps of 10 tiles per setting ----------------
+    tri = {}
+    for name, kw in NEE_SETTINGS.items():
+        for rng in ("threefry", "tpu_hw"):
+            tri[f"{name}/{rng}"] = triangle_vs_watched(
+                tri_cfg.replace(rng=rng, **kw), tri_buf, view, 4)
+    lit_tri = tri_buf.with_tables(
+        albedo=lights.override_albedo(tri_buf.albedo.T))
+    tri["nee+mis+lights/threefry"] = triangle_vs_watched(
+        tri_cfg.replace(**NEE_SETTINGS["nee+mis"]), lit_tri, view, 4,
+        lights=lights)
+    phase(34, f"NEE: triangle_pt kernel vs plain from the view into the "
+              f"cluster, 4 steps of 10 tiles per setting (cone sampling of "
+              f"the 8 emissive meshes' bounds, traced through the walk): "
+              f"bit-equal but at pixels whose plain sweep kept a hit "
+              f"outside its mesh's bound: {tri}")
+
+    # --- 35: the wavefront passes and step -------------------------------
+    wave = {}
+    s10 = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                          cfg.effective_tiles_per_step)
+    sall = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                           cfg.tile_count)
+    for name in ("nee", "nee+mis", "nee+mis+microfacet+normal_map"):
+        for rng in ("threefry", "tpu_hw"):
+            wcfg = cfg.replace(wavefront=True, rng=rng, **NEE_SETTINGS[name])
+            want = (5, True) if wcfg.material_mode != "procedural" else (
+                4, False)
+            require(wavefront_draw_position(wcfg) == want,
+                    f"pass B resumes at {want} ({name})")
+            whole = wcfg.replace(tiles_per_step=wcfg.tile_count)
+            na, n = wavefront_passes_vs_plain(whole, sall, view, spheres)
+            na10, _ = wavefront_passes_vs_plain(wcfg, s10, view, spheres)
+            _, err, _, lit, _ = kernel_vs_plain(
+                sphere_wavefront_step, sphere_pt, whole, spheres, view, 4)
+            require(err == 0.0, f"wavefront/fused {name} {rng} max abs {err}")
+            wave[f"{name}/{rng}"] = {"alive": round(na / n, 4),
+                                     "alive_10_tiles": na10,
+                                     "lit": round(lit, 4)}
+    phase(35, f"NEE: wavefront passes A/B vs plain (one whole frame and 10 "
+              f"tiles; 10 ray planes under MIS; pass B resumed at (4, "
+              f"False), (5, True) in the material modes) and the wavefront "
+              f"CUDA step vs sphere_pt's, 4 whole-frame steps, max abs 0: "
+              f"{wave}")
+
+    # --- 36: the analytic NEE gate through sphere_pt ---------------------
+    got, samples, kd = nee_estimate(dev, nee=True, max_bounces=1)
+    want = kd * 8192.0 / (4.0 * np.pi * 4.0) * (4.0 / 121.0)
+    require(samples >= 10 ** 6, f"{samples} samples >= 1e6")
+    require(abs(got / want - 1.0) < 0.02,
+            f"sphere_pt NEE {got} vs kd Le (r/d)^2 {want} within 2%")
+    plain_nee, _, _ = nee_estimate(dev, nee=True, max_bounces=2)
+    with_mis, _, _ = nee_estimate(dev, nee=True, mis=True, max_bounces=2)
+    require(abs(with_mis / plain_nee - 1.0) < 0.05,
+            f"NEE+MIS {with_mis} vs NEE {plain_nee} within 5%")
+    phase(36, f"NEE estimator gate through sphere_pt ({samples} samples, "
+              f"the light r = 2 at z = 10 over the big sphere's top at z = "
+              f"-1, one bounce): {got:.6f} vs kd Le (r/d)^2 = {want:.6f} "
+              f"(ratio {got / want:.5f}, gate 2%); two bounces, NEE+MIS "
+              f"{with_mis:.6f} vs NEE {plain_nee:.6f} (ratio "
+              f"{with_mis / plain_nee:.5f}, gate 5%)")
+
+    # --- 37: the main paths ----------------------------------------------
+    paths = {}
+    for label, kw, renderer, names in (
+            ("nee+mis", {"nee": True, "mis": True}, "spherePT",
+             ("sphere_pt",)),
+            ("nee+mis, meshes", {"nee": True, "mis": True}, "trianglePT",
+             ("triangle_pt",)),
+            ("nee+mis, wavefront", {"nee": True, "mis": True,
+                                    "wavefront": True}, "spherePT",
+             ("wavefront_pass_a", "wavefront_pass_b", "wavefront_pass_c"))):
+        app = Application(RenderConfig(**kw), backend="cuda", device="cuda",
+                          workdir=tmp, initial_renderer=renderer)
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        got_l, lit, _ = run_main_path(app, frames, names)
+        paths[label] = (got_l, round(lit, 4))
+        del app
+    phase(37, f"NEE main paths, {frames} steps each through Application("
+              f"RenderConfig(nee=True, mis=True, ...), backend=cuda): "
+              f"launches and lit {paths}; card: {card}")
+    return {name: n for got_l, _ in paths.values()
+            for name, n in got_l.items()}
+
+
 # The compile-time settings of each step kernel's instantiations, in their
 # template order (csrc/pathtrace.cuh with_options, dispatch_pass_a/_b); the
 # fused kernels' body (kBody*) comes first, an int.
 KERNEL_FLAGS = {"sphere_pt": ("fast_math", "viewproj"),
                 "triangle_pt": ("fast_math", "viewproj"),
-                "wavefront_pass_a": ("materials", "fast_math", "viewproj"),
-                "wavefront_pass_b": ("materials", "fast_math")}
-BODIES = ("lambert", "aovs", "materials")
+                "wavefront_pass_a": ("fast_math", "viewproj"),
+                "wavefront_pass_b": ("fast_math",)}
+BODIES = ("lambert", "aovs", "materials", "nee")
 
 
 def main() -> int:
@@ -2092,9 +2288,9 @@ def main() -> int:
             # pass B's fast_math), or per cond_cost mode and carry count:
             # name it
             rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
-            body = re.search(r"Li([012])ELb", ln)
-            flags = ([BODIES[int(body.group(1))]] if body and m.group(1) in (
-                "sphere_pt", "triangle_pt") else []) + [
+            body = re.search(r"Li([0123])ELb", ln)
+            flags = ([BODIES[int(body.group(1))]] if body and m.group(1) in
+                     KERNEL_FLAGS else []) + [
                 name for name, bit in zip(KERNEL_FLAGS.get(
                     m.group(1), ()), re.findall(r"Lb([01])E", ln))
                 if bit == "1"]
@@ -2151,11 +2347,13 @@ def main() -> int:
              f"range, negative ones included; sweep_mma's only sqrtf is its "
              f"resolve's) {calls}; ptxas: {' | '.join(ptxas)}")
 
-    print("[ptxas] the materials bodies' instantiations (registers, spill "
-          "and stack per instantiation; the fused kernels' kBodyMaterials, "
-          "passes A/B with materials): " + " | ".join(
-              ln for ln in ptxas if "materials" in ln.split(":")[0]),
-          flush=True)
+    for body in ("materials", "nee"):
+        print(f"[ptxas] the {body} bodies' instantiations (registers, spill "
+              f"and stack per instantiation; the fused kernels and passes "
+              f"A/B): " + " | ".join(
+                  ln for ln in ptxas
+                  if re.search(rf"[<, ]{body}[,>]", ln.split(":")[0])),
+              flush=True)
 
     # --- 2: uv_demo: its path (one 720x1280 frame), then vs plain -----------
     t = torch.tensor([0.7], dtype=torch.float32, device=dev)
@@ -2664,6 +2862,7 @@ def main() -> int:
 
         slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam)
         materials_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
+        nee_launches = nee_phases(card, tmp, cfg, scene, tri_cfg, tri_buf)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -2793,7 +2992,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # --- the new settings: kernel ms per launch beside the default's -------
-    settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam)
+    settings = settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam)
 
     # --- each pass alone at the main path's 10-tile shape -----------------
     k = wcfg.effective_tiles_per_step
@@ -2924,7 +3123,20 @@ def main() -> int:
           f"card: {card}", flush=True)
 
     def row(name, *args, **extra):
-        return kernel_row(name, *args, bounds[name], **extra)
+        return kernel_row(name, *args, bounds[name], **nee_extra(name),
+                          **extra)
+
+    def nee_extra(name):
+        """The kernel's NEE+MIS instantiation beside its row: its launches
+        on phase 37's main path and its ms per launch at 10 tiles and at
+        whole frames ([settings], torch.profiler)."""
+        family = "wavefront" if name.startswith("wavefront") else name
+        if (family, "10-tile", "nee+mis") not in settings:
+            return {}
+        return {"nee_mis_launches": nee_launches.get(name, 0), **{
+            f"nee_mis_{label.replace('-', '_')}_ms":
+                settings[(family, label, "nee+mis")].get(f"{name}_kernel")
+            for label in ("10-tile", "whole-frame")}}
 
     def whole_frame(name):
         """The whole-frame step's kernel time (torch.profiler), plain step

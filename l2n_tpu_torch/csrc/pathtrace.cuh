@@ -17,6 +17,8 @@
 //   bool occluded(ox, oy, oz, dx, dy, dz) const;  // the AO cast:
 //       // nearest(...).t >= 0 for a direction of any length
 //   static void miss_color(float col[3]);  // the normal AOV's miss colour
+//   void bound(i, cx, cy, cz, r2) const;  // object i's (bounding) sphere
+//   static constexpr bool kConeLights;  // NEE: cone (meshes) or area
 // where nearest_primary serves the primary casts (origin = the camera, the
 // direction through a pixel of the thread's tile) and may walk only the
 // tile's cone-visible candidates (csrc/cull.cuh),
@@ -29,27 +31,45 @@
 // (rng/sampler.py): ThreefrySampler, PhiloxSampler (rng="tpu_hw"),
 // TinyMTSampler and TausLCGSampler. A kernel is instantiated once per
 // sampler (and per compile-time setting: the fused kernels' body, fast_math
-// and the camera form; with_options), and its host entry point picks the
+// and the camera form; body_options), and its host entry point picks the
 // instantiation from the codes (dispatch_rng, dispatch_fused,
-// dispatch_counter_rng_*); nothing switches on the mode inside the path
-// loop. The body (kBody*): the Lambert path tracer, which is the default
-// path and holds no material code; the primary-only AOVs; the materials
-// path tracer, which switches at run time on the material mode, the bump
-// and the explicit lights (scatter_materials), taken whenever one of them
-// is on.
+// dispatch_pass_a, dispatch_pass_b); nothing switches on the mode inside
+// the path loop. The body (kBody*): the Lambert path tracer, which is the
+// default path and holds no material code; the primary-only AOVs; the
+// materials path tracer, which switches at run time on the material mode,
+// the bump and the explicit lights (scatter_materials), taken whenever one
+// of them is on; the NEE path tracer, the materials body with next event
+// estimation and MIS (next_event), taken whenever NEE is on and built for
+// the two counter-based samplers only (the config refuses NEE with the
+// stateful ones).
 // A sampler provides draw2/draw1 and the per-pixel protocol render_pixel
 // uses: load (sample 0 of the step), next_sample, store.
 //
 // Counter-based draw addresses: pair k of sample s of pixel p is threefry
 // at counter (p, s * max_pairs + k), or words 2 (k & 1), 2 (k & 1) + 1 of
 // the Philox block at counter (p, s, k >> 1, 0); draw1 caches the second
-// word of a pair. Replaying the lockstep tracer's call sequence along one
-// path gives its addresses: pair 0 jitter, pair 1 hemisphere at bounce 0,
-// pair 2 word 0 RR at bounce 0, pair 3 hemisphere at bounce 1, pair 2
-// word 1 RR at bounce 1. In the material modes a bounce draws a pair, then
-// the lobe's draw1 and the RR draw1: pair 1 hemisphere, pair 2 word 0 lobe,
-// pair 2 word 1 RR at bounce 0, then pairs 3 and 4 at bounce 1, and so on
-// (no spare is pending after a bounce). The explicit lights draw nothing.
+// word of a pair, which the next draw1 takes however many draw2s come
+// between. Replaying the lockstep tracer's call sequence along one path
+// gives its addresses; max_pairs is its budget, 2 + 2 max_bounces pairs, 2
+// + 4 max_bounces with NEE (rng/sampler.py max_pairs_per_sample). Pair 0
+// is the jitter. A bounce draws:
+//   * Lambert: the hemisphere pair, then the RR draw1. Bounce 0: pair 1,
+//     pair 2 word 0; bounce 1: pair 3, pair 2 word 1 (the spare); and so
+//     on, a spare pending after every other bounce;
+//   * the material modes: the pair, the lobe's draw1, the RR draw1. Bounce
+//     0: pair 1, pair 2 words 0 and 1; bounce 1: pairs 3 and 4; no spare
+//     pending after a bounce;
+//   * Lambert with NEE: the hemisphere pair, the light pick's draw1, the
+//     point's pair, the RR draw1. Bounce 0: pair 1, pair 2 word 0, pair 3,
+//     pair 2 word 1; no spare pending after a bounce;
+//   * the material modes with NEE: the pair, the lobe's and the pick's
+//     draw1s, the point's pair, the RR draw1. Bounce 0: pair 1, pair 2
+//     words 0 and 1, pair 3, pair 4 word 0, leaving pair 4 word 1 pending:
+//     bounce 1's lobe takes it after bounce 1's pair 5, and a spare is
+//     pending across the wavefront split (pass B resumes at pair 5 with
+//     pair 4's second word, ops/pathtrace.py::wavefront_draw_position).
+// The explicit lights draw nothing. The wavefront passes take the resume
+// point from that replay, never from this account.
 // The stateful samplers step their pixel's state at every draw, which is
 // what the lockstep tracer's masks reproduce: the jitter of every pixel,
 // the scatter's draws and the RR draw at diffuse vertices only, nothing at
@@ -64,11 +84,12 @@
 //
 // The step's settings ride in PtParams: the sky (none, Mandelbrot, sun),
 // the camera form (fovy, viewproj), the material mode, the bump, the
-// explicit lights and fast_math, which takes rsqrtf at the JAX package's
-// sites only: the nearest-sphere sweeps' square root (as x * rsqrt(x)) and
-// hit normal, the camera ray's normalize and the procedural scatter's frame
-// and normalize. The any-hit sweeps, the AO frame, the triangle tests, the
-// bump and the material modes' frames and normalizes stay exact.
+// explicit lights, NEE and MIS, and fast_math, which takes rsqrtf at the
+// JAX package's sites only: the nearest-sphere sweeps' square root (as x *
+// rsqrt(x)) and hit normal, the camera ray's normalize and the procedural
+// scatter's frame and normalize. The any-hit sweeps, the AO frame, the
+// triangle tests, the bump, the material modes' frames and normalizes and
+// everything of NEE stay exact.
 
 #pragma once
 
@@ -141,9 +162,21 @@ struct PtParams {
   // n_dir directional lights (wi = -incidentDirection, radiance rgb). A
   // device pointer the entry point sets; null without lights.
   const float* lights;
+  // NEE, after the other bodies' fields (their code keeps its parameter
+  // offsets): on, with MIS, and its lights, the scene's indices 0, every,
+  // ...; its constants, float32 roundings of float64 products as ops/nee.py
+  // takes them: emission_scale * n_lights (area), emission_scale / (4 pi)
+  // (cone; meshes emit with r^2 = 1).
+  int32_t nee, mis, n_lights;
+  float nee_scale, nee_le;
+  // The wavefront pass B's col lanes under NEE, which it takes over
+  // (csrc/wavefront.cuh wavefront_pass_b_slot): a device pointer its entry
+  // point sets, here so that the other bodies' pass B keeps its arguments;
+  // null elsewhere.
+  float* nee_col;
 };
-constexpr int kIntParams = 20;
-constexpr int kFloatParams = 7 + 40 + 2;
+constexpr int kIntParams = 23;
+constexpr int kFloatParams = 7 + 40 + 4;
 
 L2N_HD float bits_to_float(uint32_t u) {
 #if defined(__CUDA_ARCH__)
@@ -448,16 +481,9 @@ inline int dispatch_rng(int rng, Args... args) {
   return -1;
 }
 
-// F::template run<Rng, kFlags...> for the sampler dispatch_rng picks: a
-// kernel's instantiation for compile-time settings (with_options).
-template <class F, bool... kFlags>
-struct WithFlags {
-  template <class Rng, class... Args>
-  static int run(Args... args) {
-    return F::template run<Rng, kFlags...>(args...);
-  }
-};
-
+// F::template run<Rng, kBody, kFlags...> for the sampler dispatch_rng
+// picks: a kernel's instantiation for its body and compile-time settings
+// (body_options).
 template <class F, int kBody, bool... kFlags>
 struct WithBody {
   template <class Rng, class... Args>
@@ -467,10 +493,13 @@ struct WithBody {
 };
 
 // The fused kernels' bodies (render_pixel): the Lambert path tracer, the
-// primary-only AOVs, the materials path tracer.
+// primary-only AOVs, the materials path tracer, and the NEE path tracer
+// (the materials body with next event estimation and MIS). The wavefront
+// passes take the three path tracers.
 constexpr int kBodyLambert = 0;
 constexpr int kBodyAovs = 1;
 constexpr int kBodyMaterials = 2;
+constexpr int kBodyNee = 3;
 
 // The materials body is taken for a material mode, the bump or explicit
 // lights; the empty buffers and the procedural mode take the Lambert body.
@@ -478,25 +507,37 @@ L2N_HD bool shades_materials(const PtParams& p) {
   return p.material != 0 || p.normal_map > 0.0f || p.n_point + p.n_dir > 0;
 }
 
-L2N_HD int fused_body(const PtParams& p) {
-  if (p.aov != kAovPathtracing) return kBodyAovs;
+// A path tracer's body: NEE whenever it is on, else as shades_materials.
+L2N_HD int path_body(const PtParams& p) {
+  if (p.nee) return kBodyNee;
   return shades_materials(p) ? kBodyMaterials : kBodyLambert;
 }
 
+L2N_HD int fused_body(const PtParams& p) {
+  return p.aov != kAovPathtracing ? kBodyAovs : path_body(p);
+}
+
+// Whether a body reads the material rows of the per-object table.
+L2N_HD constexpr bool reads_materials(int body) {
+  return body == kBodyMaterials || body == kBodyNee;
+}
+
 // The table rows a body reads: the albedo, and the material rows for the
-// materials body and for the AOVs' bumped normal.
+// materials and NEE bodies and for the AOVs' bumped normal.
 template <int kBody>
 L2N_HD int table_rows(const PtParams& p) {
-  return kBody == kBodyMaterials || (kBody == kBodyAovs && p.normal_map > 0.0f)
+  return reads_materials(kBody) || (kBody == kBodyAovs && p.normal_map > 0.0f)
              ? 9
              : 3;
 }
 
-// The fused kernels' instantiations, twelve per sampler:
-// F::template run<Rng, kBody, kFast, kViewproj> with kBody = fused_body(p),
-// so that the default path tracer's code holds no AOV and no material
-// path, kFast = fast_math and kViewproj = (ray_gen is viewproj)
-// (with_options).
+// The fused kernels' instantiations, twelve per sampler and two more per
+// counter-based sampler: F::template run<Rng, kBody, kFast, kViewproj> with
+// kBody = fused_body(p), so that the default path tracer's code holds no
+// AOV, no material and no NEE path, kFast = fast_math and kViewproj =
+// (ray_gen is viewproj) (with_options). The NEE body reads both at run
+// time (body_options), instantiated once per counter-based sampler (the
+// config refuses NEE with the stateful ones).
 template <class F, int kBody, class... Args>
 inline int dispatch_camera(const PtParams& p, Args... args) {
   const bool vp = p.ray_gen == kRayGenViewproj;
@@ -507,19 +548,9 @@ inline int dispatch_camera(const PtParams& p, Args... args) {
             : dispatch_rng<WithBody<F, kBody, false, false>>(p.rng, args...);
 }
 
-template <class F, class... Args>
-inline int dispatch_fused(const PtParams& p, Args... args) {
-  switch (fused_body(p)) {
-    case kBodyAovs:
-      return dispatch_camera<F, kBodyAovs>(p, args...);
-    case kBodyMaterials:
-      return dispatch_camera<F, kBodyMaterials>(p, args...);
-  }
-  return dispatch_camera<F, kBodyLambert>(p, args...);
-}
-
 // The same for the counter-based modes only (the wavefront passes, whose
-// streams resume across the compaction); -1 for the stateful codes.
+// streams resume across the compaction, and the NEE body); -1 for the
+// stateful codes.
 template <class F, class... Args>
 inline int dispatch_counter_rng(int rng, Args... args) {
   switch (rng) {
@@ -531,44 +562,68 @@ inline int dispatch_counter_rng(int rng, Args... args) {
   return -1;
 }
 
-// The wavefront passes' instantiations: F::template run<Rng, kMaterials,
-// kFast> (pass B), or F::template run<Rng, kMaterials, kFast, kViewproj>
-// (pass A, which casts the camera rays), for the counter-based samplers;
-// kMaterials = shades_materials(p) (the split takes no explicit lights).
-template <class F, bool kMaterials, class... Args>
+template <class F, class... Args>
+inline int dispatch_fused(const PtParams& p, Args... args) {
+  switch (fused_body(p)) {
+    case kBodyAovs:
+      return dispatch_camera<F, kBodyAovs>(p, args...);
+    case kBodyMaterials:
+      return dispatch_camera<F, kBodyMaterials>(p, args...);
+    case kBodyNee:
+      return dispatch_counter_rng<WithBody<F, kBodyNee, false, false>>(
+          p.rng, args...);
+  }
+  return dispatch_camera<F, kBodyLambert>(p, args...);
+}
+
+// The wavefront passes' instantiations, for the counter-based samplers:
+// F::template run<Rng, kBody, kFast> (pass B), or F::template run<Rng,
+// kBody, kFast, kViewproj> (pass A, which casts the camera rays), with
+// kBody = path_body(p) (the split takes no explicit lights); the NEE body
+// once per sampler, its options read at run time (body_options).
+template <class F, int kBody, class... Args>
 inline int dispatch_counter_rng_fast(const PtParams& p, Args... args) {
   return p.fast_math
-             ? dispatch_counter_rng<WithFlags<F, kMaterials, true>>(p.rng,
-                                                                   args...)
-             : dispatch_counter_rng<WithFlags<F, kMaterials, false>>(p.rng,
-                                                                    args...);
+             ? dispatch_counter_rng<WithBody<F, kBody, true>>(p.rng, args...)
+             : dispatch_counter_rng<WithBody<F, kBody, false>>(p.rng, args...);
 }
 
 template <class F, class... Args>
 inline int dispatch_pass_b(const PtParams& p, Args... args) {
-  return shades_materials(p) ? dispatch_counter_rng_fast<F, true>(p, args...)
-                             : dispatch_counter_rng_fast<F, false>(p, args...);
+  switch (path_body(p)) {
+    case kBodyNee:
+      return dispatch_counter_rng<WithBody<F, kBodyNee, false>>(p.rng,
+                                                                args...);
+    case kBodyMaterials:
+      return dispatch_counter_rng_fast<F, kBodyMaterials>(p, args...);
+  }
+  return dispatch_counter_rng_fast<F, kBodyLambert>(p, args...);
 }
 
-template <class F, bool kMaterials, class... Args>
+template <class F, int kBody, class... Args>
 inline int dispatch_counter_rng_camera(const PtParams& p, Args... args) {
   const bool vp = p.ray_gen == kRayGenViewproj;
   if (p.fast_math)
-    return vp ? dispatch_counter_rng<WithFlags<F, kMaterials, true, true>>(
+    return vp ? dispatch_counter_rng<WithBody<F, kBody, true, true>>(
                     p.rng, args...)
-              : dispatch_counter_rng<WithFlags<F, kMaterials, true, false>>(
+              : dispatch_counter_rng<WithBody<F, kBody, true, false>>(
                     p.rng, args...);
-  return vp ? dispatch_counter_rng<WithFlags<F, kMaterials, false, true>>(
+  return vp ? dispatch_counter_rng<WithBody<F, kBody, false, true>>(
                   p.rng, args...)
-            : dispatch_counter_rng<WithFlags<F, kMaterials, false, false>>(
+            : dispatch_counter_rng<WithBody<F, kBody, false, false>>(
                   p.rng, args...);
 }
 
 template <class F, class... Args>
 inline int dispatch_pass_a(const PtParams& p, Args... args) {
-  return shades_materials(p)
-             ? dispatch_counter_rng_camera<F, true>(p, args...)
-             : dispatch_counter_rng_camera<F, false>(p, args...);
+  switch (path_body(p)) {
+    case kBodyNee:
+      return dispatch_counter_rng<WithBody<F, kBodyNee, false, false>>(
+          p.rng, args...);
+    case kBodyMaterials:
+      return dispatch_counter_rng_camera<F, kBodyMaterials>(p, args...);
+  }
+  return dispatch_counter_rng_camera<F, kBodyLambert>(p, args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -827,19 +882,203 @@ L2N_HD void explicit_lights(const PtParams& p, const Scene& s, float hx,
   for (int c = 0; c < 3; ++c) col[c] = col[c] + tp[c] * out[c];
 }
 
+// ---------------------------------------------------------------------------
+// Next event estimation and MIS (ops/nee.py), float32 in its order. The
+// scene type says how its lights are sampled (Scene::kConeLights) and
+// gives light i's sphere: the sphere itself, or the mesh's bounding sphere
+// (Scene::bound). fast_math reaches none of these sites.
+// ---------------------------------------------------------------------------
+
+// The scene index of the light NEE picks with u_pick: e = min(int(u_pick
+// E), E - 1) of the E = n_lights lights, index e * emissive_every.
+L2N_HD int pick_light(const PtParams& p, float u_pick) {
+  int e = static_cast<int>(u_pick * static_cast<float>(p.n_lights));
+  e = e < p.n_lights - 1 ? e : p.n_lights - 1;
+  return e * p.emissive_every;
+}
+
+// Omega = 2 pi (1 - cos_max) of a sphere of squared radius r2 seen from
+// squared distance d2; 4 pi (cos_max = -1) from inside it.
+L2N_HD float cone_solid_angle(float d2, float r2, float& cos_max) {
+  cos_max = sqrtf(max_nan(1.0f - r2 / max_nan(d2, 1e-20f), 0.0f));
+  if (d2 <= r2) cos_max = -1.0f;
+  return static_cast<float>(2.0 * kPi) * (1.0f - cos_max);
+}
+
+// Balance weight w p_nee / (p_nee + p_bsdf).
+L2N_HD float balance(float w, float p_nee, float p_bsdf) {
+  return w * p_nee / max_nan(p_nee + p_bsdf, 1e-20f);
+}
+
+// Add tp f w to col for the light direction l, eval(l, cos_s, f) filling
+// f and returning the BSDF's pdf, and `weight(p_bsdf)` the sample's w: the
+// shadow ray is cast (visible(), true when it counts) only where w is not
+// 0, whose product would be 0 whatever the cast found.
+template <class Eval, class Weight, class Visible>
+L2N_HD void add_light(const float l[3], float cos_s, const Eval& eval,
+                      const Weight& weight, const Visible& visible,
+                      const float tp[3], float col[3]) {
+  float f[3];
+  const float p_bsdf = eval(l, cos_s, f);
+  float w = weight(p_bsdf);
+  if (w != 0.0f && !visible()) w = 0.0f;
+  for (int c = 0; c < 3; ++c) col[c] = col[c] + tp[c] * f[c] * w;
+}
+
+// Area NEE (nee_contribution) at the vertex h with shading normal n, taken
+// as given: a uniform point on the picked sphere from (ul1, ul2), one
+// nearest-hit shadow ray over the whole scene, visible iff the picked
+// sphere is the first thing hit.
+template <class Scene, class Eval>
+L2N_HD void nee_area(const PtParams& p, const Scene& s, float u_pick,
+                     float ul1, float ul2, const float h[3], const float n[3],
+                     bool mis, const Eval& eval, const float tp[3],
+                     float col[3]) {
+  const int li = pick_light(p, u_pick);
+  float cx, cy, cz, sr2;
+  s.bound(li, cx, cy, cz, sr2);
+  const float r = sqrtf(sr2);
+  const float z = 1.0f - 2.0f * ul1;
+  const float sz = sqrtf(max_nan(1.0f - z * z, 0.0f));
+  const float phi = static_cast<float>(2.0 * kPi) * ul2;
+  const float wx = sz * cosf(phi), wy = sz * sinf(phi);
+  float l[3] = {cx + r * wx - h[0], cy + r * wy - h[1], cz + r * z - h[2]};
+  const float d2 = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
+  const float rcp = 1.0f / sqrtf(max_nan(d2, 1e-20f));
+  for (int c = 0; c < 3; ++c) l[c] = l[c] * rcp;
+  const float cos_s = max_nan(n[0] * l[0] + n[1] * l[1] + n[2] * l[2], 0.0f);
+  const float cos_l = max_nan(-(wx * l[0] + wy * l[1] + z * l[2]), 0.0f);
+  const float e = static_cast<float>(p.n_lights);
+  add_light(
+      l, cos_s, eval,
+      [&](float p_bsdf) {
+        const float scale =
+            p.nee_scale * cos_s * cos_l / max_nan(d2, 1e-20f);
+        if (!mis) return scale;
+        const float area =
+            static_cast<float>(4.0 * kPi) * max_nan(r * r, 1e-20f);
+        const float p_nee = d2 / max_nan(area * cos_l * e, 1e-20f);
+        return balance(scale, p_nee, p_bsdf);
+      },
+      [&] {
+        const float eps = p.ray_epsilon;
+        return s.nearest(h[0] + eps * l[0], h[1] + eps * l[1],
+                         h[2] + eps * l[2], l[0], l[1], l[2])
+                   .index == li;
+      },
+      tp, col);
+}
+
+// Cone NEE (nee_cone_contribution) at the vertex h with shading normal n
+// (normalized here): a direction uniform in the cone of the picked mesh's
+// bounding sphere, traced through the whole scene, counted iff it hits
+// that mesh.
+template <class Scene, class Eval>
+L2N_HD void nee_cone(const PtParams& p, const Scene& s, float u_pick,
+                     float ul1, float ul2, const float h[3], const float n[3],
+                     bool mis, const Eval& eval, const float tp[3],
+                     float col[3]) {
+  const int li = pick_light(p, u_pick);
+  float cx, cy, cz, r2;
+  s.bound(li, cx, cy, cz, r2);
+  float ax = cx - h[0], ay = cy - h[1], az = cz - h[2];
+  const float d2 = ax * ax + ay * ay + az * az;
+  float cos_max;
+  const float omega = cone_solid_angle(d2, r2, cos_max);
+  normalize3(ax, ay, az, false);
+  const float cos_t = 1.0f - ul1 * (1.0f - cos_max);
+  const float sin_t = sqrtf(max_nan(1.0f - cos_t * cos_t, 0.0f));
+  const float phi = static_cast<float>(2.0 * kPi) * ul2;
+  const Frame f = frame_z(ax, ay, az, false);
+  const float lx = sin_t * cosf(phi), ly = sin_t * sinf(phi);
+  const float l[3] = {f.tx * lx + f.bx * ly + f.zx * cos_t,
+                      f.ty * lx + f.by * ly + f.zy * cos_t,
+                      f.tz * lx + f.bz * ly + f.zz * cos_t};
+  float nh[3] = {n[0], n[1], n[2]};
+  normalize3(nh[0], nh[1], nh[2], false);
+  const float cos_s =
+      max_nan(nh[0] * l[0] + nh[1] * l[1] + nh[2] * l[2], 0.0f);
+  const float e = static_cast<float>(p.n_lights);
+  add_light(
+      l, cos_s, eval,
+      [&](float p_bsdf) {
+        const float w = cos_s * p.nee_le * e * omega;
+        if (!mis) return w;
+        return balance(w, 1.0f / max_nan(e * omega, 1e-20f), p_bsdf);
+      },
+      [&] {
+        const float eps = p.ray_epsilon;
+        const Hit sh = s.nearest(h[0] + eps * l[0], h[1] + eps * l[1],
+                                 h[2] + eps * l[2], l[0], l[1], l[2]);
+        return sh.t >= 0.0f && sh.index == li;
+      },
+      tp, col);
+}
+
+// NEE at a diffuse vertex of bounce b, after the scatter's draws: draw1 the
+// light pick, draw2 the point (or the cone's direction), then the scene's
+// sampler. MIS weighs it but at the last bounce, whose BSDF ray collects
+// no emission (the loop truncates there).
+template <class Scene, class Rng, class Eval>
+L2N_HD void next_event(const PtParams& p, const Scene& s, Rng& rng, int b,
+                       const float h[3], const float n[3], const Eval& eval,
+                       const float tp[3], float col[3]) {
+  const float u_pick = rng.draw1();
+  float ul1, ul2;
+  rng.draw2(ul1, ul2);
+  const bool mis = p.mis != 0 && b + 1 < p.max_bounces;
+  if constexpr (Scene::kConeLights)
+    nee_cone(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
+  else
+    nee_area(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
+}
+
+// MIS weight (mis_emission_weight) of the emission that a BSDF ray of
+// direction d and pdf prev_pdf found at the hit h: prev_pdf / (prev_pdf +
+// p_nee), p_nee NEE's pdf of the same direction, over the light's surface
+// (area) or over its bound's cone (cone; the bound's centre rebuilt as the
+// hit minus the hit normal times the bound's radius).
+template <class Scene>
+L2N_HD float mis_emission_weight(const PtParams& p, const Scene& s,
+                                 float prev_pdf, float dx, float dy, float dz,
+                                 const Hit& h) {
+  const float e = static_cast<float>(p.n_lights);
+  float p_nee;
+  if constexpr (Scene::kConeLights) {
+    float cx, cy, cz, br2;
+    s.bound(h.index, cx, cy, cz, br2);
+    const float r = sqrtf(max_nan(br2, 1e-20f));
+    const float vx = h.t * dx - h.nx * r;
+    const float vy = h.t * dy - h.ny * r;
+    const float vz = h.t * dz - h.nz * r;
+    float cos_max;
+    const float omega =
+        cone_solid_angle(vx * vx + vy * vy + vz * vz, br2, cos_max);
+    p_nee = 1.0f / max_nan(e * omega, 1e-20f);
+  } else {
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    normalize3(nx, ny, nz, false);
+    const float cos_l = max_nan(-(nx * dx + ny * dy + nz * dz), 0.0f);
+    const float area = static_cast<float>(4.0 * kPi) * max_nan(h.r2, 1e-20f);
+    p_nee = h.t * h.t / max_nan(area * cos_l * e, 1e-20f);
+  }
+  return prev_pdf / max_nan(prev_pdf + p_nee, 1e-20f);
+}
+
 // The materials body's bounce at the diffuse vertex (hx, hy, hz) of hit h
 // (ops/pathtrace.py::_scatter_and_roulette): the bump of the shading
 // normal (normal_map > 0); the procedural Lambert sample as
 // scatter_and_roulette draws it, or the material mode's mixture (exact
 // frame around the normalized normal, then draw2 for (u1, u2) and draw1
-// for the lobe); the explicit lights' direct term into col; the
-// throughput update and Russian roulette. Returns false when the path
-// dies.
-template <class Scene, class Rng>
+// for the lobe); with kNee, NEE at bounce b (next_event) and the sampled
+// direction's pdf in `pdf` for the next vertex's MIS weight; the explicit
+// lights' direct term into col; the throughput update and Russian
+// roulette. Returns false when the path dies.
+template <bool kNee, class Scene, class Rng>
 L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
                               const Hit& h, float hx, float hy, float hz,
-                              float& dx, float& dy, float& dz, float tp[3],
-                              float col[3]) {
+                              int b, float& dx, float& dy, float& dz,
+                              float tp[3], float& pdf, float col[3]) {
   const int i = h.index;
   const float kd[3] = {s.ar[i], s.ag[i], s.ab[i]};
   const Material m = material_row(s.mat, s.n, i);
@@ -847,6 +1086,8 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
   if (p.normal_map > 0.0f) perturb_normal(p, m.bump, hx, hy, hz, nx, ny, nz);
   float w[3];
   const bool lights = p.n_point + p.n_dir > 0;
+  const float hv[3] = {hx, hy, hz};
+  const float nv[3] = {nx, ny, nz};
   if (p.material != kMaterialProcedural) {
     float n[3] = {nx, ny, nz};
     normalize3(n[0], n[1], n[2], false);
@@ -856,7 +1097,17 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
     rng.draw2(u1, u2);
     const float u_lobe = rng.draw1();
     float wi[3];
-    sample_material(p.material, u_lobe, u1, u2, fr, wo, kd, m, wi, w);
+    const float pdf_b =
+        sample_material(p.material, u_lobe, u1, u2, fr, wo, kd, m, wi, w);
+    if constexpr (kNee) {
+      pdf = pdf_b;
+      next_event(
+          p, s, rng, b, hv, nv,
+          [&](const float* l, float, float* f) {
+            return eval_material(p.material, n, wo, l, kd, m, f);
+          },
+          tp, col);
+    }
     if (lights)
       explicit_lights(
           p, s, hx, hy, hz, nx, ny, nz,
@@ -872,6 +1123,17 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
     const Frame f = frame_z(nx, ny, nz, fast);
     float u1, u2;
     rng.draw2(u1, u2);
+    if constexpr (kNee) {
+      const float one_m = 1.0f - u1;
+      pdf = sqrtf(one_m > 0.0f ? one_m : 0.0f) * kInvPi;  // local cos / pi
+      next_event(
+          p, s, rng, b, hv, nv,
+          [&](const float*, float cos_s, float* fl) {
+            for (int c = 0; c < 3; ++c) fl[c] = kd[c] * kInvPi;
+            return cos_s * kInvPi;
+          },
+          tp, col);
+    }
     if (lights)
       explicit_lights(
           p, s, hx, hy, hz, nx, ny, nz,
@@ -887,14 +1149,16 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
   return roulette(p, rng, tp);
 }
 
-// A path's pending cast: origin, direction and throughput (the wavefront
-// split's ray planes). A path with no cast left has its origin parked at
-// kFar, as the lockstep tracer does.
+// A path's pending cast: origin, direction, throughput and, for the NEE
+// body's MIS, the pdf of the sampled direction (the wavefront split's ray
+// planes). A path with no cast left has its origin parked at kFar, as the
+// lockstep tracer does.
 constexpr float kFar = 3.0e30f;
 struct Continuation {
   float ox, oy, oz;
   float dx, dy, dz;
   float tp[3];
+  float pdf;
 };
 
 // Trace a path from its pending cast c at iteration b (b = 0: the primary
@@ -905,9 +1169,13 @@ struct Continuation {
 // iteration max_bounces - 1 takes an any-hit test, then the sky.
 // kFirstVertex stops after iteration b's scatter and returns whether the
 // path goes on, with its new cast in c; c keeps the scattered direction and
-// throughput of a path that roulette ended. kMaterials scatters with
-// scatter_materials, else with the Lambert scatter_and_roulette.
-template <bool kFirstVertex, bool kMaterials, class Scene, class Rng>
+// throughput of a path that roulette ended. kBody (a path tracer's body,
+// path_body) scatters with the Lambert scatter_and_roulette, or with
+// scatter_materials, with NEE for kBodyNee. Under NEE the lockstep tracer's
+// emission_ok plane is the iteration: every vertex b >= 1 follows one that
+// did NEE, so the emission found there is dropped without MIS and weighed
+// with it (mis_emission_weight); camera-direct emission (b = 0) is kept.
+template <bool kFirstVertex, int kBody, class Scene, class Rng>
 L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
                        Continuation& c, float col[3]) {
   // Vertex base: the JAX tracer places vertices 0 and 1 from the cast
@@ -933,18 +1201,24 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
       return false;
     }
     if (h.index % p.emissive_every == 0) {
-      const float e = emit_term(p, h.r2);
+      float e = emit_term(p, h.r2);
+      if constexpr (kBody == kBodyNee) {
+        if (b > 0) {
+          if (!p.mis) return false;
+          e = e * mis_emission_weight(p, s, c.pdf, c.dx, c.dy, c.dz, h);
+        }
+      }
       for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + c.tp[ch] * e;
       return false;
     }
     const float hx = bx + h.t * c.dx, hy = by + h.t * c.dy,
                 hz = bz + h.t * c.dz;
     bool alive;
-    if constexpr (kMaterials)
-      alive = scatter_materials(p, s, rng, h, hx, hy, hz, c.dx, c.dy, c.dz,
-                                c.tp, col);
-    else
+    if constexpr (kBody == kBodyLambert)
       alive = scatter_and_roulette(p, s, rng, h, c.dx, c.dy, c.dz, c.tp);
+    else
+      alive = scatter_materials<kBody == kBodyNee>(
+          p, s, rng, h, hx, hy, hz, b, c.dx, c.dy, c.dz, c.tp, c.pdf, col);
     if (!alive) return false;
     c.ox = hx + p.ray_epsilon * c.dx;
     c.oy = hy + p.ray_epsilon * c.dy;
@@ -964,38 +1238,38 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
 
 // The first vertex of one sample along the primary ray (ox, oy, oz) + t (dx,
 // dy, dz) (ops/pathtrace.py::trace_wavefront_primary): col gets the primary
-// radiance (emission, or the sky of a miss; 0 at a diffuse hit), c the b=0
-// scatter's direction and throughput and, for a survivor of Russian
-// roulette, its cast origin; the others are parked at kFar. Returns true
-// when the path goes on.
-template <bool kMaterials, class Scene, class Rng>
+// radiance (emission, or the sky of a miss; at a diffuse hit the NEE
+// body's direct light, else 0), c the b=0 scatter's direction, throughput
+// and pdf and, for a survivor of Russian roulette, its cast origin; the
+// others are parked at kFar. Returns true when the path goes on.
+template <int kBody, class Scene, class Rng>
 L2N_HD bool trace_primary(const PtParams& p, const Scene& s, Rng& rng,
                           float ox, float oy, float oz, float dx, float dy,
                           float dz, float col[3], Continuation& c) {
   col[0] = col[1] = col[2] = 0.0f;
-  c = Continuation{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
-  const bool alive = trace_from<true, kMaterials>(p, s, rng, 0, c, col);
+  c = Continuation{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}, 1.0f};
+  const bool alive = trace_from<true, kBody>(p, s, rng, 0, c, col);
   if (!alive) c.ox = c.oy = c.oz = kFar;
   return alive;
 }
 
 // The rest of a path from its first cast c: bounces 1 .. max_bounces-1 and
 // the last segment (ops/pathtrace.py::trace_wavefront_continue).
-template <bool kMaterials, class Scene, class Rng>
+template <int kBody, class Scene, class Rng>
 L2N_HD void trace_continue(const PtParams& p, const Scene& s, Rng& rng,
                            Continuation c, float col[3]) {
-  trace_from<false, kMaterials>(p, s, rng, 1, c, col);
+  trace_from<false, kBody>(p, s, rng, 1, c, col);
 }
 
 // Radiance of one sample (ops/pathtrace.py::trace_path): the whole path in
 // one loop.
-template <bool kMaterials, class Scene, class Rng>
+template <int kBody, class Scene, class Rng>
 L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float col[3]) {
   col[0] = col[1] = col[2] = 0.0f;
-  Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}};
-  trace_from<false, kMaterials>(p, s, rng, 0, c, col);
+  Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}, 1.0f};
+  trace_from<false, kBody>(p, s, rng, 0, c, col);
 }
 
 // One-bounce white-sky ambient occlusion at the primary hit h of the ray
@@ -1175,9 +1449,9 @@ L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
 // state planes from rng_state once, steps them through the samples in
 // order and stores them once (rng_state is unused by the counter-based
 // samplers and may be null for them). kBody: the Lambert path tracer, the
-// primary-only AOVs or the materials path tracer (dispatch_fused picks one,
-// fused_body), so that the default path's code holds neither of the
-// others.
+// primary-only AOVs, the materials or the NEE path tracer (dispatch_fused
+// picks one, fused_body), so that the default path's code holds none of
+// the others.
 template <class Rng, int kBody, class Scene>
 L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
                          float* accum, float* output, uint32_t* rng_state) {
@@ -1199,8 +1473,8 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
     if constexpr (kBody == kBodyAovs)
       aov_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
     else
-      trace_sample<kBody == kBodyMaterials>(p, s, rng, cam[32], cam[33],
-                                            cam[34], dx, dy, dz, c);
+      trace_sample<kBody>(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz,
+                          c);
     sum[0] = sum[0] + c[0];
     sum[1] = sum[1] + c[1];
     sum[2] = sum[2] + c[2];
@@ -1229,6 +1503,27 @@ L2N_HD PtParams with_options(PtParams p) {
   return p;
 }
 
+// The parameters an instantiation of body kBody reads: with_options, but
+// for the NEE body, which reads fast_math and the camera form at run time
+// and is instantiated once per counter-based sampler (its shadow rays
+// cost far more than the branches; eight instantiations per kernel would
+// cost build time).
+template <int kBody, bool kFast>
+L2N_HD PtParams body_options(const PtParams& p) {
+  if constexpr (kBody == kBodyNee)
+    return p;
+  else
+    return with_options<kFast>(p);
+}
+
+template <int kBody, bool kFast, bool kViewproj>
+L2N_HD PtParams body_options(const PtParams& p) {
+  if constexpr (kBody == kBodyNee)
+    return p;
+  else
+    return with_options<kFast, kViewproj>(p);
+}
+
 // Fill the parameter struct from the wrappers' arrays (layout documented in
 // ops/kernels/common.py::step_params).
 inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
@@ -1253,6 +1548,9 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.material = ip[17];
   p.n_point = ip[18];
   p.n_dir = ip[19];
+  p.nee = ip[20];
+  p.mis = ip[21];
+  p.n_lights = ip[22];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];
@@ -1263,7 +1561,10 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   for (int i = 0; i < 40; ++i) p.cam[i] = fp[7 + i];
   p.normal_map = fp[47];
   p.normal_map_freq = fp[48];
+  p.nee_scale = fp[49];
+  p.nee_le = fp[50];
   p.lights = nullptr;
+  p.nee_col = nullptr;
   return p;
 }
 

@@ -7,7 +7,8 @@
 // nearest-sphere sweep, at most `max_bounces` diffuse bounces with Russian
 // roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
 // miss; the procedural Lambert bounce or the microfacet / Disney materials,
-// the bump, the explicit point and directional lights; or one of the
+// the bump, the explicit point and directional lights, next event
+// estimation (area sampling of the emissive spheres) and MIS; or one of the
 // primary-only AOVs: normal, hit, ambient occlusion, tex_coords /
 // param_uv), then accumulate into `accum` and write the
 // tonemapped `output`, both IN PLACE (the counterpart of the JAX step's
@@ -51,13 +52,18 @@
 //
 // Twelve instantiations per sampler (pathtrace.cuh::dispatch_fused): the
 // Lambert path tracer, the primary-only AOVs and the materials path tracer,
-// so that the default path tracer's code holds no AOV and no material path,
-// each with fast_math and the camera form compiled in
-// (pathtrace.cuh::with_options). Only the materials body and the bumped
-// normal AOV stage the six material rows of the table; the materials body
-// reads the explicit lights from a small device buffer, and each light
-// casts its shadow ray with the nearest-hit sweep over every sphere (the
-// culled list serves the camera's rays only). The samplers: threefry, Philox
+// so that the default path tracer's code holds no AOV, no material and no
+// NEE path, each with fast_math and the camera form compiled in
+// (pathtrace.cuh::with_options); and the NEE path tracer (the materials
+// body with next event estimation and MIS), once per counter-based sampler
+// with both read at run time (body_options). Only the materials and NEE
+// bodies and the bumped normal AOV stage the six material rows of the
+// table; they read the explicit lights from a small device buffer, and each
+// light and each NEE sample casts its shadow ray with the nearest-hit sweep
+// over every sphere (the culled list serves the camera's rays only); NEE's
+// light spheres are the staged rows e * emissive_every, and a sample whose
+// weight is 0 (the light behind the vertex or facing away) casts nothing.
+// The samplers: threefry, Philox
 // (rng="tpu_hw"), and the stateful TinyMT and TausLCG, whose per-pixel
 // state planes a thread loads once, steps through its `spp` samples and
 // stores once (the JAX kernel's aliased rng planes).
@@ -83,7 +89,8 @@ __global__ void sphere_pt_kernel(l2n::PtParams params,
                                  float* __restrict__ output,
                                  uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
-  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
+  const l2n::PtParams p =
+      l2n::body_options<kBody, kFast, kViewproj>(params);
   const int tile = blockIdx.x / p.tile_height;
   const int tile_x = sched[2 * tile];
   const int tile_y = sched[2 * tile + 1];
@@ -92,7 +99,7 @@ __global__ void sphere_pt_kernel(l2n::PtParams params,
   const l2n::SceneView scene =
       kBody == l2n::kBodyAovs && p.normal_map > 0.0f
           ? l2n::stage_culled_scene<9>(p, spheres, smem, tile_x, tile_y)
-          : l2n::stage_culled_scene<kBody == l2n::kBodyMaterials ? 9 : 3>(
+          : l2n::stage_culled_scene<l2n::reads_materials(kBody) ? 9 : 3>(
                 p, spheres, smem, tile_x, tile_y);
   int r, c;
   l2n::block_pixel(p, blockIdx.x % p.tile_height, threadIdx.x, r, c);

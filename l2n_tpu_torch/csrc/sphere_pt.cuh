@@ -47,6 +47,16 @@ struct SceneView {
     col[0] = col[1] = col[2] = 0.0f;
   }
 
+  // NEE samples a point on a light sphere's surface (pathtrace.cuh
+  // nee_area); sphere i's centre and r^2.
+  static constexpr bool kConeLights = false;
+  L2N_HD void bound(int i, float& x, float& y, float& z, float& rr) const {
+    x = cx[i];
+    y = cy[i];
+    z = cz[i];
+    rr = r2[i];
+  }
+
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const;
   L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,

@@ -8,7 +8,9 @@
 // roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
 // miss; the procedural Lambert bounce or the microfacet / Disney
 // materials, the bump and the explicit point and directional lights, whose
-// shadow rays walk every mesh; or a primary-only AOV: the normal, with a
+// shadow rays walk every mesh, next event estimation (cone sampling of the
+// emissive meshes' bounding spheres, its sample traced through every mesh)
+// and MIS; or a primary-only AOV: the normal, with a
 // magenta miss, hit,
 // ambient occlusion, whose second cast is the same per-lane walk, or the
 // tex_coords / param_uv of the primary hit), then accumulate into `accum`
@@ -62,7 +64,9 @@
 // csrc/sphere_pt.cu: the Lambert path tracer, the primary-only AOVs, whose
 // ambient-occlusion walk so adds no code, and no register, to the path
 // tracer's, and the materials path tracer; each with fast_math and the
-// camera form compiled in. The
+// camera form compiled in; and the NEE path tracer once per counter-based
+// sampler (its options read at run time), whose light bounds are the
+// staged mesh bounds and which spills more under the 80-register cap. The
 // stateful samplers' per-pixel state planes are loaded once per thread,
 // stepped through its samples and stored once.
 //
@@ -96,7 +100,8 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    float* __restrict__ accum, float* __restrict__ output,
                    uint32_t* __restrict__ rng_state) {
   extern __shared__ float smem[];
-  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
+  const l2n::PtParams p =
+      l2n::body_options<kBody, kFast, kViewproj>(params);
   const int m = p.n_scene;
   const int table = l2n::table_rows<kBody>(p);  // 3, or 9 with materials
   float* s_bounds = smem;                  // (M, 4)

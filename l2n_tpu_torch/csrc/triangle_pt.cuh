@@ -156,6 +156,17 @@ struct TriSceneView {
     col[2] = 1.0f;
   }
 
+  // NEE samples a direction in the cone of a light mesh's bounding sphere
+  // (pathtrace.cuh nee_cone); mesh i's bound: centre and r^2.
+  static constexpr bool kConeLights = true;
+  L2N_HD void bound(int i, float& x, float& y, float& z, float& r2) const {
+    const float* b = mesh_bounds + 4 * i;
+    x = b[0];
+    y = b[1];
+    z = b[2];
+    r2 = b[3];
+  }
+
   // Does the ray visit bound b (4 floats at `b`, read through the
   // read-only data cache) at the running best?
   L2N_HD static bool visits(float ox, float oy, float oz, float dx, float dy,

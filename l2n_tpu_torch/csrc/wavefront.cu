@@ -6,15 +6,18 @@
 //     per sample of every pixel of the K scheduled tiles, the jittered
 //     primary ray, the nearest-sphere sweep over the tile's cone-visible
 //     spheres (the JAX kernel's visibility table, cone_cull=True), the
-//     first-vertex resolve (emission, primary-miss sky), the b=0 scatter and
-//     Russian roulette; writes the partial radiance by lane and, for a path
+//     first-vertex resolve (emission, primary-miss sky), the b=0 scatter,
+//     its NEE (a shadow ray over every sphere) and Russian roulette; writes
+//     the partial radiance by lane and, for a path
 //     that ends there, back = 0 by lane; appends each survivor's ray planes
 //     and meta (pixel, sample, lane) to a dense prefix of slots, counting
 //     them in n_alive (zeroed by a memset before the launch). This is also
 //     the JAX step's compaction between the passes (its cumsum and gather);
 //   * pass B, _pass_b_kernel: over the n_alive slots, resume each sample's
 //     counter-based stream and finish its path; writes the contribution to
-//     back at the survivor's own lane (the JAX step's scatter-back);
+//     back at the survivor's own lane (the JAX step's scatter-back; under
+//     NEE the path goes on from the lane's col, pass A's direct light, and
+//     back gets the whole sum, col 0, so the image stays the fused one);
 //   * pass C, _pass_c_kernel: per pixel, sum + colA + back per sample, then
 //     accumulate into `accum` and tonemap into `output`, IN PLACE.
 // The image is the fused kernel's (csrc/sphere_pt.cu) to the bit: the same
@@ -59,7 +62,10 @@
 // materials body for the material modes and the bump, which also stages
 // the table's six material rows), fast_math and, for pass A, the camera
 // form compiled in, picked by the host entry points (pathtrace.cuh::
-// dispatch_pass_a / dispatch_pass_b); the stateful modes cannot resume
+// dispatch_pass_a / dispatch_pass_b); and with the NEE body, its options
+// read at run time (pathtrace.cuh::body_options), whose survivors carry a
+// 10th ray plane under MIS and whose pass B resumes its stream with a
+// spare pending in the material modes. The stateful modes cannot resume
 // across the split and are refused. The sky (none, Mandelbrot, sun) is a
 // runtime parameter.
 //
@@ -99,12 +105,12 @@ struct WarpAppend {
 };
 
 // The per-sphere table rows a pass reads: the albedo, and the material rows
-// for the materials body.
-__host__ __device__ constexpr int pass_table_rows(bool materials) {
-  return materials ? 9 : 3;
+// for the materials and NEE bodies.
+__host__ __device__ constexpr int pass_table_rows(int body) {
+  return l2n::reads_materials(body) ? 9 : 3;
 }
 
-template <class Rng, bool kMaterials, bool kFast, bool kViewproj>
+template <class Rng, int kBody, bool kFast, bool kViewproj>
 __global__ void wavefront_pass_a_kernel(l2n::PtParams params,
                                         const int32_t* __restrict__ sched,
                                         const float* __restrict__ spheres,
@@ -112,22 +118,23 @@ __global__ void wavefront_pass_a_kernel(l2n::PtParams params,
                                         l2n::PassALanes out,
                                         int32_t* __restrict__ n_alive) {
   extern __shared__ float smem[];
-  const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
+  const l2n::PtParams p =
+      l2n::body_options<kBody, kFast, kViewproj>(params);
   const int k = blockIdx.x / p.tile_height;
   const int r = blockIdx.x % p.tile_height;
   const l2n::SceneView scene =
-      l2n::stage_culled_scene<pass_table_rows(kMaterials)>(
+      l2n::stage_culled_scene<pass_table_rows(kBody)>(
           p, spheres, smem, sched[2 * k], sched[2 * k + 1]);
   WarpAppend append{n_alive};
   for (int si = 0; si < p.spp; ++si)
-    l2n::wavefront_pass_a_sample<Rng, kMaterials>(p, scene, k, si, r,
+    l2n::wavefront_pass_a_sample<Rng, kBody>(p, scene, k, si, r,
                                       static_cast<int>(threadIdx.x), sched,
                                       accum, out, append);
 }
 
 // The slot of this thread's group, G lanes to a ray (the grid covers
 // alive * G threads).
-template <class Rng, bool kMaterials, int G>
+template <class Rng, int kBody, int G>
 __device__ void pass_b_slot(const l2n::PtParams& p,
                             const l2n::SceneView& scene,
                             const l2n::Sphere4* packed, int next_pair,
@@ -140,10 +147,9 @@ __device__ void pass_b_slot(const l2n::PtParams& p,
   const int g = static_cast<int>(threadIdx.x) % G;
   const unsigned mask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
   const l2n::GroupScene<G> s{scene, packed, g, mask};
-  l2n::wavefront_pass_b_slot<Rng, kMaterials>(p, s, next_pair, has_spare,
-                                              slot,
-                                  l2n::lane_count(p), rays, meta, back,
-                                  g == 0);
+  l2n::wavefront_pass_b_slot<Rng, kBody>(p, s, next_pair, has_spare, slot,
+                                         l2n::lane_count(p), rays, meta,
+                                         p.nee_col, back, g == 0);
 }
 
 // Pass B's shared memory, in floats: the first 4 + table rows of the (13, n)
@@ -155,7 +161,7 @@ size_t pass_b_floats(int n, int table) {
 
 // group_threads: the threads against which G is picked (l2n::group_size),
 // the card's full complement.
-template <class Rng, bool kMaterials, bool kFast>
+template <class Rng, int kBody, bool kFast>
 __global__ void __launch_bounds__(kPassBThreads)
     wavefront_pass_b_kernel(l2n::PtParams params, int next_pair,
                             int has_spare,
@@ -165,7 +171,7 @@ __global__ void __launch_bounds__(kPassBThreads)
                             const float* __restrict__ rays,
                             const int32_t* __restrict__ meta,
                             float* __restrict__ back) {
-  const l2n::PtParams p = l2n::with_options<kFast>(params);
+  const l2n::PtParams p = l2n::body_options<kBody, kFast>(params);
   const int alive = n_alive[0];
   const int g = l2n::group_size(alive, group_threads);
   // A block with no slot exits before staging the scene (uniform per
@@ -173,7 +179,7 @@ __global__ void __launch_bounds__(kPassBThreads)
   if (static_cast<long long>(blockIdx.x) * (blockDim.x / g) >= alive) return;
   extern __shared__ float smem[];
   const int n = p.n_scene;
-  const int rows = 4 + pass_table_rows(kMaterials);
+  const int rows = 4 + pass_table_rows(kBody);
   for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
     smem[i] = spheres[i];
   l2n::Sphere4* packed =
@@ -185,10 +191,10 @@ __global__ void __launch_bounds__(kPassBThreads)
   const l2n::SceneView scene = l2n::scene_view(smem, n, p.fast_math != 0);
   const bool spare = has_spare != 0;
   if (g == l2n::kMaxGroup)
-    pass_b_slot<Rng, kMaterials, l2n::kMaxGroup>(
+    pass_b_slot<Rng, kBody, l2n::kMaxGroup>(
         p, scene, packed, next_pair, spare, alive, rays, meta, back);
   else
-    pass_b_slot<Rng, kMaterials, 1>(p, scene, packed, next_pair, spare,
+    pass_b_slot<Rng, kBody, 1>(p, scene, packed, next_pair, spare,
                                     alive, rays, meta, back);
 }
 
@@ -205,15 +211,15 @@ __global__ void wavefront_pass_c_kernel(l2n::PtParams p,
 }
 
 struct LaunchPassA {
-  template <class Rng, bool kMaterials, bool kFast, bool kViewproj>
+  template <class Rng, int kBody, bool kFast, bool kViewproj>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive,
                  cudaStream_t stream) {
     const size_t smem = sizeof(float) * l2n::culled_scene_floats(
-                                            p.n_scene, pass_table_rows(kMaterials));
+                                            p.n_scene, pass_table_rows(kBody));
     static size_t opted = 48 * 1024;
     const auto kernel =
-        wavefront_pass_a_kernel<Rng, kMaterials, kFast, kViewproj>;
+        wavefront_pass_a_kernel<Rng, kBody, kFast, kViewproj>;
     cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     rc = cudaMemsetAsync(n_alive, 0, sizeof(int32_t), stream);
@@ -249,16 +255,16 @@ cudaError_t pass_b_grid(const l2n::PtParams& p, int& grid,
 }
 
 struct LaunchPassB {
-  template <class Rng, bool kMaterials, bool kFast>
+  template <class Rng, int kBody, bool kFast>
   static int run(l2n::PtParams p, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
                  const float* rays, const int32_t* meta, float* back,
                  cudaStream_t stream) {
     const size_t smem =
-        sizeof(float) * pass_b_floats(p.n_scene, pass_table_rows(kMaterials));
+        sizeof(float) * pass_b_floats(p.n_scene, pass_table_rows(kBody));
     static size_t opted = 48 * 1024;
     int grid = 0, group_threads = 0;
-    const auto kernel = wavefront_pass_b_kernel<Rng, kMaterials, kFast>;
+    const auto kernel = wavefront_pass_b_kernel<Rng, kBody, kFast>;
     cudaError_t rc = l2n::allow_smem(kernel, smem, opted);
     if (rc == cudaSuccess) rc = pass_b_grid(p, grid, group_threads);
     if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -279,7 +285,8 @@ struct LaunchPassB {
 // (ops/kernels/common.py::step_params). Device pointers: sched (K, 2)
 // int32; spheres (13, n) float32; accum (4, Hp, Wp) and output (3, Hp, Wp)
 // float32; in wavefront.cuh's layouts, col and back (3, n_lanes) float32
-// by lane, rays (9, n_lanes) float32 and meta (3, n_lanes) int32 by slot,
+// by lane, rays (9 or 10, n_lanes: wavefront.cuh ray_planes) float32 and
+// meta (3, n_lanes) int32 by slot,
 // n_alive one int32.
 
 // Zeroes n_alive (a memset on the stream), then appends the survivors.
@@ -297,14 +304,16 @@ extern "C" int l2n_wavefront_pass_a(const int32_t* ip, const float* fp,
 
 // next_pair/has_spare: the resume point of the sampler's stream after pass A
 // (ops/pathtrace.py::wavefront_draw_position). Writes back at the lanes of
-// the first *n_alive slots.
+// the first *n_alive slots; under NEE also col there (wavefront.cuh
+// wavefront_pass_b_slot), which the other bodies never touch (null then).
 extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
                                     int next_pair, int has_spare,
                                     const int32_t* n_alive,
                                     const float* spheres, const float* rays,
-                                    const int32_t* meta, float* back,
-                                    void* stream) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+                                    const int32_t* meta, float* col,
+                                    float* back, void* stream) {
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  p.nee_col = col;
   return l2n::dispatch_pass_b<LaunchPassB>(
       p, p, next_pair, has_spare, n_alive, spheres, rays, meta, back,
       static_cast<cudaStream_t>(stream));

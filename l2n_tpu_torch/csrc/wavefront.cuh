@@ -12,11 +12,14 @@
 //   col  (3 planes): pass A's partial radiance;
 //   back (3 planes): the rest of the path's radiance: 0 where the path ended
 //                    in pass A (pass A writes it), pass B's contribution
-//                    where it went on (pass B writes it).
+//                    where it went on (pass B writes it; under NEE the
+//                    whole path's, pass B zeroing col there).
 // Slot layout: pass A appends each survivor to slot 0, 1, ... of arrays of
 // n_lanes slots; slots 0 .. n_alive - 1 hold the survivors, in lane order
 // within a warp's append and in no fixed order between warps.
-//   rays (9 planes): cast origin, direction, throughput (Continuation);
+//   rays (9 planes, 10 under NEE with MIS): cast origin, direction,
+//                    throughput and, under MIS, the direction's pdf
+//                    (Continuation; ray_planes);
 //   meta (3 planes): pixel index, sample index (as int32 bit patterns) and
 //                    the lane the survivor came from.
 // The image does not depend on the slot order: pass B's work on a survivor
@@ -26,9 +29,12 @@
 // Passes A and B are templates on a counter-based sampler (ThreefrySampler,
 // or PhiloxSampler for rng="tpu_hw"): pass B regenerates each path's
 // stream from its meta planes and resumes it where pass A stopped, which
-// depends on the material mode (ops/pathtrace.py::wavefront_draw_position).
-// kMaterials scatters with the materials body (the material modes and the
-// bump; the split takes no explicit lights, as in the JAX package).
+// depends on the material mode and NEE (ops/pathtrace.py::
+// wavefront_draw_position). kBody is the path tracer's body (pathtrace.cuh
+// path_body): Lambert, materials (the material modes and the bump; the
+// split takes no explicit lights, as in the JAX package) or NEE, which
+// does NEE at pass A's first vertex and carries its MIS pdf to pass B in
+// the 10th ray plane.
 
 #pragma once
 
@@ -38,6 +44,12 @@ namespace l2n {
 
 constexpr int kRayPlanes = 9;
 constexpr int kMetaPlanes = 3;
+
+// The ray planes of a step: 9, and the pdf plane under NEE with MIS (ops/
+// kernels/wavefront.py::ray_planes).
+L2N_HD int ray_planes(const PtParams& p) {
+  return p.nee && p.mis ? kRayPlanes + 1 : kRayPlanes;
+}
 
 L2N_HD size_t lane_count(const PtParams& p) {
   return static_cast<size_t>(p.k) * static_cast<size_t>(p.spp) *
@@ -62,7 +74,7 @@ struct PassALanes {
 // either back = 0 at the lane or the survivor's planes at the slot that
 // `append(alive)` returns. The kernel's append is warp-collective, so every
 // thread calls it once per sample, alive or not; the host's is serial.
-template <class Rng, bool kMaterials, class Scene, class Append>
+template <class Rng, int kBody, class Scene, class Append>
 L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
                                     int si, int r, int c,
                                     const int32_t* sched, const float* accum,
@@ -80,7 +92,7 @@ L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
   primary_direction(p, rng, row, column, dx, dy, dz);
   float rgb[3];
   Continuation cont;
-  const bool alive = trace_primary<kMaterials>(
+  const bool alive = trace_primary<kBody>(
       p, s, rng, p.cam[32], p.cam[33], p.cam[34], dx, dy, dz, rgb, cont);
   const size_t n = lane_count(p);
   const size_t lane = lane_index(p, k, si, r, c);
@@ -94,6 +106,8 @@ L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
                                     cont.dx, cont.dy, cont.dz,
                                     cont.tp[0], cont.tp[1], cont.tp[2]};
   for (int i = 0; i < kRayPlanes; ++i) out.rays[i * n + slot] = planes[i];
+  if constexpr (kBody == kBodyNee)
+    if (p.mis) out.rays[kRayPlanes * n + slot] = cont.pdf;
   out.meta[slot] = static_cast<int32_t>(pixel_index);
   out.meta[n + slot] = static_cast<int32_t>(sample);
   out.meta[2 * n + slot] = static_cast<int32_t>(lane);
@@ -213,13 +227,19 @@ struct GroupScene : SceneView {
 
 // Pass B for slot `slot` of n_lanes: resume the sample's stream at
 // (next_pair, has_spare), finish the path (trace_continue) and, if `write`,
-// write its contribution to back at the survivor's lane.
-template <class Rng, bool kMaterials, class Scene>
+// write its contribution to back at the survivor's lane. The NEE body's
+// pass A added the first vertex's direct light to the lane's col: the path
+// goes on from that sum, as the fused kernel's does, back gets the whole
+// path's radiance and col 0 (read before the path's first sweep, whose
+// shuffles order it before the group's write), so pass C's sum is the
+// fused kernel's to the bit. The other bodies leave col alone (0 at a
+// survivor's lane).
+template <class Rng, int kBody, class Scene>
 L2N_HD void wavefront_pass_b_slot(const PtParams& p, const Scene& s,
                                   int next_pair, bool has_spare, size_t slot,
                                   size_t n_lanes, const float* rays,
-                                  const int32_t* meta, float* back,
-                                  bool write) {
+                                  const int32_t* meta, float* col,
+                                  float* back, bool write) {
   Continuation cont;
   cont.ox = rays[slot];
   cont.oy = rays[n_lanes + slot];
@@ -228,14 +248,23 @@ L2N_HD void wavefront_pass_b_slot(const PtParams& p, const Scene& s,
   cont.dy = rays[4 * n_lanes + slot];
   cont.dz = rays[5 * n_lanes + slot];
   for (int i = 0; i < 3; ++i) cont.tp[i] = rays[(6 + i) * n_lanes + slot];
+  cont.pdf = 1.0f;
+  if constexpr (kBody == kBodyNee)
+    if (p.mis) cont.pdf = rays[kRayPlanes * n_lanes + slot];
   Rng rng = Rng::resumed(p, static_cast<uint32_t>(meta[slot]),
                          static_cast<uint32_t>(meta[n_lanes + slot]),
                          next_pair, has_spare);
   float rgb[3] = {0.0f, 0.0f, 0.0f};
-  trace_continue<kMaterials>(p, s, rng, cont, rgb);
+  if constexpr (kBody == kBodyNee) {
+    const size_t lane = static_cast<size_t>(meta[2 * n_lanes + slot]);
+    for (int ch = 0; ch < 3; ++ch) rgb[ch] = col[ch * n_lanes + lane];
+  }
+  trace_continue<kBody>(p, s, rng, cont, rgb);
   if (!write) return;
   const size_t lane = static_cast<size_t>(meta[2 * n_lanes + slot]);
   for (int ch = 0; ch < 3; ++ch) back[ch * n_lanes + lane] = rgb[ch];
+  if constexpr (kBody == kBodyNee)
+    for (int ch = 0; ch < 3; ++ch) col[ch * n_lanes + lane] = 0.0f;
 }
 
 // Pass C for pixel (r, c) of scheduled tile k: per sample, sum + colA +

@@ -102,7 +102,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "uv_demo": [i, i, p, p, p],
         "triangle_pt": [p, p, i, i] + [p] * 14,
         "wavefront_pass_a": [p] * 11,
-        "wavefront_pass_b": [p, p, i, i, p, p, p, p, p, p],
+        "wavefront_pass_b": [p, p, i, i] + [p] * 7,
         "wavefront_pass_c": [p] * 8,
         "philox_bits": [p, i, i, p, p],
         "cond_cost": [p, i, i, i, i, i, p, p],

@@ -10,7 +10,9 @@ import ctypes
 import numpy as np
 import torch
 
+from l2n_tpu_torch.maths.sampling import PI
 from l2n_tpu_torch.ops.kernels import build
+from l2n_tpu_torch.ops.nee import emissive_count
 from l2n_tpu_torch.ops.pathtrace import generate_rays, shade
 from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
 from l2n_tpu_torch.rng.state import STATE_PLANES, sampler_from_planes
@@ -31,13 +33,8 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
     anything the port does not render. Nothing is silently ignored."""
     cfg.validate()
-    unsupported = [
-        (cfg.nee or cfg.mis, "nee/mis are ROADMAP Queue 1 #9"),
-        (cfg.fog_density > 0.0, "fog is ROADMAP Queue 1 #9"),
-    ]
-    for bad, why in unsupported:
-        if bad:
-            raise NotImplementedError(why)
+    if cfg.fog_density > 0.0:
+        raise NotImplementedError("fog is ROADMAP Queue 1 #9")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -73,11 +70,11 @@ MATERIAL_CODES = {"procedural": 0, "microfacet": 1, "disney": 2}
 def table_rows(cfg, lights=None) -> int:
     """Rows of the per-object table (albedo, then the material channels,
     scene/materials.MATERIAL_CHANNELS) a kernel may stage: 9 with a
-    material mode, the bump or explicit lights (csrc/pathtrace.cuh
-    table_rows: the materials body and the bumped normal AOV), else the 3
-    albedo rows of the Lambert body."""
+    material mode, the bump, explicit lights or NEE (csrc/pathtrace.cuh
+    table_rows: the materials and NEE bodies and the bumped normal AOV),
+    else the 3 albedo rows of the Lambert body."""
     materials = (cfg.material_mode != "procedural" or cfg.normal_map > 0.0
-                 or (lights is not None and lights.has_lights))
+                 or cfg.nee or (lights is not None and lights.has_lights))
     return 9 if materials else 3
 
 
@@ -102,17 +99,22 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     """The integer and float parameter arrays of csrc/pathtrace.cuh's
     params_from_arrays, in its order, for K scheduled tiles over a scene of
     `n_scene` spheres or meshes, with the point and directional light
-    counts of `lights` (ops/lights.ExplicitLights, or None)."""
+    counts of `lights` (ops/lights.ExplicitLights, or None). Under NEE the
+    scene's E lights ride in the ints and NEE's two constants, as float32
+    roundings of the float64 products that ops/nee.py rounds too, in the
+    floats: scale E (area) and scale / (4 pi) (cone)."""
     n_point = 0 if lights is None else lights.point.shape[0]
     n_dir = 0 if lights is None else lights.directional.shape[0]
+    n_lights = emissive_count(n_scene, cfg.emissive_every) if cfg.nee else 0
     ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
                    cfg.padded_width, k, n_scene, cfg.spp_per_step,
-                   cfg.max_bounces, max_pairs_per_sample(cfg.max_bounces),
+                   cfg.max_bounces,
+                   max_pairs_per_sample(cfg.max_bounces, cfg.nee),
                    cfg.emissive_every, ENV_CODES[cfg.env_mode],
                    cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
                    RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
                    int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
-                   n_point, n_dir],
+                   n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights],
                   dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
@@ -120,7 +122,9 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
          1.0 / (cfg.ndc_height or cfg.height), cfg.rr_ceiling,
          cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma],
         dtype=np.float32), camera.reshape(-1),
-        np.array([cfg.normal_map, cfg.normal_map_freq], np.float32)])
+        np.array([cfg.normal_map, cfg.normal_map_freq,
+                  cfg.emission_scale * n_lights,
+                  cfg.emission_scale / (4.0 * PI)], np.float32)])
     return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
 
 
@@ -193,7 +197,7 @@ def _sample_samplers(cfg, flat, sample_index, rng_state):
     spp = cfg.spp_per_step
     if cfg.rng in COUNTER_SAMPLERS:
         cls = COUNTER_SAMPLERS[cfg.rng]
-        max_pairs = max_pairs_per_sample(cfg.max_bounces)
+        max_pairs = max_pairs_per_sample(cfg.max_bounces, cfg.nee)
         for s in range(spp):
             yield cls(cfg.seed, 0, flat, sample_index + s, max_pairs)
         return
@@ -209,14 +213,16 @@ def _sample_samplers(cfg, flat, sample_index, rng_state):
 def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
                        table: torch.Tensor, accum: torch.Tensor,
                        output: torch.Tensor, rng_state=None,
-                       miss_color=(0.0, 0.0, 0.0), lights=None) -> None:
+                       miss_color=(0.0, 0.0, 0.0), lights=None,
+                       nee=None) -> None:
     """The plain torch step shared by the kernels' plain versions: for every
     pixel of the scheduled tiles, `spp` samples in lockstep through
     ops/pathtrace.shade with the scene's `intersect`/`anyhit` closures,
     per-object table (n, 9) (or its (n, 3) albedo columns where the config
-    reads no more, table_rows), normal-AOV `miss_color` and explicit
-    `lights`, then accumulate + tonemap IN PLACE; the stateful modes'
-    `rng_state` planes are stepped IN PLACE too."""
+    reads no more, table_rows), normal-AOV `miss_color`, explicit
+    `lights` and NEE's light sampler `nee`, then accumulate + tonemap IN
+    PLACE; the stateful modes' `rng_state` planes are stepped IN PLACE
+    too."""
     dev = accum.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
@@ -232,7 +238,7 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
         u1, u2 = sampler.draw2()  # pixel jitter, every lane
         rays = generate_rays(cfg, cam, colf, rowf, u1, u2)
         rgb = shade(cfg, intersect, anyhit, table, sampler, *rays,
-                    miss_color=miss_color, lights=lights)
+                    miss_color=miss_color, lights=lights, nee=nee)
         sums = [a + b for a, b in zip(sums, rgb)]
     accumulate_and_tonemap(cfg, accum, output, flat, sums, spp)
 

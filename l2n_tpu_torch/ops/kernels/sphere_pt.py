@@ -14,7 +14,9 @@ Both read the scene's per-object table (albedo and the material
 channels, rows 4-12 of SphereScene.packed()), evaluated once on the host
 (the hash magnifies one-ulp sin differences), and both use the
 kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights) ride
-beside the scene; their shadow rays sweep every sphere. The kernel sweeps only the tile's cone-visible
+beside the scene; their shadow rays sweep every sphere, as NEE's do
+(cfg.nee: area sampling over the emissive spheres, ops/nee.py, whose
+centres and radii are the buffer's own rows). The kernel sweeps only the tile's cone-visible
 spheres for primary rays (csrc/cull.cuh, built per block in its
 prologue); `visibility_table` is the same table in plain torch, the
 counterpart of the JAX package's, against which the tests hold it. The
@@ -42,6 +44,7 @@ from l2n_tpu_torch.ops.kernels.common import (
     table_rows,
 )
 from l2n_tpu_torch.ops.lights import ExplicitLights
+from l2n_tpu_torch.ops.nee import sphere_light_sampler
 from l2n_tpu_torch.ops.pathtrace import generate_rays
 from l2n_tpu_torch.ops.scenes import (
     SPHERE_MISS_COLOR,
@@ -124,10 +127,11 @@ def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     whatever device the tensors are on."""
     check_supported(cfg)
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
+    nee = sphere_light_sampler(cfg, spheres) if cfg.nee else None
     render_tiles_plain(cfg, sched, camera,
                        sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
                        sphere_anyhit(cx, cy, cz, r2), spheres[4:].T, accum,
-                       output, rng_state, SPHERE_MISS_COLOR, lights)
+                       output, rng_state, SPHERE_MISS_COLOR, lights, nee)
 
 
 def visibility_table(cfg, bounds: torch.Tensor, camera,

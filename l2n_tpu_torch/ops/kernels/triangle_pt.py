@@ -15,7 +15,10 @@ renders the scheduled tiles of a triangle scene and updates `accum`,
 Both read one per-mesh table (albedo, and the material channels of
 scene/materials.MATERIAL_CHANNELS), evaluated once on the host, and both
 use the kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights)
-ride beside the scene; their shadow rays walk every mesh. `TriangleBuffers` holds what either version
+ride beside the scene; their shadow rays walk every mesh, as NEE's do
+(cfg.nee: cone sampling over the emissive meshes' bounding spheres,
+ops/nee.py, which are the packed `mesh_bounds` the kernel walks).
+`TriangleBuffers` holds what either version
 reads: the soup for the plain version, the packed bounds, slot rows and
 attribute rows for the kernel (ops/kernels/triangle_pack.py).
 """
@@ -42,6 +45,7 @@ from l2n_tpu_torch.ops.kernels.common import (
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import check_lights
 from l2n_tpu_torch.ops.kernels.triangle_pack import SUBS, pack_mesh_blocks
+from l2n_tpu_torch.ops.nee import mesh_light_sampler
 from l2n_tpu_torch.ops.scenes import (
     TRIANGLE_MISS_COLOR,
     triangle_anyhit,
@@ -213,7 +217,9 @@ def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
     brute-force sweep over every triangle, on whatever device the tensors
     are on."""
     check_supported(cfg)
-    intersect = triangle_intersector(buffers.soup)
+    nee = mesh_light_sampler(cfg, buffers.mesh_bounds) if cfg.nee else None
+    intersect = triangle_intersector(
+        buffers.soup, buffers.mesh_bounds[:, 3] if cfg.nee else None)
     render_tiles_plain(cfg, sched, camera, intersect,
                        triangle_anyhit(intersect), buffers.table(), accum,
-                       output, rng_state, TRIANGLE_MISS_COLOR, lights)
+                       output, rng_state, TRIANGLE_MISS_COLOR, lights, nee)

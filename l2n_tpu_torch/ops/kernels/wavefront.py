@@ -14,7 +14,9 @@ after its first vertex:
           prefix of slots, counted in `n_alive` (zeroed by a memset first);
   pass B  (`wavefront_pass_b`): over the n_alive slots, the bounce
           continuation from the sampler's resume point, written to `back`
-          at the survivor's lane;
+          at the survivor's lane (under NEE it goes on from the lane's
+          `col`, pass A's direct light, writes the whole sum to `back`
+          and 0 to `col`: the fused step's sum, to the bit);
   pass C  (`wavefront_pass_c`): per pixel, sum + colA + back per sample,
           then accumulate + tonemap IN PLACE.
 
@@ -31,10 +33,12 @@ the bit: both compose the same path helpers (ops/pathtrace.py, csrc/
 pathtrace.cuh) and the counter-based stream (threefry, or Philox for
 rng="tpu_hw") resumes in pass B exactly where pass A stopped. The stateful
 rng modes cannot resume across the split; RenderConfig refuses them with
-the wavefront step, and the passes raise for them. The material modes and
-the bump run through passes A and B (their resume point depends on the
-mode: ops/pathtrace.wavefront_draw_position); the explicit lights do not
-(render/step.py raises for them, as the JAX package does).
+the wavefront step, and the passes raise for them. The material modes,
+the bump and NEE run through passes A and B (their resume point depends
+on the mode and NEE: ops/pathtrace.wavefront_draw_position; pass A does
+NEE at the first vertex, and under MIS a survivor carries the pdf of its
+direction as a 10th ray plane); the explicit lights do not (render/step.py
+raises for them, as the JAX package does).
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (`*_plain`) for CPU tensors; `sphere_wavefront_step` chains
@@ -61,6 +65,7 @@ from l2n_tpu_torch.ops.kernels.common import (
     tile_pixel_coords,
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import check_spheres, max_spheres
+from l2n_tpu_torch.ops.nee import sphere_light_sampler
 from l2n_tpu_torch.ops.pathtrace import (
     WAVEFRONT_FAR_THRESHOLD,
     generate_rays,
@@ -76,16 +81,23 @@ f32, i32 = torch.float32, torch.int32
 # Pass A's block (csrc/wavefront.cu) holds sphere_pt's culled scene
 # (sphere_pt.max_spheres); pass B stages no more per sphere (the SoA rows
 # it reads and a packed copy of 4 words).
-RAY_PLANES, META_PLANES = 9, 3
+META_PLANES = 3
+
+
+def ray_planes(cfg) -> int:
+    """The survivors' ray planes: cast origin, direction and throughput,
+    and under NEE with MIS the pdf of the direction (csrc/wavefront.cuh
+    ray_planes; the JAX package's _ray_plane_count)."""
+    return 10 if cfg.nee and cfg.mis else 9
 
 
 class WavefrontLanes(NamedTuple):
     """Pass A's outputs. col and back (3, K, spp * th, tw) float32 by lane:
     the partial radiance, and 0 where the path ended in pass A (pass B
     writes the survivors' lanes; the plain pass A leaves NaN there). rays
-    (9, n_lanes) float32 and meta (3, n_lanes) int32 by slot: the survivors
-    in slots 0 .. n_alive - 1, meta holding pixel index, sample index and
-    lane. n_alive (1,) int32, on the device."""
+    (ray_planes(cfg), n_lanes) float32 and meta (3, n_lanes) int32 by slot:
+    the survivors in slots 0 .. n_alive - 1, meta holding pixel index,
+    sample index and lane. n_alive (1,) int32, on the device."""
     col: torch.Tensor
     back: torch.Tensor
     rays: torch.Tensor
@@ -104,7 +116,7 @@ def wavefront_lanes(cfg, k: int, device) -> WavefrontLanes:
     return WavefrontLanes(
         torch.empty(_lane_shape(cfg, k, 3), dtype=f32, device=device),
         torch.empty(_lane_shape(cfg, k, 3), dtype=f32, device=device),
-        torch.empty((RAY_PLANES, n), dtype=f32, device=device),
+        torch.empty((ray_planes(cfg), n), dtype=f32, device=device),
         torch.empty((META_PLANES, n), dtype=i32, device=device),
         torch.empty((1,), dtype=i32, device=device))
 
@@ -113,6 +125,11 @@ def _scene(cfg, spheres: torch.Tensor):
     cx, cy, cz, r2 = spheres[0], spheres[1], spheres[2], spheres[3]
     return (sphere_intersector(cx, cy, cz, r2, cfg.fast_math),
             sphere_anyhit(cx, cy, cz, r2), spheres[4:].T)
+
+
+def _light_sampler(cfg, spheres: torch.Tensor):
+    """The plain passes' NEE light sampler; None without NEE."""
+    return sphere_light_sampler(cfg, spheres) if cfg.nee else None
 
 
 def _check_spheres(cfg, spheres, device) -> int:
@@ -127,7 +144,7 @@ def _check_lanes(cfg, k: int, lanes: WavefrontLanes, device) -> None:
     n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
     for name, shape, dtype in (("col", _lane_shape(cfg, k, 3), f32),
                                ("back", _lane_shape(cfg, k, 3), f32),
-                               ("rays", (RAY_PLANES, n), f32),
+                               ("rays", (ray_planes(cfg), n), f32),
                                ("meta", (META_PLANES, n), i32),
                                ("n_alive", (1,), i32)):
         check_tensor(name, getattr(lanes, name), dtype, shape, device)
@@ -181,14 +198,16 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
 
 def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
                         spheres: torch.Tensor, accum: torch.Tensor):
-    """Every lane of pass A in lane order, before the append: (rays (9, K,
-    spp*th, tw) float32, dead lanes parked at 3e30; col (3, ...) float32;
+    """Every lane of pass A in lane order, before the append: (rays
+    (ray_planes(cfg), K, spp*th, tw) float32, dead lanes parked at 3e30;
+    col (3, ...) float32;
     meta (2, ...) int32, pixel and sample index). Lockstep over the pixels
     of the scheduled tiles, one sample at a time (lanes in the fused plain
     step's order, so every operation sees the same vectors)."""
     dev = accum.device
     sampler_cls = _sampler_class(cfg)
     intersect, _, albedo = _scene(cfg, spheres)
+    nee = _light_sampler(cfg, spheres)
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     k, th, tw, spp = (sched.shape[0], cfg.tile_height, cfg.tile_width,
                       cfg.spp_per_step)
@@ -197,8 +216,9 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
     sample_index = accum[3].reshape(-1)[flat].to(i32)
     rowf = row.reshape(-1).to(f32)
     colf = col.reshape(-1).to(f32)
-    max_pairs = max_pairs_per_sample(cfg.max_bounces)
-    rays = torch.empty((RAY_PLANES, k, spp, th, tw), dtype=f32, device=dev)
+    max_pairs = max_pairs_per_sample(cfg.max_bounces, cfg.nee)
+    planes = ray_planes(cfg)
+    rays = torch.empty((planes, k, spp, th, tw), dtype=f32, device=dev)
     rgb = torch.empty((3, k, spp, th, tw), dtype=f32, device=dev)
     meta = torch.empty((2, k, spp, th, tw), dtype=i32, device=dev)
     for s in range(spp):
@@ -206,12 +226,12 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
         u1, u2 = sampler.draw2()  # pixel jitter
         out = trace_wavefront_primary(
             cfg, intersect, albedo, sampler,
-            *generate_rays(cfg, cam, colf, rowf, u1, u2))
+            *generate_rays(cfg, cam, colf, rowf, u1, u2), nee)
         rgb[:, :, s] = torch.stack(out[:3]).view(3, k, th, tw)
-        rays[:, :, s] = torch.stack(out[3:]).view(RAY_PLANES, k, th, tw)
+        rays[:, :, s] = torch.stack(out[3:]).view(planes, k, th, tw)
         meta[0, :, s] = flat.to(i32).view(k, th, tw)
         meta[1, :, s] = (sample_index + s).view(k, th, tw)
-    return (rays.view(_lane_shape(cfg, k, RAY_PLANES)),
+    return (rays.view(_lane_shape(cfg, k, planes)),
             rgb.view(_lane_shape(cfg, k, 3)), meta.view(_lane_shape(cfg, k, 2)))
 
 
@@ -235,8 +255,9 @@ def compact_survivors(rays: torch.Tensor, meta: torch.Tensor):
     lane order: the JAX step's rank permutation (perm: alive lanes to their
     rank, dead lanes after them) and its inverse.
 
-    rays (9, ...) and meta (2, ...) in lane layout. Returns (comp (9,
-    n_lanes), comp_meta (3, n_lanes) int32, whose third plane is each slot's
+    rays (planes, ...) and meta (2, ...) in lane layout. Returns (comp
+    (planes, n_lanes), comp_meta (3, n_lanes) int32, whose third plane is
+    each slot's
     lane, n_alive (1,) int32). Every operation stays on the rays' device;
     nothing is read back."""
     planes = rays.shape[0]
@@ -260,21 +281,24 @@ def compact_survivors(rays: torch.Tensor, meta: torch.Tensor):
 
 def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
                      meta: torch.Tensor, n_alive: torch.Tensor,
-                     back: torch.Tensor) -> None:
+                     back: torch.Tensor, col: torch.Tensor | None = None
+                     ) -> None:
     """Finish the survivors' paths and write each contribution to `back` at
-    its lane, IN PLACE.
+    its lane, IN PLACE; under NEE the path goes on from `col` at the lane
+    (pass A's radiance, then set to 0 there), so `back` gets its whole sum.
 
-    rays (9, n_lanes) float32 and meta (3, n_lanes) int32 hold the
-    survivors in their first n_alive slots (a (1,) int32 tensor on the same
-    device, read by the kernel, never by the host); back (3, K, spp*th, tw)
-    float32 by lane, as pass A returns them."""
+    rays (ray_planes(cfg), n_lanes) float32 and meta (3, n_lanes) int32 hold
+    the survivors in their first n_alive slots (a (1,) int32 tensor on the
+    same device, read by the kernel, never by the host); back and col (3,
+    K, spp*th, tw) float32 by lane, as pass A returns them (col only under
+    NEE)."""
     check_supported(cfg)
     _sampler_class(cfg)
     dev = _device(rays, "wavefront_pass_b")
     camera = check_camera(camera)
     n = _check_spheres(cfg, spheres, dev)
     n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
-    check_tensor("rays", rays, f32, (RAY_PLANES, n_lanes), dev)
+    check_tensor("rays", rays, f32, (ray_planes(cfg), n_lanes), dev)
     check_tensor("meta", meta, i32, (META_PLANES, n_lanes), dev)
     check_tensor("n_alive", n_alive, i32, (1,), dev)
     per_tile = cfg.spp_per_step * cfg.tile_height * cfg.tile_width
@@ -283,33 +307,46 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
                          f"{per_tile}")
     k = n_lanes // per_tile
     check_tensor("back", back, f32, _lane_shape(cfg, k, 3), dev)
+    if cfg.nee:
+        check_tensor("col", col, f32, _lane_shape(cfg, k, 3), dev)
     if dev.type == "cpu":
         wavefront_pass_b_plain(cfg, camera, spheres, rays, meta, n_alive,
-                               back)
+                               back, col)
         return
     next_pair, has_spare = wavefront_draw_position(cfg)
     ip, fp = step_params(cfg, k, n, camera)
     launch("wavefront_pass_b", cfg, dev, ip, fp, next_pair, int(has_spare),
-           n_alive, spheres, rays, meta, back)
+           n_alive, spheres, rays, meta, col if cfg.nee else None, back)
 
 
 def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
                            rays: torch.Tensor, meta: torch.Tensor,
-                           n_alive: torch.Tensor, back: torch.Tensor) -> None:
+                           n_alive: torch.Tensor, back: torch.Tensor,
+                           col: torch.Tensor | None = None) -> None:
     """The plain torch version of `wavefront_pass_b`: the continuation of
     every slot in lockstep, the slots past n_alive included (as the Pallas
     kernel's blocks compute their padding lanes), then the first n_alive
     written to back at their lanes (`write_back`), so no host read of
-    n_alive is needed."""
+    n_alive is needed; under NEE from `col` at those lanes, which then
+    hold 0."""
     del camera  # the port's stream is 0
     intersect, anyhit, albedo = _scene(cfg, spheres)
+    nee = _light_sampler(cfg, spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)
     sampler = _sampler_class(cfg).resumed(
-        cfg.seed, 0, meta[0], meta[1], max_pairs_per_sample(cfg.max_bounces),
-        next_pair, has_spare)
+        cfg.seed, 0, meta[0], meta[1],
+        max_pairs_per_sample(cfg.max_bounces, cfg.nee), next_pair, has_spare)
+    start = None
+    if nee is not None:
+        n = meta.shape[1]
+        slot = torch.arange(n, device=meta.device)
+        lane = torch.where(slot < n_alive, meta[2].to(torch.int64), 0)
+        start = col.view(3, -1)[:, lane]
     contrib = torch.stack(trace_wavefront_continue(
-        cfg, intersect, anyhit, albedo, sampler, *rays))
+        cfg, intersect, anyhit, albedo, sampler, *rays, nee=nee, col=start))
     write_back(back, contrib, meta, n_alive)
+    if nee is not None:
+        write_back(col, torch.zeros_like(contrib), meta, n_alive)
 
 
 def write_back(back: torch.Tensor, contrib: torch.Tensor, meta: torch.Tensor,
@@ -380,7 +417,7 @@ def _step(passes, cfg, sched, camera, spheres, accum, output,
                          "rng_state planes")
     pass_a, pass_b, pass_c = passes
     a = pass_a(cfg, sched, camera, spheres, accum, **lanes)
-    pass_b(cfg, camera, spheres, a.rays, a.meta, a.n_alive, a.back)
+    pass_b(cfg, camera, spheres, a.rays, a.meta, a.n_alive, a.back, a.col)
     pass_c(cfg, sched, a.col, a.back, accum, output)
 
 

@@ -3,7 +3,8 @@ bounce loop and the primary-only AOVs (counterpart of l2n_tpu.ops.pathtrace
 for the port's configs: the pathtracing, normal, hit, ambient_occlusion,
 tex_coords and param_uv AOVs, the fovy and viewproj cameras, fast_math,
 procedural Lambert or the microfacet / Disney materials, normal mapping,
-the explicit point and directional lights; no NEE/MIS/fog).
+the explicit point and directional lights, next event estimation and MIS
+(ops/nee.py); no fog).
 
 This is the plain version the CPU tests and `backend="torch"` run. It is a
 mask translation of the JAX package's `trace_path` / `_scatter_and_roulette`
@@ -46,6 +47,11 @@ from l2n_tpu_torch.maths.sampling import (
 )
 from l2n_tpu_torch.ops.envlight import env_radiance
 from l2n_tpu_torch.ops.lights import explicit_light_contribution
+from l2n_tpu_torch.ops.nee import (
+    mis_emission_weight,
+    nee_cone_contribution,
+    nee_contribution,
+)
 
 
 @dataclasses.dataclass
@@ -54,7 +60,8 @@ class Hit:
     index (-1 on miss), which keys the albedo table and the emissive rule;
     `emis_r2` the squared radius in the emission formula (1 for meshes).
     `tc_u/tc_v` (texcoords) and `b_u/b_v` (barycentrics) are None for
-    scenes without them."""
+    scenes without them; `bound_r2`, the squared radius of the winner
+    mesh's bounding sphere (cone NEE's MIS weight), None for spheres."""
 
     t: torch.Tensor
     nx: torch.Tensor
@@ -66,6 +73,7 @@ class Hit:
     tc_v: torch.Tensor | None = None
     b_u: torch.Tensor | None = None
     b_v: torch.Tensor | None = None
+    bound_r2: torch.Tensor | None = None
 
 
 IntersectFn = Callable[..., Hit]  # (ox, oy, oz, dx, dy, dz) -> Hit
@@ -126,33 +134,59 @@ def _emit_term(cfg, emis_r2):
     return torch.full_like(den, cfg.emission_scale) / den
 
 
-def _resolve_vertex(cfg, dist, index, emis_r2, tp, col):
-    """Emissive lanes add their weighted radiance and terminate."""
+def _hit_bound_r2(h: Hit) -> torch.Tensor:
+    return h.bound_r2 if h.bound_r2 is not None else h.emis_r2
+
+
+def _resolve_vertex(cfg, dist, bd, h: Hit, tp, col, nee=None, prev_pdf=None,
+                    emission_ok=None):
+    """At a bounce vertex (b >= 1), the emissive lanes of the hit h (found
+    along bd) add their radiance and terminate. Under NEE (`nee`, the
+    scene's ops/nee.LightSampler) with MIS the emission is weighted against
+    NEE's pdf of the same direction (mis_emission_weight, prev_pdf the
+    pdf of the BSDF sample that found it); without MIS only lanes whose
+    `emission_ok` is 1 keep it."""
     active = dist >= 0.0
-    emissive = active & (index % cfg.emissive_every == 0)
+    emissive = active & (h.index % cfg.emissive_every == 0)
     diffuse = active & ~emissive
-    emit = _emit_term(cfg, emis_r2)
-    col = tuple(torch.where(emissive, c + t * emit, c) for c, t in zip(col, tp))
+    emit = _emit_term(cfg, h.emis_r2)
+    add = emissive
+    if nee is not None and cfg.mis:
+        emit = emit * mis_emission_weight(
+            cfg, nee, prev_pdf, bd, h.t, (h.nx, h.ny, h.nz), h.emis_r2,
+            _hit_bound_r2(h))
+    elif nee is not None:
+        add = emissive & (emission_ok == 1)
+    col = tuple(torch.where(add, c + t * emit, c) for c, t in zip(col, tp))
     dist = torch.where(emissive, torch.full_like(dist, -2.0), dist)
     return dist, diffuse, col
 
 
 def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
-                          diffuse, tp, col, intersect=None, lights=None):
-    """The bounce at the vertex bo + cur_t*bd: the bump (normal_map), the
+                          diffuse, tp, col, intersect=None, lights=None, b=0,
+                          nee=None, prev_pdf=None, emission_ok=None):
+    """The bounce b at the vertex bo + cur_t*bd: the bump (normal_map), the
     BSDF sample (procedural Lambert, or the microfacet / Disney mixture),
-    the explicit lights' direct term, the throughput update, Russian
-    roulette and the continuation origin (far-parked for dead lanes).
+    next event estimation (`nee`, the scene's ops/nee.LightSampler), the
+    explicit lights' direct term, the throughput update, Russian roulette
+    and the continuation origin (far-parked for dead lanes).
 
     `table` is the scene's (n, 3 + 6) per-object table: albedo, then
     scene/materials.MATERIAL_CHANNELS (an (n, 3) albedo table does for
-    the procedural mode without bump). `lights` (ops/lights.ExplicitLights)
-    with lights casts its shadow rays through `intersect`. Draws, at
-    diffuse lanes: the hemisphere pair, in the material modes one more
-    draw1 for the lobe, then the RR draw1 (which takes the lobe pair's
-    sibling; in the procedural mode it wastes one).
+    the procedural mode without bump). NEE's shadow ray and the lights'
+    are cast through `intersect`. Draws, at diffuse lanes: the hemisphere
+    pair; in the material modes one more draw1 for the lobe; with NEE a
+    draw1 for the light pick and a pair for the point (or the cone's
+    direction); then the RR draw1, which takes the spare word of the last
+    draw1 where one is pending.
 
-    Returns (bo, bd, tp, col, survive, cast_o)."""
+    Under NEE, `prev_pdf` becomes the sampled direction's pdf (the local
+    cosine / pi for Lambert, the mixture's pdf in the material modes) for
+    the next vertex's MIS weight, and without MIS `emission_ok` becomes 0
+    at the lanes that did NEE. NEE takes its MIS weight but at the last
+    bounce (b + 1 == max_bounces), whose BSDF ray never collects emission.
+
+    Returns (bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok)."""
     box, boy, boz = bo
     bdx, bdy, bdz = bd
     hx = box + cur_t * bdx
@@ -172,13 +206,14 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
         u_lobe = sampler.draw1(mask=diffuse)
         if cfg.material_mode == "disney":
             params = (row[..., 4], row[..., 5], row[..., 6], row[..., 7])
-            wd, w, _ = sample_disney(u_lobe, u1, u2, nh, frame, wo, kd,
-                                     rough, *params)
+            wd, w, pdf = sample_disney(u_lobe, u1, u2, nh, frame, wo, kd,
+                                       rough, *params)
 
             def brdf_eval(wi):
                 return eval_disney(nh, wo, wi, kd, rough, *params)
         else:
-            wd, w, _ = sample_brdf(u_lobe, u1, u2, nh, frame, wo, kd, rough)
+            wd, w, pdf = sample_brdf(u_lobe, u1, u2, nh, frame, wo, kd,
+                                     rough)
 
             def brdf_eval(wi):
                 return eval_brdf(nh, wo, wi, kd, rough)
@@ -191,6 +226,25 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
         wd = normalize3(*local_to_world(lx, ly, lz, tangent, bitangent, n),
                         fast=cfg.fast_math)
         w = kd
+        pdf = lz * (1.0 / PI)
+    if nee is not None:
+        if cfg.mis:
+            prev_pdf = torch.where(diffuse, pdf, prev_pdf)
+        u_pick = sampler.draw1(mask=diffuse)
+        ul1, ul2 = sampler.draw2(mask=diffuse)
+        mis_here = cfg.mis and b + 1 < cfg.max_bounces
+        h = (hx, hy, hz)
+        if nee.kind == "area":
+            d = nee_contribution(cfg, nee.n_lights, intersect,
+                                 nee.sample(u_pick, ul1, ul2), h, n, kd, tp,
+                                 mis_here, brdf_eval)
+        else:
+            d = nee_cone_contribution(cfg, nee, intersect, u_pick, ul1, ul2,
+                                      h, n, kd, tp, mis_here, brdf_eval)
+        col = tuple(torch.where(diffuse, c + dc, c) for c, dc in zip(col, d))
+        if not cfg.mis:
+            emission_ok = torch.where(diffuse, torch.zeros_like(emission_ok),
+                                      emission_ok)
     if lights is not None and lights.has_lights:
         e = explicit_light_contribution(cfg, lights, intersect, (hx, hy, hz),
                                         n, kd, tp, brdf_eval)
@@ -198,7 +252,7 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
 
     bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
           torch.where(diffuse, hz, boz))
-    bd = tuple(torch.where(diffuse, wc, b) for wc, b in zip(wd, bd))
+    bd = tuple(torch.where(diffuse, wc, bc) for wc, bc in zip(wd, bd))
     tp = tuple(torch.where(diffuse, t * wc, t) for t, wc in zip(tp, w))
 
     rr = sampler.draw1(mask=diffuse)
@@ -207,17 +261,19 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
     rcp_p = 1.0 / torch.clamp(rr_prob, min=1e-20)
     tp = tuple(torch.where(survive, t * rcp_p, t) for t in tp)
     far = torch.full_like(bo[0], 3.0e30)
-    cast_o = tuple(torch.where(survive, o + cfg.ray_epsilon * d, far)
-                   for o, d in zip(bo, bd))
-    return bo, bd, tp, col, survive, cast_o
+    cast_o = tuple(torch.where(survive, o + cfg.ray_epsilon * dc, far)
+                   for o, dc in zip(bo, bd))
+    return bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok
 
 
 def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
-                 dist, cast_o, bd, tp, col, lights=None):
+                 dist, cast_o, bd, tp, col, lights=None, nee=None,
+                 prev_pdf=None, emission_ok=None):
     """Intersect the pending cast of iteration 0, run iterations
     1..max_bounces-1, resolve the last segment with the any-hit test and add
     the sky where a path that entered the scene (or missed it from the
-    camera) ends on a miss."""
+    camera) ends on a miss. `nee`, `prev_pdf` and `emission_ok`: the NEE
+    state (_scatter_and_roulette)."""
 
     def env_add(col, dist, bd, tp):
         if cfg.env_mode == "none":
@@ -236,20 +292,20 @@ def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
 
     new = intersect(*cast_o, *bd)
     bo = cast_o
-    cur_t, n, index, emis_r2 = new.t, (new.nx, new.ny, new.nz), new.index, new.emis_r2
     dist = torch.where(pending, new.t, dist)
     for b in range(1, cfg.max_bounces):
-        dist, diffuse, col = _resolve_vertex(cfg, dist, index, emis_r2, tp, col)
-        bo, bd, tp, col, survive, cast_o = _scatter_and_roulette(
-            cfg, table, sampler, bo, bd, cur_t, n, index, diffuse, tp, col,
-            intersect, lights)
+        dist, diffuse, col = _resolve_vertex(cfg, dist, bd, new, tp, col, nee,
+                                             prev_pdf, emission_ok)
+        bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = \
+            _scatter_and_roulette(
+                cfg, table, sampler, bo, bd, new.t, (new.nx, new.ny, new.nz),
+                new.index, diffuse, tp, col, intersect, lights, b, nee,
+                prev_pdf, emission_ok)
         dist = torch.where(diffuse & ~survive, torch.full_like(dist, -2.0), dist)
         if b + 1 == cfg.max_bounces:
             dist = final_dist(dist, survive, cast_o, bd)
         else:
             new = intersect(*cast_o, *bd)
-            cur_t, n = new.t, (new.nx, new.ny, new.nz)
-            index, emis_r2 = new.index, new.emis_r2
             dist = torch.where(survive, new.t, dist)
             # As in the JAX package, the next vertex is placed from `bo`
             # (this vertex, returned by the scatter), not from the cast
@@ -257,16 +313,24 @@ def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
     return env_add(col, dist, bd, tp)
 
 
+def _nee_state(shape, dtype, device):
+    """The NEE planes of a path's start: prev_pdf 1 (primaries are not
+    sampled) and emission_ok 1."""
+    return (torch.ones(shape, dtype=dtype, device=device),
+            torch.ones(shape, dtype=torch.int32, device=device))
+
+
 def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
                table: torch.Tensor, sampler, ox, oy, oz, dx, dy, dz,
-               lights=None):
+               lights=None, nee=None):
     """Trace one sample per lane; returns (r, g, b).
 
     Radiance is added when a lane resolves: emissive hits when they
-    terminate, the explicit lights at diffuse vertices, the sky at the
-    single environment site in _finish_path, which covers primary misses
-    too (their direction and throughput never change). `table` is the
-    scene's per-object table (_scatter_and_roulette).
+    terminate, NEE and the explicit lights at diffuse vertices, the sky at
+    the single environment site in _finish_path, which covers primary
+    misses too (their direction and throughput never change). `table` is
+    the scene's per-object table (_scatter_and_roulette); `nee` the
+    scene's ops/nee.LightSampler with cfg.nee, else None.
     """
     hit = intersect(ox, oy, oz, dx, dy, dz)
     shape = dx.shape
@@ -280,14 +344,16 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     col = (base, base, base)
     dist = torch.where(p_emissive, torch.full_like(zero, -2.0), hit.t)
     ones = torch.ones_like(zero)
-    _, bd, tp, col, survive, cast_o = _scatter_and_roulette(
-        cfg, table, sampler, o, (dx, dy, dz), hit.t,
-        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
-        col, intersect, lights)
+    _, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = \
+        _scatter_and_roulette(
+            cfg, table, sampler, o, (dx, dy, dz), hit.t,
+            (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse,
+            (ones, ones, ones), col, intersect, lights, 0, nee,
+            *_nee_state(shape, dx.dtype, dx.device))
     dist = torch.where(p_diffuse & ~survive, torch.full_like(dist, -2.0), dist)
     return _finish_path(cfg, intersect, anyhit, table, sampler,
                         p_diffuse | p_miss, survive, dist, cast_o, bd, tp,
-                        col, lights)
+                        col, lights, nee, prev_pdf, emission_ok)
 
 
 # The wavefront split (ops/kernels/wavefront.py): the same path integral as
@@ -302,14 +368,16 @@ WAVEFRONT_FAR_THRESHOLD = 1.0e30
 
 
 def trace_wavefront_primary(cfg, intersect: IntersectFn, table, sampler,
-                            ox, oy, oz, dx, dy, dz):
+                            ox, oy, oz, dx, dy, dz, nee=None):
     """Pass A: primary cast, first-vertex resolve (emissive hit, primary
-    miss sky), b=0 scatter and Russian roulette.
+    miss sky), b=0 scatter with its NEE (`nee`, the scene's ops/nee.
+    LightSampler with cfg.nee) and Russian roulette.
 
     Returns (col_r, col_g, col_b, cast_ox, cast_oy, cast_oz, bdx, bdy, bdz,
-    tp_r, tp_g, tp_b): the partial radiance and the continuation ray. The
-    JAX package's 13th output, the BSDF pdf, serves MIS only (not in the
-    port). The split takes no explicit lights, as in the JAX package."""
+    tp_r, tp_g, tp_b), and prev_pdf last under NEE with MIS: the partial
+    radiance and the continuation ray, whose sampled direction's pdf MIS
+    weighs at the next vertex. The split takes no explicit lights, as in
+    the JAX package."""
     hit = intersect(ox, oy, oz, dx, dy, dz)
     shape = dx.shape
     o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
@@ -322,37 +390,57 @@ def trace_wavefront_primary(cfg, intersect: IntersectFn, table, sampler,
         base = base + torch.where(hit.t == -1.0, _env_term(cfg, dx, dy, dz),
                                   zero)
     ones = torch.ones_like(zero)
-    _, bd, tp, _, _, cast_o = _scatter_and_roulette(
+    _, bd, tp, col, _, cast_o, prev_pdf, _ = _scatter_and_roulette(
         cfg, table, sampler, o, (dx, dy, dz), hit.t,
         (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
-        (base, base, base))
-    return (base, base, base, *cast_o, *bd, *tp)
+        (base, base, base), intersect, None, 0, nee,
+        *_nee_state(shape, dx.dtype, dx.device))
+    pdf = (prev_pdf,) if nee is not None and cfg.mis else ()
+    return (*col, *cast_o, *bd, *tp, *pdf)
 
 
 def trace_wavefront_continue(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
                              table, sampler, cast_ox, cast_oy, cast_oz,
-                             bdx, bdy, bdz, tp_r, tp_g, tp_b):
+                             bdx, bdy, bdz, tp_r, tp_g, tp_b, prev_pdf=None,
+                             nee=None, col=None):
     """Pass B: finish the paths of compacted survivors from their pending
-    cast. Every lane is taken as alive (padding lanes compute values the
-    caller masks out). Returns only the bounce contribution (r, g, b); the
-    caller adds it to pass A's partial radiance."""
+    cast (and, under NEE with MIS, the pdf `prev_pdf` of its direction).
+    Every lane is taken as alive (padding lanes compute values the caller
+    masks out). Under NEE without MIS every lane left a vertex that did
+    NEE, so the emission its BSDF rays find is dropped. Returns the
+    radiance (r, g, b) the paths add to `col` (3 lane tensors; zeros by
+    default: the bounce contribution alone, which the caller adds to pass
+    A's partial radiance)."""
     zeros = torch.zeros_like(bdx)
     everyone = torch.ones(bdx.shape, dtype=torch.bool, device=bdx.device)
+    if prev_pdf is None:
+        prev_pdf = torch.ones_like(bdx)
+    emission_ok = torch.full(bdx.shape, 0 if nee is not None and not cfg.mis
+                             else 1, dtype=torch.int32, device=bdx.device)
     return _finish_path(cfg, intersect, anyhit, table, sampler, everyone,
                         everyone, zeros, (cast_ox, cast_oy, cast_oz),
                         (bdx, bdy, bdz), (tp_r, tp_g, tp_b),
-                        (zeros, zeros, zeros))
+                        (zeros, zeros, zeros) if col is None else tuple(col),
+                        None, nee, prev_pdf, emission_ok)
 
 
 @functools.cache
 def wavefront_draw_position(cfg) -> tuple[int, bool]:
     """(next_pair, has_spare) of the counter-based stream (threefry or
     Philox, which address pairs alike) after pass A: the resume point of
-    pass B (`resumed`). Read off a sampler
-    that ran pass A on a one-lane dummy after the pixel jitter; the lockstep
-    draw pattern depends on the material mode, not on the scene or the
-    data: (3, True) procedural (the RR draw left its pair's sibling), (3,
-    False) microfacet and disney (the RR draw took the lobe pair's)."""
+    pass B (`resumed`). Read off a sampler with the config's draw budget
+    that ran pass A, NEE included, on a one-lane dummy after the pixel
+    jitter; the lockstep draw pattern depends on the material mode and
+    NEE, not on the scene or the data (the jitter is pair 0, the
+    hemisphere pair 1):
+      * procedural: the RR draw1 takes pair 2's first word and leaves its
+        second: (3, True); with NEE the light pick takes pair 2's first
+        word, the point pair 3 and the RR draw pair 2's second: (4, False);
+      * microfacet and disney: the lobe takes pair 2's first word, the RR
+        draw its second: (3, False); with NEE the lobe and the light pick
+        take pair 2, the point pair 3, and the RR draw pair 4's first
+        word, leaving its second pending across the split: (5, True)."""
+    from l2n_tpu_torch.ops.nee import LightSampler
     from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
 
     # Philox (rng="tpu_hw") has the same pair addressing and resume point.
@@ -364,10 +452,12 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
         return Hit(t=-one, nx=one, ny=one, nz=one, index=idx - 1, emis_r2=one)
 
     sampler = ThreefrySampler(0, 0, idx, idx,
-                              max_pairs_per_sample(cfg.max_bounces))
+                              max_pairs_per_sample(cfg.max_bounces, cfg.nee))
     sampler.draw2()  # the pixel jitter, drawn by the caller
+    nee = (LightSampler("area", torch.ones((4, 1)), cfg.emissive_every)
+           if cfg.nee else None)
     trace_wavefront_primary(cfg, miss, torch.ones((1, 9)), sampler,
-                            one, one, one, one, one, one)
+                            one, one, one, one, one, one, nee)
     return sampler.draw_position
 
 
@@ -437,13 +527,15 @@ def aov_param_uv(intersect: IntersectFn, ox, oy, oz, dx, dy, dz):
 
 
 def shade(cfg, intersect: IntersectFn, anyhit: AnyHitFn, table, sampler,
-          ox, oy, oz, dx, dy, dz, miss_color=(0.0, 0.0, 0.0), lights=None):
+          ox, oy, oz, dx, dy, dz, miss_color=(0.0, 0.0, 0.0), lights=None,
+          nee=None):
     """Dispatch on cfg.aov: the path tracer, or a primary-only AOV;
     `miss_color` is the normal AOV's colour of a miss, `lights` the
-    path tracer's explicit lights (ops/lights.ExplicitLights, or None)."""
+    path tracer's explicit lights (ops/lights.ExplicitLights, or None),
+    `nee` its light sampler (ops/nee.LightSampler, or None)."""
     if cfg.aov == "pathtracing":
         return trace_path(cfg, intersect, anyhit, table, sampler,
-                          ox, oy, oz, dx, dy, dz, lights)
+                          ox, oy, oz, dx, dy, dz, lights, nee)
     if cfg.aov == "normal":
         return aov_normal(cfg, intersect, table, ox, oy, oz, dx, dy, dz,
                           miss_color)

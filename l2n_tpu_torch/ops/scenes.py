@@ -46,14 +46,17 @@ def sphere_anyhit(cx: torch.Tensor, cy: torch.Tensor, cz: torch.Tensor,
 _PARKED = 1.0e30
 
 
-def triangle_intersector(soup: dict) -> IntersectFn:
+def triangle_intersector(soup: dict,
+                         bound_r2: torch.Tensor | None = None) -> IntersectFn:
     """Nearest-hit closure over a triangle soup of (T,) tensors.
 
     The winner's attributes are gathered once per ray and interpolated in
     the JAX oracle's three-weight form, attr = u*b + v*c + w*a with
     w = 1-u-v, the normal unnormalized. `index` is the mesh id and
     `emis_r2` the constant 1 of meshes. A miss keeps u = v = 0 and reads
-    triangle 0's attributes, as the oracle does.
+    triangle 0's attributes, as the oracle does. With `bound_r2`, the (M,)
+    squared radii of the meshes' bounding spheres, the hit carries its
+    mesh's (mesh 0's on a miss) for cone NEE's MIS weight.
 
     Lanes whose cast origin is parked at 3e30 (dead paths) skip the sweep
     and report a miss: only live lanes are intersected.
@@ -90,7 +93,9 @@ def triangle_intersector(soup: dict) -> IntersectFn:
                    nz=interp("naz", "nbz", "ncz"), index=mesh,
                    emis_r2=torch.ones_like(t),
                    tc_u=interp("tau", "tbu", "tcu"),
-                   tc_v=interp("tav", "tbv", "tcv"), b_u=u, b_v=v)
+                   tc_v=interp("tav", "tbv", "tcv"), b_u=u, b_v=v,
+                   bound_r2=(None if bound_r2 is None
+                             else bound_r2[mesh.clamp(min=0)]))
 
     return intersect
 

@@ -22,6 +22,12 @@ Every rng mode runs on both backends: the counter-based threefry and
 tpu_hw (Philox on the card, rng/philox.py), and the stateful tinymt and
 tauslcg, whose per-pixel state planes ride in the FrameState.
 
+Next event estimation and MIS (cfg.nee, cfg.mis) are config settings too:
+the lights are the scene's own (ops/nee.py), the emissive spheres of the
+packed sphere buffer, or the packed mesh bounds of TriangleBuffers for
+meshes, which the plain steps read from the buffers they are handed and the
+kernels from the same buffers staged in shared memory.
+
 The material modes and the bump are config settings. Explicit lights and
 the Phong albedo override come as `lights` (ops/lights.ExplicitLights):
 the override is written into the scene's albedo table once, the lights go

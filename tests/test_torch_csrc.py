@@ -147,7 +147,8 @@ struct RenderTiles {
   template <class Rng, int kBody, bool kFast, bool kViewproj, class Scene>
   static int run(l2n::PtParams params, Scene s, const int32_t* sched,
                  float* accum, float* output, uint32_t* rng_state) {
-    const l2n::PtParams p = l2n::with_options<kFast, kViewproj>(params);
+    const l2n::PtParams p =
+        l2n::body_options<kBody, kFast, kViewproj>(params);
     TileLists lists;
     for (int k = 0; k < p.k; ++k) {
       const Scene ts = for_tile(p, s, sched[2 * k], sched[2 * k + 1], lists);
@@ -168,8 +169,24 @@ struct SerialAppend {
   int operator()(bool alive) { return alive ? (*n_alive)++ : -1; }
 };
 
+// F::template run<Rng, kBody> for the counter-based sampler and the path
+// body (pathtrace.cuh path_body) of p: the passes' instantiations.
+template <class F, class... Args>
+int dispatch_pass(const l2n::PtParams& p, Args... args) {
+  switch (l2n::path_body(p)) {
+    case l2n::kBodyNee:
+      return l2n::dispatch_counter_rng<l2n::WithBody<F, l2n::kBodyNee>>(
+          p.rng, args...);
+    case l2n::kBodyMaterials:
+      return l2n::dispatch_counter_rng<
+          l2n::WithBody<F, l2n::kBodyMaterials>>(p.rng, args...);
+  }
+  return l2n::dispatch_counter_rng<l2n::WithBody<F, l2n::kBodyLambert>>(
+      p.rng, args...);
+}
+
 struct PassA {
-  template <class Rng, bool kMaterials>
+  template <class Rng, int kBody>
   static int run(l2n::PtParams p, const int32_t* sched, const float* spheres,
                  const float* accum, l2n::PassALanes out, int32_t* n_alive) {
     const l2n::SceneView s =
@@ -183,7 +200,7 @@ struct PassA {
       for (int si = 0; si < p.spp; ++si)
         for (int r = 0; r < p.tile_height; ++r)
           for (int c = 0; c < p.tile_width; ++c)
-            l2n::wavefront_pass_a_sample<Rng, kMaterials>(
+            l2n::wavefront_pass_a_sample<Rng, kBody>(
                 p, ts, k, si, r, c, sched, accum, out, append);
     }
     return 0;
@@ -194,33 +211,35 @@ struct PassA {
 // `group` parts as a group of lanes of the kernel splits them, over the
 // packed spheres the kernel stages.
 struct PassB {
-  template <class Rng, bool kMaterials, int G>
+  template <class Rng, int kBody, int G>
   static void slots(const l2n::PtParams& p, const l2n::SceneView& s,
                     int next_pair, int has_spare, const int32_t* n_alive,
-                    const float* rays, const int32_t* meta, float* back) {
+                    const float* rays, const int32_t* meta, float* col,
+                    float* back) {
     std::vector<l2n::Sphere4> packed(s.n);
     for (int i = 0; i < s.n; ++i)
       packed[i] = l2n::Sphere4{s.cx[i], s.cy[i], s.cz[i], s.r2[i]};
     const l2n::GroupScene<G> gs{s, packed.data(), 0, 0u};
     for (size_t slot = 0; slot < static_cast<size_t>(n_alive[0]); ++slot)
-      l2n::wavefront_pass_b_slot<Rng, kMaterials>(
+      l2n::wavefront_pass_b_slot<Rng, kBody>(
           p, gs, next_pair, has_spare != 0, slot, l2n::lane_count(p), rays,
-          meta, back, true);
+          meta, col, back, true);
   }
-  template <class Rng, bool kMaterials>
+  template <class Rng, int kBody>
   static int run(l2n::PtParams p, int group, int next_pair, int has_spare,
                  const int32_t* n_alive, const float* spheres,
-                 const float* rays, const int32_t* meta, float* back) {
+                 const float* rays, const int32_t* meta, float* col,
+                 float* back) {
     const l2n::SceneView s =
         l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
     switch (group) {
       case 1:
-        slots<Rng, kMaterials, 1>(p, s, next_pair, has_spare, n_alive, rays,
-                                  meta, back);
+        slots<Rng, kBody, 1>(p, s, next_pair, has_spare, n_alive, rays,
+                             meta, col, back);
         return 0;
       case l2n::kMaxGroup:
-        slots<Rng, kMaterials, l2n::kMaxGroup>(p, s, next_pair, has_spare,
-                                               n_alive, rays, meta, back);
+        slots<Rng, kBody, l2n::kMaxGroup>(p, s, next_pair, has_spare,
+                                          n_alive, rays, meta, col, back);
         return 0;
     }
     return -2;
@@ -331,6 +350,42 @@ static float emulated_sum(int mode, float c, const float* p, int k) {
   }
 }
 
+// NEE at n lanes with the draws given (u (3, n): u_pick, ul1, ul2), at
+// vertices h with shading normals nv (3, n), albedo kd and throughput tp
+// (3, n), adding to col (3, n): the BSDF Lambert's (mode 0) or the material
+// mode's around the unit normals nu with view directions wo and (6, n)
+// material rows.
+template <class Scene>
+void nee_lanes(const l2n::PtParams& p, const Scene& s, int mode, int mis,
+               const float* u, const float* h, const float* nv,
+               const float* nu, const float* wo, const float* kd,
+               const float* mat, const float* tp, int64_t n, float* col) {
+  for (int64_t i = 0; i < n; ++i) {
+    const float hi[3] = {h[i], h[n + i], h[2 * n + i]};
+    const float ni[3] = {nv[i], nv[n + i], nv[2 * n + i]};
+    const float ui[3] = {nu[i], nu[n + i], nu[2 * n + i]};
+    const float oi[3] = {wo[i], wo[n + i], wo[2 * n + i]};
+    const float k[3] = {kd[i], kd[n + i], kd[2 * n + i]};
+    const float t[3] = {tp[i], tp[n + i], tp[2 * n + i]};
+    const l2n::Material m = l2n::material_row(mat, static_cast<int>(n),
+                                              static_cast<int>(i));
+    float c[3] = {col[i], col[n + i], col[2 * n + i]};
+    auto eval = [&](const float* l, float cos_s, float* f) {
+      if (mode == 0) {
+        for (int ch = 0; ch < 3; ++ch) f[ch] = k[ch] * l2n::kInvPi;
+        return cos_s * l2n::kInvPi;
+      }
+      return l2n::eval_material(mode, ui, oi, l, k, m, f);
+    };
+    if constexpr (Scene::kConeLights)
+      l2n::nee_cone(p, s, u[i], u[n + i], u[2 * n + i], hi, ni, mis != 0,
+                    eval, t, c);
+    else
+      l2n::nee_area(p, s, u[i], u[n + i], u[2 * n + i], hi, ni, mis != 0,
+                    eval, t, c);
+    for (int ch = 0; ch < 3; ++ch) col[ch * n + i] = c[ch];
+  }
+}
 extern "C" {
 int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
@@ -501,25 +556,16 @@ int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               float* rays, int32_t* meta, int32_t* n_alive) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   const l2n::PassALanes out{col, back, rays, meta};
-  return l2n::shades_materials(p)
-             ? l2n::dispatch_counter_rng<l2n::WithFlags<PassA, true>>(
-                   p.rng, p, sched, spheres, accum, out, n_alive)
-             : l2n::dispatch_counter_rng<l2n::WithFlags<PassA, false>>(
-                   p.rng, p, sched, spheres, accum, out, n_alive);
+  return dispatch_pass<PassA>(p, p, sched, spheres, accum, out, n_alive);
 }
 int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp, int group,
                               int next_pair, int has_spare,
                               const int32_t* n_alive, const float* spheres,
                               const float* rays, const int32_t* meta,
-                              float* back) {
+                              float* col, float* back) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  return l2n::shades_materials(p)
-             ? l2n::dispatch_counter_rng<l2n::WithFlags<PassB, true>>(
-                   p.rng, p, group, next_pair, has_spare, n_alive, spheres,
-                   rays, meta, back)
-             : l2n::dispatch_counter_rng<l2n::WithFlags<PassB, false>>(
-                   p.rng, p, group, next_pair, has_spare, n_alive, spheres,
-                   rays, meta, back);
+  return dispatch_pass<PassB>(p, p, group, next_pair, has_spare, n_alive,
+                              spheres, rays, meta, col, back);
 }
 int l2n_group_size_host(int64_t alive, int64_t threads) {
   return l2n::group_size(alive, threads);
@@ -600,6 +646,56 @@ void l2n_explicit_lights_host(const int32_t* ip, const float* fp,
         },
         t, c);
     for (int ch = 0; ch < 3; ++ch) col[ch * n + i] = c[ch];
+  }
+}
+void l2n_nee_area_host(const int32_t* ip, const float* fp,
+                       const float* spheres, int mode, int mis,
+                       const float* u, const float* h, const float* nv,
+                       const float* nu, const float* wo, const float* kd,
+                       const float* mat, const float* tp, int64_t n,
+                       float* col) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  nee_lanes(p, l2n::scene_view(spheres, p.n_scene, false), mode, mis, u, h,
+            nv, nu, wo, kd, mat, tp, n, col);
+}
+void l2n_nee_cone_host(const int32_t* ip, const float* fp, int n_slabs,
+                       int tpad, const float* mesh_bounds,
+                       const int32_t* slab_count, const float* slab_bounds,
+                       const float* sub_bounds, const float* tris,
+                       const float* attrs, int mode, int mis, const float* u,
+                       const float* h, const float* nv, const float* nu,
+                       const float* wo, const float* kd, const float* mat,
+                       const float* tp, int64_t n, float* col) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::TriSceneView s{p.n_scene, n_slabs,     tpad,       mesh_bounds,
+                      slab_count, slab_bounds, sub_bounds, tris,
+                      attrs,      nullptr,     nullptr,    nullptr};
+  nee_lanes(p, s, mode, mis, u, h, nv, nu, wo, kd, mat, tp, n, col);
+}
+// The MIS weight of emission found at n hits (t, normal nrm (3, n), r2,
+// index) by BSDF rays of directions d (3, n) and pdfs prev_pdf: over the
+// spheres (13, count) (area), or over the mesh bounds (count, 4) (cone).
+void l2n_mis_weight_host(const int32_t* ip, const float* fp, int cone,
+                         const float* scene, const float* prev_pdf,
+                         const float* d, const float* t, const float* nrm,
+                         const float* r2, const int32_t* index, int64_t n,
+                         float* out) {
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::TriSceneView ts{};
+  ts.mesh_bounds = scene;
+  const l2n::SceneView ss = l2n::scene_view(scene, p.n_scene, false);
+  for (int64_t i = 0; i < n; ++i) {
+    l2n::Hit h{};
+    h.t = t[i];
+    h.nx = nrm[i];
+    h.ny = nrm[n + i];
+    h.nz = nrm[2 * n + i];
+    h.index = index[i];
+    h.r2 = r2[i];
+    out[i] = cone ? l2n::mis_emission_weight(p, ts, prev_pdf[i], d[i],
+                                             d[n + i], d[2 * n + i], h)
+                  : l2n::mis_emission_weight(p, ss, prev_pdf[i], d[i],
+                                             d[n + i], d[2 * n + i], h);
   }
 }
 int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
@@ -781,7 +877,8 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_sphere_nearest_host.argtypes = [p] * 6 + [ctypes.c_int64]
     i = ctypes.c_int
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
-    lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
+    lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p,
+                                              p]
     lib.l2n_group_size_host.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.l2n_eval_material_host.argtypes = [i] + [p] * 5 + [ctypes.c_int64,
                                                           p, p]
@@ -790,6 +887,12 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_perturb_normal_host.argtypes = [p] * 5 + [ctypes.c_int64, p]
     lib.l2n_explicit_lights_host.argtypes = [p] * 8 + [ctypes.c_int64, p]
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
+    lib.l2n_nee_area_host.argtypes = [p, p, p, i, i] + [p] * 8 + [
+        ctypes.c_int64, p]
+    lib.l2n_nee_cone_host.argtypes = [p, p, i, i] + [p] * 6 + [i, i] + [
+        p] * 8 + [ctypes.c_int64, p]
+    lib.l2n_mis_weight_host.argtypes = [p, p, i] + [p] * 7 + [
+        ctypes.c_int64, p]
     i64 = ctypes.c_int64
     lib.l2n_sweep_lanes_host.argtypes = [i, p, p, p, i, i64, i, p, p]
     lib.l2n_sweep_chunked_host.argtypes = [i, i, p, p, p, i, i64, i, p, p]
@@ -1167,7 +1270,8 @@ def test_wavefront_header_matches_plain_passes(lib, extra):
             assert lib.l2n_wavefront_pass_b_host(
                 _ptr(ip), _ptr(fp), group, next_pair, int(has_spare),
                 *(_ptr(t.numpy()) for t in (a.n_alive, spheres, a.rays,
-                                            a.meta, h_backs[-1]))) == 0
+                                            a.meta)), None,
+                _ptr(h_backs[-1].numpy())) == 0
         for h in h_backs[1:]:
             np.testing.assert_array_equal(h.numpy(), h_backs[0].numpy())
         lanes = a.meta[2, :na].long()
@@ -1402,7 +1506,7 @@ from l2n_tpu_torch.scene import compute_spheres
 lib = ctypes.CDLL(sys.argv[1])
 p, i = ctypes.c_void_p, ctypes.c_int
 lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
-lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p]
+lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i] + [p] * 6
 ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
 cfg = RenderConfig(width=128, height=64, spp_per_step=2,
                    wavefront=True).validate()
@@ -1440,7 +1544,8 @@ for count in (128, 100):
             b = back.copy()
             assert lib.l2n_wavefront_pass_b_host(
                 ptr(ip), ptr(fp), group, next_pair, int(has_spare),
-                *map(ptr, (n_alive, spheres, rays, meta, b))) == 0
+                *map(ptr, (n_alive, spheres, rays, meta)), None,
+                ptr(b)) == 0
             assert not np.isnan(b).any() and (b[:, dead] == 0).all()
         accum[3] += cfg.spp_per_step
 print("clean")
@@ -2575,8 +2680,8 @@ def test_material_wavefront_header_matches_plain_step(lib, mode):
             assert 0 < n_alive[0] < n
             assert lib.l2n_wavefront_pass_b_host(
                 _ptr(ip), _ptr(fp), 8, 3, 0,
-                *map(_ptr, (n_alive, spheres.numpy(), rays, meta,
-                            back))) == 0
+                *map(_ptr, (n_alive, spheres.numpy(), rays, meta)), None,
+                _ptr(back)) == 0
             assert lib.l2n_wavefront_pass_c_host(
                 _ptr(ip), _ptr(fp), _ptr(sched.numpy()), _ptr(col),
                 _ptr(back), _ptr(accum.numpy()), _ptr(output.numpy())) == 0
@@ -2654,3 +2759,395 @@ def test_material_header_memcheck_asan(asan_build):
     and scene buffer a heap array of exactly its size: the extra table rows
     and the light loop read nothing past them."""
     _asan_render(asan_build, script=ASAN_MATERIALS)
+
+
+# ---------------------------------------------------------------------------
+# Next event estimation and MIS (csrc/pathtrace.cuh next_event, nee_area,
+# nee_cone, mis_emission_weight; the NEE body)
+# ---------------------------------------------------------------------------
+
+def _nee_lanes(centres, radii, lights_every, n=2048, seed=81):
+    """Vertices just outside the diffuse spheres (centres (3, count),
+    radii), normals scaled to lengths 0.5 to 2 and their unit normals, wo in
+    their upper hemisphere, albedo, throughput, the draws (u_pick, ul1,
+    ul2) and (6, n) material rows (roughness 0.4)."""
+    gen = np.random.Generator(np.random.PCG64(seed))
+    idx = gen.integers(0, centres.shape[1], n)
+    idx[idx % lights_every == 0] += 1
+    nu = gen.normal(size=(3, n))
+    nu /= np.linalg.norm(nu, axis=0)
+    h = centres[:, idx] + nu * radii[idx] * 1.001
+    nv = nu * (0.5 + 1.5 * gen.random(n))
+    wo = nu * 0.6 + gen.normal(size=(3, n)) * 0.3
+    wo /= np.linalg.norm(wo, axis=0)
+    mat = gen.random((6, n))
+    mat[0] = 0.4
+    u = gen.random((3, n)).clip(1e-7, 1 - 1e-7)
+    f = np.float32
+    return {k: np.ascontiguousarray(v, f) for k, v in dict(
+        h=h, nv=nv, nu=nu, wo=wo, kd=gen.random((3, n)),
+        tp=gen.random((3, n)), u=u, mat=mat).items()}
+
+
+def _nee_plain_eval(lanes, mode):
+    """The plain BSDF eval of the lanes for NEE (None: Lambert)."""
+    if mode == "lambert":
+        return None
+    from l2n_tpu_torch.maths.brdf import eval_brdf
+    t = {k: tuple(torch.from_numpy(v[i]) for i in range(v.shape[0]))
+         for k, v in lanes.items()}
+    return lambda wi: eval_brdf(t["nu"], t["wo"], wi, t["kd"], t["mat"][0])
+
+
+def _nee_host_vs_plain(lib_fn, scene_args, plain_fn, cfg, lanes, mode, mis):
+    """The header's NEE against the plain function on the lanes: bit-equal
+    wherever the C library's sinf/cosf of the azimuth 2 pi ul2 equal
+    torch's (over 90% of lanes), finite elsewhere; some lanes lit, some
+    not."""
+    from l2n_tpu_torch.ops.kernels.common import MATERIAL_CODES
+    n = lanes["u"].shape[1]
+    col = np.zeros((3, n), np.float32)
+    code = 0 if mode == "lambert" else MATERIAL_CODES[mode]
+    lib_fn(*scene_args, code, int(mis), *(_ptr(lanes[k]) for k in (
+        "u", "h", "nv", "nu", "wo", "kd", "mat", "tp")), n, _ptr(col))
+    t = {k: tuple(torch.from_numpy(v[i]) for i in range(v.shape[0]))
+         for k, v in lanes.items()}
+    want = np.stack([x.numpy() for x in plain_fn(
+        t, _nee_plain_eval(lanes, mode))])
+    phi = (torch.from_numpy(lanes["u"][2]) * (2.0 * np.pi)).numpy()
+    agree = _libm_trig_agrees(phi)
+    assert agree.mean() > 0.9
+    np.testing.assert_array_equal(col[:, agree], want[:, agree])
+    assert np.isfinite(col).all()
+    lit = (want.max(0) > 0).mean()
+    assert 0.05 < lit < 0.95, lit
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["nee", "mis"])
+@pytest.mark.parametrize("mode", ["lambert", "microfacet"])
+def test_nee_area_header_matches_plain(lib, mode, mis):
+    """nee_area (a point on a light sphere, one shadow ray over every
+    sphere) at vertices on the default 128 spheres against ops/nee.py's
+    nee_contribution with the same draws."""
+    from l2n_tpu_torch.ops import nee
+    from l2n_tpu_torch.ops.scenes import sphere_intersector
+    cfg = RenderConfig(nee=True, mis=mis).validate()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    spheres = sc.packed()
+    lanes = _nee_lanes(spheres[:3].numpy(), np.sqrt(spheres[3].numpy()), 16)
+    ip, fp = step_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
+    sampler = nee.sphere_light_sampler(cfg, spheres)
+    intersect = sphere_intersector(*spheres[:4])
+
+    def plain(t, brdf_eval):
+        light = sampler.sample(*t["u"])
+        return nee.nee_contribution(cfg, sampler.n_lights, intersect, light,
+                                    t["h"], t["nv"], t["kd"], t["tp"], mis,
+                                    brdf_eval)
+
+    _nee_host_vs_plain(lib.l2n_nee_area_host,
+                       (_ptr(ip), _ptr(fp), _ptr(spheres.numpy())), plain,
+                       cfg, lanes, mode, mis)
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["nee", "mis"])
+@pytest.mark.parametrize("mode", ["lambert", "microfacet"])
+def test_nee_cone_header_matches_plain(lib, mode, mis):
+    """nee_cone (a direction in the cone of a light mesh's bound, traced
+    through the bound walk) at vertices just outside the meshes of 16
+    tessellated spheres (lights every 4th) against ops/nee.py's
+    nee_cone_contribution over the brute-force soup sweep."""
+    from l2n_tpu_torch.ops import nee
+    from l2n_tpu_torch.ops.scenes import triangle_intersector
+    cfg = RenderConfig(sphere_count=16, emissive_every=4, nee=True, mis=mis,
+                       scene_kind="triangle").validate()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    buf = TriangleBuffers.from_scene(build_triangle_scene(sc, 8, 6))
+    centres = np.stack([sc.center_x.numpy(), sc.center_y.numpy(),
+                        sc.center_z.numpy()])
+    lanes = _nee_lanes(centres, np.sqrt(sc.sqr_radius.numpy()), 4)
+    m, s = buf.slab_bounds.shape[:2]
+    ip, fp = step_params(cfg, 1, m, Camera.from_config(cfg).packed())
+    sampler = nee.mesh_light_sampler(cfg, buf.mesh_bounds)
+    intersect = triangle_intersector(buf.soup, buf.mesh_bounds[:, 3])
+
+    def plain(t, brdf_eval):
+        return nee.nee_cone_contribution(cfg, sampler, intersect, *t["u"],
+                                         t["h"], t["nv"], t["kd"], t["tp"],
+                                         mis, brdf_eval)
+
+    _nee_host_vs_plain(lib.l2n_nee_cone_host, (
+        _ptr(ip), _ptr(fp), s, s * 128, *(_ptr(getattr(buf, k).numpy())
+                                          for k in ("mesh_bounds",
+                                                    "slab_count",
+                                                    "slab_bounds",
+                                                    "sub_bounds", "tris",
+                                                    "attrs"))),
+        plain, cfg, lanes, mode, mis)
+
+
+@pytest.mark.parametrize("kind", ["area", "cone"])
+def test_mis_weight_header_matches_plain(lib, kind):
+    """mis_emission_weight per lane against ops/nee.py's, bit-equal (no
+    transcendental): the area form from the hit's normal, distance and r^2;
+    the cone form from the hit mesh's bound (the (M, 4) bounds indexed by
+    the hit)."""
+    from l2n_tpu_torch.ops import nee
+    gen = np.random.Generator(np.random.PCG64(83))
+    n, count = 4096, 24
+    f = np.float32
+    prev_pdf = (gen.random(n) * 0.5).astype(f)
+    d = gen.normal(size=(3, n))
+    d = (d / np.linalg.norm(d, axis=0)).astype(f)
+    t = (gen.random(n) * 40).astype(f)
+    nrm = (gen.normal(size=(3, n)) * 0.9).astype(f)
+    r2 = (gen.random(n) * 9).astype(f)
+    index = gen.integers(0, count, n).astype(np.int32)
+    cfg = RenderConfig(sphere_count=count, emissive_every=8, nee=True,
+                       mis=True,
+                       scene_kind="sphere" if kind == "area" else "triangle")
+    if kind == "area":
+        scene = compute_spheres(count).packed().numpy()
+    else:
+        scene = np.ascontiguousarray(np.concatenate(
+            [gen.normal(size=(count, 3)) * 50, gen.random((count, 1)) * 30],
+            1), f)
+    ip, fp = step_params(cfg, 1, count, Camera.from_config(cfg).packed())
+    out = np.zeros(n, f)
+    lib.l2n_mis_weight_host(_ptr(ip), _ptr(fp), int(kind == "cone"),
+                            *map(_ptr, (scene, prev_pdf, d, t, nrm, r2,
+                                        index)), n, _ptr(out))
+    rows = torch.from_numpy(scene[:4] if kind == "area" else scene.T)
+    sampler = nee.LightSampler(kind, rows, cfg.emissive_every)
+    tt = torch.from_numpy
+    want = nee.mis_emission_weight(
+        cfg, sampler, tt(prev_pdf), tuple(map(tt, d)), tt(t),
+        tuple(map(tt, nrm)), tt(r2), rows[3][tt(index).long()])
+    np.testing.assert_array_equal(out, want.numpy())
+    assert 0.01 < (out < 0.5).mean() < 0.99
+
+
+NEE_CASES = {
+    "nee": {"nee": True},
+    "nee_tpu_hw": {"nee": True, "rng": "tpu_hw"},
+    "mis": {"nee": True, "mis": True},
+    "mis_tpu_hw": {"nee": True, "mis": True, "rng": "tpu_hw"},
+    "mis_microfacet_bump": {"nee": True, "mis": True,
+                            "material_mode": "microfacet", "normal_map": 0.8},
+    "mis_lights": {"nee": True, "mis": True, "lights": True},
+    "mis_fast_viewproj": {"nee": True, "mis": True, "fast_math": True,
+                          "ray_gen": "viewproj"},
+}
+
+
+@pytest.mark.parametrize("case", list(NEE_CASES))
+def test_nee_header_matches_plain_step(lib, case):
+    """The kernels' NEE body (the materials body with next_event and the
+    MIS weight at emissive hits, fast_math and the camera form read at run
+    time) against the plain step on the aimed 16-sphere view (8 lights), 2
+    steps, in threefry and tpu_hw, with and without MIS, with the
+    microfacet mode and the bump, and with the explicit lights: the gates
+    of test_material_header_matches_plain_step, and NEE changes the pixels
+    of the diffuse surfaces in view (the same expectation, another
+    estimator: 3% of this view)."""
+    kw = dict(NEE_CASES[case])
+    lights = _explicit_lights() if kw.pop("lights", False) else None
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, **kw).validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    ha, ho, _ = _material_render(cfg, cam, 2, lib, lights)
+    pa, po, _ = _material_render(cfg, cam, 2, None, lights)
+    assert (np.abs(pa[:3]).max(0) > 0).mean() > 0.3
+    np.testing.assert_array_equal(ha[3], pa[3])
+    rmse = np.sqrt(((ha - pa) ** 2).mean())
+    assert rmse < 1e-3, f"host header / plain RMSE {rmse}"
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+    base, _, _ = _material_render(cfg.replace(nee=False, mis=False), cam, 2,
+                                  None, lights)
+    assert (np.abs(pa[:3] - base[:3]).max(0) > 0).mean() > 0.01
+
+
+@pytest.mark.parametrize("case", ["nee", "nee_tpu_hw", "mis", "mis_tpu_hw"])
+def test_nee_triangle_header_matches_plain_step(lib, case):
+    """The same for meshes: cone NEE through the bound walk, the MIS weight
+    from the staged mesh bounds, against the plain brute-force step, 2
+    steps of the small triangle config with every other mesh a light, the
+    camera up close at the diffuse mesh 1 from the side of the light mesh
+    0 (its BSDF rays find the light: the MIS weight matters)."""
+    kw = NEE_CASES[case]
+    cfg = TRI_CFG.replace(emissive_every=2, **kw).validate()
+    sp = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    scene = build_triangle_scene(sp, cfg.disc_lat, cfg.disc_long)
+    c = np.stack([sp.center_x.numpy(), sp.center_y.numpy(),
+                  sp.center_z.numpy()], 1).astype(np.float64)
+    r1 = float(np.sqrt(float(sp.sqr_radius[1])))
+    to = (c[0] - c[1]) / np.linalg.norm(c[0] - c[1])
+    vm = look_at((c[1] + to * 2.5 * r1).astype(np.float32),
+                 c[1].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    cam = Camera.from_config(cfg, view_matrix=vm).packed()
+    ha, ho = _render_triangles(cfg, scene, cam, 2, lib)
+    pa, po = _render_triangles(cfg, scene, cam, 2)
+    assert (np.abs(pa[:3]).max(0) > 0).mean() > 0.05
+    np.testing.assert_array_equal(ha[3], pa[3])
+    assert np.sqrt(((ha - pa) ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param({"nee": True}, id="nee"),
+    pytest.param({"nee": True, "mis": True}, id="mis"),
+    pytest.param({"nee": True, "mis": True, "material_mode": "microfacet",
+                  "normal_map": 0.8}, id="mis_microfacet_bump")])
+def test_nee_wavefront_header_matches_plain_step(lib, kw):
+    """Passes A, B (each ray's sweeps split into 8 parts) and C of the
+    headers' NEE body, chained on the host with 10 ray planes under MIS
+    and pass B resumed where the replay says (Lambert (4, False), the
+    material modes (5, True): a spare pending across the split), against
+    the plain wavefront step: 2 steps of the aimed view at 2 spp, the fused
+    step's gates."""
+    from l2n_tpu_torch.ops.kernels.wavefront import (
+        ray_planes,
+        sphere_wavefront_step_plain,
+    )
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, wavefront=True, spp_per_step=2,
+                       **kw).validate()
+    next_pair, has_spare = wavefront_draw_position(cfg)
+    assert (next_pair, has_spare) == ((5, True) if "material_mode" in kw
+                                      else (4, False))
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    spheres = compute_spheres(cfg.sphere_count, cfg.world_size,
+                              cfg.scene_seed).packed()
+    tiles = torch.as_tensor(tile_grid(cfg))
+    k = cfg.effective_tiles_per_step
+    n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+    ip, fp = step_params(cfg, k, spheres.shape[1], cam)
+    frames = []
+    for host in (True, False):
+        accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+        output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+        for i in range(2):
+            sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
+            if not host:
+                sphere_wavefront_step_plain(cfg, sched, cam, spheres, accum,
+                                            output)
+                continue
+            col, back = (np.empty((3, n), np.float32) for _ in range(2))
+            rays = np.empty((ray_planes(cfg), n), np.float32)
+            meta = np.empty((3, n), np.int32)
+            n_alive = np.zeros(1, np.int32)
+            assert lib.l2n_wavefront_pass_a_host(
+                _ptr(ip), _ptr(fp), _ptr(sched.numpy()),
+                _ptr(spheres.numpy()), _ptr(accum.numpy()),
+                *map(_ptr, (col, back, rays, meta, n_alive))) == 0
+            assert 0 < n_alive[0] < n
+            assert lib.l2n_wavefront_pass_b_host(
+                _ptr(ip), _ptr(fp), 8, next_pair, int(has_spare),
+                *map(_ptr, (n_alive, spheres.numpy(), rays, meta, col,
+                            back))) == 0
+            assert lib.l2n_wavefront_pass_c_host(
+                _ptr(ip), _ptr(fp), _ptr(sched.numpy()), _ptr(col),
+                _ptr(back), _ptr(accum.numpy()), _ptr(output.numpy())) == 0
+        frames.append((accum.numpy(), output.numpy()))
+    (ha, ho), (pa, po) = frames
+    assert (pa[:3].max(0) > 0).mean() > 0.3
+    np.testing.assert_array_equal(ha[3], pa[3])
+    assert np.sqrt(((ha - pa) ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+ASAN_NEE = r"""
+import ctypes, sys
+import numpy as np
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.ops.kernels.wavefront import ray_planes
+from l2n_tpu_torch.ops.lights import ExplicitLights
+from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import build_triangle_scene, compute_spheres
+from l2n_tpu_torch.scene.materials import PointLights
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_sphere_pt_host.argtypes = [p] * 8
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 13
+lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
+lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i] + [p] * 6
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+lights = ExplicitLights(None, PointLights.from_arrays(
+    np.zeros((1, 3), np.float32), np.full((1, 3), 5e7, np.float32)))
+rows = np.ascontiguousarray(lights.buffer("cpu").numpy())
+for mode in ("procedural", "microfacet"):
+    cfg = RenderConfig(width=128, height=64, spp_per_step=2, nee=True,
+                       mis=True, material_mode=mode)
+    cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+    sched = np.ascontiguousarray(tile_grid(cfg), np.int32)
+    cam = Camera.from_config(cfg).packed()
+    # the sphere table of exactly n columns; 13 spheres: the last light
+    # row e * 16 = 0 is the only one, 200: a light at column 192
+    for count in (128, 13, 200):
+        spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
+        accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+        output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        assert lib.l2n_sphere_pt_host(*map(ptr, (
+            ip, fp, sched, spheres, rows, accum, output)), None) == 0
+        assert accum[:3].max() > 0
+        # the wavefront passes: ray planes of exactly 10 x n_lanes
+        wcfg = cfg.replace(wavefront=True)
+        ip, fp = step_params(wcfg, cfg.tile_count, count, cam)
+        n = cfg.tile_count * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+        col = np.empty((3, n), np.float32)
+        back = np.full((3, n), np.nan, np.float32)
+        rays = np.empty((ray_planes(wcfg), n), np.float32)
+        meta = np.empty((3, n), np.int32)
+        n_alive = np.full(1, -1, np.int32)
+        assert rays.shape[0] == 10
+        accum[:] = 0
+        assert lib.l2n_wavefront_pass_a_host(*map(ptr, (
+            ip, fp, sched, spheres, accum, col, back, rays, meta,
+            n_alive))) == 0
+        assert 0 < n_alive[0] < n
+        next_pair, has_spare = wavefront_draw_position(wcfg)
+        for group in (1, 8):
+            b, c = back.copy(), col.copy()
+            assert lib.l2n_wavefront_pass_b_host(
+                ptr(ip), ptr(fp), group, next_pair, int(has_spare),
+                *map(ptr, (n_alive, spheres, rays, meta, c, b))) == 0
+            assert not np.isnan(b).any()
+            # pass B took over each survivor's col: 0 there, kept elsewhere
+            alive = np.zeros(n, bool)
+            alive[meta[2, :n_alive[0]]] = True
+            assert (c[:, alive] == 0).all()
+            assert np.array_equal(c[:, ~alive], col[:, ~alive])
+    tcfg = cfg.replace(scene_kind="triangle").validate()
+    buf = TriangleBuffers.from_scene(build_triangle_scene(compute_spheres(40),
+                                                          8, 8))
+    m, s = buf.slab_bounds.shape[:2]
+    accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+    output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    arrays = [np.ascontiguousarray(t.numpy()) for t in (
+        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
+        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    assert lib.l2n_triangle_pt_host(
+        ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
+        ptr(rows), ptr(accum), ptr(output), None) == 0
+    assert accum[3].sum() == 2 * cfg.padded_height * cfg.padded_width
+print("clean")
+"""
+
+
+def test_nee_header_memcheck_asan(asan_build):
+    """The memory check of the NEE body (ROADMAP Queue 3 #15): the headers
+    built with AddressSanitizer render whole frames of NEE with MIS and a
+    point light, procedural and microfacet, on 128, 13 and 200 spheres (the
+    light rows e * 16 read from a table of exactly n columns) and on 40
+    tessellated meshes (the light bounds from mesh bounds of exactly M
+    rows), and run wavefront passes A and B into ray planes of exactly 10
+    x n_lanes floats: pass A writes and pass B reads the 10th plane within
+    them, and pass B takes over each survivor's col (0 after it)."""
+    _asan_render(asan_build, script=ASAN_NEE)

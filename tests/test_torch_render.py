@@ -190,10 +190,11 @@ def test_backend_cuda_without_card_raises(monkeypatch):
     # the case builds and renders a step: tex_coords on spheres (#8), the
     # sun sky, viewproj, fast_math and the normal AOV (#9, its first
     # slice), the material modes and normal mapping (#9, its second
-    # slice), the stateful rng modes (#10) and the wavefront step (#13).
+    # slice), NEE and MIS (#9, its third slice), the stateful rng modes
+    # (#10) and the wavefront step (#13).
     pytest.param({"aov": "tex_coords"}, None, id="kw0-#8"),
     pytest.param({"rng": "tinymt"}, None, id="kw1-#10"),
-    ({"nee": True}, "#9"),
+    pytest.param({"nee": True}, None, id="kw2-#9"),
     pytest.param({"material_mode": "microfacet"}, None, id="kw3-#9"),
     pytest.param({"normal_map": 0.5}, None, id="kw4-#9"),
     ({"fog_density": 0.01}, "#9"),
@@ -201,7 +202,8 @@ def test_backend_cuda_without_card_raises(monkeypatch):
     pytest.param({"ray_gen": "viewproj"}, None, id="kw7-#9"),
     pytest.param({"fast_math": True}, None, id="kw8-#9"),
     pytest.param({"wavefront": True}, None, id="kw9-#13"),
-    pytest.param({"aov": "normal"}, None, id="kw10-#8/#9")])
+    pytest.param({"aov": "normal"}, None, id="kw10-#8/#9"),
+    pytest.param({"nee": True, "mis": True}, None, id="kw11-#9")])
 def test_unsupported_configs_raise(kw, item):
     cfg = RenderConfig(width=128, height=64, sphere_count=16, **kw)
     if item is None:
@@ -284,7 +286,8 @@ SLICE_MODULES = [
     "l2n_tpu_torch.maths.linalg", "l2n_tpu_torch.maths.fastmath",
     "l2n_tpu_torch.maths.sampling", "l2n_tpu_torch.maths.brdf",
     "l2n_tpu_torch.maths.bump", "l2n_tpu_torch.scene.materials",
-    "l2n_tpu_torch.ops.lights", "l2n_tpu_torch.camera.camera",
+    "l2n_tpu_torch.ops.lights", "l2n_tpu_torch.ops.nee",
+    "l2n_tpu_torch.camera.camera",
     "l2n_tpu_torch.camera.cache", "l2n_tpu_torch.camera.view_controller",
     "l2n_tpu_torch.scene.spheres", "l2n_tpu_torch.scene.tessellate",
     "l2n_tpu_torch.scene.obj", "l2n_tpu_torch.scene.procgen",

@@ -380,7 +380,9 @@ def test_switch_renderer_clears_accumulation(tmp_path):
 
 @pytest.mark.parametrize("kw,ok", [
     ({}, True), ({"aov": "tex_coords"}, True), ({"aov": "param_uv"}, True),
-    ({"nee": True}, "#9"),
+    # NEE and MIS: Queue 1 #9's third slice; the id is the one the case
+    # had while #9 refused it.
+    pytest.param({"nee": True}, True, id="kw3-#9"),
     # The ids name the ROADMAP item that refused the setting when the case
     # was written: the normal and AO AOVs (#9, its first slice) and the
     # wavefront flag (#13, a triangle config renders single-pass) are
@@ -390,7 +392,8 @@ def test_switch_renderer_clears_accumulation(tmp_path):
     pytest.param({"wavefront": True}, True, id="kw6-#13"),
     # The material modes and the bump: Queue 1 #9's second slice.
     pytest.param({"material_mode": "disney", "normal_map": 0.8}, True,
-                 id="kw7-#9")])
+                 id="kw7-#9"),
+    pytest.param({"nee": True, "mis": True}, True, id="kw8-#9")])
 def test_check_supported_triangle(kw, ok):
     cfg = _small_cfg(scene_kind="triangle", **kw)
     if ok is not True:
@@ -401,7 +404,7 @@ def test_check_supported_triangle(kw, ok):
     if "aov" in kw:  # the sphere family takes every AOV too (#8, #9)
         check_supported(cfg.replace(scene_kind="sphere"))
     if kw.get("aov") in ("normal", "ambient_occlusion") or kw.get(
-            "material_mode"):
+            "material_mode") or kw.get("nee"):
         cfg = cfg.replace(max_bounces=1)
         scene = build_triangle_scene(compute_spheres(
             cfg.sphere_count, cfg.world_size, cfg.scene_seed),

@@ -515,9 +515,19 @@ def test_wavefront_wrapper_checks():
         wf.wavefront_pass_c(cfg, sched, col, col[:, :, :16], accum, output)
     with pytest.raises(ValueError, match="output"):
         wf.wavefront_pass_c(cfg, sched, col, col, accum, output[:, :32])
+    # NEE was refused (Queue 1 #9) until its third slice: pass A now
+    # renders it, and under MIS a survivor carries a 10th ray plane (the
+    # pdf of its direction); fog stays refused.
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        wf.wavefront_pass_a(cfg.replace(nee=True), sched, cam, spheres,
-                            accum)
+        wf.wavefront_pass_a(cfg.replace(fog_density=0.01), sched, cam,
+                            spheres, accum)
+    for mis, planes in ((False, 9), (True, 10)):
+        ncfg = cfg.replace(nee=True, mis=mis)
+        a = wf.wavefront_pass_a(ncfg, sched, cam, spheres, accum)
+        assert a.rays.shape == (planes, 4096) and 0 < int(a.n_alive[0])
+        assert bool(torch.isfinite(a.col).all())
+        lanes = wf.wavefront_lanes(ncfg, 1, torch.device("cpu"))
+        assert lanes.rays.shape == (planes, 4096)
     lanes = wf.wavefront_lanes(cfg, 1, torch.device("cpu"))
     assert [t.shape for t in lanes] == [(3, 1, 32, 128), (3, 1, 32, 128),
                                         (9, 4096), (3, 4096), (1,)]
