@@ -23,7 +23,12 @@ material modes, the bump and the explicit lights the same way (phases
 microfacet and the bump, nee+mis with the explicit lights) through
 sphere_pt, triangle_pt and the wavefront passes to their plain versions in
 threefry and tpu_hw, gates the NEE estimator against its closed form
-through sphere_pt and drives the NEE main paths (phases 33-37), and times
+through sphere_pt and drives the NEE main paths (phases 33-37), holds
+homogeneous fog (alone, with NEE, MIS, microfacet and the bump, the
+explicit lights, one bounce, the AO AOV's budget) through sphere_pt and
+triangle_pt to their plain versions in threefry and tpu_hw with a
+collision-share gate, Beer-Lambert attenuation through sphere_pt to its
+closed form, and drives the fog main paths (phases 38-40), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
@@ -1535,7 +1540,8 @@ def watched_triangle_plain(flags):
     return plain
 
 
-def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02, lights=None):
+def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02, lights=None,
+                        label="triangle"):
     """triangle_pt against its watched plain version for `steps` steps
     (with explicit `lights` where given): accum[3] and the state planes
     equal, accum bit-equal at every pixel but those where the plain sweep
@@ -1558,20 +1564,25 @@ def triangle_vs_watched(cfg, buf, cam, steps, min_lit=0.02, lights=None):
                     lights)
         plain(cfg, sched, cam, buf, pa.accum, pa.output, pa.rng_state, lights)
     torch.cuda.synchronize()
-    require(torch.equal(ka.accum[3], pa.accum[3]), "triangle accum[3] equal")
+    require(torch.equal(ka.accum[3], pa.accum[3]), f"{label} accum[3] equal")
     if ka.rng_state is not None:
         require(torch.equal(ka.rng_state, pa.rng_state),
-                "triangle rng_state bit-equal")
+                f"{label} rng_state bit-equal")
     diff = (ka.accum.view(torch.int32) != pa.accum.view(torch.int32)).any(0)
     diff = diff.view(-1)
-    unexplained = int((diff & ~flags).sum())
-    require(unexplained == 0, f"triangle kernel/plain: {unexplained} pixels "
-                              f"differ where the plain sweep kept no hit "
-                              f"outside its mesh's bound")
+    unexplained = torch.nonzero(diff & ~flags).squeeze(1)
+    shown = [(p // cfg.padded_width, p % cfg.padded_width,
+              ka.accum.view(4, -1)[:, p].tolist(),
+              pa.accum.view(4, -1)[:, p].tolist())
+             for p in unexplained[:4].tolist()]
+    require(unexplained.numel() == 0,
+            f"{label} kernel/plain: {unexplained.numel()} pixels differ "
+            f"where the plain sweep kept no hit outside its mesh's bound "
+            f"((row, col, kernel accum, plain accum): {shown})")
     shown = pa.accum[:, :cfg.height, :cfg.width]
     lit = float(((shown[:3].abs().amax(0) > 0) & (shown[3] > 0)).sum()
                 / (shown[3] > 0).sum())
-    require(lit > min_lit, f"triangle lit {lit} > {min_lit} of the rendered "
+    require(lit > min_lit, f"{label} lit {lit} > {min_lit} of the rendered "
                            f"pixels")
     return {"max_abs": float((ka.accum - pa.accum).abs().max()),
             "pixels_differing": int(diff.sum()),
@@ -1639,6 +1650,9 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
                  "lights": {"lights": True},
                  "lights+microfacet": dict(microfacet, lights=True)}
     nee = {"nee": NEE_SETTINGS["nee"], "nee+mis": NEE_SETTINGS["nee+mis"]}
+    fog = {"fog": FOG, "fog+nee+mis": dict(FOG, nee=True, mis=True),
+           "fog+nee+mis, tpu_hw": dict(FOG, nee=True, mis=True,
+                                       rng="tpu_hw")}
     families = [
         ("sphere_pt", cfg, scene, ("sphere_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"}, "hit": {"aov": "hit"},
@@ -1647,12 +1661,13 @@ def settings_timing(card, dev, cfg, scene, tri_cfg, tri_scene, cam):
           **materials, **nee,
           "nee+mis+microfacet+normal_map":
               NEE_SETTINGS["nee+mis+microfacet+normal_map"],
-          "nee+mis+lights": dict(NEE_SETTINGS["nee+mis"], lights=True)}),
+          "nee+mis+lights": dict(NEE_SETTINGS["nee+mis"], lights=True),
+          **fog}),
         ("triangle_pt", tri_cfg, tri_scene, ("triangle_pt_kernel",),
          {"default": {}, "normal": {"aov": "normal"},
           "ambient_occlusion": {"aov": "ambient_occlusion"},
           "sun+viewproj": SUN_CFG, "sun+viewproj+fast_math": SUN_FAST_CFG,
-          **materials, **nee}),
+          **materials, **nee, **fog}),
         ("wavefront", cfg.replace(wavefront=True), scene, wave,
          {"default": {}, "sun+viewproj": SUN_CFG,
           "sun+viewproj+fast_math": SUN_FAST_CFG,
@@ -2209,6 +2224,185 @@ def nee_phases(card, tmp, cfg, scene, tri_cfg, tri_buf):
             for name, n in got_l.items()}
 
 
+# ---------------------------------------------------------------------------
+# Homogeneous fog (phases 38-40)
+# ---------------------------------------------------------------------------
+
+# The fog of tests/test_fog.py's kernel gates (density 0.002, albedo 0.8),
+# with the compositions the fog body reads at run time (csrc/pathtrace.cuh
+# trace_fog). Phase 38 takes every other sphere or mesh as a light, as
+# tests/test_tpu_hw.py's fog gate does, so that the view into the cluster
+# stays lit through the fog, whose sky shell no miss reaches.
+FOG = {"fog_density": 0.002, "fog_albedo": 0.8}
+FOG_SETTINGS = {
+    "fog": {},
+    "fog+nee": {"nee": True},
+    "fog+nee+mis": {"nee": True, "mis": True},
+    "fog+nee+mis+microfacet+normal_map": {"nee": True, "mis": True,
+                                          "material_mode": "microfacet",
+                                          "normal_map": 0.8},
+    "fog+lights": {"lights": True},
+    # one bounce, the pending last segment; NEE lights the fogged view
+    "fog+nee, max_bounces 1": {"max_bounces": 1, "nee": True},
+    "fog, ambient_occlusion AOV": {"aov": "ambient_occlusion"}}
+
+
+def fog_beer_lambert(dev, sigma: float):
+    """tests/test_fog.py::TestBeerLambert through sphere_pt: an emissive
+    sphere (r = 80, 310 from the camera down -z, a 1 degree field so every
+    primary meets its front within 0.01 of t = 230), absorbing fog
+    (fog_albedo 0): the mean radiance of 2 whole frames with and without
+    fog. Returns (foggy, clear, t_hit, samples)."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.maths.linalg import look_at
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    from l2n_tpu_torch.scene.spheres import SphereScene
+    scene = SphereScene.from_numpy(
+        np.array([0.0, 1e5], np.float32), np.zeros(2, np.float32),
+        np.array([-300.0, 0.0], np.float32),
+        np.array([80.0 ** 2, 1.0], np.float32), device=dev)
+    means = []
+    for fog in (sigma, 0.0):
+        cfg = RenderConfig(env_mode="none", fovy_deg=1.0, max_bounces=2,
+                           world_size=1024.0, fog_density=fog,
+                           fog_albedo=0.0)
+        cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+        vm = look_at(np.array([0.0, 0.0, 10.0], np.float32),
+                     np.array([0.0, 0.0, -300.0], np.float32),
+                     np.array([0.0, 1.0, 0.0], np.float32))
+        cam = Camera.from_config(cfg, view_matrix=vm).packed()
+        st = init_frame_state(cfg, dev)
+        sched = scheduled_tiles(torch.as_tensor(tile_grid(cfg)).to(dev), 0,
+                                cfg.tile_count)
+        for _ in range(2):
+            sphere_pt(cfg, sched, cam, scene.packed(), st.accum, st.output)
+        torch.cuda.synchronize()
+        shown = st.accum[:, :cfg.height, :cfg.width].double()
+        means.append(float(shown[0].sum() / shown[3].sum()))
+    return means[0], means[1], 310.0 - 80.0, int(shown[3].sum())
+
+
+def fog_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
+    """Phases 38-40: homogeneous fog through sphere_pt and triangle_pt,
+    kernel vs plain at max abs 0 from the view into the cluster (spheres
+    at whole frames, meshes at 10-tile steps with the pole-sliver gate) in
+    threefry and tpu_hw, each setting with a lit-coverage gate and a
+    collision share of at least 5% of the samples (counted on the plain
+    path), fog_density 0 bit-identical to no fog; Beer-Lambert through
+    sphere_pt; the main paths through Application. The AO AOV, whose only
+    change is its draw budget, is checked from the default camera `cam`
+    (the view into the cluster occludes most AO rays). Returns the main
+    paths' launches."""
+    from l2n_tpu_torch.app.application import Application
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    from l2n_tpu_torch.ops.pathtrace import count_fog_collisions
+    dev = torch.device("cuda")
+    spheres = scene.packed().to(dev)
+    swhole = cfg.replace(tiles_per_step=cfg.tile_count)
+    view = cluster_view(cfg, spheres)
+    lights = ExplicitLights(*light_containers())
+    lit_spheres = scene.with_tables(
+        albedo=lights.override_albedo(scene.albedo)).packed().to(dev)
+    lit_tri = tri_buf.with_tables(
+        albedo=lights.override_albedo(tri_buf.albedo.T))
+
+    def collided(counts, what):
+        if not counts["samples"]:  # an AOV draws no collision
+            return None
+        share = counts["collided"] / counts["samples"]
+        require(share >= 0.05, f"{what}: {share} of the samples collided "
+                               f">= 0.05")
+        return round(share, 4)
+
+    # --- 38: kernel vs plain per setting, threefry and tpu_hw ------------
+    fused, tri = {}, {}
+    for name, kw in FOG_SETTINGS.items():
+        kw = dict(kw, emissive_every=2, **FOG)
+        with_lights = kw.pop("lights", False)
+        fview = cam if "aov" in kw else view
+        for rng in ("threefry", "tpu_hw"):
+            with count_fog_collisions() as counts:
+                _, err, _, lit, _ = kernel_vs_plain(
+                    sphere_pt, sphere_pt_plain, swhole.replace(rng=rng, **kw),
+                    lit_spheres if with_lights else spheres, fview, 4,
+                    lights if with_lights else None)
+            require(err == 0.0, f"sphere_pt {name} rng={rng} max abs {err}")
+            fused[f"{name}/{rng}"] = {
+                "lit": round(lit, 4),
+                "collided": collided(counts, f"sphere_pt {name} {rng}")}
+            with count_fog_collisions() as counts:
+                got = triangle_vs_watched(
+                    tri_cfg.replace(rng=rng, **kw),
+                    lit_tri if with_lights else tri_buf, fview, 4,
+                    lights=lights if with_lights else None,
+                    label=f"{name} {rng}")
+            got["collided"] = collided(counts, f"triangle_pt {name} {rng}")
+            tri[f"{name}/{rng}"] = got
+    # fog_density 0 is no fog, whatever fog_albedo
+    off = []
+    for kcfg in (swhole, swhole.replace(fog_albedo=0.33)):
+        from l2n_tpu_torch.render.state import init_frame_state
+        from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+        st = init_frame_state(kcfg, dev)
+        sall = scheduled_tiles(torch.as_tensor(tile_grid(kcfg)).to(dev), 0,
+                               kcfg.tile_count)
+        for _ in range(2):
+            sphere_pt(kcfg, sall, view, spheres, st.accum, st.output)
+        off.append(st.accum)
+    torch.cuda.synchronize()
+    require(bits_equal(off[0], off[1]), "fog_density 0 bit-identical")
+    phase(38, f"fog (density {FOG['fog_density']}, albedo "
+              f"{FOG['fog_albedo']}, every other object a light) kernel vs "
+              f"plain from the view into the cluster, threefry and tpu_hw: "
+              f"sphere_pt 4 whole-frame steps "
+              f"per setting, accum max abs 0, lit and the share of samples "
+              f"that collided (plain path, gate >= 0.05) {fused}; "
+              f"triangle_pt 4 steps of 10 tiles, bit-equal but at pixels "
+              f"whose plain sweep kept a hit outside its mesh's bound: {tri}; "
+              f"fog_density 0 (fog_albedo 0.33) bit-equal to no fog")
+
+    # --- 39: Beer-Lambert through sphere_pt ------------------------------
+    beer = {}
+    for sigma in (0.002, 0.01):
+        foggy, clear, t_hit, samples = fog_beer_lambert(dev, sigma)
+        want = clear * np.exp(-sigma * t_hit)
+        require(samples >= 10 ** 6, f"{samples} samples >= 1e6")
+        require(abs(foggy / want - 1.0) < 0.02,
+                f"sigma {sigma}: {foggy} vs exp(-sigma t) clear {want} "
+                f"within 2%")
+        beer[sigma] = {"foggy": round(foggy, 6), "want": round(float(want), 6),
+                       "ratio": round(float(foggy / want), 5)}
+    phase(39, f"Beer-Lambert through sphere_pt ({samples} samples per "
+              f"render; an emissive sphere at t = {t_hit} through absorbing "
+              f"fog): mean vs exp(-sigma t) times the clear mean, gate 2%: "
+              f"{beer}")
+
+    # --- 40: the main paths ----------------------------------------------
+    paths = {}
+    main = dict(fog_density=0.0008, fog_albedo=0.8, nee=True, mis=True,
+                emissive_every=2)
+    for label, renderer, names in (("spheres", "spherePT", ("sphere_pt",)),
+                                   ("meshes", "trianglePT",
+                                    ("triangle_pt",))):
+        app = Application(RenderConfig(**main), backend="cuda",
+                          device="cuda", workdir=tmp,
+                          initial_renderer=renderer)
+        frames = app.cfg.tile_count * 10 // app.cfg.effective_tiles_per_step
+        got_l, lit, _ = run_main_path(app, frames, names)
+        paths[label] = (got_l, round(lit, 4))
+        del app
+    phase(40, f"fog main paths, {frames} steps each through Application("
+              f"RenderConfig({', '.join(f'{k}={v}' for k, v in main.items())}"
+              f"), backend=cuda): launches and lit {paths}; card: {card}")
+    return {name: n for got_l, _ in paths.values()
+            for name, n in got_l.items()}
+
+
 # The compile-time settings of each step kernel's instantiations, in their
 # template order (csrc/pathtrace.cuh with_options, dispatch_pass_a/_b); the
 # fused kernels' body (kBody*) comes first, an int.
@@ -2216,7 +2410,7 @@ KERNEL_FLAGS = {"sphere_pt": ("fast_math", "viewproj"),
                 "triangle_pt": ("fast_math", "viewproj"),
                 "wavefront_pass_a": ("fast_math", "viewproj"),
                 "wavefront_pass_b": ("fast_math",)}
-BODIES = ("lambert", "aovs", "materials", "nee")
+BODIES = ("lambert", "aovs", "materials", "nee", "fog")
 
 
 def main() -> int:
@@ -2288,7 +2482,7 @@ def main() -> int:
             # pass B's fast_math), or per cond_cost mode and carry count:
             # name it
             rng = re.search(r"(Threefry|Philox|TinyMT|TausLCG)", ln)
-            body = re.search(r"Li([0123])ELb", ln)
+            body = re.search(r"Li([0-4])ELb", ln)
             flags = ([BODIES[int(body.group(1))]] if body and m.group(1) in
                      KERNEL_FLAGS else []) + [
                 name for name, bit in zip(KERNEL_FLAGS.get(
@@ -2347,7 +2541,7 @@ def main() -> int:
              f"range, negative ones included; sweep_mma's only sqrtf is its "
              f"resolve's) {calls}; ptxas: {' | '.join(ptxas)}")
 
-    for body in ("materials", "nee"):
+    for body in ("materials", "nee", "fog"):
         print(f"[ptxas] the {body} bodies' instantiations (registers, spill "
               f"and stack per instantiation; the fused kernels and passes "
               f"A/B): " + " | ".join(
@@ -2863,6 +3057,8 @@ def main() -> int:
         slice_phases(card, tmp, cfg, spheres, tri_cfg, tri_buf, cam)
         materials_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
         nee_launches = nee_phases(card, tmp, cfg, scene, tri_cfg, tri_buf)
+        fog_launches = fog_phases(card, tmp, cfg, scene, tri_cfg, tri_buf,
+                                  cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -3123,19 +3319,23 @@ def main() -> int:
           f"card: {card}", flush=True)
 
     def row(name, *args, **extra):
-        return kernel_row(name, *args, bounds[name], **nee_extra(name),
+        return kernel_row(name, *args, bounds[name],
+                          **setting_extra(name, "nee+mis", nee_launches),
+                          **setting_extra(name, "fog+nee+mis", fog_launches),
                           **extra)
 
-    def nee_extra(name):
-        """The kernel's NEE+MIS instantiation beside its row: its launches
-        on phase 37's main path and its ms per launch at 10 tiles and at
-        whole frames ([settings], torch.profiler)."""
+    def setting_extra(name, setting, path_launches):
+        """The kernel's NEE+MIS (or fog+NEE+MIS) instantiation beside its
+        row: its launches on phase 37's (40's) main path and its ms per
+        launch at 10 tiles and at whole frames ([settings],
+        torch.profiler)."""
         family = "wavefront" if name.startswith("wavefront") else name
-        if (family, "10-tile", "nee+mis") not in settings:
+        if (family, "10-tile", setting) not in settings:
             return {}
-        return {"nee_mis_launches": nee_launches.get(name, 0), **{
-            f"nee_mis_{label.replace('-', '_')}_ms":
-                settings[(family, label, "nee+mis")].get(f"{name}_kernel")
+        key = re.sub(r"\W", "_", setting)
+        return {f"{key}_launches": path_launches.get(name, 0), **{
+            f"{key}_{label.replace('-', '_')}_ms":
+                settings[(family, label, setting)].get(f"{name}_kernel")
             for label in ("10-tile", "whole-frame")}}
 
     def whole_frame(name):

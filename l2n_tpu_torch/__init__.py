@@ -22,8 +22,9 @@ stateful tinymt and tauslcg parity modes, whose per-pixel state planes ride
 in the FrameState and through the kernels.
 
 There is no automatic fallback: backend="cuda" without a card raises.
-Anything this slice does not support raises NotImplementedError naming the
-ROADMAP item that will port it (ops/kernels/common.check_supported).
+Every config the JAX package accepts renders (ops/kernels/common.
+check_supported validates it; were a part still unported, it would raise
+NotImplementedError naming the ROADMAP item that ports it).
 """
 
 __version__ = "0.1.0"

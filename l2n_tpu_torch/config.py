@@ -4,9 +4,9 @@ The same JSON-serialisable dataclass as the JAX package's: the same fields
 and defaults, properties, `validate()` messages and JSON round-trip, so a
 config written by either package (the goldens store theirs as JSON) loads
 in the other with `from_json(cfg.to_json())`. The port keeps its own copy
-because it imports nothing of the JAX package. Fields the port does not
-render yet are accepted here and refused by
-`ops/kernels/common.check_supported`, naming the ROADMAP item.
+because it imports nothing of the JAX package. The port renders every
+field; `ops/kernels/common.check_supported` validates a config before a
+step is built.
 
 The reference hard-codes every knob (window 1280x720, fovy 45 degrees, 32
 pixel tiles, 128 spheres in a world of size 1024, a path-length cap and a

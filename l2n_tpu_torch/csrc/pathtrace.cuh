@@ -41,7 +41,9 @@
 // of them is on; the NEE path tracer, the materials body with next event
 // estimation and MIS (next_event), taken whenever NEE is on and built for
 // the two counter-based samplers only (the config refuses NEE with the
-// stateful ones).
+// stateful ones); the fog path tracer (trace_fog), the materials body with
+// homogeneous fog, NEE and MIS read at run time, taken whenever fog is on
+// and built for the counter-based samplers only as well.
 // A sampler provides draw2/draw1 and the per-pixel protocol render_pixel
 // uses: load (sample 0 of the step), next_sample, store.
 //
@@ -51,8 +53,9 @@
 // word of a pair, which the next draw1 takes however many draw2s come
 // between. Replaying the lockstep tracer's call sequence along one path
 // gives its addresses; max_pairs is its budget, 2 + 2 max_bounces pairs, 2
-// + 4 max_bounces with NEE (rng/sampler.py max_pairs_per_sample). Pair 0
-// is the jitter. A bounce draws:
+// + 4 max_bounces with NEE, max_bounces + 1 more with fog
+// (rng/sampler.py max_pairs_per_sample), AOVs included. Pair 0 is the
+// jitter. A bounce draws:
 //   * Lambert: the hemisphere pair, then the RR draw1. Bounce 0: pair 1,
 //     pair 2 word 0; bounce 1: pair 3, pair 2 word 1 (the spare); and so
 //     on, a spare pending after every other bounce;
@@ -69,7 +72,14 @@
 //     pending across the wavefront split (pass B resumes at pair 5 with
 //     pair 4's second word, ops/pathtrace.py::wavefront_draw_position).
 // The explicit lights draw nothing. The wavefront passes take the resume
-// point from that replay, never from this account.
+// point from that replay, never from this account. Fog adds one draw1 per
+// segment, right after its cast (a hit or a miss), before the vertex's
+// own draws, and one on the last (any-hit) segment; a fog vertex takes
+// every draw a surface vertex of its mode would. Lambert with fog,
+// max_bounces 2: the jitter pair 0; the primary's collision pair 1 word 0,
+// the hemisphere pair 2, the RR pair 1 word 1; bounce 1's collision pair 3
+// word 0, its pair 4, its RR pair 3 word 1; the last segment's collision
+// pair 5 word 0 (K = 9).
 // The stateful samplers step their pixel's state at every draw, which is
 // what the lockstep tracer's masks reproduce: the jitter of every pixel,
 // the scatter's draws and the RR draw at diffuse vertices only, nothing at
@@ -174,9 +184,15 @@ struct PtParams {
   // point sets, here so that the other bodies' pass B keeps its arguments;
   // null elsewhere.
   float* nee_col;
+  // Fog, after the other bodies' fields as NEE's: on, and its constants
+  // (ops/fog.py): sigma, float32(1 / sigma), the sky shell's distance, the
+  // albedo, the directional lights' transmittance float32(exp(-sigma
+  // sky)).
+  int32_t fog;
+  float fog_sigma, fog_inv_sigma, fog_sky, fog_albedo, fog_dir_transmit;
 };
-constexpr int kIntParams = 23;
-constexpr int kFloatParams = 7 + 40 + 4;
+constexpr int kIntParams = 24;
+constexpr int kFloatParams = 7 + 40 + 4 + 5;
 
 L2N_HD float bits_to_float(uint32_t u) {
 #if defined(__CUDA_ARCH__)
@@ -493,13 +509,15 @@ struct WithBody {
 };
 
 // The fused kernels' bodies (render_pixel): the Lambert path tracer, the
-// primary-only AOVs, the materials path tracer, and the NEE path tracer
-// (the materials body with next event estimation and MIS). The wavefront
-// passes take the three path tracers.
+// primary-only AOVs, the materials path tracer, the NEE path tracer (the
+// materials body with next event estimation and MIS) and the fog path
+// tracer. The wavefront passes take the first three path tracers (the
+// config refuses fog with the wavefront split).
 constexpr int kBodyLambert = 0;
 constexpr int kBodyAovs = 1;
 constexpr int kBodyMaterials = 2;
 constexpr int kBodyNee = 3;
+constexpr int kBodyFog = 4;
 
 // The materials body is taken for a material mode, the bump or explicit
 // lights; the empty buffers and the procedural mode take the Lambert body.
@@ -513,13 +531,16 @@ L2N_HD int path_body(const PtParams& p) {
   return shades_materials(p) ? kBodyMaterials : kBodyLambert;
 }
 
+// The fused kernels' body: the AOVs' for an AOV (fog changes only its
+// draw budget), the fog path tracer's whenever fog is on, else path_body.
 L2N_HD int fused_body(const PtParams& p) {
-  return p.aov != kAovPathtracing ? kBodyAovs : path_body(p);
+  if (p.aov != kAovPathtracing) return kBodyAovs;
+  return p.fog ? kBodyFog : path_body(p);
 }
 
 // Whether a body reads the material rows of the per-object table.
 L2N_HD constexpr bool reads_materials(int body) {
-  return body == kBodyMaterials || body == kBodyNee;
+  return body == kBodyMaterials || body == kBodyNee || body == kBodyFog;
 }
 
 // The table rows a body reads: the albedo, and the material rows for the
@@ -534,10 +555,11 @@ L2N_HD int table_rows(const PtParams& p) {
 // The fused kernels' instantiations, twelve per sampler and two more per
 // counter-based sampler: F::template run<Rng, kBody, kFast, kViewproj> with
 // kBody = fused_body(p), so that the default path tracer's code holds no
-// AOV, no material and no NEE path, kFast = fast_math and kViewproj =
-// (ray_gen is viewproj) (with_options). The NEE body reads both at run
-// time (body_options), instantiated once per counter-based sampler (the
-// config refuses NEE with the stateful ones).
+// AOV, no material, no NEE and no fog path, kFast = fast_math and
+// kViewproj = (ray_gen is viewproj) (with_options). The NEE and fog bodies
+// read both at run time (body_options), each instantiated once per
+// counter-based sampler (the config refuses NEE and fog with the stateful
+// ones).
 template <class F, int kBody, class... Args>
 inline int dispatch_camera(const PtParams& p, Args... args) {
   const bool vp = p.ray_gen == kRayGenViewproj;
@@ -571,6 +593,9 @@ inline int dispatch_fused(const PtParams& p, Args... args) {
       return dispatch_camera<F, kBodyMaterials>(p, args...);
     case kBodyNee:
       return dispatch_counter_rng<WithBody<F, kBodyNee, false, false>>(
+          p.rng, args...);
+    case kBodyFog:
+      return dispatch_counter_rng<WithBody<F, kBodyFog, false, false>>(
           p.rng, args...);
   }
   return dispatch_camera<F, kBodyLambert>(p, args...);
@@ -835,8 +860,10 @@ L2N_HD bool scatter_and_roulette(const PtParams& p, const Scene& s, Rng& rng,
 // times the throughput tp before the scatter. eval(wi, f) fills f with the
 // BSDF for the direction wi. Each light whose cosine is positive casts a
 // nearest-hit shadow ray over the whole scene (a light facing away adds
-// f I 0 whatever the cast finds, so its cast is skipped). No draws.
-template <class Scene, class Eval>
+// f I 0 whatever the cast finds, so its cast is skipped). No draws. With
+// kFog (the fog body) a point light's term takes the Beer-Lambert factor
+// exp(-sigma dist), a directional light's the host's transmittance.
+template <bool kFog, class Scene, class Eval>
 L2N_HD void explicit_lights(const PtParams& p, const Scene& s, float hx,
                             float hy, float hz, float nx, float ny, float nz,
                             const Eval& eval, const float tp[3],
@@ -857,6 +884,7 @@ L2N_HD void explicit_lights(const PtParams& p, const Scene& s, float hx,
       for (int c = 0; c < 3; ++c) wi[c] = wi[c] * rcp;
       const float cos_s = max_nan(nx * wi[0] + ny * wi[1] + nz * wi[2], 0.0f);
       w = cos_s / max_nan(d2, 1e-20f);
+      if constexpr (kFog) w = w * expf(-p.fog_sigma * dist);
       if (cos_s != 0.0f) {
         const float t = s.nearest(hx + eps * wi[0], hy + eps * wi[1],
                                   hz + eps * wi[2], wi[0], wi[1], wi[2])
@@ -869,6 +897,7 @@ L2N_HD void explicit_lights(const PtParams& p, const Scene& s, float hx,
       wi[2] = row[2];
       const float cos_s = max_nan(nx * wi[0] + ny * wi[1] + nz * wi[2], 0.0f);
       w = cos_s;
+      if constexpr (kFog) w = w * p.fog_dir_transmit;
       if (cos_s != 0.0f &&
           !(s.nearest(hx + eps * wi[0], hy + eps * wi[1], hz + eps * wi[2],
                       wi[0], wi[1], wi[2])
@@ -928,8 +957,9 @@ L2N_HD void add_light(const float l[3], float cos_s, const Eval& eval,
 // Area NEE (nee_contribution) at the vertex h with shading normal n, taken
 // as given: a uniform point on the picked sphere from (ul1, ul2), one
 // nearest-hit shadow ray over the whole scene, visible iff the picked
-// sphere is the first thing hit.
-template <class Scene, class Eval>
+// sphere is the first thing hit. With kFog the sample takes the
+// Beer-Lambert factor exp(-sigma d) over its distance d to the point.
+template <bool kFog, class Scene, class Eval>
 L2N_HD void nee_area(const PtParams& p, const Scene& s, float u_pick,
                      float ul1, float ul2, const float h[3], const float n[3],
                      bool mis, const Eval& eval, const float tp[3],
@@ -944,7 +974,8 @@ L2N_HD void nee_area(const PtParams& p, const Scene& s, float u_pick,
   const float wx = sz * cosf(phi), wy = sz * sinf(phi);
   float l[3] = {cx + r * wx - h[0], cy + r * wy - h[1], cz + r * z - h[2]};
   const float d2 = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
-  const float rcp = 1.0f / sqrtf(max_nan(d2, 1e-20f));
+  const float dist = sqrtf(max_nan(d2, 1e-20f));
+  const float rcp = 1.0f / dist;
   for (int c = 0; c < 3; ++c) l[c] = l[c] * rcp;
   const float cos_s = max_nan(n[0] * l[0] + n[1] * l[1] + n[2] * l[2], 0.0f);
   const float cos_l = max_nan(-(wx * l[0] + wy * l[1] + z * l[2]), 0.0f);
@@ -952,13 +983,15 @@ L2N_HD void nee_area(const PtParams& p, const Scene& s, float u_pick,
   add_light(
       l, cos_s, eval,
       [&](float p_bsdf) {
-        const float scale =
-            p.nee_scale * cos_s * cos_l / max_nan(d2, 1e-20f);
-        if (!mis) return scale;
-        const float area =
-            static_cast<float>(4.0 * kPi) * max_nan(r * r, 1e-20f);
-        const float p_nee = d2 / max_nan(area * cos_l * e, 1e-20f);
-        return balance(scale, p_nee, p_bsdf);
+        float w = p.nee_scale * cos_s * cos_l / max_nan(d2, 1e-20f);
+        if (mis) {
+          const float area =
+              static_cast<float>(4.0 * kPi) * max_nan(r * r, 1e-20f);
+          const float p_nee = d2 / max_nan(area * cos_l * e, 1e-20f);
+          w = balance(w, p_nee, p_bsdf);
+        }
+        if constexpr (kFog) w = w * expf(-p.fog_sigma * dist);
+        return w;
       },
       [&] {
         const float eps = p.ray_epsilon;
@@ -972,8 +1005,9 @@ L2N_HD void nee_area(const PtParams& p, const Scene& s, float u_pick,
 // Cone NEE (nee_cone_contribution) at the vertex h with shading normal n
 // (normalized here): a direction uniform in the cone of the picked mesh's
 // bounding sphere, traced through the whole scene, counted iff it hits
-// that mesh.
-template <class Scene, class Eval>
+// that mesh. With kFog the sample takes the Beer-Lambert factor
+// exp(-sigma t) over the traced distance t.
+template <bool kFog, class Scene, class Eval>
 L2N_HD void nee_cone(const PtParams& p, const Scene& s, float u_pick,
                      float ul1, float ul2, const float h[3], const float n[3],
                      bool mis, const Eval& eval, const float tp[3],
@@ -999,27 +1033,42 @@ L2N_HD void nee_cone(const PtParams& p, const Scene& s, float u_pick,
   const float cos_s =
       max_nan(nh[0] * l[0] + nh[1] * l[1] + nh[2] * l[2], 0.0f);
   const float e = static_cast<float>(p.n_lights);
-  add_light(
-      l, cos_s, eval,
-      [&](float p_bsdf) {
-        const float w = cos_s * p.nee_le * e * omega;
-        if (!mis) return w;
-        return balance(w, 1.0f / max_nan(e * omega, 1e-20f), p_bsdf);
-      },
-      [&] {
-        const float eps = p.ray_epsilon;
-        const Hit sh = s.nearest(h[0] + eps * l[0], h[1] + eps * l[1],
-                                 h[2] + eps * l[2], l[0], l[1], l[2]);
-        return sh.t >= 0.0f && sh.index == li;
-      },
-      tp, col);
+  const auto weight = [&](float p_bsdf) {
+    const float w = cos_s * p.nee_le * e * omega;
+    if (!mis) return w;
+    return balance(w, 1.0f / max_nan(e * omega, 1e-20f), p_bsdf);
+  };
+  const auto cast = [&] {
+    const float eps = p.ray_epsilon;
+    return s.nearest(h[0] + eps * l[0], h[1] + eps * l[1], h[2] + eps * l[2],
+                     l[0], l[1], l[2]);
+  };
+  if constexpr (kFog) {
+    // add_light with the cast's distance in the factor.
+    float f[3];
+    float w = weight(eval(l, cos_s, f));
+    if (w != 0.0f) {
+      const Hit sh = cast();
+      w = sh.t >= 0.0f && sh.index == li ? w * expf(-p.fog_sigma * sh.t)
+                                         : 0.0f;
+    }
+    for (int c = 0; c < 3; ++c) col[c] = col[c] + tp[c] * f[c] * w;
+  } else {
+    add_light(
+        l, cos_s, eval, weight,
+        [&] {
+          const Hit sh = cast();
+          return sh.t >= 0.0f && sh.index == li;
+        },
+        tp, col);
+  }
 }
 
 // NEE at a diffuse vertex of bounce b, after the scatter's draws: draw1 the
 // light pick, draw2 the point (or the cone's direction), then the scene's
-// sampler. MIS weighs it but at the last bounce, whose BSDF ray collects
-// no emission (the loop truncates there).
-template <class Scene, class Rng, class Eval>
+// sampler (with kFog, fog's transmittance). MIS weighs it but at the last
+// bounce, whose BSDF ray collects no emission (the loop truncates there).
+template <bool kFog, class Scene, class Rng, class Eval>
 L2N_HD void next_event(const PtParams& p, const Scene& s, Rng& rng, int b,
                        const float h[3], const float n[3], const Eval& eval,
                        const float tp[3], float col[3]) {
@@ -1028,9 +1077,9 @@ L2N_HD void next_event(const PtParams& p, const Scene& s, Rng& rng, int b,
   rng.draw2(ul1, ul2);
   const bool mis = p.mis != 0 && b + 1 < p.max_bounces;
   if constexpr (Scene::kConeLights)
-    nee_cone(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
+    nee_cone<kFog>(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
   else
-    nee_area(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
+    nee_area<kFog>(p, s, u_pick, ul1, ul2, h, n, mis, eval, tp, col);
 }
 
 // MIS weight (mis_emission_weight) of the emission that a BSDF ray of
@@ -1065,16 +1114,23 @@ L2N_HD float mis_emission_weight(const PtParams& p, const Scene& s,
   return prev_pdf / max_nan(prev_pdf + p_nee, 1e-20f);
 }
 
+// What scatter_materials adds at a surface vertex: nothing more (the
+// materials body), NEE (the NEE body), or, for the fog body, NEE when
+// p.nee is on and fog's transmittance on NEE and the explicit lights.
+constexpr int kScatterPlain = 0;
+constexpr int kScatterNee = 1;
+constexpr int kScatterFog = 2;
+
 // The materials body's bounce at the diffuse vertex (hx, hy, hz) of hit h
 // (ops/pathtrace.py::_scatter_and_roulette): the bump of the shading
 // normal (normal_map > 0); the procedural Lambert sample as
 // scatter_and_roulette draws it, or the material mode's mixture (exact
 // frame around the normalized normal, then draw2 for (u1, u2) and draw1
-// for the lobe); with kNee, NEE at bounce b (next_event) and the sampled
-// direction's pdf in `pdf` for the next vertex's MIS weight; the explicit
-// lights' direct term into col; the throughput update and Russian
-// roulette. Returns false when the path dies.
-template <bool kNee, class Scene, class Rng>
+// for the lobe); with NEE (kMode), NEE at bounce b (next_event) and the
+// sampled direction's pdf in `pdf` for the next vertex's MIS weight; the
+// explicit lights' direct term into col; the throughput update and
+// Russian roulette. Returns false when the path dies.
+template <int kMode, class Scene, class Rng>
 L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
                               const Hit& h, float hx, float hy, float hz,
                               int b, float& dx, float& dy, float& dz,
@@ -1099,17 +1155,19 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
     float wi[3];
     const float pdf_b =
         sample_material(p.material, u_lobe, u1, u2, fr, wo, kd, m, wi, w);
-    if constexpr (kNee) {
-      pdf = pdf_b;
-      next_event(
-          p, s, rng, b, hv, nv,
-          [&](const float* l, float, float* f) {
-            return eval_material(p.material, n, wo, l, kd, m, f);
-          },
-          tp, col);
+    if constexpr (kMode != kScatterPlain) {
+      if (kMode == kScatterNee || p.nee) {
+        pdf = pdf_b;
+        next_event<kMode == kScatterFog>(
+            p, s, rng, b, hv, nv,
+            [&](const float* l, float, float* f) {
+              return eval_material(p.material, n, wo, l, kd, m, f);
+            },
+            tp, col);
+      }
     }
     if (lights)
-      explicit_lights(
+      explicit_lights<kMode == kScatterFog>(
           p, s, hx, hy, hz, nx, ny, nz,
           [&](const float* l, float* f) {
             eval_material(p.material, n, wo, l, kd, m, f);
@@ -1123,19 +1181,21 @@ L2N_HD bool scatter_materials(const PtParams& p, const Scene& s, Rng& rng,
     const Frame f = frame_z(nx, ny, nz, fast);
     float u1, u2;
     rng.draw2(u1, u2);
-    if constexpr (kNee) {
-      const float one_m = 1.0f - u1;
-      pdf = sqrtf(one_m > 0.0f ? one_m : 0.0f) * kInvPi;  // local cos / pi
-      next_event(
-          p, s, rng, b, hv, nv,
-          [&](const float*, float cos_s, float* fl) {
-            for (int c = 0; c < 3; ++c) fl[c] = kd[c] * kInvPi;
-            return cos_s * kInvPi;
-          },
-          tp, col);
+    if constexpr (kMode != kScatterPlain) {
+      if (kMode == kScatterNee || p.nee) {
+        const float one_m = 1.0f - u1;
+        pdf = sqrtf(one_m > 0.0f ? one_m : 0.0f) * kInvPi;  // local cos / pi
+        next_event<kMode == kScatterFog>(
+            p, s, rng, b, hv, nv,
+            [&](const float*, float cos_s, float* fl) {
+              for (int c = 0; c < 3; ++c) fl[c] = kd[c] * kInvPi;
+              return cos_s * kInvPi;
+            },
+            tp, col);
+      }
     }
     if (lights)
-      explicit_lights(
+      explicit_lights<kMode == kScatterFog>(
           p, s, hx, hy, hz, nx, ny, nz,
           [&](const float*, float* fl) {
             for (int c = 0; c < 3; ++c) fl[c] = kd[c] * kInvPi;
@@ -1217,7 +1277,8 @@ L2N_HD bool trace_from(const PtParams& p, const Scene& s, Rng& rng, int b,
     if constexpr (kBody == kBodyLambert)
       alive = scatter_and_roulette(p, s, rng, h, c.dx, c.dy, c.dz, c.tp);
     else
-      alive = scatter_materials<kBody == kBodyNee>(
+      alive = scatter_materials<kBody == kBodyNee ? kScatterNee
+                                                  : kScatterPlain>(
           p, s, rng, h, hx, hy, hz, b, c.dx, c.dy, c.dz, c.tp, c.pdf, col);
     if (!alive) return false;
     c.ox = hx + p.ray_epsilon * c.dx;
@@ -1261,15 +1322,126 @@ L2N_HD void trace_continue(const PtParams& p, const Scene& s, Rng& rng,
   trace_from<false, kBody>(p, s, rng, 1, c, col);
 }
 
+// Collision sampling (ops/pathtrace.py::_fog_collision): the distance
+// -log(u) / sigma to the next collision in the fog, from one draw1.
+template <class Rng>
+L2N_HD float fog_distance(const PtParams& p, Rng& rng) {
+  return -logf(rng.draw1()) * p.fog_inv_sigma;
+}
+
+// The fog body's bounce at a fog vertex (ops/pathtrace.py::
+// _scatter_and_roulette's medium lanes): every draw a surface vertex of
+// the material mode takes (the pair, the lobe's draw1 in the material
+// modes, NEE's pick and point with NEE on), the isotropic direction from
+// the pair, the weight fog_albedo, and Russian roulette. No NEE, no
+// explicit light: it casts nothing. Returns false when the path dies.
+template <class Rng>
+L2N_HD bool scatter_medium(const PtParams& p, Rng& rng, float& dx, float& dy,
+                           float& dz, float tp[3]) {
+  float u1, u2, unused;
+  rng.draw2(u1, u2);
+  if (p.material != kMaterialProcedural) rng.draw1();
+  if (p.nee) {
+    rng.draw1();
+    rng.draw2(unused, unused);
+  }
+  const float mz = 1.0f - 2.0f * u1;
+  const float ms = sqrtf(max_nan(1.0f - mz * mz, 0.0f));
+  const float phi = static_cast<float>(2.0 * kPi) * u2;
+  dx = ms * cosf(phi);
+  dy = ms * sinf(phi);
+  dz = mz;
+  for (int c = 0; c < 3; ++c) tp[c] = tp[c] * p.fog_albedo;
+  return roulette(p, rng, tp);
+}
+
+// One sample of the fog body (ops/pathtrace.py::trace_path with
+// fog_density > 0), the materials body's path with homogeneous fog. Each
+// segment draws its collision right after its cast; one before the
+// segment's hit (or, on a miss, before the sky shell) makes a fog vertex
+// at t_fog along it, from the vertex base trace_from uses, never
+// emissive: it scatters with scatter_medium. A surface vertex scatters
+// with scatter_materials, NEE and the explicit lights taking fog's
+// transmittance. Emission a BSDF ray finds at b >= 1 under NEE: kept
+// whole after a fog vertex (which took no NEE: the lockstep tracer's
+// emission_ok 1 without MIS, 2 with it), else dropped without MIS and
+// weighed with it. The last segment's any-hit: the sky needs a miss and
+// no collision before the sky shell.
+template <class Scene, class Rng>
+L2N_HD void trace_fog(const PtParams& p, const Scene& s, Rng& rng, float ox,
+                      float oy, float oz, float dx, float dy, float dz,
+                      float col[3]) {
+  col[0] = col[1] = col[2] = 0.0f;
+  float tp[3] = {1.0f, 1.0f, 1.0f};
+  float pdf = 1.0f;
+  bool after_fog = false;
+  float bx = ox, by = oy, bz = oz;  // the vertex base, as in trace_from
+  for (int b = 0;; ++b) {
+    if (b == p.max_bounces) {
+      const bool hit = s.anyhit(ox, oy, oz, dx, dy, dz);
+      const float t_fog = fog_distance(p, rng);
+      if (!hit && !(t_fog < p.fog_sky)) {
+        const float le = env_le(p, dx, dy, dz);
+        for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + tp[ch] * le;
+      }
+      return;
+    }
+    const Hit h = b == 0 ? s.nearest_primary(ox, oy, oz, dx, dy, dz)
+                         : s.nearest(ox, oy, oz, dx, dy, dz);
+    const float t_fog = fog_distance(p, rng);
+    const bool medium = t_fog < (h.t >= 0.0f ? h.t : p.fog_sky);
+    if (!medium) {
+      if (h.t == -1.0f) {
+        const float le = env_le(p, dx, dy, dz);
+        for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + tp[ch] * le;
+        return;
+      }
+      if (h.index % p.emissive_every == 0) {
+        float e = emit_term(p, h.r2);
+        if (b > 0 && p.nee && !after_fog) {
+          if (!p.mis) return;
+          e = e * mis_emission_weight(p, s, pdf, dx, dy, dz, h);
+        }
+        for (int ch = 0; ch < 3; ++ch) col[ch] = col[ch] + tp[ch] * e;
+        return;
+      }
+    }
+    const float t = medium ? t_fog : h.t;
+    const float hx = bx + t * dx, hy = by + t * dy, hz = bz + t * dz;
+    const bool alive =
+        medium ? scatter_medium(p, rng, dx, dy, dz, tp)
+               : scatter_materials<kScatterFog>(p, s, rng, h, hx, hy, hz, b,
+                                                dx, dy, dz, tp, pdf, col);
+    if (!alive) return;
+    after_fog = medium;
+    ox = hx + p.ray_epsilon * dx;
+    oy = hy + p.ray_epsilon * dy;
+    oz = hz + p.ray_epsilon * dz;
+    if (b == 0) {
+      bx = ox;
+      by = oy;
+      bz = oz;
+    } else {
+      bx = hx;
+      by = hy;
+      bz = hz;
+    }
+  }
+}
+
 // Radiance of one sample (ops/pathtrace.py::trace_path): the whole path in
 // one loop.
 template <int kBody, class Scene, class Rng>
 L2N_HD void trace_sample(const PtParams& p, const Scene& s, Rng& rng,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float col[3]) {
-  col[0] = col[1] = col[2] = 0.0f;
-  Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}, 1.0f};
-  trace_from<false, kBody>(p, s, rng, 0, c, col);
+  if constexpr (kBody == kBodyFog) {
+    trace_fog(p, s, rng, ox, oy, oz, dx, dy, dz, col);
+  } else {
+    col[0] = col[1] = col[2] = 0.0f;
+    Continuation c{ox, oy, oz, dx, dy, dz, {1.0f, 1.0f, 1.0f}, 1.0f};
+    trace_from<false, kBody>(p, s, rng, 0, c, col);
+  }
 }
 
 // One-bounce white-sky ambient occlusion at the primary hit h of the ray
@@ -1504,13 +1676,13 @@ L2N_HD PtParams with_options(PtParams p) {
 }
 
 // The parameters an instantiation of body kBody reads: with_options, but
-// for the NEE body, which reads fast_math and the camera form at run time
-// and is instantiated once per counter-based sampler (its shadow rays
-// cost far more than the branches; eight instantiations per kernel would
-// cost build time).
+// for the NEE and fog bodies, which read fast_math and the camera form at
+// run time and are instantiated once per counter-based sampler (their
+// shadow rays and collision draws cost far more than the branches; eight
+// instantiations per kernel would cost build time).
 template <int kBody, bool kFast>
 L2N_HD PtParams body_options(const PtParams& p) {
-  if constexpr (kBody == kBodyNee)
+  if constexpr (kBody == kBodyNee || kBody == kBodyFog)
     return p;
   else
     return with_options<kFast>(p);
@@ -1518,7 +1690,7 @@ L2N_HD PtParams body_options(const PtParams& p) {
 
 template <int kBody, bool kFast, bool kViewproj>
 L2N_HD PtParams body_options(const PtParams& p) {
-  if constexpr (kBody == kBodyNee)
+  if constexpr (kBody == kBodyNee || kBody == kBodyFog)
     return p;
   else
     return with_options<kFast, kViewproj>(p);
@@ -1551,6 +1723,7 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.nee = ip[20];
   p.mis = ip[21];
   p.n_lights = ip[22];
+  p.fog = ip[23];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];
@@ -1563,6 +1736,11 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.normal_map_freq = fp[48];
   p.nee_scale = fp[49];
   p.nee_le = fp[50];
+  p.fog_sigma = fp[51];
+  p.fog_inv_sigma = fp[52];
+  p.fog_sky = fp[53];
+  p.fog_albedo = fp[54];
+  p.fog_dir_transmit = fp[55];
   p.lights = nullptr;
   p.nee_col = nullptr;
   return p;

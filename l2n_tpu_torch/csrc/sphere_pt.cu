@@ -8,7 +8,8 @@
 // roulette, any-hit test on the last segment, Mandelbrot or sun sky on a
 // miss; the procedural Lambert bounce or the microfacet / Disney materials,
 // the bump, the explicit point and directional lights, next event
-// estimation (area sampling of the emissive spheres) and MIS; or one of the
+// estimation (area sampling of the emissive spheres) and MIS, homogeneous
+// fog (collision sampling, Beer-Lambert shadow and light rays); or one of the
 // primary-only AOVs: normal, hit, ambient occlusion, tex_coords /
 // param_uv), then accumulate into `accum` and write the
 // tonemapped `output`, both IN PLACE (the counterpart of the JAX step's
@@ -55,8 +56,9 @@
 // so that the default path tracer's code holds no AOV, no material and no
 // NEE path, each with fast_math and the camera form compiled in
 // (pathtrace.cuh::with_options); and the NEE path tracer (the materials
-// body with next event estimation and MIS), once per counter-based sampler
-// with both read at run time (body_options). Only the materials and NEE
+// body with next event estimation and MIS) and the fog path tracer (the
+// materials body with fog, NEE and MIS read at run time), each once per
+// counter-based sampler with both read at run time (body_options). Only the materials and NEE
 // bodies and the bumped normal AOV stage the six material rows of the
 // table; they read the explicit lights from a small device buffer, and each
 // light and each NEE sample casts its shadow ray with the nearest-hit sweep

@@ -10,7 +10,8 @@
 // materials, the bump and the explicit point and directional lights, whose
 // shadow rays walk every mesh, next event estimation (cone sampling of the
 // emissive meshes' bounding spheres, its sample traced through every mesh)
-// and MIS; or a primary-only AOV: the normal, with a
+// and MIS, homogeneous fog (collision sampling per segment, Beer-Lambert
+// shadow and light rays); or a primary-only AOV: the normal, with a
 // magenta miss, hit,
 // ambient occlusion, whose second cast is the same per-lane walk, or the
 // tex_coords / param_uv of the primary hit), then accumulate into `accum`
@@ -64,9 +65,10 @@
 // csrc/sphere_pt.cu: the Lambert path tracer, the primary-only AOVs, whose
 // ambient-occlusion walk so adds no code, and no register, to the path
 // tracer's, and the materials path tracer; each with fast_math and the
-// camera form compiled in; and the NEE path tracer once per counter-based
-// sampler (its options read at run time), whose light bounds are the
-// staged mesh bounds and which spills more under the 80-register cap. The
+// camera form compiled in; and the NEE path tracer and the fog path tracer
+// once per counter-based sampler (their options read at run time), whose
+// light bounds are the staged mesh bounds and which spill more under the
+// 80-register cap. The
 // stateful samplers' per-pixel state planes are loaded once per thread,
 // stepped through its samples and stored once.
 //

@@ -11,10 +11,15 @@ import numpy as np
 import torch
 
 from l2n_tpu_torch.maths.sampling import PI
+from l2n_tpu_torch.ops.fog import (
+    fog_directional_transmittance,
+    fog_inv_sigma,
+    fog_sky,
+)
 from l2n_tpu_torch.ops.kernels import build
 from l2n_tpu_torch.ops.nee import emissive_count
 from l2n_tpu_torch.ops.pathtrace import generate_rays, shade
-from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
+from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, config_max_pairs
 from l2n_tpu_torch.rng.state import STATE_PLANES, sampler_from_planes
 from l2n_tpu_torch.rng.threefry import as_words, to_int32
 
@@ -30,11 +35,11 @@ def reset_launches() -> None:
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that ports it, for
-    anything the port does not render. Nothing is silently ignored."""
+    """Validate the config. The port renders every config the JAX package
+    accepts; were a part of it still unported, this would raise
+    NotImplementedError naming the ROADMAP item that ports it, so that
+    nothing is silently ignored."""
     cfg.validate()
-    if cfg.fog_density > 0.0:
-        raise NotImplementedError("fog is ROADMAP Queue 1 #9")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -102,20 +107,22 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     counts of `lights` (ops/lights.ExplicitLights, or None). Under NEE the
     scene's E lights ride in the ints and NEE's two constants, as float32
     roundings of the float64 products that ops/nee.py rounds too, in the
-    floats: scale E (area) and scale / (4 pi) (cone)."""
+    floats: scale E (area) and scale / (4 pi) (cone). Fog's flag and
+    constants (ops/fog.py) come last: sigma, float32(1 / sigma), the sky
+    distance, the albedo and the directional lights' transmittance."""
     n_point = 0 if lights is None else lights.point.shape[0]
     n_dir = 0 if lights is None else lights.directional.shape[0]
     n_lights = emissive_count(n_scene, cfg.emissive_every) if cfg.nee else 0
+    fog = cfg.fog_density > 0.0
     ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
                    cfg.padded_width, k, n_scene, cfg.spp_per_step,
-                   cfg.max_bounces,
-                   max_pairs_per_sample(cfg.max_bounces, cfg.nee),
+                   cfg.max_bounces, config_max_pairs(cfg),
                    cfg.emissive_every, ENV_CODES[cfg.env_mode],
                    cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
                    RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
                    int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
-                   n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights],
-                  dtype=np.int64)
+                   n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights,
+                   int(fog)], dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
         [1.0 / (cfg.ndc_width or cfg.width),
@@ -124,7 +131,10 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
         dtype=np.float32), camera.reshape(-1),
         np.array([cfg.normal_map, cfg.normal_map_freq,
                   cfg.emission_scale * n_lights,
-                  cfg.emission_scale / (4.0 * PI)], np.float32)])
+                  cfg.emission_scale / (4.0 * PI),
+                  cfg.fog_density, fog_inv_sigma(cfg) if fog else 0.0,
+                  fog_sky(cfg), cfg.fog_albedo,
+                  fog_directional_transmittance(cfg)], np.float32)])
     return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
 
 
@@ -197,9 +207,9 @@ def _sample_samplers(cfg, flat, sample_index, rng_state):
     spp = cfg.spp_per_step
     if cfg.rng in COUNTER_SAMPLERS:
         cls = COUNTER_SAMPLERS[cfg.rng]
-        max_pairs = max_pairs_per_sample(cfg.max_bounces, cfg.nee)
         for s in range(spp):
-            yield cls(cfg.seed, 0, flat, sample_index + s, max_pairs)
+            yield cls(cfg.seed, 0, flat, sample_index + s,
+                      config_max_pairs(cfg))
         return
     planes = rng_state.view(rng_state.shape[0], -1)
     sampler = sampler_from_planes(cfg.rng, [

@@ -16,7 +16,8 @@ channels, rows 4-12 of SphereScene.packed()), evaluated once on the host
 kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights) ride
 beside the scene; their shadow rays sweep every sphere, as NEE's do
 (cfg.nee: area sampling over the emissive spheres, ops/nee.py, whose
-centres and radii are the buffer's own rows). The kernel sweeps only the tile's cone-visible
+centres and radii are the buffer's own rows); homogeneous fog
+(cfg.fog_density > 0) takes the kernel's fog body. The kernel sweeps only the tile's cone-visible
 spheres for primary rays (csrc/cull.cuh, built per block in its
 prologue); `visibility_table` is the same table in plain torch, the
 counterpart of the JAX package's, against which the tests hold it. The

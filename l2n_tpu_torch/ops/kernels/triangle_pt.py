@@ -17,7 +17,8 @@ scene/materials.MATERIAL_CHANNELS), evaluated once on the host, and both
 use the kernel-form tonemap. Explicit lights (ops/lights.ExplicitLights)
 ride beside the scene; their shadow rays walk every mesh, as NEE's do
 (cfg.nee: cone sampling over the emissive meshes' bounding spheres,
-ops/nee.py, which are the packed `mesh_bounds` the kernel walks).
+ops/nee.py, which are the packed `mesh_bounds` the kernel walks);
+homogeneous fog (cfg.fog_density > 0) takes the kernel's fog body.
 `TriangleBuffers` holds what either version
 reads: the soup for the plain version, the packed bounds, slot rows and
 attribute rows for the kernel (ops/kernels/triangle_pack.py).

@@ -74,7 +74,7 @@ from l2n_tpu_torch.ops.pathtrace import (
     wavefront_draw_position,
 )
 from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
-from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, max_pairs_per_sample
+from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, config_max_pairs
 
 f32, i32 = torch.float32, torch.int32
 
@@ -151,7 +151,11 @@ def _check_lanes(cfg, k: int, lanes: WavefrontLanes, device) -> None:
 
 
 def _sampler_class(cfg):
-    """The counter-based sampler of cfg.rng; the stateful modes raise."""
+    """The counter-based sampler of cfg.rng; the stateful modes raise, and
+    so does fog, with the config's own error of fog + wavefront: the split
+    takes no fog work."""
+    if cfg.fog_density > 0.0:
+        cfg.replace(wavefront=True).validate()
     if cfg.rng not in COUNTER_SAMPLERS:
         raise ValueError(f"wavefront: rng={cfg.rng!r} is stateful; the "
                          "wavefront passes need a stateless sampler "
@@ -216,13 +220,13 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
     sample_index = accum[3].reshape(-1)[flat].to(i32)
     rowf = row.reshape(-1).to(f32)
     colf = col.reshape(-1).to(f32)
-    max_pairs = max_pairs_per_sample(cfg.max_bounces, cfg.nee)
     planes = ray_planes(cfg)
     rays = torch.empty((planes, k, spp, th, tw), dtype=f32, device=dev)
     rgb = torch.empty((3, k, spp, th, tw), dtype=f32, device=dev)
     meta = torch.empty((2, k, spp, th, tw), dtype=i32, device=dev)
     for s in range(spp):
-        sampler = sampler_cls(cfg.seed, 0, flat, sample_index + s, max_pairs)
+        sampler = sampler_cls(cfg.seed, 0, flat, sample_index + s,
+                              config_max_pairs(cfg))
         u1, u2 = sampler.draw2()  # pixel jitter
         out = trace_wavefront_primary(
             cfg, intersect, albedo, sampler,
@@ -335,7 +339,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
     next_pair, has_spare = wavefront_draw_position(cfg)
     sampler = _sampler_class(cfg).resumed(
         cfg.seed, 0, meta[0], meta[1],
-        max_pairs_per_sample(cfg.max_bounces, cfg.nee), next_pair, has_spare)
+        config_max_pairs(cfg), next_pair, has_spare)
     start = None
     if nee is not None:
         n = meta.shape[1]

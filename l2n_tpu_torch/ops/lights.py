@@ -11,7 +11,10 @@ light casts one nearest-hit shadow ray and adds
 times the vertex's throughput before the scatter, f the active BSDF
 (kd / pi, or the material mode's eval). A point light is visible when
 the shadow ray hits nothing or hits at t >= dist - 2 ray_epsilon; a
-directional light when it hits nothing.
+directional light when it hits nothing. Under fog (fog_density sigma > 0)
+a point light's term takes the Beer-Lambert factor exp(-sigma dist) and a
+directional light's exp(-sigma sky) (ops/fog.py
+fog_directional_transmittance, computed once on the host).
 
 `PhongMaterials` diffuse rows replace the albedo of objects with index
 < count. The JAX package selects them per lane inside the scatter; the
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from l2n_tpu_torch.maths.sampling import PI, normalize3, sqrt
+from l2n_tpu_torch.ops.fog import fog_directional_transmittance
 
 
 class ExplicitLights:
@@ -114,14 +118,19 @@ def explicit_light_contribution(cfg, lights: ExplicitLights, intersect, h,
         sh = intersect(*(hc + eps * w for hc, w in zip(h, wi)), *wi)
         visible = (sh.t < 0.0) | (sh.t >= dist - 2.0 * eps)
         w = cos_s / torch.clamp(d2, min=1e-20)
+        if cfg.fog_density > 0.0:
+            w = w * torch.exp(-cfg.fog_density * dist)
         w = torch.where(visible, w, zero)
         f = eval_f(wi)
         out = [o + fc * i * w for o, fc, i in zip(out, f, (ir, ig, ib))]
 
+    transmit = fog_directional_transmittance(cfg)
     for wx, wy, wz, er, eg, eb in lights.directional.tolist():
         cos_s = torch.clamp(nh[0] * wx + nh[1] * wy + nh[2] * wz, min=0.0)
         wi = tuple(torch.full_like(zero, c) for c in (wx, wy, wz))
         sh = intersect(*(hc + eps * c for hc, c in zip(h, wi)), *wi)
+        if cfg.fog_density > 0.0:
+            cos_s = cos_s * transmit
         w = torch.where(sh.t < 0.0, cos_s, zero)
         f = eval_f(wi)
         out = [o + fc * e * w for o, fc, e in zip(out, f, (er, eg, eb))]

@@ -24,9 +24,10 @@ contribution functions).
 Plain functions on lane tensors, with the JAX package's float32 operations
 in its order. The JAX package picks a light with a select-sweep over the E
 lights; here the picked light's row is gathered by index, the same floats.
-The Beer-Lambert factor of fog is ported with the rest (fog_density > 0),
-though the renderer refuses fog for now. The kernels' twin is the NEE body
-in csrc/pathtrace.cuh.
+Under fog (fog_density > 0) both contributions take the shadow segment's
+Beer-Lambert factor; the fog vertices themselves take no NEE
+(ops/pathtrace.py). The kernels' twin is the NEE body and the fog body in
+csrc/pathtrace.cuh.
 """
 
 from __future__ import annotations

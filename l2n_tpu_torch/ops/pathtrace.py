@@ -4,7 +4,9 @@ for the port's configs: the pathtracing, normal, hit, ambient_occlusion,
 tex_coords and param_uv AOVs, the fovy and viewproj cameras, fast_math,
 procedural Lambert or the microfacet / Disney materials, normal mapping,
 the explicit point and directional lights, next event estimation and MIS
-(ops/nee.py); no fog).
+(ops/nee.py), and homogeneous fog: collision sampling per path segment,
+isotropic scattering at a collision, Beer-Lambert transmittance of the
+shadow and light rays).
 
 This is the plain version the CPU tests and `backend="torch"` run. It is a
 mask translation of the JAX package's `trace_path` / `_scatter_and_roulette`
@@ -18,6 +20,7 @@ divergent control flow (csrc/pathtrace.cuh).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable
@@ -44,8 +47,10 @@ from l2n_tpu_torch.maths.sampling import (
     local_to_world,
     luminance,
     normalize3,
+    sqrt,
 )
 from l2n_tpu_torch.ops.envlight import env_radiance
+from l2n_tpu_torch.ops.fog import fog_inv_sigma, fog_sky
 from l2n_tpu_torch.ops.lights import explicit_light_contribution
 from l2n_tpu_torch.ops.nee import (
     mis_emission_weight,
@@ -138,23 +143,76 @@ def _hit_bound_r2(h: Hit) -> torch.Tensor:
     return h.bound_r2 if h.bound_r2 is not None else h.emis_r2
 
 
+# ---------------------------------------------------------------------------
+# Homogeneous fog (cfg.fog_density > 0). Every path segment draws a
+# collision distance t_fog ~ Exp(sigma); a collision before the segment's
+# surface (or, on a miss, before the sky shell) is a vertex of its own: it
+# scatters isotropically with the weight fog_albedo, takes no NEE and no
+# explicit light, and is never emissive. Its host constants are in
+# ops/fog.py.
+# ---------------------------------------------------------------------------
+
+# The plain path's fog collisions while `count_fog_collisions` is active
+# (trace_path adds to it after each sample; "lanes", the current sample's
+# collided lanes, is its scratch).
+_FOG_COUNTS: dict | None = None
+
+
+@contextlib.contextmanager
+def count_fog_collisions():
+    """Count the plain path's fog collisions inside the block into the dict
+    it yields: "samples" traced, "collided" samples (at least one collision
+    along the path) and "collisions" (every collision of a live segment).
+    A host sync per sample: for checks, not for timing."""
+    global _FOG_COUNTS
+    prev = _FOG_COUNTS
+    _FOG_COUNTS = {"samples": 0, "collided": 0, "collisions": 0}
+    try:
+        yield _FOG_COUNTS
+    finally:
+        _FOG_COUNTS = prev
+
+
+def _fog_collision(cfg, sampler, mask, hit_t):
+    """Collision sampling: t_fog = -log(u) / sigma from one draw1 (every
+    lane draws, so the counter layout is static), against the segment's
+    hit distance, or the sky shell's on a miss (hit_t < 0). Returns (medium,
+    t_fog): `mask` lanes whose collision comes first."""
+    u = sampler.draw1(mask=mask)
+    t_fog = -torch.log(u) * fog_inv_sigma(cfg)
+    t_lim = torch.where(hit_t >= 0.0, hit_t,
+                        torch.full_like(hit_t, fog_sky(cfg)))
+    medium = mask & (t_fog < t_lim)
+    if _FOG_COUNTS is not None:
+        _FOG_COUNTS["lanes"] = _FOG_COUNTS.get("lanes", False) | medium
+        _FOG_COUNTS["collisions"] += int(medium.sum())
+    return medium, t_fog
+
+
 def _resolve_vertex(cfg, dist, bd, h: Hit, tp, col, nee=None, prev_pdf=None,
-                    emission_ok=None):
+                    emission_ok=None, medium=None):
     """At a bounce vertex (b >= 1), the emissive lanes of the hit h (found
     along bd) add their radiance and terminate. Under NEE (`nee`, the
     scene's ops/nee.LightSampler) with MIS the emission is weighted against
     NEE's pdf of the same direction (mis_emission_weight, prev_pdf the
     pdf of the BSDF sample that found it); without MIS only lanes whose
-    `emission_ok` is 1 keep it."""
+    `emission_ok` is 1 keep it. Under fog the `medium` lanes (a collision)
+    are never emissive, and with MIS emission_ok 2 (the ray left a fog
+    vertex, which took no NEE) keeps the emission's full weight."""
     active = dist >= 0.0
     emissive = active & (h.index % cfg.emissive_every == 0)
+    if medium is not None:
+        emissive = emissive & ~medium
     diffuse = active & ~emissive
     emit = _emit_term(cfg, h.emis_r2)
     add = emissive
     if nee is not None and cfg.mis:
-        emit = emit * mis_emission_weight(
+        w = mis_emission_weight(
             cfg, nee, prev_pdf, bd, h.t, (h.nx, h.ny, h.nz), h.emis_r2,
             _hit_bound_r2(h))
+        if medium is not None:
+            w = torch.where(emission_ok == 2, torch.ones_like(w), w)
+        emit = emit * w
     elif nee is not None:
         add = emissive & (emission_ok == 1)
     col = tuple(torch.where(add, c + t * emit, c) for c, t in zip(col, tp))
@@ -164,7 +222,8 @@ def _resolve_vertex(cfg, dist, bd, h: Hit, tp, col, nee=None, prev_pdf=None,
 
 def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
                           diffuse, tp, col, intersect=None, lights=None, b=0,
-                          nee=None, prev_pdf=None, emission_ok=None):
+                          nee=None, prev_pdf=None, emission_ok=None,
+                          medium=None):
     """The bounce b at the vertex bo + cur_t*bd: the bump (normal_map), the
     BSDF sample (procedural Lambert, or the microfacet / Disney mixture),
     next event estimation (`nee`, the scene's ops/nee.LightSampler), the
@@ -185,6 +244,12 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
     the next vertex's MIS weight, and without MIS `emission_ok` becomes 0
     at the lanes that did NEE. NEE takes its MIS weight but at the last
     bounce (b + 1 == max_bounces), whose BSDF ray never collects emission.
+
+    Under fog the `medium` lanes (a collision at cur_t) consume the same
+    draws, then scatter isotropically from (u1, u2) with the weight
+    fog_albedo; they add no NEE and no explicit light, and their rays keep
+    emission: emission_ok 1 without MIS, 2 (full weight) with it, where a
+    surface vertex sets 0, or 1 under MIS.
 
     Returns (bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok)."""
     box, boy, boz = bo
@@ -227,6 +292,18 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
                         fast=cfg.fast_math)
         w = kd
         pdf = lz * (1.0 / PI)
+    surface = diffuse
+    if medium is not None:
+        # The isotropic phase function: z uniform in (-1, 1), azimuth 2 pi
+        # u2; the collision estimator's weight is the albedo.
+        mz = 1.0 - 2.0 * u1
+        ms = sqrt(torch.clamp(1.0 - mz * mz, min=0.0))
+        mphi = (2.0 * PI) * u2
+        wd = tuple(torch.where(medium, m, c) for m, c in zip(
+            (ms * torch.cos(mphi), ms * torch.sin(mphi), mz), wd))
+        alb = torch.full_like(mz, cfg.fog_albedo)
+        w = tuple(torch.where(medium, alb, c) for c in w)
+        surface = diffuse & ~medium
     if nee is not None:
         if cfg.mis:
             prev_pdf = torch.where(diffuse, pdf, prev_pdf)
@@ -241,14 +318,23 @@ def _scatter_and_roulette(cfg, table, sampler, bo, bd, cur_t, n, index,
         else:
             d = nee_cone_contribution(cfg, nee, intersect, u_pick, ul1, ul2,
                                       h, n, kd, tp, mis_here, brdf_eval)
-        col = tuple(torch.where(diffuse, c + dc, c) for c, dc in zip(col, d))
+        col = tuple(torch.where(surface, c + dc, c) for c, dc in zip(col, d))
         if not cfg.mis:
-            emission_ok = torch.where(diffuse, torch.zeros_like(emission_ok),
+            emission_ok = torch.where(surface, torch.zeros_like(emission_ok),
                                       emission_ok)
+            if medium is not None:
+                emission_ok = torch.where(diffuse & medium,
+                                          torch.ones_like(emission_ok),
+                                          emission_ok)
+        elif medium is not None:
+            emission_ok = torch.where(
+                diffuse, torch.where(medium, torch.full_like(emission_ok, 2),
+                                     torch.ones_like(emission_ok)),
+                emission_ok)
     if lights is not None and lights.has_lights:
         e = explicit_light_contribution(cfg, lights, intersect, (hx, hy, hz),
                                         n, kd, tp, brdf_eval)
-        col = tuple(torch.where(diffuse, c + ec, c) for c, ec in zip(col, e))
+        col = tuple(torch.where(surface, c + ec, c) for c, ec in zip(col, e))
 
     bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
           torch.where(diffuse, hz, boz))
@@ -273,7 +359,11 @@ def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
     1..max_bounces-1, resolve the last segment with the any-hit test and add
     the sky where a path that entered the scene (or missed it from the
     camera) ends on a miss. `nee`, `prev_pdf` and `emission_ok`: the NEE
-    state (_scatter_and_roulette)."""
+    state (_scatter_and_roulette). Under fog each segment draws its
+    collision right after its cast; on the last segment a collision ends
+    the path as a hit does, so the sky needs a miss and no collision before
+    the sky shell."""
+    fog = cfg.fog_density > 0.0
 
     def env_add(col, dist, bd, tp):
         if cfg.env_mode == "none":
@@ -284,29 +374,43 @@ def _finish_path(cfg, intersect, anyhit, table, sampler, entered, pending,
 
     def final_dist(dist, survive, cast_o, bd):
         hit_any = anyhit(*cast_o, *bd)
+        if fog:
+            fmed, _ = _fog_collision(
+                cfg, sampler, survive,
+                torch.where(hit_any, torch.zeros_like(dist),
+                            torch.full_like(dist, -1.0)))
+            hit_any = hit_any | fmed
         return torch.where(survive, torch.where(hit_any, torch.ones_like(dist),
                                       torch.full_like(dist, -1.0)), dist)
+
+    def cast(live, dist, cast_o, bd):
+        """The next vertex's hit, its distance (t_fog at a collision) and
+        the collision lanes (None without fog); dist merged at `live`."""
+        new = intersect(*cast_o, *bd)
+        if not fog:
+            return new, new.t, None, torch.where(live, new.t, dist)
+        medium, t_fog = _fog_collision(cfg, sampler, live, new.t)
+        cur_t = torch.where(medium, t_fog, new.t)
+        return new, cur_t, medium, torch.where(live, cur_t, dist)
 
     if cfg.max_bounces <= 1:
         return env_add(col, final_dist(dist, pending, cast_o, bd), bd, tp)
 
-    new = intersect(*cast_o, *bd)
+    new, cur_t, medium, dist = cast(pending, dist, cast_o, bd)
     bo = cast_o
-    dist = torch.where(pending, new.t, dist)
     for b in range(1, cfg.max_bounces):
         dist, diffuse, col = _resolve_vertex(cfg, dist, bd, new, tp, col, nee,
-                                             prev_pdf, emission_ok)
+                                             prev_pdf, emission_ok, medium)
         bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = \
             _scatter_and_roulette(
-                cfg, table, sampler, bo, bd, new.t, (new.nx, new.ny, new.nz),
+                cfg, table, sampler, bo, bd, cur_t, (new.nx, new.ny, new.nz),
                 new.index, diffuse, tp, col, intersect, lights, b, nee,
-                prev_pdf, emission_ok)
+                prev_pdf, emission_ok, medium)
         dist = torch.where(diffuse & ~survive, torch.full_like(dist, -2.0), dist)
         if b + 1 == cfg.max_bounces:
             dist = final_dist(dist, survive, cast_o, bd)
         else:
-            new = intersect(*cast_o, *bd)
-            dist = torch.where(survive, new.t, dist)
+            new, cur_t, medium, dist = cast(survive, dist, cast_o, bd)
             # As in the JAX package, the next vertex is placed from `bo`
             # (this vertex, returned by the scatter), not from the cast
             # origin; only iteration 1 measures from the cast origin.
@@ -330,15 +434,32 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     the single environment site in _finish_path, which covers primary
     misses too (their direction and throughput never change). `table` is
     the scene's per-object table (_scatter_and_roulette); `nee` the
-    scene's ops/nee.LightSampler with cfg.nee, else None.
+    scene's ops/nee.LightSampler with cfg.nee, else None. Under fog the
+    draws of a sample go: the jitter (the caller's), then per segment its
+    collision draw1 right after its cast, before the vertex's own draws.
     """
     hit = intersect(ox, oy, oz, dx, dy, dz)
     shape = dx.shape
     o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
+    cur_t, medium = hit.t, None
     p_active = hit.t >= 0.0
+    p_miss = hit.t == -1.0
+    if cfg.fog_density > 0.0:
+        # Every lane draws its primary collision, a primary miss too; a
+        # collision makes the vertex a fog vertex, and a miss keeps its sky
+        # only without one.
+        if _FOG_COUNTS is not None:
+            _FOG_COUNTS["lanes"] = torch.zeros(shape, dtype=torch.bool,
+                                               device=dx.device)
+        everyone = torch.ones(shape, dtype=torch.bool, device=dx.device)
+        medium, t_fog = _fog_collision(cfg, sampler, everyone, hit.t)
+        cur_t = torch.where(medium, t_fog, hit.t)
+        p_active = p_active & ~medium
+        p_miss = p_miss & ~medium
     p_emissive = p_active & (hit.index % cfg.emissive_every == 0)
     p_diffuse = p_active & ~p_emissive
-    p_miss = hit.t == -1.0
+    if medium is not None:
+        p_diffuse = p_diffuse | medium
     zero = torch.zeros(shape, dtype=dx.dtype, device=dx.device)
     base = torch.where(p_emissive, _emit_term(cfg, hit.emis_r2), zero)
     col = (base, base, base)
@@ -346,14 +467,18 @@ def trace_path(cfg, intersect: IntersectFn, anyhit: AnyHitFn,
     ones = torch.ones_like(zero)
     _, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = \
         _scatter_and_roulette(
-            cfg, table, sampler, o, (dx, dy, dz), hit.t,
+            cfg, table, sampler, o, (dx, dy, dz), cur_t,
             (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse,
             (ones, ones, ones), col, intersect, lights, 0, nee,
-            *_nee_state(shape, dx.dtype, dx.device))
+            *_nee_state(shape, dx.dtype, dx.device), medium)
     dist = torch.where(p_diffuse & ~survive, torch.full_like(dist, -2.0), dist)
-    return _finish_path(cfg, intersect, anyhit, table, sampler,
-                        p_diffuse | p_miss, survive, dist, cast_o, bd, tp,
-                        col, lights, nee, prev_pdf, emission_ok)
+    col = _finish_path(cfg, intersect, anyhit, table, sampler,
+                       p_diffuse | p_miss, survive, dist, cast_o, bd, tp,
+                       col, lights, nee, prev_pdf, emission_ok)
+    if medium is not None and _FOG_COUNTS is not None:
+        _FOG_COUNTS["samples"] += medium.numel()
+        _FOG_COUNTS["collided"] += int(_FOG_COUNTS.pop("lanes").sum())
+    return col
 
 
 # The wavefront split (ops/kernels/wavefront.py): the same path integral as
@@ -441,7 +566,7 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
         take pair 2, the point pair 3, and the RR draw pair 4's first
         word, leaving its second pending across the split: (5, True)."""
     from l2n_tpu_torch.ops.nee import LightSampler
-    from l2n_tpu_torch.rng.sampler import ThreefrySampler, max_pairs_per_sample
+    from l2n_tpu_torch.rng.sampler import ThreefrySampler, config_max_pairs
 
     # Philox (rng="tpu_hw") has the same pair addressing and resume point.
 
@@ -451,8 +576,7 @@ def wavefront_draw_position(cfg) -> tuple[int, bool]:
     def miss(ox, oy, oz, dx, dy, dz) -> Hit:
         return Hit(t=-one, nx=one, ny=one, nz=one, index=idx - 1, emis_r2=one)
 
-    sampler = ThreefrySampler(0, 0, idx, idx,
-                              max_pairs_per_sample(cfg.max_bounces, cfg.nee))
+    sampler = ThreefrySampler(0, 0, idx, idx, config_max_pairs(cfg))
     sampler.draw2()  # the pixel jitter, drawn by the caller
     nee = (LightSampler("area", torch.ones((4, 1)), cfg.emissive_every)
            if cfg.nee else None)

@@ -187,3 +187,10 @@ def max_pairs_per_sample(max_bounces: int, nee: bool = False,
     slice does not render."""
     return (2 + (4 if nee else 2) * max_bounces
             + (max_bounces + 1 if fog else 0))
+
+
+def config_max_pairs(cfg) -> int:
+    """max_pairs_per_sample of a RenderConfig: NEE's draws and fog's
+    collision draws, whatever the AOV (the JAX package budgets them so)."""
+    return max_pairs_per_sample(cfg.max_bounces, cfg.nee,
+                                cfg.fog_density > 0.0)

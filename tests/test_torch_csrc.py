@@ -45,7 +45,11 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
     wavefront_pass_b_plain,
     wavefront_pass_c_plain,
 )
-from l2n_tpu_torch.ops.pathtrace import generate_rays, wavefront_draw_position
+from l2n_tpu_torch.ops.pathtrace import (
+    count_fog_collisions,
+    generate_rays,
+    wavefront_draw_position,
+)
 from l2n_tpu_torch.probes import onehot_recovery, sweep_variants
 from l2n_tpu_torch.render.state import init_rng_state
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
@@ -72,7 +76,13 @@ _forget_port()
 
 @pytest.fixture(scope="module", autouse=True)
 def _port_unloaded_after_module():
+    # One torch thread while this module runs: the suite's workers share
+    # the machine's cores, and a torch pool as wide as the machine in each
+    # of them oversubscribes the cores (the JAX package's tests included).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     _forget_port()
 
 
@@ -354,7 +364,7 @@ static float emulated_sum(int mode, float c, const float* p, int k) {
 // vertices h with shading normals nv (3, n), albedo kd and throughput tp
 // (3, n), adding to col (3, n): the BSDF Lambert's (mode 0) or the material
 // mode's around the unit normals nu with view directions wo and (6, n)
-// material rows.
+// material rows; with fog's transmittance where p.fog (the fog body's).
 template <class Scene>
 void nee_lanes(const l2n::PtParams& p, const Scene& s, int mode, int mis,
                const float* u, const float* h, const float* nv,
@@ -377,12 +387,21 @@ void nee_lanes(const l2n::PtParams& p, const Scene& s, int mode, int mis,
       }
       return l2n::eval_material(mode, ui, oi, l, k, m, f);
     };
-    if constexpr (Scene::kConeLights)
-      l2n::nee_cone(p, s, u[i], u[n + i], u[2 * n + i], hi, ni, mis != 0,
-                    eval, t, c);
-    else
-      l2n::nee_area(p, s, u[i], u[n + i], u[2 * n + i], hi, ni, mis != 0,
-                    eval, t, c);
+    if constexpr (Scene::kConeLights) {
+      if (p.fog)
+        l2n::nee_cone<true>(p, s, u[i], u[n + i], u[2 * n + i], hi, ni,
+                            mis != 0, eval, t, c);
+      else
+        l2n::nee_cone<false>(p, s, u[i], u[n + i], u[2 * n + i], hi, ni,
+                             mis != 0, eval, t, c);
+    } else {
+      if (p.fog)
+        l2n::nee_area<true>(p, s, u[i], u[n + i], u[2 * n + i], hi, ni,
+                            mis != 0, eval, t, c);
+      else
+        l2n::nee_area<false>(p, s, u[i], u[n + i], u[2 * n + i], hi, ni,
+                             mis != 0, eval, t, c);
+    }
     for (int ch = 0; ch < 3; ++ch) col[ch * n + i] = c[ch];
   }
 }
@@ -550,6 +569,29 @@ void l2n_sphere_nearest_host(const int32_t* ip, const float* fp,
     index[i] = h.index;
   }
 }
+// The triangle walk's nearest hit and any-hit (csrc/triangle_pt.cuh
+// TriSceneView) of n rays (6, n) over the packed scene, every mesh a
+// candidate.
+void l2n_triangle_nearest_host(int m, int n_slabs, int tpad,
+                               const float* mesh_bounds,
+                               const int32_t* slab_count,
+                               const float* slab_bounds,
+                               const float* sub_bounds, const float* tris,
+                               const float* attrs, const float* rays,
+                               float* t, int32_t* index, int32_t* any,
+                               int64_t n) {
+  l2n::TriSceneView s{m,          n_slabs,     tpad,  mesh_bounds,
+                      slab_count, slab_bounds, sub_bounds, tris,
+                      attrs,      nullptr,     nullptr,    nullptr};
+  for (int64_t i = 0; i < n; ++i) {
+    const float* r = rays + i;
+    const l2n::Hit h = s.nearest(r[0], r[n], r[2 * n], r[3 * n], r[4 * n],
+                                 r[5 * n]);
+    t[i] = h.t;
+    index[i] = h.index;
+    any[i] = s.anyhit(r[0], r[n], r[2 * n], r[3 * n], r[4 * n], r[5 * n]);
+  }
+}
 int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* spheres,
                               const float* accum, float* col, float* back,
@@ -625,7 +667,7 @@ void l2n_perturb_normal_host(const int32_t* ip, const float* fp,
 // The explicit lights' loop (csrc/pathtrace.cuh explicit_lights) over the
 // sphere scene (13, n_s) with Lambert's kd / pi, at n lanes of vertices h,
 // normals nv, albedo kd and throughput tp (3, n): col (3, n) gets the
-// direct term added.
+// direct term added (with fog's transmittance where p.fog).
 void l2n_explicit_lights_host(const int32_t* ip, const float* fp,
                               const float* spheres, const float* lights,
                               const float* h, const float* nv,
@@ -639,12 +681,15 @@ void l2n_explicit_lights_host(const int32_t* ip, const float* fp,
     const float k[3] = {kd[i], kd[n + i], kd[2 * n + i]};
     const float t[3] = {tp[i], tp[n + i], tp[2 * n + i]};
     float c[3] = {col[i], col[n + i], col[2 * n + i]};
-    l2n::explicit_lights(
-        p, s, h[i], h[n + i], h[2 * n + i], nv[i], nv[n + i], nv[2 * n + i],
-        [&](const float*, float* f) {
-          for (int ch = 0; ch < 3; ++ch) f[ch] = k[ch] * l2n::kInvPi;
-        },
-        t, c);
+    const auto eval = [&](const float*, float* f) {
+      for (int ch = 0; ch < 3; ++ch) f[ch] = k[ch] * l2n::kInvPi;
+    };
+    if (p.fog)
+      l2n::explicit_lights<true>(p, s, h[i], h[n + i], h[2 * n + i], nv[i],
+                                 nv[n + i], nv[2 * n + i], eval, t, c);
+    else
+      l2n::explicit_lights<false>(p, s, h[i], h[n + i], h[2 * n + i], nv[i],
+                                  nv[n + i], nv[2 * n + i], eval, t, c);
     for (int ch = 0; ch < 3; ++ch) col[ch * n + i] = c[ch];
   }
 }
@@ -875,6 +920,8 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_sun_host.argtypes = [p, p, ctypes.c_int64]
     lib.l2n_camera_dirs_host.argtypes = [p, p, p, p, ctypes.c_int64]
     lib.l2n_sphere_nearest_host.argtypes = [p] * 6 + [ctypes.c_int64]
+    lib.l2n_triangle_nearest_host.argtypes = [ctypes.c_int] * 3 + [p] * 10 + [
+        ctypes.c_int64]
     i = ctypes.c_int
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
     lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p,
@@ -3151,3 +3198,320 @@ def test_nee_header_memcheck_asan(asan_build):
     x n_lanes floats: pass A writes and pass B reads the 10th plane within
     them, and pass B takes over each survivor's col (0 after it)."""
     _asan_render(asan_build, script=ASAN_NEE)
+
+
+# ---------------------------------------------------------------------------
+# Homogeneous fog: the fog body (csrc/pathtrace.cuh trace_fog) and fog's
+# Beer-Lambert factors on NEE and the explicit lights
+# ---------------------------------------------------------------------------
+
+# The aimed view looks mostly at the sky: a sky shell at 250 (its miss
+# flights reach it with probability 0.61) keeps it lit.
+FOG = {"fog_density": 0.002, "fog_albedo": 0.8, "fog_sky_distance": 250.0}
+FOG_CASES = {
+    "fog": {},
+    "fog_one_bounce": {"max_bounces": 1},
+    "fog_three_bounces_sun": {"max_bounces": 3, "env_mode": "sun"},
+    "fog_nee": {"nee": True},
+    "fog_mis": {"nee": True, "mis": True},
+    "fog_mis_tpu_hw": {"nee": True, "mis": True, "rng": "tpu_hw"},
+    "fog_mis_microfacet_bump": {"nee": True, "mis": True,
+                                "material_mode": "microfacet",
+                                "normal_map": 0.8},
+    "fog_mis_lights_disney": {"nee": True, "mis": True, "lights": True,
+                              "material_mode": "disney"},
+    "fog_fast_viewproj": {"fast_math": True, "ray_gen": "viewproj"},
+    # sample 1 onward draws at other counters than without fog
+    "fog_ao": {"aov": "ambient_occlusion", "spp_per_step": 2},
+}
+
+
+@pytest.mark.parametrize("case", list(FOG_CASES))
+def test_fog_header_matches_plain_step(lib, case):
+    """The kernels' fog body (each segment's collision draw, the fog
+    vertex's isotropic scatter and its draws, the emission rule after a
+    fog vertex, the last segment cut by a collision; NEE, MIS, the
+    material modes, the bump, the explicit lights, fast_math and the camera
+    form read at run time) against the plain step on the aimed 16-sphere
+    view, 2 steps, the gates of test_nee_header_matches_plain_step (libm's
+    log, exp, sin and cos are not torch's to the ulp), and a tenth of the
+    samples or more collide (counted on the plain path); an AOV with fog
+    keeps the AOV body and only its draw budget changes, which changes its
+    image."""
+    kw = dict(FOG_CASES[case])
+    lights = _explicit_lights() if kw.pop("lights", False) else None
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2, **FOG, **kw).validate()
+    cam = Camera.from_config(cfg, _aimed_view(cfg)).packed()
+    ha, ho, _ = _material_render(cfg, cam, 2, lib, lights)
+    with count_fog_collisions() as counts:
+        pa, po, _ = _material_render(cfg, cam, 2, None, lights)
+    # the AO hits cover a tenth of the view
+    lit = 0.3 if cfg.aov == "pathtracing" else 0.05
+    assert (np.abs(pa[:3]).max(0) > 0).mean() > lit
+    np.testing.assert_array_equal(ha[3], pa[3])
+    rmse = np.sqrt(((ha - pa) ** 2).mean())
+    assert rmse < 1e-3, f"host header / plain RMSE {rmse}"
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+    if cfg.aov == "pathtracing":
+        assert counts["collided"] > 0.1 * counts["samples"] > 0
+    else:  # sample 1 draws at other counters than without fog
+        clear, _, _ = _material_render(cfg.replace(fog_density=0.0), cam, 2)
+        assert (np.abs(pa[:3] - clear[:3]).max(0) > 0).mean() > 0.01
+
+
+def _ulps(got, want) -> np.ndarray:
+    """Float32 distance in ulps of same-signed values."""
+    g = np.ascontiguousarray(got, np.float32).view(np.int32).astype(np.int64)
+    w = np.ascontiguousarray(want, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(g - w)
+
+
+def test_fog_explicit_lights_header_matches_plain(lib):
+    """The light loop with fog's factors (kFog: exp(-sigma dist) on the
+    point light, the host's float32(exp(-sigma sky)) on the directional
+    one) against ops/lights.explicit_light_contribution with fog on the
+    lanes of test_explicit_lights_header_matches_plain: libm's expf and
+    torch's CPU exp differ by an ulp on some arguments, so bit-equal on
+    most lanes and within 2 ulps on all."""
+    from l2n_tpu_torch.ops.lights import explicit_light_contribution
+    from l2n_tpu_torch.ops.scenes import sphere_intersector
+    cfg = RenderConfig(sphere_count=128, fog_density=0.002).validate()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    spheres = sc.packed()
+    gen = np.random.Generator(np.random.PCG64(24))
+    n = 4096
+    idx = gen.integers(0, 128, n)
+    nv = gen.normal(size=(3, n))
+    nv /= np.linalg.norm(nv, axis=0)
+    c = spheres[:3].numpy()[:, idx].astype(np.float64)
+    h = (c + nv * np.sqrt(spheres[3].numpy()[idx])).astype(np.float32)
+    nv = nv.astype(np.float32)
+    kd = gen.random((3, n), dtype=np.float32)
+    tp = gen.random((3, n), dtype=np.float32)
+    lights = _explicit_lights()
+    ip, fp = step_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
+                         lights)
+    col = np.zeros((3, n), np.float32)
+    lib.l2n_explicit_lights_host(_ptr(ip), _ptr(fp), _ptr(spheres.numpy()),
+                                 _ptr(lights.buffer("cpu").numpy()),
+                                 *map(_ptr, (h, nv, kd, tp)), n, _ptr(col))
+    want = torch.stack(explicit_light_contribution(
+        cfg, lights, sphere_intersector(*spheres[:4]),
+        tuple(torch.from_numpy(h)), tuple(torch.from_numpy(nv)),
+        tuple(torch.from_numpy(kd)), tuple(torch.from_numpy(tp)))).numpy()
+    assert (col == want).mean() > 0.9
+    assert _ulps(col, want).max() <= 2
+    clear = torch.stack(explicit_light_contribution(
+        cfg.replace(fog_density=0.0), lights,
+        sphere_intersector(*spheres[:4]), tuple(torch.from_numpy(h)),
+        tuple(torch.from_numpy(nv)), tuple(torch.from_numpy(kd)),
+        tuple(torch.from_numpy(tp)))).numpy()
+    lit = col.max(0) > 0
+    assert 0.1 < lit.mean() < 0.9
+    assert (col[:, lit] < clear[:, lit]).all()
+
+
+@pytest.mark.parametrize("kind", ["area", "cone"])
+def test_fog_nee_header_matches_plain(lib, kind):
+    """nee_area / nee_cone with fog's Beer-Lambert factor (kFog) against
+    ops/nee.py under fog_density 0.002 with MIS, Lambert: on the lanes where
+    libm's sinf/cosf of the azimuth equal torch's, within 2 ulps (expf
+    against torch's exp) and bit-equal on most of them."""
+    from l2n_tpu_torch.ops import nee
+    from l2n_tpu_torch.ops.scenes import sphere_intersector, triangle_intersector
+    sc = compute_spheres(16 if kind == "cone" else 128)
+    if kind == "area":
+        cfg = RenderConfig(nee=True, mis=True, fog_density=0.002).validate()
+        spheres = sc.packed()
+        lanes = _nee_lanes(spheres[:3].numpy(), np.sqrt(spheres[3].numpy()),
+                           16)
+        ip, fp = step_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
+        sampler = nee.sphere_light_sampler(cfg, spheres)
+        intersect = sphere_intersector(*spheres[:4])
+        fn, args = lib.l2n_nee_area_host, (_ptr(ip), _ptr(fp),
+                                           _ptr(spheres.numpy()))
+
+        def plain(t):
+            return nee.nee_contribution(
+                cfg, sampler.n_lights, intersect, sampler.sample(*t["u"]),
+                t["h"], t["nv"], t["kd"], t["tp"], True)
+    else:
+        cfg = RenderConfig(sphere_count=16, emissive_every=4, nee=True,
+                           mis=True, scene_kind="triangle",
+                           fog_density=0.002).validate()
+        buf = TriangleBuffers.from_scene(build_triangle_scene(sc, 8, 6))
+        centres = np.stack([sc.center_x.numpy(), sc.center_y.numpy(),
+                            sc.center_z.numpy()])
+        lanes = _nee_lanes(centres, np.sqrt(sc.sqr_radius.numpy()), 4)
+        m, s = buf.slab_bounds.shape[:2]
+        ip, fp = step_params(cfg, 1, m, Camera.from_config(cfg).packed())
+        sampler = nee.mesh_light_sampler(cfg, buf.mesh_bounds)
+        intersect = triangle_intersector(buf.soup, buf.mesh_bounds[:, 3])
+        fn = lib.l2n_nee_cone_host
+        args = (_ptr(ip), _ptr(fp), s, s * 128, *(
+            _ptr(getattr(buf, k).numpy()) for k in (
+                "mesh_bounds", "slab_count", "slab_bounds", "sub_bounds",
+                "tris", "attrs")))
+
+        def plain(t):
+            return nee.nee_cone_contribution(
+                cfg, sampler, intersect, *t["u"], t["h"], t["nv"], t["kd"],
+                t["tp"], True)
+    n = lanes["u"].shape[1]
+    col = np.zeros((3, n), np.float32)
+    fn(*args, 0, 1, *(_ptr(lanes[k]) for k in (
+        "u", "h", "nv", "nu", "wo", "kd", "mat", "tp")), n, _ptr(col))
+    t = {k: tuple(torch.from_numpy(v[i]) for i in range(v.shape[0]))
+         for k, v in lanes.items()}
+    want = torch.stack(plain(t)).numpy()
+    agree = _libm_trig_agrees(lanes["u"][2] * np.float32(2.0 * np.pi))
+    assert agree.mean() > 0.9
+    assert (col[:, agree] == want[:, agree]).mean() > 0.9
+    assert _ulps(col[:, agree], want[:, agree]).max() <= 2
+    lit = (want.max(0) > 0).mean()
+    assert 0.05 < lit < 0.95, lit
+
+
+@pytest.mark.parametrize("case", ["fog_mis", "fog_tpu_hw"])
+def test_fog_triangle_header_matches_plain_step(lib, case):
+    """The fog body over meshes (cone NEE through the bound walk with fog's
+    factor, the fog vertices' scatter, the any-hit walk of the last
+    segment) against the plain brute-force step: 2 steps of the small
+    triangle config from beside the light mesh 0 at the diffuse mesh 1,
+    the gates of test_nee_triangle_header_matches_plain_step."""
+    kw = {"fog_mis": {"nee": True, "mis": True},
+          "fog_tpu_hw": {"nee": True, "rng": "tpu_hw"}}[case]
+    cfg = TRI_CFG.replace(emissive_every=2, **FOG, **kw).validate()
+    sp = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    scene = build_triangle_scene(sp, cfg.disc_lat, cfg.disc_long)
+    c = np.stack([sp.center_x.numpy(), sp.center_y.numpy(),
+                  sp.center_z.numpy()], 1).astype(np.float64)
+    r1 = float(np.sqrt(float(sp.sqr_radius[1])))
+    to = (c[0] - c[1]) / np.linalg.norm(c[0] - c[1])
+    vm = look_at((c[1] + to * 2.5 * r1).astype(np.float32),
+                 c[1].astype(np.float32),
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    cam = Camera.from_config(cfg, view_matrix=vm).packed()
+    ha, ho = _render_triangles(cfg, scene, cam, 2, lib)
+    with count_fog_collisions() as counts:
+        pa, po = _render_triangles(cfg, scene, cam, 2)
+    assert (np.abs(pa[:3]).max(0) > 0).mean() > 0.05
+    assert counts["collided"] > 0.05 * counts["samples"] > 0
+    np.testing.assert_array_equal(ha[3], pa[3])
+    assert np.sqrt(((ha - pa) ** 2).mean()) < 1e-3
+    assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+
+
+ASAN_FOG = r"""
+import ctypes, sys
+import numpy as np
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.ops.lights import ExplicitLights
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import build_triangle_scene, compute_spheres
+from l2n_tpu_torch.scene.materials import DirectionalLights, PointLights
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_sphere_pt_host.argtypes = [p] * 8
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 13
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+lights = ExplicitLights(None, PointLights.from_arrays(
+    np.zeros((1, 3), np.float32), np.full((1, 3), 5e7, np.float32)),
+    DirectionalLights.from_arrays(np.array([[0.3, -1.0, 0.2]], np.float32),
+                                  np.full((1, 3), 0.5, np.float32)))
+rows = np.ascontiguousarray(lights.buffer("cpu").numpy())
+for kw in ({"max_bounces": 1}, {"nee": True, "mis": True,
+                                "material_mode": "microfacet"}):
+    cfg = RenderConfig(width=128, height=64, fog_density=0.002, **kw)
+    cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+    sched = np.ascontiguousarray(tile_grid(cfg), np.int32)
+    cam = Camera.from_config(cfg).packed()
+    for count in (13, 200):
+        spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
+        accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+        output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        assert lib.l2n_sphere_pt_host(*map(ptr, (
+            ip, fp, sched, spheres, rows, accum, output)), None) == 0
+        assert accum[:3].max() > 0
+    tcfg = cfg.replace(scene_kind="triangle").validate()
+    buf = TriangleBuffers.from_scene(build_triangle_scene(compute_spheres(40),
+                                                          4, 4))
+    m, s = buf.slab_bounds.shape[:2]
+    accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+    output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    arrays = [np.ascontiguousarray(t.numpy()) for t in (
+        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
+        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    assert lib.l2n_triangle_pt_host(
+        ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
+        ptr(rows), ptr(accum), ptr(output), None) == 0
+    assert accum[3].sum() == cfg.padded_height * cfg.padded_width
+print("clean")
+"""
+
+
+def test_fog_header_memcheck_asan(asan_build):
+    """The memory check of the fog body (ROADMAP Queue 3 #15), with the
+    NEE body's ASan build: whole frames of fog at one bounce (the last
+    segment's collision draw after the any-hit) and of fog with NEE, MIS
+    and microfacet, a point and a directional light, on 13 and 200 spheres
+    (light rows e * 16 of a table of exactly n columns) and 40 tessellated
+    meshes."""
+    _asan_render(asan_build, script=ASAN_FOG)
+
+
+def test_triangle_walk_keeps_far_grazing_hits(lib):
+    """The walk's bound tests never reject a bound the brute-force sweep
+    finds a hit in: rays from 500 to 1500 units away through the outer
+    shell (0.9 to 1 of the radius) of the default scene's small mesh
+    bounds, the two NEE shadow rays a card run caught the sqrt-free test
+    rejecting (toward mesh 56, radius 0.82, 924 and 948 away) among them:
+    the nearest hit (t, mesh) and the any-hit bit-equal to the plain
+    sweep's on every ray, most of them hits."""
+    from l2n_tpu_torch.ops.scenes import triangle_intersector
+    cfg = RenderConfig(scene_kind="triangle").validate()
+    sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
+    buf = TriangleBuffers.from_scene(build_triangle_scene(
+        sc, cfg.disc_lat, cfg.disc_long))
+    mb = buf.mesh_bounds.numpy().astype(np.float64)
+    gen = np.random.Generator(np.random.PCG64(56))
+    n = 1024
+    m = gen.integers(0, mb.shape[0], n)
+    dirs = gen.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    side = gen.normal(size=(n, 3))
+    side -= (side * dirs).sum(1, keepdims=True) * dirs
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    reach = np.sqrt(mb[m, 3]) * (0.9 + 0.1 * gen.random(n))
+    dist = 500.0 + 1000.0 * gen.random(n)
+    o = mb[m, :3] + side * reach[:, None] - dirs * dist[:, None]
+    rays = np.concatenate([o, dirs], 1).astype(np.float32)
+    caught = np.array([
+        [-246.5607147216797, -253.21359252929688, 203.11009216308594,
+         0.7402217388153076, 0.5173520445823669, -0.4294397532939911],
+        [-481.64813232421875, 197.2623748779297, 35.92717361450195,
+         0.9698176383972168, 0.02880021743476391, -0.2421243041753769]],
+        np.float32)
+    rays = np.ascontiguousarray(np.concatenate([caught, rays]).T)
+    n = rays.shape[1]
+    t = np.empty(n, np.float32)
+    index, hit = np.empty(n, np.int32), np.empty(n, np.int32)
+    ms, s = buf.slab_bounds.shape[:2]
+    lib.l2n_triangle_nearest_host(
+        ms, s, s * 128, *(_ptr(np.ascontiguousarray(getattr(buf, k).numpy()))
+                          for k in ("mesh_bounds", "slab_count", "slab_bounds",
+                                    "sub_bounds", "tris", "attrs")),
+        _ptr(rays), _ptr(t), _ptr(index), _ptr(hit), n)
+    want = triangle_intersector(buf.soup)(*(torch.from_numpy(r)
+                                            for r in rays))
+    np.testing.assert_array_equal(t, want.t.numpy())
+    np.testing.assert_array_equal(index, want.index.numpy())
+    np.testing.assert_array_equal(hit.astype(bool), want.t.numpy() >= 0.0)
+    assert index[0] == index[1] == 56
+    assert (index >= 0).mean() > 0.5

@@ -61,7 +61,13 @@ _forget_port()
 
 @pytest.fixture(scope="module", autouse=True)
 def _port_unloaded_after_module():
+    # One torch thread while this module runs: the suite's workers share
+    # the machine's cores, and a torch pool as wide as the machine in each
+    # of them oversubscribes the cores (the JAX package's tests included).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     _forget_port()
 
 

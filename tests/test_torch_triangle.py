@@ -79,7 +79,13 @@ _forget_port()
 
 @pytest.fixture(scope="module", autouse=True)
 def _port_unloaded_after_module():
+    # One torch thread while this module runs: the suite's workers share
+    # the machine's cores, and a torch pool as wide as the machine in each
+    # of them oversubscribes the cores (the JAX package's tests included).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     _forget_port()
 
 
@@ -393,7 +399,10 @@ def test_switch_renderer_clears_accumulation(tmp_path):
     # The material modes and the bump: Queue 1 #9's second slice.
     pytest.param({"material_mode": "disney", "normal_map": 0.8}, True,
                  id="kw7-#9"),
-    pytest.param({"nee": True, "mis": True}, True, id="kw8-#9")])
+    pytest.param({"nee": True, "mis": True}, True, id="kw8-#9"),
+    # Fog with NEE and MIS: Queue 1 #9's fourth slice.
+    pytest.param({"fog_density": 0.01, "nee": True, "mis": True}, True,
+                 id="kw9-#9")])
 def test_check_supported_triangle(kw, ok):
     cfg = _small_cfg(scene_kind="triangle", **kw)
     if ok is not True:
