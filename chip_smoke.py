@@ -28,9 +28,16 @@ homogeneous fog (alone, with NEE, MIS, microfacet and the bump, the
 explicit lights, one bounce, the AO AOV's budget) through sphere_pt and
 triangle_pt to their plain versions in threefry and tpu_hw with a
 collision-share gate, Beer-Lambert attenuation through sphere_pt to its
-closed form, and drives the fog main paths (phases 38-40), and times
-kernel and plain versions beside the least time the card could take for
-the same work.
+closed form, and drives the fog main paths (phases 38-40), holds
+`steps_per_call` as CUDA-graph replay to eager single steps bit for bit
+(sphere_pt and triangle_pt in threefry, tpu_hw and tinymt, the wavefront
+step, fog+nee+mis; from an odd tile offset, across a camera change, after
+clear_accumulation and after load_session) and drives the graph-replayed
+main paths (phase 41), resumes a session saved on the card bit for bit
+(42), runs rmse_vs_oracle, debug_mode and the interactive viewer on
+scripted keys (43), times ms per scheduler step eager against
+steps_per_call (44), and times kernel and plain versions beside the least
+time the card could take for the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -399,21 +406,24 @@ def pass_b_group(alive: int) -> int:
 
 
 def run_main_path(app, frames: int, names):
-    """Drive `frames` steps of `app`'s current renderer with the launch
+    """Drive `frames` calls of `app`'s current renderer with the launch
     counts zeroed just before and read just after; each kernel in `names`
-    must have launched once per step. Checks 10 spp everywhere, a finite lit
-    image and a written PNG. Returns (launches, lit, PNG bytes)."""
+    must have launched once per scheduler step (a call runs the program's
+    `steps_per_call`, on the card as a CUDA-graph replay whose launches
+    count per replay). Checks 10 spp everywhere, a finite lit image and a
+    written PNG. Returns (launches, lit, PNG bytes)."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
     from l2n_tpu_torch.utils.image import write_png
     cfg = app.renderer.cfg
+    steps = frames * app.renderer.program.steps_per_call
     reset_launches()
     state = app.run(frames, save_camera=False)
     torch.cuda.synchronize()
     path_launches = dict(launches)
     for name in names:
-        require(path_launches.get(name, 0) == frames,
+        require(path_launches.get(name, 0) == steps,
                 f"{name} launched {path_launches.get(name, 0)} times in "
-                f"{frames} main-path steps")
+                f"{steps} main-path steps")
     spp = state.accum[3, :cfg.height, :cfg.width]
     require(bool((spp == 10).all()), "every visible pixel holds 10 samples")
     img = app.renderer.display()
@@ -2403,6 +2413,281 @@ def fog_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
             for name, n in got_l.items()}
 
 
+# ---------------------------------------------------------------------------
+# The program and app layer (phases 41-44)
+# ---------------------------------------------------------------------------
+
+def same_state(a, b) -> bool:
+    """Bit-equal frame states: planes and counters."""
+    return ((a.tile_offset, a.iteration) == (b.tile_offset, b.iteration)
+            and bits_equal(a.accum, b.accum)
+            and bits_equal(a.output, b.output)
+            and (a.rng_state is None) == (b.rng_state is None)
+            and (a.rng_state is None or torch.equal(a.rng_state,
+                                                    b.rng_state)))
+
+
+def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
+    """Phase 41's sequence for one config: a steps_per_call=n step against
+    n eager single steps from tile_offset 7, call by call, max abs 0 on
+    accum, output and the state planes: the first call of camera A (eager),
+    its capture and replay, a replay; camera B (eager, then a recapture);
+    clear_accumulation (replay); a session saved, one more call, the
+    session loaded into both live states (replay from the loaded tile
+    offset and planes) and into new buffers (eager, then a recapture).
+    Every call's launches must equal n per kernel of `names`, replays
+    included. Returns the calls compared."""
+    import dataclasses as dc
+
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.render.state import (
+        clear_accumulation,
+        init_frame_state,
+        load_state,
+    )
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.utils.checkpoint import load_session, save_session
+    dev = torch.device("cuda")
+    one = build_render_step(cfg, scene, backend="cuda", device=dev)
+    many = build_render_step(cfg, scene, backend="cuda", device=dev,
+                             steps_per_call=n)
+    e = dc.replace(init_frame_state(cfg, dev), tile_offset=7)
+    g = dc.replace(init_frame_state(cfg, dev), tile_offset=7)
+    calls = 0
+
+    def call(cam, what):
+        nonlocal e, g, calls
+        reset_launches()
+        g = many(g, cam)
+        torch.cuda.synchronize()
+        got = dict(launches)
+        for _ in range(n):
+            e = one(e, cam)
+        torch.cuda.synchronize()
+        for name in names:
+            require(got.get(name, 0) == n,
+                    f"{cfg.scene_kind} {what}: {name} launched "
+                    f"{got.get(name, 0)} times in one call of {n} steps")
+        require(same_state(e, g), f"{cfg.scene_kind} rng={cfg.rng} "
+                                  f"{what}: graph replay != eager steps")
+        calls += 1
+
+    for what in ("eager", "capture", "replay"):
+        call(cams[0], what)
+    for what in ("new camera, eager", "new camera, capture"):
+        call(cams[1], what)
+    e, g = clear_accumulation(e), clear_accumulation(g)
+    call(cams[1], "after clear_accumulation")
+    path = save_session(Path(tmp) / "graph.npz", cfg, g, np.eye(4))
+    call(cams[1], "before load_session")
+    _, saved, _ = load_session(path, device=dev)
+    e, g = load_state(e, saved), load_state(g, saved)
+    call(cams[1], "after load_session")
+    g = load_session(path, device=dev)[1]  # new buffers: a new key
+    e = load_state(e, saved)
+    for what in ("new buffers, eager", "new buffers, capture",
+                 "new buffers, replay"):
+        call(cams[1], what)
+    return calls
+
+
+def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
+    """Phases 41-44: steps_per_call as CUDA-graph replay against eager
+    single steps (sphere_pt, triangle_pt in three rng modes, the wavefront
+    step, fog+nee+mis), the graph-replayed main paths, a session resumed on
+    the card, rmse_vs_oracle, debug_mode and the interactive viewer, and
+    ms per scheduler step eager against steps_per_call."""
+    import contextlib
+    import io
+
+    from l2n_tpu_torch.app.application import Application
+    from l2n_tpu_torch.app.display import AnsiDisplay
+    from l2n_tpu_torch.app.interactive import InteractiveApp
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.scene.spheres import compute_spheres
+    from l2n_tpu_torch.utils.validate import debug_mode, rmse_vs_oracle
+    dev = torch.device("cuda")
+    spheres = scene.packed().to(dev)
+    view = cluster_view(cfg, spheres)
+    wave = ("wavefront_pass_a", "wavefront_pass_b", "wavefront_pass_c")
+
+    # --- 41: graph replay vs eager single steps ---------------------------
+    cases = {}
+    for rng in ("threefry", "tpu_hw", "tinymt"):
+        cases[f"sphere_pt {rng}"] = (cfg.replace(rng=rng), scene,
+                                     (cam, view), ("sphere_pt",))
+        cases[f"triangle_pt {rng}"] = (tri_cfg.replace(rng=rng), tri_buf,
+                                       (cam, view), ("triangle_pt",))
+    cases["wavefront"] = (cfg.replace(wavefront=True), scene, (cam, view),
+                          wave)
+    cases["sphere_pt fog+nee+mis"] = (
+        cfg.replace(emissive_every=2, nee=True, mis=True, **FOG), scene,
+        (view, cam), ("sphere_pt",))
+    compared = {}
+    for label, (ccfg, cscene, cams, names) in cases.items():
+        compared[label] = graph_vs_eager(ccfg, cscene, cams, names, 3, tmp)
+    paths = {}
+    for label, pcfg, cls, names in (
+            ("spherePT", cfg, SphereProgram, ("sphere_pt",)),
+            ("trianglePT", tri_cfg, TriangleProgram, ("triangle_pt",)),
+            ("spherePT/wavefront", cfg.replace(wavefront=True),
+             SphereProgram, wave)):
+        app = Application(pcfg, backend="cuda", device="cuda", workdir=tmp,
+                          renderer_names=(cls.name,))
+        n = pcfg.tile_count // pcfg.effective_tiles_per_step
+        program = cls(pcfg, scene=tri_buf if cls is TriangleProgram
+                      else scene, backend="cuda", steps_per_call=n)
+        app.renderer.programs[cls.name] = program
+        got_l, lit, _ = run_main_path(app, 10, names)
+        paths[label] = (n, got_l, round(lit, 4))
+        del app, program
+    phase(41, f"steps_per_call as CUDA-graph replay vs eager single steps, "
+              f"10-tile steps, 3 per call, from tile_offset 7 (gate: max "
+              f"abs 0 on accum, output and state planes, equal counters, "
+              f"launches per call = steps, replays counted): calls "
+              f"compared per case {compared}; graph-replayed main paths "
+              f"(10 calls of steps_per_call = one frame through "
+              f"Application): (steps per call, launches, lit) {paths}; "
+              f"card: {card}")
+
+    # --- 42: a session saved on the card resumes in a fresh Application --
+    scfg = cfg.replace(rng="tinymt")
+    first = Application(scfg, backend="cuda", device="cuda", workdir=tmp,
+                        renderer_names=("spherePT",))
+    first.run(30, save_camera=False)
+    path = first.save_session(Path(tmp) / "card_session.npz")
+    second = Application(scfg, backend="cuda", device="cuda", workdir=tmp,
+                         renderer_names=("spherePT",))
+    second.renderer.programs["spherePT"] = SphereProgram(
+        scfg, scene=scene, backend="cuda", steps_per_call=10)
+    second.load_session(path)
+    resumed = second.run(3, save_camera=False)
+    uninterrupted = first.run(30, save_camera=False)
+    torch.cuda.synchronize()
+    require(same_state(resumed, uninterrupted),
+            "a session resumed on the card (graph-replayed, 3 calls of 10 "
+            "steps) != the uninterrupted render")
+    phase(42, f"session: Application(RenderConfig(rng=tinymt)) 30 steps, "
+              f"saved ({path.stat().st_size} bytes), loaded into a fresh "
+              f"Application whose spherePT runs steps_per_call=10 (eager, "
+              f"capture, replay), 30 more steps: bit-equal to 60 "
+              f"uninterrupted steps (accum, output, rng_state, "
+              f"counters); card: {card}")
+    del first, second
+
+    # --- 43: rmse_vs_oracle, debug_mode, the interactive viewer ----------
+    small = RenderConfig(width=256, height=128, emissive_every=2).validate()
+    small_scene = compute_spheres(small.sphere_count, small.world_size,
+                                  small.scene_seed)
+    oracle = {
+        "spherePT": rmse_vs_oracle(small, small_scene, steps=4,
+                                   backend="cuda"),
+        "spherePT wavefront": rmse_vs_oracle(
+            small.replace(wavefront=True), small_scene, steps=4,
+            backend="cuda")}
+    for label, stats in oracle.items():
+        require(stats["max_abs"] == 0.0 and stats["coverage_match"],
+                f"rmse_vs_oracle {label}: {stats}")
+    reset_launches()
+    with debug_mode():
+        for dcfg, n in ((cfg, 1), (cfg, 3), (cfg.replace(wavefront=True), 1),
+                        (tri_cfg, 1)):
+            dscene = tri_buf if dcfg.scene_kind == "triangle" else scene
+            dstep = build_render_step(dcfg, dscene, backend="cuda",
+                                      device=dev, steps_per_call=n)
+            dst = init_frame_state(dcfg, dev)
+            for _ in range(2):
+                dst = dstep(dst, cam)
+    debug_launches = dict(launches)
+    require(debug_launches.get("sphere_pt", 0) == 8
+            and debug_launches.get("triangle_pt", 0) == 2
+            and debug_launches.get("wavefront_pass_b", 0) == 2,
+            f"debug_mode launches {debug_launches}")
+    script = iter([b"", b"+", b"t", b"", b"x"])
+    ansi, status = io.StringIO(), io.StringIO()
+    viewer = InteractiveApp(RenderConfig(), workdir=tmp, backend="cuda")
+    k0 = viewer.tiles_per_step
+    reset_launches()
+    with contextlib.redirect_stdout(status):
+        frames = viewer.run(AnsiDisplay(stream=ansi),
+                            lambda: next(script, b"x"), max_frames=20)
+    torch.cuda.synchronize()
+    view_launches = dict(launches)
+    require(frames == 4 and viewer.tiles_per_step == 2 * k0
+            and viewer.renderer.current == "trianglePT"
+            and ansi.getvalue().count("\x1b[H\x1b[2J frame") == 5
+            and status.getvalue().count("tiles/step") == 5
+            and view_launches == {"sphere_pt": 3, "triangle_pt": 2},
+            f"interactive viewer: frames {frames}, tiles per step "
+            f"{viewer.tiles_per_step}, {viewer.renderer.current}, launches "
+            f"{view_launches}")
+    phase(43, f"rmse_vs_oracle(backend=cuda) at 256x128, 4 steps (gate "
+              f"max abs 0, equal coverage): {oracle}; debug_mode (every "
+              f"launch synchronized and checked, every step audited): "
+              f"sphere_pt 1 and 3 steps per call, the wavefront step and "
+              f"triangle_pt, 2 calls each, clean, launches "
+              f"{debug_launches}; InteractiveApp.run on scripted bytes "
+              f"['', '+', 't', '', 'x'] into an AnsiDisplay: {frames + 1} "
+              f"frames ({len(ansi.getvalue())} bytes of ANSI), tiles per "
+              f"step {k0} -> {2 * k0}, spherePT -> trianglePT, launches "
+              f"{view_launches}; last status line "
+              f"{status.getvalue().splitlines()[-1][:60]!r}; card: {card}")
+    del viewer
+
+    # --- 44: ms per scheduler step, eager against steps_per_call ----------
+    timing = {}
+    for name, fcfg, fscene, kernels in (
+            ("sphere_pt", cfg, scene, ("sphere_pt_kernel",)),
+            ("triangle_pt", tri_cfg, tri_buf, ("triangle_pt_kernel",)),
+            ("wavefront", cfg.replace(wavefront=True), scene,
+             tuple(f"{w}_kernel" for w in wave))):
+        for label, tcfg in (("10-tile", fcfg), ("whole-frame", fcfg.replace(
+                tiles_per_step=fcfg.tile_count))):
+            n = 23 if label == "10-tile" else 4
+            steps = {1: build_render_step(tcfg, fscene, backend="cuda",
+                                          device=dev),
+                     n: build_render_step(tcfg, fscene, backend="cuda",
+                                          device=dev, steps_per_call=n)}
+            st = init_frame_state(tcfg, dev)
+            for per in (1, n, n, 1):  # in turns
+                step = steps[per]
+                # 10 frames timed, 3 calls (or 20 steps) profiled
+                calls = 10 * tcfg.tile_count // (
+                    tcfg.effective_tiles_per_step * per)
+                for _ in range(2):  # warm: eager call, capture
+                    st = step(st, cam)
+                dev_ms, host_ms, st = timed_steps(step, st, cam, calls)
+                _, busy, _, st = profile_steps(step, st, cam,
+                                               3 if per > 1 else 20, kernels)
+                timing.setdefault((name, label, per), []).append(
+                    (dev_ms / per, host_ms / per, busy))
+            for per in (1, n):
+                runs = timing[(name, label, per)]
+                print(f"[timing] {name} {label} steps_per_call={per}: "
+                      + " / ".join(f"{d:.4f}" for d, _, _ in runs)
+                      + " ms per scheduler step (CUDA events), "
+                      + " / ".join(f"{h:.4f}" for _, h, _ in runs)
+                      + f" ms (host clock to sync), in turns; card: {card}",
+                      flush=True)
+                print(f"[busy] {name} {label} steps_per_call={per}: "
+                      + " / ".join("not measured" if b is None else
+                                   f"{b:.3f}" for _, _, b in runs)
+                      + " of the span from first to last device event "
+                      f"(torch.profiler); card: {card}", flush=True)
+            del steps, st
+            torch.cuda.empty_cache()
+    phase(44, f"ms per scheduler step, eager vs steps_per_call (23 at 10 "
+              f"tiles, 4 at whole frames), in turns: "
+              + str({f"{k[0]} {k[1]} x{k[2]}": [round(d, 4) for d, _, _ in v]
+                     for k, v in timing.items()})
+              + f"; card: {card}")
+    return timing
+
+
 # The compile-time settings of each step kernel's instantiations, in their
 # template order (csrc/pathtrace.cuh with_options, dispatch_pass_a/_b); the
 # fused kernels' body (kBody*) comes first, an int.
@@ -3059,6 +3344,7 @@ def main() -> int:
         nee_launches = nee_phases(card, tmp, cfg, scene, tri_cfg, tri_buf)
         fog_launches = fog_phases(card, tmp, cfg, scene, tri_cfg, tri_buf,
                                   cam)
+        program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)

@@ -11,11 +11,13 @@ clear accumulation on camera move; save the pose on exit.
     python -m l2n_tpu_torch.app.application --obj scene.obj ...
     python -m l2n_tpu_torch.app.application --demo-scene torus-field ...
     python -m l2n_tpu_torch.app.application --config cfg.json ...
+    python -m l2n_tpu_torch.app.application --ansi ...  # terminal preview
 
 A `--config` JSON holds RenderConfig fields (l2n_tpu_torch/config.py);
 `{"wavefront": true}` renders spherePT through the wavefront step, and
 `{"rng": "tinymt"}` (or "tauslcg", or "tpu_hw": Philox on the card) picks
-the sampler.
+the sampler. `Application.save_session` / `load_session` checkpoint and
+resume a render (utils/checkpoint.py: the JAX package's session files).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
 from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.scene.obj import load_obj
 from l2n_tpu_torch.scene.procgen import torus_field_obj, trefoil_obj
-
-_log = logging.getLogger("l2n_tpu_torch.app")
+from l2n_tpu_torch.utils.checkpoint import load_session, save_session
+from l2n_tpu_torch.utils.profiling import log_metrics
 
 InputSource = Callable[[int], ControllerInput | None]
 
@@ -84,8 +86,7 @@ class Application:
                 if display is not None:
                     display.present(self.renderer.display(), frame)
                 if metrics_every and (frame + 1) % metrics_every == 0:
-                    _log.info("frame %d: %s", frame + 1,
-                              self.renderer.metrics())
+                    log_metrics(frame + 1, self.renderer.metrics())
                 now = time.perf_counter()
                 dt, last = now - last, now
                 inp = input_source(frame) if input_source else None
@@ -98,12 +99,27 @@ class Application:
                 save_view_matrix(self.controller.view_matrix, self.workdir)
         return self.renderer.state
 
+    # -- session checkpoints ----------------------------------------------
+    def save_session(self, path: str | Path) -> Path:
+        return save_session(path, self.cfg, self.renderer.state,
+                            self.controller.view_matrix)
+
+    def load_session(self, path: str | Path) -> None:
+        """Resume a saved session: its config must equal this one's; its
+        planes are copied into the live buffers."""
+        cfg, state, view = load_session(path, device="cpu")
+        if cfg != self.cfg:
+            raise ValueError("session config does not match application "
+                             "config")
+        self.renderer.load_state(state)
+        self.controller.set_view_matrix(view)
+
 
 def main(argv: list[str] | None = None) -> int:
     """CLI: headless render to a PNG sequence."""
     import argparse
 
-    from l2n_tpu_torch.app.display import PngSequenceDisplay
+    from l2n_tpu_torch.app.display import AnsiDisplay, PngSequenceDisplay
 
     p = argparse.ArgumentParser(description="l2n_tpu_torch progressive "
                                             "renderer")
@@ -120,6 +136,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="procedurally generated OBJ demo scene "
                         "(scene.procgen): the 24-tori field or the "
                         "70k-triangle trefoil knot")
+    p.add_argument("--ansi", action="store_true", help="terminal preview")
     p.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda for --backend cuda, "
@@ -149,7 +166,8 @@ def main(argv: list[str] | None = None) -> int:
                       renderer_names=renderer_names,
                       initial_renderer=renderer,
                       triangle_scene=triangle_scene)
-    display = PngSequenceDisplay(args.out, every=args.every)
+    display = (AnsiDisplay() if args.ansi
+               else PngSequenceDisplay(args.out, every=args.every))
     app.run(args.frames, display=display, metrics_every=32)
     print(f"rendered {args.frames} {app.renderer.current} steps on "
           f"{app.renderer.program.device}; "

@@ -1,6 +1,7 @@
 """Shared plumbing of the kernel tier: the port's config gate, launch
-counters, tensor checks, tile pixel coordinates and the kernel-form
-accumulate + tonemap (counterpart of l2n_tpu.ops.kernels.common)."""
+counters, CUDA-graph capture and replay, the debug checks, tensor checks,
+tile pixel coordinates and the kernel-form accumulate + tonemap
+(counterpart of l2n_tpu.ops.kernels.common)."""
 
 from __future__ import annotations
 
@@ -32,6 +33,50 @@ launches: collections.Counter = collections.Counter()
 
 def reset_launches() -> None:
     launches.clear()
+
+
+# Set by utils/validate.debug_mode(): each launch then synchronizes its
+# device, which raises on a CUDA error of the launch or its run, and each
+# render step audits its frame state (render/step.py).
+_debug_checks = False
+
+
+def debug_checks() -> bool:
+    return _debug_checks
+
+
+def set_debug_checks(on: bool) -> bool:
+    """Turn the debug checks on or off; returns the previous setting."""
+    global _debug_checks
+    prev, _debug_checks = _debug_checks, bool(on)
+    return prev
+
+
+def capture(fn, device: torch.device):
+    """Capture the kernel launches of fn() on `device` into a CUDA graph,
+    which runs nothing until it is replayed. Returns (graph, the launches it
+    holds): a capture counts no launch in `launches` (it runs none), and
+    `replay` adds the held ones per replay. Raises if the capture fails.
+    The kernel library must be built and every launcher's shared-memory
+    opt-in done before (an eager run of fn): neither may happen while a
+    stream captures."""
+    before = launches.copy()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            fn()
+        held = launches - before
+    finally:
+        launches.clear()
+        launches.update(before)
+    return graph, held
+
+
+def replay(graph, held: collections.Counter) -> None:
+    """Replay a graph of `capture` on the current stream and count its
+    launches."""
+    graph.replay()
+    launches.update(held)
 
 
 def check_supported(cfg) -> None:
@@ -276,6 +321,8 @@ def launch_raw(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
+    if _debug_checks:
+        torch.cuda.synchronize(device)
 
 
 # Shared memory a Hopper block can opt in to.

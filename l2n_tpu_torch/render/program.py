@@ -18,13 +18,16 @@ class PathtracingProgram:
     lights add direct lighting at diffuse vertices and PhongMaterials
     diffuse rows override the per-object albedo (ops/lights.py); empty
     buffers build today's step. Lights with `wavefront=True` raise
-    ValueError, as in the JAX package.
+    ValueError, as in the JAX package. `steps_per_call` > 1 runs that many
+    scheduler steps per call of `step`, on the card as one CUDA-graph
+    replay (render/step.py); the image equals as many single steps.
     """
 
     name = "basePT"
 
     def __init__(self, cfg, scene, backend: str = "cuda", device=None,
-                 materials=None, point_lights=None, directional_lights=None):
+                 materials=None, point_lights=None, directional_lights=None,
+                 steps_per_call: int = 1):
         self.cfg = cfg
         self.backend = backend
         self.device = resolve_device(backend, device)
@@ -38,8 +41,10 @@ class PathtracingProgram:
                                    else default_dl)
         self.lights = ExplicitLights(self.materials, self.point_lights,
                                      self.directional_lights)
+        self.steps_per_call = steps_per_call
         self.step = build_render_step(cfg, scene, backend=backend,
-                                      device=self.device, lights=self.lights)
+                                      device=self.device, lights=self.lights,
+                                      steps_per_call=steps_per_call)
 
 
 class SphereProgram(PathtracingProgram):

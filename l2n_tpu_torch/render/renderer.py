@@ -1,6 +1,11 @@
 """Renderer: owns frame state + programs, drives progressive steps
 (counterpart of l2n_tpu.render.renderer): current program, clear-on-switch,
-clear-on-move, step timing."""
+clear-on-move, step timing, and loading a state into the live buffers.
+
+A program's step may run several scheduler steps per call
+(`steps_per_call`); `metrics` divides a call's time by them, so its figures
+stay per scheduler step. (The JAX package's `metrics` does not: its
+figures are per call; ROADMAP Queue 3.)"""
 
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from l2n_tpu_torch.render.state import (
     clear_accumulation,
     display_image,
     init_frame_state,
+    load_state,
 )
 
 
@@ -51,6 +57,12 @@ class Renderer:
         """Camera moved => clear accumulation."""
         self.state = clear_accumulation(self.state)
 
+    def load_state(self, state: FrameState) -> None:
+        """Make `state` (e.g. a loaded session, on any device) the live
+        state by copying it into the live buffers, which the programs'
+        step graphs keep (render/state.load_state)."""
+        self.state = load_state(self.state, state)
+
     def _sync(self) -> None:
         if self.state.accum.is_cuda:
             torch.cuda.synchronize(self.state.accum.device)
@@ -78,7 +90,7 @@ class Renderer:
     def metrics(self) -> dict[str, float]:
         cfg = self.cfg
         times = self._step_times[-120:] or [float("nan")]
-        ms = float(np.mean(times)) * 1e3
+        ms = float(np.mean(times)) * 1e3 / self.program.steps_per_call
         pixels_per_step = (cfg.effective_tiles_per_step
                            * cfg.tile_height * cfg.tile_width)
         samples_per_step = pixels_per_step * cfg.spp_per_step

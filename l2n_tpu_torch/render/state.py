@@ -19,7 +19,14 @@ IN PLACE: a render step writes `accum`, `output` and `rng_state` in place
 and returns a new FrameState that shares them with updated counters — the
 counterpart of the JAX step's donated input buffers. `clear_accumulation`
 zeroes `accum` in place and leaves the RNG states alone. Callers that need
-an earlier state keep a copy (`to_numpy`).
+an earlier state keep a copy (`to_numpy`). `load_state` copies another
+state into the live buffers, so that a step's CUDA graph, which holds their
+addresses (render/step.py), stays right.
+
+The session form (`to_session`, `from_session`) is the JAX package's
+FrameState as numpy arrays, what its session files hold
+(utils/checkpoint.py): `rng_state` as uint32, `tile_offset` and
+`iteration` as 0-d int32.
 """
 
 from __future__ import annotations
@@ -61,6 +68,26 @@ class FrameState:
                 self.output.cpu().numpy().copy(),
                 self.tile_offset, self.iteration)
 
+    def to_session(self) -> dict[str, np.ndarray]:
+        """The session form (module doc) as host copies: accum, output,
+        tile_offset, iteration and, for the stateful rng modes, rng_state."""
+        accum, output, tile_offset, iteration = self.to_numpy()
+        arrays = {"accum": accum, "output": output,
+                  "tile_offset": np.asarray(tile_offset, np.int32),
+                  "iteration": np.asarray(iteration, np.int32)}
+        if self.rng_state is not None:
+            arrays["rng_state"] = self.rng_state.cpu().numpy().view(np.uint32)
+        return arrays
+
+    @classmethod
+    def from_session(cls, arrays, device="cpu") -> "FrameState":
+        """The state of the session form `arrays` (a mapping, e.g. an NPZ
+        file), on `device`."""
+        return cls.from_numpy(
+            arrays["accum"], arrays["output"], arrays["tile_offset"],
+            arrays["iteration"], device,
+            arrays["rng_state"] if "rng_state" in arrays else None)
+
 
 def init_rng_state(cfg, device="cpu") -> torch.Tensor | None:
     """The stateful modes' per-pixel state planes, built on the host and
@@ -85,6 +112,25 @@ def clear_accumulation(state: FrameState) -> FrameState:
     RNG states."""
     state.accum.zero_()
     return state
+
+
+def load_state(live: FrameState, new: FrameState) -> FrameState:
+    """`new`'s planes copied IN PLACE into `live`'s buffers (from any
+    device), with `new`'s counters; raises ValueError where a plane's shape
+    or presence differs."""
+    pairs = [(live.accum, new.accum), (live.output, new.output)]
+    if (live.rng_state is None) != (new.rng_state is None):
+        raise ValueError("rng_state: the states are of different rng modes")
+    if live.rng_state is not None:
+        pairs.append((live.rng_state, new.rng_state))
+    for dst, src in pairs:
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"state plane {tuple(src.shape)} {src.dtype} "
+                             f"does not fit {tuple(dst.shape)} {dst.dtype}")
+    for dst, src in pairs:
+        dst.copy_(src)
+    return dataclasses.replace(live, tile_offset=int(new.tile_offset),
+                               iteration=int(new.iteration))
 
 
 def display_image(cfg, state: FrameState) -> np.ndarray:

@@ -37,6 +37,22 @@ with `wavefront=True` raise, as in the JAX package.
 The step updates the state's `accum`, `output` and `rng_state` IN PLACE and
 returns a new FrameState sharing them with advanced counters
 (render/state.py).
+
+`steps_per_call=N` runs N scheduler steps per call, the counterpart of the
+JAX step's lax.fori_loop: the same image as N single steps, to the bit.
+Their schedules come from a device cursor (render/tiles.py), gathered once
+per call. With backend="cuda" the N steps are captured once into a CUDA
+graph and replayed, so that the host dispatches one replay where it
+dispatched N steps of wrapper calls. The kernels' parameters, the camera
+among them, are baked in at capture, and so are the state buffers'
+addresses: the step keeps one graph, for one (camera, buffers) key. The
+first call for a key runs its N steps eagerly (which builds the kernel
+library and does the launchers' shared-memory opt-ins, neither of which
+may happen while a stream captures), the second captures and replays, and
+later ones replay; a new camera or new buffers drop the graph. A capture
+that fails raises: nothing falls back. Under utils/validate.debug_mode the
+N steps run eagerly, each launch checked and each step audited (a capture
+cannot synchronize). backend="torch" runs the same N steps eagerly.
 """
 
 from __future__ import annotations
@@ -47,7 +63,13 @@ import functools
 import numpy as np
 import torch
 
-from l2n_tpu_torch.ops.kernels.common import check_supported
+from l2n_tpu_torch.ops.kernels.common import (
+    capture,
+    check_camera,
+    check_supported,
+    debug_checks,
+    replay,
+)
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
@@ -61,7 +83,12 @@ from l2n_tpu_torch.ops.kernels.wavefront import (
 )
 from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.render.state import FrameState
-from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles, tile_grid
+from l2n_tpu_torch.render.tiles import (
+    advance_cursor,
+    advance_offset,
+    scheduled_tiles,
+    tile_grid,
+)
 from l2n_tpu_torch.scene.spheres import SphereScene
 from l2n_tpu_torch.scene.tessellate import TriangleScene
 
@@ -87,7 +114,8 @@ def resolve_device(backend: str, device=None) -> torch.device:
 
 
 def build_render_step(cfg, scene, backend: str = "cuda", device=None,
-                      lights: ExplicitLights | None = None):
+                      lights: ExplicitLights | None = None,
+                      steps_per_call: int = 1):
     """A step(state, packed_camera) -> FrameState for (config, scene).
 
     `scene` is a SphereScene or a TriangleScene, per cfg.scene_kind, whose
@@ -95,8 +123,11 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
     already packed on that device (e.g. with other tables,
     TriangleBuffers.with_tables). The camera is the packed
     (10, 4) host array (Camera.packed()). `lights`: see the module doc.
+    `steps_per_call`: scheduler steps per call (see the module doc).
     """
     check_supported(cfg)
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     device = resolve_device(backend, device)
     if lights is not None and not lights.enabled:
         lights = None
@@ -138,14 +169,82 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
             triangle_pt if backend == "cuda" else triangle_pt_plain,
             lights=kernel_lights)
     tiles = torch.as_tensor(tile_grid(cfg)).to(device)
+
+    def render(sched, cam, accum, output, rng_state):
+        kernel(cfg, sched, cam, buffers, accum, output, rng_state)
+
+    if steps_per_call > 1:
+        return MultiStep(cfg, render, tiles, steps_per_call, device,
+                         graphs=backend == "cuda")
     k = cfg.effective_tiles_per_step
 
     def step(state: FrameState, camera) -> FrameState:
         sched = scheduled_tiles(tiles, state.tile_offset, k)
-        kernel(cfg, sched, np.asarray(camera, np.float32), buffers,
-               state.accum, state.output, state.rng_state)
+        render(sched, np.asarray(camera, np.float32), state.accum,
+               state.output, state.rng_state)
+        audit(state.accum, state.output)
         return dataclasses.replace(
             state, tile_offset=advance_offset(cfg, state.tile_offset),
             iteration=state.iteration + 1)
 
     return step
+
+
+def audit(accum: torch.Tensor, output: torch.Tensor) -> None:
+    """Under utils/validate.debug_mode, raise FloatingPointError where the
+    frame planes hold a NaN, an Inf or a negative sample count."""
+    if debug_checks():
+        # utils/validate.py imports this module.
+        from l2n_tpu_torch.utils.validate import check_frame_state
+        report = check_frame_state(FrameState(accum, output, 0, 0))
+        if not report.ok:
+            raise FloatingPointError(f"frame state after a step: {report}")
+
+
+class MultiStep:
+    """step(state, packed_camera) -> FrameState over N scheduler steps per
+    call (`build_render_step(..., steps_per_call=N)`; module doc). `render`
+    renders the tiles `sched` of one step in place."""
+
+    def __init__(self, cfg, render, tiles: torch.Tensor, n: int,
+                 device: torch.device, graphs: bool):
+        self.cfg, self.render, self.tiles, self.n = cfg, render, tiles, n
+        self.device, self.graphs = device, graphs
+        self.cursor = torch.zeros((1,), dtype=torch.int32, device=device)
+        self._graph = None  # (key, graph, launches it holds)
+        self._warm = None   # the key of the last eager run
+
+    def _steps(self, cam, accum, output, rng_state) -> None:
+        """The N steps from the cursor, which they advance."""
+        k = self.cfg.effective_tiles_per_step
+        scheds = scheduled_tiles(self.tiles, self.cursor,
+                                 self.n * k).view(self.n, k, 2)
+        for sched in scheds:
+            self.render(sched, cam, accum, output, rng_state)
+            audit(accum, output)
+        advance_cursor(self.cfg, self.cursor, self.n)
+
+    def __call__(self, state: FrameState, camera) -> FrameState:
+        cam = check_camera(camera)
+        planes = (state.accum, state.output, state.rng_state)
+        self.cursor.fill_(state.tile_offset)
+        key = (cam.tobytes(), tuple(0 if p is None else p.data_ptr()
+                                    for p in planes))
+        if not self.graphs or debug_checks():
+            self._steps(cam, *planes)
+        elif self._graph is not None and self._graph[0] == key:
+            replay(*self._graph[1:])
+        elif self._warm == key:
+            self._graph = None  # its memory goes before the next capture
+            graph, held = capture(lambda: self._steps(cam, *planes),
+                                  self.device)
+            self._graph = (key, graph, held)
+            replay(graph, held)
+        else:
+            self._graph = None
+            self._steps(cam, *planes)
+            self._warm = key
+        return dataclasses.replace(
+            state, tile_offset=advance_offset(self.cfg, state.tile_offset,
+                                              self.n),
+            iteration=state.iteration + self.n)

@@ -3,8 +3,12 @@
 The image splits into tiles; the tile list is shuffled once with a
 fixed-seed Mersenne Twister (numpy MT19937, as in the JAX package), and
 each step renders `effective_tiles_per_step` tiles starting at a
-wrap-around offset. The offset is a host integer here (the JAX package
-keeps it as a traced scalar).
+wrap-around offset. The FrameState keeps the offset as a host integer (the
+JAX package keeps it as a traced scalar). A step that runs several
+scheduler steps per call (render/step.py, `steps_per_call`) reads it from a
+device int32 cursor instead, so that one CUDA graph of those steps is right
+from any starting offset: the gather and the cursor's advance both run on
+the device.
 """
 
 from __future__ import annotations
@@ -23,15 +27,26 @@ def tile_grid(cfg) -> np.ndarray:
     return tiles
 
 
-def scheduled_tiles(tile_array: torch.Tensor, offset: int,
+def scheduled_tiles(tile_array: torch.Tensor, offset: int | torch.Tensor,
                     count: int) -> torch.Tensor:
-    """The `count` tiles dispatched this step: tileArray[(i + offset) % T],
-    gathered on the tile array's device."""
+    """The `count` tiles dispatched from `offset`: tileArray[(i + offset) %
+    T], gathered on the tile array's device. `offset` is a host int or a
+    device int32 cursor of one element (`advance_cursor`); `count` may
+    exceed T, wrapping as often as it needs (the schedules of several steps
+    at once)."""
     t = tile_array.shape[0]
     idx = (torch.arange(count, device=tile_array.device) + offset) % t
     return tile_array[idx].contiguous()
 
 
-def advance_offset(cfg, offset: int) -> int:
-    """tileOffset = (tileOffset + tilesPerIteration) % tileCount."""
-    return (int(offset) + cfg.effective_tiles_per_step) % cfg.tile_count
+def advance_offset(cfg, offset: int, steps: int = 1) -> int:
+    """tileOffset = (tileOffset + tilesPerIteration) % tileCount, `steps`
+    times."""
+    return (int(offset) + steps * cfg.effective_tiles_per_step) \
+        % cfg.tile_count
+
+
+def advance_cursor(cfg, cursor: torch.Tensor, steps: int) -> None:
+    """`advance_offset` on the device: the (1,) int32 cursor, in place."""
+    cursor.add_(steps * cfg.effective_tiles_per_step).remainder_(
+        cfg.tile_count)

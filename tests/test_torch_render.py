@@ -12,6 +12,9 @@ room to spare. The jitted oracle's image is the sphere golden, held below
 with its own gates.
 """
 
+import collections
+import contextlib
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from l2n_tpu.config import RenderConfig as JRenderConfig
+from l2n_tpu.render.program import SphereProgram as JSphereProgram
 from l2n_tpu.render.state import init_frame_state as jinit
 from l2n_tpu.render.step import build_render_step as jbuild
 from l2n_tpu.scene.spheres import compute_spheres as jcompute
@@ -31,10 +35,10 @@ from l2n_tpu_torch.app.display import PngSequenceDisplay
 from l2n_tpu_torch.camera import Camera, ControllerInput
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.render.program import SphereProgram
+from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
 from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.render.state import FrameState, init_frame_state
-from l2n_tpu_torch.render.step import build_render_step
+from l2n_tpu_torch.render.step import MultiStep, build_render_step
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
 
 
@@ -284,6 +288,178 @@ def test_unsupported_program_options_raise(tmp_path):
     assert float(st.accum[3].sum()) > 0
 
 
+# steps_per_call: N scheduler steps per call (render/step.py). The small
+# config of the port's other tests: 64x32 in 8x8 tiles, 3 tiles per step;
+# the start offset 29 of the 32-tile schedule is not a multiple of 3 and
+# makes the schedule wrap inside a call.
+SPC_CFG = dict(width=64, height=32, tile_width=8, tile_height=8,
+               tiles_per_step=3, max_bounces=2, sphere_count=16,
+               emissive_every=2, disc_lat=6, disc_long=4)
+
+
+def _spc_program(family, n, **extra):
+    cfg = RenderConfig(**SPC_CFG, **extra).validate()
+    cls = TriangleProgram if family == "triangle" else SphereProgram
+    return cls(cfg, backend="torch", steps_per_call=n)
+
+
+def _states_equal(a, b):
+    assert (a.tile_offset, a.iteration) == (b.tile_offset, b.iteration)
+    np.testing.assert_array_equal(a.accum.numpy(), b.accum.numpy())
+    np.testing.assert_array_equal(a.output.numpy(), b.output.numpy())
+    if a.rng_state is None:
+        assert b.rng_state is None
+    else:
+        np.testing.assert_array_equal(a.rng_state.numpy(),
+                                      b.rng_state.numpy())
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("family,extra", [
+    ("sphere", {}), ("triangle", {}), ("sphere", {"wavefront": True}),
+    ("sphere", {"rng": "tinymt"})],
+    ids=["sphere", "triangle", "wavefront", "tinymt"])
+def test_steps_per_call_equals_single_steps(family, extra, n):
+    """steps_per_call=N (the device cursor's schedule, gathered once per
+    call) equals N single steps of the host schedule to the bit: accum,
+    output, rng_state, tile_offset and iteration (the JAX package's
+    tests/test_kernels.py TestStepsPerCall)."""
+    single, multi = _spc_program(family, 1, **extra), \
+        _spc_program(family, n, **extra)
+    cam = _aimed_camera(single.cfg).packed()
+    a = dataclasses.replace(init_frame_state(single.cfg), tile_offset=29)
+    b = dataclasses.replace(init_frame_state(single.cfg), tile_offset=29)
+    for _ in range(2):
+        b = multi.step(b, cam)
+        for _ in range(n):
+            a = single.step(a, cam)
+        _states_equal(a, b)
+    assert b.iteration == 2 * n
+    assert b.tile_offset == (29 + 2 * n * 3) % 32
+    assert int(multi.step.cursor[0]) == b.tile_offset
+    assert float(b.accum[3].sum()) == 2 * n * 3 * 64
+    assert (b.accum[:3].amax(0) > 0).float().mean() > 0.1  # lit
+
+
+def test_steps_per_call_graph_keys(monkeypatch):
+    """The card's graph cache, run on the CPU with a stand-in capture that
+    bakes the captured call's camera and buffers and runs them at replay,
+    as a CUDA graph does: the first call of a (camera, buffers) key runs
+    eagerly, the second captures, later ones replay; a new camera or new
+    buffers drop the graph (and match single steps all the way)."""
+    calls = []
+
+    def fake_capture(fn, device):
+        calls.append("capture")
+        return fn, collections.Counter()
+
+    def fake_replay(graph, held):
+        calls.append("replay")
+        graph()
+
+    # render/step.py's own globals (this file keeps its own bindings of
+    # the port's modules, _forget_port).
+    step_globals = MultiStep.__call__.__globals__
+    monkeypatch.setitem(step_globals, "capture", fake_capture)
+    monkeypatch.setitem(step_globals, "replay", fake_replay)
+    single = _spc_program("sphere", 1)
+    multi = _spc_program("sphere", 2)
+    graphed = MultiStep(multi.cfg, multi.step.render, multi.step.tiles, 2,
+                        torch.device("cpu"), graphs=True)
+    cams = [_aimed_camera(single.cfg).packed(),
+            Camera.from_config(single.cfg).packed()]
+    a = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
+    b = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
+    want = []
+    for cam, fresh in ((0, False), (0, False), (0, False), (1, False),
+                       (1, False), (1, True), (1, False), (1, False)):
+        if fresh:  # new buffers, e.g. a state made anew
+            a = FrameState.from_numpy(*a.to_numpy())
+            b = FrameState.from_numpy(*b.to_numpy())
+        b = graphed(b, cams[cam])
+        for _ in range(2):
+            a = single.step(a, cams[cam])
+        _states_equal(a, b)
+    # eager, capture+replay, replay; new camera: eager, capture+replay;
+    # new buffers: eager, capture+replay, replay.
+    assert calls == ["capture", "replay", "replay", "capture", "replay",
+                     "capture", "replay", "replay"]
+
+
+def test_capture_counts_launches_per_replay(monkeypatch):
+    """common.capture takes back the launches counted while a graph was
+    captured (a capture runs nothing) and common.replay counts them per
+    replay; a capture that fails leaves the counter as it was. The CUDA
+    graph is stood in for on the CPU."""
+    common = MultiStep.__call__.__globals__["capture"].__globals__
+    launches = common["launches"]
+    replays = []
+
+    class FakeGraph:
+        def replay(self):
+            replays.append(1)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    launches.clear()
+    launches.update({"sphere_pt": 5})
+    graph, held = common["capture"](
+        lambda: launches.update({"sphere_pt": 3, "wavefront_pass_a": 3}),
+        torch.device("cpu"))
+    assert dict(launches) == {"sphere_pt": 5}
+    assert held == {"sphere_pt": 3, "wavefront_pass_a": 3}
+    for _ in range(2):
+        common["replay"](graph, held)
+    assert dict(launches) == {"sphere_pt": 11, "wavefront_pass_a": 6}
+    assert len(replays) == 2
+
+    def fails():
+        launches.update({"triangle_pt": 1})
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        common["capture"](fails, torch.device("cpu"))
+    assert dict(launches) == {"sphere_pt": 11, "wavefront_pass_a": 6}
+    launches.clear()
+
+
+def test_steps_per_call_matches_jax_fori_loop():
+    """The port's two-step call against the JAX SphereProgram(
+    steps_per_call=2, backend="xla") (lax.fori_loop) run op by op, under
+    the north star's gates."""
+    cfg = RenderConfig(width=128, height=64, sphere_count=16,
+                       emissive_every=2).validate()
+    cam = _aimed_camera(cfg).packed()
+    jprog = JSphereProgram(_jcfg(cfg), backend="xla", steps_per_call=2)
+    prog = SphereProgram(cfg, backend="torch", steps_per_call=2)
+    jst, st = jinit(jprog.cfg), init_frame_state(cfg)
+    with jax.disable_jit():
+        for _ in range(2):
+            jst = jprog.step(jst, cam)
+    for _ in range(2):
+        st = prog.step(st, cam)
+    ja, jo = np.asarray(jst.accum), np.asarray(jst.output)
+    ta, to, offset, iteration = st.to_numpy()
+    assert (offset, iteration) == (int(jst.tile_offset), int(jst.iteration))
+    assert iteration == 4
+    assert (ja[:3].max(0) > 0).mean() > 0.3  # real lit coverage
+    np.testing.assert_array_equal(ta[3], ja[3])
+    assert np.sqrt(((ta - ja) ** 2).mean()) < 1e-3
+    assert (np.abs(to - jo) > 1e-3).mean() < 2e-3
+
+
+def test_metrics_per_scheduler_step():
+    """Renderer.metrics divides a call's time by steps_per_call, so its
+    figures stay per scheduler step."""
+    r = Renderer({"spherePT": _spc_program("sphere", 4)})
+    r._step_times = [0.008, 0.012]
+    m = r.metrics()
+    assert m["ms_per_step"] == pytest.approx(10.0 / 4)
+    assert m["samples_per_sec"] == pytest.approx(3 * 64 / 2.5e-3)
+
+
 SLICE_MODULES = [
     "l2n_tpu_torch", "l2n_tpu_torch.config", "l2n_tpu_torch.rng.threefry",
     "l2n_tpu_torch.rng.philox", "l2n_tpu_torch.rng.tinymt",
@@ -310,7 +486,10 @@ SLICE_MODULES = [
     "l2n_tpu_torch.ops.kernels.wavefront", "l2n_tpu_torch.render.step",
     "l2n_tpu_torch.render.program", "l2n_tpu_torch.render.renderer",
     "l2n_tpu_torch.utils.image", "l2n_tpu_torch.app.display",
-    "l2n_tpu_torch.app.application"]
+    "l2n_tpu_torch.app.application", "l2n_tpu_torch.utils.validate",
+    "l2n_tpu_torch.utils.profiling", "l2n_tpu_torch.utils.checkpoint",
+    "l2n_tpu_torch.app.interactive", "l2n_tpu_torch.render",
+    "l2n_tpu_torch.app", "l2n_tpu_torch.utils"]
 
 
 def test_port_imports_without_jax():
