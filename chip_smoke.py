@@ -36,8 +36,13 @@ clear_accumulation and after load_session) and drives the graph-replayed
 main paths (phase 41), resumes a session saved on the card bit for bit
 (42), runs rmse_vs_oracle, debug_mode and the interactive viewer on
 scripted keys (43), times ms per scheduler step eager against
-steps_per_call (44), and times kernel and plain versions beside the least
-time the card could take for the same work.
+steps_per_call (44), holds a slab of a sharded frame (its row offset and
+stream) to its plain version and to the whole frame's rows (45), drives
+the sharded renderer (l2n_tpu_torch.parallel) on 4 ranks spawned on the
+card over gloo, each gathered slab bit-equal to its kernel render here
+(46), and its stateful tile axis to one single-card step (47), and times
+kernel and plain versions beside the least time the card could take for
+the same work.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -2688,6 +2693,249 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
     return timing
 
 
+# ---------------------------------------------------------------------------
+# Phases 45-47: the multi-card renderer (l2n_tpu_torch/parallel) on the one
+# card: a slab with its row offset and stream against its plain version and
+# the whole frame's rows (45), ranks spawned over gloo (46) and the stateful
+# tile-axis parity leg (47). On one card over gloo a sharded step's time is
+# not a multi-card figure: its ranks share the card, and the fold goes
+# through the host.
+# ---------------------------------------------------------------------------
+
+def headline_config(RenderConfig):
+    """bench.py's headline config (`_headline_cfg`): 1024x1024, 128x32
+    tiles, whole-frame steps, 4 spp per step, tpu_hw, fast_math."""
+    return RenderConfig(width=1024, height=1024, tile_height=32,
+                        tile_width=128, tiles_per_step=1024, spp_per_step=4,
+                        rng="tpu_hw", fast_math=True).validate()
+
+
+def sharded_rank(rank, legs):
+    """One rank of phase 46's launch: each leg's ShardedRenderer (every
+    rank builds each leg's mesh; a rank outside it renders nothing), its
+    launches counted from zero over the leg's steps, its ms per step by
+    CUDA events and the host clock after the first step, then the fold
+    alone (which leaves accum as it is) timed over 10 calls; the gathered
+    state comes back from rank 0."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.parallel import ShardedRenderer, make_device_mesh
+    from l2n_tpu_torch.parallel.mesh import mesh_coordinate
+    from l2n_tpu_torch.parallel.step import gather_state
+    from l2n_tpu_torch.scene import build_triangle_scene
+    from l2n_tpu_torch.scene.spheres import compute_spheres
+    out = {}
+    for leg in legs:
+        mesh = make_device_mesh(*leg["mesh"])
+        if mesh_coordinate(mesh) is None:
+            out[leg["name"]] = None
+            continue
+        cfg = RenderConfig.from_json(leg["cfg"])
+        scene = compute_spheres(cfg.sphere_count, cfg.world_size,
+                                cfg.scene_seed)
+        if cfg.scene_kind == "triangle":
+            scene = build_triangle_scene(scene, cfg.disc_lat, cfg.disc_long)
+        r = ShardedRenderer(cfg, scene, mesh)
+        cam = Camera.from_config(cfg).packed()
+        torch.cuda.synchronize()
+        reset_launches()
+        r.step(cam)
+        ms = host_ms = None
+        if leg["steps"] > 1:
+            ms, host_ms, _ = timed_steps(lambda st, c: r.step(c), r.state,
+                                         cam, leg["steps"] - 1)
+        torch.cuda.synchronize()
+        res = {"coord": mesh_coordinate(mesh), "launches": dict(launches),
+               "ms": ms, "host_ms": host_ms}
+        res["state"] = gather_state(mesh, r.state)
+        sched = r.step_fn.body.schedule(r.state.tile_offset)
+        fold = lambda: r.step_fn.fold(r.state, sched)  # noqa: E731
+        res["fold_ms"], res["fold_host_ms"], _ = timed_steps(
+            lambda st, c: fold(), None, None, 10)
+        out[leg["name"]] = res
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam):
+    """Phases 45-47 (see above); returns each kernel's launches on the
+    sharded paths, per leg and rank."""
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.camera.camera import slab_camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        triangle_pt,
+        triangle_pt_plain,
+    )
+    from l2n_tpu_torch.parallel.launch import launch
+    from l2n_tpu_torch.parallel.step import SlabStep, init_slab_state
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.render.tiles import tile_grid
+    dev = torch.device("cuda")
+    spheres = scene.packed().to(dev)
+
+    # --- 45: one slab (tile rows 10-14: row offset 320, stream 3) --------
+    slab_gates = {}
+    for name, fcfg, buf, kernel, plain in (
+            ("sphere_pt", cfg, spheres, sphere_pt, sphere_pt_plain),
+            ("triangle_pt", tri_cfg, tri_buf, triangle_pt,
+             triangle_pt_plain)):
+        scfg = fcfg.replace(height=160, ndc_height=fcfg.height)
+        sched = torch.as_tensor(tile_grid(scfg)).to(dev)
+        whole = fcfg.replace(tiles_per_step=fcfg.tile_count)
+        frame = init_frame_state(whole, dev)
+        fsched = torch.as_tensor(tile_grid(whole)).to(dev)
+        runs = {}
+        for label, fn, extras in (("kernel", kernel, (320, 3)),
+                                  ("plain", plain, (320, 3)),
+                                  ("stream 0", kernel, (320, 0))):
+            st = init_frame_state(scfg, dev)
+            for _ in range(2):
+                fn(scfg, sched, slab_camera(cam, *extras), buf, st.accum,
+                   st.output)
+            runs[label] = st
+        for _ in range(2):
+            kernel(whole, fsched, cam, buf, frame.accum, frame.output)
+        torch.cuda.synchronize()
+        err = (runs["kernel"].accum - runs["plain"].accum).abs().max().item()
+        out_err = (runs["kernel"].output
+                   - runs["plain"].output).abs().max().item()
+        rows = frame.accum[:, 320:480]
+        lit = (runs["kernel"].accum[:3].amax(0) > 0).float().mean().item()
+        moved = ((runs["kernel"].accum[:3] - rows[:3]).abs().amax(0)
+                 > 0).float().mean().item()
+        require(err == 0.0 and lit > 0.02,
+                f"{name} slab kernel vs plain: max abs {err}, lit {lit}")
+        require(bits_equal(runs["stream 0"].accum, rows),
+                f"{name}: the slab at stream 0 != the frame's rows 320-480")
+        require(moved > 0.05, f"{name}: stream 3 changes {moved} of the "
+                "slab's pixels")
+        slab_gates[name] = {"max_abs": err, "output_max_abs": out_err,
+                            "lit": round(lit, 4),
+                            "stream_moves": round(moved, 4)}
+    phase(45, f"a slab of the default configs (rows 320-480 of 720, row "
+              f"offset 320, stream 3; 2 steps of its 50 tiles), kernel vs "
+              f"plain (gate max abs 0, lit > 0.02; the slab at stream 0 "
+              f"bit-equal to rows 320-480 of 2 whole-frame steps; stream 3 "
+              f"moves > 5% of the pixels): {slab_gates}; card: {card}")
+
+    # --- 46/47: ranks spawned on the one card over gloo --------------------
+    head = headline_config(RenderConfig)
+    legs = [
+        {"name": "sphere 1x2", "cfg": cfg.to_json(), "mesh": (1, 2),
+         "steps": 23, "kernel": "sphere_pt"},
+        {"name": "triangle 1x2", "cfg": tri_cfg.to_json(), "mesh": (1, 2),
+         "steps": 23, "kernel": "triangle_pt"},
+        {"name": "headline 2x2", "cfg": head.to_json(), "mesh": (2, 2),
+         "steps": 2, "kernel": "sphere_pt"},
+        {"name": "headline tinymt 4x1",
+         "cfg": head.replace(rng="tinymt").to_json(), "mesh": (4, 1),
+         "steps": 1, "kernel": "sphere_pt"}]
+    t0 = time.perf_counter()
+    ranks = launch(sharded_rank, 4, "gloo", args=(legs,), timeout=600.0)
+    launch_s = time.perf_counter() - t0
+    results, sharded_launches = {}, collections.defaultdict(dict)
+    for leg in legs:
+        name, (n_tile, n_sample) = leg["name"], leg["mesh"]
+        lcfg = RenderConfig.from_json(leg["cfg"])
+        got = ranks[0][name]["state"]
+        per_rank = [r[name]["launches"].get(leg["kernel"], 0)
+                    for r in ranks if r[name] is not None]
+        sharded_launches[leg["kernel"]][name] = per_rank
+        require(per_rank == [leg["steps"]] * (n_tile * n_sample),
+                f"{name}: launches per rank {per_rank}, steps "
+                f"{leg['steps']}")
+        lscene = tri_buf if lcfg.scene_kind == "triangle" else scene
+        lcam = Camera.from_config(lcfg).packed()
+        h = lcfg.padded_height // n_tile
+        acc = got["sharded_accum"]
+        for t in range(n_tile):
+            for s_ in range(n_sample):
+                body = SlabStep(lcfg, lscene, n_tile, t, s_, device=dev)
+                st = init_slab_state(lcfg, n_tile, t, dev)
+                for _ in range(leg["steps"]):
+                    st = body(st, lcam)
+                require(np.array_equal(acc[s_, :, t * h:(t + 1) * h],
+                                       st.accum.cpu().numpy()),
+                        f"{name}: gathered slab ({t}, {s_}) != its kernel "
+                        "render in this process")
+        folded = acc.sum(0)
+        touched = folded[3] > 0
+        want = np.power(np.maximum(folded[:3], 0.0)
+                        / np.maximum(folded[3:4], np.float32(1e-20)),
+                        np.float32(lcfg.gamma))[:, touched]
+        out_rel = float(np.max(np.abs(got["output"][:, touched] - want)
+                               / np.maximum(np.abs(want), 1e-30)))
+        require(out_rel <= 1e-6, f"{name}: the fold's display, relative "
+                f"error {out_rel}")
+        lit = float((folded[:3].max(0)[touched] > 0).mean())
+        require(lit > 0.02, f"{name}: lit {lit}")
+        results[name] = {"launches": per_rank, "lit": round(lit, 4),
+                         "display_rel_err": out_rel,
+                         "offset": int(got["tile_offset"])}
+    # phase 47: one single-card whole-frame kernel step of the tinymt leg
+    tcfg = head.replace(rng="tinymt")
+    tstep = build_render_step(tcfg, scene, backend="cuda", device=dev)
+    tst = tstep(init_frame_state(tcfg, dev), Camera.from_config(tcfg).packed())
+    torch.cuda.synchronize()
+    got = ranks[0]["headline tinymt 4x1"]["state"]
+    tlit = (tst.accum[:3].amax(0) > 0).float().mean().item()
+    require(np.array_equal(got["sharded_accum"][0], tst.accum.cpu().numpy())
+            and np.array_equal(got["rng_state"],
+                               tst.rng_state.cpu().numpy().view(np.uint32))
+            and tlit > 0.02,
+            f"tinymt (4, 1) != one single-card whole-frame step (lit {tlit})")
+    # the single-card eager step beside each leg (CUDA events, host clock)
+    single = {}
+    for leg in legs[:3]:
+        lcfg = RenderConfig.from_json(leg["cfg"])
+        lscene = tri_buf if lcfg.scene_kind == "triangle" else scene
+        lstep = build_render_step(lcfg, lscene, backend="cuda", device=dev)
+        lcam = Camera.from_config(lcfg).packed()
+        lst = lstep(init_frame_state(lcfg, dev), lcam)
+        d_ms, h_ms, lst = timed_steps(lstep, lst, lcam, 10)
+        single[leg["name"]] = (d_ms, h_ms)
+        del lst, lstep
+    for leg in legs[:3]:
+        name = leg["name"]
+        r0 = ranks[0][name]
+        print(f"[sharded] {name} ({leg['steps']} steps, ranks on ONE card "
+              f"over gloo: not a multi-card figure): rank 0 "
+              f"{r0['ms']:.4f} ms per step (CUDA events), "
+              f"{r0['host_ms']:.4f} ms (host clock to sync), the fold "
+              f"{r0['fold_ms']:.4f} ms ({r0['fold_host_ms']:.4f} host); "
+              f"ranks' ms per step "
+              f"{[round(r[name]['ms'], 4) for r in ranks if r[name]]}; "
+              f"the single-card eager step {single[name][0]:.4f} ms "
+              f"({single[name][1]:.4f} host); card: {card}", flush=True)
+    if torch.cuda.device_count() >= 2:
+        nccl = launch(sharded_rank, 2, "nccl", args=(legs[:1],))
+        require(np.array_equal(nccl[0]["sphere 1x2"]["state"][
+            "sharded_accum"], ranks[0]["sphere 1x2"]["state"][
+            "sharded_accum"]), "nccl (1, 2) != gloo (1, 2)")
+        print(f"nccl: (1, 2) sphere leg on {torch.cuda.device_count()} "
+              f"cards bit-equal to gloo's, rank 0 "
+              f"{nccl[0]['sphere 1x2']['ms']:.4f} ms per step", flush=True)
+    else:
+        print("nccl: not run (1 card)", flush=True)
+    phase(46, f"ranks spawned on the one card over gloo (4 ranks, "
+              f"{launch_s:.1f} s for the launch and every leg): gathered "
+              f"sharded_accum bit-equal to each slab's kernel render in "
+              f"this process (sphere and triangle defaults on (1, 2), 23 "
+              f"steps; the headline on (2, 2), 2 whole-frame steps of 256 "
+              f"tiles over slabs of 128: each tile once), the display the "
+              f"fold's pow form (rel err <= 1e-6), launches = steps on "
+              f"every rank: {results}; card: {card}")
+    phase(47, f"tinymt headline on (4, 1), 1 step: accum and rng_state "
+              f"bit-equal to one single-card whole-frame kernel step, lit "
+              f"{tlit:.4f}; card: {card}")
+    return dict(sharded_launches)
+
+
 # The compile-time settings of each step kernel's instantiations, in their
 # template order (csrc/pathtrace.cuh with_options, dispatch_pass_a/_b); the
 # fused kernels' body (kBody*) comes first, an int.
@@ -3345,6 +3593,7 @@ def main() -> int:
         fog_launches = fog_phases(card, tmp, cfg, scene, tri_cfg, tri_buf,
                                   cam)
         program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
+        sharded = parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -3660,7 +3909,8 @@ def main() -> int:
             kernel_ms[("sphere_pt", "10-tile")],
             timings[("sphere_pt", "10-tile", "cuda")],
             timings[("sphere_pt", "10-tile", "torch")],
-            **whole_frame("sphere_pt")),
+            **whole_frame("sphere_pt"),
+            sharded_launches=sharded.get("sphere_pt")),
         row("uv_demo", "l2n_tpu_torch/csrc/uv_demo.cu",
             "l2n_tpu/ops/kernels/uv_demo.py:22", uv_launches, uv_err,
             "max abs err <= 1e-5", uv_kernel_ms, uv_ms, uv_plain_ms),
@@ -3670,7 +3920,8 @@ def main() -> int:
             frame_tol, kernel_ms[("triangle_pt", "10-tile")],
             timings[("triangle_pt", "10-tile", "cuda")],
             timings[("triangle_pt", "10-tile", "torch")],
-            **whole_frame("triangle_pt")),
+            **whole_frame("triangle_pt"),
+            sharded_launches=sharded.get("triangle_pt")),
         *wave_rows,
         row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
             "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",

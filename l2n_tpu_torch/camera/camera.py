@@ -12,9 +12,15 @@ Packed layout (rows):
   4..7  inverse (proj @ view) matrix (row-major) — uRcpViewProjMatrix
   8     camera world position, pad               — uCameraPosition
   9     (aspect_ratio, tan_half_fovy,            — uProjRatio, uProjTanHalfFovy
-         row_offset, rng_stream)                 — slab-sharding extras of the
-                                                   JAX package; always 0 here
-                                                   (one device per render)
+         row_offset, rng_stream)                 — the slab extras
+
+The slab extras serve a render sharded over several ranks
+(l2n_tpu_torch.parallel): a rank renders a slab of rows of the frame, whose
+first global row is `row_offset`, under the random stream `rng_stream`
+(`slab_camera`). The kernels and the plain step take the pixel index and
+the camera ray from the global row and key their counter-based samplers on
+the stream. A render on one card keeps both at 0, as `Camera.packed`
+leaves them.
 """
 
 from __future__ import annotations
@@ -77,3 +83,25 @@ class Camera:
         out[ROW_PROJ, 0] = self.aspect_ratio
         out[ROW_PROJ, 1] = self.tan_half_fovy
         return out
+
+
+def slab_camera(packed: np.ndarray, row_offset: int, stream: int
+                ) -> np.ndarray:
+    """A copy of the packed camera carrying the slab extras (module doc):
+    the slab's first global row and its random stream, as float32 (exact
+    below 2^24)."""
+    out = np.array(packed, np.float32, copy=True)
+    out[ROW_PROJ, 2] = row_offset
+    out[ROW_PROJ, 3] = stream
+    return out
+
+
+def slab_extras(packed) -> tuple[int, int]:
+    """(row_offset, stream) of a packed camera; raises ValueError unless
+    both are whole numbers in [0, 2^24)."""
+    extras = np.asarray(packed, np.float32)[ROW_PROJ, 2:4]
+    if not (np.all(extras >= 0) and np.all(extras < 2 ** 24)
+            and np.all(extras == np.floor(extras))):
+        raise ValueError(f"camera row {ROW_PROJ}: slab extras {extras} must "
+                         "be whole numbers in [0, 2^24)")
+    return int(extras[0]), int(extras[1])

@@ -33,9 +33,14 @@ struct TileCone {
   float ax, ay, az, cos_safe, sin_safe;
 };
 
+// The tile (tile_x, tile_y) of the frame's planes: its rows are global rows
+// from p.row_offset on, as render_pixel's (JAX: visibility_table's
+// row_offset).
 L2N_HD TileCone tile_cone(const PtParams& p, int tile_x, int tile_y) {
   const float x0 = static_cast<float>(tile_x) * static_cast<float>(p.tile_width);
-  const float y0 = static_cast<float>(tile_y) * static_cast<float>(p.tile_height);
+  const float y0 =
+      static_cast<float>(tile_y) * static_cast<float>(p.tile_height) +
+      static_cast<float>(p.row_offset);
   const float x1 = x0 + static_cast<float>(p.tile_width);
   const float y1 = y0 + static_cast<float>(p.tile_height);
   TileCone k;

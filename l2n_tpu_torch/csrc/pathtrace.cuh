@@ -190,8 +190,14 @@ struct PtParams {
   // sky)).
   int32_t fog;
   float fog_sigma, fog_inv_sigma, fog_sky, fog_albedo, fog_dir_transmit;
+  // The global row of the frame's row 0 when the frame is a slab of a
+  // larger one (l2n_tpu_torch/parallel): render_pixel and tile_cone take
+  // the pixel index and the camera rays from the global row, while the
+  // planes stay slab-local. 0 on one card, and in the wavefront passes,
+  // whose wrappers refuse a slab. After the other fields, as fog's.
+  int32_t row_offset;
 };
-constexpr int kIntParams = 24;
+constexpr int kIntParams = 25;
 constexpr int kFloatParams = 7 + 40 + 4 + 5;
 
 L2N_HD float bits_to_float(uint32_t u) {
@@ -1623,14 +1629,16 @@ L2N_HD void accumulate_pixel(const PtParams& p, int row, int col,
 // samplers and may be null for them). kBody: the Lambert path tracer, the
 // primary-only AOVs, the materials or the NEE path tracer (dispatch_fused
 // picks one, fused_body), so that the default path's code holds none of
-// the others.
+// the others. (row, col) is the pixel in the frame's planes; the pixel
+// index and the camera ray take its global row, row + p.row_offset.
 template <class Rng, int kBody, class Scene>
 L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
                          float* accum, float* output, uint32_t* rng_state) {
   const size_t plane = plane_size(p);
   const size_t pix = pixel_offset(p, row, col);
+  const int global_row = row + p.row_offset;
   const uint32_t pixel_index =
-      static_cast<uint32_t>(col + row * p.padded_width);
+      static_cast<uint32_t>(col + global_row * p.padded_width);
   const uint32_t sample_index =
       static_cast<uint32_t>(static_cast<int32_t>(accum[3 * plane + pix]));
   const float* cam = p.cam;
@@ -1640,7 +1648,7 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
   for (int si = 0; si < p.spp; ++si) {
     if (si > 0) rng.next_sample();
     float dx, dy, dz;
-    primary_direction(p, rng, row, col, dx, dy, dz);
+    primary_direction(p, rng, global_row, col, dx, dy, dz);
     float c[3];
     if constexpr (kBody == kBodyAovs)
       aov_sample(p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, c);
@@ -1724,6 +1732,7 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.mis = ip[21];
   p.n_lights = ip[22];
   p.fog = ip[23];
+  p.row_offset = ip[24];
   p.inv_width = fp[0];
   p.inv_height = fp[1];
   p.rr_ceiling = fp[2];

@@ -79,6 +79,8 @@ L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
                                     int si, int r, int c,
                                     const int32_t* sched, const float* accum,
                                     const PassALanes& out, Append& append) {
+  // The frame's own row: the wrappers refuse a slab (p.row_offset and
+  // p.stream are 0 here; ops/kernels/wavefront.py).
   const int row = sched[2 * k + 1] * p.tile_height + r;
   const int column = sched[2 * k] * p.tile_width + c;
   const uint32_t pixel_index =

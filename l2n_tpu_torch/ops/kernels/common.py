@@ -11,6 +11,7 @@ import ctypes
 import numpy as np
 import torch
 
+from l2n_tpu_torch.camera.camera import slab_extras
 from l2n_tpu_torch.maths.sampling import PI
 from l2n_tpu_torch.ops.fog import (
     fog_directional_transmittance,
@@ -154,7 +155,11 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     roundings of the float64 products that ops/nee.py rounds too, in the
     floats: scale E (area) and scale / (4 pi) (cone). Fog's flag and
     constants (ops/fog.py) come last: sigma, float32(1 / sigma), the sky
-    distance, the albedo and the directional lights' transmittance."""
+    distance, the albedo and the directional lights' transmittance. The
+    camera's slab extras (camera/camera.py) give the stream (ip[12]) and
+    the slab's row offset, the last int, after fog's flag, so that every
+    other parameter keeps its place."""
+    row_offset, stream = slab_extras(camera)
     n_point = 0 if lights is None else lights.point.shape[0]
     n_dir = 0 if lights is None else lights.directional.shape[0]
     n_lights = emissive_count(n_scene, cfg.emissive_every) if cfg.nee else 0
@@ -163,11 +168,11 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
                    cfg.padded_width, k, n_scene, cfg.spp_per_step,
                    cfg.max_bounces, config_max_pairs(cfg),
                    cfg.emissive_every, ENV_CODES[cfg.env_mode],
-                   cfg.seed & 0xFFFFFFFF, 0, AOV_CODES[cfg.aov],
+                   cfg.seed & 0xFFFFFFFF, stream, AOV_CODES[cfg.aov],
                    RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
                    int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
                    n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights,
-                   int(fog)], dtype=np.int64)
+                   int(fog), row_offset], dtype=np.int64)
     ip = ip.astype(np.uint32).view(np.int32)
     fp = np.concatenate([np.array(
         [1.0 / (cfg.ndc_width or cfg.width),
@@ -243,17 +248,23 @@ def accumulate_and_tonemap(cfg, accum: torch.Tensor, output: torch.Tensor,
     out[:, flat] = torch.stack([safe_gamma(c * inv, cfg.gamma) for c in rgb])
 
 
-def _sample_samplers(cfg, flat, sample_index, rng_state):
+def _sample_samplers(cfg, flat, sample_index, rng_state, pixel_index=None,
+                     stream=0):
     """The sampler of each of the step's `spp` samples over the lanes
-    `flat`, made lazily: a fresh counter-based sampler per sample, or one
-    stateful sampler over the states gathered at `flat` whose state chains
-    from sample to sample. After the last sample the stepped states are
-    scattered back into `rng_state` IN PLACE."""
+    `flat` (offsets into the frame's planes), made lazily: a fresh
+    counter-based sampler per sample, keyed on (seed, `stream`) and the
+    lanes' `pixel_index` (`flat` where None: a frame that is not a slab),
+    or one stateful sampler over the states gathered at `flat` whose state
+    chains from sample to sample. After the last sample the stepped states
+    are scattered back into `rng_state` IN PLACE. The stateful samplers
+    ignore the stream: their state planes are the slab's rows of the
+    frame's."""
     spp = cfg.spp_per_step
     if cfg.rng in COUNTER_SAMPLERS:
         cls = COUNTER_SAMPLERS[cfg.rng]
+        pixel = flat if pixel_index is None else pixel_index
         for s in range(spp):
-            yield cls(cfg.seed, 0, flat, sample_index + s,
+            yield cls(cfg.seed, stream, pixel, sample_index + s,
                       config_max_pairs(cfg))
         return
     planes = rng_state.view(rng_state.shape[0], -1)
@@ -277,19 +288,25 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
     reads no more, table_rows), normal-AOV `miss_color`, explicit
     `lights` and NEE's light sampler `nee`, then accumulate + tonemap IN
     PLACE; the stateful modes' `rng_state` planes are stepped IN PLACE
-    too."""
+    too. The camera's slab extras (camera/camera.py) place the frame's rows
+    in a larger frame, whose global rows give the pixel index and the
+    camera rays, and key the counter-based samplers' stream."""
     dev = accum.device
+    row_offset, stream = slab_extras(camera)
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
-    flat = (row * cfg.padded_width + col).reshape(-1)  # also the pixel index
+    flat = (row * cfg.padded_width + col).reshape(-1)  # into the planes
+    grow = row.reshape(-1) + row_offset  # the global row
+    pixel_index = grow * cfg.padded_width + col.reshape(-1)
     sample_index = accum[3].reshape(-1)[flat].to(torch.int32)
-    rowf = row.reshape(-1).to(torch.float32)
+    rowf = grow.to(torch.float32)
     colf = col.reshape(-1).to(torch.float32)
 
     spp = cfg.spp_per_step
     sums = [torch.zeros(flat.shape, dtype=torch.float32, device=dev)
             for _ in range(3)]
-    for sampler in _sample_samplers(cfg, flat, sample_index, rng_state):
+    for sampler in _sample_samplers(cfg, flat, sample_index, rng_state,
+                                    pixel_index, stream):
         u1, u2 = sampler.draw2()  # pixel jitter, every lane
         rays = generate_rays(cfg, cam, colf, rowf, u1, u2)
         rgb = shade(cfg, intersect, anyhit, table, sampler, *rays,

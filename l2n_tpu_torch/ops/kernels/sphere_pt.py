@@ -136,7 +136,7 @@ def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
 
 
 def visibility_table(cfg, bounds: torch.Tensor, camera,
-                     sched: torch.Tensor) -> torch.Tensor:
+                     sched: torch.Tensor, row_offset=0) -> torch.Tensor:
     """(K, 1 + n) int32 -- per scheduled tile: [n_visible, kept indices in
     ascending order..., culled indices...], for the spheres `bounds` (4, n)
     float32 rows cx, cy, cz, r^2 (the sphere SoA, or the mesh bounds
@@ -151,11 +151,15 @@ def visibility_table(cfg, bounds: torch.Tensor, camera,
     1e-4, or holds the camera (d2 <= r2). Unlike the JAX table, whose
     scalar-memory padding caps a row at 127 entries, no row is capped.
     Square roots are taken in float64 and rounded (maths/sampling.sqrt).
+    `row_offset`: the global row of the frame's row 0 when `cfg` is a slab
+    of a larger frame (the kernels read it from the camera's slab extras,
+    csrc/cull.cuh tile_cone; the JAX table takes it as an argument too).
     """
     dev = bounds.device
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
     x0 = sched[:, 0].to(torch.float32) * float(cfg.tile_width)
-    y0 = sched[:, 1].to(torch.float32) * float(cfg.tile_height)
+    y0 = (sched[:, 1].to(torch.float32) * float(cfg.tile_height)
+          + float(row_offset))
     x1 = x0 + float(cfg.tile_width)
     y1 = y0 + float(cfg.tile_height)
     zero = torch.zeros_like(x0)
@@ -188,9 +192,10 @@ def visibility_table(cfg, bounds: torch.Tensor, camera,
     return torch.cat([n_vis[:, None], order.to(torch.int32)], dim=1)
 
 
-def full_visibility_table(cfg, bounds: torch.Tensor, camera) -> torch.Tensor:
+def full_visibility_table(cfg, bounds: torch.Tensor, camera,
+                          row_offset=0) -> torch.Tensor:
     """`visibility_table` for every tile of the frame, rows in tile-id order
     (tid = tile_y * tile_count_x + tile_x)."""
     tid = torch.arange(cfg.tile_count, dtype=torch.int32, device=bounds.device)
     sched = torch.stack([tid % cfg.tile_count_x, tid // cfg.tile_count_x], 1)
-    return visibility_table(cfg, bounds, camera, sched)
+    return visibility_table(cfg, bounds, camera, sched, row_offset)

@@ -33,7 +33,12 @@ the bit: both compose the same path helpers (ops/pathtrace.py, csrc/
 pathtrace.cuh) and the counter-based stream (threefry, or Philox for
 rng="tpu_hw") resumes in pass B exactly where pass A stopped. The stateful
 rng modes cannot resume across the split; RenderConfig refuses them with
-the wavefront step, and the passes raise for them. The material modes,
+the wavefront step, and the passes raise for them. Nor does it render a
+slab of a sharded frame (l2n_tpu_torch.parallel): the JAX package's
+sharded step builds only the fused kernels, and every pass here raises
+ValueError for a camera whose slab extras (camera/camera.py, row offset
+and stream) are not 0, rather than key a slab's pixels as the frame's.
+The material modes,
 the bump and NEE run through passes A and B (their resume point depends
 on the mode and NEE: ops/pathtrace.wavefront_draw_position; pass A does
 NEE at the first vertex, and under MIS a survivor carries the pdf of its
@@ -54,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from l2n_tpu_torch.camera.camera import slab_extras
 from l2n_tpu_torch.ops.kernels.common import (
     accumulate_and_tonemap,
     check_camera,
@@ -169,6 +175,16 @@ def _device(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
+def _whole_frame_camera(camera) -> np.ndarray:
+    """check_camera, and ValueError for a slab's camera (module doc)."""
+    camera = check_camera(camera)
+    if slab_extras(camera) != (0, 0):
+        raise ValueError(f"wavefront: no slab of a sharded frame (row offset "
+                         f"and stream {slab_extras(camera)}); a slab renders "
+                         "through sphere_pt")
+    return camera
+
+
 # ---------------------------------------------------------------------------
 # Pass A
 # ---------------------------------------------------------------------------
@@ -187,7 +203,7 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     _sampler_class(cfg)
     dev = _device(accum, "wavefront_pass_a")
     k = check_schedule(cfg, sched, accum)
-    camera = check_camera(camera)
+    camera = _whole_frame_camera(camera)
     n = _check_spheres(cfg, spheres, dev)
     if dev.type == "cpu":
         return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
@@ -212,7 +228,7 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
     sampler_cls = _sampler_class(cfg)
     intersect, _, albedo = _scene(cfg, spheres)
     nee = _light_sampler(cfg, spheres)
-    cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
+    cam = torch.as_tensor(_whole_frame_camera(camera)).to(dev)
     k, th, tw, spp = (sched.shape[0], cfg.tile_height, cfg.tile_width,
                       cfg.spp_per_step)
     row, col = tile_pixel_coords(cfg, sched)
@@ -299,7 +315,7 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
     check_supported(cfg)
     _sampler_class(cfg)
     dev = _device(rays, "wavefront_pass_b")
-    camera = check_camera(camera)
+    camera = _whole_frame_camera(camera)
     n = _check_spheres(cfg, spheres, dev)
     n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
     check_tensor("rays", rays, f32, (ray_planes(cfg), n_lanes), dev)
@@ -333,7 +349,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
     written to back at their lanes (`write_back`), so no host read of
     n_alive is needed; under NEE from `col` at those lanes, which then
     hold 0."""
-    del camera  # the port's stream is 0
+    _whole_frame_camera(camera)  # the stream is 0
     intersect, anyhit, albedo = _scene(cfg, spheres)
     nee = _light_sampler(cfg, spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)

@@ -31,8 +31,10 @@ wrapper by graph replay, and per launch by torch.profiler ("... kernel");
 the sweeps the same way (sweep_vpu, sweep_vpu2, sweep_mma), and
 philox_bits per shape (graph replay of 200 calls, torch.profiler over
 50).
-Needs one CUDA card; prints one JSON line per process and a summary, and
-the card's name and power limit.
+Needs one CUDA card; prints one JSON line per process and a summary, the
+fused kernels' registers and spill stores per instantiation in each tree
+(from its build log, `ptxas -v`) with the instantiations where the trees
+differ, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -77,6 +79,33 @@ def graph_ms(torch, fn, n: int, rounds: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / n)
     return best
+
+
+def ptxas(tree: Path, pattern=r"(sphere_pt|triangle_pt)_kernel") -> dict:
+    """{instantiation: [registers, spill store bytes]} of the kernels whose
+    entry names match `pattern`, from the tree's newest build log. The
+    names drop what nvcc derives from the file's contents (the source's
+    hash, the anonymous namespace's), so that two trees' entries meet."""
+    logs = sorted((tree / "l2n_tpu_torch" / "build").glob("*.log"),
+                  key=lambda p: p.stat().st_mtime)
+    out, entry = {}, None
+    for ln in logs[-1].read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_|_cu_[0-9a-f]+", "",
+                           m.group(1))
+            entry = entry if re.search(pattern, entry) else None
+            continue
+        if entry is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        row = out.setdefault(entry, [None, None])
+        if regs:
+            row[0] = int(regs.group(1))
+        if spill:
+            row[1] = int(spill.group(1))
+    return out
 
 
 def _families(root: Path):
@@ -289,6 +318,18 @@ def main() -> int:
     summary = {k: {name: [r.get(k) for r in rs] for name, rs in runs.items()}
                for k in keys}
     print(json.dumps({"turns": turns, "ms": summary}), flush=True)
+    regs = {name: ptxas(tree) for name, tree in trees.items()}
+    entries = sorted(set().union(*regs.values()))
+    differ = {e: {name: regs[name].get(e) for name in names}
+              for e in entries
+              if len({str(regs[name].get(e)) for name in names}) > 1}
+    print(json.dumps({"ptxas": {
+        "instantiations": {name: len(r) for name, r in regs.items()},
+        "registers": {name: sorted({v[0] for v in r.values()})
+                      for name, r in regs.items()},
+        "spill_bytes": {name: sorted({v[1] for v in r.values()})
+                        for name, r in regs.items()},
+        "differ": differ}}), flush=True)
     print(card())
     return 0
 

@@ -39,6 +39,25 @@ def scheduled_tiles(tile_array: torch.Tensor, offset: int | torch.Tensor,
     return tile_array[idx].contiguous()
 
 
+def scheduled_pixel_mask(cfg, tile_array: torch.Tensor,
+                         offset: int | torch.Tensor, count: int,
+                         height: int | None = None) -> torch.Tensor:
+    """(H, W) bool: True at the pixels of the tiles scheduled from `offset`
+    (`scheduled_tiles`), on the tile array's device. `height` overrides
+    the covered row count for a slab of a sharded frame, whose tile array
+    holds slab-local tile coordinates (l2n_tpu_torch/parallel). A tile
+    scheduled twice (count > T) is covered once."""
+    t = tile_array.shape[0]
+    dev = tile_array.device
+    sched = scheduled_tiles(tile_array, offset, count).to(torch.int64)
+    flags = torch.zeros((max(t, 1),), dtype=torch.bool, device=dev)
+    flags[sched[:, 1] * cfg.tile_count_x + sched[:, 0]] = True
+    py = torch.arange(height or cfg.padded_height, device=dev)[:, None]
+    px = torch.arange(cfg.padded_width, device=dev)[None, :]
+    return flags[(py // cfg.tile_height) * cfg.tile_count_x
+                 + px // cfg.tile_width]
+
+
 def advance_offset(cfg, offset: int, steps: int = 1) -> int:
     """tileOffset = (tileOffset + tilesPerIteration) % tileCount, `steps`
     times."""

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.camera.camera import slab_camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.envlight import SUN_S, mandelbrot_le, sun_le
@@ -1161,7 +1162,8 @@ def _inside_view(cfg, j):
 
 @pytest.mark.parametrize("case", ["aimed", "default", "inside", "normal",
                                   "hit", "ao", "tex_coords", "sun_viewproj",
-                                  "fast_math", "fast_ao_viewproj"])
+                                  "fast_math", "fast_ao_viewproj", "slab",
+                                  "slab_tpu_hw"])
 def test_header_matches_plain_step(lib, case):
     """The kernels' per-pixel body with their cone-culled primaries (the
     tile's visible list and its hoisted origin terms, csrc/cull.cuh) against
@@ -1169,7 +1171,28 @@ def test_header_matches_plain_step(lib, case):
     default 128 spheres, and the eye inside an emissive sphere; and on the
     aimed scene the primary-only AOVs (normal, hit, ambient occlusion,
     tex_coords), the sun sky with the viewproj camera, and fast_math (the
-    host build's rsqrt is the plain CPU path's)."""
+    host build's rsqrt is the plain CPU path's); and a slab of a sharded
+    frame (the lower half of the aimed 128x128 frame: row offset 64,
+    stream 3, in threefry and tpu_hw), whose extras change the image."""
+    if case.startswith("slab"):
+        full = RenderConfig(width=128, height=128, sphere_count=16,
+                            emissive_every=2,
+                            rng="tpu_hw" if case.endswith("hw")
+                            else "threefry").validate()
+        cfg = full.replace(height=64, ndc_height=128)
+        frame = Camera.from_config(full, _aimed_view(full)).packed()
+        cam = slab_camera(frame, 64, 3)
+        ha, ho = _render(cfg, cam, 4, host_lib=lib)
+        pa, po = _render(cfg, cam, 4)
+        assert (pa[:3].max(0) > 0).mean() > 0.3  # a lit slab
+        np.testing.assert_array_equal(ha[3], pa[3])
+        d = np.abs(ha - pa)
+        assert np.sqrt((d ** 2).mean()) < 1e-3
+        assert (np.abs(ho - po) > 1e-3).mean() < 2e-3
+        for extras in ((0, 3), (64, 0)):  # each extra moves the image
+            other = _render(cfg, slab_camera(frame, *extras), 4)[0]
+            assert (np.abs(other - pa)[:3].max(0) > 0).mean() > 0.05
+        return
     settings = {"normal": {"aov": "normal"}, "hit": {"aov": "hit"},
                 "ao": {"aov": "ambient_occlusion"},
                 "tex_coords": {"aov": "tex_coords"},
@@ -1210,18 +1233,27 @@ def test_header_matches_plain_step(lib, case):
 
 @pytest.mark.parametrize("case", ["default_spheres", "default_meshes",
                                   "inside", "viewproj_spheres",
-                                  "viewproj_fast_meshes"])
+                                  "viewproj_fast_meshes", "slab_spheres",
+                                  "slab_viewproj_meshes"])
 def test_visibility_header_matches_plain(lib, case):
     """csrc/cull.cuh's table (the kernels' per-tile visible list, built here
     serially with the same per-sphere test) equals the plain
     visibility_table on every tile of the 1280x720 frame: the default
     spheres, the default triangle scene's mesh bounds, and the eye inside a
     sphere; and with the viewproj camera (its corner rays, normalized
-    exactly or by rsqrt, as the primaries are)."""
+    exactly or by rsqrt, as the primaries are); and on a slab of the frame
+    (its tile rows 10-14: row offset 320 and stream 5 in the camera, the
+    plain table's row_offset 320), whose table is not the frame's first
+    rows'."""
     cfg = RenderConfig().validate()
-    if case.startswith("viewproj"):
+    frame_cfg, row_offset = cfg, 0
+    if case.startswith("slab"):
+        cfg = cfg.replace(height=160, ndc_height=720)
+        row_offset = 320
+    if "viewproj" in case:
         cfg = cfg.replace(ray_gen="viewproj",
                           fast_math=case.endswith("fast_meshes"))
+        frame_cfg = frame_cfg.replace(ray_gen="viewproj")
     if case.endswith("meshes"):
         scene = build_triangle_scene(compute_spheres(
             cfg.sphere_count, cfg.world_size, cfg.scene_seed),
@@ -1231,14 +1263,18 @@ def test_visibility_header_matches_plain(lib, case):
         bounds = compute_spheres(cfg.sphere_count, cfg.world_size,
                                  cfg.scene_seed).packed()[:4].contiguous()
     view = _inside_view(cfg, 5) if case == "inside" else None
-    cam = Camera.from_config(cfg, view).packed()
+    cam = Camera.from_config(frame_cfg, view).packed()
     sched = torch.as_tensor(tile_grid(cfg))
     n = bounds.shape[1]
-    ip, fp = step_params(cfg, cfg.tile_count, n, cam)
+    ip, fp = step_params(cfg, cfg.tile_count, n,
+                         slab_camera(cam, row_offset, 5 if row_offset else 0))
     got = np.empty((cfg.tile_count, n + 1), np.int32)
     lib.l2n_visibility_host(_ptr(ip), _ptr(fp), _ptr(sched.numpy()),
                             _ptr(bounds.numpy()), n, _ptr(got))
-    want = visibility_table(cfg, bounds, cam, sched).numpy()
+    want = visibility_table(cfg, bounds, cam, sched, row_offset).numpy()
+    if row_offset:
+        top = visibility_table(cfg, bounds, cam, sched).numpy()
+        assert (top[:, 0] != want[:, 0]).any()
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[1:1 + w[0]], w[1:1 + w[0]])
@@ -1391,25 +1427,34 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
 
 @pytest.mark.parametrize("aov", ["pathtracing", "tex_coords", "param_uv",
                                  "normal", "hit", "ambient_occlusion",
-                                 "sun_viewproj_fast"])
+                                 "sun_viewproj_fast", "slab", "slab_tpu_hw"])
 def test_triangle_header_matches_plain_step(lib, aov):
     """The kernel's bound traversal (the culled primaries, then per lane
     its entered meshes front to back, mesh -> slab -> sub-cluster) against
     the plain brute-force sweep on the aimed small config, 2 steps; gates
     of tests/test_kernels.py:125-151, bit-equality expected: every AOV (the
-    ambient-occlusion cast walks with its unnormalized direction), and the
-    sun sky with the viewproj camera under fast_math."""
+    ambient-occlusion cast walks with its unnormalized direction), the
+    sun sky with the viewproj camera under fast_math, and the frame's
+    lower tile row as a slab of a sharded frame (row offset 32, stream 5,
+    in threefry and tpu_hw)."""
     if aov == "sun_viewproj_fast":
         cfg = TRI_CFG.replace(env_mode="sun", ray_gen="viewproj",
                               fast_math=True)
         aov = "pathtracing"
+        cam = _tri_aimed_camera(cfg).packed()
+    elif aov.startswith("slab"):
+        cfg = TRI_CFG.replace(height=32, ndc_height=64,
+                              rng="tpu_hw" if aov.endswith("hw")
+                              else "threefry")
+        cam = slab_camera(_tri_aimed_camera(TRI_CFG).packed(), 32, 5)
+        aov = "pathtracing"
     else:
         cfg = TRI_CFG.replace(aov=aov)
+        cam = _tri_aimed_camera(cfg).packed()
     scene = build_triangle_scene(compute_spheres(cfg.sphere_count,
                                                  cfg.world_size,
                                                  cfg.scene_seed),
                                  cfg.disc_lat, cfg.disc_long)
-    cam = _tri_aimed_camera(cfg).packed()
     _walk_stats(lib)
     ha, ho = _render_triangles(cfg, scene, cam, 2, host_lib=lib)
     assert _walk_stats(lib)[0] > 0  # through the per-lane walk
