@@ -40,7 +40,10 @@ steps_per_call (44), holds a slab of a sharded frame (its row offset and
 stream) to its plain version and to the whole frame's rows (45), drives
 the sharded renderer (l2n_tpu_torch.parallel) on 4 ranks spawned on the
 card over gloo, each gathered slab bit-equal to its kernel render here
-(46), and its stateful tile axis to one single-card step (47), and times
+(46), and its stateful tile axis to one single-card step (47), holds
+triangle_pt to its plain version on the 70,144-triangle trefoil knot of
+the JAX bench's bigobj stage, one mesh of 548 slabs that takes the walk's
+slab-group level, and times it (48), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
@@ -609,12 +612,22 @@ class WorkCount:
     the casts, any-hit candidates, scatters, emissive hits and sky
     evaluations of a plain render. Counters prefixed "a_" belong to the
     primary cast (the wavefront's pass A), "b_" to the rest (pass B).
-    Lanes whose cast origin is parked at 3e30 are dead and not counted."""
+    Lanes whose cast origin is parked at 3e30 are dead and not counted.
+    With `tri_buffers` (a TriangleBuffers), the nearest-hit casts that
+    triangle_pt seeds with a certain hit ("seeded") and those that find
+    nothing under the seed and walk again ("fallbacks", the plain
+    counter: ops/kernels/triangle_pt.py takes_fallback), and in `won` the
+    soup triangles that win a nearest-hit cast."""
 
-    def __init__(self, cfg, spheres=None, mesh_bounds=None, visible=None):
+    def __init__(self, cfg, spheres=None, mesh_bounds=None, visible=None,
+                 tri_buffers=None):
         self.cfg, self.spheres = cfg, spheres
         self.mesh_bounds = mesh_bounds
         self.visible = visible  # (K, n) bool: the tiles' visible spheres
+        self.tri_buffers = tri_buffers
+        self.won = (None if tri_buffers is None else torch.zeros(
+            tri_buffers.attrs.shape[0], dtype=torch.bool,
+            device=tri_buffers.attrs.device))
         self.c = collections.Counter()
 
     def _meets(self, mask, ox, oy, oz, dx, dy, dz, tag):
@@ -678,6 +691,18 @@ class WorkCount:
             if tag == "b_":
                 self._entries(live, ox, oy, oz, dx, dy, dz)
             self._meets(live, ox, oy, oz, dx, dy, dz, tag)
+            if self.tri_buffers is not None:
+                from l2n_tpu_torch.ops.kernels.triangle_pt import (
+                    certain_hit_seed,
+                    takes_fallback,
+                )
+                self.won[torch.broadcast_to(h.tri, hit.shape)[hit]] = True
+                seed = certain_hit_seed(self.tri_buffers, ox, oy, oz, dx,
+                                        dy, dz)
+                self.c[tag + "seeded"] += int(
+                    (live & (seed < float("inf"))).sum())
+                self.c[tag + "fallbacks"] += int(
+                    (live & takes_fallback(seed, h.t)).sum())
             emissive = hit & (h.index % self.cfg.emissive_every == 0)
             self.c[tag + "emissive"] += int(emissive.sum())
             self.c[tag + "scatters"] += int((hit & ~emissive).sum())
@@ -708,7 +733,8 @@ class WorkCount:
 
 
 def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
-               rng_state=None, cull_bounds=None, mesh_bounds=None):
+               rng_state=None, cull_bounds=None, mesh_bounds=None,
+               tri_buffers=None):
     """Counters of one plain render of the scheduled tiles (`accum` and
     `rng_state` are copied, not updated). With `cull_bounds` (4, n), the
     tiles' cone-visible counts over those spheres (the plain
@@ -716,7 +742,10 @@ def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
     vis_candidates, the visible candidates of every primary cast; with
     `mesh_bounds` (M, 4), the mesh bounds each bounce and any-hit cast
     enters (b_mesh_entries); with `spheres`, the candidates whose line
-    meets the ray (a_meets, a_meets_vis, b_meets)."""
+    meets the ray (a_meets, a_meets_vis, b_meets); with `tri_buffers`,
+    the certain-hit seeds and fallbacks (WorkCount), and the distinct
+    triangles that win a nearest-hit cast (hit_tris) and the sub-clusters
+    of 16 slots that hold one (hit_subs)."""
     from l2n_tpu_torch.ops.kernels.common import render_tiles_plain
     from l2n_tpu_torch.ops.kernels.sphere_pt import visibility_table
     intersect, anyhit, albedo = scene_closures
@@ -728,7 +757,7 @@ def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
         visible = torch.zeros(table.shape[0], table.shape[1] - 1,
                               dtype=torch.bool, device=table.device)
         visible.scatter_(1, table[:, 1:], rank[None, :] < n_vis[:, None])
-    w = WorkCount(cfg, spheres, mesh_bounds, visible)
+    w = WorkCount(cfg, spheres, mesh_bounds, visible, tri_buffers)
     if cull_bounds is not None:
         w.c["vis_sum"] = int(n_vis.sum())
         w.c["vis_max"] = int(n_vis.max())
@@ -739,9 +768,27 @@ def count_work(cfg, sched, cam, accum, scene_closures, spheres=None,
                        w.anyhit(anyhit), albedo, acc, torch.empty_like(acc[:3]),
                        None if rng_state is None else rng_state.clone())
     c = w.c
+    if tri_buffers is not None:
+        c["hit_tris"] = int(w.won.sum())
+        from l2n_tpu_torch.ops.kernels.triangle_pack import SUBSIZE
+        slot = tri_buffers.tris.view(torch.int32)[:, 9]
+        won = (slot >= 0) & w.won[slot.clamp(min=0)]
+        c["hit_subs"] = int(won.reshape(-1, SUBSIZE).any(1).sum())
     c["pixels"] = sched.shape[0] * cfg.tile_height * cfg.tile_width
     c["samples"] = c["pixels"] * cfg.spp_per_step
     return c
+
+
+def seed_share(c) -> str:
+    """The certain-hit seeds and fallbacks of count_work's nearest-hit casts
+    (tri_buffers), as text."""
+    casts = c["a_casts"] + c["b_casts"]
+    seeded = c["a_seeded"] + c["b_seeded"]
+    falls = c["a_fallbacks"] + c["b_fallbacks"]
+    return (f"{seeded} of {casts} nearest-hit casts seeded "
+            f"({seeded / max(casts, 1):.4f}), {falls} walk again "
+            f"({falls / max(casts, 1):.6f} of the casts; primaries "
+            f"{c['a_fallbacks']}, the rest {c['b_fallbacks']})")
 
 
 def path_ops(c, cast_cost: float, tags=("a_", "b_"), pair=OPS["threefry"]):
@@ -2946,6 +2993,179 @@ KERNEL_FLAGS = {"sphere_pt": ("fast_math", "viewproj"),
 BODIES = ("lambert", "aovs", "materials", "nee", "fog")
 
 
+# Phase 48's settings of the knot behind a light, each with its lit gate:
+# the materials, NEE and fog bodies and the ambient-occlusion AOV. Without
+# NEE a path meets light only through a bounce that survives roulette and
+# reaches the small light or (here) the sun sky: its gate is lower.
+LIT_KNOT_SETTINGS = {
+    "microfacet+bump, sun": ({"material_mode": "microfacet",
+                              "normal_map": 0.8, "env_mode": "sun"}, 0.02),
+    "nee+mis+microfacet": ({"nee": True, "mis": True,
+                            "material_mode": "microfacet"}, 0.1),
+    "fog+nee+mis": ({"fog_density": 0.0008, "fog_albedo": 0.8, "nee": True,
+                     "mis": True}, 0.1),
+    "ambient_occlusion": ({"aov": "ambient_occlusion"}, 0.1)}
+
+
+def triangle_scene_bytes(buf, c) -> int:
+    """Bytes of the packed triangle scene that triangle_pt's Lambert body
+    must read for the counters `c` of count_work(tri_buffers=buf): the
+    bound, slab-group and certain-hit arrays and the albedo once, the 16
+    slots of each sub-cluster that holds a winning triangle, and each
+    winner's attribute row; not the material table, which that body does
+    not read."""
+    from l2n_tpu_torch.ops.kernels.triangle_pack import SUBSIZE
+    small = sum(a.numel() * 4 for a in (
+        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
+        buf.group_bounds, buf.inner_gap, buf.balls, buf.albedo))
+    return (small + c["hit_subs"] * SUBSIZE * buf.tris.shape[1] * 4
+            + c["hit_tris"] * buf.attrs.shape[1] * 4)
+
+
+def trefoil_phase(card, dev) -> dict:
+    """Phase 48: the JAX bench's `bigobj` stage on the card
+    (probes/step_ab.py bigobj_case: the 70,144-triangle trefoil knot, one
+    mesh of 548 slabs, which walks the slab-group level, with its interior
+    balls and inscribed sphere as seeds). triangle_pt against its plain
+    version at 10 tiles from the frame's middle for 2 steps, in tpu_hw and
+    threefry (accum and output bit-equal, lit coverage of the rendered
+    pixels > 0.1), and the same for the knot behind a light
+    (step_ab.lit_knot) in LIT_KNOT_SETTINGS; the kernel's device time per
+    call (CUDA events) at 10 tiles and whole frames, the plain version's
+    at 10 tiles, and the bound (triangle_bound) of each from the plain
+    path's counts, with the certain-hit seeds and fallbacks. Returns the
+    triangle_pt row's trefoil_* keys."""
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        TriangleBuffers,
+        triangle_pt,
+        triangle_pt_plain,
+    )
+    from l2n_tpu_torch.ops.scenes import triangle_anyhit, triangle_intersector
+    from l2n_tpu_torch.probes.step_ab import bigobj_case, lit_knot
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    t0 = time.perf_counter()
+    cfg, scene, cam = bigobj_case()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf = TriangleBuffers.from_scene(scene, dev)
+    pack_s = time.perf_counter() - t0
+    slabs = int(buf.slab_count[0])
+    groups = int((buf.group_bounds[0, :, 3] > 0).sum())
+    balls = int((buf.balls[0, :, 3] > 0).sum())
+    r2, gap = float(buf.mesh_bounds[0, 3]), float(buf.inner_gap[0])
+    require(scene.mesh_count == 1 and scene.total_triangles == 70144
+            and slabs == 548 and groups == 69,
+            f"trefoil: 1 mesh of 70,144 triangles in 548 slabs and 69 "
+            f"groups ({scene.mesh_count}, {scene.total_triangles}, {slabs}, "
+            f"{groups})")
+    tiles = torch.as_tensor(tile_grid(cfg)).to(dev)
+    k, first = 10, cfg.tile_count // 2 - 5
+    cfg10 = cfg.replace(tiles_per_step=k)
+
+    def hold(name, rcfg, b, min_lit=0.1):
+        """triangle_pt vs plain over buffers b, 2 steps of 10 tiles from
+        `first`: (max abs, lit coverage of the rendered pixels)."""
+        ka, pa = init_frame_state(rcfg, dev), init_frame_state(rcfg, dev)
+        for i in range(2):
+            sched = scheduled_tiles(tiles, first + i * k, k)
+            triangle_pt(rcfg, sched, cam, b, ka.accum, ka.output)
+            triangle_pt_plain(rcfg, sched, cam, b, pa.accum, pa.output)
+        torch.cuda.synchronize()
+        kacc, pacc = ka.accum.cpu().numpy(), pa.accum.cpu().numpy()
+        require(np.array_equal(kacc[3], pacc[3]),
+                f"trefoil {name}: kernel/plain accum[3] equal")
+        err = float(np.abs(kacc - pacc).max())
+        require(err == 0.0, f"trefoil {name}: kernel/plain max abs {err}")
+        require(bits_equal(ka.output, pa.output),
+                f"trefoil {name}: kernel/plain output bit-equal")
+        rendered = pacc[3] > 0
+        require(int(rendered.sum()) == 2 * k * cfg.tile_height
+                * cfg.tile_width, f"trefoil {name}: 20 tiles rendered once")
+        lit = float((pacc[:3].max(0) > 0)[rendered].mean())
+        require(lit > min_lit,
+                f"trefoil {name}: lit coverage {lit} > {min_lit}")
+        return err, lit
+
+    reset_launches()
+    gates = {rng: hold(rng, cfg10.replace(rng=rng), buf)
+             for rng in ("tpu_hw", "threefry")}
+    require(launches["triangle_pt"] == 4, "trefoil: 4 triangle_pt launches")
+    # The knot as mesh 1 behind an emissive sphere (step_ab.lit_knot): the
+    # bounces, the last segments' any-hit, NEE's shadow rays and the AO
+    # cast walk its groups, in the materials, NEE and fog bodies' walk out
+    # of line and the AOV body's `occluded`.
+    t0 = time.perf_counter()
+    lit_buf = TriangleBuffers.from_scene(lit_knot(scene), dev)
+    lit_pack_s = time.perf_counter() - t0
+    lit_gates = {name: hold(name, cfg10.replace(**over).validate(), lit_buf,
+                            min_lit)
+                 for name, (over, min_lit) in LIT_KNOT_SETTINGS.items()}
+    trefoil_launches = launches["triangle_pt"]
+    require(trefoil_launches == 4 + 2 * len(LIT_KNOT_SETTINGS),
+            f"trefoil: {4 + 2 * len(LIT_KNOT_SETTINGS)} triangle_pt launches")
+    lit_intersect = triangle_intersector(lit_buf.soup)
+    lw = count_work(cfg10, scheduled_tiles(tiles, first, k), cam,
+                    init_frame_state(cfg10, dev).accum,
+                    (lit_intersect, triangle_anyhit(lit_intersect),
+                     lit_buf.albedo.T),
+                    mesh_bounds=lit_buf.mesh_bounds, tri_buffers=lit_buf)
+    ms, bounds, seeds = {}, {}, {}
+    intersect = triangle_intersector(buf.soup)
+    closures = (intersect, triangle_anyhit(intersect), buf.albedo.T)
+    for label, lcfg, sched in (
+            ("10-tile", cfg10, scheduled_tiles(tiles, first, k)),
+            ("whole-frame", cfg, scheduled_tiles(tiles, 0,
+                                                 cfg.tile_count))):
+        st = init_frame_state(lcfg, dev)
+        ms[label] = timed_calls(lambda: triangle_pt(
+            lcfg, sched, cam, buf, st.accum, st.output), 2,
+            20 if label == "10-tile" else 5)
+        w = count_work(lcfg, sched, cam, init_frame_state(lcfg, dev).accum,
+                       closures, cull_bounds=buf.mesh_bounds.T.contiguous(),
+                       mesh_bounds=buf.mesh_bounds, tri_buffers=buf)
+        bounds[label] = triangle_bound(w, 1, sched.shape[0],
+                                       triangle_scene_bytes(buf, w))
+        seeds[label] = seed_share(w)
+    st = init_frame_state(cfg10, dev)
+    sched = scheduled_tiles(tiles, first, k)
+    plain_ms = timed_calls(lambda: triangle_pt_plain(
+        cfg10, sched, cam, buf, st.accum, st.output), 0, 1)
+    phase(48, f"the trefoil (bench.py bigobj: load_obj(trefoil_obj()) "
+              f"{load_s:.1f} s, packed in {pack_s:.1f} s: 70,144 triangles "
+              f"in {slabs} slabs, {groups} groups of 8, {balls} live "
+              f"interior balls, inner_gap {gap:.7g} of r_out^2 {r2:.7g}: "
+              f"inscribed sphere r_in/r_out "
+              f"{np.sqrt(max(r2 - gap, 0.0) / r2):.3e}), {cfg.width}x"
+              f"{cfg.height} in {cfg.tile_height}x{cfg.tile_width} tiles, "
+              f"aimed camera: triangle_pt vs plain, 2 steps of 10 tiles "
+              f"from tile {first}, (max abs, lit) {gates} (gates: 0, accum "
+              f"and output bit-equal, lit > 0.1), launches "
+              f"{trefoil_launches}; kernel {ms['10-tile']:.4f} ms per call at "
+              f"10 tiles, {ms['whole-frame']:.4f} ms per whole frame (CUDA "
+              f"events), plain {plain_ms:.1f} ms at 10 tiles; bound (ms, by) "
+              f"{bounds}; certain-hit seeds (plain counter) {seeds}; behind "
+              f"a light (lit_knot, packed in {lit_pack_s:.1f} s: the knot "
+              f"is mesh 1): kernel vs plain, the same 20 tiles, (max abs, "
+              f"lit) {lit_gates} (gates: 0, bit-equal, lit > 0.1; 0.02 "
+              f"without NEE); its "
+              f"Lambert step's other casts (plain counter): {lw['b_casts']} "
+              f"nearest, {lw['b_anyhit']} any-hit, {lw['b_mesh_entries']} "
+              f"mesh-bound entries, {seed_share(lw)}; card: {card}")
+    return {"trefoil_launches": trefoil_launches,
+            "trefoil_max_abs_err": max(e for e, _ in [*gates.values(),
+                                                      *lit_gates.values()]),
+            "trefoil_pack_s": pack_s,
+            "trefoil_10_tile_ms": ms["10-tile"],
+            "trefoil_whole_frame_ms": ms["whole-frame"],
+            "trefoil_10_tile_plain_ms": plain_ms,
+            "trefoil_10_tile_bound_ms": bounds["10-tile"][0],
+            "trefoil_10_tile_bound_by": bounds["10-tile"][1],
+            "trefoil_whole_frame_bound_ms": bounds["whole-frame"][0],
+            "trefoil_whole_frame_bound_by": bounds["whole-frame"][1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3004,7 +3224,7 @@ def main() -> int:
                               ("old_sweep_mma", OLD_MMA_CU))}
     lib_path, build_s = build.build()
     build.load()
-    ptxas, kernel = [], "?"
+    ptxas, kernel, owner = [], "?", "?"
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(sphere_pt|triangle_pt|uv_demo|philox_bits|"
                       r"wavefront_pass_[abc]|cond_cost|sweep_vpu2?|"
@@ -3023,12 +3243,19 @@ def main() -> int:
                 if bit == "1"]
             rng_flags = ", ".join([rng.group(1)] + flags) if rng else ""
             mode_m = re.search(r"cond_cost_kernelILi(\d+)ELi(\d+)E", ln)
-            kernel = m.group(1) + (
+            kernel = owner = m.group(1) + (
                 f"<{rng_flags}>" if rng else
                 f"<mode {mode_m.group(1)}, m {mode_m.group(2)}>" if mode_m
                 else "")
+        elif "Function properties for" in ln:
+            # the entry's own stack and spill, or those of a function it
+            # calls (triangle_pt's out-of-line walk, TriSceneViewT<true>)
+            callee = re.search(r"cast_call\w*?(NearestVisit|AnyVisit)", ln)
+            owner = (f"{kernel} calls cast_call<{callee.group(1)}>"
+                     if callee else kernel)
         elif "registers" in ln or "spill" in ln:
-            ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+            ptxas.append(f"{kernel if 'registers' in ln else owner}: "
+                         f"{ln.split(':', 1)[-1].strip()}")
     from l2n_tpu_torch.probes.onehot_recovery import TH, TW, launch_shape
     group, threads, blocks = launch_shape(TH * TW)
     onehot_regs = [ln for ln in ptxas if ln.startswith("onehot_")
@@ -3230,12 +3457,24 @@ def main() -> int:
         tori_cam = Camera.from_config(whole, view_matrix=vm).packed()
         rmse, tori_err, flips, lit, _ = kernel_vs_plain(
             triangle_pt, triangle_pt_plain, whole, tori_buf, tori_cam, 1)
+        require(tori_err == 0.0,
+                f"triangle_pt torus field kernel/plain max abs {tori_err}")
+        tori_intersect = triangle_intersector(tori_buf.soup)
+        tori_seeds = count_work(
+            whole, scheduled_tiles(tiles, 0, whole.tile_count), tori_cam,
+            init_frame_state(whole, dev).accum,
+            (tori_intersect, triangle_anyhit(tori_intersect),
+             tori_buf.albedo.T), tri_buffers=tori_buf)
+        tori_balls = int((tori_buf.balls[:, :, 3] > 0).sum())
         phase(8, f"triangle_pt kernel vs plain, torus field "
                  f"({tori.total_triangles} triangles, {tori.mesh_count} "
-                 f"meshes of {int(slabs.max())} slabs), aimed camera, 1 "
-                 f"whole-frame step: accum RMSE {rmse:.3e} (gate 1e-3), max "
-                 f"abs {tori_err:.3e}, output flip fraction {flips:.3e} "
-                 f"(gate 2e-3), lit {lit:.4f}")
+                 f"meshes of {int(slabs.max())} slabs, {tori_balls} live "
+                 f"interior balls, inscribed spheres "
+                 f"{int((tori_buf.inner_gap < 2e30).sum())}), aimed camera, "
+                 f"1 whole-frame step: accum RMSE {rmse:.3e} (gate 1e-3), "
+                 f"max abs {tori_err:.3e} (gate 0), output flip fraction "
+                 f"{flips:.3e} (gate 2e-3), lit {lit:.4f}; certain-hit "
+                 f"seeds (plain counter): {seed_share(tori_seeds)}")
         del tori_buf
 
         # --- 9: the triangle main path through Application ----------------
@@ -3594,6 +3833,7 @@ def main() -> int:
                                   cam)
         program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
         sharded = parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam)
+        trefoil = trefoil_phase(card, dev)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -3788,9 +4028,6 @@ def main() -> int:
     tri_closures = (tri_intersect, triangle_anyhit(tri_intersect),
                     tri_buf.albedo.T)
     m = tri_buf.mesh_bounds.shape[0]
-    tri_bytes = sum(getattr(tri_buf, f).numel() * 4 for f in (
-        "albedo", "mesh_bounds", "slab_count", "slab_bounds", "sub_bounds",
-        "tris", "attrs"))
     mesh_cull = tri_buf.mesh_bounds.T.contiguous()
     tri_work = {}
     for label, lcfg in (("10-tile", tri_cfg), ("whole-frame", whole)):
@@ -3798,9 +4035,10 @@ def main() -> int:
         w = tri_work[label] = count_work(
             lcfg, lsched, cam, init_frame_state(lcfg, dev).accum,
             tri_closures, cull_bounds=mesh_cull,
-            mesh_bounds=tri_buf.mesh_bounds)
+            mesh_bounds=tri_buf.mesh_bounds, tri_buffers=tri_buf)
         (bounds if label == "10-tile" else bounds_whole)["triangle_pt"] = (
-            triangle_bound(w, m, lsched.shape[0], tri_bytes))
+            triangle_bound(w, m, lsched.shape[0],
+                           triangle_scene_bytes(tri_buf, w)))
         print(f"[work] triangle default config, {label} step from zero "
               f"state: {dict(w)} (counted on the plain path)", flush=True)
     # The culled lists: visible spheres and mesh bounds per tile of the
@@ -3815,6 +4053,12 @@ def main() -> int:
           f"{tw['b_mesh_entries'] / max(tw['b_casts'] + tw['b_anyhit'], 1):.4f}"
           f" ({tw['b_casts'] + tw['b_anyhit']} rays; counted on the plain "
           f"path)", flush=True)
+    print(f"[seed] certain-hit seeds of the default triangle scene "
+          f"({int((tri_buf.inner_gap < 2e30).sum())} of {m} meshes with an "
+          f"inscribed sphere, {int((tri_buf.balls[:, :, 3] > 0).sum())} "
+          f"interior balls), whole frame, default view: "
+          f"{seed_share(tw)}; 10 tiles: {seed_share(tri_work['10-tile'])} "
+          f"(counted on the plain path)", flush=True)
     bounds["uv_demo"] = bound(720 * 1280 * 12, 720 * 1280 * 12 + 4)
     bounds["philox_bits"] = bits_t[256]["bound"]
     mode_bounds = {}
@@ -3916,12 +4160,13 @@ def main() -> int:
             "max abs err <= 1e-5", uv_kernel_ms, uv_ms, uv_plain_ms),
         row("triangle_pt", "l2n_tpu_torch/csrc/triangle_pt.cu",
             "l2n_tpu/ops/kernels/triangle_pt.py:811",
-            tri_launches.get("triangle_pt", 0), max(tri_err, tori_err),
+            tri_launches.get("triangle_pt", 0),
+            max(tri_err, tori_err, trefoil["trefoil_max_abs_err"]),
             frame_tol, kernel_ms[("triangle_pt", "10-tile")],
             timings[("triangle_pt", "10-tile", "cuda")],
             timings[("triangle_pt", "10-tile", "torch")],
             **whole_frame("triangle_pt"),
-            sharded_launches=sharded.get("triangle_pt")),
+            sharded_launches=sharded.get("triangle_pt"), **trefoil),
         *wave_rows,
         row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
             "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",

@@ -26,7 +26,16 @@
 // warp runs every loop body any of its lanes enters. What the design does
 // about that:
 //   * one thread per pixel walks its own rays through the packed bound
-//     hierarchy (mesh -> slab -> sub-cluster -> 16 triangles);
+//     hierarchy (mesh -> slab -> sub-cluster -> 16 triangles; a mesh of
+//     more than 8 slabs, such as a 70k-triangle OBJ's 548, tests the
+//     spheres of its 8-slab groups first, the TPU kernel's slab-group
+//     level, and then only the slabs of the groups it visits);
+//   * each cast's walk starts from the certain-hit seed of the watertight
+//     meshes whose bounds it enters from outside (the TPU kernel's
+//     inscribed-sphere and interior-ball t_ub, csrc/triangle_pt.cuh
+//     certain_hit), which prunes every bound beyond it; a cast that finds
+//     nothing under its seed walks again unseeded, so the hit stays the
+//     brute-force sweep's;
 //   * primaries are cone-culled per tile (csrc/cull.cuh, the TPU kernel's
 //     mesh visibility table): each block builds its tile's visible-mesh
 //     list in its prologue (a warp ballot and a block prefix, ascending
@@ -56,9 +65,14 @@
 //     rays start in the same few meshes and walk the same sub-clusters;
 //   * registers are capped at 80 so that six blocks fit on an SM (the
 //     walk is latency-bound; 64 and 72 spill and are faster at whole frame
-//     but slower at the reference's 10 tiles).
-// Not done: the TPU kernel's slab-group level, certain-hit seeding and
-// procedural shellwalk (ROADMAP Queue 2 #3-#5). The grid is K x
+//     but slower at the reference's 10 tiles); the materials, NEE and
+//     fog bodies, whose path state spills at that cap, call each cast's
+//     walk out of line (TriSceneViewT<true>), the Lambert and AOV bodies
+//     inline it.
+// Not done: the TPU kernel's procedural shellwalk and its disjoint-sphere
+// sweeps (ROADMAP Queue 2 #5, #6); its certain-hit shortcut for the last
+// segment's any-hit (a hit declared without a walk) is not taken, as it
+// would change pixels against the brute-force sweep. The grid is K x
 // tile_height blocks of tile_width threads.
 //
 // Twelve instantiations per sampler (pathtrace.cuh::dispatch_fused), as in
@@ -95,6 +109,9 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    const int32_t* __restrict__ slab_count,
                    const float* __restrict__ slab_bounds,
                    const float* __restrict__ sub_bounds,
+                   const float* __restrict__ group_bounds,
+                   const float* __restrict__ inner_gap,
+                   const float* __restrict__ balls,
                    const float* __restrict__ tris,
                    const float* __restrict__ attrs,
                    const float* __restrict__ albedo,
@@ -133,7 +150,9 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
       },
       m, s_vis, s_counts);
 
-  l2n::TriSceneView scene;
+  l2n::TriSceneViewT<kBody == l2n::kBodyMaterials ||
+                     kBody == l2n::kBodyNee || kBody == l2n::kBodyFog>
+      scene;
   scene.n = m;
   scene.n_slabs = n_slabs;
   scene.tpad = tpad;
@@ -141,6 +160,9 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
   scene.slab_count = s_scount;
   scene.slab_bounds = slab_bounds;
   scene.sub_bounds = sub_bounds;
+  scene.group_bounds = group_bounds;
+  scene.inner_gap = inner_gap;
+  scene.balls = balls;
   scene.tris = tris;
   scene.attrs = attrs;
   scene.ar = s_table;
@@ -167,9 +189,10 @@ struct LaunchTrianglePt {
   static int run(l2n::PtParams p, int n_slabs, int tpad, const int32_t* sched,
                  const float* mesh_bounds, const int32_t* slab_count,
                  const float* slab_bounds, const float* sub_bounds,
-                 const float* tris, const float* attrs, const float* albedo,
-                 const float* material, float* accum, float* output,
-                 uint32_t* rng_state, cudaStream_t stream) {
+                 const float* group_bounds, const float* inner_gap,
+                 const float* balls, const float* tris, const float* attrs,
+                 const float* albedo, const float* material, float* accum,
+                 float* output, uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
     const dim3 block(static_cast<unsigned>(p.tile_width));
     const size_t smem = smem_bytes(p.n_scene, l2n::table_rows<kBody>(p));
@@ -187,8 +210,8 @@ struct LaunchTrianglePt {
     triangle_pt_kernel<Rng, kBody, kFast, kViewproj>
         <<<grid, block, smem, stream>>>(
         p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-        sub_bounds, tris, attrs, albedo, material, accum, output,
-        rng_state);
+        sub_bounds, group_bounds, inner_gap, balls, tris, attrs, albedo,
+        material, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -199,7 +222,8 @@ struct LaunchTrianglePt {
 // and l2n::kFloatParams floats (ip[5] = M meshes); n_slabs = S and tpad =
 // S * 128 are the packed scene's slab capacity and slots per mesh. Device
 // pointers: sched (K, 2) int32; mesh_bounds (M, 4), slab_count (M,) int32,
-// slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), tris (M * tpad, 12),
+// slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), group_bounds (M,
+// ceil(S / 8), 5), inner_gap (M,), balls (M, 8, 4), tris (M * tpad, 12),
 // attrs (T, 16), albedo (3, M), material (6, M), lights (n_point + n_dir,
 // 6; null without lights), accum (4, Hp, Wp), output (3, Hp, Wp) float32;
 // rng_state (8 or 4, Hp, Wp) 32-bit words, null for the counter-based
@@ -211,15 +235,18 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                const float* mesh_bounds,
                                const int32_t* slab_count,
                                const float* slab_bounds,
-                               const float* sub_bounds, const float* tris,
-                               const float* attrs, const float* albedo,
-                               const float* material, const float* lights,
-                               float* accum, float* output,
-                               uint32_t* rng_state, void* stream) {
+                               const float* sub_bounds,
+                               const float* group_bounds,
+                               const float* inner_gap, const float* balls,
+                               const float* tris, const float* attrs,
+                               const float* albedo, const float* material,
+                               const float* lights, float* accum,
+                               float* output, uint32_t* rng_state,
+                               void* stream) {
   l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   p.lights = lights;
   return l2n::dispatch_fused<LaunchTrianglePt>(
-      p, p, n_slabs, tpad, sched, mesh_bounds, slab_count,
-      slab_bounds, sub_bounds, tris, attrs, albedo, material, accum, output,
-      rng_state, static_cast<cudaStream_t>(stream));
+      p, p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
+      sub_bounds, group_bounds, inner_gap, balls, tris, attrs, albedo,
+      material, accum, output, rng_state, static_cast<cudaStream_t>(stream));
 }

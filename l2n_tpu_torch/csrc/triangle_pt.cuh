@@ -1,8 +1,10 @@
 // The triangle scene of the triangle path-tracing kernel
 // (csrc/triangle_pt.cu): per-thread traversal of the packed bound hierarchy
-// (mesh sphere -> 128-triangle slab sphere -> 16-triangle sub-cluster
-// sphere -> Möller-Trumbore), which the shared path body
-// (csrc/pathtrace.cuh) calls as nearest(), nearest_primary() and anyhit().
+// (mesh sphere -> for meshes of more than 8 slabs, 8-slab group sphere ->
+// 128-triangle slab sphere -> 16-triangle sub-cluster sphere ->
+// Möller-Trumbore), seeded by the meshes' certain hits, which the shared
+// path body (csrc/pathtrace.cuh) calls as nearest(), nearest_primary(),
+// anyhit() and occluded().
 //
 // `__host__ __device__` like the path body: the CPU tests build this header
 // with g++ against the plain torch path (brute force over the soup).
@@ -17,6 +19,19 @@
 // rows are a permutation of the soup's), and the winner's attributes are
 // interpolated from the soup's corner values in the oracle's three-weight
 // form.
+//
+// Certain-hit seeding (the JAX kernel's `t_ub`): a ray from outside a
+// watertight mesh that crosses its inscribed sphere, or one of its
+// interior balls, meets the surface no later than its entry into that
+// sphere. While it scans the mesh bounds, a cast takes the nearest such
+// entry over the meshes it enters from outside their bounds, inflated
+// (kSeedScale, kSeedPad), as its starting `best`, so the walk prunes every
+// bound beyond it from the start. That keeps the hit the brute-force
+// sweep's, bit for bit: a candidate at t < seed lies in bounds entered at
+// <= t, which the walk visits. Where the promise fails (a ray through a
+// Möller-Trumbore epsilon crack), the seeded walk finds nothing under the
+// seed, and the cast walks again unseeded; the JAX kernel returns a miss
+// there.
 
 #pragma once
 
@@ -30,7 +45,13 @@ constexpr int kSubSize = kSlab / kSubs;
 constexpr int kTriStride = 12;   // per slot: v1 xyz, e1 xyz, e2 xyz, soup idx, 0, 0
 constexpr int kAttrStride = 16;  // per soup triangle: na nb nc xyz, ta tb tc uv, mesh
 constexpr int kBoundStride = 5;  // cx cy cz r^2 r
+constexpr int kGroup = 8;     // slabs per slab group
+constexpr int kBalls = 8;     // interior certain-hit balls per mesh
 constexpr float kMtEps = 1e-6f;  // Möller-Trumbore epsilon
+// The seed of a cast with certain-hit bound t_ub: t_ub * kSeedScale +
+// kSeedPad, the JAX kernel's inflation.
+constexpr float kSeedScale = 1.000004f;
+constexpr float kSeedPad = 1e-5f;
 
 struct F4 {
   float x, y, z, w;
@@ -120,9 +141,11 @@ struct NearestVisit {
     }
     return false;
   }
+  // A seeded walk that found no candidate under its seed.
+  L2N_HD bool fell_short() const { return bi < 0 && best < INFINITY; }
 };
 
-// Stops at the first valid candidate; never prunes.
+// Stops at the first valid candidate; prunes only by the seed.
 struct AnyVisit {
   float best = INFINITY;
   bool hit = false;
@@ -130,6 +153,7 @@ struct AnyVisit {
     hit = true;
     return true;
   }
+  L2N_HD bool fell_short() const { return !hit && best < INFINITY; }
 };
 
 // Entries of a lane's front-to-back list of entered meshes; a ray that
@@ -143,8 +167,19 @@ constexpr int kLaneList = L2N_LANE_LIST;
 #ifndef L2N_NOTE_SCAN
 #define L2N_NOTE_SCAN(cnt, more) ((void)0)
 #endif
+// A hook the CPU tests define to count the casts that walk again unseeded.
+#ifndef L2N_NOTE_FALLBACK
+#define L2N_NOTE_FALLBACK() ((void)0)
+#endif
+// A hook the CPU tests define to read the seed that a seeded walk's first
+// scan takes (visit.best before anything is walked).
+#ifndef L2N_NOTE_SEED
+#define L2N_NOTE_SEED(best) ((void)0)
+#endif
 
-struct TriSceneView {
+// kCallWalk: each cast's walk out of line on the card (see cast).
+template <bool kCallWalk>
+struct TriSceneViewT {
   int n;          // meshes
   int n_slabs;    // slab capacity per mesh (S)
   int tpad;       // triangle slots per mesh (S * kSlab)
@@ -152,6 +187,9 @@ struct TriSceneView {
   const int32_t* slab_count;  // (M,) live slabs per mesh
   const float* slab_bounds;   // (M, S, 5)
   const float* sub_bounds;    // (M, S, kSubs, 5)
+  const float* group_bounds;  // (M, ceil(S / kGroup), 5)
+  const float* inner_gap;     // (M,) r_out^2 - r_in^2, 3e30: none
+  const float* balls;         // (M, kBalls, 4) cx cy cz r^2, live first
   const float* tris;          // (M * tpad, kTriStride)
   const float* attrs;         // (T, kAttrStride)
   const float *ar, *ag, *ab;  // albedo rows, (3, M)
@@ -185,6 +223,38 @@ struct TriSceneView {
     return bound_visit(ox, oy, oz, dx, dy, dz, c, best);
   }
 
+  // The certain-hit bound of a ray that enters mesh m's bound mb (the JAX
+  // kernel's t_ub of one mesh, in the bound tests' direction b): the entry
+  // into the inscribed sphere or into the nearest live interior ball; inf
+  // where it crosses neither, and for an origin inside the bound. There
+  // the JAX kernel takes the bound's exit or a sphere's entry too, which
+  // fail for a ray that starts on the surface and heads into the solid (a
+  // bumped bounce, a shadow ray from a backface): such a lane walks again,
+  // and its warp with it (PERF.md §6).
+  L2N_HD float certain_hit(int m, const float* mb, float ox, float oy,
+                           float oz, float bx, float by, float bz) const {
+    const float rox = ox - mb[0], roy = oy - mb[1], roz = oz - mb[2];
+    const float hb = rox * bx + roy * by + roz * bz;
+    const float c = rox * rox + roy * roy + roz * roz - mb[3];
+    if (!(c >= 0.0f)) return INFINITY;
+    const float c_in = c + load1(inner_gap + m);
+    const float disc_in = hb * hb - c_in;
+    float ub = INFINITY;
+    if (hb < 0.0f && disc_in >= 0.0f && c_in >= 0.0f)
+      ub = -hb - sqrtf(disc_in);
+    for (int k = 0; k < kBalls; ++k) {
+      const F4 bl = load4(balls + 4 * (kBalls * m + k));
+      if (!(bl.w > 0.0f)) break;  // the live balls come first
+      const float rbx = ox - bl.x, rby = oy - bl.y, rbz = oz - bl.z;
+      const float hbb = rbx * bx + rby * by + rbz * bz;
+      const float cb = rbx * rbx + rby * rby + rbz * rbz - bl.w;
+      const float discb = hbb * hbb - cb;
+      if (hbb < 0.0f && discb >= 0.0f && cb >= 0.0f)
+        ub = fminf(ub, -hbb - sqrtf(discb));
+    }
+    return ub;
+  }
+
   // Walk every triangle whose bounds the ray visits among the candidate
   // meshes `cand` (n_cand mesh indices; null: 0 .. n_cand - 1):
   // `visit(soup_index, t, u, v)` gets each valid candidate and returns true
@@ -202,11 +272,14 @@ struct TriSceneView {
   // not for the union of its lanes' meshes. A lane that enters more than
   // kLaneList meshes takes them in chunks: each scan keeps the kLaneList
   // nearest meshes after the last one walked, and a mesh the running best
-  // has pruned is never taken again; none is dropped.
+  // has pruned is never taken again; none is dropped. With `seed`, the
+  // first scan (which tests every candidate) lowers `visit.best` to the
+  // certain-hit seed of each mesh the ray enters, before anything is
+  // walked (see the top of this file).
   template <class Visit>
   L2N_HD void walk(const int32_t* cand, int n_cand, float ox, float oy,
                    float oz, float dx, float dy, float dz, float bx,
-                   float by, float bz, Visit& visit) const {
+                   float by, float bz, bool seed, Visit& visit) const {
     float last_enter = -INFINITY;
     int last_mesh = -1;
     for (;;) {
@@ -221,6 +294,11 @@ struct TriSceneView {
         if (!bound_enter(ox, oy, oz, bx, by, bz, mb[0], mb[1], mb[2], mb[3],
                          visit.best, enter, margin))
           continue;
+        if (seed && last_mesh < 0)
+          visit.best = fminf(visit.best,
+                             certain_hit(m, mb, ox, oy, oz, bx, by, bz) *
+                                     kSeedScale +
+                                 kSeedPad);
         if (enter < last_enter || (enter == last_enter && m <= last_mesh))
           continue;  // walked in an earlier chunk
         if (cnt == kLaneList) {
@@ -243,6 +321,7 @@ struct TriSceneView {
         mi[q] = m;
       }
       L2N_NOTE_SCAN(cnt, more);
+      if (seed && last_mesh < 0) L2N_NOTE_SEED(visit.best);
       if (walk_list(ent, mar, mi, cnt, ox, oy, oz, dx, dy, dz, bx, by, bz,
                     visit) ||
           !more)
@@ -253,13 +332,17 @@ struct TriSceneView {
   }
 
   // The work-item loop over a lane's sorted meshes (see walk); true when
-  // `visit` stopped it.
+  // `visit` stopped it. A mesh of more than kGroup slabs tests the bound
+  // of each group of kGroup slabs first and walks only the slabs of the
+  // groups it visits; every run of slabs ends at the mesh's own slab
+  // count (the last group may be partial), and slabs keep ascending order.
   template <class Visit>
   L2N_HD bool walk_list(const float* ent, const float* mar, const int* mi,
                         int cnt, float ox, float oy, float oz, float dx,
                         float dy, float dz, float bx, float by, float bz,
                         Visit& visit) const {
-    int li = 0, level = 0, m = 0, slabs = 0, s = 0, c = 0;
+    const int groups = (n_slabs + kGroup - 1) / kGroup;  // per mesh
+    int li = 0, level = 0, m = 0, s = 0, send = 0, c = 0;
     for (;;) {
       // Bound tests until a sub-cluster to sweep (slot0) or the list's end.
       int slot0 = -1;
@@ -267,27 +350,43 @@ struct TriSceneView {
         if (level == 0) {  // the next mesh, pruned against the running best
           if (ent[li] <= visit.best + mar[li]) {
             m = mi[li];
-            slabs = slab_count[m];  // never past the mesh's own slabs
             s = 0;
             level = 1;
           } else {
             ++li;
           }
-        } else if (level == 1) {  // slab s of mesh m
-          if (s == slabs) {
+        } else if (level == 1) {  // the next run of slabs of mesh m, from s
+          const int slabs = slab_count[m];
+          if (s >= slabs) {
             ++li;
             level = 0;
+          } else if (slabs <= kGroup) {  // no group level: every slab
+            send = slabs;
+            level = 2;
+          } else {  // group s / kGroup
+            send = s + kGroup < slabs ? s + kGroup : slabs;
+            if (visits(ox, oy, oz, bx, by, bz,
+                       group_bounds +
+                           kBoundStride * (m * groups + s / kGroup),
+                       visit.best))
+              level = 2;
+            else
+              s = send;
+          }
+        } else if (level == 2) {  // slab s of the run
+          if (s == send) {
+            level = 1;
           } else if (visits(ox, oy, oz, bx, by, bz,
                             slab_bounds + kBoundStride * (m * n_slabs + s),
                             visit.best)) {
             c = 0;
-            level = 2;
+            level = 3;
           } else {
             ++s;
           }
         } else if (c == kSubs) {  // sub-clusters of slab s done
           ++s;
-          level = 1;
+          level = 2;
         } else {  // sub-cluster c of slab s
           const int ms = m * n_slabs + s;
           const bool in = visits(
@@ -361,27 +460,76 @@ struct TriSceneView {
     return h;
   }
 
+  // The seeded walk, and where it fell short of its seed, the unseeded
+  // one (one call site of walk).
+  template <class Visit>
+  L2N_HD Visit cast_walk(const int32_t* cand, int n_cand, float ox,
+                         float oy, float oz, float dx, float dy, float dz,
+                         float bx, float by, float bz) const {
+    Visit visit;
+    for (bool seed = true;; seed = false) {
+      walk(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by, bz, seed, visit);
+      if (!seed || !visit.fell_short()) return visit;
+      L2N_NOTE_FALLBACK();
+      visit = Visit();
+    }
+  }
+
+  // cast_walk out of line on the card: one copy of the walk per Visit
+  // type, which gets the registers that the path body holds at the call.
+  template <class Visit>
+#if defined(__CUDA_ARCH__)
+  __noinline__
+#endif
+  L2N_HD Visit cast_call(const int32_t* cand, int n_cand, float ox,
+                         float oy, float oz, float dx, float dy, float dz,
+                         float bx, float by, float bz) const {
+    return cast_walk<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
+                            bz);
+  }
+
+  // Every cast. The materials, NEE and fog bodies (csrc/triangle_pt.cu),
+  // whose path state spills under the 80-register cap with the walk
+  // inlined, call it out of line, which made their whole frames with
+  // lights, NEE or fog faster on the card; the Lambert and AOV bodies,
+  // which do not spill, are faster with it inlined (PERF.md §6). One form
+  // per body: in the materials body only the explicit lights gain (-16%,
+  // 0.33 ms a whole frame), while microfacet and the bump lose 2-8%
+  // (0.01-0.08 ms) against the parent commit's inlined walk.
+  template <class Visit>
+  L2N_HD Visit cast(const int32_t* cand, int n_cand, float ox, float oy,
+                    float oz, float dx, float dy, float dz, float bx,
+                    float by, float bz) const {
+    if constexpr (kCallWalk)
+      return cast_call<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
+                              bz);
+    else
+      return cast_walk<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
+                              bz);
+  }
+
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
-    NearestVisit nv;
-    walk(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz, nv);
-    return resolve(nv);
+    return resolve(cast<NearestVisit>(nullptr, n, ox, oy, oz, dx, dy, dz,
+                                      dx, dy, dz));
   }
 
   // The primary cast walks only the tile's visible meshes (csrc/cull.cuh).
   L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,
                              float dy, float dz) const {
-    NearestVisit nv;
-    walk(vis, vis ? n_vis : n, ox, oy, oz, dx, dy, dz, dx, dy, dz, nv);
-    return resolve(nv);
+    return resolve(cast<NearestVisit>(vis, vis ? n_vis : n, ox, oy, oz, dx,
+                                      dy, dz, dx, dy, dz));
   }
 
-  // Any valid candidate: exactly nearest(...).t >= 0.
+  // Any valid candidate: exactly nearest(...).t >= 0. The seed prunes the
+  // bounds beyond it; any candidate, near or far, ends the walk. The JAX
+  // kernel's shortcut, a hit declared for every ray that crosses a
+  // certain-hit sphere without a walk, is not taken: it would differ from
+  // the brute-force sweep at the rays through an epsilon crack.
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
-    AnyVisit av;
-    walk(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz, av);
-    return av.hit;
+    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz)
+        .hit;
   }
 
   // The ambient-occlusion cast along (dx, dy, dz) of any length: exactly
@@ -390,16 +538,17 @@ struct TriSceneView {
   // direction is the unnormalized hemisphere sample, of length |n| < 1 for
   // an interpolated mesh normal, which the bound tests' half-b form takes
   // as 1: they take the direction normalized (the same line meets the same
-  // bounds), the triangle tests the direction as given, and a walk that
-  // stops at its first valid candidate prunes nothing by distance.
+  // bounds), the triangle tests the direction as given, and the seed, in
+  // the bound tests' units, prunes only bounds.
   L2N_HD bool occluded(float ox, float oy, float oz, float dx, float dy,
                        float dz) const {
     float bx = dx, by = dy, bz = dz;
     normalize3(bx, by, bz, false);
-    AnyVisit av;
-    walk(nullptr, n, ox, oy, oz, dx, dy, dz, bx, by, bz, av);
-    return av.hit;
+    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, bx, by, bz)
+        .hit;
   }
 };
+
+using TriSceneView = TriSceneViewT<false>;
 
 }  // namespace l2n

@@ -100,7 +100,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     argtypes = {
         "sphere_pt": [p] * 9,
         "uv_demo": [i, i, p, p, p],
-        "triangle_pt": [p, p, i, i] + [p] * 14,
+        "triangle_pt": [p, p, i, i] + [p] * 17,
         "wavefront_pass_a": [p] * 11,
         "wavefront_pass_b": [p, p, i, i] + [p] * 7,
         "wavefront_pass_c": [p] * 8,

@@ -20,8 +20,10 @@ ride beside the scene; their shadow rays walk every mesh, as NEE's do
 ops/nee.py, which are the packed `mesh_bounds` the kernel walks);
 homogeneous fog (cfg.fog_density > 0) takes the kernel's fog body.
 `TriangleBuffers` holds what either version
-reads: the soup for the plain version, the packed bounds, slot rows and
-attribute rows for the kernel (ops/kernels/triangle_pack.py).
+reads: the soup for the plain version, the packed bounds, slab groups,
+certain-hit data, slot rows and attribute rows for the kernel
+(ops/kernels/triangle_pack.py). `certain_hit_seed` is the kernel's seed of
+a cast in torch, for tests and counts; the plain step does not use it.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from l2n_tpu_torch.maths.sampling import procedural_color
+from l2n_tpu_torch.maths.sampling import procedural_color, sqrt
 from l2n_tpu_torch.ops.kernels.common import (
     MAX_SMEM,
     check_camera,
@@ -45,7 +47,12 @@ from l2n_tpu_torch.ops.kernels.common import (
     table_rows,
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import check_lights
-from l2n_tpu_torch.ops.kernels.triangle_pack import SUBS, pack_mesh_blocks
+from l2n_tpu_torch.ops.kernels.triangle_pack import (
+    BALLS,
+    GROUP,
+    SUBS,
+    pack_mesh_blocks,
+)
 from l2n_tpu_torch.ops.nee import mesh_light_sampler
 from l2n_tpu_torch.ops.scenes import (
     TRIANGLE_MISS_COLOR,
@@ -80,6 +87,8 @@ class TriangleBuffers:
     material     (6, M) rows of scene/materials.MATERIAL_CHANNELS per mesh;
     mesh_bounds  (M, 4) [cx cy cz r^2];  slab_count (M,) int32;
     slab_bounds  (M, S, 5);  sub_bounds (M, S, 8, 5);
+    group_bounds (M, ceil(S / 8), 5): the 8-slab groups' spheres;
+    inner_gap    (M,) and balls (M, 8, 4): the certain-hit data;
     tris         (M * S * 128, 12): per slot v1 xyz, e1 xyz, e2 xyz, the
                  slot's soup index (int32 bits, -1 for padding), 0, 0;
     attrs        (T, 16): per soup triangle na nb nc xyz, ta tb tc uv, the
@@ -95,6 +104,9 @@ class TriangleBuffers:
     slab_count: torch.Tensor
     slab_bounds: torch.Tensor
     sub_bounds: torch.Tensor
+    group_bounds: torch.Tensor
+    inner_gap: torch.Tensor
+    balls: torch.Tensor
     tris: torch.Tensor
     attrs: torch.Tensor
 
@@ -124,8 +136,19 @@ class TriangleBuffers:
             slab_count=dev(packed.slab_count),
             slab_bounds=dev(packed.slab_bounds),
             sub_bounds=dev(packed.sub_bounds),
+            group_bounds=dev(packed.group_bounds),
+            inner_gap=dev(packed.inner_gap),
+            balls=dev(packed.balls),
             tris=dev(tris.reshape(-1, TRI_STRIDE)),
             attrs=dev(attrs))
+
+    def kernel_arrays(self) -> tuple:
+        """The scene's buffers in the kernel's argument order
+        (csrc/triangle_pt.cu l2n_triangle_pt, after sched)."""
+        return (self.mesh_bounds, self.slab_count, self.slab_bounds,
+                self.sub_bounds, self.group_bounds, self.inner_gap,
+                self.balls, self.tris, self.attrs, self.albedo,
+                self.material)
 
     def with_tables(self, albedo=None, material=None) -> "TriangleBuffers":
         """The buffers with another (M, 3) albedo or (M, 6) material table
@@ -169,6 +192,8 @@ def _check(cfg, sched, camera, buffers, accum, output, rng_state, lights):
             ("slab_count", torch.int32, (m,)),
             ("slab_bounds", f32, (m, s, 5)),
             ("sub_bounds", f32, (m, s, SUBS, 5)),
+            ("group_bounds", f32, (m, -(-s // GROUP), 5)),
+            ("inner_gap", f32, (m,)), ("balls", f32, (m, BALLS, 4)),
             ("tris", f32, (m * s * 128, TRI_STRIDE)),
             ("attrs", f32, (n_tri, 16))):
         check_tensor(name, getattr(buffers, name), dtype, shape, dev)
@@ -202,10 +227,7 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
     ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
     light_rows = None if lights is None else lights.buffer(accum.device)
     launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
-           buffers.mesh_bounds, buffers.slab_count, buffers.slab_bounds,
-           buffers.sub_bounds, buffers.tris, buffers.attrs,
-           buffers.albedo, buffers.material, light_rows, accum, output,
-           rng_state)
+           *buffers.kernel_arrays(), light_rows, accum, output, rng_state)
 
 
 def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
@@ -224,3 +246,55 @@ def triangle_pt_plain(cfg, sched: torch.Tensor, camera,
     render_tiles_plain(cfg, sched, camera, intersect,
                        triangle_anyhit(intersect), buffers.table(), accum,
                        output, rng_state, TRIANGLE_MISS_COLOR, lights, nee)
+
+
+def certain_hit_seed(buffers: TriangleBuffers, ox, oy, oz, dx, dy,
+                     dz) -> torch.Tensor:
+    """The kernel's certain-hit seed of each cast (csrc/triangle_pt.cuh
+    certain_hit, in the walk's first scan): over the meshes whose bound the
+    ray enters from outside (the walk's test at best = inf), the nearest
+    entry into an inscribed sphere or a live interior ball, times 1.000004
+    plus 1e-5; inf where there is none. The same float32 operations in the
+    same order (sqrt correctly rounded), in chunks of 4096 rays.
+    (dx, dy, dz) is the bound tests' direction, of unit length."""
+    shape = torch.broadcast_shapes(ox.shape, dx.shape)
+    o = [torch.broadcast_to(a, shape).reshape(-1) for a in (ox, oy, oz)]
+    d = [torch.broadcast_to(a, shape).reshape(-1) for a in (dx, dy, dz)]
+    mb, gap = buffers.mesh_bounds, buffers.inner_gap
+    balls = buffers.balls
+    zero = torch.zeros((), dtype=torch.float32, device=mb.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=mb.device)
+    out = []
+    for i in range(0, o[0].numel(), 4096):
+        oc = [a[i:i + 4096, None] for a in o]
+        dc = [a[i:i + 4096, None] for a in d]
+        ro = [oc[k] - mb[:, k] for k in range(3)]
+        hb = ro[0] * dc[0] + ro[1] * dc[1] + ro[2] * dc[2]
+        c = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - mb[:, 3]
+        enters = ((c >= 0.0) & (hb < 0.0)
+                  & (hb * hb - c >= -1e-6 * (c + mb[:, 3])))
+        c_in = c + gap
+        disc_in = hb * hb - c_in
+        cross = (hb < 0.0) & (disc_in >= 0.0) & (c_in >= 0.0)
+        ub = torch.where(cross, -hb - sqrt(torch.where(cross, disc_in, zero)),
+                         inf)
+        for k in range(BALLS):
+            bl = balls[:, k]
+            rb = [oc[j] - bl[:, j] for j in range(3)]
+            hbb = rb[0] * dc[0] + rb[1] * dc[1] + rb[2] * dc[2]
+            cb = rb[0] * rb[0] + rb[1] * rb[1] + rb[2] * rb[2] - bl[:, 3]
+            discb = hbb * hbb - cb
+            crossb = ((bl[:, 3] > 0.0) & (hbb < 0.0) & (discb >= 0.0)
+                      & (cb >= 0.0))
+            ub = torch.minimum(ub, torch.where(
+                crossb, -hbb - sqrt(torch.where(crossb, discb, zero)), inf))
+        seed = ub * torch.tensor(1.000004, dtype=torch.float32) + 1e-5
+        out.append(torch.where(enters, seed, inf).amin(1))
+    return torch.cat(out).reshape(shape)
+
+
+def takes_fallback(seed: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The casts whose seeded walk finds nothing under its seed, and so
+    walks again unseeded: a finite seed and no brute-force hit (t, -1 for
+    a miss) below it."""
+    return (seed < float("inf")) & ~((t >= 0.0) & (t < seed))

@@ -66,7 +66,9 @@ class Hit:
     `emis_r2` the squared radius in the emission formula (1 for meshes).
     `tc_u/tc_v` (texcoords) and `b_u/b_v` (barycentrics) are None for
     scenes without them; `bound_r2`, the squared radius of the winner
-    mesh's bounding sphere (cone NEE's MIS weight), None for spheres."""
+    mesh's bounding sphere (cone NEE's MIS weight), None for spheres;
+    `tri`, the winner's soup triangle index (-1 on miss), None for
+    spheres."""
 
     t: torch.Tensor
     nx: torch.Tensor
@@ -79,6 +81,7 @@ class Hit:
     b_u: torch.Tensor | None = None
     b_v: torch.Tensor | None = None
     bound_r2: torch.Tensor | None = None
+    tri: torch.Tensor | None = None
 
 
 IntersectFn = Callable[..., Hit]  # (ox, oy, oz, dx, dy, dz) -> Hit

@@ -52,8 +52,8 @@ def triangle_intersector(soup: dict,
 
     The winner's attributes are gathered once per ray and interpolated in
     the JAX oracle's three-weight form, attr = u*b + v*c + w*a with
-    w = 1-u-v, the normal unnormalized. `index` is the mesh id and
-    `emis_r2` the constant 1 of meshes. A miss keeps u = v = 0 and reads
+    w = 1-u-v, the normal unnormalized. `index` is the mesh id, `tri`
+    the winner's soup index and `emis_r2` the constant 1 of meshes. A miss keeps u = v = 0 and reads
     triangle 0's attributes, as the oracle does. With `bound_r2`, the (M,)
     squared radii of the meshes' bounding spheres, the hit carries its
     mesh's (mesh 0's on a miss) for cone NEE's MIS weight.
@@ -95,7 +95,7 @@ def triangle_intersector(soup: dict,
                    tc_u=interp("tau", "tbu", "tcu"),
                    tc_v=interp("tav", "tbv", "tcv"), b_u=u, b_v=v,
                    bound_r2=(None if bound_r2 is None
-                             else bound_r2[mesh.clamp(min=0)]))
+                             else bound_r2[mesh.clamp(min=0)]), tri=tri)
 
     return intersect
 

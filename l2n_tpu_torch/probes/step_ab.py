@@ -5,15 +5,21 @@ call: the fused step kernels, sphere_pt and triangle_pt, and the wavefront
 step (`RenderConfig(wavefront=True)`, threefry and tpu_hw), whole and pass
 by pass; the onehot_recovery probe's two kernels at its S = 128; the
 sweep_variants probe's three kernels at its size (64 blocks, 128 spheres,
-16 repeats); and philox_bits at (4, 256, 128) and (4, 7360, 128), the
-raw-bits gates' draw and a whole padded frame's.
+16 repeats); philox_bits at (4, 256, 128) and (4, 7360, 128), the
+raw-bits gates' draw and a whole padded frame's; triangle_pt's
+materials body (microfacet, the bump, two explicit lights), NEE+MIS and
+fog+NEE+MIS bodies on the default triangle config ("settings"); and
+triangle_pt on the
+70,144-triangle trefoil knot at the JAX bench's `bigobj` config
+(`bigobj_case`; tpu_hw and threefry, 10 tiles from the frame's middle and
+whole frames), where one mesh of 548 slabs takes the slab-group level.
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
     # V1, this, DIR; --only FAMILY[,FAMILY...] (fused, wavefront, onehot,
-    # sweep, philox) times only those
+    # sweep, philox, trefoil, settings) times only those
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -45,6 +51,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve()
@@ -83,18 +90,25 @@ def graph_ms(torch, fn, n: int, rounds: int = 3) -> float:
 
 def ptxas(tree: Path, pattern=r"(sphere_pt|triangle_pt)_kernel") -> dict:
     """{instantiation: [registers, spill store bytes]} of the kernels whose
-    entry names match `pattern`, from the tree's newest build log. The
+    entry names match `pattern`, from the tree's newest build log (the
+    entry's own spill, not that of the functions it calls). The
     names drop what nvcc derives from the file's contents (the source's
-    hash, the anonymous namespace's), so that two trees' entries meet."""
+    hash, the anonymous namespace's) and the kernel's parameter list, so
+    that two trees' entries meet."""
     logs = sorted((tree / "l2n_tpu_torch" / "build").glob("*.log"),
                   key=lambda p: p.stat().st_mtime)
-    out, entry = {}, None
+    out, entry, raw, own = {}, None, None, False
     for ln in logs[-1].read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            entry = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_|_cu_[0-9a-f]+", "",
-                           m.group(1))
+            raw, own = m.group(1), True
+            entry = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_|_cu_[0-9a-f]+|"
+                           r"vNS\d+_8PtParams.*$", "", raw)
             entry = entry if re.search(pattern, entry) else None
+            continue
+        f = re.search(r"Function properties for (\S+)", ln)
+        if f:  # the entry's own, or a function it calls (not counted)
+            own = f.group(1) == raw
             continue
         if entry is None:
             continue
@@ -103,7 +117,7 @@ def ptxas(tree: Path, pattern=r"(sphere_pt|triangle_pt)_kernel") -> dict:
         row = out.setdefault(entry, [None, None])
         if regs:
             row[0] = int(regs.group(1))
-        if spill:
+        if spill and own:
             row[1] = int(spill.group(1))
     return out
 
@@ -131,12 +145,92 @@ def _families(root: Path):
                         "triangle_pt": (triangle_pt, tcfg, buf)}
 
 
-def _schedules(torch, cfg):
+def _schedules(torch, cfg, first: int = 0):
+    """{schedule: (cfg, sched)}: 10 tiles from tile `first`, and every
+    tile."""
     from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
     tiles = torch.as_tensor(tile_grid(cfg)).to("cuda")
-    return {"10-tile": (cfg, scheduled_tiles(tiles, 0, 10)),
+    return {"10-tile": (cfg.replace(tiles_per_step=10),
+                        scheduled_tiles(tiles, first, 10)),
             "whole-frame": (cfg.replace(tiles_per_step=cfg.tile_count),
                             scheduled_tiles(tiles, 0, cfg.tile_count))}
+
+
+def bigobj_case():
+    """The JAX bench's `bigobj` stage (bench.py stage_bigobj) for the port:
+    (cfg, scene, packed camera). The 70,144-triangle trefoil knot
+    (scene/procgen.py trefoil_obj at its defaults, through load_obj: one
+    mesh of 548 slabs); 1024x1024 in 32x128 tiles, whole-frame steps, 1
+    spp, fast_math off, rng tpu_hw; the camera aimed at the vertices' mean
+    from (0.35, 0.25, 1.0) x 1.45 times their largest distance from it, so
+    that the knot fills the view."""
+    import numpy as np
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.maths.linalg import look_at
+    from l2n_tpu_torch.scene import load_obj, trefoil_obj
+    cfg = RenderConfig(width=1024, height=1024, tile_height=32,
+                       tile_width=128, tiles_per_step=1024, spp_per_step=1,
+                       rng="tpu_hw", fast_math=False,
+                       scene_kind="triangle").validate()
+    scene = load_obj(trefoil_obj())
+    verts = np.asarray(scene.vertices).reshape(-1, 3)
+    target = verts.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(verts - target, axis=1).max())
+    vm = look_at(target + np.array([0.35, 0.25, 1.0], np.float32)
+                 * 1.45 * radius, target,
+                 np.array([0.0, 1.0, 0.0], np.float32))
+    return cfg, scene, Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+def lit_knot(knot):
+    """`knot` (a TriangleScene of one mesh) as mesh 1 behind a light: mesh
+    0, the only emissive one under emissive_every > 1, a sphere of a fifth
+    of the knot's radius (its vertices' largest distance from their mean)
+    outside that radius, above and in front of the knot as bigobj_case's
+    camera sees it. Bounces, shadow rays and NEE toward the light then
+    walk the knot's slab groups, which a knot that is mesh 0 (emissive)
+    never does past its primaries."""
+    import numpy as np
+    from l2n_tpu_torch.scene import (
+        TriangleScene,
+        merge_scenes,
+        tessellate_sphere,
+    )
+    verts = np.asarray(knot.vertices).reshape(-1, 3)
+    target = verts.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(verts - target, axis=1).max())
+    up = np.array([0.2, 1.0, 0.6], np.float32)
+    p, n, t, idx = tessellate_sphere(
+        target + up / np.linalg.norm(up) * np.float32(1.3 * radius),
+        0.2 * radius, 16, 8)
+    light = TriangleScene(vertices=p, normals=n, tex_coords=t, indices=idx,
+                          triangle_count=[idx.shape[0] // 3],
+                          index_offset=[0])
+    return merge_scenes(light, knot)
+
+
+def _trefoil(torch, root: Path, times: dict) -> None:
+    """triangle_pt on bigobj_case's trefoil (the tree's own packing, timed
+    on the host clock) per rng mode and schedule (10 tiles from the
+    middle of the frame) into `times`."""
+    sys.path.insert(0, str(root))
+    from l2n_tpu_torch.ops.kernels import triangle_pt
+    from l2n_tpu_torch.render.state import init_frame_state
+    assert Path(triangle_pt.__file__).resolve().is_relative_to(root)
+    cfg, scene, cam = bigobj_case()
+    t0 = time.perf_counter()
+    buf = triangle_pt.TriangleBuffers.from_scene(scene, "cuda")
+    times["trefoil pack s"] = time.perf_counter() - t0
+    for rng in ("tpu_hw", "threefry"):
+        rcfg = cfg.replace(rng=rng)
+        for label, (scfg, sched) in _schedules(
+                torch, rcfg, rcfg.tile_count // 2 - 5).items():
+            st = init_frame_state(scfg, torch.device("cuda"))
+            times[f"trefoil {rng} {label}"] = graph_ms(
+                torch, lambda: triangle_pt.triangle_pt(
+                    scfg, sched, cam, buf, st.accum, st.output),
+                CALLS[label])
 
 
 def profile_ms(torch, fn, n: int, kernels=r"wavefront_pass_[abc]_kernel"):
@@ -246,7 +340,39 @@ def _philox(torch, root: Path, times: dict) -> None:
             torch, fn, 50, "philox_bits_kernel").get("philox_bits_kernel")
 
 
-FAMILIES = ("fused", "wavefront", "onehot", "sweep", "philox")
+# triangle_pt's other bodies (family "settings"): the materials body (a
+# material mode, the bump, and chip_smoke.py's two explicit lights), the
+# NEE and fog bodies, on the default triangle config and camera.
+SETTINGS = {"microfacet": {"material_mode": "microfacet"},
+            "normal_map": {"normal_map": 0.8},
+            "lights": {"lights": True},
+            "nee+mis": {"nee": True, "mis": True},
+            "fog+nee+mis": {"fog_density": 0.002, "fog_albedo": 0.8,
+                            "nee": True, "mis": True}}
+
+
+def _lights():
+    """chip_smoke.py light_containers' point light (at the origin,
+    intensity (5e7, 4e7, 3e7)) and directional light ((0.3, -1, 0.2),
+    radiance (0.5, 0.5, 0.6)), with no Phong albedo."""
+    import numpy as np
+    from l2n_tpu_torch.ops.lights import ExplicitLights
+    from l2n_tpu_torch.scene.materials import (
+        DirectionalLights,
+        PhongMaterials,
+        PointLights,
+    )
+    return ExplicitLights(
+        PhongMaterials.from_arrays(np.zeros((0, 4), np.float32),
+                                   np.zeros((0, 3), np.float32),
+                                   np.zeros(0, np.float32)),
+        PointLights.from_arrays(np.zeros((1, 3), np.float32),
+                                np.array([[5e7, 4e7, 3e7]], np.float32)),
+        DirectionalLights.from_arrays(
+            np.array([[0.3, -1.0, 0.2]], np.float32),
+            np.array([[0.5, 0.5, 0.6]], np.float32)))
+FAMILIES = ("fused", "wavefront", "onehot", "sweep", "philox", "trefoil",
+            "settings")
 
 
 def measure_tree(root: Path, only: str) -> dict:
@@ -261,17 +387,28 @@ def measure_tree(root: Path, only: str) -> dict:
         _sweep(torch, root, times)
     if "philox" in want:
         _philox(torch, root, times)
-    if want & {"fused", "wavefront"}:
+    if "trefoil" in want:
+        _trefoil(torch, root, times)
+    if want & {"fused", "wavefront", "settings"}:
         _, cam, families = _families(root)
         from l2n_tpu_torch.render.state import init_frame_state
+    cases = []
     if "fused" in want:
-        for name, (mod, cfg, scene) in families.items():
-            kernel = getattr(mod, name)
-            for label, (scfg, sched) in _schedules(torch, cfg).items():
-                st = init_frame_state(scfg, torch.device("cuda"))
-                times[f"{name} {label}"] = graph_ms(torch, lambda: kernel(
-                    scfg, sched, cam, scene, st.accum, st.output),
-                    CALLS[label])
+        cases += [(name, name, {}) for name in families]
+    if "settings" in want:
+        cases += [(f"triangle_pt {setting}", "triangle_pt", kw)
+                  for setting, kw in SETTINGS.items()]
+    for key, name, kw in cases:
+        mod, cfg, scene = families[name]
+        kernel = getattr(mod, name)
+        kw = dict(kw)
+        extra = {"lights": _lights()} if kw.pop("lights", False) else {}
+        for label, (scfg, sched) in _schedules(torch,
+                                               cfg.replace(**kw)).items():
+            st = init_frame_state(scfg, torch.device("cuda"))
+            times[f"{key} {label}"] = graph_ms(torch, lambda: kernel(
+                scfg, sched, cam, scene, st.accum, st.output, **extra),
+                CALLS[label])
     if "wavefront" in want:
         _wavefront(torch, cam, times)
     return {"root": str(root), "card": card(), "ms": times}

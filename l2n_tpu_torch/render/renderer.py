@@ -5,7 +5,7 @@ clear-on-move, step timing, and loading a state into the live buffers.
 A program's step may run several scheduler steps per call
 (`steps_per_call`); `metrics` divides a call's time by them, so its figures
 stay per scheduler step. (The JAX package's `metrics` does not: its
-figures are per call; ROADMAP Queue 3.)"""
+figures are per call; ROADMAP Queue 3 #17.)"""
 
 from __future__ import annotations
 

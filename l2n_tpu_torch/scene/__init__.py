@@ -7,6 +7,7 @@ from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres  # noqa: F4
 from l2n_tpu_torch.scene.tessellate import (  # noqa: F401
     TriangleScene,
     build_triangle_scene,
+    merge_scenes,
     tessellate_sphere,
     tessellate_sphere_info,
 )

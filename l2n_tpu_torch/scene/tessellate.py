@@ -153,3 +153,21 @@ def build_triangle_scene(spheres, disc_lat: int = 16,
         triangle_count=np.full((n,), i_count // 3, np.int32),
         index_offset=np.arange(n, dtype=np.int32) * np.int32(i_count),
     )
+
+
+def merge_scenes(*scenes: TriangleScene) -> TriangleScene:
+    """The meshes of `scenes`, in order, as one TriangleScene: each scene's
+    vertex indices and index offsets shifted past the buffers of the
+    scenes before it."""
+    v_base = np.cumsum([0] + [s.vertices.shape[0] for s in scenes[:-1]])
+    i_base = np.cumsum([0] + [s.indices.shape[0] for s in scenes[:-1]])
+    return TriangleScene(
+        vertices=np.concatenate([s.vertices for s in scenes]),
+        normals=np.concatenate([s.normals for s in scenes]),
+        tex_coords=np.concatenate([s.tex_coords for s in scenes]),
+        indices=np.concatenate([s.indices + v for s, v in zip(scenes,
+                                                              v_base)]),
+        triangle_count=np.concatenate([s.triangle_count for s in scenes]),
+        index_offset=np.concatenate([s.index_offset + i for s, i in
+                                     zip(scenes, i_base)]),
+    )

@@ -14,7 +14,9 @@ lives in this one file.
 """
 
 import ctypes
+import dataclasses
 import functools
+import json
 import os
 import shutil
 import subprocess
@@ -39,6 +41,8 @@ from l2n_tpu_torch.ops.kernels.sphere_pt import (
 )
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
+    certain_hit_seed,
+    takes_fallback,
     triangle_pt_plain,
 )
 from l2n_tpu_torch.ops.kernels.wavefront import (
@@ -57,7 +61,7 @@ from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
 from l2n_tpu_torch.rng import philox, tauslcg, tinymt
 from l2n_tpu_torch.rng.state import init_tauslcg_states, init_tinymt_states
 from l2n_tpu_torch.rng.threefry import threefry2x32
-from l2n_tpu_torch.scene import load_obj, torus_field_obj
+from l2n_tpu_torch.scene import load_obj, torus_field_obj, trefoil_obj
 from l2n_tpu_torch.scene.spheres import compute_spheres
 from l2n_tpu_torch.scene.tessellate import build_triangle_scene
 
@@ -99,6 +103,12 @@ static int64_t g_scans = 0, g_overflows = 0, g_longest = 0;
 #define L2N_NOTE_SCAN(cnt, more) \
   (++g_scans, g_overflows += (more), \
    g_longest = (cnt) > g_longest ? (cnt) : g_longest)
+// The casts whose seeded walk fell short of its seed and walked again.
+static int64_t g_fallbacks = 0;
+#define L2N_NOTE_FALLBACK() (++g_fallbacks)
+// The seed that the last seeded walk's first scan took.
+static float g_seed = 0.0f;
+#define L2N_NOTE_SEED(best) (g_seed = (best))
 #include "sphere_pt.cuh"
 #include "sweep_probe.cuh"
 #include "triangle_pt.cuh"
@@ -417,21 +427,48 @@ int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
       p, p, l2n::scene_view(spheres, p.n_scene, p.fast_math != 0), sched,
       accum, output, rng_state);
 }
+// The packed triangle scene as the kernel's entry point takes it (its
+// arrays in TriangleBuffers.kernel_arrays order, up to attrs).
+l2n::TriSceneView tri_scene(int m, int n_slabs, int tpad,
+                            const float* mesh_bounds,
+                            const int32_t* slab_count,
+                            const float* slab_bounds, const float* sub_bounds,
+                            const float* group_bounds, const float* inner_gap,
+                            const float* balls, const float* tris,
+                            const float* attrs) {
+  l2n::TriSceneView s{};
+  s.n = m;
+  s.n_slabs = n_slabs;
+  s.tpad = tpad;
+  s.mesh_bounds = mesh_bounds;
+  s.slab_count = slab_count;
+  s.slab_bounds = slab_bounds;
+  s.sub_bounds = sub_bounds;
+  s.group_bounds = group_bounds;
+  s.inner_gap = inner_gap;
+  s.balls = balls;
+  s.tris = tris;
+  s.attrs = attrs;
+  return s;
+}
 int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          int tpad, const int32_t* sched,
                          const float* mesh_bounds, const int32_t* slab_count,
                          const float* slab_bounds, const float* sub_bounds,
-                         const float* tris, const float* attrs,
-                         const float* albedo, const float* material,
-                         const float* lights, float* accum, float* output,
-                         uint32_t* rng_state) {
+                         const float* group_bounds, const float* inner_gap,
+                         const float* balls, const float* tris,
+                         const float* attrs, const float* albedo,
+                         const float* material, const float* lights,
+                         float* accum, float* output, uint32_t* rng_state) {
   l2n::PtParams p = l2n::params_from_arrays(ip, fp);
   p.lights = lights;
   const int m = p.n_scene;
-  l2n::TriSceneView s{m,          n_slabs, tpad,   mesh_bounds,
-                        slab_count, slab_bounds, sub_bounds, tris,
-                        attrs,      albedo,  albedo + m,
-                        albedo + 2 * m};
+  l2n::TriSceneView s =
+      tri_scene(m, n_slabs, tpad, mesh_bounds, slab_count, slab_bounds,
+                sub_bounds, group_bounds, inner_gap, balls, tris, attrs);
+  s.ar = albedo;
+  s.ag = albedo + m;
+  s.ab = albedo + 2 * m;
   s.mat = material;
   return l2n::dispatch_fused<RenderTiles>(p, p, s, sched, accum, output,
                                           rng_state);
@@ -570,28 +607,45 @@ void l2n_sphere_nearest_host(const int32_t* ip, const float* fp,
     index[i] = h.index;
   }
 }
-// The triangle walk's nearest hit and any-hit (csrc/triangle_pt.cuh
-// TriSceneView) of n rays (6, n) over the packed scene, every mesh a
-// candidate.
-void l2n_triangle_nearest_host(int m, int n_slabs, int tpad,
-                               const float* mesh_bounds,
-                               const int32_t* slab_count,
-                               const float* slab_bounds,
-                               const float* sub_bounds, const float* tris,
-                               const float* attrs, const float* rays,
-                               float* t, int32_t* index, int32_t* any,
-                               int64_t n) {
-  l2n::TriSceneView s{m,          n_slabs,     tpad,  mesh_bounds,
-                      slab_count, slab_bounds, sub_bounds, tris,
-                      attrs,      nullptr,     nullptr,    nullptr};
+// The triangle walk's casts (csrc/triangle_pt.cuh TriSceneView) of n rays
+// (6, n) over the packed scene, every mesh a candidate: `cast` 0 the
+// nearest hit (t, index), 1 the any-hit, 2 the ambient-occlusion cast
+// (`occluded`, any direction length) (index = the hit flag, t = 0); `seed`
+// the seed that each cast's seeded walk took (L2N_NOTE_SEED).
+void l2n_triangle_cast_host(int cast, int m, int n_slabs, int tpad,
+                            const float* mesh_bounds,
+                            const int32_t* slab_count,
+                            const float* slab_bounds, const float* sub_bounds,
+                            const float* group_bounds, const float* inner_gap,
+                            const float* balls, const float* tris,
+                            const float* attrs, const float* rays, float* t,
+                            int32_t* index, float* seed, int64_t n) {
+  const l2n::TriSceneView s =
+      tri_scene(m, n_slabs, tpad, mesh_bounds, slab_count, slab_bounds,
+                sub_bounds, group_bounds, inner_gap, balls, tris, attrs);
   for (int64_t i = 0; i < n; ++i) {
     const float* r = rays + i;
-    const l2n::Hit h = s.nearest(r[0], r[n], r[2 * n], r[3 * n], r[4 * n],
-                                 r[5 * n]);
-    t[i] = h.t;
-    index[i] = h.index;
-    any[i] = s.anyhit(r[0], r[n], r[2 * n], r[3 * n], r[4 * n], r[5 * n]);
+    const float o[3] = {r[0], r[n], r[2 * n]};
+    const float d[3] = {r[3 * n], r[4 * n], r[5 * n]};
+    t[i] = 0.0f;
+    g_seed = NAN;
+    if (cast == 0) {
+      const l2n::Hit h = s.nearest(o[0], o[1], o[2], d[0], d[1], d[2]);
+      t[i] = h.t;
+      index[i] = h.index;
+    } else if (cast == 1) {
+      index[i] = s.anyhit(o[0], o[1], o[2], d[0], d[1], d[2]);
+    } else {
+      index[i] = s.occluded(o[0], o[1], o[2], d[0], d[1], d[2]);
+    }
+    seed[i] = g_seed;
   }
+}
+// The fallback walks since the last call.
+int64_t l2n_fallbacks_host() {
+  const int64_t f = g_fallbacks;
+  g_fallbacks = 0;
+  return f;
 }
 int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* spheres,
@@ -707,15 +761,18 @@ void l2n_nee_area_host(const int32_t* ip, const float* fp,
 void l2n_nee_cone_host(const int32_t* ip, const float* fp, int n_slabs,
                        int tpad, const float* mesh_bounds,
                        const int32_t* slab_count, const float* slab_bounds,
-                       const float* sub_bounds, const float* tris,
-                       const float* attrs, int mode, int mis, const float* u,
-                       const float* h, const float* nv, const float* nu,
-                       const float* wo, const float* kd, const float* mat,
-                       const float* tp, int64_t n, float* col) {
+                       const float* sub_bounds, const float* group_bounds,
+                       const float* inner_gap, const float* balls,
+                       const float* tris, const float* attrs, int mode,
+                       int mis, const float* u, const float* h,
+                       const float* nv, const float* nu, const float* wo,
+                       const float* kd, const float* mat, const float* tp,
+                       int64_t n, float* col) {
   const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
-  l2n::TriSceneView s{p.n_scene, n_slabs,     tpad,       mesh_bounds,
-                      slab_count, slab_bounds, sub_bounds, tris,
-                      attrs,      nullptr,     nullptr,    nullptr};
+  const l2n::TriSceneView s =
+      tri_scene(p.n_scene, n_slabs, tpad, mesh_bounds, slab_count,
+                slab_bounds, sub_bounds, group_bounds, inner_gap, balls, tris,
+                attrs);
   nee_lanes(p, s, mode, mis, u, h, nv, nu, wo, kd, mat, tp, n, col);
 }
 // The MIS weight of emission found at n hits (t, normal nrm (3, n), r2,
@@ -904,7 +961,7 @@ def _build_shim(tmp_path_factory, *defines):
     p = ctypes.c_void_p
     lib.l2n_sphere_pt_host.argtypes = [p] * 8
     lib.l2n_sphere_pt_host.restype = ctypes.c_int
-    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
+    lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 16
     lib.l2n_triangle_pt_host.restype = ctypes.c_int
     lib.l2n_visibility_host.argtypes = [p, p, p, p, ctypes.c_int, p]
     lib.l2n_walk_stats_host.argtypes = [p]
@@ -921,8 +978,9 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_sun_host.argtypes = [p, p, ctypes.c_int64]
     lib.l2n_camera_dirs_host.argtypes = [p, p, p, p, ctypes.c_int64]
     lib.l2n_sphere_nearest_host.argtypes = [p] * 6 + [ctypes.c_int64]
-    lib.l2n_triangle_nearest_host.argtypes = [ctypes.c_int] * 3 + [p] * 10 + [
+    lib.l2n_triangle_cast_host.argtypes = [ctypes.c_int] * 4 + [p] * 13 + [
         ctypes.c_int64]
+    lib.l2n_fallbacks_host.restype = ctypes.c_int64
     i = ctypes.c_int
     lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
     lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i, p, p, p, p, p,
@@ -937,7 +995,7 @@ def _build_shim(tmp_path_factory, *defines):
     lib.l2n_wavefront_pass_c_host.argtypes = [p] * 7
     lib.l2n_nee_area_host.argtypes = [p, p, p, i, i] + [p] * 8 + [
         ctypes.c_int64, p]
-    lib.l2n_nee_cone_host.argtypes = [p, p, i, i] + [p] * 6 + [i, i] + [
+    lib.l2n_nee_cone_host.argtypes = [p, p, i, i] + [p] * 9 + [i, i] + [
         p] * 8 + [ctypes.c_int64, p]
     lib.l2n_mis_weight_host.argtypes = [p, p, i] + [p] * 7 + [
         ctypes.c_int64, p]
@@ -970,6 +1028,29 @@ def _walk_stats(host_lib):
     out = np.zeros(3, np.int64)
     host_lib.l2n_walk_stats_host(_ptr(out))
     return tuple(int(x) for x in out)
+
+
+def _scene_ptrs(buf):
+    """Pointers to the packed scene's arrays the walk reads
+    (TriangleBuffers.kernel_arrays up to attrs; contiguous tensors, whose
+    memory `buf` keeps alive)."""
+    return [_ptr(a.numpy()) for a in buf.kernel_arrays()[:9]]
+
+
+def _cast(host_lib, cast, buf, rays, seeds=False):
+    """The header's casts of rays (6, n) over `buf`, every mesh a
+    candidate: (t, index) of `nearest` (cast 0), or (0, hit flag) of
+    `anyhit` (1) and `occluded` (2); with `seeds`, also the seed that
+    each cast's seeded walk took."""
+    rays = np.ascontiguousarray(rays, np.float32)
+    n = rays.shape[1]
+    t, index = np.empty(n, np.float32), np.empty(n, np.int32)
+    seed = np.empty(n, np.float32)
+    m, s = buf.slab_bounds.shape[:2]
+    host_lib.l2n_triangle_cast_host(cast, m, s, s * 128, *_scene_ptrs(buf),
+                                    _ptr(rays), _ptr(t), _ptr(index),
+                                    _ptr(seed), n)
+    return (t, index, seed) if seeds else (t, index)
 
 
 def _ptr(a):
@@ -1415,9 +1496,7 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None):
             continue
         m, s = buf.slab_bounds.shape[:2]
         ip, fp = step_params(cfg, k, m, cam)
-        arrays = [sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-                  buf.sub_bounds, buf.tris, buf.attrs, buf.albedo,
-                  buf.material]
+        arrays = [sched, *buf.kernel_arrays()]
         assert host_lib.l2n_triangle_pt_host(
             _ptr(ip), _ptr(fp), s, s * 128,
             *(_ptr(a.numpy()) for a in arrays), None, _ptr(accum.numpy()),
@@ -1561,7 +1640,7 @@ from l2n_tpu_torch.scene import (build_triangle_scene, compute_spheres,
                                  load_obj, torus_field_obj)
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
-lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 16
 cfg = RenderConfig(width=128, height=64, scene_kind="triangle",
                    aov=sys.argv[2] if len(sys.argv) > 2 else "pathtracing")
 cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
@@ -1574,13 +1653,11 @@ for scene in (build_triangle_scene(compute_spheres(128)),
     output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
     ip, fp = step_params(cfg, cfg.tile_count, m, Camera.from_config(cfg).packed())
     arrays = [ip, fp] + [t.numpy() for t in (
-        sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-        buf.sub_bounds, buf.tris, buf.attrs, buf.albedo, buf.material,
-        accum, output)]
+        sched, *buf.kernel_arrays(), accum, output)]
     ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]
     for _ in range(2):
-        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:11],
-                                        None, *ptrs[11:], None) == 0
+        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:14],
+                                        None, *ptrs[14:], None) == 0
     assert float(accum[3].sum()) == 2 * cfg.padded_height * cfg.padded_width
 print("clean")
 """
@@ -2035,9 +2112,7 @@ def _triangle_host_vs_plain_with_state(lib, cfg):
                 continue
             m, s = buf.slab_bounds.shape[:2]
             ip, fp = step_params(cfg, k, m, cam)
-            arrays = [sched, buf.mesh_bounds, buf.slab_count, buf.slab_bounds,
-                      buf.sub_bounds, buf.tris, buf.attrs, buf.albedo,
-                      buf.material]
+            arrays = [sched, *buf.kernel_arrays()]
             assert lib.l2n_triangle_pt_host(
                 _ptr(ip), _ptr(fp), s, s * 128,
                 *(_ptr(a.numpy()) for a in arrays), None,
@@ -2712,9 +2787,7 @@ def test_material_triangle_header_matches_plain_step(lib, case):
                 continue
             m, s = buf.slab_bounds.shape[:2]
             ip, fp = step_params(cfg, k, m, cam, lights)
-            arrays = [sched, buf.mesh_bounds, buf.slab_count,
-                      buf.slab_bounds, buf.sub_bounds, buf.tris, buf.attrs,
-                      buf.albedo, buf.material]
+            arrays = [sched, *buf.kernel_arrays()]
             assert lib.l2n_triangle_pt_host(
                 _ptr(ip), _ptr(fp), s, s * 128,
                 *(_ptr(a.numpy()) for a in arrays),
@@ -2799,7 +2872,7 @@ from l2n_tpu_torch.scene.materials import DirectionalLights, PointLights
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
 lib.l2n_sphere_pt_host.argtypes = [p] * 8
-lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 13
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 16
 ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
 # Two point lights and three directional ones, each buffer exactly its
 # size: the light loop reads 6 floats per light and no more.
@@ -2832,9 +2905,7 @@ for mode in ("microfacet", "disney"):
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
     ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
-    arrays = [np.ascontiguousarray(t.numpy()) for t in (
-        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
-        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
         ptr(rows), ptr(accum), ptr(output), None) == 0
@@ -2969,12 +3040,7 @@ def test_nee_cone_header_matches_plain(lib, mode, mis):
                                          mis, brdf_eval)
 
     _nee_host_vs_plain(lib.l2n_nee_cone_host, (
-        _ptr(ip), _ptr(fp), s, s * 128, *(_ptr(getattr(buf, k).numpy())
-                                          for k in ("mesh_bounds",
-                                                    "slab_count",
-                                                    "slab_bounds",
-                                                    "sub_bounds", "tris",
-                                                    "attrs"))),
+        _ptr(ip), _ptr(fp), s, s * 128, *_scene_ptrs(buf)),
         plain, cfg, lanes, mode, mis)
 
 
@@ -3165,7 +3231,7 @@ from l2n_tpu_torch.scene.materials import PointLights
 lib = ctypes.CDLL(sys.argv[1])
 p, i = ctypes.c_void_p, ctypes.c_int
 lib.l2n_sphere_pt_host.argtypes = [p] * 8
-lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 13
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 16
 lib.l2n_wavefront_pass_a_host.argtypes = [p] * 10
 lib.l2n_wavefront_pass_b_host.argtypes = [p, p, i, i, i] + [p] * 6
 ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
@@ -3222,9 +3288,7 @@ for mode in ("procedural", "microfacet"):
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
     ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
-    arrays = [np.ascontiguousarray(t.numpy()) for t in (
-        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
-        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
         ptr(rows), ptr(accum), ptr(output), None) == 0
@@ -3394,10 +3458,7 @@ def test_fog_nee_header_matches_plain(lib, kind):
         sampler = nee.mesh_light_sampler(cfg, buf.mesh_bounds)
         intersect = triangle_intersector(buf.soup, buf.mesh_bounds[:, 3])
         fn = lib.l2n_nee_cone_host
-        args = (_ptr(ip), _ptr(fp), s, s * 128, *(
-            _ptr(getattr(buf, k).numpy()) for k in (
-                "mesh_bounds", "slab_count", "slab_bounds", "sub_bounds",
-                "tris", "attrs")))
+        args = (_ptr(ip), _ptr(fp), s, s * 128, *_scene_ptrs(buf))
 
         def plain(t):
             return nee.nee_cone_contribution(
@@ -3462,7 +3523,7 @@ from l2n_tpu_torch.scene.materials import DirectionalLights, PointLights
 lib = ctypes.CDLL(sys.argv[1])
 p, i = ctypes.c_void_p, ctypes.c_int
 lib.l2n_sphere_pt_host.argtypes = [p] * 8
-lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 13
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 16
 ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
 lights = ExplicitLights(None, PointLights.from_arrays(
     np.zeros((1, 3), np.float32), np.full((1, 3), 5e7, np.float32)),
@@ -3490,9 +3551,7 @@ for kw in ({"max_bounces": 1}, {"nee": True, "mis": True,
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
     ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
-    arrays = [np.ascontiguousarray(t.numpy()) for t in (
-        buf.mesh_bounds, buf.slab_count, buf.slab_bounds, buf.sub_bounds,
-        buf.tris, buf.attrs, buf.albedo, buf.material)]
+    arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
         ptr(rows), ptr(accum), ptr(output), None) == 0
@@ -3544,15 +3603,8 @@ def test_triangle_walk_keeps_far_grazing_hits(lib):
          0.9698176383972168, 0.02880021743476391, -0.2421243041753769]],
         np.float32)
     rays = np.ascontiguousarray(np.concatenate([caught, rays]).T)
-    n = rays.shape[1]
-    t = np.empty(n, np.float32)
-    index, hit = np.empty(n, np.int32), np.empty(n, np.int32)
-    ms, s = buf.slab_bounds.shape[:2]
-    lib.l2n_triangle_nearest_host(
-        ms, s, s * 128, *(_ptr(np.ascontiguousarray(getattr(buf, k).numpy()))
-                          for k in ("mesh_bounds", "slab_count", "slab_bounds",
-                                    "sub_bounds", "tris", "attrs")),
-        _ptr(rays), _ptr(t), _ptr(index), _ptr(hit), n)
+    t, index = _cast(lib, 0, buf, rays)
+    _, hit = _cast(lib, 1, buf, rays)
     want = triangle_intersector(buf.soup)(*(torch.from_numpy(r)
                                             for r in rays))
     np.testing.assert_array_equal(t, want.t.numpy())
@@ -3560,3 +3612,250 @@ def test_triangle_walk_keeps_far_grazing_hits(lib):
     np.testing.assert_array_equal(hit.astype(bool), want.t.numpy() >= 0.0)
     assert index[0] == index[1] == 56
     assert (index >= 0).mean() > 0.5
+
+
+# --- the slab-group level and certain-hit seeding (ROADMAP Queue 2 #3, #4) --
+
+@functools.lru_cache(maxsize=None)
+def _seeded_buffers(name):
+    """The walk's three cases: the default scene reduced to 16 spheres (2
+    slabs per mesh, every mesh an inscribed sphere), two tori (3 slabs per
+    mesh, interior balls, no inscribed sphere) and a small trefoil knot
+    (one mesh of 15 slabs in 2 groups, the second partial; balls and a
+    tiny inscribed sphere)."""
+    if name == "default16":
+        scene = build_triangle_scene(compute_spheres(16))
+    elif name == "tori2":
+        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10))
+    else:
+        scene = load_obj(trefoil_obj(seg_u=48, seg_v=20))
+    return TriangleBuffers.from_scene(scene)
+
+
+def _surface_rays(buf, n=1536, seed=17):
+    """Rays (6, n) float32 of three kinds, a third each: from 2-6 bound
+    radii outside, aimed at a random surface point; bounce rays from a
+    random surface point in a random direction (half of them into the
+    solid); and the same from 1e-3 along their direction."""
+    soup = {k: v.numpy() for k, v in buf.soup.items()}
+    gen = np.random.Generator(np.random.PCG64(seed))
+    ti = gen.integers(0, soup["v1x"].shape[0], n)
+    u = gen.random(n)
+    v = gen.random(n) * (1.0 - u)
+    p = np.stack([soup[f"v1{a}"][ti] + u * soup[f"e1{a}"][ti]
+                  + v * soup[f"e2{a}"][ti] for a in "xyz"], 1)
+    d = gen.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mb = buf.mesh_bounds.numpy().astype(np.float64)
+    mesh = soup["mesh_id"][ti]
+    k = n // 3
+    reach = np.sqrt(mb[mesh[:k], 3]) * (2.0 + 4.0 * gen.random(k))
+    o = p.copy()
+    o[:k] = p[:k] - d[:k] * reach[:, None]
+    o[2 * k:] = p[2 * k:] + 1e-3 * d[2 * k:]
+    return np.ascontiguousarray(
+        np.concatenate([o, d], 1).astype(np.float32).T)
+
+
+SEEDED_SCENES = ["default16", "tori2", "trefoil"]
+
+
+@pytest.mark.parametrize("cast", ["nearest", "anyhit", "occluded"])
+@pytest.mark.parametrize("name", SEEDED_SCENES)
+def test_seeded_walk_header_matches_brute_force(lib, name, cast):
+    """nearest, anyhit and occluded over the three scenes' packed data
+    (inscribed spheres, interior balls, slab groups) against the plain
+    brute-force sweep, bit-equal, with bounce origins on the surface;
+    `occluded` along directions of length 0.5-1. For nearest and anyhit,
+    the seeds that the header's walks took (L2N_NOTE_SEED) equal
+    certain_hit_seed's bit for bit and many casts are seeded; for nearest,
+    the casts that walk again are exactly those takes_fallback counts."""
+    from l2n_tpu_torch.ops.scenes import triangle_intersector
+    buf = _seeded_buffers(name)
+    rays = _surface_rays(buf)
+    if cast == "occluded":
+        scale = np.random.Generator(np.random.PCG64(3)).uniform(
+            0.5, 1.0, rays.shape[1]).astype(np.float32)
+        rays[3:] = rays[3:] * scale
+    want = triangle_intersector(buf.soup)(*(torch.from_numpy(r)
+                                            for r in rays))
+    lib.l2n_fallbacks_host()
+    t, index, header_seed = _cast(
+        lib, ["nearest", "anyhit", "occluded"].index(cast), buf, rays,
+        seeds=True)
+    fallbacks = lib.l2n_fallbacks_host()
+    seed = certain_hit_seed(buf, *(torch.from_numpy(r) for r in rays))
+    if cast != "occluded":
+        np.testing.assert_array_equal(header_seed, seed.numpy())
+        assert (seed < float("inf")).float().mean() > 0.05
+    if cast != "nearest":
+        np.testing.assert_array_equal(index.astype(bool),
+                                      want.t.numpy() >= 0.0)
+        assert 0.3 < (index != 0).mean() < 1.0
+        return
+    np.testing.assert_array_equal(t, want.t.numpy())
+    np.testing.assert_array_equal(index, want.index.numpy())
+    assert fallbacks == int(takes_fallback(seed, want.t).sum())
+
+
+@pytest.mark.parametrize("name", SEEDED_SCENES)
+def test_seeded_walk_header_fallback(lib, name):
+    """A seed below the true hit: every mesh's inscribed sphere forged to
+    its bound (inner_gap 0), so a cast that enters a bound is seeded at
+    the bound's entry or exit. Most hitting casts find nothing under the
+    seed and walk again; nearest and anyhit still return the brute-force
+    sweep's hits, bit for bit, and the fallbacks are those takes_fallback
+    counts."""
+    from l2n_tpu_torch.ops.scenes import triangle_intersector
+    buf = _seeded_buffers(name)
+    forged = dataclasses.replace(buf,
+                                 inner_gap=torch.zeros_like(buf.inner_gap))
+    rays = _surface_rays(forged, seed=23)
+    want = triangle_intersector(buf.soup)(*(torch.from_numpy(r)
+                                            for r in rays))
+    lib.l2n_fallbacks_host()
+    t, index = _cast(lib, 0, forged, rays)
+    fallbacks = lib.l2n_fallbacks_host()
+    np.testing.assert_array_equal(t, want.t.numpy())
+    np.testing.assert_array_equal(index, want.index.numpy())
+    seed = certain_hit_seed(forged, *(torch.from_numpy(r) for r in rays))
+    assert fallbacks == int(takes_fallback(seed, want.t).sum())
+    assert fallbacks > 0.25 * int((want.t >= 0).sum())
+    _, hit = _cast(lib, 1, forged, rays)
+    assert lib.l2n_fallbacks_host() > 0
+    np.testing.assert_array_equal(hit.astype(bool), want.t.numpy() >= 0.0)
+
+
+def _trefoil_view(cfg, scene, offset=(0.35, 0.25, 1.0), dist=1.6):
+    """tests/test_bigmesh.py::aimed_camera: the knot fills the view."""
+    verts = np.asarray(scene.vertices).reshape(-1, 3)
+    target = verts.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(verts - target, axis=1).max())
+    vm = look_at(target + np.asarray(offset, np.float32) * dist * radius,
+                 target, np.array([0.0, 1.0, 0.0], np.float32))
+    return Camera.from_config(cfg, view_matrix=vm).packed()
+
+
+@pytest.mark.parametrize("aov", ["pathtracing", "ambient_occlusion"])
+def test_triangle_header_trefoil_groups(lib, aov):
+    """Whole steps over the small trefoil (15 slabs: the group level, its
+    partial second group, the balls' seeds) from test_bigmesh's view:
+    the header's render equals the plain brute-force step's, 2 steps."""
+    cfg = RenderConfig(width=128, height=64, tiles_per_step=2, aov=aov,
+                       scene_kind="triangle").validate()
+    scene = load_obj(trefoil_obj(seg_u=48, seg_v=20))
+    cam = _trefoil_view(cfg, scene)
+    ha, _ = _render_triangles(cfg, scene, cam, 2, host_lib=lib)
+    pa, _ = _render_triangles(cfg, scene, cam, 2)
+    assert (pa[:3].max(0) > 0).mean() > 0.1
+    np.testing.assert_array_equal(ha, pa)
+
+
+# The knot behind a light (probes/step_ab.py lit_knot) per triangle_pt
+# body: materials (under the sun sky), NEE, fog, and the AO AOV.
+LIT_KNOT_SETTINGS = {
+    "microfacet_bump_sun": {"material_mode": "microfacet", "normal_map": 0.8,
+                            "env_mode": "sun"},
+    "nee_mis_microfacet": {"nee": True, "mis": True,
+                           "material_mode": "microfacet"},
+    "fog_nee_mis": {"fog_density": 0.0008, "fog_albedo": 0.8, "nee": True,
+                    "mis": True},
+    "ambient_occlusion": {"aov": "ambient_occlusion"}}
+
+
+@pytest.mark.parametrize("setting", list(LIT_KNOT_SETTINGS))
+def test_triangle_header_lit_trefoil_bodies(lib, setting):
+    """The small trefoil (15 slabs in 2 groups) as mesh 1 behind an
+    emissive sphere, so that bounces, the last segments' any-hit, NEE's
+    shadow rays and the AO cast walk its groups and its balls seed them,
+    in the materials, NEE and fog bodies (whose walk the card calls out of
+    line) and the AOV body: the header's render against the plain
+    brute-force step's, 2 steps, lit. The AO render is bit-equal; the
+    bodies' renders have equal sample counts and differ by under 1e-4 of
+    their values (the C library's sinf/cosf against torch's in the BSDFs
+    and the bump, as in the material tests: up to 2e-5 here); a cast that
+    found another hit would differ by the order of the value."""
+    from l2n_tpu_torch.probes.step_ab import lit_knot
+    cfg = RenderConfig(width=128, height=64, tiles_per_step=2,
+                       scene_kind="triangle",
+                       **LIT_KNOT_SETTINGS[setting]).validate()
+    knot = load_obj(trefoil_obj(seg_u=48, seg_v=20))
+    scene = lit_knot(knot)
+    cam = _trefoil_view(cfg, knot)
+    ha, _ = _render_triangles(cfg, scene, cam, 2, host_lib=lib)
+    pa, _ = _render_triangles(cfg, scene, cam, 2)
+    assert (pa[:3].max(0) > 0).mean() > 0.05
+    if setting == "ambient_occlusion":
+        np.testing.assert_array_equal(ha, pa)
+    else:
+        np.testing.assert_array_equal(ha[3], pa[3])
+        np.testing.assert_allclose(ha, pa, rtol=1e-4, atol=1e-5)
+
+
+ASAN_SEEDED = r"""
+import ctypes, dataclasses, json, sys
+import numpy as np, torch
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.maths.linalg import look_at
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.probes.step_ab import lit_knot
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import load_obj, torus_field_obj, trefoil_obj
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 16
+lib.l2n_fallbacks_host.restype = ctypes.c_int64
+cfg = RenderConfig(width=128, height=64, scene_kind="triangle",
+                   **json.loads(sys.argv[2]))
+cfg = cfg.replace(tiles_per_step=cfg.tile_count).validate()
+fallbacks = 0
+# 9 and 15 slabs (a last group of 1 and of 7), two tori with balls, and
+# the 15-slab knot as mesh 1 behind a light; each also with every
+# inscribed sphere forged to its bound (the fallback).
+for scene in (load_obj(trefoil_obj(seg_u=36, seg_v=16)),
+              load_obj(trefoil_obj(seg_u=48, seg_v=20)),
+              load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10)),
+              lit_knot(load_obj(trefoil_obj(seg_u=48, seg_v=20)))):
+    real = TriangleBuffers.from_scene(scene)
+    verts = scene.vertices
+    target = verts.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(verts - target, axis=1).max())
+    vm = look_at(target + np.float32([0.35, 0.25, 1.0]) * 1.6 * radius,
+                 target, np.float32([0.0, 1.0, 0.0]))
+    cam = Camera.from_config(cfg, view_matrix=vm).packed()
+    for buf in (real, dataclasses.replace(
+            real, inner_gap=torch.zeros_like(real.inner_gap))):
+        m, s = buf.slab_bounds.shape[:2]
+        sched = torch.as_tensor(tile_grid(cfg))
+        accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
+        output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
+        ip, fp = step_params(cfg, cfg.tile_count, m, cam)
+        arrays = [ip, fp] + [t.numpy() for t in (
+            sched, *buf.kernel_arrays(), accum, output)]
+        ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]
+        assert lib.l2n_triangle_pt_host(*ptrs[:2], s, s * 128, *ptrs[2:14],
+                                        None, *ptrs[14:], None) == 0
+        assert float(accum[3].sum()) == cfg.padded_height * cfg.padded_width
+        assert float(accum[:3].max()) > 0
+        fallbacks += lib.l2n_fallbacks_host()
+assert fallbacks > 0
+print("clean")
+"""
+
+
+@pytest.mark.parametrize("setting", ["pathtracing", "ambient_occlusion",
+                                     "microfacet_bump_sun",
+                                     "nee_mis_microfacet", "fog_nee_mis"])
+def test_seeded_grouped_walk_header_memcheck_asan(asan_build, setting):
+    """The memory check of the group level and the seeded walk (ROADMAP
+    Queue 3 #15, #4): whole frames over trefoils of 9 and 15 slabs (a
+    partial last group of 1 and of 7 slabs, never read past the mesh's
+    own slabs), two tori with interior balls and the 15-slab knot behind
+    a light (its bounces, any-hit and shadow rays walk the groups), with
+    the packed data and with the inscribed spheres forged so that casts
+    walk again; the path tracer, the ambient-occlusion cast (`occluded`)
+    and the materials, NEE and fog bodies."""
+    over = LIT_KNOT_SETTINGS.get(setting, {})
+    _asan_render(asan_build, script=ASAN_SEEDED, args=(json.dumps(over),))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from l2n_tpu.config import RenderConfig as JRenderConfig
+from l2n_tpu.ops.kernels import triangle_pt as jtriangle_pt
 from l2n_tpu.ops.kernels.triangle_pt import pack_mesh_blocks as jpack_blocks
 from l2n_tpu.ops.kernels.triangle_pt import pack_slab_groups as jpack_groups
 from l2n_tpu.ops.intersect import intersect_triangle_scene as jintersect
@@ -33,7 +34,7 @@ from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.ops.intersect import intersect_triangle_scene
-from l2n_tpu_torch.ops.kernels import build
+from l2n_tpu_torch.ops.kernels import build, triangle_pack
 from l2n_tpu_torch.ops.kernels.common import check_supported, launch, launches
 from l2n_tpu_torch.ops.kernels.triangle_pack import (
     ROWS,
@@ -179,8 +180,9 @@ def test_packing_byte_equal(name, tmp_path, monkeypatch):
     jscene, scene = _packing_scenes(name)
     want = jpack_blocks(jscene)
     got = pack_mesh_blocks(scene)
-    for i, field in enumerate(("blocks", "bounds", "slab_bounds",
-                               "sub_bounds", "slab_count")):
+    for i, field in ((0, "blocks"), (1, "bounds"), (2, "slab_bounds"),
+                     (3, "sub_bounds"), (4, "slab_count"), (5, "inner_gap"),
+                     (7, "balls")):
         _same_bytes(want[i], getattr(got, field), field)
     for gsub in (2, 8):
         for w, g in zip(jpack_groups(want[2], want[4], gsub),
@@ -198,6 +200,120 @@ def test_packing_byte_equal(name, tmp_path, monkeypatch):
     assert sorted(got.slot_index[live]) == list(range(scene.total_triangles))
     if name == "tori4":
         assert (got.slab_count == 6).all()  # the multi-slab case
+
+
+def _certain_hit_scenes(name):
+    """(JAX scene, port scene): the default scene reduced to 16 spheres, two
+    tori, a small trefoil (15 slabs, 2 groups, the second partial)."""
+    if name == "default16":
+        return (jbuild_triangles(jcompute(16)),
+                build_triangle_scene(compute_spheres(16)))
+    text = (torus_field_obj(n_tori=2, seg_u=16, seg_v=10) if name == "tori2"
+            else trefoil_obj(seg_u=48, seg_v=20))
+    return jload_obj(text), load_obj(text)
+
+
+def _mesh_faces(scene, m):
+    tris = np.asarray(scene.indices).reshape(-1, 3)
+    off = int(scene.index_offset[m]) // 3
+    return tris[off:off + int(scene.triangle_count[m])]
+
+
+@pytest.mark.parametrize("name", ["default16", "tori2", "trefoil"])
+def test_certain_hit_packing_byte_equal(name):
+    """The slab groups, the inscribed spheres (inner_gap), the interior
+    balls, the per-mesh watertight flags and the canonical vertex ids are
+    byte-equal to the JAX packer's (its groups at its own gsub, min(8,
+    the slab stride))."""
+    jscene, scene = _certain_hit_scenes(name)
+    want = jpack_blocks(jscene)
+    got = pack_mesh_blocks(scene)
+    _same_bytes(want[5], got.inner_gap, "inner_gap")
+    _same_bytes(want[7], got.balls, "balls")
+    spp = 1 << (want[2].shape[1] - 1).bit_length()
+    for w, g in zip(jpack_groups(want[2], want[4], min(8, spp)),
+                    (got.group_bounds, got.group_count)):
+        _same_bytes(w, g, "slab groups")
+    verts = np.asarray(scene.vertices)
+    canon = triangle_pack._canonical_vertex_ids(verts)
+    _same_bytes(jtriangle_pt._canonical_vertex_ids(
+        np.asarray(jscene.vertices)), canon, "canonical ids")
+    for m in range(scene.mesh_count):
+        tight = triangle_pack._mesh_watertight(verts, _mesh_faces(scene, m),
+                                               canon)
+        assert tight is jtriangle_pt._mesh_watertight(
+            np.asarray(jscene.vertices), _mesh_faces(jscene, m), canon)
+        assert tight
+    live = (got.balls[:, :, 3] > 0).sum(1)
+    if name == "default16":  # every sphere its inscribed sphere, no balls
+        assert (got.inner_gap < 2e30).all() and (live == 0).all()
+        assert (got.group_count == 1).all()
+    elif name == "tori2":  # the centre in the hole: balls only
+        assert (got.inner_gap > 2e30).all() and (live == 8).all()
+    else:
+        assert list(got.slab_count) == [15] and list(got.group_count) == [2]
+        assert got.inner_gap[0] < 2e30 and live[0] == 8
+
+
+def test_one_face_crack_turns_certain_hits_off():
+    """tests/test_kernels.py:256-257 on the port: a mesh missing one face is
+    not watertight and gets neither an inscribed sphere nor balls, while
+    its watertight neighbour keeps its own; byte-equal to the JAX packer
+    on the cracked scenes."""
+    for name in ("tori2", "default16"):
+        jscene, scene = _certain_hit_scenes(name)
+        verts = np.asarray(scene.vertices)
+        faces = _mesh_faces(scene, 0)
+        gone = len(faces) // 2  # a face of full area (not a pole sliver)
+        assert triangle_pack._mesh_watertight(verts, faces)
+        assert not triangle_pack._mesh_watertight(
+            verts, np.delete(faces, gone, 0))
+        cnt = np.asarray(scene.triangle_count).copy()
+        start = int(scene.index_offset[0]) + 3 * gone
+        indices = np.concatenate([scene.indices[:start],
+                                  scene.indices[start + 3:]])
+        cnt[0] -= 1
+        offsets = np.concatenate([[0], np.cumsum(cnt)[:-1] * 3])
+        cracked = TriangleScene(scene.vertices, scene.normals,
+                                scene.tex_coords, indices, cnt, offsets)
+        got = pack_mesh_blocks(cracked)
+        want = jpack_blocks(cracked)
+        _same_bytes(want[5], got.inner_gap, "inner_gap")
+        _same_bytes(want[7], got.balls, "balls")
+        assert got.inner_gap[0] > 2e30 and not (got.balls[0, :, 3] > 0).any()
+        if name == "tori2":
+            assert (got.balls[1, :, 3] > 0).all()
+        else:
+            assert got.inner_gap[1] < 2e30
+
+
+def test_torch_trefoil_step_matches_xla_oracle():
+    """The plain step on the small trefoil (one mesh of 1,920 triangles in
+    15 slabs) against the JAX XLA oracle run op by op, one step from
+    tests/test_bigmesh.py's aimed view at its 128x32 config and gates:
+    sample counts equal, |d| > 1e-3 on under 0.1% of the values (here
+    bit-equal), lit coverage > 0.1."""
+    cfg = RenderConfig(width=128, height=32, tile_width=128, tile_height=32,
+                       tiles_per_step=1, scene_kind="triangle").validate()
+    text = trefoil_obj(seg_u=48, seg_v=20)
+    jscene, scene = jload_obj(text), load_obj(text)
+    verts = np.asarray(scene.vertices)
+    target = verts.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(verts - target, axis=1).max())
+    vm = look_at(target + np.float32([0.35, 0.25, 1.0]) * 1.6 * radius,
+                 target, np.array([0.0, 1.0, 0.0], np.float32))
+    cam = Camera.from_config(cfg, view_matrix=vm).packed()
+    jstep = jbuild(_jcfg(cfg), jscene, backend="xla")
+    with jax.disable_jit():  # ~1 min per step
+        jst = jstep(jinit(_jcfg(cfg)), cam)
+    st = build_render_step(cfg, scene, backend="torch", device="cpu")(
+        init_frame_state(cfg), cam)
+    ja, ta = np.asarray(jst.accum), st.accum.numpy()
+    assert (ja[:3].max(0) > 0).mean() > 0.1
+    np.testing.assert_array_equal(ta[3], ja[3])
+    d = np.abs(ta - ja)
+    assert (d > 1e-3).mean() < 1e-3
+    assert d.max() == 0.0, f"port/oracle max abs {d.max()}"
 
 
 # --- intersection ----------------------------------------------------------
