@@ -58,6 +58,7 @@ its last line. The last line is
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import re
 import subprocess
@@ -3055,6 +3056,7 @@ def trefoil_phase(card, dev) -> dict:
     groups = int((buf.group_bounds[0, :, 3] > 0).sum())
     balls = int((buf.balls[0, :, 3] > 0).sum())
     r2, gap = float(buf.mesh_bounds[0, 3]), float(buf.inner_gap[0])
+    require(not buf.shelled, "the trefoil walks its slabs")
     require(scene.mesh_count == 1 and scene.total_triangles == 70144
             and slabs == 548 and groups == 69,
             f"trefoil: 1 mesh of 70,144 triangles in 548 slabs and 69 "
@@ -3164,6 +3166,148 @@ def trefoil_phase(card, dev) -> dict:
             "trefoil_10_tile_bound_by": bounds["10-tile"][1],
             "trefoil_whole_frame_bound_ms": bounds["whole-frame"][0],
             "trefoil_whole_frame_bound_by": bounds["whole-frame"][1]}
+
+
+def shell_phase(card, dev, tri_cfg, tri_buf, cam) -> dict:
+    """Phase 49 ([shell]): the shell visits of the default triangle scene
+    (csrc/shellwalk.cuh, ops/kernels/shellwalk.py). The plain shell cast
+    (shell_nearest, the JAX package's top-4 shells over the stored rows)
+    over one whole-frame plain step's bounce and any-hit casts: its counts
+    (resolved, pending, tries, wide and unsettled tries: the meshes the
+    kernel walks by their slabs, K exhausted), and its resolved lanes
+    against the brute-force hits of the same casts (gate: none differs).
+    triangle_pt against its plain version, 23 steps of 10 tiles and one
+    whole-frame step, in threefry and tpu_hw (gates: accum and output
+    bit-equal, lit > 0.02). The kernel's device time per call (CUDA
+    events, the best of 3 rounds) with the shell visits and with the slab
+    walk alone (the shell buffer's head zeroed), in turns: shell, slabs,
+    slabs, shell. Returns the triangle_pt row's shell_* keys."""
+    from l2n_tpu_torch.ops.kernels import shellwalk as sw
+    from l2n_tpu_torch.ops.kernels.common import (
+        launches,
+        render_tiles_plain,
+        reset_launches,
+    )
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        triangle_pt,
+        triangle_pt_plain,
+    )
+    from l2n_tpu_torch.ops.scenes import (
+        TRIANGLE_MISS_COLOR,
+        triangle_anyhit,
+        triangle_intersector,
+    )
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+    require(tri_buf.shelled, "the default triangle scene takes the shell")
+    whole = tri_cfg.replace(tiles_per_step=tri_cfg.tile_count)
+    tiles = torch.as_tensor(tile_grid(tri_cfg)).to(dev)
+    intersect = triangle_intersector(tri_buf.soup)
+    any_hit = triangle_anyhit(intersect)
+    stats, bad = collections.Counter(), collections.Counter()
+
+    def live_rays(ox, oy, oz, dx, dy, dz):
+        live = torch.broadcast_to(ox, dx.shape) < 1e30
+        return live, [torch.broadcast_to(a, dx.shape)[live]
+                      for a in (ox, oy, oz, dx, dy, dz)]
+
+    def nearest(ox, oy, oz, dx, dy, dz):
+        h = intersect(ox, oy, oz, dx, dy, dz)
+        if ox.dim() == 0:  # primaries keep the cone-culled walk
+            return h
+        live, r = live_rays(ox, oy, oz, dx, dy, dz)
+        t, m, pend = sw.shell_nearest(tri_buf.shell, tri_buf.shell_tris, *r,
+                                      stats=stats)
+        bt = h.t[live]
+        bm = torch.where(bt >= 0.0, h.index[live], -1)
+        bad["nearest"] += int((~pend & ((t != bt) | (m != bm))).sum())
+        return h
+
+    def anyhit(ox, oy, oz, dx, dy, dz):
+        hit = any_hit(ox, oy, oz, dx, dy, dz)
+        live, r = live_rays(ox, oy, oz, dx, dy, dz)
+        t, _, pend = sw.shell_nearest(tri_buf.shell, tri_buf.shell_tris, *r,
+                                      stats=stats)
+        bad["anyhit"] += int((~pend & ((t >= 0.0) != hit[live])).sum())
+        return hit
+
+    st = init_frame_state(whole, dev)
+    render_tiles_plain(whole, scheduled_tiles(tiles, 0, whole.tile_count),
+                       cam, nearest, anyhit, tri_buf.table(), st.accum,
+                       st.output, None, TRIANGLE_MISS_COLOR)
+    require(sum(bad.values()) == 0,
+            f"shell_nearest's resolved lanes are the brute-force hits {bad}")
+    require(stats["resolved"] > 0.9 * stats["rays"],
+            f"most casts resolve {dict(stats)}")
+
+    def hold(rcfg, steps):
+        """triangle_pt vs plain from fresh states: (max abs, lit)."""
+        k = rcfg.effective_tiles_per_step
+        ka, pa = init_frame_state(rcfg, dev), init_frame_state(rcfg, dev)
+        for i in range(steps):
+            sched = scheduled_tiles(tiles, i * k % rcfg.tile_count, k)
+            triangle_pt(rcfg, sched, cam, tri_buf, ka.accum, ka.output)
+            triangle_pt_plain(rcfg, sched, cam, tri_buf, pa.accum, pa.output)
+        torch.cuda.synchronize()
+        err = float((ka.accum - pa.accum).abs().max())
+        require(err == 0.0 and bits_equal(ka.output, pa.output),
+                f"shell: triangle_pt {rcfg.rng} {k} tiles kernel/plain max "
+                f"abs {err}, output bit-equal")
+        lit = float((pa.accum[:3, :rcfg.height, :rcfg.width].amax(0) > 0)
+                    .float().mean())
+        require(lit > 0.02, f"shell: lit {lit} > 0.02")
+        return err, round(lit, 4)
+
+    reset_launches()
+    gates = {(rng, label): hold(rcfg.replace(rng=rng), steps)
+             for rng in ("threefry", "tpu_hw")
+             for label, rcfg, steps in (
+                 ("10-tile", tri_cfg.replace(tiles_per_step=10), 23),
+                 ("whole-frame", whole, 1))}
+    held = launches["triangle_pt"]
+    require(held == 48, f"shell: 48 triangle_pt launches ({held})")
+    slabs = dataclasses.replace(tri_buf,
+                                shell=torch.zeros_like(tri_buf.shell))
+    ms = collections.defaultdict(list)
+    for rng in ("threefry", "tpu_hw"):
+        for label, rcfg, n in (("10-tile", tri_cfg.replace(
+                tiles_per_step=10), 50), ("whole-frame", whole, 10)):
+            rcfg = rcfg.replace(rng=rng)
+            sched = scheduled_tiles(tiles, 0, rcfg.effective_tiles_per_step)
+            sts = init_frame_state(rcfg, dev)
+            for walk in ("shell", "slabs", "slabs", "shell"):
+                b = tri_buf if walk == "shell" else slabs
+                ms[(rng, label, walk)].append(min(timed_calls(
+                    lambda: triangle_pt(rcfg, sched, cam, b, sts.accum,
+                                        sts.output), 2, n)
+                    for _ in range(3)))
+    times = {f"{rng} {label} {walk}": [round(x, 4) for x in v]
+             for (rng, label, walk), v in ms.items()}
+    tries = max(stats["tries"], 1)
+    phase(49, f"[shell] the default triangle scene's shell visits "
+              f"(disc_lat {int(tri_buf.shell[0])}, disc_long "
+              f"{int(tri_buf.shell[1])}): the plain shell cast over one "
+              f"whole-frame plain step's bounce and any-hit casts "
+              f"{dict(stats)}: resolved {stats['resolved'] / max(stats['rays'], 1):.4f} "
+              f"of the casts, per try wide {stats['wide'] / tries:.4f} and "
+              f"unsettled {stats['unsettled'] / tries:.4f} (the meshes the "
+              f"kernel walks by their slabs), K exhausted "
+              f"{stats['pending_k']}; resolved lanes vs the brute-force "
+              f"hits: {dict(bad)} differ (gate 0); triangle_pt vs plain "
+              f"(max abs, lit) {gates} (gates: 0, accum and output "
+              f"bit-equal, lit > 0.02), launches {held}; kernel ms per call "
+              f"(CUDA events, best of 3) in turns shell, slabs, slabs, "
+              f"shell: {times}; card: {card}")
+    return {"shell_launches": held,
+            "shell_max_abs_err": max(e for e, _ in gates.values()),
+            "shell_resolved": stats["resolved"] / max(stats["rays"], 1),
+            "shell_slab_tries": (stats["wide"] + stats["unsettled"]) / tries,
+            **{f"shell_{rng}_{label.replace('-', '_')}_ms": min(
+                ms[(rng, label, "shell")]) for rng in ("threefry", "tpu_hw")
+                for label in ("10-tile", "whole-frame")},
+            **{f"slabs_{rng}_{label.replace('-', '_')}_ms": min(
+                ms[(rng, label, "slabs")]) for rng in ("threefry", "tpu_hw")
+                for label in ("10-tile", "whole-frame")}}
 
 
 def main() -> int:
@@ -3430,6 +3574,8 @@ def main() -> int:
             tri_cfg.sphere_count, tri_cfg.world_size, tri_cfg.scene_seed),
             tri_cfg.disc_lat, tri_cfg.disc_long)
         tri_buf = TriangleBuffers.from_scene(tri_scene, dev)
+        require(tri_buf.shelled,
+                "the default triangle scene's casts take the shell visits")
         rmse, tri_err, flips, lit, _ = kernel_vs_plain(
             triangle_pt, triangle_pt_plain, whole, tri_buf, cam, 4)
         require(tri_err == 0.0,
@@ -3446,6 +3592,7 @@ def main() -> int:
         tori_buf = TriangleBuffers.from_scene(tori, dev)
         slabs = tori_buf.slab_count.cpu().numpy()
         require(bool((slabs > 1).all()), "every torus spans several slabs")
+        require(not tori_buf.shelled, "the torus field walks its slabs")
         # Aimed: 4 bound radii from the torus nearest the emissive torus 0,
         # on torus 0's side (0.1% of the default view is lit).
         b = tori_buf.mesh_bounds.cpu().numpy().astype(np.float64)
@@ -3834,6 +3981,7 @@ def main() -> int:
         program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam)
         sharded = parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam)
         trefoil = trefoil_phase(card, dev)
+        shell = shell_phase(card, dev, tri_cfg, tri_buf, cam)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)
@@ -4166,7 +4314,8 @@ def main() -> int:
             timings[("triangle_pt", "10-tile", "cuda")],
             timings[("triangle_pt", "10-tile", "torch")],
             **whole_frame("triangle_pt"),
-            sharded_launches=sharded.get("triangle_pt"), **trefoil),
+            sharded_launches=sharded.get("triangle_pt"), **trefoil,
+            **shell),
         *wave_rows,
         row("philox_bits", "l2n_tpu_torch/csrc/philox_bits.cu",
             "tests/test_tpu_hw.py:44", bits_launches, 0.0, "bit-equal",

@@ -68,12 +68,19 @@
 //     but slower at the reference's 10 tiles); the materials, NEE and
 //     fog bodies, whose path state spills at that cap, call each cast's
 //     walk out of line (TriSceneViewT<true>), the Lambert and AOV bodies
-//     inline it.
-// Not done: the TPU kernel's procedural shellwalk and its disjoint-sphere
-// sweeps (ROADMAP Queue 2 #5, #6); its certain-hit shortcut for the last
-// segment's any-hit (a hit declared without a walk) is not taken, as it
-// would change pixels against the brute-force sweep. The grid is K x
-// tile_height blocks of tile_width threads.
+//     inline it;
+//   * in a scene of lat/long sphere meshes (the reference's triangle
+//     scene), every cast but the primary tests, for each mesh it takes,
+//     the cells of the mesh's tessellation that its chord through the
+//     mesh's shell can meet, read from the stored rows by cell (the TPU
+//     kernel's shellwalk, csrc/shellwalk.cuh, which proves the window's
+//     coverage); a wide chord, or a window that settles nothing, walks the
+//     mesh's slabs, so the hit stays the brute-force sweep's.
+// Not done: the TPU kernel's disjoint-sphere sweeps (ROADMAP Queue 2 #6:
+// they differ from the full sweep, probes/assume_outside.py) and its
+// certain-hit shortcut for the last segment's any-hit (a hit declared
+// without a walk), as either would change pixels against the brute-force
+// sweep. The grid is K x tile_height blocks of tile_width threads.
 //
 // Twelve instantiations per sampler (pathtrace.cuh::dispatch_fused), as in
 // csrc/sphere_pt.cu: the Lambert path tracer, the primary-only AOVs, whose
@@ -114,6 +121,8 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
                    const float* __restrict__ balls,
                    const float* __restrict__ tris,
                    const float* __restrict__ attrs,
+                   const float* __restrict__ shell,
+                   const float* __restrict__ shell_tris,
                    const float* __restrict__ albedo,
                    const float* __restrict__ material,
                    float* __restrict__ accum, float* __restrict__ output,
@@ -165,6 +174,10 @@ triangle_pt_kernel(l2n::PtParams params, int n_slabs, int tpad,
   scene.balls = balls;
   scene.tris = tris;
   scene.attrs = attrs;
+  if (shell != nullptr && l2n::load1(shell) > 0.0f) {
+    scene.shell = shell;
+    scene.shell_tris = shell_tris;
+  }
   scene.ar = s_table;
   scene.ag = s_table + m;
   scene.ab = s_table + 2 * m;
@@ -191,6 +204,7 @@ struct LaunchTrianglePt {
                  const float* slab_bounds, const float* sub_bounds,
                  const float* group_bounds, const float* inner_gap,
                  const float* balls, const float* tris, const float* attrs,
+                 const float* shell, const float* shell_tris,
                  const float* albedo, const float* material, float* accum,
                  float* output, uint32_t* rng_state, cudaStream_t stream) {
     const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
@@ -210,8 +224,8 @@ struct LaunchTrianglePt {
     triangle_pt_kernel<Rng, kBody, kFast, kViewproj>
         <<<grid, block, smem, stream>>>(
         p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-        sub_bounds, group_bounds, inner_gap, balls, tris, attrs, albedo,
-        material, accum, output, rng_state);
+        sub_bounds, group_bounds, inner_gap, balls, tris, attrs, shell,
+        shell_tris, albedo, material, accum, output, rng_state);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -224,7 +238,9 @@ struct LaunchTrianglePt {
 // pointers: sched (K, 2) int32; mesh_bounds (M, 4), slab_count (M,) int32,
 // slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), group_bounds (M,
 // ceil(S / 8), 5), inner_gap (M,), balls (M, 8, 4), tris (M * tpad, 12),
-// attrs (T, 16), albedo (3, M), material (6, M), lights (n_point + n_dir,
+// attrs (T, 16), shell (l2n::kShellHead + 8 M) and shell_tris (rows, 12)
+// (csrc/shellwalk.cuh; null, or a shell whose first constant is 0: no
+// shell visits), albedo (3, M), material (6, M), lights (n_point + n_dir,
 // 6; null without lights), accum (4, Hp, Wp), output (3, Hp, Wp) float32;
 // rng_state (8 or 4, Hp, Wp) 32-bit words, null for the counter-based
 // samplers. Returns cudaGetLastError() after the launch (0 on success), -1
@@ -239,6 +255,7 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                const float* group_bounds,
                                const float* inner_gap, const float* balls,
                                const float* tris, const float* attrs,
+                               const float* shell, const float* shell_tris,
                                const float* albedo, const float* material,
                                const float* lights, float* accum,
                                float* output, uint32_t* rng_state,
@@ -247,6 +264,7 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
   p.lights = lights;
   return l2n::dispatch_fused<LaunchTrianglePt>(
       p, p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
-      sub_bounds, group_bounds, inner_gap, balls, tris, attrs, albedo,
-      material, accum, output, rng_state, static_cast<cudaStream_t>(stream));
+      sub_bounds, group_bounds, inner_gap, balls, tris, attrs, shell,
+      shell_tris, albedo, material, accum, output, rng_state,
+      static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,11 @@
 // 128-triangle slab sphere -> 16-triangle sub-cluster sphere ->
 // Möller-Trumbore), seeded by the meshes' certain hits, which the shared
 // path body (csrc/pathtrace.cuh) calls as nearest(), nearest_primary(),
-// anyhit() and occluded().
+// anyhit() and occluded(). In a scene of lat/long sphere meshes, every
+// cast but the primary tests the cells of a mesh that its chord through
+// the mesh's shell can meet instead of the mesh's slabs
+// (csrc/shellwalk.cuh), and walks the slabs only where the window cannot
+// settle the mesh.
 //
 // `__host__ __device__` like the path body: the CPU tests build this header
 // with g++ against the plain torch path (brute force over the soup).
@@ -84,6 +88,12 @@ L2N_HD int float_as_int(float f) {
   return i;
 #endif
 }
+
+}  // namespace l2n
+
+#include "shellwalk.cuh"
+
+namespace l2n {
 
 // Does the ray meet the bound sphere (c, r2) with some t >= 0, at an entry
 // distance that may still hold a hit at t <= best? Conservatively: a bound
@@ -176,6 +186,15 @@ constexpr int kLaneList = L2N_LANE_LIST;
 #ifndef L2N_NOTE_SEED
 #define L2N_NOTE_SEED(best) ((void)0)
 #endif
+// Hooks the CPU tests define to read each shell visit: the mesh, the
+// shell_window kind and window, and the meshes whose window could not
+// settle them (they walk their slabs).
+#ifndef L2N_NOTE_SHELL
+#define L2N_NOTE_SHELL(m, kind, w) ((void)0)
+#endif
+#ifndef L2N_NOTE_SHELL_SLABS
+#define L2N_NOTE_SHELL_SLABS(m) ((void)0)
+#endif
 
 // kCallWalk: each cast's walk out of line on the card (see cast).
 template <bool kCallWalk>
@@ -196,6 +215,11 @@ struct TriSceneViewT {
   const float* mat = nullptr;  // material rows, (6, M) (brdf.cuh Material)
   const int32_t* vis = nullptr;  // the primaries' visible meshes, ascending;
   int n_vis = 0;                 // null: every mesh
+  // A scene of lat/long sphere meshes (csrc/shellwalk.cuh): the shell
+  // buffer (kShellHead constants, then kShellMesh floats per mesh) and the
+  // stored rows by cell; null: the slab walk everywhere.
+  const float* shell = nullptr;
+  const float* shell_tris = nullptr;
 
   // The normal AOV's colour of a miss: magenta.
   L2N_HD static void miss_color(float col[3]) {
@@ -275,11 +299,13 @@ struct TriSceneViewT {
   // has pruned is never taken again; none is dropped. With `seed`, the
   // first scan (which tests every candidate) lowers `visit.best` to the
   // certain-hit seed of each mesh the ray enters, before anything is
-  // walked (see the top of this file).
+  // walked (see the top of this file). With `shelled`, each mesh takes
+  // its shell visit (walk_list).
   template <class Visit>
   L2N_HD void walk(const int32_t* cand, int n_cand, float ox, float oy,
                    float oz, float dx, float dy, float dz, float bx,
-                   float by, float bz, bool seed, Visit& visit) const {
+                   float by, float bz, bool seed, bool shelled,
+                   Visit& visit) const {
     float last_enter = -INFINITY;
     int last_mesh = -1;
     for (;;) {
@@ -323,7 +349,7 @@ struct TriSceneViewT {
       L2N_NOTE_SCAN(cnt, more);
       if (seed && last_mesh < 0) L2N_NOTE_SEED(visit.best);
       if (walk_list(ent, mar, mi, cnt, ox, oy, oz, dx, dy, dz, bx, by, bz,
-                    visit) ||
+                    shelled, visit) ||
           !more)
         return;
       last_enter = ent[cnt - 1];
@@ -336,24 +362,70 @@ struct TriSceneViewT {
   // of each group of kGroup slabs first and walks only the slabs of the
   // groups it visits; every run of slabs ends at the mesh's own slab
   // count (the last group may be partial), and slabs keep ascending order.
+  // With `shelled` (and a shell scene), a mesh first takes its shell
+  // visit (csrc/shellwalk.cuh): a miss skips it, a window sweeps its
+  // rows of cells, one run of stored rows each (level 4), and a wide
+  // chord, or a window that finds no candidate at or under its t_lim,
+  // walks the slabs.
   template <class Visit>
   L2N_HD bool walk_list(const float* ent, const float* mar, const int* mi,
                         int cnt, float ox, float oy, float oz, float dx,
                         float dy, float dz, float bx, float by, float bz,
-                        Visit& visit) const {
+                        bool shelled, Visit& visit) const {
     const int groups = (n_slabs + kGroup - 1) / kGroup;  // per mesh
+    // A window's rows keep their state in the slab levels' variables (the
+    // walk's live registers are few under the 80-register cap): s the
+    // stored index of the next row's first triangle, send the rows left,
+    // c the triangles per row; lim the window's t_lim, set to inf once a
+    // candidate at or under it settles the mesh.
     int li = 0, level = 0, m = 0, s = 0, send = 0, c = 0;
+    float lim = 0.0f;
     for (;;) {
-      // Bound tests until a sub-cluster to sweep (slot0) or the list's end.
-      int slot0 = -1;
+      // Bound tests until a run to sweep (first: its first slot, or its
+      // first stored row at level 4) or the list's end.
+      int first = -1;
       while (li < cnt) {
         if (level == 0) {  // the next mesh, pruned against the running best
           if (ent[li] <= visit.best + mar[li]) {
             m = mi[li];
             s = 0;
             level = 1;
+            if (shelled && shell != nullptr) {
+              ShellWindow w;
+              const int kind =
+                  shell_window(shell, m, ox, oy, oz, bx, by, bz, w);
+              L2N_NOTE_SHELL(m, kind, w);
+              if (kind == kShellMiss) {
+                ++li;
+                level = 0;
+              } else if (kind == kShellWindow) {
+                const int dl = static_cast<int>(load1(shell));
+                const int dj = static_cast<int>(load1(shell + 1));
+                s = ((m * dj + w.j0) * (dl + kShellPad) + w.i0) * 2;
+                send = w.nj;
+                c = 2 * w.ni;
+                lim = w.t_lim;
+                level = 4;
+              }
+            }
           } else {
             ++li;
+          }
+        } else if (level == 4) {  // the window's next row
+          if (send == 0) {
+            if (lim == INFINITY) {  // settled
+              ++li;
+              level = 0;
+            } else {  // not settled: the slabs too
+              L2N_NOTE_SHELL_SLABS(m);
+              s = 0;
+              level = 1;
+            }
+          } else {
+            first = s;
+            s += 2 * (static_cast<int>(load1(shell)) + kShellPad);
+            --send;
+            break;
           }
         } else if (level == 1) {  // the next run of slabs of mesh m, from s
           const int slabs = slab_count[m];
@@ -392,14 +464,18 @@ struct TriSceneViewT {
           const bool in = visits(
               ox, oy, oz, bx, by, bz,
               sub_bounds + kBoundStride * (ms * kSubs + c), visit.best);
-          if (in) slot0 = m * tpad + s * kSlab + c * kSubSize;
+          if (in) first = m * tpad + s * kSlab + c * kSubSize;
           ++c;
           if (in) break;
         }
       }
-      if (slot0 < 0) return false;
-      for (int i = 0; i < kSubSize; ++i) {
-        const float* row = tris + static_cast<size_t>(slot0 + i) * kTriStride;
+      if (first < 0) return false;
+      const bool window = level == 4;
+      const float* run = (window ? shell_tris : tris) +
+                         static_cast<size_t>(first) * kTriStride;
+      const int n_run = window ? c : kSubSize;
+      for (int i = 0; i < n_run; ++i) {
+        const float* row = run + static_cast<size_t>(i) * kTriStride;
         const F4 a = load4(row), b = load4(row + 4), g = load4(row + 8);
         const float v1x = a.x, v1y = a.y, v1z = a.z;
         const float e1x = a.w, e1y = b.x, e1z = b.y;
@@ -423,8 +499,10 @@ struct TriSceneViewT {
                            u + v <= 1.0f && t >= kMtEps;
         // An infinite t never wins the oracle's strict `<` against its
         // initial inf, so it is no hit.
-        if (valid && t < INFINITY && visit(float_as_int(g.y), t, u, v))
-          return true;
+        if (valid && t < INFINITY) {
+          if (t <= lim) lim = INFINITY;
+          if (visit(float_as_int(g.y), t, u, v)) return true;
+        }
       }
     }
   }
@@ -465,10 +543,11 @@ struct TriSceneViewT {
   template <class Visit>
   L2N_HD Visit cast_walk(const int32_t* cand, int n_cand, float ox,
                          float oy, float oz, float dx, float dy, float dz,
-                         float bx, float by, float bz) const {
+                         float bx, float by, float bz, bool shelled) const {
     Visit visit;
     for (bool seed = true;; seed = false) {
-      walk(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by, bz, seed, visit);
+      walk(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by, bz, seed, shelled,
+           visit);
       if (!seed || !visit.fell_short()) return visit;
       L2N_NOTE_FALLBACK();
       visit = Visit();
@@ -483,9 +562,9 @@ struct TriSceneViewT {
 #endif
   L2N_HD Visit cast_call(const int32_t* cand, int n_cand, float ox,
                          float oy, float oz, float dx, float dy, float dz,
-                         float bx, float by, float bz) const {
+                         float bx, float by, float bz, bool shelled) const {
     return cast_walk<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
-                            bz);
+                            bz, shelled);
   }
 
   // Every cast. The materials, NEE and fog bodies (csrc/triangle_pt.cu),
@@ -495,30 +574,36 @@ struct TriSceneViewT {
   // which do not spill, are faster with it inlined (PERF.md §6). One form
   // per body: in the materials body only the explicit lights gain (-16%,
   // 0.33 ms a whole frame), while microfacet and the bump lose 2-8%
-  // (0.01-0.08 ms) against the parent commit's inlined walk.
+  // (0.01-0.08 ms) against the parent commit's inlined walk. `shelled`:
+  // the meshes take their shell visits (every cast but the primary, as
+  // the JAX kernel routes its bounce, shadow and last-segment casts
+  // through the shellwalk, l2n_tpu/ops/kernels/triangle_pt.py:1430-1432).
   template <class Visit>
   L2N_HD Visit cast(const int32_t* cand, int n_cand, float ox, float oy,
                     float oz, float dx, float dy, float dz, float bx,
-                    float by, float bz) const {
+                    float by, float bz, bool shelled) const {
     if constexpr (kCallWalk)
       return cast_call<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
-                              bz);
+                              bz, shelled);
     else
       return cast_walk<Visit>(cand, n_cand, ox, oy, oz, dx, dy, dz, bx, by,
-                              bz);
+                              bz, shelled);
   }
 
+  // Bounce casts, and through them NEE's and the explicit lights' shadow
+  // casts (csrc/pathtrace.cuh).
   L2N_HD Hit nearest(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
     return resolve(cast<NearestVisit>(nullptr, n, ox, oy, oz, dx, dy, dz,
-                                      dx, dy, dz));
+                                      dx, dy, dz, true));
   }
 
-  // The primary cast walks only the tile's visible meshes (csrc/cull.cuh).
+  // The primary cast walks only the tile's visible meshes (csrc/cull.cuh),
+  // by their slabs.
   L2N_HD Hit nearest_primary(float ox, float oy, float oz, float dx,
                              float dy, float dz) const {
     return resolve(cast<NearestVisit>(vis, vis ? n_vis : n, ox, oy, oz, dx,
-                                      dy, dz, dx, dy, dz));
+                                      dy, dz, dx, dy, dz, false));
   }
 
   // Any valid candidate: exactly nearest(...).t >= 0. The seed prunes the
@@ -528,7 +613,8 @@ struct TriSceneViewT {
   // the brute-force sweep at the rays through an epsilon crack.
   L2N_HD bool anyhit(float ox, float oy, float oz, float dx, float dy,
                      float dz) const {
-    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz)
+    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, dx, dy, dz,
+                          true)
         .hit;
   }
 
@@ -539,12 +625,15 @@ struct TriSceneViewT {
   // an interpolated mesh normal, which the bound tests' half-b form takes
   // as 1: they take the direction normalized (the same line meets the same
   // bounds), the triangle tests the direction as given, and the seed, in
-  // the bound tests' units, prunes only bounds.
+  // the bound tests' units, prunes only bounds. The shell visit's chord
+  // and cells take the normalized direction too; any candidate of its
+  // window ends the cast.
   L2N_HD bool occluded(float ox, float oy, float oz, float dx, float dy,
                        float dz) const {
     float bx = dx, by = dy, bz = dz;
     normalize3(bx, by, bz, false);
-    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, bx, by, bz)
+    return cast<AnyVisit>(nullptr, n, ox, oy, oz, dx, dy, dz, bx, by, bz,
+                          true)
         .hit;
   }
 };

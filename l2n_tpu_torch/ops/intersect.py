@@ -92,6 +92,36 @@ def sphere_scene_anyhit(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2):
     return hit.any(dim=-1)
 
 
+def moller_trumbore(ox, oy, oz, dx, dy, dz, tri: dict):
+    """Möller-Trumbore of rays against triangles (`tri`: v1{x,y,z},
+    e1{x,y,z}, e2{x,y,z} tensors), broadcast, in the JAX package's
+    operation order: reject |det| < eps, multiply by rcp_det =
+    1/where(det_ok, det, 1), u/v bounds, t >= eps. Returns (t, u, v,
+    valid)."""
+    one = torch.tensor(1.0, dtype=torch.float32, device=dx.device)
+    eps = MOLLER_TRUMBORE_EPS
+    e1x, e1y, e1z = tri["e1x"], tri["e1y"], tri["e1z"]
+    e2x, e2y, e2z = tri["e2x"], tri["e2y"], tri["e2z"]
+    # P = cross(dir, e2); det = dot(e1, P)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    det_ok = torch.abs(det) >= eps
+    rcp_det = one / torch.where(det_ok, det, one)
+    tx, ty, tz = ox - tri["v1x"], oy - tri["v1y"], oz - tri["v1z"]
+    u = (tx * px + ty * py + tz * pz) * rcp_det
+    # Q = cross(T, e1)
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * rcp_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * rcp_det
+    valid = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t >= eps))
+    return t, u, v, valid
+
+
 def intersect_triangle_scene(ox, oy, oz, dx, dy, dz, soup: dict,
                              chunk: int | None = None):
     """Nearest hit against a flattened triangle soup (`soup`: (T,) tensors
@@ -125,34 +155,14 @@ def intersect_triangle_scene(ox, oy, oz, dx, dy, dz, soup: dict,
         budget = _TRI_CHUNK_ELEMENTS.get(dev.type, 1 << 22)
         chunk = max(1, budget // max(r, 1))
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
-    one = torch.tensor(1.0, dtype=f32, device=dev)
     best_t = torch.full((r,), float("inf"), dtype=f32, device=dev)
     best_u = torch.zeros((r,), dtype=f32, device=dev)
     best_v = torch.zeros((r,), dtype=f32, device=dev)
     best_tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
-    eps = MOLLER_TRUMBORE_EPS
     for i0 in range(0, total, chunk):
         c = {k: soup[k][i0:i0 + chunk] for k in (
             "v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")}
-        e1x, e1y, e1z = c["e1x"], c["e1y"], c["e1z"]
-        e2x, e2y, e2z = c["e2x"], c["e2y"], c["e2z"]
-        # P = cross(dir, e2); det = dot(e1, P)
-        px = rdy * e2z - rdz * e2y
-        py = rdz * e2x - rdx * e2z
-        pz = rdx * e2y - rdy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        det_ok = torch.abs(det) >= eps
-        rcp_det = one / torch.where(det_ok, det, one)
-        tx, ty, tz = rox - c["v1x"], roy - c["v1y"], roz - c["v1z"]
-        u = (tx * px + ty * py + tz * pz) * rcp_det
-        # Q = cross(T, e1)
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (rdx * qx + rdy * qy + rdz * qz) * rcp_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * rcp_det
-        valid = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-                 & (u + v <= 1.0) & (t >= eps))
+        t, u, v, valid = moller_trumbore(rox, roy, roz, rdx, rdy, rdz, c)
         t, u, v = (torch.broadcast_to(a, valid.shape) for a in (t, u, v))
         t = torch.where(valid, t, inf)
         ci = torch.argmin(t, dim=1, keepdim=True)

@@ -22,7 +22,10 @@ spheres for primary rays (csrc/cull.cuh, built per block in its
 prologue); `visibility_table` is the same table in plain torch, the
 counterpart of the JAX package's, against which the tests hold it. The
 plain step sweeps every sphere: culling changes the work, not the image.
-Not ported: the t1-only `assume_outside` sweep of disjoint scenes.
+The JAX package's t1-only `assume_outside` sweep of disjoint scenes is
+not ported: its bounce casts differ from the full sweep wherever an origin
+rounds inside a sphere (probes/assume_outside.py counts them; ROADMAP
+Queue 2 #6), and the kernels are held to the full sweep bit for bit.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ renders the scheduled tiles of a triangle scene and updates `accum`,
   * on CUDA tensors it launches `csrc/triangle_pt.cu` (one thread per pixel
     of the K scheduled tiles, each walking the packed bound hierarchy front
     to back: primaries over the tile's cone-visible meshes, built per block
-    in the kernel's prologue) or raises; nothing falls back;
+    in the kernel's prologue; in a scene of lat/long spheres the other
+    casts test each mesh's shell window of cells, csrc/shellwalk.cuh) or
+    raises; nothing falls back;
   * on CPU tensors it runs `triangle_pt_plain`, the same update in lockstep
     torch with a brute-force sweep over the whole soup
     (ops/scenes.triangle_intersector), which is also `backend="torch"`.
@@ -22,8 +24,10 @@ homogeneous fog (cfg.fog_density > 0) takes the kernel's fog body.
 `TriangleBuffers` holds what either version
 reads: the soup for the plain version, the packed bounds, slab groups,
 certain-hit data, slot rows and attribute rows for the kernel
-(ops/kernels/triangle_pack.py). `certain_hit_seed` is the kernel's seed of
-a cast in torch, for tests and counts; the plain step does not use it.
+(ops/kernels/triangle_pack.py), and the shell buffers of a lat/long
+sphere scene (ops/kernels/shellwalk.py). `certain_hit_seed` is the
+kernel's seed of a cast in torch, for tests and counts; the plain step
+does not use it.
 """
 
 from __future__ import annotations
@@ -45,6 +49,11 @@ from l2n_tpu_torch.ops.kernels.common import (
     render_tiles_plain,
     step_params,
     table_rows,
+)
+from l2n_tpu_torch.ops.kernels.shellwalk import (
+    MESH_STRIDE,
+    SHELL_HEAD,
+    shell_buffers,
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import check_lights
 from l2n_tpu_torch.ops.kernels.triangle_pack import (
@@ -92,7 +101,12 @@ class TriangleBuffers:
     tris         (M * S * 128, 12): per slot v1 xyz, e1 xyz, e2 xyz, the
                  slot's soup index (int32 bits, -1 for padding), 0, 0;
     attrs        (T, 16): per soup triangle na nb nc xyz, ta tb tc uv, the
-                 mesh id (int32 bits).
+                 mesh id (int32 bits);
+    shell        (64 + 8 M,), shell_tris (R, 12): the shell visit's
+                 constants, spheres and stored rows by cell for a scene of
+                 lat/long sphere meshes (ops/kernels/shellwalk.py
+                 shell_buffers); a zero head and R = 0 for any other;
+    shelled      whether the scene has them.
     The kernel trusts the values `from_scene` packs (slab counts <= S, slot
     indices < T); the wrappers check dtypes, shapes and devices.
     """
@@ -109,6 +123,9 @@ class TriangleBuffers:
     balls: torch.Tensor
     tris: torch.Tensor
     attrs: torch.Tensor
+    shell: torch.Tensor
+    shell_tris: torch.Tensor
+    shelled: bool
 
     @classmethod
     def from_scene(cls, scene, device="cpu") -> "TriangleBuffers":
@@ -124,6 +141,12 @@ class TriangleBuffers:
         attrs[:, :15] = np.stack([soup_np[k] for k in ATTR_KEYS], 1)
         attrs.view(np.int32)[:, 15] = soup_np["mesh_id"]
         albedo = torch.stack(procedural_color(torch.arange(m)))
+        slot_of = np.zeros(n_tri, np.int64)
+        live = packed.slot_index >= 0
+        slot_of[packed.slot_index[live]] = np.flatnonzero(live)
+        shell, shell_tris, shelled = shell_buffers(
+            scene, soup_np, packed.bounds,
+            lambda idx: tris.reshape(-1, TRI_STRIDE)[slot_of[idx]])
 
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device)
@@ -140,14 +163,17 @@ class TriangleBuffers:
             inner_gap=dev(packed.inner_gap),
             balls=dev(packed.balls),
             tris=dev(tris.reshape(-1, TRI_STRIDE)),
-            attrs=dev(attrs))
+            attrs=dev(attrs), shell=dev(shell), shell_tris=dev(shell_tris),
+            shelled=shelled)
 
-    def kernel_arrays(self) -> tuple:
+    def kernel_arrays(self, shell: bool = True) -> tuple:
         """The scene's buffers in the kernel's argument order
-        (csrc/triangle_pt.cu l2n_triangle_pt, after sched)."""
+        (csrc/triangle_pt.cu l2n_triangle_pt, after sched); without
+        `shell`, None for the shell buffers (no shell visits)."""
+        shells = (self.shell, self.shell_tris) if shell else (None, None)
         return (self.mesh_bounds, self.slab_count, self.slab_bounds,
                 self.sub_bounds, self.group_bounds, self.inner_gap,
-                self.balls, self.tris, self.attrs, self.albedo,
+                self.balls, self.tris, self.attrs, *shells, self.albedo,
                 self.material)
 
     def with_tables(self, albedo=None, material=None) -> "TriangleBuffers":
@@ -195,7 +221,9 @@ def _check(cfg, sched, camera, buffers, accum, output, rng_state, lights):
             ("group_bounds", f32, (m, -(-s // GROUP), 5)),
             ("inner_gap", f32, (m,)), ("balls", f32, (m, BALLS, 4)),
             ("tris", f32, (m * s * 128, TRI_STRIDE)),
-            ("attrs", f32, (n_tri, 16))):
+            ("attrs", f32, (n_tri, 16)),
+            ("shell", f32, (SHELL_HEAD + MESH_STRIDE * m,)),
+            ("shell_tris", f32, (buffers.shell_tris.shape[0], TRI_STRIDE))):
         check_tensor(name, getattr(buffers, name), dtype, shape, dev)
     return check_camera(camera)
 
@@ -227,7 +255,17 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
     ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
     light_rows = None if lights is None else lights.buffer(accum.device)
     launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
-           *buffers.kernel_arrays(), light_rows, accum, output, rng_state)
+           *buffers.kernel_arrays(shell_route(cfg)), light_rows, accum,
+           output, rng_state)
+
+
+def shell_route(cfg) -> bool:
+    """Whether a step of `cfg` sends its casts through the shell visits of
+    a shelled scene: the JAX kernel's gate (l2n_tpu/ops/kernels/
+    triangle_pt.py:1533-1551, its `fast` with sphere normals, which
+    TriangleBuffers.shelled holds): any AOV but tex_coords and param_uv,
+    whose primary-only casts take no shell visit anyway."""
+    return cfg.aov not in ("tex_coords", "param_uv")
 
 
 def triangle_pt_plain(cfg, sched: torch.Tensor, camera,

@@ -8,7 +8,8 @@ sweep_variants probe's three kernels at its size (64 blocks, 128 spheres,
 16 repeats); philox_bits at (4, 256, 128) and (4, 7360, 128), the
 raw-bits gates' draw and a whole padded frame's; triangle_pt's
 materials body (microfacet, the bump, two explicit lights), NEE+MIS and
-fog+NEE+MIS bodies on the default triangle config ("settings"); and
+fog+NEE+MIS bodies on the default triangle config ("settings"), and the
+default and those five again in threefry and in tpu_hw ("triangle"); and
 triangle_pt on the
 70,144-triangle trefoil knot at the JAX bench's `bigobj` config
 (`bigobj_case`; tpu_hw and threefry, 10 tiles from the frame's middle and
@@ -19,7 +20,7 @@ whole frames), where one mesh of 548 slabs takes the slab-group level.
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
     # V1, this, DIR; --only FAMILY[,FAMILY...] (fused, wavefront, onehot,
-    # sweep, philox, trefoil, settings) times only those
+    # sweep, philox, trefoil, settings, triangle) times only those
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -372,7 +373,7 @@ def _lights():
             np.array([[0.3, -1.0, 0.2]], np.float32),
             np.array([[0.5, 0.5, 0.6]], np.float32)))
 FAMILIES = ("fused", "wavefront", "onehot", "sweep", "philox", "trefoil",
-            "settings")
+            "settings", "triangle")
 
 
 def measure_tree(root: Path, only: str) -> dict:
@@ -389,7 +390,7 @@ def measure_tree(root: Path, only: str) -> dict:
         _philox(torch, root, times)
     if "trefoil" in want:
         _trefoil(torch, root, times)
-    if want & {"fused", "wavefront", "settings"}:
+    if want & {"fused", "wavefront", "settings", "triangle"}:
         _, cam, families = _families(root)
         from l2n_tpu_torch.render.state import init_frame_state
     cases = []
@@ -398,6 +399,11 @@ def measure_tree(root: Path, only: str) -> dict:
     if "settings" in want:
         cases += [(f"triangle_pt {setting}", "triangle_pt", kw)
                   for setting, kw in SETTINGS.items()]
+    if "triangle" in want:
+        cases += [(f"triangle_pt {setting} {rng}", "triangle_pt",
+                   {**kw, "rng": rng})
+                  for rng in ("threefry", "tpu_hw")
+                  for setting, kw in {"default": {}, **SETTINGS}.items()]
     for key, name, kw in cases:
         mod, cfg, scene = families[name]
         kernel = getattr(mod, name)

@@ -490,3 +490,66 @@ def test_declared_argtypes_match_the_entry_points(source):
         assert name in declared, name
         assert declared[name].argtypes == want, name
         assert declared[name].restype is ctypes.c_int, name
+
+
+def test_assume_outside_forms_match_jax():
+    """probes/assume_outside.py's t1-only forms against the JAX package's
+    `assume_outside` sweeps (l2n_tpu/ops/intersect.py:38, :127), op by op,
+    on rays from the surfaces of a disjoint scene's spheres, some started
+    inside their sphere: the same t, index and hit flag; and there, the
+    full sweep differs (ROADMAP Queue 2 #6)."""
+    from l2n_tpu.ops import intersect as jint
+    from l2n_tpu_torch.ops.intersect import (
+        intersect_sphere_scene,
+        sphere_scene_anyhit,
+    )
+    from l2n_tpu_torch.probes import assume_outside as ao
+    from l2n_tpu_torch.scene.spheres import compute_spheres, spheres_disjoint
+    s = compute_spheres(128, 1024.0, 339).as_numpy()
+    assert spheres_disjoint(compute_spheres(128, 1024.0, 339), margin=0.02)
+    gen = np.random.Generator(np.random.PCG64(6))
+    n = 4096
+    j = gen.integers(0, 128, n)
+    nrm = gen.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    r = np.sqrt(s[j, 3]) * np.where(gen.random(n) < 0.25, 0.999, 1.001)
+    o = (s[j, :3] + nrm * r[:, None]).astype(np.float32)
+    d = gen.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ray = [torch.from_numpy(np.ascontiguousarray(a)) for a in (*o.T, *d.T)]
+    sph = [torch.from_numpy(np.ascontiguousarray(s[:, k])) for k in range(4)]
+    t, i = ao.nearest_t1_only(*ray, *sph)
+    ahead = ao.anyhit_t1_only(*ray, *sph)
+
+    def fetch(k):
+        return tuple(jnp.float32(s[k, c]) for c in range(4))
+
+    jray = [jnp.asarray(a) for a in (*o.T, *d.T)]
+    with jax.disable_jit():
+        jt, *_, ji, _ = jint.intersect_sphere_scene(
+            *jray, 128, fetch, assume_outside=True)
+        jhit = jint.sphere_scene_anyhit(*jray, 128, fetch,
+                                        assume_outside=True)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ahead.numpy(), np.asarray(jhit) != 0)
+    full_t = intersect_sphere_scene(*ray, *sph)[0]
+    assert (full_t != t).sum() > 100  # the origins inside their sphere
+    assert (sphere_scene_anyhit(*ray, *sph) != ahead).sum() > 100
+
+
+def test_assume_outside_probe_counts():
+    """The probe on a small frame of the disjoint scene: no primary
+    differs; the other casts differ exactly where an origin lies inside a
+    sphere, and some do."""
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.probes import assume_outside as ao
+    cfg = RenderConfig(width=256, height=128).validate()
+    seed = ao.disjoint_seed(cfg)
+    assert seed == 339
+    cfg = cfg.replace(scene_seed=seed, tiles_per_step=cfg.tile_count)
+    c = ao.t2_lanes(cfg.validate(), 2, torch.device("cpu"))
+    assert c["primary_casts"] == 2 * 256 * 128 and c["primary_differ"] == 0
+    assert 0 < c["rest_differ"] <= c["rest_inside"]
+    assert c["anyhit_differ"] <= c["anyhit_inside"]
+    assert c["lit"] > 0.02
