@@ -1,0 +1,11 @@
+"""sphere_pt_roofline: the least time of one sphere_pt launch by the work
+count (counts/floor.py, counted by the reference on this cell's inputs)
+over the device time per launch (CUDA events around every call of the
+traced run's window, over its launches), in percent."""
+
+
+def read(run):
+    floor, w = run["floor"], run["window"]
+    if run["kernel"] != "sphere_pt" or floor is None or not w.device_ms:
+        return None
+    return 100.0 * floor["seconds"] / (w.device_ms * 1e-3 / w.launches)

@@ -1,0 +1,543 @@
+"""The path tracer of the benchmark's configurations in plain torch: the
+reference that decides `correct` (frozen copy; PROVENANCE.md).
+
+Settings it covers, and only these: the path-tracing image, procedural
+Lambert shading, `max_bounces` segments with Russian roulette, every
+`emissive_every`-th object emissive, the Mandelbrot sky, the "fovy" camera,
+the Philox sampler (`rng="tpu_hw"`), `fast_math` on and off, and two
+intersectors: a sweep over every sphere and a brute-force Moller-Trumbore
+sweep over every triangle of the soup. Every lane runs every segment's
+arithmetic in lockstep and masks decide what is kept; the tri-state
+distance (t >= 0 hit, -1 miss, -2 terminated) is kept, since the sky test
+is `dist == -1`.
+
+Arithmetic runs in the dtype of the scene and camera tensors: float32 for
+the reference, a lower precision for the control (`render`'s `dtype`).
+The square root is taken in float64 and rounded (a correctly rounded
+sqrtf); under fast_math the rsqrt forms are the card's rsqrtf on a CUDA
+tensor and the correctly rounded 1/sqrt on the CPU.
+
+`Counts` gathers, per traced lane, the work any implementation of the
+step must do (counts/floor.py prices it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from portbench.reference.rng import PhiloxSampler, max_pairs_per_sample
+from portbench.reference.scene import Soup, Spheres
+
+PI = 3.14159265358979323846
+BIG = 3.0e38
+PARKED = 1.0e30
+MT_EPS = 1e-6
+MANDELBROT_ITERS = 64
+_HALF_PI = 1.5707963267948966
+_ATAN_C = (0.99997726, -0.33262347, 0.19354346, -0.11643287, 0.05265332,
+           -0.01172120)
+# Elements of one (rays x triangles) temporary of the triangle sweep.
+TRI_CHUNK_ELEMENTS = {"cpu": 1 << 22, "cuda": 1 << 25}
+
+
+# --------------------------------------------------------------------------
+# Maths.
+
+def sqrt(x):
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def rsqrt(x):
+    if x.device.type == "cuda":
+        return torch.rsqrt(x)
+    return 1.0 / sqrt(x)
+
+
+def fast_sqrt(x):
+    return x * rsqrt(x)
+
+
+def _rcp_len(nn, fast: bool):
+    return rsqrt(nn) if fast else 1.0 / sqrt(nn)
+
+
+def normalize3(x, y, z, fast: bool = False):
+    rcp = _rcp_len(x * x + y * y + z * z, fast)
+    return x * rcp, y * rcp, z * rcp
+
+
+def luminance(r, g, b):
+    return 0.212671 * r + 0.715160 * g + 0.072169 * b
+
+
+def frame_z(zx, zy, zz, fast: bool = False):
+    """(tangent, bitangent) around the z axis; the tangent from the
+    smaller of |z.x|, |z.y|."""
+    use_y = torch.abs(zy) > torch.abs(zx)
+    zero = torch.zeros_like(zx)
+    rcp_a = _rcp_len(zx * zx + zy * zy, fast)
+    ax, ay, az = zy * rcp_a, -zx * rcp_a, zero
+    rcp_b = _rcp_len(zx * zx + zz * zz, fast)
+    bx, by, bz = zz * rcp_b, zero, -zx * rcp_b
+    tx = torch.where(use_y, ax, bx)
+    ty = torch.where(use_y, ay, by)
+    tz = torch.where(use_y, az, bz)
+    return (tx, ty, tz), (zy * tz - zz * ty, zz * tx - zx * tz,
+                          zx * ty - zy * tx)
+
+
+def cosine_hemisphere(u1, u2):
+    r = sqrt(u1)
+    phi = (2.0 * PI) * u2
+    cos_theta = sqrt(torch.clamp(1.0 - u1, min=0.0))
+    return r * torch.cos(phi), r * torch.sin(phi), cos_theta
+
+
+def atan2(y, x):
+    """The minimax four-quadrant arctangent of the sky (~1e-5 rad)."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    t = torch.minimum(ax, ay) / torch.clamp(torch.maximum(ax, ay), min=1e-37)
+    s = t * t
+    p = torch.full_like(t, _ATAN_C[5])
+    for c in _ATAN_C[4::-1]:
+        p = p * s + c
+    a = t * p
+    a = torch.where(ay > ax, _HALF_PI - a, a)
+    a = torch.where(x < 0.0, PI - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+def mandelbrot(dx, dy, dz):
+    """(radiance, in the direction box, escape iterations run) of the
+    Mandelbrot sky: theta = atan2(|d.xy|, d.z), phi = atan2(d.y, d.x),
+    p = (8 phi / pi, 4 (2 theta / pi - 1)); the radiance is i / 64 at the
+    first |z|^2 > 4, 0 if z stays bounded, 0 outside the box where
+    |p| <= 2 can hold."""
+    in_box = (dx >= torch.abs(dy)) & (dz * dz <= dx * dx + dy * dy)
+    theta = atan2(sqrt(dx * dx + dy * dy), dz)
+    phi = atan2(dy, dx)
+    px = 8.0 * (phi * (1.0 / PI))
+    py = 4.0 * (-1.0 + (2.0 / PI) * theta)
+    zx, zy, zx2, zy2 = (torch.zeros_like(px) for _ in range(4))
+    still = torch.ones_like(px)
+    cnt = torch.zeros_like(px)
+    iters = torch.zeros(px.shape, dtype=torch.int32, device=px.device)
+    for _ in range(MANDELBROT_ITERS):
+        iters = iters + (still > 0).to(torch.int32)
+        zy = 2.0 * zx * zy + py
+        zx = zx2 - zy2 + px
+        zx2 = zx * zx
+        zy2 = zy * zy
+        still = still * (zx2 + zy2 <= 4.0).to(px.dtype)
+        cnt = cnt + still
+    le = torch.where(cnt < MANDELBROT_ITERS, cnt * (1.0 / MANDELBROT_ITERS),
+                     torch.zeros_like(cnt))
+    return torch.where(in_box, le, torch.zeros_like(le)), in_box, iters
+
+
+# --------------------------------------------------------------------------
+# Intersection. A Hit: t (-1 on a miss), the normal, the object index (-1
+# on a miss) and the squared radius of the emission formula.
+
+@dataclasses.dataclass
+class Hit:
+    t: torch.Tensor
+    nx: torch.Tensor
+    ny: torch.Tensor
+    nz: torch.Tensor
+    index: torch.Tensor
+    emis_r2: torch.Tensor
+
+
+def _sphere_candidates(s: Spheres, ox, oy, oz, dx, dy, dz):
+    rox = ox.unsqueeze(-1) - s.cx
+    roy = oy.unsqueeze(-1) - s.cy
+    roz = oz.unsqueeze(-1) - s.cz
+    hb = (rox * dx.unsqueeze(-1) + roy * dy.unsqueeze(-1)
+          + roz * dz.unsqueeze(-1))
+    c = rox * rox + roy * roy + roz * roz - s.r2
+    return hb, c
+
+
+def sphere_nearest(s: Spheres, fast: bool, ox, oy, oz, dx, dy, dz) -> Hit:
+    """Nearest hit over every sphere (t1 if t1 >= 0 else t2; the first
+    index of the minimum wins). A negative discriminant makes the root
+    NaN, which no compare accepts."""
+    hb, c = _sphere_candidates(s, ox, oy, oz, dx, dy, dz)
+    disc = hb * hb - c
+    sq = fast_sqrt(disc) if fast else sqrt(disc)
+    t1 = -hb - sq
+    t2 = -hb + sq
+    t = torch.where(t1 >= 0.0, t1, t2)
+    t = torch.where(t >= 0.0, t, torch.full_like(t, BIG))
+    best_i = torch.argmin(t, dim=-1)
+    best_t = torch.gather(t, -1, best_i.unsqueeze(-1)).squeeze(-1)
+    hit = best_t < BIG
+    best_t = torch.where(hit, best_t, torch.full_like(best_t, -1.0))
+    zero = torch.zeros_like(best_t)
+    bcx = torch.where(hit, s.cx[best_i], zero)
+    bcy = torch.where(hit, s.cy[best_i], zero)
+    bcz = torch.where(hit, s.cz[best_i], zero)
+    br2 = torch.where(hit, s.r2[best_i], torch.ones_like(best_t))
+    nx = ox + best_t * dx - bcx
+    ny = oy + best_t * dy - bcy
+    nz = oz + best_t * dz - bcz
+    nn = nx * nx + ny * ny + nz * nz
+    rcp = torch.where(hit, rsqrt(nn) if fast else 1.0 / sqrt(nn), zero)
+    index = torch.where(hit, best_i, torch.full_like(best_i, -1))
+    return Hit(best_t, nx * rcp, ny * rcp, nz * rcp, index, br2)
+
+
+def sphere_any(s: Spheres, ox, oy, oz, dx, dy, dz):
+    """Whether any sphere is hit at t >= 0: the origin inside it, or it
+    ahead with a real root."""
+    hb, c = _sphere_candidates(s, ox, oy, oz, dx, dy, dz)
+    return ((c < 0.0) | ((hb < 0.0) & (hb * hb >= c))).any(dim=-1)
+
+
+def _moller_trumbore(ox, oy, oz, dx, dy, dz, tri):
+    one = torch.ones((), dtype=dx.dtype, device=dx.device)
+    e1x, e1y, e1z = tri["e1x"], tri["e1y"], tri["e1z"]
+    e2x, e2y, e2z = tri["e2x"], tri["e2y"], tri["e2z"]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    det_ok = torch.abs(det) >= MT_EPS
+    rcp_det = one / torch.where(det_ok, det, one)
+    tx, ty, tz = ox - tri["v1x"], oy - tri["v1y"], oz - tri["v1z"]
+    u = (tx * px + ty * py + tz * pz) * rcp_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * rcp_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * rcp_det
+    valid = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t >= MT_EPS))
+    return t, u, v, valid
+
+
+def _triangle_sweep(soup: Soup, ox, oy, oz, dx, dy, dz):
+    """(t, u, v, triangle) of the nearest triangle of every (R,) ray, by
+    testing every triangle in chunks; the first soup index of the minimum
+    wins. A miss: t = -1, u = v = 0, triangle -1."""
+    dev, r = dx.device, dx.shape[0]
+    total = soup.count
+    chunk = max(1, TRI_CHUNK_ELEMENTS.get(dev.type, 1 << 22) // max(r, 1))
+    col = [a.reshape(-1, 1) for a in (ox, oy, oz, dx, dy, dz)]
+    inf = torch.tensor(float("inf"), dtype=dx.dtype, device=dev)
+    best_t = torch.full((r,), float("inf"), dtype=dx.dtype, device=dev)
+    best_u = torch.zeros((r,), dtype=dx.dtype, device=dev)
+    best_v = torch.zeros((r,), dtype=dx.dtype, device=dev)
+    best_tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    for i0 in range(0, total, chunk):
+        c = {k: soup.tri[k][i0:i0 + chunk] for k in (
+            "v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")}
+        t, u, v, valid = _moller_trumbore(*col, c)
+        t, u, v = (torch.broadcast_to(a, valid.shape) for a in (t, u, v))
+        t = torch.where(valid, t, inf)
+        ci = torch.argmin(t, dim=1, keepdim=True)
+        ct = torch.gather(t, 1, ci).squeeze(1)
+        better = ct < best_t
+        best_t = torch.where(better, ct, best_t)
+        best_u = torch.where(better, torch.gather(u, 1, ci).squeeze(1), best_u)
+        best_v = torch.where(better, torch.gather(v, 1, ci).squeeze(1), best_v)
+        best_tri = torch.where(better, ci.squeeze(1) + i0, best_tri)
+    missed = ~torch.isfinite(best_t)
+    best_t = torch.where(missed, torch.full_like(best_t, -1.0), best_t)
+    return best_t, best_u, best_v, best_tri
+
+
+def triangle_nearest(soup: Soup, ox, oy, oz, dx, dy, dz) -> Hit:
+    """Nearest triangle hit; the normal interpolated u nb + v nc + w na
+    with w = 1 - u - v, not normalized; the index is the mesh id. Lanes
+    whose origin is parked at 3e30 (dead paths) report a miss untested."""
+    shape = dx.shape
+    o = [torch.broadcast_to(a, shape).reshape(-1) for a in (ox, oy, oz)]
+    d = [a.reshape(-1) for a in (dx, dy, dz)]
+    n = d[0].shape[0]
+    live = torch.nonzero(o[0] < PARKED).squeeze(1)
+    t = torch.full((n,), -1.0, dtype=dx.dtype, device=dx.device)
+    u = torch.zeros((n,), dtype=dx.dtype, device=dx.device)
+    v = torch.zeros((n,), dtype=dx.dtype, device=dx.device)
+    tri = torch.full((n,), -1, dtype=torch.int64, device=dx.device)
+    if live.numel():
+        got = _triangle_sweep(soup, *(a[live] for a in o + d))
+        for dst, src in zip((t, u, v, tri), got):
+            dst[live] = src
+    safe = tri.clamp(min=0)
+    w = 1.0 - u - v
+    s = soup.tri
+
+    def interp(a, b, c):
+        return u * s[b][safe] + v * s[c][safe] + w * s[a][safe]
+
+    mesh = torch.where(tri < 0, torch.full_like(tri, -1),
+                       s["mesh_id"][safe])
+    return Hit(t.reshape(shape), interp("nax", "nbx", "ncx").reshape(shape),
+               interp("nay", "nby", "ncy").reshape(shape),
+               interp("naz", "nbz", "ncz").reshape(shape),
+               mesh.reshape(shape), torch.ones_like(t).reshape(shape))
+
+
+class Scene:
+    """The nearest and any-hit casts of a sphere set or a triangle soup,
+    its per-object albedo table, and what a hit on it costs to test (for
+    the work counts)."""
+
+    def __init__(self, geometry, fast_math: bool):
+        self.geometry = geometry
+        self.fast = fast_math
+        self.albedo = geometry.albedo
+        self.kind = "sphere" if isinstance(geometry, Spheres) else "triangle"
+
+    def nearest(self, ox, oy, oz, dx, dy, dz) -> Hit:
+        if self.kind == "sphere":
+            return sphere_nearest(self.geometry, self.fast, ox, oy, oz,
+                                  dx, dy, dz)
+        return triangle_nearest(self.geometry, ox, oy, oz, dx, dy, dz)
+
+    def any(self, ox, oy, oz, dx, dy, dz):
+        if self.kind == "sphere":
+            return sphere_any(self.geometry, ox, oy, oz, dx, dy, dz)
+        return self.nearest(ox, oy, oz, dx, dy, dz).t >= 0.0
+
+
+# --------------------------------------------------------------------------
+# The path.
+
+class Counts:
+    """Work of the traced lanes, summed on the device: pixel touches,
+    samples, the draw pairs their paths need (the lockstep tracer draws
+    more),
+    nearest-hit segments that hit (`hits`), any-hit segments that hit
+    (`any_hits`), scatters, emissive hits, sky evaluations, those inside
+    the Mandelbrot box and their escape iterations."""
+
+    KEYS = ("touches", "samples", "pairs", "hits", "any_hits", "scatters",
+            "emissive", "sky", "sky_in", "sky_iters")
+
+    def __init__(self):
+        self.c = {k: 0 for k in self.KEYS}
+
+    def add(self, key, mask_or_n):
+        self.c[key] = self.c[key] + (mask_or_n.sum() if isinstance(
+            mask_or_n, torch.Tensor) else mask_or_n)
+
+    def totals(self) -> dict:
+        return {k: int(v) for k, v in self.c.items()}
+
+
+def _emit_term(cfg, emis_r2):
+    den = (4.0 * PI) * torch.clamp(emis_r2, min=1e-20)
+    return torch.full_like(den, cfg["emission_scale"]) / den
+
+
+def _scatter(cfg, scene: Scene, sampler, bo, bd, cur_t, n, index, diffuse,
+             tp, counts, first: bool):
+    """Lambert scatter at bo + cur_t bd, Russian roulette, and the
+    continuation origin (parked far away for dead lanes). A diffuse lane
+    draws a hemisphere pair and a roulette word: at the `first` vertex a
+    fresh pair's first word, later that pair's second."""
+    box, boy, boz = bo
+    bdx, bdy, bdz = bd
+    hx = box + cur_t * bdx
+    hy = boy + cur_t * bdy
+    hz = boz + cur_t * bdz
+    row = scene.albedo[index.clamp(min=0)]
+    kd = (row[..., 0], row[..., 1], row[..., 2])
+    fast = cfg["fast_math"]
+    (tx, ty, tz), (bx, by, bz) = frame_z(*n, fast=fast)
+    u1, u2 = sampler.draw2()
+    lx, ly, lz = cosine_hemisphere(u1, u2)
+    zx, zy, zz = n
+    wd = normalize3(tx * lx + bx * ly + zx * lz, ty * lx + by * ly + zy * lz,
+                    tz * lx + bz * ly + zz * lz, fast=fast)
+    bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
+          torch.where(diffuse, hz, boz))
+    bd = tuple(torch.where(diffuse, wc, bc) for wc, bc in zip(wd, bd))
+    tp = tuple(torch.where(diffuse, t * wc, t) for t, wc in zip(tp, kd))
+    rr = sampler.draw1()
+    rr_prob = torch.clamp(luminance(*tp), max=cfg["rr_ceiling"])
+    survive = diffuse & (rr < rr_prob)
+    rcp_p = 1.0 / torch.clamp(rr_prob, min=1e-20)
+    tp = tuple(torch.where(survive, t * rcp_p, t) for t in tp)
+    far = torch.full_like(bo[0], 3.0e30)
+    cast_o = tuple(torch.where(survive, o + cfg["ray_epsilon"] * dc, far)
+                   for o, dc in zip(bo, bd))
+    if counts is not None:
+        counts.add("scatters", diffuse)
+        counts.add("pairs", diffuse)
+        if first:
+            counts.add("pairs", diffuse)
+    return bo, bd, tp, survive, cast_o
+
+
+def trace(cfg, scene: Scene, sampler, ox, oy, oz, dx, dy, dz,
+          counts: Counts | None = None):
+    """(r, g, b) of one sample per lane."""
+    shape = dx.shape
+    hit = scene.nearest(ox, oy, oz, dx, dy, dz)
+    o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
+    p_active = hit.t >= 0.0
+    p_miss = hit.t == -1.0
+    p_emissive = p_active & (hit.index % cfg["emissive_every"] == 0)
+    p_diffuse = p_active & ~p_emissive
+    zero = torch.zeros(shape, dtype=dx.dtype, device=dx.device)
+    base = torch.where(p_emissive, _emit_term(cfg, hit.emis_r2), zero)
+    col = (base, base, base)
+    dist = torch.where(p_emissive, torch.full_like(zero, -2.0), hit.t)
+    ones = torch.ones_like(zero)
+    if counts is not None:
+        counts.add("hits", p_active)
+        counts.add("emissive", p_emissive)
+    bo, bd, tp, survive, cast_o = _scatter(
+        cfg, scene, sampler, o, (dx, dy, dz), hit.t,
+        (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
+        counts, True)
+    dist = torch.where(p_diffuse & ~survive, torch.full_like(dist, -2.0),
+                       dist)
+    entered = p_diffuse | p_miss
+
+    def final_dist(dist, survive, cast_o, bd):
+        hit_any = scene.any(*cast_o, *bd)
+        if counts is not None:
+            counts.add("any_hits", survive & hit_any)
+        return torch.where(survive, torch.where(
+            hit_any, torch.ones_like(dist), torch.full_like(dist, -1.0)),
+            dist)
+
+    if cfg["max_bounces"] <= 1:
+        dist = final_dist(dist, survive, cast_o, bd)
+    else:
+        new = scene.nearest(*cast_o, *bd)
+        if counts is not None:
+            counts.add("hits", survive & (new.t >= 0.0))
+        dist = torch.where(survive, new.t, dist)
+        cur_t = new.t
+        bo = cast_o
+        for b in range(1, cfg["max_bounces"]):
+            active = dist >= 0.0
+            emissive = active & (new.index % cfg["emissive_every"] == 0)
+            diffuse = active & ~emissive
+            emit = _emit_term(cfg, new.emis_r2)
+            col = tuple(torch.where(emissive, c + t * emit, c)
+                        for c, t in zip(col, tp))
+            dist = torch.where(emissive, torch.full_like(dist, -2.0), dist)
+            if counts is not None:
+                counts.add("emissive", emissive)
+            bo, bd, tp, survive, cast_o = _scatter(
+                cfg, scene, sampler, bo, bd, cur_t,
+                (new.nx, new.ny, new.nz), new.index, diffuse, tp, counts,
+                False)
+            dist = torch.where(diffuse & ~survive,
+                               torch.full_like(dist, -2.0), dist)
+            if b + 1 == cfg["max_bounces"]:
+                dist = final_dist(dist, survive, cast_o, bd)
+            else:
+                new = scene.nearest(*cast_o, *bd)
+                if counts is not None:
+                    counts.add("hits", survive & (new.t >= 0.0))
+                cur_t = new.t
+                dist = torch.where(survive, new.t, dist)
+    env_ok = entered & (dist == -1.0)
+    le, in_box, iters = mandelbrot(*bd)
+    le = le * cfg["env_scale"]
+    if counts is not None:
+        counts.add("sky", env_ok)
+        counts.add("sky_in", env_ok & in_box)
+        counts.add("sky_iters", torch.where(env_ok & in_box, iters,
+                                            torch.zeros_like(iters)))
+    return tuple(torch.where(env_ok, c + t * le, c) for c, t in zip(col, tp))
+
+
+def primary_rays(cfg, cam: torch.Tensor, px, py, u1, u2):
+    """The jittered "fovy" ray of pixel (px, py): NDC scaled by (aspect
+    tan(fovy/2), tan(fovy/2), -1), through the inverse view; the
+    direction normalized (rsqrt under fast_math)."""
+    if cfg["ray_gen"] != "fovy":
+        raise ValueError(f"the reference renders ray_gen 'fovy', not "
+                         f"{cfg['ray_gen']!r}")
+    sx = (px + u1) * (1.0 / cfg["width"])
+    sy = (py + u2) * (1.0 / cfg["height"])
+    ndx = -1.0 + 2.0 * sx
+    ndy = -1.0 + 2.0 * sy
+    vx = ndx * cam[9, 0] * cam[9, 1]
+    vy = ndy * cam[9, 1]
+    vz = -1.0
+
+    def row(i):
+        return cam[i, 0] * vx + cam[i, 1] * vy + cam[i, 2] * vz + cam[i, 3]
+
+    dx, dy, dz = normalize3(row(0) - cam[8, 0], row(1) - cam[8, 1],
+                            row(2) - cam[8, 2], fast=cfg["fast_math"])
+    return cam[8, 0], cam[8, 1], cam[8, 2], dx, dy, dz
+
+
+def safe_gamma(x, gamma: float):
+    safe = torch.clamp(x, min=1e-30)
+    return torch.where(x <= 0.0, torch.zeros_like(x),
+                       torch.exp(gamma * torch.log(safe)))
+
+
+def render(cfg, scene: Scene, camera: np.ndarray, pixels: torch.Tensor,
+           count_before: torch.Tensor, touches: torch.Tensor,
+           rgb_before: torch.Tensor | None = None, dtype=torch.float32,
+           counts: Counts | None = None, lane_chunk: int = 1 << 18):
+    """The accumulation and display planes of the pixels `pixels` (flat
+    indices into the padded frame) after a call that touches pixel i
+    touches[i] times, `spp_per_step` samples each, from the sample count
+    count_before[i] and the radiance sums rgb_before (3, P) (zero where
+    None). Sample j of a pixel draws from Philox(key (seed, 0), counter
+    (pixel, count + j, pair >> 1, 0)). Returns (accum (4, P), output
+    (3, P)) in float32: per touch the samples' sum in sample order is
+    added to the sums, then the display is pow(sums / count, gamma).
+    `dtype`: the tracing precision (float32; lower for the control)."""
+    dev = pixels.device
+    spp = cfg["spp_per_step"]
+    wp = cfg["padded_width"]
+    p = pixels.shape[0]
+    rgb = (torch.zeros((3, p), dtype=torch.float32, device=dev)
+           if rgb_before is None else rgb_before.clone())
+    n = count_before.to(torch.float32).clone()
+    cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev, dtype)
+    pairs = max_pairs_per_sample(cfg["max_bounces"])
+    for j in range(int(touches.max()) if p else 0):
+        sel = torch.nonzero(touches > j).squeeze(1)
+        for c0 in range(0, sel.numel(), max(1, lane_chunk // spp)):
+            idx = sel[c0:c0 + max(1, lane_chunk // spp)]
+            pix = pixels[idx]
+            first = (count_before[idx].to(torch.int64) + spp * j)
+            rowf = (pix // wp).to(dtype)
+            colf = (pix % wp).to(dtype)
+            sums = [torch.zeros(idx.shape, dtype=dtype, device=dev)
+                    for _ in range(3)]
+            for s in range(spp):
+                sampler = PhiloxSampler(cfg["seed"], 0, pix, first + s, pairs,
+                                        dtype)
+                u1, u2 = sampler.draw2()
+                rays = primary_rays(cfg, cam, colf, rowf, u1, u2)
+                c = trace(cfg, scene, sampler, *rays, counts=counts)
+                sums = [a + b for a, b in zip(sums, c)]
+                if counts is not None:  # the jitter pair
+                    counts.add("samples", idx.numel())
+                    counts.add("pairs", idx.numel())
+            for k in range(3):
+                rgb[k, idx] = rgb[k, idx] + sums[k].to(torch.float32)
+            if counts is not None:
+                counts.add("touches", idx.numel())
+            n[idx] = n[idx] + float(spp)
+    inv = 1.0 / n
+    out = torch.stack([safe_gamma(rgb[k] * inv, cfg["gamma"])
+                       for k in range(3)])
+    return torch.cat([rgb, n[None]]), out
+
+
+def make_scene(cfg: dict, device, dtype=torch.float32) -> Scene:
+    from portbench.reference.scene import make_soup, make_spheres
+    geometry = (make_spheres(cfg, device, dtype) if cfg["scene_kind"] ==
+                "sphere" else make_soup(cfg, device, dtype))
+    return Scene(geometry, cfg["fast_math"])
