@@ -30,6 +30,11 @@ import dataclasses
 import numpy as np
 
 from l2n_tpu_torch.maths import linalg
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_CAMERA_BUILD = Site("camera.build")
+_CAMERA_PACK = Site("camera.pack")
 
 # Static row/col indices into the packed camera array.
 ROW_RCP_VIEW = 0
@@ -51,10 +56,12 @@ class Camera:
 
     @classmethod
     def from_config(cls, cfg, view_matrix: np.ndarray | None = None) -> "Camera":
-        vm = (linalg.DEFAULT_VIEW_MATRIX if view_matrix is None
-              else np.asarray(view_matrix, np.float32))
-        return cls(view_matrix=vm, fovy_deg=cfg.fovy_deg,
-                   aspect_ratio=cfg.aspect_ratio, near=cfg.near, far=cfg.far)
+        with _CAMERA_BUILD:
+            vm = (linalg.DEFAULT_VIEW_MATRIX if view_matrix is None
+                  else np.asarray(view_matrix, np.float32))
+            return cls(view_matrix=vm, fovy_deg=cfg.fovy_deg,
+                       aspect_ratio=cfg.aspect_ratio, near=cfg.near,
+                       far=cfg.far)
 
     @property
     def rcp_view(self) -> np.ndarray:
@@ -75,14 +82,15 @@ class Camera:
 
     def packed(self) -> np.ndarray:
         """(10, 4) float32 uniform block (see module docstring)."""
-        out = np.zeros(PACKED_SHAPE, np.float32)
-        out[ROW_RCP_VIEW:ROW_RCP_VIEW + 4] = self.rcp_view
-        out[ROW_RCP_VIEW_PROJ:ROW_RCP_VIEW_PROJ + 4] = linalg.inverse(
-            self.proj @ self.view_matrix)
-        out[ROW_POSITION, :3] = self.position
-        out[ROW_PROJ, 0] = self.aspect_ratio
-        out[ROW_PROJ, 1] = self.tan_half_fovy
-        return out
+        with _CAMERA_PACK:
+            out = np.zeros(PACKED_SHAPE, np.float32)
+            out[ROW_RCP_VIEW:ROW_RCP_VIEW + 4] = self.rcp_view
+            out[ROW_RCP_VIEW_PROJ:ROW_RCP_VIEW_PROJ + 4] = linalg.inverse(
+                self.proj @ self.view_matrix)
+            out[ROW_POSITION, :3] = self.position
+            out[ROW_PROJ, 0] = self.aspect_ratio
+            out[ROW_PROJ, 1] = self.tan_half_fovy
+            return out
 
 
 def slab_camera(packed: np.ndarray, row_offset: int, stream: int

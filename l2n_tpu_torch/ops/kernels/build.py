@@ -26,6 +26,12 @@ import subprocess
 import time
 from pathlib import Path
 
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_KERNELS_LOAD = Site("kernels.load")
+_KERNELS_BUILD = Site("kernels.build")
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -124,5 +130,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    path, _ = build()
-    return _declare(ctypes.CDLL(str(path)))
+    with _KERNELS_LOAD:
+        with _KERNELS_BUILD:
+            path, _ = build()
+        return _declare(ctypes.CDLL(str(path)))

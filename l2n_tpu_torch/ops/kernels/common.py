@@ -24,16 +24,30 @@ from l2n_tpu_torch.ops.pathtrace import generate_rays, shade
 from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, config_max_pairs
 from l2n_tpu_torch.rng.state import STATE_PLANES, sampler_from_planes
 from l2n_tpu_torch.rng.threefry import as_words, to_int32
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_KERNEL_PARAMS = Site("kernel.params")
+_KERNEL_LAUNCH = Site("kernel.launch")
 
 # Launches of each hand-written kernel, by kernel name. A wrapper adds one
 # right after its kernel launched, and nowhere else: the plain versions a
 # wrapper runs for CPU tensors do not count. Read it to show that a run went
-# through the kernels; `reset_launches` zeroes it.
+# through the kernels.
 launches: collections.Counter = collections.Counter()
+# Calls of a render step by how they ran: "eager" (render/step.py: the
+# step's launches dispatched one by one), "capture" (`capture`: a CUDA graph
+# captured) and "replay" (`replay`: a graph replayed; a captured graph is
+# replayed at once, so the call that captures counts one of each). Read
+# eager over eager + replay for the share of calls the host dispatches
+# launch by launch.
+graph_calls: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
+    """Zero both counters, `launches` and `graph_calls`."""
     launches.clear()
+    graph_calls.clear()
 
 
 # Set by utils/validate.debug_mode(): each launch then synchronizes its
@@ -70,6 +84,7 @@ def capture(fn, device: torch.device):
     finally:
         launches.clear()
         launches.update(before)
+    graph_calls["capture"] += 1
     return graph, held
 
 
@@ -78,6 +93,7 @@ def replay(graph, held: collections.Counter) -> None:
     launches."""
     graph.replay()
     launches.update(held)
+    graph_calls["replay"] += 1
 
 
 def check_supported(cfg) -> None:
@@ -159,33 +175,35 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     camera's slab extras (camera/camera.py) give the stream (ip[12]) and
     the slab's row offset, the last int, after fog's flag, so that every
     other parameter keeps its place."""
-    row_offset, stream = slab_extras(camera)
-    n_point = 0 if lights is None else lights.point.shape[0]
-    n_dir = 0 if lights is None else lights.directional.shape[0]
-    n_lights = emissive_count(n_scene, cfg.emissive_every) if cfg.nee else 0
-    fog = cfg.fog_density > 0.0
-    ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
-                   cfg.padded_width, k, n_scene, cfg.spp_per_step,
-                   cfg.max_bounces, config_max_pairs(cfg),
-                   cfg.emissive_every, ENV_CODES[cfg.env_mode],
-                   cfg.seed & 0xFFFFFFFF, stream, AOV_CODES[cfg.aov],
-                   RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
-                   int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
-                   n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights,
-                   int(fog), row_offset], dtype=np.int64)
-    ip = ip.astype(np.uint32).view(np.int32)
-    fp = np.concatenate([np.array(
-        [1.0 / (cfg.ndc_width or cfg.width),
-         1.0 / (cfg.ndc_height or cfg.height), cfg.rr_ceiling,
-         cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma],
-        dtype=np.float32), camera.reshape(-1),
-        np.array([cfg.normal_map, cfg.normal_map_freq,
-                  cfg.emission_scale * n_lights,
-                  cfg.emission_scale / (4.0 * PI),
-                  cfg.fog_density, fog_inv_sigma(cfg) if fog else 0.0,
-                  fog_sky(cfg), cfg.fog_albedo,
-                  fog_directional_transmittance(cfg)], np.float32)])
-    return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
+    with _KERNEL_PARAMS:
+        row_offset, stream = slab_extras(camera)
+        n_point = 0 if lights is None else lights.point.shape[0]
+        n_dir = 0 if lights is None else lights.directional.shape[0]
+        n_lights = (emissive_count(n_scene, cfg.emissive_every) if cfg.nee
+                    else 0)
+        fog = cfg.fog_density > 0.0
+        ip = np.array([cfg.tile_height, cfg.tile_width, cfg.padded_height,
+                       cfg.padded_width, k, n_scene, cfg.spp_per_step,
+                       cfg.max_bounces, config_max_pairs(cfg),
+                       cfg.emissive_every, ENV_CODES[cfg.env_mode],
+                       cfg.seed & 0xFFFFFFFF, stream, AOV_CODES[cfg.aov],
+                       RNG_CODES[cfg.rng], RAY_GEN_CODES[cfg.ray_gen],
+                       int(cfg.fast_math), MATERIAL_CODES[cfg.material_mode],
+                       n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights,
+                       int(fog), row_offset], dtype=np.int64)
+        ip = ip.astype(np.uint32).view(np.int32)
+        fp = np.concatenate([np.array(
+            [1.0 / (cfg.ndc_width or cfg.width),
+             1.0 / (cfg.ndc_height or cfg.height), cfg.rr_ceiling,
+             cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma],
+            dtype=np.float32), camera.reshape(-1),
+            np.array([cfg.normal_map, cfg.normal_map_freq,
+                      cfg.emission_scale * n_lights,
+                      cfg.emission_scale / (4.0 * PI),
+                      cfg.fog_density, fog_inv_sigma(cfg) if fog else 0.0,
+                      fog_sky(cfg), cfg.fog_albedo,
+                      fog_directional_transmittance(cfg)], np.float32)])
+        return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
 
 
 def check_camera(camera) -> np.ndarray:
@@ -321,8 +339,6 @@ def launch_raw(name: str, device: torch.device, *args) -> None:
     (passed by address), device tensors (by data pointer), None (a null
     pointer) or Python ints, in the entry point's order before its stream.
     Raises on a refused launch; builds the library at its first use."""
-    fn = getattr(build.load(), f"l2n_{name}")
-
     def arg(a):
         if isinstance(a, np.ndarray):
             return ctypes.c_void_p(a.ctypes.data)
@@ -332,9 +348,11 @@ def launch_raw(name: str, device: torch.device, *args) -> None:
             return ctypes.c_void_p(None)
         return ctypes.c_int(a)
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*map(arg, args), ctypes.c_void_p(stream))
+    with _KERNEL_LAUNCH:
+        fn = getattr(build.load(), f"l2n_{name}")
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*map(arg, args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1

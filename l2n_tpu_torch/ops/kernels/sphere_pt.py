@@ -55,6 +55,11 @@ from l2n_tpu_torch.ops.scenes import (
     sphere_anyhit,
     sphere_intersector,
 )
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_KERNEL_CHECK = Site("kernel.check")
+_KERNEL_SPHERE_PT = Site("kernel.sphere_pt")
 
 # Rows of the packed sphere buffer (SphereScene.packed()): centre, r^2,
 # then the per-object table.
@@ -82,14 +87,15 @@ def check_lights(lights) -> None:
 
 
 def _check(cfg, sched, camera, spheres, accum, output, rng_state, lights):
-    check_supported(cfg)
-    if cfg.scene_kind != "sphere":
-        raise ValueError(f"sphere_pt: scene_kind={cfg.scene_kind!r}")
-    check_schedule(cfg, sched, accum, output)
-    check_rng_state(cfg, rng_state, accum.device)
-    check_spheres(spheres, accum.device)
-    check_lights(lights)
-    return check_camera(camera)
+    with _KERNEL_CHECK:
+        check_supported(cfg)
+        if cfg.scene_kind != "sphere":
+            raise ValueError(f"sphere_pt: scene_kind={cfg.scene_kind!r}")
+        check_schedule(cfg, sched, accum, output)
+        check_rng_state(cfg, rng_state, accum.device)
+        check_spheres(spheres, accum.device)
+        check_lights(lights)
+        return check_camera(camera)
 
 
 def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
@@ -104,22 +110,25 @@ def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     device. `lights`: ops/lights.ExplicitLights, or None (its albedo
     override is the caller's, written into `spheres`).
     """
-    camera = _check(cfg, sched, camera, spheres, accum, output, rng_state,
-                    lights)
-    if accum.device.type == "cpu":
-        sphere_pt_plain(cfg, sched, camera, spheres, accum, output,
+    with _KERNEL_SPHERE_PT:
+        camera = _check(cfg, sched, camera, spheres, accum, output,
                         rng_state, lights)
-        return
-    if accum.device.type != "cuda":
-        raise ValueError(f"sphere_pt: no kernel for device {accum.device}")
-    n = spheres.shape[1]
-    if n > max_spheres(cfg, lights):
-        raise ValueError(f"sphere_pt: {n} spheres exceed the kernel's shared "
-                         f"memory ({max_spheres(cfg, lights)} max)")
-    ip, fp = step_params(cfg, sched.shape[0], n, camera, lights)
-    light_rows = None if lights is None else lights.buffer(accum.device)
-    launch("sphere_pt", cfg, accum.device, ip, fp, sched, spheres,
-           light_rows, accum, output, rng_state)
+        if accum.device.type == "cpu":
+            sphere_pt_plain(cfg, sched, camera, spheres, accum, output,
+                            rng_state, lights)
+            return
+        if accum.device.type != "cuda":
+            raise ValueError(f"sphere_pt: no kernel for device "
+                             f"{accum.device}")
+        n = spheres.shape[1]
+        if n > max_spheres(cfg, lights):
+            raise ValueError(f"sphere_pt: {n} spheres exceed the kernel's "
+                             f"shared memory ({max_spheres(cfg, lights)} "
+                             "max)")
+        ip, fp = step_params(cfg, sched.shape[0], n, camera, lights)
+        light_rows = None if lights is None else lights.buffer(accum.device)
+        launch("sphere_pt", cfg, accum.device, ip, fp, sched, spheres,
+               light_rows, accum, output, rng_state)
 
 
 def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,

@@ -69,6 +69,12 @@ from l2n_tpu_torch.ops.scenes import (
     triangle_intersector,
 )
 from l2n_tpu_torch.scene.materials import material_table
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_SCENE_PACK = Site("scene.pack")
+_KERNEL_CHECK = Site("kernel.check")
+_KERNEL_TRIANGLE_PT = Site("kernel.triangle_pt")
 
 
 def max_meshes(cfg, lights=None) -> int:
@@ -130,41 +136,42 @@ class TriangleBuffers:
     @classmethod
     def from_scene(cls, scene, device="cpu") -> "TriangleBuffers":
         """Pack a TriangleScene on the host and move it to `device` once."""
-        soup_np = scene.soup()
-        packed = pack_mesh_blocks(scene)
-        m = packed.blocks.shape[0]
-        tris = np.zeros((m, packed.tpad, TRI_STRIDE), np.float32)
-        tris[:, :, :9] = packed.blocks[:, :9].transpose(0, 2, 1)
-        tris.view(np.int32)[:, :, 9] = packed.slot_index
-        n_tri = soup_np["v1x"].shape[0]
-        attrs = np.zeros((n_tri, 16), np.float32)
-        attrs[:, :15] = np.stack([soup_np[k] for k in ATTR_KEYS], 1)
-        attrs.view(np.int32)[:, 15] = soup_np["mesh_id"]
-        albedo = torch.stack(procedural_color(torch.arange(m)))
-        slot_of = np.zeros(n_tri, np.int64)
-        live = packed.slot_index >= 0
-        slot_of[packed.slot_index[live]] = np.flatnonzero(live)
-        shell, shell_tris, shelled = shell_buffers(
-            scene, soup_np, packed.bounds,
-            lambda idx: tris.reshape(-1, TRI_STRIDE)[slot_of[idx]])
+        with _SCENE_PACK:
+            soup_np = scene.soup()
+            packed = pack_mesh_blocks(scene)
+            m = packed.blocks.shape[0]
+            tris = np.zeros((m, packed.tpad, TRI_STRIDE), np.float32)
+            tris[:, :, :9] = packed.blocks[:, :9].transpose(0, 2, 1)
+            tris.view(np.int32)[:, :, 9] = packed.slot_index
+            n_tri = soup_np["v1x"].shape[0]
+            attrs = np.zeros((n_tri, 16), np.float32)
+            attrs[:, :15] = np.stack([soup_np[k] for k in ATTR_KEYS], 1)
+            attrs.view(np.int32)[:, 15] = soup_np["mesh_id"]
+            albedo = torch.stack(procedural_color(torch.arange(m)))
+            slot_of = np.zeros(n_tri, np.int64)
+            live = packed.slot_index >= 0
+            slot_of[packed.slot_index[live]] = np.flatnonzero(live)
+            shell, shell_tris, shelled = shell_buffers(
+                scene, soup_np, packed.bounds,
+                lambda idx: tris.reshape(-1, TRI_STRIDE)[slot_of[idx]])
 
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+            def dev(a):
+                return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
-        return cls(
-            soup={k: dev(v) for k, v in soup_np.items()},
-            albedo=albedo.to(device),
-            material=material_table(m).T.contiguous().to(device),
-            mesh_bounds=dev(packed.bounds),
-            slab_count=dev(packed.slab_count),
-            slab_bounds=dev(packed.slab_bounds),
-            sub_bounds=dev(packed.sub_bounds),
-            group_bounds=dev(packed.group_bounds),
-            inner_gap=dev(packed.inner_gap),
-            balls=dev(packed.balls),
-            tris=dev(tris.reshape(-1, TRI_STRIDE)),
-            attrs=dev(attrs), shell=dev(shell), shell_tris=dev(shell_tris),
-            shelled=shelled)
+            return cls(
+                soup={k: dev(v) for k, v in soup_np.items()},
+                albedo=albedo.to(device),
+                material=material_table(m).T.contiguous().to(device),
+                mesh_bounds=dev(packed.bounds),
+                slab_count=dev(packed.slab_count),
+                slab_bounds=dev(packed.slab_bounds),
+                sub_bounds=dev(packed.sub_bounds),
+                group_bounds=dev(packed.group_bounds),
+                inner_gap=dev(packed.inner_gap),
+                balls=dev(packed.balls),
+                tris=dev(tris.reshape(-1, TRI_STRIDE)),
+                attrs=dev(attrs), shell=dev(shell), shell_tris=dev(shell_tris),
+                shelled=shelled)
 
     def kernel_arrays(self, shell: bool = True) -> tuple:
         """The scene's buffers in the kernel's argument order
@@ -199,33 +206,35 @@ class TriangleBuffers:
 
 
 def _check(cfg, sched, camera, buffers, accum, output, rng_state, lights):
-    check_supported(cfg)
-    check_lights(lights)
-    if cfg.scene_kind != "triangle":
-        raise ValueError(f"triangle_pt: scene_kind={cfg.scene_kind!r}")
-    check_schedule(cfg, sched, accum, output)
-    check_rng_state(cfg, rng_state, accum.device)
-    if not isinstance(buffers, TriangleBuffers):
-        raise TypeError(f"buffers: expected TriangleBuffers, got "
-                        f"{type(buffers)}")
-    dev = accum.device
-    m, s = buffers.slab_bounds.shape[:2]
-    n_tri = buffers.attrs.shape[0]
-    f32 = torch.float32
-    for name, dtype, shape in (
-            ("albedo", f32, (3, m)), ("material", f32, (6, m)),
-            ("mesh_bounds", f32, (m, 4)),
-            ("slab_count", torch.int32, (m,)),
-            ("slab_bounds", f32, (m, s, 5)),
-            ("sub_bounds", f32, (m, s, SUBS, 5)),
-            ("group_bounds", f32, (m, -(-s // GROUP), 5)),
-            ("inner_gap", f32, (m,)), ("balls", f32, (m, BALLS, 4)),
-            ("tris", f32, (m * s * 128, TRI_STRIDE)),
-            ("attrs", f32, (n_tri, 16)),
-            ("shell", f32, (SHELL_HEAD + MESH_STRIDE * m,)),
-            ("shell_tris", f32, (buffers.shell_tris.shape[0], TRI_STRIDE))):
-        check_tensor(name, getattr(buffers, name), dtype, shape, dev)
-    return check_camera(camera)
+    with _KERNEL_CHECK:
+        check_supported(cfg)
+        check_lights(lights)
+        if cfg.scene_kind != "triangle":
+            raise ValueError(f"triangle_pt: scene_kind={cfg.scene_kind!r}")
+        check_schedule(cfg, sched, accum, output)
+        check_rng_state(cfg, rng_state, accum.device)
+        if not isinstance(buffers, TriangleBuffers):
+            raise TypeError(f"buffers: expected TriangleBuffers, got "
+                            f"{type(buffers)}")
+        dev = accum.device
+        m, s = buffers.slab_bounds.shape[:2]
+        n_tri = buffers.attrs.shape[0]
+        f32 = torch.float32
+        for name, dtype, shape in (
+                ("albedo", f32, (3, m)), ("material", f32, (6, m)),
+                ("mesh_bounds", f32, (m, 4)),
+                ("slab_count", torch.int32, (m,)),
+                ("slab_bounds", f32, (m, s, 5)),
+                ("sub_bounds", f32, (m, s, SUBS, 5)),
+                ("group_bounds", f32, (m, -(-s // GROUP), 5)),
+                ("inner_gap", f32, (m,)), ("balls", f32, (m, BALLS, 4)),
+                ("tris", f32, (m * s * 128, TRI_STRIDE)),
+                ("attrs", f32, (n_tri, 16)),
+                ("shell", f32, (SHELL_HEAD + MESH_STRIDE * m,)),
+                ("shell_tris", f32,
+                 (buffers.shell_tris.shape[0], TRI_STRIDE))):
+            check_tensor(name, getattr(buffers, name), dtype, shape, dev)
+        return check_camera(camera)
 
 
 def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
@@ -240,23 +249,25 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
     `lights`: ops/lights.ExplicitLights, or None (its albedo override is
     the caller's, written into `buffers`).
     """
-    camera = _check(cfg, sched, camera, buffers, accum, output, rng_state,
-                    lights)
-    if accum.device.type == "cpu":
-        triangle_pt_plain(cfg, sched, camera, buffers, accum, output,
-                          rng_state, lights)
-        return
-    if accum.device.type != "cuda":
-        raise ValueError(f"triangle_pt: no kernel for device {accum.device}")
-    m, s = buffers.slab_bounds.shape[:2]
-    if m > max_meshes(cfg, lights):
-        raise ValueError(f"triangle_pt: {m} meshes exceed the kernel's "
-                         f"shared memory ({max_meshes(cfg, lights)} max)")
-    ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
-    light_rows = None if lights is None else lights.buffer(accum.device)
-    launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
-           *buffers.kernel_arrays(shell_route(cfg)), light_rows, accum,
-           output, rng_state)
+    with _KERNEL_TRIANGLE_PT:
+        camera = _check(cfg, sched, camera, buffers, accum, output,
+                        rng_state, lights)
+        if accum.device.type == "cpu":
+            triangle_pt_plain(cfg, sched, camera, buffers, accum, output,
+                              rng_state, lights)
+            return
+        if accum.device.type != "cuda":
+            raise ValueError(f"triangle_pt: no kernel for device "
+                             f"{accum.device}")
+        m, s = buffers.slab_bounds.shape[:2]
+        if m > max_meshes(cfg, lights):
+            raise ValueError(f"triangle_pt: {m} meshes exceed the kernel's "
+                             f"shared memory ({max_meshes(cfg, lights)} max)")
+        ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
+        light_rows = None if lights is None else lights.buffer(accum.device)
+        launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
+               *buffers.kernel_arrays(shell_route(cfg)), light_rows, accum,
+               output, rng_state)
 
 
 def shell_route(cfg) -> bool:

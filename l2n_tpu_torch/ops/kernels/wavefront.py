@@ -81,6 +81,13 @@ from l2n_tpu_torch.ops.pathtrace import (
 )
 from l2n_tpu_torch.ops.scenes import sphere_anyhit, sphere_intersector
 from l2n_tpu_torch.rng.sampler import COUNTER_SAMPLERS, config_max_pairs
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_KERNEL_WAVEFRONT_PASS_A = Site("kernel.wavefront_pass_a")
+_KERNEL_CHECK = Site("kernel.check")
+_KERNEL_WAVEFRONT_PASS_B = Site("kernel.wavefront_pass_b")
+_KERNEL_WAVEFRONT_PASS_C = Site("kernel.wavefront_pass_c")
 
 f32, i32 = torch.float32, torch.int32
 
@@ -199,21 +206,24 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     n) float32 (SphereScene.packed()); accum (4, Hp, Wp), read for the sample counts. On the card the
     outputs go to `lanes` (`wavefront_lanes`), or to new buffers; on the
     CPU the plain version returns new ones."""
-    check_supported(cfg)
-    _sampler_class(cfg)
-    dev = _device(accum, "wavefront_pass_a")
-    k = check_schedule(cfg, sched, accum)
-    camera = _whole_frame_camera(camera)
-    n = _check_spheres(cfg, spheres, dev)
-    if dev.type == "cpu":
-        return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
-    if lanes is None:
-        lanes = wavefront_lanes(cfg, k, dev)
-    _check_lanes(cfg, k, lanes, dev)
-    ip, fp = step_params(cfg, k, n, camera)
-    launch("wavefront_pass_a", cfg, dev, ip, fp, sched, spheres, accum,
-           *lanes)
-    return lanes
+    with _KERNEL_WAVEFRONT_PASS_A:
+        with _KERNEL_CHECK:
+            check_supported(cfg)
+            _sampler_class(cfg)
+            dev = _device(accum, "wavefront_pass_a")
+            k = check_schedule(cfg, sched, accum)
+            camera = _whole_frame_camera(camera)
+            n = _check_spheres(cfg, spheres, dev)
+        if dev.type == "cpu":
+            return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
+        if lanes is None:
+            lanes = wavefront_lanes(cfg, k, dev)
+        with _KERNEL_CHECK:
+            _check_lanes(cfg, k, lanes, dev)
+        ip, fp = step_params(cfg, k, n, camera)
+        launch("wavefront_pass_a", cfg, dev, ip, fp, sched, spheres, accum,
+               *lanes)
+        return lanes
 
 
 def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
@@ -312,31 +322,33 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
     same device, read by the kernel, never by the host); back and col (3,
     K, spp*th, tw) float32 by lane, as pass A returns them (col only under
     NEE)."""
-    check_supported(cfg)
-    _sampler_class(cfg)
-    dev = _device(rays, "wavefront_pass_b")
-    camera = _whole_frame_camera(camera)
-    n = _check_spheres(cfg, spheres, dev)
-    n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
-    check_tensor("rays", rays, f32, (ray_planes(cfg), n_lanes), dev)
-    check_tensor("meta", meta, i32, (META_PLANES, n_lanes), dev)
-    check_tensor("n_alive", n_alive, i32, (1,), dev)
-    per_tile = cfg.spp_per_step * cfg.tile_height * cfg.tile_width
-    if n_lanes < per_tile or n_lanes % per_tile:
-        raise ValueError(f"rays: {n_lanes} lanes are not whole tiles of "
-                         f"{per_tile}")
-    k = n_lanes // per_tile
-    check_tensor("back", back, f32, _lane_shape(cfg, k, 3), dev)
-    if cfg.nee:
-        check_tensor("col", col, f32, _lane_shape(cfg, k, 3), dev)
-    if dev.type == "cpu":
-        wavefront_pass_b_plain(cfg, camera, spheres, rays, meta, n_alive,
-                               back, col)
-        return
-    next_pair, has_spare = wavefront_draw_position(cfg)
-    ip, fp = step_params(cfg, k, n, camera)
-    launch("wavefront_pass_b", cfg, dev, ip, fp, next_pair, int(has_spare),
-           n_alive, spheres, rays, meta, col if cfg.nee else None, back)
+    with _KERNEL_WAVEFRONT_PASS_B:
+        with _KERNEL_CHECK:
+            check_supported(cfg)
+            _sampler_class(cfg)
+            dev = _device(rays, "wavefront_pass_b")
+            camera = _whole_frame_camera(camera)
+            n = _check_spheres(cfg, spheres, dev)
+            n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
+            check_tensor("rays", rays, f32, (ray_planes(cfg), n_lanes), dev)
+            check_tensor("meta", meta, i32, (META_PLANES, n_lanes), dev)
+            check_tensor("n_alive", n_alive, i32, (1,), dev)
+            per_tile = cfg.spp_per_step * cfg.tile_height * cfg.tile_width
+            if n_lanes < per_tile or n_lanes % per_tile:
+                raise ValueError(f"rays: {n_lanes} lanes are not whole tiles "
+                                 f"of {per_tile}")
+            k = n_lanes // per_tile
+            check_tensor("back", back, f32, _lane_shape(cfg, k, 3), dev)
+            if cfg.nee:
+                check_tensor("col", col, f32, _lane_shape(cfg, k, 3), dev)
+        if dev.type == "cpu":
+            wavefront_pass_b_plain(cfg, camera, spheres, rays, meta, n_alive,
+                                   back, col)
+            return
+        next_pair, has_spare = wavefront_draw_position(cfg)
+        ip, fp = step_params(cfg, k, n, camera)
+        launch("wavefront_pass_b", cfg, dev, ip, fp, next_pair, int(has_spare),
+               n_alive, spheres, rays, meta, col if cfg.nee else None, back)
 
 
 def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
@@ -393,18 +405,20 @@ def wavefront_pass_c(cfg, sched: torch.Tensor, col: torch.Tensor,
     """Per pixel of the scheduled tiles: per sample sum + colA + back,
     then accum += (sum, spp) and output = gamma(rgb / n), IN PLACE. col and
     back are (3, K, spp*th, tw) float32 lane arrays."""
-    check_supported(cfg)
-    dev = _device(accum, "wavefront_pass_c")
-    k = check_schedule(cfg, sched, accum, output)
-    for name, t in (("col", col), ("back", back)):
-        check_tensor(name, t, f32, _lane_shape(cfg, k, 3), dev)
-    if dev.type == "cpu":
-        wavefront_pass_c_plain(cfg, sched, col, back, accum, output)
-        return
-    # Pass C reads the tile shape, spp and gamma; no scene, no camera.
-    ip, fp = step_params(cfg, k, 0, np.zeros((10, 4), np.float32))
-    launch("wavefront_pass_c", cfg, dev, ip, fp, sched, col, back, accum,
-           output)
+    with _KERNEL_WAVEFRONT_PASS_C:
+        with _KERNEL_CHECK:
+            check_supported(cfg)
+            dev = _device(accum, "wavefront_pass_c")
+            k = check_schedule(cfg, sched, accum, output)
+            for name, t in (("col", col), ("back", back)):
+                check_tensor(name, t, f32, _lane_shape(cfg, k, 3), dev)
+        if dev.type == "cpu":
+            wavefront_pass_c_plain(cfg, sched, col, back, accum, output)
+            return
+        # Pass C reads the tile shape, spp and gamma; no scene, no camera.
+        ip, fp = step_params(cfg, k, 0, np.zeros((10, 4), np.float32))
+        launch("wavefront_pass_c", cfg, dev, ip, fp, sched, col, back, accum,
+               output)
 
 
 def wavefront_pass_c_plain(cfg, sched: torch.Tensor, col: torch.Tensor,

@@ -23,6 +23,12 @@ from l2n_tpu_torch.render.state import (
     init_frame_state,
     load_state,
 )
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_RENDERER_CLEAR = Site("renderer.clear")
+_RENDERER_SYNC = Site("renderer.sync")
+_RENDERER_STEP = Site("renderer.step")
 
 
 class Renderer:
@@ -51,11 +57,13 @@ class Renderer:
             raise KeyError(name)
         if name != self.current:
             self.current = name
-            self.state = clear_accumulation(self.state)
+            with _RENDERER_CLEAR:
+                self.state = clear_accumulation(self.state)
 
     def on_camera_moved(self) -> None:
         """Camera moved => clear accumulation."""
-        self.state = clear_accumulation(self.state)
+        with _RENDERER_CLEAR:
+            self.state = clear_accumulation(self.state)
 
     def load_state(self, state: FrameState) -> None:
         """Make `state` (e.g. a loaded session, on any device) the live
@@ -65,29 +73,38 @@ class Renderer:
 
     def _sync(self) -> None:
         if self.state.accum.is_cuda:
-            torch.cuda.synchronize(self.state.accum.device)
+            with _RENDERER_SYNC:
+                torch.cuda.synchronize(self.state.accum.device)
 
     def step(self, camera: Camera, block: bool = False) -> FrameState:
         """One progressive step. With block=True the device finishes the
-        step before this returns, so the recorded time is the step's."""
-        t0 = time.perf_counter()
-        self.state = self.program.step(self.state, camera.packed())
-        if block:
-            self._sync()
-        if self.current in self._warm:
-            self._step_times.append(time.perf_counter() - t0)
-        else:
-            # The first step of a program pays the kernel build/load.
-            self._warm.add(self.current)
-        if len(self._step_times) > 240:
-            del self._step_times[:120]
-        return self.state
+        step before this returns, so the recorded time is the step's; else
+        it is the host's dispatch of it."""
+        with _RENDERER_STEP:
+            t0 = time.perf_counter()
+            self.state = self.program.step(self.state, camera.packed())
+            if block:
+                self._sync()
+            if self.current in self._warm:
+                self._step_times.append(time.perf_counter() - t0)
+            else:
+                # The first step of a program pays the kernel build/load.
+                self._warm.add(self.current)
+            if len(self._step_times) > 240:
+                del self._step_times[:120]
+            return self.state
 
     def display(self) -> np.ndarray:
         """(H, W, 3) float32 tonemapped image on the host, cropped."""
         return display_image(self.cfg, self.state)
 
     def metrics(self) -> dict[str, float]:
+        """Per scheduler step, over the last 120 timed calls of `step`: the
+        host clock around each call, which is the host's dispatch of the
+        step unless the call passed block=True (then the device's finishing
+        it too). Where the host's time goes inside a call, and the device's
+        idle time beside it, are for the spans (utils/profiling.py) under
+        torch.profiler."""
         cfg = self.cfg
         times = self._step_times[-120:] or [float("nan")]
         ms = float(np.mean(times)) * 1e3 / self.program.steps_per_call

@@ -68,6 +68,7 @@ from l2n_tpu_torch.ops.kernels.common import (
     check_camera,
     check_supported,
     debug_checks,
+    graph_calls,
     replay,
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
@@ -91,6 +92,13 @@ from l2n_tpu_torch.render.tiles import (
 )
 from l2n_tpu_torch.scene.spheres import SphereScene
 from l2n_tpu_torch.scene.tessellate import TriangleScene
+from l2n_tpu_torch.utils.profiling import Site
+
+# The spans this module records (utils/profiling.py).
+_STEP_EAGER = Site("step.eager")
+_STEP_GATHER = Site("step.gather")
+_STEP_REPLAY = Site("step.replay")
+_STEP_CAPTURE = Site("step.capture")
 
 BACKENDS = ("cuda", "torch")
 
@@ -179,10 +187,13 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
     k = cfg.effective_tiles_per_step
 
     def step(state: FrameState, camera) -> FrameState:
-        sched = scheduled_tiles(tiles, state.tile_offset, k)
-        render(sched, np.asarray(camera, np.float32), state.accum,
-               state.output, state.rng_state)
-        audit(state.accum, state.output)
+        with _STEP_EAGER:
+            graph_calls["eager"] += 1
+            with _STEP_GATHER:
+                sched = scheduled_tiles(tiles, state.tile_offset, k)
+            render(sched, np.asarray(camera, np.float32), state.accum,
+                   state.output, state.rng_state)
+            audit(state.accum, state.output)
         return dataclasses.replace(
             state, tile_offset=advance_offset(cfg, state.tile_offset),
             iteration=state.iteration + 1)
@@ -217,8 +228,9 @@ class MultiStep:
     def _steps(self, cam, accum, output, rng_state) -> None:
         """The N steps from the cursor, which they advance."""
         k = self.cfg.effective_tiles_per_step
-        scheds = scheduled_tiles(self.tiles, self.cursor,
-                                 self.n * k).view(self.n, k, 2)
+        with _STEP_GATHER:
+            scheds = scheduled_tiles(self.tiles, self.cursor,
+                                     self.n * k).view(self.n, k, 2)
         for sched in scheds:
             self.render(sched, cam, accum, output, rng_state)
             audit(accum, output)
@@ -231,19 +243,25 @@ class MultiStep:
         key = (cam.tobytes(), tuple(0 if p is None else p.data_ptr()
                                     for p in planes))
         if not self.graphs or debug_checks():
-            self._steps(cam, *planes)
+            with _STEP_EAGER:
+                graph_calls["eager"] += 1
+                self._steps(cam, *planes)
         elif self._graph is not None and self._graph[0] == key:
-            replay(*self._graph[1:])
+            with _STEP_REPLAY:
+                replay(*self._graph[1:])
         elif self._warm == key:
-            self._graph = None  # its memory goes before the next capture
-            graph, held = capture(lambda: self._steps(cam, *planes),
-                                  self.device)
-            self._graph = (key, graph, held)
-            replay(graph, held)
+            with _STEP_CAPTURE:
+                self._graph = None  # its memory goes before the next capture
+                graph, held = capture(lambda: self._steps(cam, *planes),
+                                      self.device)
+                self._graph = (key, graph, held)
+                replay(graph, held)
         else:
-            self._graph = None
-            self._steps(cam, *planes)
-            self._warm = key
+            with _STEP_EAGER:
+                graph_calls["eager"] += 1
+                self._graph = None
+                self._steps(cam, *planes)
+                self._warm = key
         return dataclasses.replace(
             state, tile_offset=advance_offset(self.cfg, state.tile_offset,
                                               self.n),
