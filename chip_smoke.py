@@ -43,11 +43,14 @@ card over gloo, each gathered slab bit-equal to its kernel render here
 (46), and its stateful tile axis to one single-card step (47), holds
 triangle_pt to its plain version on the 70,144-triangle trefoil knot of
 the JAX bench's bigobj stage, one mesh of 548 slabs that takes the walk's
-slab-group level, and times it (48), and times
+slab-group level, and times it (48), holds a call's steps rendered in
+groups (one launch for the 32 steps of portbench's tri32k.rows schedule)
+to one launch per step bit for bit (50), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
-    python3 chip_smoke.py          # needs one CUDA card; no arguments
+    python3 chip_smoke.py          # needs one CUDA card
+    python3 chip_smoke.py fused    # phase 50 alone
 
 Imports neither jax nor anything of the JAX package (l2n_tpu). Every phase
 prints one line; a failed gate raises, so the script exits nonzero without
@@ -417,22 +420,26 @@ def pass_b_group(alive: int) -> int:
 def run_main_path(app, frames: int, names):
     """Drive `frames` calls of `app`'s current renderer with the launch
     counts zeroed just before and read just after; each kernel in `names`
-    must have launched once per scheduler step (a call runs the program's
-    `steps_per_call`, on the card as a CUDA-graph replay whose launches
-    count per replay). Checks 10 spp everywhere, a finite lit image and a
-    written PNG. Returns (launches, lit, PNG bytes)."""
+    must have launched once per group of scheduler steps (a call runs the
+    program's `steps_per_call` in groups of the step's `group`, on the
+    card as a CUDA-graph replay whose launches count per replay). Checks
+    10 spp everywhere, a finite lit image and a written PNG. Returns
+    (launches, lit, PNG bytes)."""
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
     from l2n_tpu_torch.utils.image import write_png
     cfg = app.renderer.cfg
-    steps = frames * app.renderer.program.steps_per_call
+    program = app.renderer.program
+    steps = frames * program.steps_per_call
+    want = frames * -(-program.steps_per_call
+                      // getattr(program.step, "group", 1))
     reset_launches()
     state = app.run(frames, save_camera=False)
     torch.cuda.synchronize()
     path_launches = dict(launches)
     for name in names:
-        require(path_launches.get(name, 0) == steps,
+        require(path_launches.get(name, 0) == want,
                 f"{name} launched {path_launches.get(name, 0)} times in "
-                f"{steps} main-path steps")
+                f"{steps} main-path steps (want {want})")
     spp = state.accum[3, :cfg.height, :cfg.width]
     require(bool((spp == 10).all()), "every visible pixel holds 10 samples")
     img = app.renderer.display()
@@ -2488,8 +2495,9 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
     clear_accumulation (replay); a session saved, one more call, the
     session loaded into both live states (replay from the loaded tile
     offset and planes) and into new buffers (eager, then a recapture).
-    Every call's launches must equal n per kernel of `names`, replays
-    included. Returns the calls compared."""
+    Every call's launches must equal ceil(n / G) per kernel of `names`
+    for the step's group of G steps a kernel call, replays included.
+    Returns the calls compared."""
     import dataclasses as dc
 
     from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
@@ -2507,6 +2515,7 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
     e = dc.replace(init_frame_state(cfg, dev), tile_offset=7)
     g = dc.replace(init_frame_state(cfg, dev), tile_offset=7)
     calls = 0
+    want = -(-n // many.group)
 
     def call(cam, what):
         nonlocal e, g, calls
@@ -2518,9 +2527,10 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
             e = one(e, cam)
         torch.cuda.synchronize()
         for name in names:
-            require(got.get(name, 0) == n,
+            require(got.get(name, 0) == want,
                     f"{cfg.scene_kind} {what}: {name} launched "
-                    f"{got.get(name, 0)} times in one call of {n} steps")
+                    f"{got.get(name, 0)} times in one call of {n} steps "
+                    f"(want {want})")
         require(same_state(e, g), f"{cfg.scene_kind} rng={cfg.rng} "
                                   f"{what}: graph replay != eager steps")
         calls += 1
@@ -2601,7 +2611,8 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
     phase(41, f"steps_per_call as CUDA-graph replay vs eager single steps, "
               f"10-tile steps, 3 per call, from tile_offset 7 (gate: max "
               f"abs 0 on accum, output and state planes, equal counters, "
-              f"launches per call = steps, replays counted): calls "
+              f"launches per call = ceil(steps / group), replays counted): "
+              f"calls "
               f"compared per case {compared}; graph-replayed main paths "
               f"(10 calls of steps_per_call = one frame through "
               f"Application): (steps per call, launches, lit) {paths}; "
@@ -3310,6 +3321,103 @@ def shell_phase(card, dev, tri_cfg, tri_buf, cam) -> dict:
                 for label in ("10-tile", "whole-frame")}}
 
 
+def fused_steps_phase(card, dev) -> dict:
+    """Phase 50: a call's steps rendered in groups, one kernel call per G
+    steps (render/step.py MultiStep), against one launch per step at the
+    `tri32k.rows` schedule of portbench: 1024x1024 in 32x128 tiles, 8 tiles
+    at 1 spp a step, 32 steps a call, so G = 32 and a call is one launch
+    of the whole frame. sphere_pt on the headline's 128 spheres and
+    triangle_pt on them tessellated 16x8 (32,768 triangles), in tpu_hw,
+    threefry and tinymt, 3 calls from tile offset 7 (eager, capture and
+    replay, replay): the grouped step against the same step under
+    debug_mode (G = 1, every launch synchronized) and against a graph of
+    one launch per step (MultiStep with fuse=False); gate max abs 0 on
+    accum, output and the state planes. Then ms per call of the two
+    graphs, CUDA events over 20 replays, in turns."""
+    import dataclasses as dc
+
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.common import launches, reset_launches
+    from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import MultiStep, build_render_step
+    from l2n_tpu_torch.scene import build_triangle_scene
+    from l2n_tpu_torch.scene.spheres import compute_spheres
+    from l2n_tpu_torch.utils.validate import debug_mode
+    base = headline_config(RenderConfig).replace(tiles_per_step=8,
+                                                 spp_per_step=1)
+    spheres = compute_spheres(base.sphere_count, base.world_size,
+                              base.scene_seed)
+    tri_buf = TriangleBuffers.from_scene(
+        build_triangle_scene(spheres, 16, 8), dev)
+    n = base.tile_count // base.effective_tiles_per_step
+    gaps, held, ms = {}, {}, {}
+    for family, kernel in (("sphere", "sphere_pt"),
+                           ("triangle", "triangle_pt")):
+        fcfg = base if family == "sphere" else base.replace(
+            scene_kind="triangle", fast_math=False, disc_lat=16, disc_long=8)
+        scene = spheres if family == "sphere" else tri_buf
+        for rng in ("tpu_hw", "threefry", "tinymt"):
+            cfg = fcfg.replace(rng=rng).validate()
+            cam = Camera.from_config(cfg).packed()
+            grouped = build_render_step(cfg, scene, backend="cuda",
+                                        device=dev, steps_per_call=n)
+            single = MultiStep(cfg, grouped.render, grouped.tiles, n, dev,
+                               graphs=True, fuse=False)
+            require(grouped.group == n and single.group == 1,
+                    f"groups {grouped.group}, {single.group}")
+            states = [dc.replace(init_frame_state(cfg, dev), tile_offset=7)
+                      for _ in range(3)]
+            reset_launches()
+            for _ in range(3):
+                states[0] = grouped(states[0], cam)
+            torch.cuda.synchronize()
+            held[f"{kernel} {rng}"] = launches[kernel]
+            require(launches[kernel] == 3, f"{kernel} {rng}: "
+                    f"{launches[kernel]} launches in 3 grouped calls")
+            with debug_mode():
+                for _ in range(3):
+                    states[1] = grouped(states[1], cam)
+            for _ in range(3):
+                states[2] = single(states[2], cam)
+            torch.cuda.synchronize()
+            g = states[0]
+            for other, what in ((states[1], "debug_mode"),
+                                (states[2], "fuse=False")):
+                gap = max(float((a - b).abs().max()) for a, b in (
+                    (g.accum, other.accum), (g.output, other.output)))
+                if g.rng_state is not None:
+                    gap = max(gap, float((g.rng_state.long()
+                                          - other.rng_state.long())
+                                         .abs().max()))
+                gaps[f"{kernel} {rng} vs {what}"] = gap
+                require(same_state(g, other),
+                        f"{kernel} rng={rng}: grouped call != one launch "
+                        f"per step ({what}), max abs {gap}")
+            require(float(g.accum[3].sum()) == 3 * cfg.padded_height
+                    * cfg.padded_width, f"{kernel} {rng}: sample count")
+            if rng == "tinymt":
+                continue
+            st = states[0]
+            for label, step in (("grouped", grouped), ("per-step", single),
+                                ("per-step", single), ("grouped", grouped)):
+                ms.setdefault(f"{kernel} {rng} {label}", []).append(
+                    timed_calls(lambda: step(st, cam), 2, 20))
+            del grouped, single, states, st
+            torch.cuda.empty_cache()
+    times = {k: [round(x, 4) for x in v] for k, v in ms.items()}
+    phase(50, f"grouped steps at tri32k.rows's schedule (1024x1024, 32x128 "
+              f"tiles, 8 tiles at 1 spp a step, {n} steps a call, one "
+              f"launch a call): grouped vs debug_mode and vs a graph of one "
+              f"launch a step, 3 calls from tile offset 7, max abs (gate 0 "
+              f"on accum, output, state planes) {gaps}; launches in 3 "
+              f"grouped calls {held}; ms per call (CUDA events, 20 graph "
+              f"replays, in turns grouped, per-step, per-step, grouped) "
+              f"{times}; card: {card}")
+    return {"gaps": gaps, "ms": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -3361,6 +3469,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    if sys.argv[1:] == ["fused"]:  # phase 50 alone
+        fused_steps_phase(card, dev)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     # --- 1: card, versions, build ------------------------------------------
     tmp = tempfile.TemporaryDirectory()
     side = {stem: start_cubin(build, Path(tmp.name), stem, src)
@@ -3982,6 +4097,7 @@ def main() -> int:
         sharded = parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam)
         trefoil = trefoil_phase(card, dev)
         shell = shell_phase(card, dev, tri_cfg, tri_buf, cam)
+        fused_steps_phase(card, dev)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)

@@ -41,10 +41,20 @@ returns a new FrameState sharing them with advanced counters
 `steps_per_call=N` runs N scheduler steps per call, the counterpart of the
 JAX step's lax.fori_loop: the same image as N single steps, to the bit.
 Their schedules come from a device cursor (render/tiles.py), gathered once
-per call. With backend="cuda" the N steps are captured once into a CUDA
-graph and replayed, so that the host dispatches one replay where it
-dispatched N steps of wrapper calls. The kernels' parameters, the camera
-among them, are baked in at capture, and so are the state buffers'
+per call, and render in groups of G consecutive steps, one kernel call a
+group: G = max(1, min(N, T // k)) for T tiles in the frame and k a step.
+Any G * k consecutive entries of the wrapping schedule are distinct tiles,
+wherever the cursor starts, and a kernel renders distinct tiles in one
+launch to the same bits as one launch per step (a pixel's sample index is
+its own accumulated count, and a stateful sampler loads and stores its
+planes once per pixel per launch). So a partial-frame schedule of N steps
+takes ceil(N / G) launches, and whole-frame steps (k = T) one a step. The
+wavefront step keeps one launch sequence per step (its lane buffers hold
+one step's tiles), and so does every step under utils/validate.debug_mode,
+which audits each step. With backend="cuda" the N steps are captured once
+into a CUDA graph and replayed, so that the host dispatches one replay
+where it dispatched N steps of wrapper calls. The kernels' parameters, the
+camera among them, are baked in at capture, and so are the state buffers'
 addresses: the step keeps one graph, for one (camera, buffers) key. The
 first call for a key runs its N steps eagerly (which builds the kernel
 library and does the launchers' shared-memory opt-ins, neither of which
@@ -137,6 +147,7 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     device = resolve_device(backend, device)
+    fuse = True  # whether one kernel call may render several steps' tiles
     if lights is not None and not lights.enabled:
         lights = None
     if lights is not None and cfg.wavefront:
@@ -154,6 +165,7 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
                 albedo=lights.override_albedo(scene.albedo))
         buffers = scene.packed().to(device)
         if cfg.wavefront and cfg.aov == "pathtracing":
+            fuse = False  # the lane buffers hold one step's tiles
             kernel = sphere_wavefront_step_plain
             if backend == "cuda":  # the kernels' buffers, kept by the step
                 kernel = functools.partial(
@@ -183,7 +195,7 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
 
     if steps_per_call > 1:
         return MultiStep(cfg, render, tiles, steps_per_call, device,
-                         graphs=backend == "cuda")
+                         graphs=backend == "cuda", fuse=fuse)
     k = cfg.effective_tiles_per_step
 
     def step(state: FrameState, camera) -> FrameState:
@@ -215,23 +227,27 @@ def audit(accum: torch.Tensor, output: torch.Tensor) -> None:
 class MultiStep:
     """step(state, packed_camera) -> FrameState over N scheduler steps per
     call (`build_render_step(..., steps_per_call=N)`; module doc). `render`
-    renders the tiles `sched` of one step in place."""
+    renders the tiles `sched` in place: those of `group` consecutive steps
+    at once where `fuse`, else those of one step."""
 
     def __init__(self, cfg, render, tiles: torch.Tensor, n: int,
-                 device: torch.device, graphs: bool):
+                 device: torch.device, graphs: bool, fuse: bool = True):
         self.cfg, self.render, self.tiles, self.n = cfg, render, tiles, n
         self.device, self.graphs = device, graphs
+        self.group = max(1, min(
+            n, cfg.tile_count // cfg.effective_tiles_per_step)) if fuse else 1
         self.cursor = torch.zeros((1,), dtype=torch.int32, device=device)
         self._graph = None  # (key, graph, launches it holds)
         self._warm = None   # the key of the last eager run
 
     def _steps(self, cam, accum, output, rng_state) -> None:
-        """The N steps from the cursor, which they advance."""
+        """The N steps from the cursor, which they advance, `group` at a
+        time (one at a time under debug_mode)."""
         k = self.cfg.effective_tiles_per_step
+        group = 1 if debug_checks() else self.group
         with _STEP_GATHER:
-            scheds = scheduled_tiles(self.tiles, self.cursor,
-                                     self.n * k).view(self.n, k, 2)
-        for sched in scheds:
+            scheds = scheduled_tiles(self.tiles, self.cursor, self.n * k)
+        for sched in scheds.split(group * k):
             self.render(sched, cam, accum, output, rng_state)
             audit(accum, output)
         advance_cursor(self.cfg, self.cursor, self.n)

@@ -195,6 +195,69 @@ def test_triangle_header_memcheck_asan(asan_build):
     _asan_render(asan_build)
 
 
+ASAN_FUSED = r"""
+import ctypes, sys
+import numpy as np, torch
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.common import step_params
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.render.state import init_frame_state
+from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
+from l2n_tpu_torch.scene import build_triangle_scene, compute_spheres
+lib = ctypes.CDLL(sys.argv[1])
+p = ctypes.c_void_p
+ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
+lib.l2n_sphere_pt_host.argtypes = [p] * 8
+lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 18
+family, rng = sys.argv[2], sys.argv[3]
+# 3 tiles a step of a 32-tile frame; the call's steps fused into one
+# launch of all 32 tiles from offset 31, so the schedule wraps at once.
+cfg = RenderConfig(width=128, height=64, tile_width=32, tile_height=8,
+                   tiles_per_step=3, rng=rng, scene_kind=family).validate()
+t = cfg.tile_count
+sched = np.ascontiguousarray(scheduled_tiles(
+    torch.as_tensor(tile_grid(cfg)), t - 1, t).numpy()).copy()
+cam = Camera.from_config(cfg).packed()
+st = init_frame_state(cfg)
+accum, output = st.accum.numpy().copy(), st.output.numpy().copy()
+state = None if st.rng_state is None else st.rng_state.numpy().copy()
+if family == "sphere":
+    spheres = np.ascontiguousarray(compute_spheres(128).packed().numpy())
+    ip, fp = step_params(cfg, t, 128, cam)
+    args = (ip, fp, sched, spheres)
+    call = lambda: lib.l2n_sphere_pt_host(*map(ptr, args), None, ptr(accum),
+                                          ptr(output), state if state is None
+                                          else ptr(state))
+else:
+    buf = TriangleBuffers.from_scene(build_triangle_scene(compute_spheres(128)))
+    m, s = buf.slab_bounds.shape[:2]
+    ip, fp = step_params(cfg, t, m, cam)
+    arrays = [np.ascontiguousarray(a.numpy()).copy()
+              for a in buf.kernel_arrays()]
+    call = lambda: lib.l2n_triangle_pt_host(
+        ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays), None,
+        ptr(accum), ptr(output), state if state is None else ptr(state))
+for _ in range(2):
+    assert call() == 0
+assert float(accum[3].sum()) == 2 * cfg.padded_height * cfg.padded_width
+print("clean")
+"""
+
+
+@pytest.mark.parametrize("family,rng", [("sphere", "tinymt"),
+                                        ("triangle", "tinymt"),
+                                        ("triangle", "tpu_hw")])
+def test_header_memcheck_asan_fused_schedule(asan_build, family, rng):
+    """The memory check of a call's steps fused into one launch (render/
+    step.py MultiStep, ROADMAP Queue 3 #15): 3 tiles a step, all 32 tiles
+    of the frame in one schedule from offset 31, twice, through sphere_pt's
+    and triangle_pt's headers built with AddressSanitizer, the stateful
+    sampler's planes and every scene buffer a heap array of exactly its
+    size."""
+    _asan_render(asan_build, script=ASAN_FUSED, args=(family, rng))
+
+
 def test_triangle_header_memcheck_asan_list_overflow(asan_build):
     """The same memory check with a two-entry per-lane mesh list, so the
     walk's chunked rescans run (ROADMAP Queue 3 #15)."""

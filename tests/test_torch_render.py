@@ -40,6 +40,7 @@ from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.render.state import FrameState, init_frame_state
 from l2n_tpu_torch.render.step import MultiStep, build_render_step
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
+from l2n_tpu_torch.utils.validate import debug_mode
 
 
 def _jcfg(cfg):
@@ -298,7 +299,7 @@ SPC_CFG = dict(width=64, height=32, tile_width=8, tile_height=8,
 
 
 def _spc_program(family, n, **extra):
-    cfg = RenderConfig(**SPC_CFG, **extra).validate()
+    cfg = RenderConfig(**{**SPC_CFG, **extra}).validate()
     cls = TriangleProgram if family == "triangle" else SphereProgram
     return cls(cfg, backend="torch", steps_per_call=n)
 
@@ -339,6 +340,74 @@ def test_steps_per_call_equals_single_steps(family, extra, n):
     assert int(multi.step.cursor[0]) == b.tile_offset
     assert float(b.accum[3].sum()) == 2 * n * 3 * 64
     assert (b.accum[:3].amax(0) > 0).float().mean() > 0.1  # lit
+
+
+# Grouped steps (render/step.py: G = max(1, min(N, T // k)) steps a kernel
+# call) on SPC_CFG's 32-tile frame: (k, N, start offset, the tiles of each
+# kernel call). 3 x 12 runs past the frame (groups of 30 + 6 tiles); 6 x 8
+# has another k that does not divide T (30 + 18); 3 x 5 from offset 31
+# wraps in its first group (one group of 15).
+FUSED = {"past_frame": (3, 12, 29, [30, 6]), "k_6": (6, 8, 10, [30, 18]),
+         "wraps_first": (3, 5, 31, [15])}
+
+
+@pytest.mark.parametrize("rng", ["threefry", "tpu_hw", "tinymt", "tauslcg"])
+@pytest.mark.parametrize("family", ["sphere", "triangle"])
+@pytest.mark.parametrize("case", sorted(FUSED))
+def test_fused_steps_equal_single_steps(case, family, rng):
+    """A call whose steps render in groups, one kernel call a group, equals
+    one step at a time to the bit: accum, output, rng_state, tile_offset,
+    iteration and the device cursor."""
+    k, n, offset, groups = FUSED[case]
+    single = _spc_program(family, 1, tiles_per_step=k, rng=rng)
+    multi = _spc_program(family, n, tiles_per_step=k, rng=rng)
+    g = multi.step.group
+    assert [g * k] * (n // g) + [n % g * k] * (n % g > 0) == groups
+    cam = _aimed_camera(single.cfg).packed()
+    a = dataclasses.replace(init_frame_state(single.cfg), tile_offset=offset)
+    b = multi.step(dataclasses.replace(init_frame_state(single.cfg),
+                                       tile_offset=offset), cam)
+    for _ in range(n):
+        a = single.step(a, cam)
+    _states_equal(a, b)
+    assert b.iteration == n and b.tile_offset == (offset + n * k) % 32
+    assert int(multi.step.cursor[0]) == b.tile_offset
+    assert float(b.accum[3].sum()) == n * k * 64
+    assert (b.accum[:3].amax(0) > 0).float().mean() > 0.1  # lit
+
+
+def _recorded_groups(cfg, n, offset=29):
+    """The tiles of each kernel call of one call of N steps, with a stand-in
+    `render` that records its schedules; the schedules joined must be the
+    N steps' own and each group's tiles distinct."""
+    step = build_render_step(cfg, compute_spheres(cfg.sphere_count),
+                             backend="torch", steps_per_call=n)
+    scheds = []
+    step.render = lambda sched, *planes: scheds.append(sched.clone())
+    st = dataclasses.replace(init_frame_state(cfg), tile_offset=offset)
+    step(st, Camera.from_config(cfg).packed())
+    k = cfg.effective_tiles_per_step
+    want = step.tiles[(torch.arange(n * k) + offset) % cfg.tile_count]
+    assert torch.equal(torch.cat(scheds), want)
+    for sched in scheds:
+        ids = sched[:, 1] * cfg.tile_count_x + sched[:, 0]
+        assert ids.unique().numel() == sched.shape[0]
+    return [s.shape[0] for s in scheds]
+
+
+@pytest.mark.parametrize("case,extra,n,groups", [
+    ("fused", {}, 12, [30, 6]),
+    ("debug_mode", {}, 12, [3] * 12),
+    ("wavefront", {"wavefront": True}, 12, [3] * 12),
+    ("whole_frame", {"tiles_per_step": 32}, 3, [32] * 3)],
+    ids=["fused", "debug_mode", "wavefront", "whole_frame"])
+def test_fused_steps_kernel_calls(case, extra, n, groups):
+    """Each kernel call's tile count: G * k tiles a call, the last call the
+    rest; one step a call under debug_mode, for the wavefront step (its
+    lane buffers hold one step's tiles) and at whole frames (T // k = 1)."""
+    cfg = RenderConfig(**SPC_CFG).replace(**extra).validate()
+    with debug_mode() if case == "debug_mode" else contextlib.nullcontext():
+        assert _recorded_groups(cfg, n) == groups
 
 
 def test_steps_per_call_graph_keys(monkeypatch):

@@ -216,6 +216,41 @@ def test_multistep_graph_calls_capture_and_replay(monkeypatch):
     assert roots == ["step.eager", "step.capture", "step.replay"]
 
 
+@pytest.mark.parametrize("k,n,calls", [(3, 12, 2), (3, 5, 1), (8, 32, 8),
+                                       (32, 3, 3)])
+def test_multistep_launches_per_call_reads_groups(monkeypatch, k, n, calls):
+    """`launches` over `graph_calls` (portbench's launches_per_call) reads
+    ceil(N / G) kernel calls a call, G = max(1, min(N, T // k)) on the
+    32-tile frame, through eager calls, a capture and replays (the CUDA
+    graph stood in for on the CPU, as above; a stand-in render counts one
+    launch a kernel call)."""
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    cfg = CFG.replace(tiles_per_step=k).validate()
+    plain = SphereProgram(cfg, backend="torch", steps_per_call=n).step
+
+    def render(sched, *planes):
+        common.launches["sphere_pt"] += 1
+
+    graphed = MultiStep(cfg, render, plain.tiles, n, torch.device("cpu"),
+                        graphs=True)
+    camera = Camera.from_config(cfg, view_matrix=VIEW).packed()
+    st = init_frame_state(cfg)
+    for _ in range(4):
+        st = graphed(st, camera)
+    assert common.graph_calls == {"eager": 1, "capture": 1, "replay": 3}
+    per_call = sum(common.launches.values()) / (
+        common.graph_calls["eager"] + common.graph_calls["replay"])
+    assert per_call == calls
+
+
 def test_self_time_is_duration_less_the_children_s_cover():
     spans = [Span("a", 0, 100, 1, 0, 1), Span("b", 10, 30, 2, 1, 1),
              Span("c", 25, 40, 3, 1, 1), Span("d", 90, 120, 4, 1, 1),
