@@ -4,10 +4,13 @@ traffic at its own size, then its snapshots judged three ways against the
 float32 reference: the program (the sound reading), the reference itself
 computed in bfloat16, the nearest precision below the configuration's
 float32 (the control), and the program with one fault planted under the
-timed path where asked (`--fault`). The benchmark's runs do not run this.
+timed path where asked (`--fault`), or rendering with a render field of
+the configuration changed while the reference keeps it (`--setting`, e.g.
+mis=false). The benchmark's runs do not run this.
 
     python3 -m portbench.control --workload <cell> --seeds 1,2,3 \\
-        [--control-seeds 1,2,3] [--seconds 2] [--fault NAME]
+        [--control-seeds 1,2,3] [--seconds 2] [--fault NAME] \\
+        [--setting KEY=JSON ...]
 
 Prints one JSON line per seed and reading, and the largest sound and the
 smallest control reading of each number.
@@ -60,10 +63,14 @@ def plant(fault: str, set_attr=setattr):
 
 
 def readings(name: str, seed: int, seconds: float, device, backend: str,
-             control: bool, overrides=None, mix_overrides=None) -> list:
-    """[(reading, {number: worst value})] of one seed."""
+             control: bool, overrides=None, mix_overrides=None,
+             program_overrides=None) -> list:
+    """[(reading, {number: worst value})] of one seed; `program_overrides`
+    replace render fields of the program's configuration only."""
     c = harness.load_cell(name, seed, overrides, mix_overrides)
-    run = harness.measure(c, seed, seconds, False, device, backend)
+    prog = c if not program_overrides else harness.load_cell(
+        name, seed, dict(overrides or {}, **program_overrides), mix_overrides)
+    run = harness.measure(prog, seed, seconds, False, device, backend)
     spc = int(c.mix["steps_per_call"])
     pixels = check.check_pixels(c.ref_cfg, int(c.cell["check"]["pixels"]),
                                 seed, run["device"])
@@ -94,7 +101,11 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--fault", choices=FAULTS)
+    ap.add_argument("--setting", action="append", default=[],
+                    metavar="KEY=JSON")
     args = ap.parse_args(argv)
+    settings = {k: json.loads(v) for k, v in
+                (a.split("=", 1) for a in args.setting)}
     if not torch.cuda.is_available():
         print("portbench.control: no CUDA card", file=sys.stderr)
         return 2
@@ -107,9 +118,12 @@ def main(argv=None) -> int:
     for seed in seeds:
         t0 = time.perf_counter()
         for kind, numbers in readings(args.workload, seed, args.seconds,
-                                      "cuda", "cuda", seed in control_seeds):
-            kind = f"fault:{args.fault}" if args.fault and \
-                kind == "program" else kind
+                                      "cuda", "cuda", seed in control_seeds,
+                                      program_overrides=settings):
+            if kind == "program" and args.fault:
+                kind = f"fault:{args.fault}"
+            elif kind == "program" and settings:
+                kind = "setting:" + ",".join(args.setting)
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "reading": kind, "numbers": numbers,
                               "seconds": time.perf_counter() - t0}),

@@ -98,7 +98,10 @@ class PhiloxSampler:
         return u
 
 
-def max_pairs_per_sample(max_bounces: int) -> int:
-    """The draw budget of a sample without NEE or fog: the pixel jitter,
-    then a hemisphere pair and a roulette pair per bounce."""
-    return 2 + 2 * max_bounces
+def max_pairs_per_sample(max_bounces: int, nee: bool = False) -> int:
+    """The draw budget of a sample without fog: the pixel jitter, then a
+    hemisphere pair and a roulette pair per bounce, and under NEE a light
+    pick and a direction pair more per bounce: the port's budget. Philox
+    counts samples in a counter word of their own, so here it only bounds
+    the pairs a sample may draw."""
+    return 2 + (4 if nee else 2) * max_bounces

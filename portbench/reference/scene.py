@@ -5,8 +5,9 @@ Spheres: `sphere_count` centres uniform in the +-world_size/2 cube and radii
 up to 5% of world_size, drawn with numpy's PCG64 from `scene_seed` in the
 order (cx, cy, cz, radius). Meshes: each sphere tessellated into disc_lat x
 disc_long quads of two triangles (`tessellate_sphere`), flattened into a
-triangle soup that the brute-force sweep tests one by one. The albedo of
-object i is fract(sin((i + 1) k) * 43758.5453), evaluated once on the host.
+triangle soup that the brute-force sweep tests one by one, and each
+mesh's bounding sphere (cone NEE's lights). The albedo of object i is
+fract(sin((i + 1) k) * 43758.5453), evaluated once on the host.
 """
 
 from __future__ import annotations
@@ -76,10 +77,12 @@ class Spheres:
 @dataclasses.dataclass(frozen=True)
 class Soup:
     """(T,) tensors: v1, e1 = v2 - v1, e2 = v3 - v1, the corner normals
-    na, nb, nc, and mesh_id (int64); albedo (M, 3) per mesh."""
+    na, nb, nc, and mesh_id (int64); albedo (M, 3) per mesh; bounds (M, 4)
+    each mesh's bounding sphere [cx, cy, cz, r^2] (`mesh_bounds`)."""
 
     tri: dict
     albedo: torch.Tensor
+    bounds: torch.Tensor
 
     @property
     def count(self) -> int:
@@ -95,6 +98,31 @@ def make_spheres(cfg: dict, device, dtype=torch.float32) -> Spheres:
 
     return Spheres(dev(centres[:, 0]), dev(centres[:, 1]), dev(centres[:, 2]),
                    dev(r2), procedural_albedo(len(r2)).to(device, dtype))
+
+
+def bounding_sphere(pts: np.ndarray) -> tuple[np.ndarray, float]:
+    """The bounding sphere of float32 points (N, 3): the centre of their
+    box, and the largest squared distance from it grown by 1e-5."""
+    center = 0.5 * (pts.min(0) + pts.max(0))
+    r2 = float(((pts - center) ** 2).sum(1).max()) * (1.0 + 1e-5)
+    return center, r2
+
+
+def mesh_bounds(arrays: dict, meshes: int) -> np.ndarray:
+    """(M, 4) float32 [cx, cy, cz, r^2] of each mesh's bounding sphere over
+    its triangles' corners v1, v1 + e1 and v1 + e2 (float32 soup arrays),
+    as the port's packer bounds a mesh."""
+    bounds = np.zeros((meshes, 4), np.float32)
+    for m in range(meshes):
+        sel = np.flatnonzero(arrays["mesh_id"] == m)
+        if not len(sel):
+            continue
+        v1 = np.stack([arrays[f"v1{a}"][sel] for a in "xyz"], 1)
+        v2 = v1 + np.stack([arrays[f"e1{a}"][sel] for a in "xyz"], 1)
+        v3 = v1 + np.stack([arrays[f"e2{a}"][sel] for a in "xyz"], 1)
+        center, r2 = bounding_sphere(np.stack([v1, v2, v3], 1).reshape(-1, 3))
+        bounds[m] = [*center, r2]
+    return bounds
 
 
 def make_soup(cfg: dict, device, dtype=torch.float32) -> Soup:
@@ -127,4 +155,5 @@ def make_soup(cfg: dict, device, dtype=torch.float32) -> Soup:
     for k, v in arrays.items():
         t = torch.as_tensor(np.ascontiguousarray(v)).to(device)
         out[k] = t.to(torch.int64) if k == "mesh_id" else t.to(dtype)
-    return Soup(out, procedural_albedo(len(r2)).to(device, dtype))
+    bounds = torch.as_tensor(mesh_bounds(arrays, len(r2))).to(device, dtype)
+    return Soup(out, procedural_albedo(len(r2)).to(device, dtype), bounds)

@@ -4,12 +4,15 @@ reference that decides `correct` (frozen copy; PROVENANCE.md).
 Settings it covers, and only these: the path-tracing image, procedural
 Lambert shading, `max_bounces` segments with Russian roulette, every
 `emissive_every`-th object emissive, the Mandelbrot sky, the "fovy" camera,
-the Philox sampler (`rng="tpu_hw"`), `fast_math` on and off, and two
+the Philox sampler (`rng="tpu_hw"`), `fast_math` on and off, two
 intersectors: a sweep over every sphere and a brute-force Moller-Trumbore
-sweep over every triangle of the soup. Every lane runs every segment's
-arithmetic in lockstep and masks decide what is kept; the tri-state
-distance (t >= 0 hit, -1 miss, -2 terminated) is kept, since the sky test
-is `dist == -1`.
+sweep over every triangle of the soup, and on meshes next event estimation
+(`nee`) by cone sampling of the emissive meshes' bounding spheres, with
+(`mis`) or without the balance heuristic of multiple importance sampling.
+Other NEE settings raise ValueError (`check_nee`). Every lane runs every
+segment's arithmetic in lockstep and masks decide what is kept; the
+tri-state distance (t >= 0 hit, -1 miss, -2 terminated) is kept, since the
+sky test is `dist == -1`.
 
 Arithmetic runs in the dtype of the scene and camera tensors: float32 for
 the reference, a lower precision for the control (`render`'s `dtype`).
@@ -87,6 +90,11 @@ def frame_z(zx, zy, zz, fast: bool = False):
     tz = torch.where(use_y, az, bz)
     return (tx, ty, tz), (zy * tz - zz * ty, zz * tx - zx * tz,
                           zx * ty - zy * tx)
+
+
+def local_to_world(lx, ly, lz, tangent, bitangent, zaxis):
+    return tuple(t * lx + b * ly + z * lz
+                 for t, b, z in zip(tangent, bitangent, zaxis))
 
 
 def cosine_hemisphere(u1, u2):
@@ -314,11 +322,17 @@ class Counts:
     samples, the draw pairs their paths need (the lockstep tracer draws
     more),
     nearest-hit segments that hit (`hits`), any-hit segments that hit
-    (`any_hits`), scatters, emissive hits, sky evaluations, those inside
-    the Mandelbrot box and their escape iterations."""
+    (`any_hits`), scatters, emissive hits whose emission is kept, sky
+    evaluations, those inside the Mandelbrot box and their escape
+    iterations; under NEE the vertices that sample a light (`nee`), those
+    whose sample takes the balance weight (`nee_mis`), the shadow casts
+    that must be made (a weight not 0) and hit a primitive
+    (`shadow_hits`), and the balance weights of emission that BSDF rays
+    found (`mis_emission`)."""
 
     KEYS = ("touches", "samples", "pairs", "hits", "any_hits", "scatters",
-            "emissive", "sky", "sky_in", "sky_iters")
+            "emissive", "sky", "sky_in", "sky_iters", "nee", "nee_mis",
+            "shadow_hits", "mis_emission")
 
     def __init__(self):
         self.c = {k: 0 for k in self.KEYS}
@@ -331,17 +345,146 @@ class Counts:
         return {k: int(v) for k, v in self.c.items()}
 
 
+# --------------------------------------------------------------------------
+# Next event estimation by cone sampling, and the balance heuristic.
+
+class ConeLights:
+    """The E lights of a mesh scene: columns e * emissive_every of the
+    meshes' bounding spheres (M, 4) [cx, cy, cz, r^2]."""
+
+    def __init__(self, bounds: torch.Tensor, emissive_every: int):
+        meshes = bounds.shape[0]
+        self.n_lights = (meshes + emissive_every - 1) // emissive_every
+        self.index = torch.arange(self.n_lights,
+                                  device=bounds.device) * emissive_every
+        self.rows = bounds.T[:4, self.index]
+        self.bound_r2 = bounds[:, 3]
+
+    def pick(self, u_pick):
+        """(cx, cy, cz, r2, index) of light min(int(u_pick E), E - 1)."""
+        sel = torch.clamp((u_pick * float(self.n_lights)).to(torch.int32),
+                          max=self.n_lights - 1).long()
+        cx, cy, cz, r2 = (self.rows[i][sel] for i in range(4))
+        return cx, cy, cz, r2, self.index[sel]
+
+
+def cone_solid_angle(d2, r2):
+    """(Omega, cos_max) = (2 pi (1 - cos_max), cos_max) of a sphere of
+    squared radius r2 seen from squared distance d2; the whole sphere of
+    directions (cos_max = -1, 4 pi) from inside it."""
+    inside = d2 <= r2
+    cos_max = sqrt(torch.clamp(1.0 - r2 / torch.clamp(d2, min=1e-20),
+                               min=0.0))
+    cos_max = torch.where(inside, torch.full_like(cos_max, -1.0), cos_max)
+    return (2.0 * PI) * (1.0 - cos_max), cos_max
+
+
+def _balance(w, p_nee, p_bsdf):
+    return w * p_nee / torch.clamp(p_nee + p_bsdf, min=1e-20)
+
+
+def nee_cone(cfg, scene: Scene, lights: ConeLights, u_pick, u1, u2, h, n,
+             kd, tp, mis: bool, surface, counts):
+    """Direct light at the vertices h (3-tuple) with shading normals n
+    (normalized here), Lambert albedo kd and throughput tp before the
+    scatter: a direction uniform in the cone of the picked light's
+    bounding sphere, cast through the scene's nearest-hit sweep, counted
+    iff it hits that mesh, with Le = scale / (4 pi) and the estimator's
+    weight E Omega, or with `mis` the balance weight against the BSDF's
+    pdf cos / pi. Returns (r, g, b); `surface` the lanes that take it."""
+    hx, hy, hz = h
+    cx, cy, cz, r2, light_idx = lights.pick(u_pick)
+    wx, wy, wz = cx - hx, cy - hy, cz - hz
+    d2 = wx * wx + wy * wy + wz * wz
+    omega, cos_max = cone_solid_angle(d2, r2)
+    a = normalize3(wx, wy, wz)
+    cos_t = 1.0 - u1 * (1.0 - cos_max)
+    sin_t = sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = (2.0 * PI) * u2
+    tangent, bitangent = frame_z(*a)
+    lx, ly, lz = local_to_world(sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                                cos_t, tangent, bitangent, a)
+    eps = cfg["ray_epsilon"]
+    # Lanes that take no NEE cast from far away: the sweep skips them.
+    far = torch.full_like(hx, 3.0e30)
+    so = tuple(torch.where(surface, o + eps * dc, far)
+               for o, dc in zip(h, (lx, ly, lz)))
+    sh = scene.nearest(*so, lx, ly, lz)
+    lit = (sh.t >= 0.0) & (sh.index == light_idx)
+    nh = normalize3(*n)
+    cos_s = torch.clamp(nh[0] * lx + nh[1] * ly + nh[2] * lz, min=0.0)
+    f = tuple(k * (1.0 / PI) for k in kd)
+    p_bsdf = cos_s * (1.0 / PI)
+    le = cfg["emission_scale"] / (4.0 * PI)
+    w = cos_s * le * float(lights.n_lights) * omega
+    if mis:
+        p_nee = 1.0 / torch.clamp(float(lights.n_lights) * omega, min=1e-20)
+        w = _balance(w, p_nee, p_bsdf)
+    if counts is not None:
+        counts.add("nee", surface)
+        if mis:
+            counts.add("nee_mis", surface)
+        counts.add("shadow_hits", surface & (w != 0.0) & (sh.t >= 0.0))
+    w = torch.where(lit, w, torch.zeros_like(w))
+    return tuple(t * fc * w for t, fc in zip(tp, f))
+
+
+def mis_emission_weight(lights: ConeLights, prev_pdf, bd, cur_t, n, index):
+    """Balance weight prev_pdf / (prev_pdf + p_nee) of emission that a BSDF
+    ray (direction bd, pdf prev_pdf) found at distance cur_t on mesh
+    `index` with hit normal n: p_nee = 1 / (E Omega), the pdf of cone NEE
+    over the mesh's bound seen from the previous vertex, whose centre is
+    rebuilt as the hit minus n r."""
+    bdx, bdy, bdz = bd
+    nx, ny, nz = n
+    bound_r2 = lights.bound_r2[index.clamp(min=0)]
+    r = sqrt(torch.clamp(bound_r2, min=1e-20))
+    vx = cur_t * bdx - nx * r
+    vy = cur_t * bdy - ny * r
+    vz = cur_t * bdz - nz * r
+    d2 = vx * vx + vy * vy + vz * vz
+    omega, _ = cone_solid_angle(d2, bound_r2)
+    p_nee = 1.0 / torch.clamp(float(lights.n_lights) * omega, min=1e-20)
+    return prev_pdf / torch.clamp(prev_pdf + p_nee, min=1e-20)
+
+
+def check_nee(cfg, scene: Scene):
+    """The cone lights of `cfg`'s NEE, or None without NEE; ValueError,
+    naming the setting, for NEE settings the reference does not render.
+    (Explicit lights are program buffers, not configuration fields: the
+    harness builds none.)"""
+    if not cfg.get("nee", False):
+        return None
+    if scene.kind != "triangle":
+        raise ValueError("the reference renders NEE by cone sampling on "
+                         "meshes; area NEE on spheres (nee with scene_kind "
+                         "'sphere') is not covered")
+    for key, plain in (("fog_density", 0.0), ("material_mode", "procedural"),
+                       ("normal_map", 0.0)):
+        if cfg.get(key, plain) != plain:
+            raise ValueError(f"the reference renders NEE with {key} "
+                             f"{plain!r}, not {cfg[key]!r}")
+    return ConeLights(scene.geometry.bounds, cfg["emissive_every"])
+
+
 def _emit_term(cfg, emis_r2):
     den = (4.0 * PI) * torch.clamp(emis_r2, min=1e-20)
     return torch.full_like(den, cfg["emission_scale"]) / den
 
 
 def _scatter(cfg, scene: Scene, sampler, bo, bd, cur_t, n, index, diffuse,
-             tp, counts, first: bool):
-    """Lambert scatter at bo + cur_t bd, Russian roulette, and the
-    continuation origin (parked far away for dead lanes). A diffuse lane
-    draws a hemisphere pair and a roulette word: at the `first` vertex a
-    fresh pair's first word, later that pair's second."""
+             tp, col, counts, b: int, lights=None, prev_pdf=None,
+             emission_ok=None):
+    """Lambert scatter at the vertex bo + cur_t bd of bounce b, NEE there
+    (`lights`), Russian roulette, and the continuation origin (parked far
+    away for dead lanes). A diffuse lane draws a hemisphere pair, under
+    NEE a light pick word and a direction pair, and a roulette word: the
+    spare of the pick's pair; without NEE at the first vertex a fresh
+    pair's first word, later that pair's second. Under NEE with MIS,
+    prev_pdf becomes the sampled direction's pdf (cos / pi); without MIS,
+    emission_ok becomes 0 where NEE was taken. NEE takes its balance
+    weight but at the last bounce, whose BSDF ray collects no emission.
+    Returns (bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok)."""
     box, boy, boz = bo
     bdx, bdy, bdz = bd
     hx = box + cur_t * bdx
@@ -356,6 +499,18 @@ def _scatter(cfg, scene: Scene, sampler, bo, bd, cur_t, n, index, diffuse,
     zx, zy, zz = n
     wd = normalize3(tx * lx + bx * ly + zx * lz, ty * lx + by * ly + zy * lz,
                     tz * lx + bz * ly + zz * lz, fast=fast)
+    if lights is not None:
+        if cfg["mis"]:
+            prev_pdf = torch.where(diffuse, lz * (1.0 / PI), prev_pdf)
+        u_pick = sampler.draw1()
+        ul1, ul2 = sampler.draw2()
+        mis_here = cfg["mis"] and b + 1 < cfg["max_bounces"]
+        d = nee_cone(cfg, scene, lights, u_pick, ul1, ul2, (hx, hy, hz), n,
+                     kd, tp, mis_here, diffuse, counts)
+        col = tuple(torch.where(diffuse, c + dc, c) for c, dc in zip(col, d))
+        if not cfg["mis"]:
+            emission_ok = torch.where(diffuse, torch.zeros_like(emission_ok),
+                                      emission_ok)
     bo = (torch.where(diffuse, hx, box), torch.where(diffuse, hy, boy),
           torch.where(diffuse, hz, boz))
     bd = tuple(torch.where(diffuse, wc, bc) for wc, bc in zip(wd, bd))
@@ -371,14 +526,19 @@ def _scatter(cfg, scene: Scene, sampler, bo, bd, cur_t, n, index, diffuse,
     if counts is not None:
         counts.add("scatters", diffuse)
         counts.add("pairs", diffuse)
-        if first:
+        if lights is not None:  # the pick's pair and the direction pair
+            counts.add("pairs", 2 * diffuse.sum())
+        elif b == 0:
             counts.add("pairs", diffuse)
-    return bo, bd, tp, survive, cast_o
+    return bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok
 
 
 def trace(cfg, scene: Scene, sampler, ox, oy, oz, dx, dy, dz,
-          counts: Counts | None = None):
-    """(r, g, b) of one sample per lane."""
+          counts: Counts | None = None, lights: ConeLights | None = None):
+    """(r, g, b) of one sample per lane; `lights` the cone lights of NEE,
+    or None. Under NEE, emission that a BSDF ray finds after a diffuse
+    vertex (which took NEE) takes the balance weight with MIS and is
+    dropped without it; camera-direct emission is kept whole."""
     shape = dx.shape
     hit = scene.nearest(ox, oy, oz, dx, dy, dz)
     o = tuple(torch.broadcast_to(v, shape) for v in (ox, oy, oz))
@@ -394,10 +554,14 @@ def trace(cfg, scene: Scene, sampler, ox, oy, oz, dx, dy, dz,
     if counts is not None:
         counts.add("hits", p_active)
         counts.add("emissive", p_emissive)
-    bo, bd, tp, survive, cast_o = _scatter(
+    prev_pdf = emission_ok = None
+    if lights is not None:  # primaries are not sampled
+        prev_pdf = torch.ones_like(zero)
+        emission_ok = torch.ones(shape, dtype=torch.int32, device=dx.device)
+    bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = _scatter(
         cfg, scene, sampler, o, (dx, dy, dz), hit.t,
         (hit.nx, hit.ny, hit.nz), hit.index, p_diffuse, (ones, ones, ones),
-        counts, True)
+        col, counts, 0, lights, prev_pdf, emission_ok)
     dist = torch.where(p_diffuse & ~survive, torch.full_like(dist, -2.0),
                        dist)
     entered = p_diffuse | p_miss
@@ -424,15 +588,24 @@ def trace(cfg, scene: Scene, sampler, ox, oy, oz, dx, dy, dz,
             emissive = active & (new.index % cfg["emissive_every"] == 0)
             diffuse = active & ~emissive
             emit = _emit_term(cfg, new.emis_r2)
-            col = tuple(torch.where(emissive, c + t * emit, c)
+            add = emissive
+            if lights is not None and cfg["mis"]:
+                emit = emit * mis_emission_weight(
+                    lights, prev_pdf, bd, new.t, (new.nx, new.ny, new.nz),
+                    new.index)
+                if counts is not None:
+                    counts.add("mis_emission", emissive)
+            elif lights is not None:
+                add = emissive & (emission_ok == 1)
+            col = tuple(torch.where(add, c + t * emit, c)
                         for c, t in zip(col, tp))
             dist = torch.where(emissive, torch.full_like(dist, -2.0), dist)
             if counts is not None:
-                counts.add("emissive", emissive)
-            bo, bd, tp, survive, cast_o = _scatter(
-                cfg, scene, sampler, bo, bd, cur_t,
-                (new.nx, new.ny, new.nz), new.index, diffuse, tp, counts,
-                False)
+                counts.add("emissive", add)
+            bo, bd, tp, col, survive, cast_o, prev_pdf, emission_ok = \
+                _scatter(cfg, scene, sampler, bo, bd, cur_t,
+                         (new.nx, new.ny, new.nz), new.index, diffuse, tp,
+                         col, counts, b, lights, prev_pdf, emission_ok)
             dist = torch.where(diffuse & ~survive,
                                torch.full_like(dist, -2.0), dist)
             if b + 1 == cfg["max_bounces"]:
@@ -495,7 +668,9 @@ def render(cfg, scene: Scene, camera: np.ndarray, pixels: torch.Tensor,
     (pixel, count + j, pair >> 1, 0)). Returns (accum (4, P), output
     (3, P)) in float32: per touch the samples' sum in sample order is
     added to the sums, then the display is pow(sums / count, gamma).
-    `dtype`: the tracing precision (float32; lower for the control)."""
+    `dtype`: the tracing precision (float32; lower for the control). The
+    samples are traced `lane_chunk` lanes at a time (per-lane arithmetic
+    does not depend on it)."""
     dev = pixels.device
     spp = cfg["spp_per_step"]
     wp = cfg["padded_width"]
@@ -504,32 +679,46 @@ def render(cfg, scene: Scene, camera: np.ndarray, pixels: torch.Tensor,
            if rgb_before is None else rgb_before.clone())
     n = count_before.to(torch.float32).clone()
     cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev, dtype)
-    pairs = max_pairs_per_sample(cfg["max_bounces"])
+    lights = check_nee(cfg, scene)
+    pairs = max_pairs_per_sample(cfg["max_bounces"], lights is not None)
+    # One lane per sample of the call: touch j's pixels `sel`, each with
+    # its spp samples; traced together, summed per touch below.
+    touched, lane_pix, lane_sample = [], [], []
     for j in range(int(touches.max()) if p else 0):
         sel = torch.nonzero(touches > j).squeeze(1)
-        for c0 in range(0, sel.numel(), max(1, lane_chunk // spp)):
-            idx = sel[c0:c0 + max(1, lane_chunk // spp)]
-            pix = pixels[idx]
-            first = (count_before[idx].to(torch.int64) + spp * j)
-            rowf = (pix // wp).to(dtype)
-            colf = (pix % wp).to(dtype)
-            sums = [torch.zeros(idx.shape, dtype=dtype, device=dev)
-                    for _ in range(3)]
-            for s in range(spp):
-                sampler = PhiloxSampler(cfg["seed"], 0, pix, first + s, pairs,
-                                        dtype)
-                u1, u2 = sampler.draw2()
-                rays = primary_rays(cfg, cam, colf, rowf, u1, u2)
-                c = trace(cfg, scene, sampler, *rays, counts=counts)
-                sums = [a + b for a, b in zip(sums, c)]
-                if counts is not None:  # the jitter pair
-                    counts.add("samples", idx.numel())
-                    counts.add("pairs", idx.numel())
-            for k in range(3):
-                rgb[k, idx] = rgb[k, idx] + sums[k].to(torch.float32)
-            if counts is not None:
-                counts.add("touches", idx.numel())
-            n[idx] = n[idx] + float(spp)
+        first = count_before[sel].to(torch.int64) + spp * j
+        touched.append(sel)
+        lane_pix.append(pixels[sel].repeat_interleave(spp))
+        lane_sample.append((first[:, None] + torch.arange(
+            spp, device=dev)).reshape(-1))
+    pix = torch.cat(lane_pix) if touched else pixels[:0]
+    sample = torch.cat(lane_sample) if touched else pixels[:0]
+    col = torch.empty((3, pix.numel()), dtype=dtype, device=dev)
+    for c0 in range(0, pix.numel(), lane_chunk):
+        pc, sc = pix[c0:c0 + lane_chunk], sample[c0:c0 + lane_chunk]
+        sampler = PhiloxSampler(cfg["seed"], 0, pc, sc, pairs, dtype)
+        u1, u2 = sampler.draw2()
+        rays = primary_rays(cfg, cam, (pc % wp).to(dtype),
+                            (pc // wp).to(dtype), u1, u2)
+        c = trace(cfg, scene, sampler, *rays, counts=counts, lights=lights)
+        for k in range(3):
+            col[k, c0:c0 + pc.numel()] = c[k]
+    if counts is not None:  # the jitter pair
+        counts.add("samples", pix.numel())
+        counts.add("pairs", pix.numel())
+    off = 0
+    for sel in touched:
+        block = col[:, off:off + sel.numel() * spp].reshape(3, -1, spp)
+        off += sel.numel() * spp
+        sums = [torch.zeros(sel.shape, dtype=dtype, device=dev)
+                for _ in range(3)]
+        for s in range(spp):
+            sums = [a + block[k, :, s] for k, a in enumerate(sums)]
+        for k in range(3):
+            rgb[k, sel] = rgb[k, sel] + sums[k].to(torch.float32)
+        if counts is not None:
+            counts.add("touches", sel.numel())
+        n[sel] = n[sel] + float(spp)
     inv = 1.0 / n
     out = torch.stack([safe_gamma(rgb[k] * inv, cfg["gamma"])
                        for k in range(3)])

@@ -1,4 +1,6 @@
-"""The work count and its arithmetic on a hand-checked ray."""
+"""The work count and its arithmetic on a hand-checked ray, NEE's prices,
+and the counts and launch bounds of the cells that render without NEE,
+frozen from before the reference learned NEE."""
 
 import numpy as np
 import pytest
@@ -44,7 +46,8 @@ def test_an_emissive_hit_ends_the_path():
                                           rel=1e-6)
     assert c == {"touches": 1, "samples": 1, "pairs": 1, "hits": 1,
                  "any_hits": 0, "scatters": 0, "emissive": 1, "sky": 0,
-                 "sky_in": 0, "sky_iters": 0}
+                 "sky_in": 0, "sky_iters": 0, "nee": 0, "nee_mis": 0,
+                 "shadow_hits": 0, "mis_emission": 0}
     # ray 30 + sum 3, the jitter's Philox pair 51, a sphere hit 24 + 20,
     # the emission 10, the pixel's accumulate 30
     ops = floor.floor_ops(c, "sphere", "tpu_hw")
@@ -80,3 +83,90 @@ def test_the_bound_of_a_launch():
         44e6 / floor.PEAK_BYTES)
     assert floor.scene_bytes("sphere", 128) == 3584
     assert floor.scene_bytes("triangle", 128, 32768) == 32768 * 72 + 1536
+
+
+def test_cone_solid_angle():
+    d2 = torch.tensor([4.0, 1.0, 0.5])
+    omega, cos_max = tracer.cone_solid_angle(d2, torch.ones(3))
+    assert cos_max[0].item() == pytest.approx(np.sqrt(0.75), rel=1e-6)
+    assert omega[0].item() == pytest.approx(2 * np.pi * (1 - np.sqrt(0.75)),
+                                            rel=1e-5)
+    # on the sphere and inside it: every direction, 4 pi
+    assert cos_max[1:].tolist() == [-1.0, -1.0]
+    assert omega[1:].tolist() == pytest.approx([4 * np.pi] * 2)
+
+
+def test_nee_work_is_priced():
+    c = {"touches": 1, "samples": 1, "pairs": 5, "hits": 2, "any_hits": 0,
+         "scatters": 2, "emissive": 1, "sky": 0, "sky_in": 0, "sky_iters": 0}
+    plain = floor.floor_ops(c, "triangle", "tpu_hw")
+    nee = dict(c, nee=2, nee_mis=1, shadow_hits=1, mis_emission=1)
+    # a cone sample each, one balance weight, one shadow cast's winning
+    # test (a Moller-Trumbore candidate), one emission's balance weight
+    assert floor.floor_ops(nee, "triangle", "tpu_hw") == plain + (
+        2 * 139 + 9 + 62 + 43)
+    assert floor.floor_ops(dict(c, nee=0, nee_mis=0, shadow_hits=0,
+                                mis_emission=0), "triangle",
+                           "tpu_hw") == plain
+
+
+# Counts.totals() of the check's reference over 512 pixels of a second call
+# (cell, SMALL or SMALL with all 128 spheres), and the launch bound they
+# give: read from the harness before NEE, which the cells without NEE must
+# still read (the new keys 0).
+_KEYS = ("touches", "samples", "pairs", "hits", "any_hits", "scatters",
+         "emissive", "sky", "sky_in", "sky_iters")
+FROZEN = {
+    ("spheres128.converge", 16): (
+        (4096, 16384, 16856, 265, 0, 236, 29, 16153, 5988, 120153),
+        1.8636173134328357e-07, "operations"),
+    ("spheres128.orbit", 16): (
+        (512, 2048, 2106, 32, 0, 29, 3, 2020, 749, 15040),
+        1.8640143283582089e-07, "operations"),
+    ("tri32k.converge", 16): (
+        (1024, 4096, 4197, 58, 0, 51, 7, 4042, 1498, 29907),
+        1.8629635820895524e-07, "operations"),
+    ("tri32k.rows", 16): (
+        (2048, 2048, 2096, 27, 0, 24, 3, 2023, 749, 15040),
+        1.2966208955223882e-07, "bytes"),
+    ("spheres128.converge", 128): (
+        (4096, 16384, 24962, 4632, 46, 4503, 129, 13834, 4088, 114196),
+        None, None),
+    ("spheres128.orbit", 128): (
+        (512, 2048, 3132, 585, 13, 570, 15, 1729, 510, 14353), None, None),
+    ("tri32k.converge", 128): (
+        (1024, 4096, 6040, 1054, 10, 1021, 33, 3503, 1053, 28741),
+        None, None),
+    ("tri32k.rows", 128): (
+        (2048, 2048, 3018, 528, 12, 510, 18, 1753, 527, 14567), None, None),
+}
+
+
+@pytest.mark.parametrize("cell,spheres", sorted(FROZEN))
+def test_cells_without_nee_read_the_frozen_counts(cell, spheres):
+    from portbench import check, harness
+    from portbench.generator import Snapshot
+    from portbench.tests.frames import SMALL, SMALL_MIX
+    seed = 2 ** 31 + 77
+    c = harness.load_cell(cell, seed, dict(SMALL, sphere_count=spheres),
+                          SMALL_MIX.get(cell))
+    spc = int(c.mix["steps_per_call"])
+    pixels = check.check_pixels(c.ref_cfg, 512, seed, "cpu")
+    snap = Snapshot(spc, 0, np.asarray(c.config["view"], np.float32), None,
+                    None, None)
+    counts = tracer.Counts()
+    check.reference_call(c.ref_cfg, tracer.make_scene(c.ref_cfg, "cpu"),
+                         snap, pixels, spc, counts=counts)
+    totals, seconds, by = FROZEN[cell, spheres]
+    got = counts.totals()
+    assert got == dict(zip(_KEYS, totals), nee=0, nee_mis=0, shadow_hits=0,
+                       mis_emission=0)
+    if seconds is not None:
+        cfg = harness.port_config(c.ref_cfg)
+        px = cfg.effective_tiles_per_step * cfg.tile_height * cfg.tile_width
+        run = {"kernel": ("sphere_pt" if cfg.scene_kind == "sphere"
+                          else "triangle_pt"),
+               "samples_per_step": px * cfg.spp_per_step,
+               "pixels_per_step": px}
+        assert harness.work_bound(c, run, got) == {"seconds": seconds,
+                                                   "by": by}

@@ -1,6 +1,8 @@
 """The frozen reference agrees with the port's plain path, to the bit, at
-a small size: the scenes, the camera block, the tile schedule and whole
-steps of both configurations, fast_math on and off."""
+a small size: the scenes and the meshes' bounds, the camera block, the
+tile schedule and whole steps of the configurations, fast_math on and
+off, NEE with MIS on and off; and it refuses the NEE settings it does not
+render."""
 
 import numpy as np
 import pytest
@@ -11,12 +13,13 @@ from portbench.generator import Snapshot, orbit_view
 from portbench.reference import schedule
 from portbench.reference.camera import DEFAULT_VIEW, packed_camera
 from portbench.reference.scene import make_soup, make_spheres
-from portbench.reference.tracer import make_scene
-from portbench.tests.frames import SMALL
+from portbench.reference.tracer import Counts, make_scene, render
+from portbench.tests.frames import NEE_MIX, NEE_SMALL, SMALL
 
 
-def cell(name, **extra):
-    return harness.load_cell(name, 2 ** 31 + 12345, dict(SMALL, **extra))
+def cell(name, mix=None, **extra):
+    return harness.load_cell(name, 2 ** 31 + 12345, dict(SMALL, **extra),
+                             mix)
 
 
 def test_scene_matches_the_port():
@@ -33,6 +36,16 @@ def test_scene_matches_the_port():
     assert len(soup.tri) == 19  # v1, e1, e2, three normals, the mesh id
     for k, v in soup.tri.items():
         assert np.array_equal(v.numpy(), psoup[k]), k
+
+
+def test_mesh_bounds_match_the_port():
+    from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+    from l2n_tpu_torch.scene.spheres import compute_spheres
+    from l2n_tpu_torch.scene.tessellate import build_triangle_scene
+    c = cell("tri32k-nee.converge", **NEE_SMALL)
+    port = build_triangle_scene(compute_spheres(128, 1024.0, 0), 4, 4)
+    bounds = TriangleBuffers.from_scene(port, torch.device("cpu")).mesh_bounds
+    assert torch.equal(make_soup(c.ref_cfg, "cpu").bounds, bounds)
 
 
 @pytest.mark.parametrize("degrees", [0.0, 37.0, 200.0])
@@ -69,9 +82,12 @@ def test_schedule_matches_the_port(tiles):
 def test_steps_match_the_plain_path(name, fast):
     """Two calls of the mix through the port's plain step, the second from
     the first's sums, against the reference at every pixel."""
+    two_calls_match(cell(name, fast_math=fast))
+
+
+def two_calls_match(c, counts=None):
     from l2n_tpu_torch.camera.camera import Camera
     from l2n_tpu_torch.render.state import init_frame_state
-    c = cell(name, fast_math=fast)
     cfg = harness.port_config(c.ref_cfg)
     renderer, _ = harness.build_renderer(c, torch.device("cpu"), "torch")
     spc = int(c.mix["steps_per_call"])
@@ -85,7 +101,35 @@ def test_steps_match_the_plain_path(name, fast):
     snap = Snapshot(spc, 0, view, before, state.accum, state.output)
     acc, out, _ = check.reference_call(c.ref_cfg, make_scene(c.ref_cfg,
                                                              "cpu"),
-                                       snap, pixels, spc)
+                                       snap, pixels, spc, counts=counts)
     assert torch.equal(acc, state.accum.reshape(4, -1))
     assert torch.equal(out, state.output.reshape(3, -1))
     assert float(acc[:3].sum()) > 0.0
+
+
+@pytest.mark.parametrize("mis", [True, False])
+def test_nee_steps_match_the_plain_path(mis):
+    """NEE by cone sampling, with MIS on and off: two calls as above, on a
+    scene where every piece of it has lanes to work on."""
+    counts = Counts()
+    two_calls_match(cell("tri32k-nee.converge", NEE_MIX, mis=mis,
+                         **NEE_SMALL), counts)
+    c = counts.totals()
+    assert c["nee"] > 1000 and c["shadow_hits"] > 500
+    if mis:
+        assert c["nee_mis"] > 1000 and c["mis_emission"] > 20
+    else:
+        assert c["nee_mis"] == c["mis_emission"] == 0
+
+
+@pytest.mark.parametrize("setting,why", [
+    ({"scene_kind": "sphere"}, "area NEE"),
+    ({"fog_density": 0.001}, "fog_density"),
+    ({"material_mode": "microfacet"}, "material_mode"),
+    ({"normal_map": 0.5}, "normal_map")])
+def test_nee_settings_the_reference_does_not_render_raise(setting, why):
+    c = cell("tri32k-nee.converge", **setting)
+    one = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match=why):
+        render(c.ref_cfg, make_scene(c.ref_cfg, "cpu"),
+               packed_camera(c.ref_cfg, DEFAULT_VIEW), one, one, one + 1)
