@@ -53,7 +53,8 @@ def snapshot_times(seed: int, seconds: float, n: int) -> list:
 def reference_call(cfg: dict, scene, snap, pixels, steps_per_call: int,
                    dtype=torch.float32, counts=None):
     """The reference's (accum (4, P), output (3, P)) of the checked pixels
-    after the snapshotted call, and the radiance sums it started from."""
+    after the snapshotted call, the radiance sums it started from, and the
+    off-mesh tally of its triangle sweeps (`Scene.take_off_mesh`)."""
     tiles = schedule.pixel_tiles(cfg, pixels).cpu().numpy()
     spp = cfg["spp_per_step"]
     before = schedule.touches(cfg, snap.clear_step, snap.steps_before)
@@ -64,11 +65,12 @@ def reference_call(cfg: dict, scene, snap, pixels, steps_per_call: int,
     touched = torch.as_tensor(during[tiles], device=dev)
     rgb_before = (None if snap.rgb_before is None
                   else snap.rgb_before.reshape(3, -1)[:, pixels].float())
+    scene.take_off_mesh()
     acc, out = render(cfg, scene, packed_camera(cfg, snap.view), pixels,
                       count_before, touched, rgb_before, dtype=dtype,
                       counts=counts)
     base = (torch.zeros_like(acc[:3]) if rgb_before is None else rgb_before)
-    return acc, out, base
+    return acc, out, base, scene.take_off_mesh()
 
 
 def compare(acc, out, base, prog_acc, prog_out) -> dict:
@@ -92,14 +94,17 @@ def worse(a: float, b: float) -> float:
 def judge(cfg: dict, snaps: list, pixels: torch.Tensor, steps_per_call: int,
           limits: dict, count_work: bool = True):
     """({number: (worst value, limit)}, snapshots that failed, the
-    reference's work counts or None). NaN fails."""
+    reference's work counts or None, its off-mesh tally summed over the
+    snapshots). NaN fails."""
     scene = make_scene(cfg, pixels.device)
     counts = Counts() if count_work else None
     worst = {k: 0.0 for k in NUMBERS}
     failed = 0
+    off_mesh = {}
     for snap in snaps:
-        acc, out, base = reference_call(cfg, scene, snap, pixels,
-                                        steps_per_call, counts=counts)
+        acc, out, base, off = reference_call(cfg, scene, snap, pixels,
+                                             steps_per_call, counts=counts)
+        off_mesh = {k: off_mesh.get(k, 0) + v for k, v in off.items()}
         got = compare(acc, out, base,
                       snap.accum.reshape(4, -1)[:, pixels].float(),
                       snap.output.reshape(3, -1)[:, pixels].float())
@@ -107,7 +112,8 @@ def judge(cfg: dict, snaps: list, pixels: torch.Tensor, steps_per_call: int,
             failed += 1
         worst = {k: worse(worst[k], got[k]) for k in NUMBERS}
     numbers = {k: (worst[k], limits[k]) for k in NUMBERS}
-    return numbers, failed, (None if counts is None else counts.totals())
+    return (numbers, failed, None if counts is None else counts.totals(),
+            off_mesh)
 
 
 def passes(numbers: dict) -> bool:

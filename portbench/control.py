@@ -13,7 +13,9 @@ mis=false). The benchmark's runs do not run this.
         [--setting KEY=JSON ...]
 
 Prints one JSON line per seed and reading, and the largest sound and the
-smallest control reading of each number.
+smallest control reading of each number; on standard error, per seed, the
+off-mesh tally of the float32 reference's triangle sweeps and of the
+control's.
 """
 
 from __future__ import annotations
@@ -78,19 +80,25 @@ def readings(name: str, seed: int, seconds: float, device, backend: str,
     low = make_scene(c.ref_cfg, run["device"], torch.bfloat16) \
         if control else None
     worst = {"program": {}, "control": {}}
+    off_mesh = {"reference": {}, "control": {}}
     for snap in run["snaps"]:
-        acc, out, base = check.reference_call(c.ref_cfg, scene, snap, pixels,
-                                              spc)
+        acc, out, base, off = check.reference_call(c.ref_cfg, scene, snap,
+                                                   pixels, spc)
+        got_off = {"reference": off}
         got = {"program": check.compare(
             acc, out, base, snap.accum.reshape(4, -1)[:, pixels].float(),
             snap.output.reshape(3, -1)[:, pixels].float())}
         if control:
-            lacc, lout, _ = check.reference_call(c.ref_cfg, low, snap, pixels,
-                                                 spc, torch.bfloat16)
+            lacc, lout, _, got_off["control"] = check.reference_call(
+                c.ref_cfg, low, snap, pixels, spc, torch.bfloat16)
             got["control"] = check.compare(acc, out, base, lacc, lout)
         for kind, numbers in got.items():
             for k, v in numbers.items():
                 worst[kind][k] = check.worse(worst[kind].get(k, 0.0), v)
+        for kind, tally in got_off.items():
+            off_mesh[kind] = {k: off_mesh[kind].get(k, 0) + v
+                              for k, v in tally.items()}
+    print(f"[off_mesh] seed {seed}: {off_mesh}", file=sys.stderr)
     return [(k, v) for k, v in worst.items() if v]
 
 

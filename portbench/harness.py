@@ -69,17 +69,6 @@ class Cell:
         return int(self.workload["chips"])
 
 
-def held_back(name: str) -> dict:
-    """The workload entry of a one-chip cell whose files are kept under
-    portbench/ (cells/<config>.<traffic>.json, configs/<config>.json) while
-    BENCHMARK.json leaves it out: the tools and tests still run it."""
-    config, _, traffic = name.partition(".")
-    if not ((PKG / "cells" / f"{name}.json").is_file()
-            and (PKG / "configs" / f"{config}.json").is_file()):
-        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-    return {"name": name, "config": config, "traffic": traffic, "chips": 1}
-
-
 def load_cell(name: str, seed: int, overrides: dict | None = None,
               mix_overrides: dict | None = None) -> Cell:
     """The cell `name` with RenderConfig.seed = `seed`; `overrides` replace
@@ -88,9 +77,8 @@ def load_cell(name: str, seed: int, overrides: dict | None = None,
     m = manifest()
     wl = next((w for w in m["workloads"] if w["name"] == name), None)
     if wl is None:
-        wl = held_back(name)
-    conf = next((c for c in m["configs"] if c["name"] == wl["config"]),
-                {"file": f"portbench/configs/{wl['config']}.json"})
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    conf = next(c for c in m["configs"] if c["name"] == wl["config"])
     config = _json(ROOT / conf["file"])
     mix = dict(_json(PKG / "traffic" / f"{wl['traffic']}.json"),
                **(mix_overrides or {}))
@@ -214,15 +202,18 @@ def measure(c: Cell, seed: int, seconds: float, trace: bool, device,
 
 
 def work_bound(c: Cell, run: dict, counts: dict) -> dict:
-    """The least seconds of one launch by the reference's work counts
-    (counts/floor.py), and what bounds them."""
+    """The least seconds of one step by the reference's work counts
+    (counts/floor.py), and what bounds them. A call's N steps are bounded
+    as one launch, which reads the scene once: each step does its own
+    samples and pixels and reads 1/N of the scene."""
     kind = "sphere" if run["kernel"] == "sphere_pt" else "triangle"
     n_obj = c.ref_cfg["sphere_count"]
     n_tri = (n_obj * 2 * c.ref_cfg["disc_lat"] * c.ref_cfg["disc_long"]
              if kind == "triangle" else 0)
     seconds, by = floor.launch_bound(
         counts, kind, c.ref_cfg["rng"], run["samples_per_step"],
-        run["pixels_per_step"], floor.scene_bytes(kind, n_obj, n_tri))
+        run["pixels_per_step"], floor.scene_bytes(kind, n_obj, n_tri)
+        / int(c.mix["steps_per_call"]))
     return {"seconds": seconds, "by": by}
 
 
@@ -238,11 +229,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     spec = c.cell["check"]
     t_check = time.perf_counter()
     pixels = check.check_pixels(c.ref_cfg, int(spec["pixels"]), seed, device)
-    numbers, failed, counts = check.judge(
+    numbers, failed, counts, off_mesh = check.judge(
         c.ref_cfg, run["snaps"], pixels, int(c.mix["steps_per_call"]),
         c.cell["limits"], count_work=trace)
     print(f"[check] {len(run['snaps'])} calls, {pixels.numel()} pixels: "
-          f"{time.perf_counter() - t_check!r} s", file=sys.stderr)
+          f"{time.perf_counter() - t_check!r} s; the sweep's off-mesh rule "
+          f"{off_mesh}", file=sys.stderr)
     lines = [f"{k} {v!r} limit {lim!r}" for k, (v, lim) in numbers.items()]
     card = card_line() if device.type == "cuda" else device.type
     print(f"[setup] {run['setup_s']!r} s: " + ", ".join(
@@ -252,7 +244,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     if counts is not None:
         run["floor"] = work_bound(c, run, counts)
         print(f"[floor] {run['kernel']}: {run['floor']['seconds'] * 1e3!r} "
-              f"ms per launch, bound by {run['floor']['by']}; the checked "
+              f"ms per step, bound by {run['floor']['by']}; the checked "
               f"lanes' counts {counts}; card {card}", file=sys.stderr)
 
     m = manifest()

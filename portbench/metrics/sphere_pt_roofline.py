@@ -1,7 +1,8 @@
-"""sphere_pt_roofline: the least time of one sphere_pt launch by the work
-count (counts/floor.py, counted by the reference on this cell's inputs)
-over the device time per launch (CUDA events around every call of the
-traced run's window, over its launches), in percent."""
+"""sphere_pt_roofline: the least time of one scheduler step of sphere_pt
+by the work count (counts/floor.py, counted by the reference on this
+cell's inputs; harness.work_bound: a call's steps read the scene once)
+over the device time per step (CUDA events around every call of the
+traced run's window, over its steps), in percent."""
 
 
 def read(run):

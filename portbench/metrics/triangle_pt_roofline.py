@@ -1,7 +1,8 @@
-"""triangle_pt_roofline: the least time of one triangle_pt launch by the
-work count (counts/floor.py, counted by the reference on this cell's
-inputs) over the device time per launch (CUDA events around every call of
-the traced run's window, over its launches), in percent."""
+"""triangle_pt_roofline: the least time of one scheduler step of
+triangle_pt by the work count (counts/floor.py, counted by the reference
+on this cell's inputs; harness.work_bound: a call's steps read the scene
+once) over the device time per step (CUDA events around every call of the
+traced run's window, over its steps), in percent."""
 
 
 def read(run):

@@ -6,8 +6,9 @@ up to 5% of world_size, drawn with numpy's PCG64 from `scene_seed` in the
 order (cx, cy, cz, radius). Meshes: each sphere tessellated into disc_lat x
 disc_long quads of two triangles (`tessellate_sphere`), flattened into a
 triangle soup that the brute-force sweep tests one by one, and each
-mesh's bounding sphere (cone NEE's lights). The albedo of object i is
-fract(sin((i + 1) k) * 43758.5453), evaluated once on the host.
+mesh's bounding sphere (cone NEE's lights; the sweep's off-mesh rule). The
+albedo of object i is fract(sin((i + 1) k) * 43758.5453), evaluated once
+on the host.
 """
 
 from __future__ import annotations
@@ -78,11 +79,16 @@ class Spheres:
 class Soup:
     """(T,) tensors: v1, e1 = v2 - v1, e2 = v3 - v1, the corner normals
     na, nb, nc, and mesh_id (int64); albedo (M, 3) per mesh; bounds (M, 4)
-    each mesh's bounding sphere [cx, cy, cz, r^2] (`mesh_bounds`)."""
+    each mesh's bounding sphere [cx, cy, cz, r^2] (`mesh_bounds`); reach
+    (5, T) per triangle its mesh's bound [cx, cy, cz, r, |c|_1]: no hit on
+    the triangle lies farther from that centre than r (the sweep's
+    off-mesh rule, `tracer._triangle_sweep`, which scales its rounding
+    slack by |c|_1)."""
 
     tri: dict
     albedo: torch.Tensor
     bounds: torch.Tensor
+    reach: torch.Tensor
 
     @property
     def count(self) -> int:
@@ -125,6 +131,21 @@ def mesh_bounds(arrays: dict, meshes: int) -> np.ndarray:
     return bounds
 
 
+def soup_of(arrays: dict, meshes: int, device, dtype=torch.float32) -> Soup:
+    """The Soup of float32 soup arrays (v1, e1, e2 and na, nb, nc by axis,
+    `mesh_id`) over `meshes` meshes, with their bounds and reach."""
+    out = {}
+    for k, v in arrays.items():
+        t = torch.as_tensor(np.ascontiguousarray(v)).to(device)
+        out[k] = t.to(torch.int64) if k == "mesh_id" else t.to(dtype)
+    bounds = torch.as_tensor(mesh_bounds(arrays, meshes)).to(device, dtype)
+    per_tri = bounds[out["mesh_id"]].T
+    reach = torch.cat([per_tri[:3], per_tri[3:].sqrt(),
+                       per_tri[:3].abs().sum(0, keepdim=True)]).contiguous()
+    return Soup(out, procedural_albedo(meshes).to(device, dtype), bounds,
+                reach)
+
+
 def make_soup(cfg: dict, device, dtype=torch.float32) -> Soup:
     """The spheres of `cfg` tessellated at (disc_lat, disc_long); radii are
     the float32 sqrt of the float32 squared radii."""
@@ -151,9 +172,4 @@ def make_soup(cfg: dict, device, dtype=torch.float32) -> Soup:
                       ("nc", normals[tri[:, 2]])):
         for k, ax in enumerate("xyz"):
             arrays[f"{name}{ax}"] = arr[:, k]
-    out = {}
-    for k, v in arrays.items():
-        t = torch.as_tensor(np.ascontiguousarray(v)).to(device)
-        out[k] = t.to(torch.int64) if k == "mesh_id" else t.to(dtype)
-    bounds = torch.as_tensor(mesh_bounds(arrays, len(r2))).to(device, dtype)
-    return Soup(out, procedural_albedo(len(r2)).to(device, dtype), bounds)
+    return soup_of(arrays, len(r2), device, dtype)

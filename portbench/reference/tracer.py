@@ -6,7 +6,8 @@ Lambert shading, `max_bounces` segments with Russian roulette, every
 `emissive_every`-th object emissive, the Mandelbrot sky, the "fovy" camera,
 the Philox sampler (`rng="tpu_hw"`), `fast_math` on and off, two
 intersectors: a sweep over every sphere and a brute-force Moller-Trumbore
-sweep over every triangle of the soup, and on meshes next event estimation
+sweep over every triangle of the soup, which takes no hit that lies off
+its triangle's mesh (`_triangle_sweep`), and on meshes next event estimation
 (`nee`) by cone sampling of the emissive meshes' bounding spheres, with
 (`mis`) or without the balance heuristic of multiple importance sampling.
 Other NEE settings raise ValueError (`check_nee`). Every lane runs every
@@ -44,6 +45,10 @@ _ATAN_C = (0.99997726, -0.33262347, 0.19354346, -0.11643287, 0.05265332,
            -0.01172120)
 # Elements of one (rays x triangles) temporary of the triangle sweep.
 TRI_CHUNK_ELEMENTS = {"cpu": 1 << 22, "cuda": 1 << 25}
+# The off-mesh rule's slack (`_triangle_sweep`): a bound on the rounding
+# of a candidate's point o + t d, in units of the dtype's epsilon times
+# |o|_1 + |c|_1 + t.
+OFF_MESH_ROUNDING = 8.0
 
 
 # --------------------------------------------------------------------------
@@ -228,10 +233,22 @@ def _moller_trumbore(ox, oy, oz, dx, dy, dz, tri):
     return t, u, v, valid
 
 
-def _triangle_sweep(soup: Soup, ox, oy, oz, dx, dy, dz):
+def _triangle_sweep(soup: Soup, ox, oy, oz, dx, dy, dz, tally=None):
     """(t, u, v, triangle) of the nearest triangle of every (R,) ray, by
     testing every triangle in chunks; the first soup index of the minimum
-    wins. A miss: t = -1, u = v = 0, triangle -1."""
+    wins. A miss: t = -1, u = v = 0, triangle -1.
+
+    The off-mesh rule: a candidate whose point o + t d lies farther from
+    its mesh's bounding-sphere centre c than that sphere's radius r, plus
+    the rounding of the point (OFF_MESH_ROUNDING eps (|o|_1 + |c|_1 + t)
+    in the sweep's dtype), is no hit. A genuine hit lies on its triangle,
+    so in the convex hull of its corners, so inside the sphere over the
+    mesh's corners; Moller-Trumbore on a pole sliver of a lat/long mesh
+    (two corners a few ulps apart, |det| just over MT_EPS) reports points
+    off the mesh. The rule runs before each chunk's argmin, so a genuine
+    hit behind such a point is kept. `tally`, where given, gains the
+    candidates the rule rejected and the casts whose nearest hit that
+    changed (device tensors)."""
     dev, r = dx.device, dx.shape[0]
     total = soup.count
     chunk = max(1, TRI_CHUNK_ELEMENTS.get(dev.type, 1 << 22) // max(r, 1))
@@ -241,11 +258,24 @@ def _triangle_sweep(soup: Soup, ox, oy, oz, dx, dy, dz):
     best_u = torch.zeros((r,), dtype=dx.dtype, device=dev)
     best_v = torch.zeros((r,), dtype=dx.dtype, device=dev)
     best_tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    off_t = torch.full((r,), float("inf"), dtype=dx.dtype, device=dev)
+    rejected = 0
+    o_l1 = col[0].abs() + col[1].abs() + col[2].abs()
+    slack = OFF_MESH_ROUNDING * torch.finfo(dx.dtype).eps
     for i0 in range(0, total, chunk):
         c = {k: soup.tri[k][i0:i0 + chunk] for k in (
             "v1x", "v1y", "v1z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")}
         t, u, v, valid = _moller_trumbore(*col, c)
         t, u, v = (torch.broadcast_to(a, valid.shape) for a in (t, u, v))
+        cx, cy, cz, rad, c_l1 = soup.reach[:, i0:i0 + chunk]
+        qx = (col[0] - cx) + t * col[3]
+        qy = (col[1] - cy) + t * col[4]
+        qz = (col[2] - cz) + t * col[5]
+        lim = rad + slack * ((o_l1 + c_l1) + t)
+        off = valid & (qx * qx + qy * qy + qz * qz > lim * lim)
+        valid = valid & ~off
+        rejected = rejected + off.sum()
+        off_t = torch.minimum(off_t, torch.where(off, t, inf).amin(dim=1))
         t = torch.where(valid, t, inf)
         ci = torch.argmin(t, dim=1, keepdim=True)
         ct = torch.gather(t, 1, ci).squeeze(1)
@@ -254,15 +284,20 @@ def _triangle_sweep(soup: Soup, ox, oy, oz, dx, dy, dz):
         best_u = torch.where(better, torch.gather(u, 1, ci).squeeze(1), best_u)
         best_v = torch.where(better, torch.gather(v, 1, ci).squeeze(1), best_v)
         best_tri = torch.where(better, ci.squeeze(1) + i0, best_tri)
+    if tally is not None:
+        tally["candidates"] = tally["candidates"] + rejected
+        tally["casts"] = tally["casts"] + (off_t < best_t).sum()
     missed = ~torch.isfinite(best_t)
     best_t = torch.where(missed, torch.full_like(best_t, -1.0), best_t)
     return best_t, best_u, best_v, best_tri
 
 
-def triangle_nearest(soup: Soup, ox, oy, oz, dx, dy, dz) -> Hit:
+def triangle_nearest(soup: Soup, ox, oy, oz, dx, dy, dz,
+                     tally=None) -> Hit:
     """Nearest triangle hit; the normal interpolated u nb + v nc + w na
     with w = 1 - u - v, not normalized; the index is the mesh id. Lanes
-    whose origin is parked at 3e30 (dead paths) report a miss untested."""
+    whose origin is parked at 3e30 (dead paths) report a miss untested.
+    `tally`: the sweep's off-mesh tally (`_triangle_sweep`)."""
     shape = dx.shape
     o = [torch.broadcast_to(a, shape).reshape(-1) for a in (ox, oy, oz)]
     d = [a.reshape(-1) for a in (dx, dy, dz)]
@@ -273,7 +308,7 @@ def triangle_nearest(soup: Soup, ox, oy, oz, dx, dy, dz) -> Hit:
     v = torch.zeros((n,), dtype=dx.dtype, device=dx.device)
     tri = torch.full((n,), -1, dtype=torch.int64, device=dx.device)
     if live.numel():
-        got = _triangle_sweep(soup, *(a[live] for a in o + d))
+        got = _triangle_sweep(soup, *(a[live] for a in o + d), tally)
         for dst, src in zip((t, u, v, tri), got):
             dst[live] = src
     safe = tri.clamp(min=0)
@@ -301,12 +336,22 @@ class Scene:
         self.fast = fast_math
         self.albedo = geometry.albedo
         self.kind = "sphere" if isinstance(geometry, Spheres) else "triangle"
+        self.off_mesh = {"candidates": 0, "casts": 0}
+
+    def take_off_mesh(self) -> dict:
+        """The triangle sweep's off-mesh tally since the last take, as
+        ints: candidates the rule rejected, casts whose nearest hit it
+        changed. No work count (`Counts`): no implementation has to do it."""
+        got = {k: int(v) for k, v in self.off_mesh.items()}
+        self.off_mesh = {"candidates": 0, "casts": 0}
+        return got
 
     def nearest(self, ox, oy, oz, dx, dy, dz) -> Hit:
         if self.kind == "sphere":
             return sphere_nearest(self.geometry, self.fast, ox, oy, oz,
                                   dx, dy, dz)
-        return triangle_nearest(self.geometry, ox, oy, oz, dx, dy, dz)
+        return triangle_nearest(self.geometry, ox, oy, oz, dx, dy, dz,
+                                self.off_mesh)
 
     def any(self, ox, oy, oz, dx, dy, dz):
         if self.kind == "sphere":

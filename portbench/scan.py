@@ -8,8 +8,10 @@ benchmark's runs do not run this; still-camera mixes only.
     python3 -m portbench.scan --workload <cell> --seed <n> --calls <N> \\
         [--first F] [--stride K] [--witness]
 
-Prints one JSON line per call checked (the check's three numbers, and the
-pixels that differ, the first ten of them in detail).
+Prints one JSON line per call checked (the check's three numbers, the
+reference's off-mesh tally over the call: sliver candidates its sweep
+rejected and casts whose nearest hit that changed, and the pixels that
+differ, the first ten of them in detail).
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def reference_samples(cfg: dict, scene, view, pixel: int, first: int,
 def scan(name: str, seed: int, calls: int, first: int = 0, stride: int = 1,
          witness: bool = False, device="cuda", backend: str = "cuda",
          overrides=None, mix_overrides=None):
-    """Yield, per call checked, {"call", "numbers", "differ", "pixels"}."""
+    """Yield, per call checked, {"call", "numbers", "off_mesh", "differ",
+    "pixels"}."""
     from l2n_tpu_torch.camera.camera import Camera
     dev = torch.device(device)
     c = harness.load_cell(name, seed, overrides, mix_overrides)
@@ -84,8 +87,8 @@ def scan(name: str, seed: int, calls: int, first: int = 0, stride: int = 1,
         snap = Snapshot(call * spc, 0, view,
                         None if call == 0 else before.accum[:3], st.accum,
                         st.output)
-        acc, out, base = check.reference_call(c.ref_cfg, scene, snap, pixels,
-                                              spc)
+        acc, out, base, off_mesh = check.reference_call(
+            c.ref_cfg, scene, snap, pixels, spc)
         got = st.accum.reshape(4, -1)[:, pixels]
         numbers = check.compare(acc, out, base, got,
                                 st.output.reshape(3, -1)[:, pixels])
@@ -116,8 +119,8 @@ def scan(name: str, seed: int, calls: int, first: int = 0, stride: int = 1,
                 c.ref_cfg, scene, view, p, int(done[t]), int(during[t]))
                 if any(s[1])]
             seen.append(entry)
-        yield {"call": call, "numbers": numbers, "differ": len(bad),
-               "pixels": seen}
+        yield {"call": call, "numbers": numbers, "off_mesh": off_mesh,
+               "differ": len(bad), "pixels": seen}
 
 
 def main(argv=None) -> int:

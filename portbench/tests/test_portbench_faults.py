@@ -84,7 +84,7 @@ def test_the_scan_finds_where_the_program_parts(fault, monkeypatch):
     assert [x["call"] for x in lines] == [1, 2]
     if fault is None:
         assert all(x["differ"] == 0 and x["numbers"]["accum_gap"] == 0
-                   for x in lines)
+                   and x["off_mesh"]["casts"] == 0 for x in lines)
         return
     px = lines[0]["pixels"][0]
     assert lines[0]["differ"] >= 1 and px["program"][0] != px["reference"][0]

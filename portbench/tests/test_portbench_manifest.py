@@ -136,13 +136,19 @@ def test_cell_limits_cover_every_number():
         assert doc["limits"]["count_mismatch"] == 0
 
 
-@pytest.mark.parametrize("cell", ["tri32k.rows", "tri32k-nee.converge"])
-def test_held_back_cells_load_from_their_files(cell):
-    """Cells left out of BENCHMARK.json while the program fails them keep
-    their files; the harness, the tools and the tests still load them."""
+@pytest.mark.parametrize("cell", CELLS)
+def test_cells_load_from_their_files(cell):
+    """Each cell of BENCHMARK.json loads by name from its entry and the
+    files it names; a name BENCHMARK.json lacks raises KeyError."""
     from portbench import harness
-    assert cell not in CELLS
     c = harness.load_cell(cell, 5)
-    assert c.chips == 1 and c.cell["limits"]["count_mismatch"] == 0
+    entry = next(w for w in M["workloads"] if w["name"] == cell)
+    conf = next(x for x in M["configs"] if x["name"] == entry["config"])
+    assert c.workload == entry and c.chips == entry["chips"]
+    assert c.config == json.loads((ROOT / conf["file"]).read_text())
+    assert c.mix == json.loads(
+        (PKG / "traffic" / f"{entry['traffic']}.json").read_text())
+    assert c.ref_cfg["seed"] == 5 and c.ref_cfg["spp_per_step"] == (
+        c.mix["spp_per_step"])
     with pytest.raises(KeyError):
-        harness.load_cell("tri32k.nothing", 5)
+        harness.load_cell(cell + "-nothing", 5)
