@@ -35,8 +35,8 @@ step, fog+nee+mis; from an odd tile offset, across a camera change, after
 clear_accumulation and after load_session) and drives the graph-replayed
 main paths (phase 41), resumes a session saved on the card bit for bit
 (42), runs rmse_vs_oracle, debug_mode and the interactive viewer on
-scripted keys (43), times ms per scheduler step eager against
-steps_per_call (44), holds a slab of a sharded frame (its row offset and
+scripted keys (43), times ms per scheduler step at one step a call
+against steps_per_call (44), holds a slab of a sharded frame (its row offset and
 stream) to its plain version and to the whole frame's rows (45), drives
 the sharded renderer (l2n_tpu_torch.parallel) on 4 ranks spawned on the
 card over gloo, each gathered slab bit-equal to its kernel render here
@@ -45,12 +45,17 @@ triangle_pt to its plain version on the 70,144-triangle trefoil knot of
 the JAX bench's bigobj stage, one mesh of 548 slabs that takes the walk's
 slab-group level, and times it (48), holds a call's steps rendered in
 groups (one launch for the 32 steps of portbench's tri32k.rows schedule)
-to one launch per step bit for bit (50), and times
+to one launch per step bit for bit (50), holds a step's one CUDA graph,
+replayed over 12 camera poses, to per-pose eager launches bit for bit
+(sphere_pt, triangle_pt's Lambert and NEE bodies, the wavefront step) and
+prints the benchmark cells' kernels' registers and spill (51), and times
 kernel and plain versions beside the least time the card could take for
 the same work.
 
     python3 chip_smoke.py          # needs one CUDA card
     python3 chip_smoke.py fused    # phase 50 alone
+    python3 chip_smoke.py orbit [PARENT]  # phase 51 alone; with the tree
+                                          # PARENT's registers beside
 
 Imports neither jax nor anything of the JAX package (l2n_tpu). Every phase
 prints one line; a failed gate raises, so the script exits nonzero without
@@ -2489,12 +2494,13 @@ def same_state(a, b) -> bool:
 
 def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
     """Phase 41's sequence for one config: a steps_per_call=n step against
-    n eager single steps from tile_offset 7, call by call, max abs 0 on
-    accum, output and the state planes: the first call of camera A (eager),
-    its capture and replay, a replay; camera B (eager, then a recapture);
-    clear_accumulation (replay); a session saved, one more call, the
-    session loaded into both live states (replay from the loaded tile
-    offset and planes) and into new buffers (eager, then a recapture).
+    n eager single steps (under debug_mode, so every launch is dispatched
+    and checked) from tile_offset 7, call by call, max abs 0 on accum,
+    output and the state planes: the first call of camera A (eager), its
+    capture and replay, a replay; camera B (replays: the graph reads the
+    camera buffer); clear_accumulation (replay); a session saved, one more
+    call, the session loaded into both live states (replay from the loaded
+    tile offset and planes) and into new buffers (eager, then a recapture).
     Every call's launches must equal ceil(n / G) per kernel of `names`
     for the step's group of G steps a kernel call, replays included.
     Returns the calls compared."""
@@ -2508,6 +2514,7 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
     )
     from l2n_tpu_torch.render.step import build_render_step
     from l2n_tpu_torch.utils.checkpoint import load_session, save_session
+    from l2n_tpu_torch.utils.validate import debug_mode
     dev = torch.device("cuda")
     one = build_render_step(cfg, scene, backend="cuda", device=dev)
     many = build_render_step(cfg, scene, backend="cuda", device=dev,
@@ -2523,8 +2530,9 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
         g = many(g, cam)
         torch.cuda.synchronize()
         got = dict(launches)
-        for _ in range(n):
-            e = one(e, cam)
+        with debug_mode():
+            for _ in range(n):
+                e = one(e, cam)
         torch.cuda.synchronize()
         for name in names:
             require(got.get(name, 0) == want,
@@ -2537,7 +2545,7 @@ def graph_vs_eager(cfg, scene, cams, names, n: int, tmp):
 
     for what in ("eager", "capture", "replay"):
         call(cams[0], what)
-    for what in ("new camera, eager", "new camera, capture"):
+    for what in ("new camera, replay", "new camera, replay again"):
         call(cams[1], what)
     e, g = clear_accumulation(e), clear_accumulation(g)
     call(cams[1], "after clear_accumulation")
@@ -2559,7 +2567,7 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
     single steps (sphere_pt, triangle_pt in three rng modes, the wavefront
     step, fog+nee+mis), the graph-replayed main paths, a session resumed on
     the card, rmse_vs_oracle, debug_mode and the interactive viewer, and
-    ms per scheduler step eager against steps_per_call."""
+    ms per scheduler step at one step a call against steps_per_call."""
     import contextlib
     import io
 
@@ -2685,7 +2693,12 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
             and viewer.renderer.current == "trianglePT"
             and ansi.getvalue().count("\x1b[H\x1b[2J frame") == 5
             and status.getvalue().count("tiles/step") == 5
-            and view_launches == {"sphere_pt": 3, "triangle_pt": 2},
+            # a step writes its camera buffer when the camera differs from
+            # the last it wrote: once in each of the script's three steps
+            # (spherePT, spherePT at twice the tiles, trianglePT), the
+            # camera never moving
+            and view_launches == {"camera_write": 3, "sphere_pt": 3,
+                                  "triangle_pt": 2},
             f"interactive viewer: frames {frames}, tiles per step "
             f"{viewer.tiles_per_step}, {viewer.renderer.current}, launches "
             f"{view_launches}")
@@ -2702,7 +2715,7 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
               f"{status.getvalue().splitlines()[-1][:60]!r}; card: {card}")
     del viewer
 
-    # --- 44: ms per scheduler step, eager against steps_per_call ----------
+    # --- 44: ms per scheduler step, one step a call against steps_per_call
     timing = {}
     for name, fcfg, fscene, kernels in (
             ("sphere_pt", cfg, scene, ("sphere_pt_kernel",)),
@@ -2722,7 +2735,7 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
                 # 10 frames timed, 3 calls (or 20 steps) profiled
                 calls = 10 * tcfg.tile_count // (
                     tcfg.effective_tiles_per_step * per)
-                for _ in range(2):  # warm: eager call, capture
+                for _ in range(2):  # warm: eager call, capture (either N)
                     st = step(st, cam)
                 dev_ms, host_ms, st = timed_steps(step, st, cam, calls)
                 _, busy, _, st = profile_steps(step, st, cam,
@@ -2744,8 +2757,9 @@ def program_phases(card, tmp, cfg, scene, tri_cfg, tri_buf, cam):
                       f"(torch.profiler); card: {card}", flush=True)
             del steps, st
             torch.cuda.empty_cache()
-    phase(44, f"ms per scheduler step, eager vs steps_per_call (23 at 10 "
-              f"tiles, 4 at whole frames), in turns: "
+    phase(44, f"ms per scheduler step, graph replays of one step a call "
+              f"vs steps_per_call (23 at 10 tiles, 4 at whole frames), in "
+              f"turns: "
               + str({f"{k[0]} {k[1]} x{k[2]}": [round(d, 4) for d, _, _ in v]
                      for k, v in timing.items()})
               + f"; card: {card}")
@@ -2948,7 +2962,7 @@ def parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam):
                                tst.rng_state.cpu().numpy().view(np.uint32))
             and tlit > 0.02,
             f"tinymt (4, 1) != one single-card whole-frame step (lit {tlit})")
-    # the single-card eager step beside each leg (CUDA events, host clock)
+    # the single-card step beside each leg (CUDA events, host clock)
     single = {}
     for leg in legs[:3]:
         lcfg = RenderConfig.from_json(leg["cfg"])
@@ -2969,7 +2983,7 @@ def parallel_phases(card, cfg, scene, tri_cfg, tri_buf, cam):
               f"{r0['fold_ms']:.4f} ms ({r0['fold_host_ms']:.4f} host); "
               f"ranks' ms per step "
               f"{[round(r[name]['ms'], 4) for r in ranks if r[name]]}; "
-              f"the single-card eager step {single[name][0]:.4f} ms "
+              f"the single-card step {single[name][0]:.4f} ms "
               f"({single[name][1]:.4f} host); card: {card}", flush=True)
     if torch.cuda.device_count() >= 2:
         nccl = launch(sharded_rank, 2, "nccl", args=(legs[:1],))
@@ -3417,6 +3431,140 @@ def fused_steps_phase(card, dev) -> dict:
               f"{times}; card: {card}")
     return {"gaps": gaps, "ms": times}
 
+# The instantiations the benchmark's cells run (portbench/configs: Philox,
+# fovy): sphere_pt's Lambert body with fast_math (spheres128), triangle_pt's
+# Lambert body (tri32k) and its NEE body (tri32k-nee), matched on their
+# mangled template arguments (int body, bool fast_math, bool viewproj).
+CELL_KERNELS = {
+    "sphere_pt Lambert (spheres128)":
+        r"sphere_pt_kernel.*PhiloxPairs.*Li0ELb1ELb0E",
+    "triangle_pt Lambert (tri32k)":
+        r"triangle_pt_kernel.*PhiloxPairs.*Li0ELb0ELb0E",
+    "triangle_pt NEE (tri32k-nee)":
+        r"triangle_pt_kernel.*PhiloxPairs.*Li3ELb0ELb0E"}
+
+
+def cell_registers(tree: Path) -> dict:
+    """{cell kernel: (registers, spill store bytes)} of CELL_KERNELS in the
+    kernel library's newest build log under `tree` (probes/step_ab.py
+    ptxas)."""
+    from l2n_tpu_torch.probes.step_ab import ptxas
+    entries = ptxas(tree)
+    out = {}
+    for name, pattern in CELL_KERNELS.items():
+        hits = [v for k, v in entries.items() if re.search(pattern, k)]
+        require(len(hits) == 1, f"{name}: {len(hits)} build-log entries "
+                                f"match {pattern}")
+        out[name] = tuple(hits[0])
+    return out
+
+
+def orbit_graph_phase(card, dev, parent: Path | None = None) -> dict:
+    """Phase 51: one CUDA graph for every camera pose. A step of one
+    scheduler step a call (render/step.py MultiStep at N = 1: the first
+    call eager, the second captures, later ones replay, the kernels
+    reading the camera from the step's device buffer) over 12 poses turned
+    1 degree apart about the world's vertical axis, a clear before each as
+    the viewer's camera moves, against per-pose eager launches of the
+    kernel's wrapper handed the packed host camera: max abs 0 on accum,
+    output and the state planes after every pose, and one capture each.
+    sphere_pt at the headline config (spheres128), triangle_pt's Lambert
+    and NEE bodies on its spheres tessellated 16x8 (tri32k, tri32k-nee),
+    and the wavefront step. Then the cells' kernels' registers and spill
+    (ptxas -v, CELL_KERNELS), beside those of the tree at `parent` (built
+    here) when given: neither may rise."""
+    import math
+
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.ops.kernels.common import graph_calls, reset_launches
+    from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt
+    from l2n_tpu_torch.ops.kernels.triangle_pt import (
+        TriangleBuffers,
+        triangle_pt,
+    )
+    from l2n_tpu_torch.ops.kernels.wavefront import sphere_wavefront_step
+    from l2n_tpu_torch.render.state import (
+        clear_accumulation,
+        init_frame_state,
+    )
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles
+    from l2n_tpu_torch.scene import build_triangle_scene
+    from l2n_tpu_torch.scene.spheres import compute_spheres
+    base = headline_config(RenderConfig)
+    spheres = compute_spheres(base.sphere_count, base.world_size,
+                              base.scene_seed)
+    packed = spheres.packed().to(dev)
+    tri_buf = TriangleBuffers.from_scene(
+        build_triangle_scene(spheres, 16, 8), dev)
+    tri = base.replace(scene_kind="triangle", fast_math=False, disc_lat=16,
+                       disc_long=8)
+    cases = {"sphere_pt": (base, spheres, sphere_pt, packed),
+             "triangle_pt": (tri, tri_buf, triangle_pt, tri_buf),
+             "triangle_pt nee+mis": (tri.replace(nee=True, mis=True),
+                                     tri_buf, triangle_pt, tri_buf),
+             "wavefront": (base.replace(wavefront=True), spheres,
+                           sphere_wavefront_step, packed)}
+    view0 = Camera.from_config(base).view_matrix.astype(np.float64)
+    gaps, calls = {}, {}
+    for name, (cfg, scene, wrapper, buffers) in cases.items():
+        cfg = cfg.validate()
+        step = build_render_step(cfg, scene, backend="cuda", device=dev)
+        g, e = init_frame_state(cfg, dev), init_frame_state(cfg, dev)
+        reset_launches()
+        worst = 0.0
+        for pose in range(12):
+            a = math.radians(30.0 + pose)
+            rot = np.array([[math.cos(a), 0.0, math.sin(a), 0.0],
+                            [0.0, 1.0, 0.0, 0.0],
+                            [-math.sin(a), 0.0, math.cos(a), 0.0],
+                            [0.0, 0.0, 0.0, 1.0]])
+            cam = Camera.from_config(cfg, view_matrix=(
+                view0 @ rot.T).astype(np.float32)).packed()
+            g, e = clear_accumulation(g), clear_accumulation(e)
+            sched = scheduled_tiles(step.tiles, e.tile_offset,
+                                    cfg.effective_tiles_per_step)
+            g = step(g, cam)
+            counted = dict(graph_calls)
+            wrapper(cfg, sched, cam, buffers, e.accum, e.output,
+                    e.rng_state)
+            e = dataclasses.replace(
+                e, tile_offset=advance_offset(cfg, e.tile_offset),
+                iteration=e.iteration + 1)
+            torch.cuda.synchronize()
+            worst = max(worst, *(float((x - y).abs().max()) for x, y in (
+                (g.accum, e.accum), (g.output, e.output))))
+            require(same_state(g, e), f"{name}: the graph at pose {pose} "
+                                      f"!= eager launches, max abs {worst}")
+        require(float(g.accum[3].sum()) == cfg.spp_per_step
+                * cfg.padded_height * cfg.padded_width, f"{name}: samples")
+        require(counted == {"eager": 1, "capture": 1, "replay": 11},
+                f"{name}: graph calls {counted}")
+        gaps[name], calls[name] = worst, counted
+        del step, g, e
+        torch.cuda.empty_cache()
+    print(f"[poses] N = 1 steps over 12 poses 1 degree apart, a clear "
+          f"before each, graph replay vs per-pose eager launches, max abs "
+          f"(gate 0 on accum, output, state planes) {gaps}; graph calls "
+          f"{calls}; card: {card}", flush=True)
+    regs = {"this": cell_registers(ROOT)}
+    if parent is not None:
+        subprocess.run([sys.executable, "-c", "from l2n_tpu_torch.ops."
+                        "kernels import build; build.build()"],
+                       cwd=parent, check=True)
+        regs["parent"] = cell_registers(parent)
+    print(f"[ptxas] the cells' kernels' (registers, spill bytes) {regs}",
+          flush=True)
+    for name, (r, s) in regs["this"].items() if parent else ():
+        pr, ps = regs["parent"][name]
+        require(r <= pr and s <= ps, f"{name}: registers / spill "
+                f"{r} / {s} against the parent's {pr} / {ps}")
+    phase(51, f"one graph for every camera pose (the [poses] line), "
+              f"max abs {gaps}; registers and spill (the [ptxas] line) no "
+              f"higher than the parent's where it was given; card: {card}")
+    return {"gaps": gaps, "registers": regs}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3469,8 +3617,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    if sys.argv[1:] == ["fused"]:  # phase 50 alone
-        fused_steps_phase(card, dev)
+    if sys.argv[1:2] in (["fused"], ["orbit"]):  # phase 50 or 51 alone
+        if sys.argv[1] == "fused":
+            fused_steps_phase(card, dev)
+        else:
+            orbit_graph_phase(card, dev, Path(sys.argv[2]).resolve()
+                              if len(sys.argv) > 2 else None)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4098,6 +4250,7 @@ def main() -> int:
         trefoil = trefoil_phase(card, dev)
         shell = shell_phase(card, dev, tri_cfg, tri_buf, cam)
         fused_steps_phase(card, dev)
+        orbit_graph_phase(card, dev)
 
     # --- 19-21: the probes through their entry points ----------------------
     probe_rows = probe_cond_cost(card)

@@ -4,8 +4,10 @@ The reference re-uploads ~10 uniforms per frame (`gpuRender`,
 src/main.cpp:904-922): the inverse view matrix, the inverse
 view-projection matrix, the camera position and the projection constants.
 Here they are packed into ONE small (10, 4) float32 array — the same layout
-as l2n_tpu.camera.camera — which the CUDA sphere kernel receives by value as
-40 floats and the plain torch path reads as a (10, 4) tensor.
+as l2n_tpu.camera.camera — which the CUDA kernels read from a device buffer
+(a built step's own, written when the camera changes, so that one CUDA
+graph of the step serves every pose: ops/kernels/common.DeviceCamera) and
+the plain torch path reads as a (10, 4) tensor.
 
 Packed layout (rows):
   0..3  inverse view matrix (row-major)          — uRcpViewMatrix
@@ -83,11 +85,12 @@ class Camera:
     def packed(self) -> np.ndarray:
         """(10, 4) float32 uniform block (see module docstring)."""
         with _CAMERA_PACK:
+            rcp_view = self.rcp_view
             out = np.zeros(PACKED_SHAPE, np.float32)
-            out[ROW_RCP_VIEW:ROW_RCP_VIEW + 4] = self.rcp_view
+            out[ROW_RCP_VIEW:ROW_RCP_VIEW + 4] = rcp_view
             out[ROW_RCP_VIEW_PROJ:ROW_RCP_VIEW_PROJ + 4] = linalg.inverse(
                 self.proj @ self.view_matrix)
-            out[ROW_POSITION, :3] = self.position
+            out[ROW_POSITION, :3] = linalg.camera_position(rcp_view)
             out[ROW_PROJ, 0] = self.aspect_ratio
             out[ROW_PROJ, 1] = self.tan_half_fovy
             return out
@@ -106,10 +109,10 @@ def slab_camera(packed: np.ndarray, row_offset: int, stream: int
 
 def slab_extras(packed) -> tuple[int, int]:
     """(row_offset, stream) of a packed camera; raises ValueError unless
-    both are whole numbers in [0, 2^24)."""
-    extras = np.asarray(packed, np.float32)[ROW_PROJ, 2:4]
-    if not (np.all(extras >= 0) and np.all(extras < 2 ** 24)
-            and np.all(extras == np.floor(extras))):
+    both are whole numbers in [0, 2^24). (Read as Python floats: every
+    render step calls it.)"""
+    extras = np.asarray(packed, np.float32)[ROW_PROJ, 2:4].tolist()
+    if not all(0 <= x < 2 ** 24 and x == int(x) for x in extras):
         raise ValueError(f"camera row {ROW_PROJ}: slab extras {extras} must "
                          "be whole numbers in [0, 2^24)")
     return int(extras[0]), int(extras[1])

@@ -62,10 +62,11 @@ L2N_HD TileCone tile_cone(const PtParams& p, int tile_x, int tile_y) {
 }
 
 // Does the sphere (cx, cy, cz, r2) meet the cone from the camera position
-// (cam[32..34])?
+// (camera_block's floats 32..34)?
 L2N_HD bool cone_keeps(const PtParams& p, const TileCone& k, float cx,
                        float cy, float cz, float r2) {
-  const float vx = cx - p.cam[32], vy = cy - p.cam[33], vz = cz - p.cam[34];
+  const float* cam = camera_block(p);
+  const float vx = cx - cam[32], vy = cy - cam[33], vz = cz - cam[34];
   const float d2 = vx * vx + vy * vy + vz * vz;
   const float dlen = sqrtf(d2 > 1e-20f ? d2 : 1e-20f);
   const float cos_phi = (vx * k.ax + vy * k.ay + vz * k.az) / dlen;

@@ -144,8 +144,8 @@ constexpr int kRngTausLCG = 3;
 
 // Integer and float parameters of one step, filled by the C entry points
 // from the arrays the Python wrappers pass (ops/kernels/common.py::
-// step_params keeps the two layouts in step). `cam` is the packed (10, 4)
-// camera block.
+// step_params keeps the two layouts in step). `cam` points at the packed
+// (10, 4) camera block, which the code reads through camera_block.
 struct PtParams {
   int32_t tile_height, tile_width;
   int32_t padded_height, padded_width;
@@ -165,7 +165,11 @@ struct PtParams {
   int32_t n_point, n_dir;  // explicit lights
   float inv_width, inv_height;  // float32(1 / width), float32(1 / height)
   float rr_ceiling, ray_epsilon, emission_scale, env_scale, gamma;
-  float cam[40];
+  // The camera block's 40 floats: on the card the step's device buffer,
+  // which the entry point copies into constant memory ahead of the launch
+  // (stage_camera), so that a CUDA graph replays whatever camera the buffer
+  // holds when it runs; on the host (the CPU tests' build) the block itself.
+  const float* cam;
   float normal_map, normal_map_freq;  // the bump: off at normal_map 0
   // The explicit lights' rows, six floats each (ops/lights.py::
   // ExplicitLights.buffer): n_point points (x, y, z, intensity rgb), then
@@ -198,7 +202,35 @@ struct PtParams {
   int32_t row_offset;
 };
 constexpr int kIntParams = 25;
-constexpr int kFloatParams = 7 + 40 + 4 + 5;
+constexpr int kFloatParams = 7 + 4 + 5;
+
+#if defined(__CUDACC__)
+// The camera block of the launch in flight, one per translation unit (each
+// kernel family's own): stage_camera fills it on the launch's stream, so
+// launches of one family on two streams at once would share it (the port
+// launches each family on one stream). Constant memory, so that its reads
+// are constant-cache operands, as the parameters' are.
+static __constant__ float c_camera[40];
+
+// Copy the camera block from its device buffer into this translation
+// unit's c_camera on `stream`, ahead of the launches that read it: a
+// device-to-device copy, which a stream capture records as a graph node.
+static inline cudaError_t stage_camera(const float* camera,
+                                       cudaStream_t stream) {
+  return cudaMemcpyToSymbolAsync(c_camera, camera, sizeof(c_camera), 0,
+                                 cudaMemcpyDeviceToDevice, stream);
+}
+#endif
+
+// The packed (10, 4) camera block (camera/camera.py): c_camera on the card,
+// the block p.cam points at on the host.
+L2N_HD const float* camera_block(const PtParams& p) {
+#if defined(__CUDA_ARCH__)
+  return c_camera;
+#else
+  return p.cam;
+#endif
+}
 
 L2N_HD float bits_to_float(uint32_t u) {
 #if defined(__CUDA_ARCH__)
@@ -1522,7 +1554,7 @@ L2N_HD float safe_gamma(float x, float gamma) {
 // position cam[32..34].
 L2N_HD void fovy_direction(const PtParams& p, float px, float py, float u1,
                            float u2, float& dx, float& dy, float& dz) {
-  const float* cam = p.cam;
+  const float* cam = camera_block(p);
   const float sx = (px + u1) * p.inv_width;
   const float sy = (py + u2) * p.inv_height;
   const float ndx = -1.0f + 2.0f * sx;
@@ -1542,7 +1574,7 @@ L2N_HD void fovy_direction(const PtParams& p, float px, float py, float u1,
 L2N_HD void viewproj_direction(const PtParams& p, float px, float py,
                                float u1, float u2, float& dx, float& dy,
                                float& dz) {
-  const float* cam = p.cam;
+  const float* cam = camera_block(p);
   const float sx = (px + u1) * p.inv_width;
   const float sy = (py + u2) * p.inv_height;
   const float ndx = -1.0f + 2.0f * sx;
@@ -1641,7 +1673,7 @@ L2N_HD void render_pixel(const PtParams& p, const Scene& s, int row, int col,
       static_cast<uint32_t>(col + global_row * p.padded_width);
   const uint32_t sample_index =
       static_cast<uint32_t>(static_cast<int32_t>(accum[3 * plane + pix]));
-  const float* cam = p.cam;
+  const float* cam = camera_block(p);
 
   Rng rng = Rng::load(p, rng_state, plane, pix, pixel_index, sample_index);
   float sum[3] = {0.0f, 0.0f, 0.0f};
@@ -1705,8 +1737,10 @@ L2N_HD PtParams body_options(const PtParams& p) {
 }
 
 // Fill the parameter struct from the wrappers' arrays (layout documented in
-// ops/kernels/common.py::step_params).
-inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
+// ops/kernels/common.py::step_params) and the camera block `cam` (null
+// where the kernel casts no camera ray).
+inline PtParams params_from_arrays(const int32_t* ip, const float* fp,
+                                   const float* cam) {
   PtParams p;
   p.tile_height = ip[0];
   p.tile_width = ip[1];
@@ -1740,16 +1774,16 @@ inline PtParams params_from_arrays(const int32_t* ip, const float* fp) {
   p.emission_scale = fp[4];
   p.env_scale = fp[5];
   p.gamma = fp[6];
-  for (int i = 0; i < 40; ++i) p.cam[i] = fp[7 + i];
-  p.normal_map = fp[47];
-  p.normal_map_freq = fp[48];
-  p.nee_scale = fp[49];
-  p.nee_le = fp[50];
-  p.fog_sigma = fp[51];
-  p.fog_inv_sigma = fp[52];
-  p.fog_sky = fp[53];
-  p.fog_albedo = fp[54];
-  p.fog_dir_transmit = fp[55];
+  p.cam = cam;
+  p.normal_map = fp[7];
+  p.normal_map_freq = fp[8];
+  p.nee_scale = fp[9];
+  p.nee_le = fp[10];
+  p.fog_sigma = fp[11];
+  p.fog_inv_sigma = fp[12];
+  p.fog_sky = fp[13];
+  p.fog_albedo = fp[14];
+  p.fog_dir_transmit = fp[15];
   p.lights = nullptr;
   p.nee_col = nullptr;
   return p;

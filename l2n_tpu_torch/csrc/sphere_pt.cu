@@ -42,7 +42,10 @@
 //   * the sphere SoA and albedo table (7 x n floats) are staged once per
 //     block into shared memory: every thread of a warp reads the same
 //     sphere in a sweep, a broadcast;
-//   * the camera and step constants travel by value in the parameter block;
+//   * the step constants travel by value in the parameter block, and the
+//     camera in constant memory, copied there from the step's device buffer
+//     ahead of each launch (pathtrace.cuh stage_camera): a CUDA graph of
+//     the step serves every camera pose;
 //   * a block is tile_width pixels of one tile, 4 rows x tile_width / 4
 //     columns where the tile's shape allows, a warp 4 x 8 pixels
 //     (l2n::block_pixel): a warp's bounce rays start close together, so
@@ -131,20 +134,25 @@ struct LaunchSpherePt {
 
 }  // namespace
 
-// Launch one step on `stream`. ip/fp: host arrays of l2n::kIntParams ints and
-// l2n::kFloatParams floats (ip[14] the sampler code, ip[18..19] the light
-// counts); sched (K, 2) int32, spheres (13, n) float32, lights (n_point +
+// Launch one step on `stream`, after staging the camera. ip/fp: host arrays
+// of l2n::kIntParams ints and l2n::kFloatParams floats (ip[14] the sampler
+// code, ip[18..19] the light counts); camera the packed (10, 4) float32
+// block, sched (K, 2) int32, spheres (13, n) float32, lights (n_point +
 // n_dir, 6) float32 (null without lights), accum (4, Hp, Wp) and output
 // (3, Hp, Wp) float32 and rng_state (8 or 4, Hp, Wp) 32-bit words, null
 // for the counter-based samplers, are device pointers. Returns
 // cudaGetLastError() after the launch (0 on success), -1 for an unknown
 // sampler code.
 extern "C" int l2n_sphere_pt(const int32_t* ip, const float* fp,
-                             const int32_t* sched, const float* spheres,
-                             const float* lights, float* accum, float* output,
+                             const float* camera, const int32_t* sched,
+                             const float* spheres, const float* lights,
+                             float* accum, float* output,
                              uint32_t* rng_state, void* stream) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, camera);
   p.lights = lights;
+  const cudaError_t rc =
+      l2n::stage_camera(camera, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return l2n::dispatch_fused<LaunchSpherePt>(
       p, p, sched, spheres, accum, output, rng_state,
       static_cast<cudaStream_t>(stream));

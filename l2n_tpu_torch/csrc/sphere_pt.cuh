@@ -82,7 +82,8 @@ L2N_HD void primary_terms(const PtParams& p, const SceneView& s,
                           const int32_t* index, int n_vis, float* rox,
                           float* roy, float* roz, float* c, int first,
                           int step) {
-  const float ox = p.cam[32], oy = p.cam[33], oz = p.cam[34];
+  const float* cam = camera_block(p);
+  const float ox = cam[32], oy = cam[33], oz = cam[34];
   for (int j = first; j < n_vis; j += step) {
     const int i = index[j];
     const float x = ox - s.cx[i], y = oy - s.cy[i], z = oz - s.cz[i];
@@ -274,9 +275,9 @@ __device__ inline SceneView stage_culled_scene(
                 s_terms + 2 * n, s_terms + 3 * n,
                 static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x));
   __syncthreads();
+  const float* cam = camera_block(p);
   scene.vis = Primaries{s_index, s_terms, s_terms + n, s_terms + 2 * n,
-                        s_terms + 3 * n, n_vis, p.cam[32], p.cam[33],
-                        p.cam[34]};
+                        s_terms + 3 * n, n_vis, cam[32], cam[33], cam[34]};
   return scene;
 }
 #endif

@@ -232,10 +232,12 @@ struct LaunchTrianglePt {
 
 }  // namespace
 
-// Launch one step on `stream`. ip/fp: host arrays of l2n::kIntParams ints
-// and l2n::kFloatParams floats (ip[5] = M meshes); n_slabs = S and tpad =
-// S * 128 are the packed scene's slab capacity and slots per mesh. Device
-// pointers: sched (K, 2) int32; mesh_bounds (M, 4), slab_count (M,) int32,
+// Launch one step on `stream`, after staging the camera (pathtrace.cuh
+// stage_camera). ip/fp: host arrays of l2n::kIntParams ints and
+// l2n::kFloatParams floats (ip[5] = M meshes); n_slabs = S and tpad = S *
+// 128 are the packed scene's slab capacity and slots per mesh. Device
+// pointers: camera the packed (10, 4) float32 block; sched (K, 2) int32;
+// mesh_bounds (M, 4), slab_count (M,) int32,
 // slab_bounds (M, S, 5), sub_bounds (M, S, 8, 5), group_bounds (M,
 // ceil(S / 8), 5), inner_gap (M,), balls (M, 8, 4), tris (M * tpad, 12),
 // attrs (T, 16), shell (l2n::kShellHead + 8 M) and shell_tris (rows, 12)
@@ -246,7 +248,7 @@ struct LaunchTrianglePt {
 // samplers. Returns cudaGetLastError() after the launch (0 on success), -1
 // for an unknown sampler code (ip[14]).
 extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
-                               int n_slabs, int tpad,
+                               int n_slabs, int tpad, const float* camera,
                                const int32_t* sched,
                                const float* mesh_bounds,
                                const int32_t* slab_count,
@@ -260,8 +262,11 @@ extern "C" int l2n_triangle_pt(const int32_t* ip, const float* fp,
                                const float* lights, float* accum,
                                float* output, uint32_t* rng_state,
                                void* stream) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, camera);
   p.lights = lights;
+  const cudaError_t rc =
+      l2n::stage_camera(camera, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return l2n::dispatch_fused<LaunchTrianglePt>(
       p, p, n_slabs, tpad, sched, mesh_bounds, slab_count, slab_bounds,
       sub_bounds, group_bounds, inner_gap, balls, tris, attrs, shell,

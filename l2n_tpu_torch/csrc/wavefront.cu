@@ -289,14 +289,19 @@ struct LaunchPassB {
 // meta (3, n_lanes) int32 by slot,
 // n_alive one int32.
 
-// Zeroes n_alive (a memset on the stream), then appends the survivors.
+// Stages the camera, (10, 4) float32 (pathtrace.cuh stage_camera), and
+// zeroes n_alive (a memset on the stream), then appends the survivors.
 extern "C" int l2n_wavefront_pass_a(const int32_t* ip, const float* fp,
+                                    const float* camera,
                                     const int32_t* sched,
                                     const float* spheres, const float* accum,
                                     float* col, float* back, float* rays,
                                     int32_t* meta, int32_t* n_alive,
                                     void* stream) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, camera);
+  const cudaError_t rc =
+      l2n::stage_camera(camera, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return l2n::dispatch_pass_a<LaunchPassA>(
       p, p, sched, spheres, accum, l2n::PassALanes{col, back, rays, meta},
       n_alive, static_cast<cudaStream_t>(stream));
@@ -312,7 +317,7 @@ extern "C" int l2n_wavefront_pass_b(const int32_t* ip, const float* fp,
                                     const float* spheres, const float* rays,
                                     const int32_t* meta, float* col,
                                     float* back, void* stream) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, nullptr);
   p.nee_col = col;
   return l2n::dispatch_pass_b<LaunchPassB>(
       p, p, next_pair, has_spare, n_alive, spheres, rays, meta, back,
@@ -323,7 +328,7 @@ extern "C" int l2n_wavefront_pass_c(const int32_t* ip, const float* fp,
                                     const int32_t* sched, const float* col,
                                     const float* back, float* accum,
                                     float* output, void* stream) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, nullptr);
   const dim3 grid(static_cast<unsigned>(p.k * p.tile_height));
   const dim3 block(static_cast<unsigned>(p.tile_width));
   wavefront_pass_c_kernel<<<grid, block, 0,

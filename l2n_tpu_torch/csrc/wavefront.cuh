@@ -94,8 +94,9 @@ L2N_HD void wavefront_pass_a_sample(const PtParams& p, const Scene& s, int k,
   primary_direction(p, rng, row, column, dx, dy, dz);
   float rgb[3];
   Continuation cont;
+  const float* cam = camera_block(p);
   const bool alive = trace_primary<kBody>(
-      p, s, rng, p.cam[32], p.cam[33], p.cam[34], dx, dy, dz, rgb, cont);
+      p, s, rng, cam[32], cam[33], cam[34], dx, dy, dz, rgb, cont);
   const size_t n = lane_count(p);
   const size_t lane = lane_index(p, k, si, r, c);
   for (int ch = 0; ch < 3; ++ch) out.col[ch * n + lane] = rgb[ch];

@@ -104,10 +104,11 @@ def build() -> tuple[Path, float]:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        "sphere_pt": [p] * 9,
+        "sphere_pt": [p] * 10,
         "uv_demo": [i, i, p, p, p],
-        "triangle_pt": [p, p, i, i] + [p] * 19,
-        "wavefront_pass_a": [p] * 11,
+        "camera_write": [p] * 3,
+        "triangle_pt": [p, p, i, i] + [p] * 20,
+        "wavefront_pass_a": [p] * 12,
         "wavefront_pass_b": [p, p, i, i] + [p] * 7,
         "wavefront_pass_c": [p] * 8,
         "philox_bits": [p, i, i, p, p],

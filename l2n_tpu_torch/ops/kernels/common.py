@@ -1,17 +1,18 @@
 """Shared plumbing of the kernel tier: the port's config gate, launch
 counters, CUDA-graph capture and replay, the debug checks, tensor checks,
-tile pixel coordinates and the kernel-form accumulate + tonemap
-(counterpart of l2n_tpu.ops.kernels.common)."""
+the camera the kernels read, tile pixel coordinates and the kernel-form
+accumulate + tonemap (counterpart of l2n_tpu.ops.kernels.common)."""
 
 from __future__ import annotations
 
 import collections
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from l2n_tpu_torch.camera.camera import slab_extras
+from l2n_tpu_torch.camera.camera import PACKED_SHAPE, slab_extras
 from l2n_tpu_torch.maths.sampling import PI
 from l2n_tpu_torch.ops.fog import (
     fog_directional_transmittance,
@@ -96,6 +97,11 @@ def replay(graph, held: collections.Counter) -> None:
     graph_calls["replay"] += 1
 
 
+def stream_capturing(device: torch.device) -> bool:
+    """Whether the current stream of `device` is capturing a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def check_supported(cfg) -> None:
     """Validate the config. The port renders every config the JAX package
     accepts; were a part of it still unported, this would raise
@@ -162,7 +168,7 @@ def check_rng_state(cfg, rng_state, device) -> None:
                  (planes, cfg.padded_height, cfg.padded_width), device)
 
 
-def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
+def step_params(cfg, k: int, n_scene: int, camera, lights=None):
     """The integer and float parameter arrays of csrc/pathtrace.cuh's
     params_from_arrays, in its order, for K scheduled tiles over a scene of
     `n_scene` spheres or meshes, with the point and directional light
@@ -172,11 +178,13 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
     floats: scale E (area) and scale / (4 pi) (cone). Fog's flag and
     constants (ops/fog.py) come last: sigma, float32(1 / sigma), the sky
     distance, the albedo and the directional lights' transmittance. The
-    camera's slab extras (camera/camera.py) give the stream (ip[12]) and
-    the slab's row offset, the last int, after fog's flag, so that every
-    other parameter keeps its place."""
+    camera (a packed host array or a DeviceCamera) gives only its slab
+    extras (camera/camera.py): the stream (ip[12]) and the slab's row
+    offset, the last int, after fog's flag, so that every other parameter
+    keeps its place. The camera block itself is no parameter: the kernels
+    read it from a device buffer (`DeviceCamera`)."""
     with _KERNEL_PARAMS:
-        row_offset, stream = slab_extras(camera)
+        row_offset, stream = camera_extras(camera)
         n_point = 0 if lights is None else lights.point.shape[0]
         n_dir = 0 if lights is None else lights.directional.shape[0]
         n_lights = (emissive_count(n_scene, cfg.emissive_every) if cfg.nee
@@ -192,26 +200,84 @@ def step_params(cfg, k: int, n_scene: int, camera: np.ndarray, lights=None):
                        n_point, n_dir, int(cfg.nee), int(cfg.mis), n_lights,
                        int(fog), row_offset], dtype=np.int64)
         ip = ip.astype(np.uint32).view(np.int32)
-        fp = np.concatenate([np.array(
+        fp = np.array(
             [1.0 / (cfg.ndc_width or cfg.width),
              1.0 / (cfg.ndc_height or cfg.height), cfg.rr_ceiling,
-             cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma],
-            dtype=np.float32), camera.reshape(-1),
-            np.array([cfg.normal_map, cfg.normal_map_freq,
-                      cfg.emission_scale * n_lights,
-                      cfg.emission_scale / (4.0 * PI),
-                      cfg.fog_density, fog_inv_sigma(cfg) if fog else 0.0,
-                      fog_sky(cfg), cfg.fog_albedo,
-                      fog_directional_transmittance(cfg)], np.float32)])
-        return np.ascontiguousarray(ip), np.ascontiguousarray(fp, np.float32)
+             cfg.ray_epsilon, cfg.emission_scale, cfg.env_scale, cfg.gamma,
+             cfg.normal_map, cfg.normal_map_freq,
+             cfg.emission_scale * n_lights, cfg.emission_scale / (4.0 * PI),
+             cfg.fog_density, fog_inv_sigma(cfg) if fog else 0.0,
+             fog_sky(cfg), cfg.fog_albedo, fog_directional_transmittance(cfg)],
+            np.float32)
+        return np.ascontiguousarray(ip), fp
 
 
 def check_camera(camera) -> np.ndarray:
     """The packed (10, 4) float32 camera block as a contiguous host array."""
     camera = np.ascontiguousarray(camera, dtype=np.float32)
-    if camera.shape != (10, 4):
-        raise ValueError(f"camera: shape {camera.shape}, expected (10, 4)")
+    if camera.shape != PACKED_SHAPE:
+        raise ValueError(f"camera: shape {camera.shape}, expected "
+                         f"{PACKED_SHAPE}")
     return camera
+
+
+class DeviceCamera(NamedTuple):
+    """The packed (10, 4) float32 camera in a buffer on the frame's device,
+    which the kernels read when they run (csrc/pathtrace.cuh stage_camera),
+    and its slab extras (row offset, stream; camera/camera.py), which ride
+    in their int parameters. A built step owns one and writes each new
+    camera into it (`write_camera`), so that its CUDA graph serves every
+    camera pose."""
+    buffer: torch.Tensor
+    extras: tuple[int, int] = (0, 0)
+
+
+def write_camera(buffer: torch.Tensor, camera: np.ndarray) -> None:
+    """Write the packed host camera into `buffer`, a (10, 4) float32
+    tensor, in stream order: on the card by a kernel that takes the 40
+    floats by value (csrc/camera.cu), which a stream capture records with
+    them; elsewhere by a copy."""
+    if buffer.device.type == "cuda":
+        launch_raw("camera_write", buffer.device, check_camera(camera),
+                   buffer)
+    else:
+        buffer.copy_(torch.from_numpy(check_camera(camera)))
+
+
+def check_step_camera(camera, device: torch.device):
+    """A step wrapper's camera: a DeviceCamera whose buffer is a contiguous
+    (10, 4) float32 tensor on `device`, as it is, or the packed host array
+    (`check_camera`)."""
+    if isinstance(camera, DeviceCamera):
+        check_tensor("camera", camera.buffer, torch.float32, PACKED_SHAPE,
+                     device)
+        return camera
+    return check_camera(camera)
+
+
+def camera_extras(camera) -> tuple[int, int]:
+    """(row_offset, stream) of a packed host camera or a DeviceCamera."""
+    if isinstance(camera, DeviceCamera):
+        return camera.extras
+    return slab_extras(camera)
+
+
+def host_camera(camera) -> np.ndarray:
+    """The packed camera as a host array; a DeviceCamera's buffer is read
+    now (the plain versions, which run when they are called)."""
+    if isinstance(camera, DeviceCamera):
+        return camera.buffer.detach().cpu().numpy().copy()
+    return check_camera(camera)
+
+
+def kernel_camera(camera, device: torch.device) -> DeviceCamera:
+    """The DeviceCamera a kernel launch reads: `camera` itself, or a new
+    buffer on `device` written with the packed host array."""
+    if isinstance(camera, DeviceCamera):
+        return camera
+    buffer = torch.empty(PACKED_SHAPE, dtype=torch.float32, device=device)
+    write_camera(buffer, camera)
+    return DeviceCamera(buffer, slab_extras(camera))
 
 
 def check_schedule(cfg, sched, accum, output=None) -> int:
@@ -308,10 +374,12 @@ def render_tiles_plain(cfg, sched: torch.Tensor, camera, intersect, anyhit,
     PLACE; the stateful modes' `rng_state` planes are stepped IN PLACE
     too. The camera's slab extras (camera/camera.py) place the frame's rows
     in a larger frame, whose global rows give the pixel index and the
-    camera rays, and key the counter-based samplers' stream."""
+    camera rays, and key the counter-based samplers' stream. A DeviceCamera
+    is read when the step runs."""
     dev = accum.device
+    camera = host_camera(camera)
     row_offset, stream = slab_extras(camera)
-    cam = torch.as_tensor(np.asarray(camera, np.float32)).to(dev)
+    cam = torch.as_tensor(camera).to(dev)
     row, col = tile_pixel_coords(cfg, sched)
     flat = (row * cfg.padded_width + col).reshape(-1)  # into the planes
     grow = row.reshape(-1) + row_offset  # the global row

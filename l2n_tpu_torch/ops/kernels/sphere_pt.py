@@ -37,11 +37,12 @@ from l2n_tpu_torch.camera.camera import ROW_POSITION
 from l2n_tpu_torch.maths.sampling import sqrt
 from l2n_tpu_torch.ops.kernels.common import (
     MAX_SMEM,
-    check_camera,
     check_rng_state,
     check_schedule,
+    check_step_camera,
     check_supported,
     check_tensor,
+    kernel_camera,
     launch,
     render_tiles_plain,
     step_params,
@@ -95,7 +96,7 @@ def _check(cfg, sched, camera, spheres, accum, output, rng_state, lights):
         check_rng_state(cfg, rng_state, accum.device)
         check_spheres(spheres, accum.device)
         check_lights(lights)
-        return check_camera(camera)
+        return check_step_camera(camera, accum.device)
 
 
 def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
@@ -104,7 +105,9 @@ def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     """One render step over the scheduled tiles, in place (see module doc).
 
     sched (K, 2) int32 (tile_x, tile_y); camera the packed (10, 4) float32
-    host array; spheres (13, n) float32 (SphereScene.packed()); accum
+    host array, or a common.DeviceCamera on the frame's device, which the
+    kernel reads when it runs (a CUDA graph of the call then serves any
+    camera written into it); spheres (13, n) float32 (SphereScene.packed()); accum
     (4, Hp, Wp) and output (3, Hp, Wp) float32; rng_state the (8 or 4, Hp,
     Wp) int32 state planes of rng="tinymt"/"tauslcg", else None; all on one
     device. `lights`: ops/lights.ExplicitLights, or None (its albedo
@@ -125,10 +128,11 @@ def sphere_pt(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
             raise ValueError(f"sphere_pt: {n} spheres exceed the kernel's "
                              f"shared memory ({max_spheres(cfg, lights)} "
                              "max)")
+        camera = kernel_camera(camera, accum.device)
         ip, fp = step_params(cfg, sched.shape[0], n, camera, lights)
         light_rows = None if lights is None else lights.buffer(accum.device)
-        launch("sphere_pt", cfg, accum.device, ip, fp, sched, spheres,
-               light_rows, accum, output, rng_state)
+        launch("sphere_pt", cfg, accum.device, ip, fp, camera.buffer, sched,
+               spheres, light_rows, accum, output, rng_state)
 
 
 def sphere_pt_plain(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,

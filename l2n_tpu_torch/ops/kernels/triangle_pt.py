@@ -40,11 +40,12 @@ import torch
 from l2n_tpu_torch.maths.sampling import procedural_color, sqrt
 from l2n_tpu_torch.ops.kernels.common import (
     MAX_SMEM,
-    check_camera,
     check_rng_state,
     check_schedule,
+    check_step_camera,
     check_supported,
     check_tensor,
+    kernel_camera,
     launch,
     render_tiles_plain,
     step_params,
@@ -234,7 +235,7 @@ def _check(cfg, sched, camera, buffers, accum, output, rng_state, lights):
                 ("shell_tris", f32,
                  (buffers.shell_tris.shape[0], TRI_STRIDE))):
             check_tensor(name, getattr(buffers, name), dtype, shape, dev)
-        return check_camera(camera)
+        return check_step_camera(camera, dev)
 
 
 def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
@@ -243,7 +244,8 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
     """One render step over the scheduled tiles, in place (see module doc).
 
     sched (K, 2) int32 (tile_x, tile_y); camera the packed (10, 4) float32
-    host array; buffers the scene's TriangleBuffers; accum (4, Hp, Wp) and
+    host array or a common.DeviceCamera (sphere_pt.sphere_pt); buffers the
+    scene's TriangleBuffers; accum (4, Hp, Wp) and
     output (3, Hp, Wp) float32; rng_state the (8 or 4, Hp, Wp) int32 state
     planes of rng="tinymt"/"tauslcg", else None; all on one device.
     `lights`: ops/lights.ExplicitLights, or None (its albedo override is
@@ -263,11 +265,12 @@ def triangle_pt(cfg, sched: torch.Tensor, camera, buffers: TriangleBuffers,
         if m > max_meshes(cfg, lights):
             raise ValueError(f"triangle_pt: {m} meshes exceed the kernel's "
                              f"shared memory ({max_meshes(cfg, lights)} max)")
+        camera = kernel_camera(camera, accum.device)
         ip, fp = step_params(cfg, sched.shape[0], m, camera, lights)
         light_rows = None if lights is None else lights.buffer(accum.device)
-        launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128, sched,
-               *buffers.kernel_arrays(shell_route(cfg)), light_rows, accum,
-               output, rng_state)
+        launch("triangle_pt", cfg, accum.device, ip, fp, s, s * 128,
+               camera.buffer, sched, *buffers.kernel_arrays(shell_route(cfg)),
+               light_rows, accum, output, rng_state)
 
 
 def shell_route(cfg) -> bool:

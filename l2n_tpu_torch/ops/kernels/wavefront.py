@@ -59,13 +59,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from l2n_tpu_torch.camera.camera import slab_extras
 from l2n_tpu_torch.ops.kernels.common import (
     accumulate_and_tonemap,
-    check_camera,
+    camera_extras,
     check_schedule,
+    check_step_camera,
     check_supported,
     check_tensor,
+    host_camera,
+    kernel_camera,
     launch,
     step_params,
     tile_pixel_coords,
@@ -182,13 +184,14 @@ def _device(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
-def _whole_frame_camera(camera) -> np.ndarray:
-    """check_camera, and ValueError for a slab's camera (module doc)."""
-    camera = check_camera(camera)
-    if slab_extras(camera) != (0, 0):
+def _whole_frame_camera(camera, device: torch.device):
+    """common.check_step_camera, and ValueError for a slab's camera
+    (module doc)."""
+    camera = check_step_camera(camera, device)
+    if camera_extras(camera) != (0, 0):
         raise ValueError(f"wavefront: no slab of a sharded frame (row offset "
-                         f"and stream {slab_extras(camera)}); a slab renders "
-                         "through sphere_pt")
+                         f"and stream {camera_extras(camera)}); a slab "
+                         "renders through sphere_pt")
     return camera
 
 
@@ -202,8 +205,9 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
     """Primary cast, first vertex, b=0 scatter over the scheduled tiles, and
     the survivors' append.
 
-    sched (K, 2) int32; camera the packed (10, 4) host array; spheres (13,
-    n) float32 (SphereScene.packed()); accum (4, Hp, Wp), read for the sample counts. On the card the
+    sched (K, 2) int32; camera the packed (10, 4) host array or a
+    common.DeviceCamera (sphere_pt.sphere_pt); spheres (13, n) float32
+    (SphereScene.packed()); accum (4, Hp, Wp), read for the sample counts. On the card the
     outputs go to `lanes` (`wavefront_lanes`), or to new buffers; on the
     CPU the plain version returns new ones."""
     with _KERNEL_WAVEFRONT_PASS_A:
@@ -212,7 +216,7 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
             _sampler_class(cfg)
             dev = _device(accum, "wavefront_pass_a")
             k = check_schedule(cfg, sched, accum)
-            camera = _whole_frame_camera(camera)
+            camera = _whole_frame_camera(camera, dev)
             n = _check_spheres(cfg, spheres, dev)
         if dev.type == "cpu":
             return wavefront_pass_a_plain(cfg, sched, camera, spheres, accum)
@@ -220,9 +224,10 @@ def wavefront_pass_a(cfg, sched: torch.Tensor, camera, spheres: torch.Tensor,
             lanes = wavefront_lanes(cfg, k, dev)
         with _KERNEL_CHECK:
             _check_lanes(cfg, k, lanes, dev)
+        camera = kernel_camera(camera, dev)
         ip, fp = step_params(cfg, k, n, camera)
-        launch("wavefront_pass_a", cfg, dev, ip, fp, sched, spheres, accum,
-               *lanes)
+        launch("wavefront_pass_a", cfg, dev, ip, fp, camera.buffer, sched,
+               spheres, accum, *lanes)
         return lanes
 
 
@@ -238,7 +243,8 @@ def primary_lanes_plain(cfg, sched: torch.Tensor, camera,
     sampler_cls = _sampler_class(cfg)
     intersect, _, albedo = _scene(cfg, spheres)
     nee = _light_sampler(cfg, spheres)
-    cam = torch.as_tensor(_whole_frame_camera(camera)).to(dev)
+    cam = torch.as_tensor(host_camera(_whole_frame_camera(camera, dev)))
+    cam = cam.to(dev)
     k, th, tw, spp = (sched.shape[0], cfg.tile_height, cfg.tile_width,
                       cfg.spp_per_step)
     row, col = tile_pixel_coords(cfg, sched)
@@ -327,7 +333,7 @@ def wavefront_pass_b(cfg, camera, spheres: torch.Tensor, rays: torch.Tensor,
             check_supported(cfg)
             _sampler_class(cfg)
             dev = _device(rays, "wavefront_pass_b")
-            camera = _whole_frame_camera(camera)
+            camera = _whole_frame_camera(camera, dev)
             n = _check_spheres(cfg, spheres, dev)
             n_lanes = rays.shape[1] if isinstance(rays, torch.Tensor) else -1
             check_tensor("rays", rays, f32, (ray_planes(cfg), n_lanes), dev)
@@ -361,7 +367,7 @@ def wavefront_pass_b_plain(cfg, camera, spheres: torch.Tensor,
     written to back at their lanes (`write_back`), so no host read of
     n_alive is needed; under NEE from `col` at those lanes, which then
     hold 0."""
-    _whole_frame_camera(camera)  # the stream is 0
+    _whole_frame_camera(camera, meta.device)  # the stream is 0
     intersect, anyhit, albedo = _scene(cfg, spheres)
     nee = _light_sampler(cfg, spheres)
     next_pair, has_spare = wavefront_draw_position(cfg)
@@ -474,7 +480,7 @@ def sphere_wavefront_step_plain(cfg, sched: torch.Tensor, camera,
                                 rng_state=None) -> None:
     """The same step through the three plain versions, on any device."""
     check_supported(cfg)
-    camera = check_camera(camera)
+    camera = host_camera(camera)
     _step((wavefront_pass_a_plain, wavefront_pass_b_plain,
            wavefront_pass_c_plain), cfg, sched, camera, spheres, accum,
           output, rng_state)

@@ -13,14 +13,17 @@ default and those five again in threefry and in tpu_hw ("triangle"); and
 triangle_pt on the
 70,144-triangle trefoil knot at the JAX bench's `bigobj` config
 (`bigobj_case`; tpu_hw and threefry, 10 tiles from the frame's middle and
-whole frames), where one mesh of 548 slabs takes the slab-group level.
+whole frames), where one mesh of 548 slabs takes the slab-group level;
+and the host's time a call of the built step at one step a call ("host":
+render/step.build_render_step on bench.py's headline config, the camera
+turned 1 degree a call as portbench's orbit mix turns it).
 
     # the kernels of the tree at DIR (e.g. a `git archive` of the parent
     # commit) and of this tree, in turns: DIR, this, this, DIR
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR
     # more trees (variants of this one), in turns: DIR, this, V1, V2, V2,
     # V1, this, DIR; --only FAMILY[,FAMILY...] (fused, wavefront, onehot,
-    # sweep, philox, trefoil, settings, triangle) times only those
+    # sweep, philox, trefoil, settings, triangle, host) times only those
     python3 l2n_tpu_torch/probes/step_ab.py --parent DIR --variant V1 \
         --variant V2 --only wavefront
 
@@ -28,16 +31,22 @@ Each measurement runs in a process of its own that imports the package
 from its tree (`--root`), renders from a zero frame state with the default
 camera, and times N back-to-back calls captured once into a CUDA graph and
 replayed between CUDA events, the best of 3 replays: the device time
-without the host's dispatch. The fused families time their public wrapper;
-the wavefront step is the built step (render/step.build_render_step,
-backend="cuda"), as the main path runs it, schedule gather included. Its
-passes are timed by torch.profiler over eager steps (device ms per launch
-of each `wavefront_pass_*_kernel`, and every other device event of the step
-summed per step, "rest"). The onehot pair is timed per call of its
+without the host's dispatch. The fused families time their public wrapper
+(handed the packed host camera, which it writes to a device buffer on
+every call, since the kernels read the camera from one); the wavefront
+step is the built step (render/step.build_render_step, backend="cuda"), as
+the main path runs it, schedule gather included (inside the outer capture
+it runs eagerly). Its passes are timed by torch.profiler over calls of the
+step (device ms per launch of each `wavefront_pass_*_kernel`, and every
+other device event of the step summed per step, "rest"), which replay the
+step's own graph once it has captured one. The onehot pair is timed per call of its
 wrapper by graph replay, and per launch by torch.profiler ("... kernel");
 the sweeps the same way (sweep_vpu, sweep_vpu2, sweep_mma), and
 philox_bits per shape (graph replay of 200 calls, torch.profiler over
-50).
+50). "host" is the host clock around each call of the step (the device
+synchronized after it, outside the time) and around each call and its
+synchronize, the median and the 95th percentile of 300 calls after 3
+(the library's build, a capture where the step captures one).
 Needs one CUDA card; prints one JSON line per process and a summary, the
 fused kernels' registers and spill stores per instantiation in each tree
 (from its build log, `ptxas -v`) with the instantiations where the trees
@@ -287,6 +296,57 @@ def _wavefront(torch, cam, times: dict) -> None:
                 times[f"{key} {name}"] = ms
 
 
+def _host(torch, root: Path, times: dict) -> None:
+    """The built step's host ms a call at one step a call, and ms a frame
+    with its synchronize, over cameras turned 1 degree a call (module
+    doc), into `times`."""
+    import math
+
+    import numpy as np
+    sys.path.insert(0, str(root))
+    from l2n_tpu_torch.camera import Camera
+    from l2n_tpu_torch.config import RenderConfig
+    from l2n_tpu_torch.render.state import init_frame_state
+    from l2n_tpu_torch.render.step import build_render_step
+    from l2n_tpu_torch.scene import compute_spheres
+    assert Path(sys.modules["l2n_tpu_torch"].__file__).resolve(
+    ).is_relative_to(root)
+    dev = torch.device("cuda")
+    cfg = RenderConfig(width=1024, height=1024, tile_height=32,
+                       tile_width=128, tiles_per_step=1024, spp_per_step=4,
+                       rng="tpu_hw", fast_math=True).validate()
+    step = build_render_step(cfg, compute_spheres(
+        cfg.sphere_count, cfg.world_size, cfg.scene_seed), backend="cuda",
+        device=dev)
+    view0 = Camera.from_config(cfg).view_matrix.astype(np.float64)
+
+    def camera(deg):
+        a = math.radians(deg)
+        rot = np.array([[math.cos(a), 0.0, math.sin(a), 0.0],
+                        [0.0, 1.0, 0.0, 0.0],
+                        [-math.sin(a), 0.0, math.cos(a), 0.0],
+                        [0.0, 0.0, 0.0, 1.0]])
+        return Camera.from_config(cfg, view_matrix=(
+            view0 @ rot.T).astype(np.float32)).packed()
+
+    cams = [camera(float(i)) for i in range(303)]
+    st = init_frame_state(cfg, dev)
+    host, frame = [], []
+    for i, cam in enumerate(cams):
+        t0 = time.perf_counter()
+        st = step(st, cam)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= 3:
+            host.append((t1 - t0) * 1e3)
+            frame.append((t2 - t0) * 1e3)
+    for name, v in (("host", host), ("frame", frame)):
+        v = sorted(v)
+        times[f"host N=1 orbit {name} ms p50"] = v[len(v) // 2]
+        times[f"host N=1 orbit {name} ms p95"] = v[int(0.95 * len(v))]
+
+
 def _onehot(torch, root: Path, times: dict) -> None:
     """The onehot pair's device ms per call of its wrapper (graph replay of
     200 calls) and per launch (torch.profiler over 50) into `times`."""
@@ -373,7 +433,7 @@ def _lights():
             np.array([[0.3, -1.0, 0.2]], np.float32),
             np.array([[0.5, 0.5, 0.6]], np.float32)))
 FAMILIES = ("fused", "wavefront", "onehot", "sweep", "philox", "trefoil",
-            "settings", "triangle")
+            "settings", "triangle", "host")
 
 
 def measure_tree(root: Path, only: str) -> dict:
@@ -390,6 +450,8 @@ def measure_tree(root: Path, only: str) -> dict:
         _philox(torch, root, times)
     if "trefoil" in want:
         _trefoil(torch, root, times)
+    if "host" in want:
+        _host(torch, root, times)
     if want & {"fused", "wavefront", "settings", "triangle"}:
         _, cam, families = _families(root)
         from l2n_tpu_torch.render.state import init_frame_state

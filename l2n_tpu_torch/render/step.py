@@ -40,9 +40,10 @@ returns a new FrameState sharing them with advanced counters
 
 `steps_per_call=N` runs N scheduler steps per call, the counterpart of the
 JAX step's lax.fori_loop: the same image as N single steps, to the bit.
-Their schedules come from a device cursor (render/tiles.py), gathered once
-per call, and render in groups of G consecutive steps, one kernel call a
-group: G = max(1, min(N, T // k)) for T tiles in the frame and k a step.
+Every step is a `MultiStep`, N = 1 included. Its N schedules come from a
+device cursor (render/tiles.py), gathered once per call, and render in
+groups of G consecutive steps, one kernel call a group: G = max(1, min(N,
+T // k)) for T tiles in the frame and k a step.
 Any G * k consecutive entries of the wrapping schedule are distinct tiles,
 wherever the cursor starts, and a kernel renders distinct tiles in one
 launch to the same bits as one launch per step (a pixel's sample index is
@@ -53,16 +54,22 @@ wavefront step keeps one launch sequence per step (its lane buffers hold
 one step's tiles), and so does every step under utils/validate.debug_mode,
 which audits each step. With backend="cuda" the N steps are captured once
 into a CUDA graph and replayed, so that the host dispatches one replay
-where it dispatched N steps of wrapper calls. The kernels' parameters, the
-camera among them, are baked in at capture, and so are the state buffers'
-addresses: the step keeps one graph, for one (camera, buffers) key. The
-first call for a key runs its N steps eagerly (which builds the kernel
-library and does the launchers' shared-memory opt-ins, neither of which
-may happen while a stream captures), the second captures and replays, and
-later ones replay; a new camera or new buffers drop the graph. A capture
-that fails raises: nothing falls back. Under utils/validate.debug_mode the
-N steps run eagerly, each launch checked and each step audited (a capture
-cannot synchronize). backend="torch" runs the same N steps eagerly.
+where it dispatched N steps of wrapper calls. The kernels read the camera
+from the step's device buffer (ops/kernels/common.DeviceCamera), which a
+call writes only when its camera's bytes differ from the last written, so
+one graph serves every camera pose; the kernels' other parameters, the
+camera's slab extras among them, are baked in at capture, and so are the
+state buffers' addresses: the step keeps one graph, for one (slab extras,
+buffers) key. The first call for a key runs its N steps eagerly (which
+builds the kernel library and does the launchers' shared-memory opt-ins,
+neither of which may happen while a stream captures), the second captures
+and replays, and later ones replay; new buffers drop the graph. A capture
+that fails raises: nothing falls back. A call made while its stream is
+already capturing (someone else's graph around the step) runs eagerly, so
+that the outer capture records its launches, the camera's write among
+them. Under utils/validate.debug_mode the N steps run eagerly, each launch
+checked and each step audited (a capture cannot synchronize).
+backend="torch" runs the same N steps eagerly, from the host camera.
 """
 
 from __future__ import annotations
@@ -73,13 +80,17 @@ import functools
 import numpy as np
 import torch
 
+from l2n_tpu_torch.camera.camera import PACKED_SHAPE, slab_extras
 from l2n_tpu_torch.ops.kernels.common import (
+    DeviceCamera,
     capture,
     check_camera,
     check_supported,
     debug_checks,
     graph_calls,
     replay,
+    stream_capturing,
+    write_camera,
 )
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt, sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
@@ -193,24 +204,8 @@ def build_render_step(cfg, scene, backend: str = "cuda", device=None,
     def render(sched, cam, accum, output, rng_state):
         kernel(cfg, sched, cam, buffers, accum, output, rng_state)
 
-    if steps_per_call > 1:
-        return MultiStep(cfg, render, tiles, steps_per_call, device,
-                         graphs=backend == "cuda", fuse=fuse)
-    k = cfg.effective_tiles_per_step
-
-    def step(state: FrameState, camera) -> FrameState:
-        with _STEP_EAGER:
-            graph_calls["eager"] += 1
-            with _STEP_GATHER:
-                sched = scheduled_tiles(tiles, state.tile_offset, k)
-            render(sched, np.asarray(camera, np.float32), state.accum,
-                   state.output, state.rng_state)
-            audit(state.accum, state.output)
-        return dataclasses.replace(
-            state, tile_offset=advance_offset(cfg, state.tile_offset),
-            iteration=state.iteration + 1)
-
-    return step
+    return MultiStep(cfg, render, tiles, steps_per_call, device,
+                     graphs=backend == "cuda", fuse=fuse)
 
 
 def audit(accum: torch.Tensor, output: torch.Tensor) -> None:
@@ -227,8 +222,9 @@ def audit(accum: torch.Tensor, output: torch.Tensor) -> None:
 class MultiStep:
     """step(state, packed_camera) -> FrameState over N scheduler steps per
     call (`build_render_step(..., steps_per_call=N)`; module doc). `render`
-    renders the tiles `sched` in place: those of `group` consecutive steps
-    at once where `fuse`, else those of one step."""
+    renders the tiles `sched` in place, with the camera the host array or,
+    with `graphs`, the step's DeviceCamera: the tiles of `group`
+    consecutive steps at once where `fuse`, else those of one step."""
 
     def __init__(self, cfg, render, tiles: torch.Tensor, n: int,
                  device: torch.device, graphs: bool, fuse: bool = True):
@@ -237,6 +233,13 @@ class MultiStep:
         self.group = max(1, min(
             n, cfg.tile_count // cfg.effective_tiles_per_step)) if fuse else 1
         self.cursor = torch.zeros((1,), dtype=torch.int32, device=device)
+        # The camera the kernels read. What the host knows the cursor and
+        # the camera to hold once the work it has queued has run (None:
+        # unknown, e.g. after an outer capture recorded writes to them).
+        self.camera = torch.zeros(PACKED_SHAPE, dtype=torch.float32,
+                                  device=device) if graphs else None
+        self._cursor_at = None
+        self._written = None
         self._graph = None  # (key, graph, launches it holds)
         self._warm = None   # the key of the last eager run
 
@@ -252,23 +255,43 @@ class MultiStep:
             audit(accum, output)
         advance_cursor(self.cfg, self.cursor, self.n)
 
+    def _device_camera(self, cam: np.ndarray, outer: bool) -> DeviceCamera:
+        """The step's camera buffer holding `cam`: written in stream order
+        unless it already holds these bytes. Inside an `outer` capture it
+        is written always, since that graph may replay after later writes,
+        and its bytes are then unknown."""
+        data = cam.tobytes()
+        if outer or data != self._written:
+            write_camera(self.camera, cam)
+            self._written = None if outer else data
+        return DeviceCamera(self.camera, slab_extras(cam))
+
     def __call__(self, state: FrameState, camera) -> FrameState:
         cam = check_camera(camera)
         planes = (state.accum, state.output, state.rng_state)
-        self.cursor.fill_(state.tile_offset)
-        key = (cam.tobytes(), tuple(0 if p is None else p.data_ptr()
-                                    for p in planes))
-        if not self.graphs or debug_checks():
+        outer = stream_capturing(self.device)
+        if outer or state.tile_offset != self._cursor_at:
+            self.cursor.fill_(state.tile_offset)
+        self._cursor_at = None  # until the steps below are queued
+        if not self.graphs:
             with _STEP_EAGER:
                 graph_calls["eager"] += 1
                 self._steps(cam, *planes)
+            return self._advanced(state, outer)
+        dcam = self._device_camera(cam, outer)
+        key = (dcam.extras, tuple(0 if p is None else p.data_ptr()
+                                  for p in planes))
+        if outer or debug_checks():
+            with _STEP_EAGER:
+                graph_calls["eager"] += 1
+                self._steps(dcam, *planes)
         elif self._graph is not None and self._graph[0] == key:
             with _STEP_REPLAY:
                 replay(*self._graph[1:])
         elif self._warm == key:
             with _STEP_CAPTURE:
                 self._graph = None  # its memory goes before the next capture
-                graph, held = capture(lambda: self._steps(cam, *planes),
+                graph, held = capture(lambda: self._steps(dcam, *planes),
                                       self.device)
                 self._graph = (key, graph, held)
                 replay(graph, held)
@@ -276,9 +299,15 @@ class MultiStep:
             with _STEP_EAGER:
                 graph_calls["eager"] += 1
                 self._graph = None
-                self._steps(cam, *planes)
+                self._steps(dcam, *planes)
                 self._warm = key
-        return dataclasses.replace(
-            state, tile_offset=advance_offset(self.cfg, state.tile_offset,
-                                              self.n),
-            iteration=state.iteration + self.n)
+        return self._advanced(state, outer)
+
+    def _advanced(self, state: FrameState, outer: bool) -> FrameState:
+        """`state` with its counters N steps on (the planes are shared),
+        where the cursor stands once the call has run, unless an outer
+        capture only recorded it."""
+        offset = advance_offset(self.cfg, state.tile_offset, self.n)
+        self._cursor_at = None if outer else offset
+        return dataclasses.replace(state, tile_offset=offset,
+                                   iteration=state.iteration + self.n)

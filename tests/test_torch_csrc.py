@@ -20,6 +20,7 @@ materials, lights, NEE and fog bodies' in test_torch_csrc_materials.py.
 
 import ctypes
 import functools
+import os
 import shutil
 import subprocess
 import sys
@@ -30,9 +31,11 @@ import pytest
 import torch
 
 from torch_csrc_shim import (  # noqa: F401 (fixtures)
+    CSRC,
     _asan_render,
     _ptr,
     asan_build,
+    host_params,
     lib,
 )
 
@@ -49,7 +52,7 @@ from l2n_tpu_torch.camera.camera import slab_camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.ops.envlight import SUN_S, mandelbrot_le, sun_le
 from l2n_tpu_torch.ops.intersect import intersect_sphere_scene
-from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
+from l2n_tpu_torch.ops.kernels.common import RNG_CODES
 from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
 from l2n_tpu_torch.ops.kernels.sphere_pt import visibility_table
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
@@ -176,7 +179,7 @@ def test_camera_direction_header_matches_plain(lib, ray_gen, fast):
         gen.integers(0, cfg.width, n).astype(np.float32),
         gen.integers(0, cfg.height, n).astype(np.float32),
         *gen.random((2, n), dtype=np.float32)]))
-    ip, fp = step_params(cfg, 1, 1, cam)
+    ip, fp = host_params(cfg, 1, 1, cam)
     out = np.empty((3, n), np.float32)
     lib.l2n_camera_dirs_host(_ptr(ip), _ptr(fp), _ptr(xy), _ptr(out), n)
     want = generate_rays(cfg, torch.from_numpy(cam),
@@ -205,7 +208,7 @@ def test_tangent_ray_header_matches_plain(lib, fast):
     rays[1] = [0.0, 0.0, 0.0, 2.0]
     rays[5] = -1.0
     cfg = RenderConfig(fast_math=fast).validate()
-    ip, fp = step_params(cfg, 1, 2, Camera.from_config(cfg).packed())
+    ip, fp = host_params(cfg, 1, 2, Camera.from_config(cfg).packed())
     t = np.empty(4, np.float32)
     idx = np.empty(4, np.int32)
     lib.l2n_sphere_nearest_host(_ptr(ip), _ptr(fp), _ptr(spheres),
@@ -328,7 +331,7 @@ def test_visibility_header_matches_plain(lib, case):
     cam = Camera.from_config(frame_cfg, view).packed()
     sched = torch.as_tensor(tile_grid(cfg))
     n = bounds.shape[1]
-    ip, fp = step_params(cfg, cfg.tile_count, n,
+    ip, fp = host_params(cfg, cfg.tile_count, n,
                          slab_camera(cam, row_offset, 5 if row_offset else 0))
     got = np.empty((cfg.tile_count, n + 1), np.int32)
     lib.l2n_visibility_host(_ptr(ip), _ptr(fp), _ptr(sched.numpy()),
@@ -378,7 +381,7 @@ def test_wavefront_header_matches_plain_passes(lib, extra):
     k = cfg.effective_tiles_per_step
     accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
     output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
-    ip, fp = step_params(cfg, k, sc.count, cam)
+    ip, fp = host_params(cfg, k, sc.count, cam)
     next_pair, has_spare = wavefront_draw_position(cfg)
     for i in range(2):
         sched = scheduled_tiles(tiles, (i * k) % cfg.tile_count, k)
@@ -452,7 +455,7 @@ import ctypes, sys
 import numpy as np
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.pathtrace import wavefront_draw_position
 from l2n_tpu_torch.render.tiles import tile_grid
 from l2n_tpu_torch.scene import compute_spheres
@@ -471,7 +474,7 @@ for count in (128, 100):
     spheres = compute_spheres(count).packed().numpy()
     n = cfg.tile_count * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
-    ip, fp = step_params(cfg, cfg.tile_count, count,
+    ip, fp = host_params(cfg, cfg.tile_count, count,
                          Camera.from_config(cfg).packed())
     next_pair, has_spare = wavefront_draw_position(cfg)
     for step in range(2):
@@ -515,6 +518,77 @@ def test_wavefront_header_memcheck_asan(asan_build):
     lane's back is written exactly once, by pass A (the dead lanes, 0) or by
     pass B (each survivor's lane, which the slots name once)."""
     _asan_render(asan_build, script=ASAN_WAVEFRONT)
+
+
+ASAN_CAMERA = r"""
+import ctypes, sys
+import numpy as np, torch
+from l2n_tpu_torch.camera import Camera
+from l2n_tpu_torch.config import RenderConfig
+from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
+from l2n_tpu_torch.render.tiles import tile_grid
+from l2n_tpu_torch.scene import build_triangle_scene, compute_spheres
+from torch_csrc_shim import host_params
+lib = ctypes.CDLL(sys.argv[1])
+p, i = ctypes.c_void_p, ctypes.c_int
+lib.l2n_sphere_pt_host.argtypes = [p] * 8
+lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 18
+ptr = lambda a: ctypes.c_void_p(None if a is None else a.ctypes.data)
+floats = int(sys.argv[2])  # of the camera block the parameters hold
+base = RenderConfig(width=64, height=32, tile_width=8, tile_height=8,
+                    sphere_count=16, emissive_every=2, disc_lat=6,
+                    disc_long=4)
+spheres = compute_spheres(16)
+packed = spheres.packed().numpy()
+buf = TriangleBuffers.from_scene(build_triangle_scene(spheres, 6, 4))
+for kind in ("sphere", "triangle"):
+    for ray_gen in ("fovy", "viewproj"):
+        cfg = base.replace(scene_kind=kind, ray_gen=ray_gen).validate()
+        cfg = cfg.replace(tiles_per_step=cfg.tile_count)
+        sched = np.ascontiguousarray(tile_grid(cfg), np.int32)
+        accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
+        output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
+        n = 16 if kind == "sphere" else buf.slab_bounds.shape[0]
+        ip, fp = host_params(cfg, cfg.tile_count, n,
+                             Camera.from_config(cfg).packed())
+        # the step's floats, then the camera, in an allocation of their own
+        fp = np.array(fp[:fp.size - 40 + floats])
+        if kind == "sphere":
+            rc = lib.l2n_sphere_pt_host(*map(ptr, (
+                ip, fp, sched, packed, None, accum, output, None)))
+        else:
+            m, s = buf.slab_bounds.shape[:2]
+            rc = lib.l2n_triangle_pt_host(
+                ptr(ip), ptr(fp), s, s * 128, ptr(sched),
+                *[ptr(a.numpy()) for a in buf.kernel_arrays()], None,
+                ptr(accum), ptr(output), None)
+        assert rc == 0
+        assert float(accum[3].sum()) == cfg.padded_height * cfg.padded_width
+print("clean")
+"""
+
+
+@pytest.mark.parametrize("floats", [40, 37])
+def test_camera_block_memcheck_asan(asan_build, floats):
+    """The camera read from its buffer (PtParams::cam, the host build of
+    the block the card stages in constant memory) under AddressSanitizer:
+    a whole-frame step of each family, in each camera form, whose camera
+    block ends its allocation. With all 40 floats the run is clean; cut
+    to 37 (the fovy ray reads float 37, tan(fovy / 2)) ASan reports the
+    read past the buffer's end, so the case sees what the kernels read."""
+    lib_path, asan = asan_build()
+    env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
+               PYTHONPATH=os.pathsep.join([str(CSRC.parents[1]),
+                                           os.path.dirname(__file__)]))
+    proc = subprocess.run([sys.executable, "-c", ASAN_CAMERA, str(lib_path),
+                           str(floats)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    if floats == 40:
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.strip().endswith("clean")
+    else:
+        assert proc.returncode != 0
+        assert "heap-buffer-overflow" in proc.stderr, proc.stderr[-3000:]
 
 
 ASAN_ONEHOT = r"""
@@ -829,7 +903,7 @@ def _triangle_host_vs_plain_with_state(lib, cfg):
                 triangle_pt_plain(cfg, sched, cam, buf, accum, output, planes)
                 continue
             m, s = buf.slab_bounds.shape[:2]
-            ip, fp = step_params(cfg, k, m, cam)
+            ip, fp = host_params(cfg, k, m, cam)
             arrays = [sched, *buf.kernel_arrays()]
             assert lib.l2n_triangle_pt_host(
                 _ptr(ip), _ptr(fp), s, s * 128,

@@ -17,6 +17,7 @@ from torch_csrc_shim import (  # noqa: F401 (fixtures)
     _ptr,
     _scene_ptrs,
     asan_build,
+    host_params,
     lib,
 )
 
@@ -30,7 +31,6 @@ from torch_csrc_cases import (
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.ops.kernels.common import step_params
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
@@ -223,7 +223,7 @@ def test_bump_header_matches_plain(lib):
     nv = (gen.normal(size=(3, n)) * gen.random(n) * 3).astype(np.float32)
     bump = (0.25 + 0.75 * gen.random(n)).astype(np.float32)
     cfg = RenderConfig(normal_map=0.8, normal_map_freq=0.35).validate()
-    ip, fp = step_params(cfg, 1, 1, np.zeros((10, 4), np.float32))
+    ip, fp = host_params(cfg, 1, 1, np.zeros((10, 4), np.float32))
     out = np.empty((3, n), np.float32)
     lib.l2n_perturb_normal_host(_ptr(ip), _ptr(fp), _ptr(bump), _ptr(pts),
                                 _ptr(nv), n, _ptr(out))
@@ -258,7 +258,7 @@ def test_explicit_lights_header_matches_plain(lib):
     kd = gen.random((3, n), dtype=np.float32)
     tp = gen.random((3, n), dtype=np.float32)
     lights = _explicit_lights()
-    ip, fp = step_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
+    ip, fp = host_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
                          lights)
     col = np.zeros((3, n), np.float32)
     rows = lights.buffer("cpu").numpy()
@@ -316,7 +316,7 @@ def _material_render(cfg, cam, steps, host_lib=None, lights=None):
             sphere_pt_plain(cfg, sched, cam, spheres, accum, output, planes,
                             kl)
             continue
-        ip, fp = step_params(cfg, k, sc.count, cam, kl)
+        ip, fp = host_params(cfg, k, sc.count, cam, kl)
         assert host_lib.l2n_sphere_pt_host(
             _ptr(ip), _ptr(fp), _ptr(sched.numpy()), _ptr(spheres.numpy()),
             None if rows is None else _ptr(rows), _ptr(accum.numpy()),
@@ -388,7 +388,7 @@ def test_material_triangle_header_matches_plain_step(lib, case):
                                   None, lights)
                 continue
             m, s = buf.slab_bounds.shape[:2]
-            ip, fp = step_params(cfg, k, m, cam, lights)
+            ip, fp = host_params(cfg, k, m, cam, lights)
             arrays = [sched, *buf.kernel_arrays()]
             assert lib.l2n_triangle_pt_host(
                 _ptr(ip), _ptr(fp), s, s * 128,
@@ -424,7 +424,7 @@ def test_material_wavefront_header_matches_plain_step(lib, mode):
     tiles = torch.as_tensor(tile_grid(cfg))
     k = cfg.effective_tiles_per_step
     n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
-    ip, fp = step_params(cfg, k, spheres.shape[1], cam)
+    ip, fp = host_params(cfg, k, spheres.shape[1], cam)
     frames = []
     for host in (True, False):
         accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
@@ -465,7 +465,7 @@ import ctypes, sys
 import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.render.tiles import tile_grid
@@ -496,7 +496,7 @@ for mode in ("microfacet", "disney"):
         spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
         accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
         output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        ip, fp = host_params(cfg, cfg.tile_count, count, cam, lights)
         assert lib.l2n_sphere_pt_host(*map(ptr, (
             ip, fp, sched, spheres, rows, accum, output)), None) == 0
         assert accum[:3].max() > 0
@@ -506,7 +506,7 @@ for mode in ("microfacet", "disney"):
     m, s = buf.slab_bounds.shape[:2]
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    ip, fp = host_params(tcfg, tcfg.tile_count, m, cam, lights)
     arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
@@ -600,7 +600,7 @@ def test_nee_area_header_matches_plain(lib, mode, mis):
     sc = compute_spheres(cfg.sphere_count, cfg.world_size, cfg.scene_seed)
     spheres = sc.packed()
     lanes = _nee_lanes(spheres[:3].numpy(), np.sqrt(spheres[3].numpy()), 16)
-    ip, fp = step_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
+    ip, fp = host_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
     sampler = nee.sphere_light_sampler(cfg, spheres)
     intersect = sphere_intersector(*spheres[:4])
 
@@ -632,7 +632,7 @@ def test_nee_cone_header_matches_plain(lib, mode, mis):
                         sc.center_z.numpy()])
     lanes = _nee_lanes(centres, np.sqrt(sc.sqr_radius.numpy()), 4)
     m, s = buf.slab_bounds.shape[:2]
-    ip, fp = step_params(cfg, 1, m, Camera.from_config(cfg).packed())
+    ip, fp = host_params(cfg, 1, m, Camera.from_config(cfg).packed())
     sampler = nee.mesh_light_sampler(cfg, buf.mesh_bounds)
     intersect = triangle_intersector(buf.soup, buf.mesh_bounds[:, 3])
 
@@ -672,7 +672,7 @@ def test_mis_weight_header_matches_plain(lib, kind):
         scene = np.ascontiguousarray(np.concatenate(
             [gen.normal(size=(count, 3)) * 50, gen.random((count, 1)) * 30],
             1), f)
-    ip, fp = step_params(cfg, 1, count, Camera.from_config(cfg).packed())
+    ip, fp = host_params(cfg, 1, count, Camera.from_config(cfg).packed())
     out = np.zeros(n, f)
     lib.l2n_mis_weight_host(_ptr(ip), _ptr(fp), int(kind == "cone"),
                             *map(_ptr, (scene, prev_pdf, d, t, nrm, r2,
@@ -782,7 +782,7 @@ def test_nee_wavefront_header_matches_plain_step(lib, kw):
     tiles = torch.as_tensor(tile_grid(cfg))
     k = cfg.effective_tiles_per_step
     n = k * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
-    ip, fp = step_params(cfg, k, spheres.shape[1], cam)
+    ip, fp = host_params(cfg, k, spheres.shape[1], cam)
     frames = []
     for host in (True, False):
         accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
@@ -822,7 +822,7 @@ import ctypes, sys
 import numpy as np
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.ops.kernels.wavefront import ray_planes
 from l2n_tpu_torch.ops.lights import ExplicitLights
@@ -852,13 +852,13 @@ for mode in ("procedural", "microfacet"):
         spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
         accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
         output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        ip, fp = host_params(cfg, cfg.tile_count, count, cam, lights)
         assert lib.l2n_sphere_pt_host(*map(ptr, (
             ip, fp, sched, spheres, rows, accum, output)), None) == 0
         assert accum[:3].max() > 0
         # the wavefront passes: ray planes of exactly 10 x n_lanes
         wcfg = cfg.replace(wavefront=True)
-        ip, fp = step_params(wcfg, cfg.tile_count, count, cam)
+        ip, fp = host_params(wcfg, cfg.tile_count, count, cam)
         n = cfg.tile_count * cfg.spp_per_step * cfg.tile_height * cfg.tile_width
         col = np.empty((3, n), np.float32)
         back = np.full((3, n), np.nan, np.float32)
@@ -889,7 +889,7 @@ for mode in ("procedural", "microfacet"):
     m, s = buf.slab_bounds.shape[:2]
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    ip, fp = host_params(tcfg, tcfg.tile_count, m, cam, lights)
     arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),
@@ -1001,7 +1001,7 @@ def test_fog_explicit_lights_header_matches_plain(lib):
     kd = gen.random((3, n), dtype=np.float32)
     tp = gen.random((3, n), dtype=np.float32)
     lights = _explicit_lights()
-    ip, fp = step_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
+    ip, fp = host_params(cfg, 1, sc.count, np.zeros((10, 4), np.float32),
                          lights)
     col = np.zeros((3, n), np.float32)
     lib.l2n_explicit_lights_host(_ptr(ip), _ptr(fp), _ptr(spheres.numpy()),
@@ -1037,7 +1037,7 @@ def test_fog_nee_header_matches_plain(lib, kind):
         spheres = sc.packed()
         lanes = _nee_lanes(spheres[:3].numpy(), np.sqrt(spheres[3].numpy()),
                            16)
-        ip, fp = step_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
+        ip, fp = host_params(cfg, 1, sc.count, Camera.from_config(cfg).packed())
         sampler = nee.sphere_light_sampler(cfg, spheres)
         intersect = sphere_intersector(*spheres[:4])
         fn, args = lib.l2n_nee_area_host, (_ptr(ip), _ptr(fp),
@@ -1056,7 +1056,7 @@ def test_fog_nee_header_matches_plain(lib, kind):
                             sc.center_z.numpy()])
         lanes = _nee_lanes(centres, np.sqrt(sc.sqr_radius.numpy()), 4)
         m, s = buf.slab_bounds.shape[:2]
-        ip, fp = step_params(cfg, 1, m, Camera.from_config(cfg).packed())
+        ip, fp = host_params(cfg, 1, m, Camera.from_config(cfg).packed())
         sampler = nee.mesh_light_sampler(cfg, buf.mesh_bounds)
         intersect = triangle_intersector(buf.soup, buf.mesh_bounds[:, 3])
         fn = lib.l2n_nee_cone_host
@@ -1116,7 +1116,7 @@ import ctypes, sys
 import numpy as np
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.ops.lights import ExplicitLights
 from l2n_tpu_torch.render.tiles import tile_grid
@@ -1142,7 +1142,7 @@ for kw in ({"max_bounces": 1}, {"nee": True, "mis": True,
         spheres = np.ascontiguousarray(compute_spheres(count).packed().numpy())
         accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
         output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-        ip, fp = step_params(cfg, cfg.tile_count, count, cam, lights)
+        ip, fp = host_params(cfg, cfg.tile_count, count, cam, lights)
         assert lib.l2n_sphere_pt_host(*map(ptr, (
             ip, fp, sched, spheres, rows, accum, output)), None) == 0
         assert accum[:3].max() > 0
@@ -1152,7 +1152,7 @@ for kw in ({"max_bounces": 1}, {"nee": True, "mis": True,
     m, s = buf.slab_bounds.shape[:2]
     accum = np.zeros((4, cfg.padded_height, cfg.padded_width), np.float32)
     output = np.zeros((3, cfg.padded_height, cfg.padded_width), np.float32)
-    ip, fp = step_params(tcfg, tcfg.tile_count, m, cam, lights)
+    ip, fp = host_params(tcfg, tcfg.tile_count, m, cam, lights)
     arrays = [np.ascontiguousarray(t.numpy()) for t in buf.kernel_arrays()]
     assert lib.l2n_triangle_pt_host(
         ptr(ip), ptr(fp), s, s * 128, ptr(sched), *map(ptr, arrays),

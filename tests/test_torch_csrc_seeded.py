@@ -289,7 +289,7 @@ import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.probes.step_ab import lit_knot
 from l2n_tpu_torch.render.tiles import tile_grid
@@ -322,7 +322,7 @@ for scene in (load_obj(trefoil_obj(seg_u=36, seg_v=16)),
         sched = torch.as_tensor(tile_grid(cfg))
         accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
         output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
-        ip, fp = step_params(cfg, cfg.tile_count, m, cam)
+        ip, fp = host_params(cfg, cfg.tile_count, m, cam)
         arrays = [ip, fp] + [t.numpy() for t in (
             sched, *buf.kernel_arrays(), accum, output)]
         ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]

@@ -200,7 +200,7 @@ import ctypes, sys
 import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import step_params
+from torch_csrc_shim import host_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.render.state import init_frame_state
 from l2n_tpu_torch.render.tiles import scheduled_tiles, tile_grid
@@ -224,7 +224,7 @@ accum, output = st.accum.numpy().copy(), st.output.numpy().copy()
 state = None if st.rng_state is None else st.rng_state.numpy().copy()
 if family == "sphere":
     spheres = np.ascontiguousarray(compute_spheres(128).packed().numpy())
-    ip, fp = step_params(cfg, t, 128, cam)
+    ip, fp = host_params(cfg, t, 128, cam)
     args = (ip, fp, sched, spheres)
     call = lambda: lib.l2n_sphere_pt_host(*map(ptr, args), None, ptr(accum),
                                           ptr(output), state if state is None
@@ -232,7 +232,7 @@ if family == "sphere":
 else:
     buf = TriangleBuffers.from_scene(build_triangle_scene(compute_spheres(128)))
     m, s = buf.slab_bounds.shape[:2]
-    ip, fp = step_params(cfg, t, m, cam)
+    ip, fp = host_params(cfg, t, m, cam)
     arrays = [np.ascontiguousarray(a.numpy()).copy()
               for a in buf.kernel_arrays()]
     call = lambda: lib.l2n_triangle_pt_host(

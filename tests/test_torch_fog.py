@@ -426,8 +426,8 @@ def test_draw_budget_matches_jax(max_bounces, nee_on):
         ip, fp = common.step_params(cfg, 1, 16,
                                     Camera.from_config(cfg).packed())
         assert ip[8] == want and ip[23] == 1
-        assert fp[51] == np.float32(SIGMA)
-        assert fp[52] == np.float32(1.0 / SIGMA)
+        assert fp[11] == np.float32(SIGMA)
+        assert fp[12] == np.float32(1.0 / SIGMA)
         flat = torch.arange(4)
         s = next(common._sample_samplers(cfg, flat, flat, None))
         assert s._max_pairs == want

@@ -35,10 +35,16 @@ from l2n_tpu_torch.app.display import PngSequenceDisplay
 from l2n_tpu_torch.camera import Camera, ControllerInput
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
+from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
+from l2n_tpu_torch.ops.kernels.triangle_pt import (
+    TriangleBuffers,
+    triangle_pt_plain,
+)
 from l2n_tpu_torch.render.program import SphereProgram, TriangleProgram
 from l2n_tpu_torch.render.renderer import Renderer
 from l2n_tpu_torch.render.state import FrameState, init_frame_state
 from l2n_tpu_torch.render.step import MultiStep, build_render_step
+from l2n_tpu_torch.render.tiles import advance_offset, scheduled_tiles
 from l2n_tpu_torch.scene.spheres import SphereScene, compute_spheres
 from l2n_tpu_torch.utils.validate import debug_mode
 
@@ -410,14 +416,11 @@ def test_fused_steps_kernel_calls(case, extra, n, groups):
         assert _recorded_groups(cfg, n) == groups
 
 
-def test_steps_per_call_graph_keys(monkeypatch):
-    """The card's graph cache, run on the CPU with a stand-in capture that
-    bakes the captured call's camera and buffers and runs them at replay,
-    as a CUDA graph does: the first call of a (camera, buffers) key runs
-    eagerly, the second captures, later ones replay; a new camera or new
-    buffers drop the graph (and match single steps all the way)."""
-    calls = []
-
+def _stand_in_graphs(monkeypatch, calls):
+    """render/step.py's capture and replay stood in for on the CPU, as a
+    CUDA graph runs: the capture records nothing and runs nothing, each
+    replay runs the captured call anew (so it reads the step's camera
+    buffer and device cursor as they are then). `calls` records them."""
     def fake_capture(fn, device):
         calls.append("capture")
         return fn, collections.Counter()
@@ -431,28 +434,130 @@ def test_steps_per_call_graph_keys(monkeypatch):
     step_globals = MultiStep.__call__.__globals__
     monkeypatch.setitem(step_globals, "capture", fake_capture)
     monkeypatch.setitem(step_globals, "replay", fake_replay)
+    return step_globals
+
+
+def test_steps_per_call_graph_keys(monkeypatch):
+    """The card's graph cache, run on the CPU with a stand-in capture
+    (_stand_in_graphs), for one step a call and for two: the first call of
+    a (slab extras, buffers) key runs eagerly, the second captures, later
+    ones replay, whatever the camera, which a replay reads from the step's
+    camera buffer (written only when the camera's bytes change); new
+    buffers drop the graph. Every call matches single steps to the bit."""
+    calls = []
+    step_globals = _stand_in_graphs(monkeypatch, calls)
+    writes = []
+    write_camera = step_globals["write_camera"]
+
+    def counted_write(buffer, camera):
+        writes.append(camera.tobytes())
+        write_camera(buffer, camera)
+
+    monkeypatch.setitem(step_globals, "write_camera", counted_write)
     single = _spc_program("sphere", 1)
-    multi = _spc_program("sphere", 2)
-    graphed = MultiStep(multi.cfg, multi.step.render, multi.step.tiles, 2,
-                        torch.device("cpu"), graphs=True)
     cams = [_aimed_camera(single.cfg).packed(),
             Camera.from_config(single.cfg).packed()]
-    a = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
-    b = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
-    want = []
-    for cam, fresh in ((0, False), (0, False), (0, False), (1, False),
-                       (1, False), (1, True), (1, False), (1, False)):
-        if fresh:  # new buffers, e.g. a state made anew
-            a = FrameState.from_numpy(*a.to_numpy())
-            b = FrameState.from_numpy(*b.to_numpy())
-        b = graphed(b, cams[cam])
-        for _ in range(2):
-            a = single.step(a, cams[cam])
+    for n in (1, 2):
+        multi = _spc_program("sphere", n)
+        graphed = MultiStep(multi.cfg, multi.step.render, multi.step.tiles,
+                            n, torch.device("cpu"), graphs=True)
+        a = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
+        b = dataclasses.replace(init_frame_state(single.cfg), tile_offset=5)
+        calls.clear()
+        writes.clear()
+        for cam, fresh in ((0, False), (0, False), (1, False), (0, False),
+                           (0, False), (1, True), (1, False), (0, False)):
+            if fresh:  # new buffers, e.g. a state made anew
+                a = FrameState.from_numpy(*a.to_numpy())
+                b = FrameState.from_numpy(*b.to_numpy())
+            b = graphed(b, cams[cam])
+            for _ in range(n):
+                a = single.step(a, cams[cam])
+            _states_equal(a, b)
+        # eager, capture+replay; new cameras: replay, replay, replay; new
+        # buffers: eager, capture+replay; a new camera: replay.
+        assert calls == ["capture", "replay", "replay", "replay", "replay",
+                         "capture", "replay", "replay"], n
+        assert writes == [cams[i].tobytes() for i in (0, 1, 0, 1, 0)], n
+
+
+@pytest.mark.parametrize("rng", ["threefry", "tpu_hw", "tinymt", "tauslcg"])
+@pytest.mark.parametrize("family", ["sphere", "triangle"])
+def test_graph_step_over_orbit_poses(monkeypatch, family, rng):
+    """One step a call through the graphed path (_stand_in_graphs: the
+    first call eager, then one capture, replays reading the camera buffer)
+    over 6 camera poses turned 1 degree apart about the world's vertical
+    axis, whole frames, equals the eager per-pose step it replaced (the
+    host schedule at the state's offset, the kernel's plain version handed
+    the packed host camera) to the bit."""
+    calls = []
+    _stand_in_graphs(monkeypatch, calls)
+    prog = _spc_program(family, 1, tiles_per_step=32, rng=rng)
+    cfg = prog.cfg
+    graphed = MultiStep(cfg, prog.step.render, prog.step.tiles, 1,
+                        torch.device("cpu"), graphs=True)
+    kernel = sphere_pt_plain if family == "sphere" else triangle_pt_plain
+    scene = prog.scene.packed() if family == "sphere" else \
+        TriangleBuffers.from_scene(prog.scene)
+    view0 = _aimed_camera(cfg).view_matrix.astype(np.float64)
+    a, b = init_frame_state(cfg), init_frame_state(cfg)
+    for pose in range(6):
+        t = np.radians(float(pose))
+        rot = np.array([[np.cos(t), 0.0, np.sin(t), 0.0], [0.0, 1.0, 0.0, 0.0],
+                        [-np.sin(t), 0.0, np.cos(t), 0.0], [0.0, 0.0, 0.0, 1.0]])
+        cam = Camera.from_config(
+            cfg, view_matrix=(view0 @ rot.T).astype(np.float32)).packed()
+        b = graphed(b, cam)
+        kernel(cfg, scheduled_tiles(prog.step.tiles, a.tile_offset, 32), cam,
+               scene, a.accum, a.output, a.rng_state)
+        a = dataclasses.replace(a, tile_offset=advance_offset(
+            cfg, a.tile_offset), iteration=a.iteration + 1)
         _states_equal(a, b)
-    # eager, capture+replay, replay; new camera: eager, capture+replay;
-    # new buffers: eager, capture+replay, replay.
-    assert calls == ["capture", "replay", "replay", "capture", "replay",
-                     "capture", "replay", "replay"]
+    assert calls == ["capture"] + ["replay"] * 5
+    assert float(b.accum[3].sum()) == 6 * 64 * 32
+    assert (b.accum[:3].amax(0) > 0).float().mean() > 0.1  # lit
+
+
+def test_step_inside_an_open_capture_runs_eagerly(monkeypatch):
+    """A call made while the current stream captures (someone else's graph
+    around the step, stood in for) runs its steps eagerly, so the outer
+    capture records them, and writes the camera each time, the write among
+    what it records (and the cursor's fill); the buffer's bytes and the
+    cursor are then unknown, so the first call after the capture writes
+    and fills again. Each call matches single steps."""
+    calls = []
+    step_globals = _stand_in_graphs(monkeypatch, calls)
+    outer = [True]
+    monkeypatch.setitem(step_globals, "stream_capturing", lambda d: outer[0])
+    writes = []
+    write_camera = step_globals["write_camera"]
+
+    def counted_write(buffer, camera):
+        writes.append(camera.tobytes())
+        write_camera(buffer, camera)
+
+    monkeypatch.setitem(step_globals, "write_camera", counted_write)
+    single = _spc_program("sphere", 1)
+    graphed = MultiStep(single.cfg, single.step.render, single.step.tiles, 1,
+                        torch.device("cpu"), graphs=True)
+    cam = _aimed_camera(single.cfg).packed()
+    a, b = init_frame_state(single.cfg), init_frame_state(single.cfg)
+    graph_calls = step_globals["graph_calls"]
+    graph_calls.clear()
+    for inside in (True, True, True, False, False, False):
+        outer[0] = inside
+        b = graphed(b, cam)
+        a = single.step(a, cam)
+        _states_equal(a, b)
+        # what the host knows of the cursor and the camera after the call
+        known = (graphed._cursor_at, graphed._written)
+        assert known == ((None, None) if inside else (b.tile_offset,
+                                                      cam.tobytes()))
+    # Inside: eager three times, a write each; after: eager (the first call
+    # of its key, writing again), capture+replay, replay, no more writes.
+    assert calls == ["capture", "replay", "replay"]
+    assert len(writes) == 4
+    assert graph_calls["eager"] == 3 + 1 + 6  # the single steps' too
 
 
 def test_capture_counts_launches_per_replay(monkeypatch):

@@ -27,6 +27,7 @@ from torch_csrc_shim import (  # noqa: F401 (fixtures)
     _mixed_rays,
     _ptr,
     asan_build,
+    host_params,
     lib,
 )
 
@@ -39,7 +40,6 @@ from l2n_tpu_torch.maths.linalg import look_at
 from l2n_tpu_torch.maths.sampling import normalize3
 from l2n_tpu_torch.ops.intersect import intersect_triangle_scene
 from l2n_tpu_torch.ops.kernels import shellwalk as sw
-from l2n_tpu_torch.ops.kernels.common import step_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
     shell_route,
@@ -389,7 +389,7 @@ BODIES = {
 
 def _host_step(host_lib, cfg, cam, buf, sched, accum, output, lights):
     m, s = buf.slab_bounds.shape[:2]
-    ip, fp = step_params(cfg, sched.shape[0], m, cam, lights)
+    ip, fp = host_params(cfg, sched.shape[0], m, cam, lights)
     rows = None if lights is None else _ptr(lights.buffer("cpu").numpy())
     arrays = [sched, *buf.kernel_arrays()]
     assert host_lib.l2n_triangle_pt_host(
@@ -461,13 +461,12 @@ import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.ops.kernels.common import step_params
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.render.tiles import tile_grid
 from l2n_tpu_torch.scene.spheres import SphereScene
 from l2n_tpu_torch.scene.tessellate import build_triangle_scene
 sys.path.insert(0, sys.argv[2])
-from torch_csrc_shim import _cast, _mixed_rays, _ptr
+from torch_csrc_shim import _cast, _mixed_rays, _ptr, host_params
 lib = ctypes.CDLL(sys.argv[1])
 p, i = ctypes.c_void_p, ctypes.c_int
 lib.l2n_triangle_pt_host.argtypes = [p, p, i, i] + [p] * 18
@@ -493,7 +492,7 @@ cam = Camera.from_config(cfg, view_matrix=look_at(
     np.array([100.0, 40.0, -60.0], np.float32),
     np.array([0.0, 1.0, 0.0], np.float32))).packed()
 m, s = buf.slab_bounds.shape[:2]
-ip, fp = step_params(cfg, cfg.tile_count, m, cam)
+ip, fp = host_params(cfg, cfg.tile_count, m, cam)
 shape = (cfg.padded_height, cfg.padded_width)
 accum, output = torch.zeros((4, *shape)), torch.zeros((3, *shape))
 arrays = [torch.as_tensor(tile_grid(cfg)), *buf.kernel_arrays()]

@@ -9,12 +9,11 @@ modules these bind stay loaded only as long as the test modules' own
 import numpy as np
 import torch
 
-from torch_csrc_shim import _ptr
+from torch_csrc_shim import _ptr, host_params
 
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
 from l2n_tpu_torch.maths.linalg import look_at
-from l2n_tpu_torch.ops.kernels.common import step_params
 from l2n_tpu_torch.ops.kernels.sphere_pt import sphere_pt_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import (
     TriangleBuffers,
@@ -58,7 +57,7 @@ def _render(cfg, cam, steps, host_lib=None, with_state=False):
         if host_lib is None:
             sphere_pt_plain(cfg, sched, cam, spheres, accum, output, planes)
         else:
-            ip, fp = step_params(cfg, k, sc.count, cam)
+            ip, fp = host_params(cfg, k, sc.count, cam)
             s_np, sp_np = sched.numpy(), spheres.numpy()
             a_np, o_np = accum.numpy(), output.numpy()
             assert host_lib.l2n_sphere_pt_host(
@@ -124,7 +123,7 @@ def _render_triangles(cfg, scene, cam, steps, host_lib=None,
             triangle_pt_plain(cfg, sched, cam, buf, accum, output)
             continue
         m, s = buf.slab_bounds.shape[:2]
-        ip, fp = step_params(cfg, k, m, cam)
+        ip, fp = host_params(cfg, k, m, cam)
         arrays = [sched, *buf.kernel_arrays()]
         assert host_lib.l2n_triangle_pt_host(
             _ptr(ip), _ptr(fp), s, s * 128,

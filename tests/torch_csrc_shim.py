@@ -1,9 +1,15 @@
 """The host build of the CUDA kernels' headers for the CPU tests: the
 C++ shim over `l2n_tpu_torch/csrc/*.cuh`, built with g++ into a small
 ctypes library (and with AddressSanitizer), its pytest fixtures and the
-pointer helpers that the tests/test_torch_csrc*.py and
+pointer and parameter helpers that the tests/test_torch_csrc*.py and
 tests/test_torch_shellwalk.py files share. It imports nothing of the port
-(tests/test_aot_cache.py scans the loaded `l2n_tpu*` modules).
+when it is imported (tests/test_aot_cache.py scans the loaded `l2n_tpu*`
+modules).
+
+The shim's step entry points take the kernels' parameter arrays, the
+float array followed by the 40 floats of the packed camera (`host_params`),
+and hand the headers that camera block (PtParams::cam, which the host
+build reads where the card reads its constant copy).
 """
 
 import ctypes
@@ -368,7 +374,7 @@ int l2n_sphere_pt_host(const int32_t* ip, const float* fp,
                        const int32_t* sched, const float* spheres,
                        const float* lights, float* accum, float* output,
                        uint32_t* rng_state) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   p.lights = lights;
   return l2n::dispatch_fused<RenderTiles>(
       p, p, l2n::scene_view(spheres, p.n_scene, p.fast_math != 0), sched,
@@ -413,7 +419,7 @@ int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
                          const float* shell_tris, const float* albedo,
                          const float* material, const float* lights,
                          float* accum, float* output, uint32_t* rng_state) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   p.lights = lights;
   const int m = p.n_scene;
   l2n::TriSceneView s =
@@ -432,7 +438,7 @@ int l2n_triangle_pt_host(const int32_t* ip, const float* fp, int n_slabs,
 void l2n_visibility_host(const int32_t* ip, const float* fp,
                          const int32_t* sched, const float* bounds, int n,
                          int32_t* out) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   for (int k = 0; k < p.k; ++k) {
     int32_t* row = out + static_cast<size_t>(k) * (n + 1);
     for (int i = 0; i <= n; ++i) row[i] = -1;
@@ -539,7 +545,7 @@ void l2n_sun_host(const float* d, float* out, int64_t n) {
 // (px, py) + (u1, u2): xy (4, n) in, directions (3, n) out.
 void l2n_camera_dirs_host(const int32_t* ip, const float* fp, const float* xy,
                           float* out, int64_t n) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   for (int64_t i = 0; i < n; ++i)
     l2n::camera_direction(p, xy[i], xy[n + i], xy[2 * n + i], xy[3 * n + i],
                           out[i], out[n + i], out[2 * n + i]);
@@ -550,7 +556,7 @@ void l2n_camera_dirs_host(const int32_t* ip, const float* fp, const float* xy,
 void l2n_sphere_nearest_host(const int32_t* ip, const float* fp,
                              const float* spheres, const float* rays,
                              float* t, int32_t* index, int64_t n) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   const l2n::SceneView s =
       l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
   for (int64_t i = 0; i < n; ++i) {
@@ -635,7 +641,7 @@ int l2n_wavefront_pass_a_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* spheres,
                               const float* accum, float* col, float* back,
                               float* rays, int32_t* meta, int32_t* n_alive) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   const l2n::PassALanes out{col, back, rays, meta};
   return dispatch_pass<PassA>(p, p, sched, spheres, accum, out, n_alive);
 }
@@ -644,7 +650,7 @@ int l2n_wavefront_pass_b_host(const int32_t* ip, const float* fp, int group,
                               const int32_t* n_alive, const float* spheres,
                               const float* rays, const int32_t* meta,
                               float* col, float* back) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   return dispatch_pass<PassB>(p, p, group, next_pair, has_spare, n_alive,
                               spheres, rays, meta, col, back);
 }
@@ -693,7 +699,7 @@ void l2n_sample_material_host(int mode, const float* u, const float* nv,
 void l2n_perturb_normal_host(const int32_t* ip, const float* fp,
                              const float* bump, const float* pts,
                              const float* nv, int64_t n, float* out) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   for (int64_t i = 0; i < n; ++i) {
     float x = nv[i], y = nv[n + i], z = nv[2 * n + i];
     l2n::perturb_normal(p, bump[i], pts[i], pts[n + i], pts[2 * n + i], x, y,
@@ -712,7 +718,7 @@ void l2n_explicit_lights_host(const int32_t* ip, const float* fp,
                               const float* h, const float* nv,
                               const float* kd, const float* tp, int64_t n,
                               float* col) {
-  l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   p.lights = lights;
   const l2n::SceneView s =
       l2n::scene_view(spheres, p.n_scene, p.fast_math != 0);
@@ -738,7 +744,7 @@ void l2n_nee_area_host(const int32_t* ip, const float* fp,
                        const float* nu, const float* wo, const float* kd,
                        const float* mat, const float* tp, int64_t n,
                        float* col) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   nee_lanes(p, l2n::scene_view(spheres, p.n_scene, false), mode, mis, u, h,
             nv, nu, wo, kd, mat, tp, n, col);
 }
@@ -753,7 +759,7 @@ void l2n_nee_cone_host(const int32_t* ip, const float* fp, int n_slabs,
                        const float* nv, const float* nu, const float* wo,
                        const float* kd, const float* mat, const float* tp,
                        int64_t n, float* col) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   const l2n::TriSceneView s =
       tri_scene(p.n_scene, n_slabs, tpad, mesh_bounds, slab_count,
                 slab_bounds, sub_bounds, group_bounds, inner_gap, balls, tris,
@@ -768,7 +774,7 @@ void l2n_mis_weight_host(const int32_t* ip, const float* fp, int cone,
                          const float* d, const float* t, const float* nrm,
                          const float* r2, const int32_t* index, int64_t n,
                          float* out) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   l2n::TriSceneView ts{};
   ts.mesh_bounds = scene;
   const l2n::SceneView ss = l2n::scene_view(scene, p.n_scene, false);
@@ -790,7 +796,7 @@ int l2n_wavefront_pass_c_host(const int32_t* ip, const float* fp,
                               const int32_t* sched, const float* col,
                               const float* back, float* accum,
                               float* output) {
-  const l2n::PtParams p = l2n::params_from_arrays(ip, fp);
+  const l2n::PtParams p = l2n::params_from_arrays(ip, fp, fp + l2n::kFloatParams);
   for (int k = 0; k < p.k; ++k)
     for (int r = 0; r < p.tile_height; ++r)
       for (int c = 0; c < p.tile_width; ++c)
@@ -1046,6 +1052,14 @@ def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
 
 
+def host_params(cfg, k, n_scene, camera, lights=None):
+    """common.step_params for the shim's entry points: its ints, and its
+    floats followed by the packed camera's 40 floats (module doc)."""
+    from l2n_tpu_torch.ops.kernels.common import step_params
+    ip, fp = step_params(cfg, k, n_scene, camera, lights)
+    return ip, np.concatenate([fp, np.asarray(camera, np.float32).ravel()])
+
+
 @pytest.fixture(scope="module")
 def asan_build(tmp_path_factory):
     """build(*defines) -> (the shim built with AddressSanitizer, the ASan
@@ -1121,12 +1135,13 @@ import ctypes, sys
 import numpy as np, torch
 from l2n_tpu_torch.camera import Camera
 from l2n_tpu_torch.config import RenderConfig
-from l2n_tpu_torch.ops.kernels.common import RNG_CODES, step_params
+from l2n_tpu_torch.ops.kernels.common import RNG_CODES
 from l2n_tpu_torch.ops.kernels.philox_bits import philox_bits_plain
 from l2n_tpu_torch.ops.kernels.triangle_pt import TriangleBuffers
 from l2n_tpu_torch.render.tiles import tile_grid
 from l2n_tpu_torch.scene import (build_triangle_scene, compute_spheres,
                                  load_obj, torus_field_obj)
+from torch_csrc_shim import host_params
 lib = ctypes.CDLL(sys.argv[1])
 p = ctypes.c_void_p
 lib.l2n_triangle_pt_host.argtypes = [p, p, ctypes.c_int, ctypes.c_int] + [p] * 18
@@ -1140,7 +1155,7 @@ for scene in (build_triangle_scene(compute_spheres(128)),
     sched = torch.as_tensor(tile_grid(cfg))
     accum = torch.zeros((4, cfg.padded_height, cfg.padded_width))
     output = torch.zeros((3, cfg.padded_height, cfg.padded_width))
-    ip, fp = step_params(cfg, cfg.tile_count, m, Camera.from_config(cfg).packed())
+    ip, fp = host_params(cfg, cfg.tile_count, m, Camera.from_config(cfg).packed())
     arrays = [ip, fp] + [t.numpy() for t in (
         sched, *buf.kernel_arrays(), accum, output)]
     ptrs = [ctypes.c_void_p(a.ctypes.data) for a in arrays]
@@ -1153,9 +1168,12 @@ print("clean")
 
 
 def _asan_render(asan_build, *defines, script=ASAN_RENDER, args=()):
+    """Run `script` with the ASan build of the shim (argv[1]) and `args`,
+    the repository and this directory on its path; it prints "clean"."""
     lib_path, asan = asan_build(*defines)
     env = dict(os.environ, LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0",
-               PYTHONPATH=str(CSRC.parents[1]))
+               PYTHONPATH=os.pathsep.join([str(CSRC.parents[1]),
+                                           str(Path(__file__).parent)]))
     proc = subprocess.run([sys.executable, "-c", script, str(lib_path), *args],
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
